@@ -31,10 +31,15 @@ def library_path(src: str, cmd: List[str]) -> str:
 def build_shared(src: str, cmd: List[str], timeout: float = 600.0) -> Tuple[str, str]:
     """Compile ``src`` with ``cmd + [src, "-o", <out>]`` unless the
     library for this exact source and command exists. → (library path,
-    compiler output; empty when the library was already built)."""
+    compiler output, kept beside the library as ``<library>.log`` so a
+    reused build reports it too)."""
     path = library_path(src, cmd)
     if os.path.exists(path):
-        return path, ""
+        try:
+            with open(path + ".log") as f:
+                return path, f.read()
+        except OSError:
+            return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -50,8 +55,12 @@ def build_shared(src: str, cmd: List[str], timeout: float = 600.0) -> Tuple[str,
                 f"building {src} failed ({proc.returncode}): "
                 f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
             )
+        log = proc.stdout + proc.stderr
+        with open(tmp + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp + ".log", path + ".log")
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return path, proc.stdout + proc.stderr
+    return path, log

@@ -4,20 +4,26 @@ Counterpart of ``karpenter_core_tpu/solver/pallas_kernels.py``. The TPU
 kernel multiplies 128-lane f32 chunks per key on the MXU; the operands
 are 0/1, so here each key's mask is bit-packed into 32-bit words and
 the overlap test is ``any(sig_word & typ_word)`` (``csrc/
-compat_allowed.cu``). The offering check rides along as one more key
-over the flattened zone × capacity-type axis (sig bits = zone_ok ×
-ct_ok, type bits = avail, has = 1, neg = 0), and ``valid`` is ANDed in
-the kernel's epilogue, so one launch yields the solver's whole (S, T)
-``allowed`` matrix.
+compat_allowed.cu``).
 
-Layout (``PackedLayout``): per key a run of words, pad bits zero on
-both sides; per row one flag byte per key (bit 0 has, bit 1 neg);
-``key_end[w]`` is the key whose last word is ``w`` (else -1).
+Layout (``PackedLayout``): per requirement key a run of
+``ceil((Vk + 3) / 32)`` words holding its Vk value bits and then three
+flag bits, U_s (¬has on the signature side, 1 on the type side), U_t (1
+on the signature side, ¬has on the type side) and N (neg on both), so
+the OR over the key's words of ``sig & typ`` is exactly ¬(has_s ∧
+has_t) ∨ overlap ∨ (neg_s ∧ neg_t). The offering is one more key over
+the flattened zone × capacity-type axis, without flag bits: signature
+bits are zone_ok × ct_ok ∧ valid, type bits are avail. So one launch
+yields the solver's whole (S, T) ``allowed`` matrix from words alone:
+no flag arrays, no ``valid``. Pad bits are zero on both sides. On the
+device each side is a word-major plane, (W, N) int32, and the kernel
+takes the planes and the K + 1 key word offsets.
 
 Dispatch: a CPU tensor goes to the plain PyTorch version
 (``allowed_packed_reference``); a CUDA tensor launches the kernel or
-raises. The kernel is compiled with ``nvcc`` at first use into the
-port's build directory and called through ``ctypes``.
+raises. The wrapper picks the kernel's tile shape on S
+(``tile_for``). The kernel is compiled with ``nvcc`` at first use into
+the port's build directory and called through ``ctypes``.
 """
 
 from __future__ import annotations
@@ -34,14 +40,26 @@ import torch
 from .. import buildlib
 
 WORD_BITS = 32
-# signature rows per kernel block (csrc/compat_allowed.cu TILE_S): row
-# blocks are multiples of it
+# flag bits after each requirement key's value bits: U_s, U_t, N
+FLAG_BITS = 3
+SIG, TYP = "sig", "typ"
+# row blocks are multiples of 32 signatures (128-byte aligned plane columns)
 TILE_S = 32
 # per-dispatch budget for the (rows, T) uint8 output — the JAX package's
 # KARPENTER_TPU_COMPAT_TILE_MB default of 64 MB (pallas_kernels.py:36-48)
 COMPAT_TILE_BYTES = 64_000_000
 # name of the offering chunk in a layout's key list
 OFFERING_KEY = "\0offering"
+# the kernel's tile shapes (csrc/compat_allowed.cu Small / Large) and
+# their (signature rows, type columns) per block
+TILE_SMALL, TILE_LARGE = 0, 1
+TILES = {TILE_SMALL: (4, 64), TILE_LARGE: (64, 64)}
+# signatures at or below this take the small tile (4 rows, threads along
+# T): on an H100 it beat the large tile up to S = 65 and was within 3 % of
+# it at S = 128, T = 2048 (PERF.md)
+SMALL_S_MAX = 128
+# key offsets the kernel holds in shared memory (csrc MAX_KEYS)
+MAX_KEYS = 1023
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc", "compat_allowed.cu")
 # the CUDA toolkit's compiler where the toolkit is installed, else nvcc on PATH
@@ -52,12 +70,25 @@ NVCC_FLAGS = [
 ]
 
 
+def tile_for(S: int) -> int:
+    """The kernel's tile shape for S signature rows."""
+    return TILE_SMALL if S <= SMALL_S_MAX else TILE_LARGE
+
+
 @dataclass(frozen=True)
 class PackedLayout:
     """Word layout shared by the signature and type sides."""
 
     keys: Tuple[str, ...]  # requirement keys, then OFFERING_KEY if present
-    words: Tuple[int, ...]  # words per key
+    values: Tuple[int, ...]  # value bits per key (Vk; Z·C for the offering)
+
+    def flag_bits(self, k: int) -> int:
+        return 0 if self.keys[k] == OFFERING_KEY else FLAG_BITS
+
+    @property
+    def words(self) -> Tuple[int, ...]:
+        """Words per key: ceil((Vk + flag bits) / 32), at least one."""
+        return tuple(_n_words(v + self.flag_bits(k)) for k, v in enumerate(self.values))
 
     @property
     def offsets(self) -> Tuple[int, ...]:
@@ -70,15 +101,12 @@ class PackedLayout:
     def width(self) -> int:
         return sum(self.words)
 
-    def key_end(self) -> np.ndarray:
-        end = np.full(self.width, -1, dtype=np.int32)
-        for k, off in enumerate(self.offsets[1:]):
-            if self.words[k]:
-                end[off - 1] = k
-        return end
+    def key_offsets(self) -> np.ndarray:
+        """(K + 1,) int32: each key's first word, then W."""
+        return np.asarray(self.offsets, dtype=np.int32)
 
     def with_offering(self, bits: int) -> "PackedLayout":
-        return PackedLayout(self.keys + (OFFERING_KEY,), self.words + (_n_words(bits),))
+        return PackedLayout(self.keys + (OFFERING_KEY,), self.values + (int(bits),))
 
 
 def _n_words(bits: int) -> int:
@@ -86,21 +114,8 @@ def _n_words(bits: int) -> int:
 
 
 def layout_for(key_masks: Dict[str, np.ndarray], keys: Sequence[str]) -> PackedLayout:
-    """Tight layout: ceil(Vk / 32) words per key (at least one)."""
-    return PackedLayout(tuple(keys), tuple(_n_words(key_masks[k].shape[1]) for k in keys))
-
-
-def pack_bits(mask: np.ndarray, n_words: int) -> np.ndarray:
-    """(N, V) bool → (N, n_words) int32; bit j of word w is column
-    32·w + j, bits past V are zero."""
-    mask = np.asarray(mask, dtype=bool)
-    N, V = mask.shape
-    if V > n_words * WORD_BITS:
-        raise ValueError(f"mask width {V} exceeds {n_words} words")
-    padded = np.zeros((N, n_words * WORD_BITS), dtype=bool)
-    padded[:, :V] = mask
-    packed = np.packbits(padded, axis=1, bitorder="little")  # (N, 4·n_words) u8
-    return np.ascontiguousarray(packed).view("<u4").astype(np.uint32).view(np.int32)
+    """Tight layout: Vk value bits and the flag bits per key."""
+    return PackedLayout(tuple(keys), tuple(int(key_masks[k].shape[1]) for k in keys))
 
 
 def pack_side(
@@ -109,24 +124,36 @@ def pack_side(
     key_neg: Dict[str, np.ndarray],  # key → (N,) bool
     layout: PackedLayout,
     n: int,
+    side: str,  # SIG or TYP: which flag bit carries ¬has
     offering: Optional[np.ndarray] = None,  # (N, Z·C) bool when the layout has it
-) -> Tuple[np.ndarray, np.ndarray]:
-    """One side in ``layout`` → (words (N, W) int32, flags (N, K) uint8)."""
-    words = np.zeros((n, layout.width), dtype=np.int32)
-    flags = np.zeros((n, len(layout.keys)), dtype=np.uint8)
-    for k, (key, off) in enumerate(zip(layout.keys, layout.offsets)):
-        nw = layout.words[k]
+    valid: Optional[np.ndarray] = None,  # (N,) bool, signature side: ANDed into the offering
+) -> np.ndarray:
+    """One side in ``layout`` → words (N, W) int32; bit j of word w is
+    bit 32·w + j of the side's bit row."""
+    if side not in (SIG, TYP):
+        raise ValueError(f"side must be {SIG!r} or {TYP!r}, got {side!r}")
+    bits = np.zeros((n, layout.width * WORD_BITS), dtype=bool)
+    for k, (key, off, vk) in enumerate(zip(layout.keys, layout.offsets, layout.values)):
+        lo = off * WORD_BITS
         if key == OFFERING_KEY:
             if offering is None:
                 raise ValueError("layout has an offering chunk but no offering bits were given")
-            words[:, off : off + nw] = pack_bits(offering, nw)
-            flags[:, k] = 1
+            value_bits = np.asarray(offering, dtype=bool)
+            if valid is not None:
+                value_bits = value_bits & np.asarray(valid, dtype=bool)[:, None]
+        else:
+            value_bits = np.asarray(key_masks[key], dtype=bool)
+        if value_bits.shape != (n, vk):
+            raise ValueError(f"{key!r}: expected {(n, vk)} value bits, got {value_bits.shape}")
+        bits[:, lo : lo + vk] = value_bits
+        if key == OFFERING_KEY:
             continue
-        words[:, off : off + nw] = pack_bits(key_masks[key], nw)
-        flags[:, k] = np.asarray(key_has[key], dtype=np.uint8) | (
-            np.asarray(key_neg[key], dtype=np.uint8) << 1
-        )
-    return words, flags
+        not_has = ~np.asarray(key_has[key], dtype=bool)
+        bits[:, lo + vk] = not_has if side == SIG else True  # U_s
+        bits[:, lo + vk + 1] = True if side == SIG else not_has  # U_t
+        bits[:, lo + vk + 2] = np.asarray(key_neg[key], dtype=bool)  # N
+    packed = np.packbits(bits, axis=1, bitorder="little")  # (N, 4·W) u8
+    return np.ascontiguousarray(packed).view("<u4").astype(np.uint32).view(np.int32)
 
 
 def pack_masks(
@@ -134,18 +161,18 @@ def pack_masks(
     key_has: Dict[str, np.ndarray],
     key_neg: Dict[str, np.ndarray],
     keys: Sequence[str],
-) -> Tuple[np.ndarray, np.ndarray, PackedLayout]:
+    side: str,
+) -> Tuple[np.ndarray, PackedLayout]:
     """Counterpart of ``pallas_kernels.pack_masks``: per-key masks →
-    (words (N, W) int32, flags (N, K) uint8, layout), tight layout."""
+    (words (N, W) int32, layout), tight layout, no offering chunk."""
     n = next(iter(key_masks.values())).shape[0] if key_masks else 0
     layout = layout_for(key_masks, keys)
-    words, flags = pack_side(key_masks, key_has, key_neg, layout, n)
-    return words, flags, layout
+    return pack_side(key_masks, key_has, key_neg, layout, n, side), layout
 
 
 def compat_row_block(T: int, budget_bytes: int = COMPAT_TILE_BYTES) -> int:
     """Signature rows per launch so one launch's (rows, T) uint8 output
-    stays under the budget; a multiple of the kernel's row tile."""
+    stays under the budget; a multiple of ``TILE_S``."""
     rows = int(budget_bytes // max(T, 1))
     return max(TILE_S, (rows // TILE_S) * TILE_S)
 
@@ -159,23 +186,43 @@ class DeviceCatalog:
     encoding at one vocab width."""
 
     layout: PackedLayout
-    words: torch.Tensor  # (T, W) int32
-    flags: torch.Tensor  # (T, K) uint8
-    key_end: torch.Tensor  # (W,) int32
+    planes: torch.Tensor  # (W, T) int32, word-major (``to_planes``)
+    key_off: torch.Tensor  # (K + 1,) int32
     device: torch.device
 
     @property
     def n_types(self) -> int:
-        return int(self.words.shape[0])
+        return int(self.planes.shape[1])
 
 
-def _catalog(words: np.ndarray, flags: np.ndarray, layout: PackedLayout, device) -> DeviceCatalog:
+def to_planes(words: np.ndarray, device) -> torch.Tensor:
+    """(N, W) words → the word-major (W, N) int32 plane on ``device``: a
+    view with unit stride along N into zero-padded storage of (W,
+    round_up(N, 4)), so the kernel stages every row of words in 16-byte
+    copies, whatever N."""
+    W, n = words.shape[1], words.shape[0]
+    storage = np.zeros((W, -(-n // 4) * 4), dtype=np.int32)
+    storage[:, :n] = words.T
+    return torch.from_numpy(storage).to(torch.device(device))[:, :n]
+
+
+def _check_plane(name: str, plane: torch.Tensor) -> None:
+    """The kernel's contract for a plane: unit stride along its rows, a
+    pitch of 4k words and a 16-byte-aligned start (``to_planes`` storage,
+    or a slice of it starting at a multiple of 4 rows)."""
+    if plane.stride(1) != 1 or plane.stride(0) % 4 or plane.data_ptr() % 16:
+        raise ValueError(
+            f"{name}: needs unit stride along rows, a pitch of 4k words and a 16-byte "
+            f"aligned start (strides {plane.stride()}, address {plane.data_ptr():#x})"
+        )
+
+
+def _catalog(words: np.ndarray, layout: PackedLayout, device) -> DeviceCatalog:
     dev = torch.device(device)
     return DeviceCatalog(
         layout=layout,
-        words=torch.from_numpy(words).to(dev),
-        flags=torch.from_numpy(flags).to(dev),
-        key_end=torch.from_numpy(layout.key_end()).to(dev),
+        planes=to_planes(words, dev),
+        key_off=torch.from_numpy(layout.key_offsets()).to(dev),
         device=dev,
     )
 
@@ -191,10 +238,9 @@ def catalog_to_device(
     """Pack a catalog encoding (plus its offering chunk) and upload it."""
     T = avail.shape[0]
     layout = layout_for(type_masks, keys).with_offering(avail[0].size if T else 1)
-    words, flags = pack_side(
-        type_masks, type_has, type_neg, layout, T, offering=avail.reshape(T, -1)
-    )
-    return _catalog(words, flags, layout, device)
+    offering = avail.reshape(T, -1) if T else np.zeros((0, 1), dtype=bool)
+    words = pack_side(type_masks, type_has, type_neg, layout, T, TYP, offering=offering)
+    return _catalog(words, layout, device)
 
 
 def catalog_from_reference(
@@ -208,19 +254,21 @@ def catalog_from_reference(
 ) -> DeviceCatalog:
     """The port's device catalog from the JAX package's packed type side
     (as ``pallas_kernels.pack_masks`` and ``solver._entry_device_packed``
-    produce it): each 128-lane chunk becomes four words, pad lanes are
-    zero bits. Keys are named by position (``k0``, ``k1``, …); pack the
-    signature side with ``signature_side(..., keys=<the key names>)``."""
+    produce it): each key's 128-lane chunks become its value bits (pad
+    lanes are zero bits), followed by the flag bits. Keys are named by
+    position (``k0``, ``k1``, …); pack the signature side with
+    ``signature_side(..., keys=<the key names>)``, which pads each
+    signature mask to the chunk width."""
     T = tp.shape[0]
     keys = tuple(f"k{i}" for i in range(len(offsets)))
     masks = {k: tp[:, o : o + w] > 0 for k, o, w in zip(keys, offsets, widths)}
     has = {k: th[:, i] > 0 for i, k in enumerate(keys)}
     neg = {k: tn[:, i] > 0 for i, k in enumerate(keys)}
-    layout = PackedLayout(keys, tuple(_n_words(w) for w in widths)).with_offering(
+    layout = PackedLayout(keys, tuple(int(w) for w in widths)).with_offering(
         avail[0].size if T else 1
     )
-    words, flags = pack_side(masks, has, neg, layout, T, offering=avail.reshape(T, -1))
-    return _catalog(words, flags, layout, device)
+    words = pack_side(masks, has, neg, layout, T, TYP, offering=avail.reshape(T, -1))
+    return _catalog(words, layout, device)
 
 
 def signature_side(
@@ -229,61 +277,55 @@ def signature_side(
     ct_ok: np.ndarray,  # (S, C)
     catalog: DeviceCatalog,
     keys: Optional[Sequence[str]] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> torch.Tensor:
     """Pack the signature side in the catalog's layout and move it to the
-    catalog's device → (words, flags, valid). ``keys`` maps the layout's
-    requirement keys to ``sig_arrays`` names when they differ (the
-    positional keys of ``catalog_from_reference``)."""
+    catalog's device → the word-major (W, S) int32 plane. ``keys`` maps
+    the layout's requirement keys to ``sig_arrays`` names when they differ
+    (the positional keys of ``catalog_from_reference``); a mask narrower
+    than the layout's key is zero-padded."""
     layout = catalog.layout
     req_keys = [k for k in layout.keys if k != OFFERING_KEY]
     src = list(keys) if keys is not None else req_keys
     S = sig_arrays["valid"].shape[0]
-    masks = {k: sig_arrays[f"mask:{s}"] for k, s in zip(req_keys, src)}
+    values = dict(zip(layout.keys, layout.values))
+    masks = {}
+    for k, name in zip(req_keys, src):
+        m = np.asarray(sig_arrays[f"mask:{name}"], dtype=bool)
+        masks[k] = np.pad(m, ((0, 0), (0, values[k] - m.shape[1]))) if m.shape[1] < values[k] else m
     has = {k: sig_arrays[f"has:{s}"] for k, s in zip(req_keys, src)}
     neg = {k: sig_arrays[f"neg:{s}"] for k, s in zip(req_keys, src)}
     offering = (zone_ok[:, :, None] & ct_ok[:, None, :]).reshape(S, -1)
-    words, flags = pack_side(masks, has, neg, layout, S, offering=offering)
-    dev = catalog.device
-    valid = torch.from_numpy(np.asarray(sig_arrays["valid"], dtype=np.uint8))
-    return (
-        torch.from_numpy(words).to(dev),
-        torch.from_numpy(flags).to(dev),
-        valid.to(dev),
+    words = pack_side(
+        masks, has, neg, layout, S, SIG, offering=offering, valid=sig_arrays["valid"]
     )
+    return to_planes(words, catalog.device)
 
 
 # -- plain PyTorch version -----------------------------------------------------
 
 
 def unpack_bits(words: torch.Tensor) -> torch.Tensor:
-    """(N, W) int32 → (N, 32·W) bool, inverse of ``pack_bits``."""
+    """(N, W) int32 → (N, 32·W) bool, inverse of the packing."""
     shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=words.device)
     return ((words.unsqueeze(-1) >> shifts) & 1).bool().reshape(words.shape[0], -1)
 
 
 def allowed_packed_reference(
-    sig_words: torch.Tensor,  # (S, W) int32
-    sig_flags: torch.Tensor,  # (S, K) uint8
-    valid: torch.Tensor,  # (S,) uint8 / bool
-    typ_words: torch.Tensor,  # (T, W) int32
-    typ_flags: torch.Tensor,  # (T, K) uint8
+    sig_planes: torch.Tensor,  # (W, S) int32
+    typ_planes: torch.Tensor,  # (W, T) int32
     layout: PackedLayout,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on the same packed inputs:
-    unpack the bits, one f32 matmul per key for the overlap (exact: sums
-    of 0/1 products), the has/neg combine, AND valid → (S, T) bool."""
-    S, T = sig_words.shape[0], typ_words.shape[0]
-    sig_bits = unpack_bits(sig_words).float()
-    typ_bits = unpack_bits(typ_words).float()
-    ok = valid.bool()[:, None].expand(S, T).clone()
+    unpack the bits, one f32 matmul per key (exact: sums of 0/1
+    products), AND over keys of "some bit in common" → (S, T) bool."""
+    S, T = sig_planes.shape[1], typ_planes.shape[1]
+    sig_bits = unpack_bits(sig_planes.T).float()
+    typ_bits = unpack_bits(typ_planes.T).float()
+    ok = torch.ones((S, T), dtype=torch.bool, device=sig_planes.device)
     offsets = layout.offsets
     for k in range(len(layout.keys)):
         lo, hi = offsets[k] * WORD_BITS, offsets[k + 1] * WORD_BITS
-        overlap = (sig_bits[:, lo:hi] @ typ_bits[:, lo:hi].T) > 0
-        sf, tf = sig_flags[:, k], typ_flags[:, k]
-        both_has = ((sf & 1)[:, None] & (tf & 1)[None, :]).bool()
-        both_neg = ((sf & 2)[:, None] & (tf & 2)[None, :]).bool()
-        ok &= ~both_has | overlap | both_neg
+        ok &= (sig_bits[:, lo:hi] @ typ_bits[:, lo:hi].T) > 0
     return ok
 
 
@@ -303,7 +345,8 @@ class _CompatAllowedKernel:
         """Compile the source if needed → (library path, nvcc output)."""
         return buildlib.build_shared(SRC, [NVCC] + NVCC_FLAGS, timeout=600.0)
 
-    def _load(self) -> ctypes.CDLL:
+    def lib(self) -> ctypes.CDLL:
+        """The built library, loaded once."""
         if self._lib is not None:
             return self._lib
         with self._lock:
@@ -312,45 +355,49 @@ class _CompatAllowedKernel:
                 lib = ctypes.CDLL(path)
                 lib.compat_allowed_launch.restype = ctypes.c_int
                 lib.compat_allowed_launch.argtypes = (
-                    [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 2
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6
+                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                 )
                 self._lib = lib
         return self._lib
 
     def launch(
         self,
-        sig_words: torch.Tensor,
-        sig_flags: torch.Tensor,
-        valid: torch.Tensor,
+        sig_planes: torch.Tensor,  # (W, S) int32, unit stride along S
         catalog: DeviceCatalog,
-        out: torch.Tensor,
+        out: torch.Tensor,  # (S, T) uint8, contiguous
+        tile: Optional[int] = None,
     ) -> None:
-        S, W = sig_words.shape
+        W, S = sig_planes.shape
         T = catalog.n_types
         K = len(catalog.layout.keys)
-        dev = catalog.words.device
+        dev = catalog.planes.device
         for name, t, dtype, shape in (
-            ("sig_words", sig_words, torch.int32, (S, W)),
-            ("sig_flags", sig_flags, torch.uint8, (S, K)),
-            ("valid", valid, torch.uint8, (S,)),
-            ("typ_words", catalog.words, torch.int32, (T, W)),
-            ("typ_flags", catalog.flags, torch.uint8, (T, K)),
-            ("key_end", catalog.key_end, torch.int32, (W,)),
+            ("sig_planes", sig_planes, torch.int32, (catalog.layout.width, S)),
+            ("typ_planes", catalog.planes, torch.int32, (W, T)),
+            ("key_off", catalog.key_off, torch.int32, (K + 1,)),
             ("out", out, torch.uint8, (S, T)),
         ):
-            if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
                 raise ValueError(
-                    f"{name}: expected contiguous {dtype} {shape} on {dev}, "
+                    f"{name}: expected {dtype} {shape} on {dev}, "
                     f"got {t.dtype} {tuple(t.shape)} on {t.device}"
                 )
+        _check_plane("sig_planes", sig_planes)
+        _check_plane("typ_planes", catalog.planes)
+        if not out.is_contiguous():
+            raise ValueError("out: expected a contiguous tensor")
+        if not 1 <= K <= MAX_KEYS:
+            raise ValueError(f"the kernel takes 1..{MAX_KEYS} keys, got {K}")
         if S == 0 or T == 0:
             return
-        lib = self._load()
+        tile = tile_for(S) if tile is None else tile
+        if tile not in TILES:
+            raise ValueError(f"unknown tile shape {tile}")
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.compat_allowed_launch(
-            sig_words.data_ptr(), sig_flags.data_ptr(), valid.data_ptr(),
-            catalog.words.data_ptr(), catalog.flags.data_ptr(), catalog.key_end.data_ptr(),
-            S, T, W, K, out.data_ptr(), stream,
+        err = self.lib().compat_allowed_launch(
+            sig_planes.data_ptr(), catalog.planes.data_ptr(), catalog.key_off.data_ptr(),
+            S, T, W, K, sig_planes.stride(0), catalog.planes.stride(0), out.data_ptr(), tile, stream,
         )
         if err != 0:
             raise RuntimeError(f"compat_allowed_launch failed: cudaError {err}")
@@ -361,9 +408,7 @@ COMPAT_ALLOWED = _CompatAllowedKernel()
 
 
 def allowed_via_kernel(
-    sig_words: torch.Tensor,
-    sig_flags: torch.Tensor,
-    valid: torch.Tensor,
+    sig_planes: torch.Tensor,
     catalog: DeviceCatalog,
     budget_bytes: int = COMPAT_TILE_BYTES,
 ) -> torch.Tensor:
@@ -371,15 +416,11 @@ def allowed_via_kernel(
     the device-resident catalog → (S, T) bool on the catalog's device,
     row-blocked by ``compat_row_block``. A CPU catalog takes the plain
     version; a CUDA catalog launches the kernel (or raises)."""
-    S, T = sig_words.shape[0], catalog.n_types
-    valid = valid.to(torch.uint8)
+    S, T = sig_planes.shape[1], catalog.n_types
     block = compat_row_block(T, budget_bytes)
     if catalog.device.type == "cpu":
         rows = [
-            allowed_packed_reference(
-                sig_words[s0 : s0 + block], sig_flags[s0 : s0 + block],
-                valid[s0 : s0 + block], catalog.words, catalog.flags, catalog.layout,
-            )
+            allowed_packed_reference(sig_planes[:, s0 : s0 + block], catalog.planes, catalog.layout)
             for s0 in range(0, S, block)
         ]
         return torch.cat(rows) if rows else torch.zeros((0, T), dtype=torch.bool)
@@ -388,9 +429,7 @@ def allowed_via_kernel(
     out = torch.empty((S, T), dtype=torch.uint8, device=catalog.device)
     for s0 in range(0, S, block):
         s1 = min(s0 + block, S)
-        COMPAT_ALLOWED.launch(
-            sig_words[s0:s1], sig_flags[s0:s1], valid[s0:s1], catalog, out[s0:s1]
-        )
+        COMPAT_ALLOWED.launch(sig_planes[:, s0:s1], catalog, out[s0:s1])
     return out.view(torch.bool)
 
 
@@ -405,12 +444,12 @@ def compat_via_kernel(
 ) -> torch.Tensor:
     """Counterpart of ``compat_via_pallas``: host dicts in the layout of
     ``kernels.compat_reference`` → (S, T) bool compat ∧ valid on
-    ``device`` (no offering leg: its chunk is all-ones on both sides)."""
+    ``device`` (the offering chunk is all-ones, so only valid rides it)."""
     T = next(iter(type_masks.values())).shape[0] if type_masks else 0
     S = sig_arrays["valid"].shape[0]
     ones_t = np.ones((T, 1, 1), dtype=bool)
     catalog = catalog_to_device(type_masks, type_has, type_neg, keys, ones_t, device)
-    words, flags, valid = signature_side(
+    planes = signature_side(
         sig_arrays, np.ones((S, 1), dtype=bool), np.ones((S, 1), dtype=bool), catalog
     )
-    return allowed_via_kernel(words, flags, valid, catalog, budget_bytes)
+    return allowed_via_kernel(planes, catalog, budget_bytes)

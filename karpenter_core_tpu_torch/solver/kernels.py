@@ -152,4 +152,4 @@ def allowed(
     from .compat_kernels import allowed_via_kernel, catalog_to_device, signature_side
 
     catalog = catalog_to_device(type_masks, type_has, type_neg, keys, avail, dev)
-    return allowed_via_kernel(*signature_side(sig_arrays, zone_ok, ct_ok, catalog), catalog)
+    return allowed_via_kernel(signature_side(sig_arrays, zone_ok, ct_ok, catalog), catalog)

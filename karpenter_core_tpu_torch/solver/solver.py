@@ -551,7 +551,7 @@ class TorchScheduler:
             catalog = self._device_catalog(e)
             with self._clock.track():
                 sig = signature_side(sig_arrays, zone_ok, ct_ok, catalog)
-                allowed = allowed_via_kernel(*sig, catalog)
+                allowed = allowed_via_kernel(sig, catalog)
             pending.append((allowed, zone_ok, ct_ok))
 
         # per unique catalog: extended axis + quantized request matrix

@@ -53,7 +53,7 @@ def _case(seed):
 def _packed_allowed(keys, sig_arrays, type_masks, type_has, type_neg, zone_ok, ct_ok, avail):
     catalog = ck.catalog_to_device(type_masks, type_has, type_neg, keys, avail, "cpu")
     sig = ck.signature_side(sig_arrays, zone_ok, ct_ok, catalog)
-    return ck.allowed_via_kernel(*sig, catalog).numpy()
+    return ck.allowed_via_kernel(sig, catalog).numpy()
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -112,14 +112,19 @@ def test_catalog_from_reference_roundtrip():
     )
     tp, thp, tnp, offsets, widths = ref_pack_masks(tm, th, tn, keys)
     catalog = ck.catalog_from_reference(tp, thp, tnp, offsets, widths, avail, "cpu")
-    # every 128-lane chunk became four words holding exactly the lanes
-    bits = ck.unpack_bits(catalog.words).numpy()
+    # every 128-lane chunk became four words holding exactly the lanes,
+    # and one more word holds the key's three flag bits
+    bits = ck.unpack_bits(catalog.planes.T).numpy()
     for k, (off, w) in enumerate(zip(offsets, widths)):
         woff = catalog.layout.offsets[k]
-        assert catalog.layout.words[k] == w // 32
+        assert catalog.layout.words[k] == w // 32 + 1
         np.testing.assert_array_equal(bits[:, woff * 32 : woff * 32 + w], tp[:, off : off + w] > 0)
+        flags = bits[:, woff * 32 + w : woff * 32 + w + 3]
+        np.testing.assert_array_equal(flags[:, 0], True)  # U_s
+        np.testing.assert_array_equal(flags[:, 1], thp[:, k] == 0)  # U_t = ¬has_t
+        np.testing.assert_array_equal(flags[:, 2], tnp[:, k] > 0)  # N
     sig_side = ck.signature_side(sig, zone_ok, ct_ok, catalog, keys=keys)
-    got = ck.allowed_via_kernel(*sig_side, catalog).numpy()
+    got = ck.allowed_via_kernel(sig_side, catalog).numpy()
     ref = np.asarray(allowed_kernel(sig, tm, th, tn, zone_ok, ct_ok, avail, keys))
     np.testing.assert_array_equal(got, ref)
 
@@ -131,19 +136,21 @@ def test_pack_masks_layout_zero_pad_bits():
     masks = {k: rng.rand(5, v) > 0.5 for k, v in vk.items()}
     has = {k: rng.rand(5) > 0.5 for k in keys}
     neg = {k: rng.rand(5) > 0.5 for k in keys}
-    words, flags, layout = ck.pack_masks(masks, has, neg, keys)
-    assert layout.words == (1, 7, 1, 2)
-    assert layout.offsets == (0, 1, 8, 9, 11)
-    assert words.shape == (5, 11) and words.dtype == np.int32
-    bits = ck.unpack_bits(torch.from_numpy(words)).numpy()
-    for k, off in zip(keys, layout.offsets):
-        lo = off * 32
-        np.testing.assert_array_equal(bits[:, lo : lo + vk[k]], masks[k])
-        hi = layout.offsets[keys.index(k) + 1] * 32
-        assert not bits[:, lo + vk[k] : hi].any()  # pad bits are zero
-    np.testing.assert_array_equal(flags & 1, np.stack([has[k] for k in keys], 1))
-    np.testing.assert_array_equal(flags >> 1, np.stack([neg[k] for k in keys], 1))
-    np.testing.assert_array_equal(layout.key_end(), [0, -1, -1, -1, -1, -1, -1, 1, 2, -1, 3])
+    for side in (ck.SIG, ck.TYP):
+        words, layout = ck.pack_masks(masks, has, neg, keys, side)
+        assert layout.words == (1, 7, 2, 2)  # ceil((Vk + 3) / 32)
+        assert layout.offsets == (0, 1, 8, 10, 12)
+        assert words.shape == (5, 12) and words.dtype == np.int32
+        np.testing.assert_array_equal(layout.key_offsets(), [0, 1, 8, 10, 12])
+        bits = ck.unpack_bits(torch.from_numpy(words)).numpy()
+        for i, (k, off) in enumerate(zip(keys, layout.offsets)):
+            lo, v = off * 32, vk[k]
+            np.testing.assert_array_equal(bits[:, lo : lo + v], masks[k])
+            u_s, u_t, n = bits[:, lo + v], bits[:, lo + v + 1], bits[:, lo + v + 2]
+            np.testing.assert_array_equal(u_s, ~has[k] if side == ck.SIG else True)
+            np.testing.assert_array_equal(u_t, True if side == ck.SIG else ~has[k])
+            np.testing.assert_array_equal(n, neg[k])
+            assert not bits[:, lo + v + 3 : layout.offsets[i + 1] * 32].any()  # pad bits are zero
 
 
 def test_row_blocking_boundary():
@@ -156,8 +163,8 @@ def test_row_blocking_boundary():
     )
     catalog = ck.catalog_to_device(tm, th, tn, keys, avail, "cpu")
     side = ck.signature_side(sig, zone_ok, ct_ok, catalog)
-    whole = ck.allowed_via_kernel(*side, catalog).numpy()
-    blocked = ck.allowed_via_kernel(*side, catalog, budget_bytes=T * 32).numpy()  # 4 blocks
+    whole = ck.allowed_via_kernel(side, catalog).numpy()
+    blocked = ck.allowed_via_kernel(side, catalog, budget_bytes=T * 32).numpy()  # 4 blocks
     np.testing.assert_array_equal(blocked, whole)
     ref = np.asarray(allowed_kernel(sig, tm, th, tn, zone_ok, ct_ok, avail, keys))
     np.testing.assert_array_equal(whole, ref)
@@ -181,15 +188,39 @@ def test_cuda_requested_without_cuda_raises():
         pk.allowed(sig, tm, th, tn, zone_ok, ct_ok, avail, keys, device="cuda")
 
 
+_HOST_LIB = []
+
+
 def _host_tile_lib():
     """The CUDA source compiled by g++ as C++: its __host__ __device__
     tile body run block by block on the CPU (compat_allowed_host)."""
-    cmd = ["g++", "-x", "c++", "-O2", "-shared", "-fPIC", "-std=c++17"]
-    path, _ = buildlib.build_shared(ck.SRC, cmd, timeout=300.0)
-    lib = ctypes.CDLL(path)
-    lib.compat_allowed_host.restype = ctypes.c_int
-    lib.compat_allowed_host.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
-    return lib
+    if not _HOST_LIB:
+        cmd = ["g++", "-x", "c++", "-O2", "-shared", "-fPIC", "-std=c++17"]
+        path, _ = buildlib.build_shared(ck.SRC, cmd, timeout=300.0)
+        lib = ctypes.CDLL(path)
+        lib.compat_allowed_host.restype = ctypes.c_int
+        lib.compat_allowed_host.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [ctypes.c_void_p, ctypes.c_int]
+        )
+        _HOST_LIB.append(lib)
+    return _HOST_LIB[0]
+
+
+def _host_allowed(planes, catalog, tile, s0=0):
+    """The tile body over signature rows [s0, S) of the planes, read in
+    place with the planes' pitch → (S - s0, T) bool."""
+    W, S = planes.shape
+    T = catalog.n_types
+    out = torch.full((S - s0, T), 7, dtype=torch.uint8)
+    view = planes[:, s0:]
+    rc = _host_tile_lib().compat_allowed_host(
+        view.data_ptr(), catalog.planes.data_ptr(), catalog.key_off.data_ptr(),
+        S - s0, T, W, len(catalog.layout.keys), view.stride(0), catalog.planes.stride(0),
+        out.data_ptr(), tile,
+    )
+    assert rc == 0
+    assert set(out.unique().tolist()) <= {0, 1}  # every cell written once
+    return out.numpy().astype(bool)
 
 
 @pytest.mark.parametrize(
@@ -198,8 +229,8 @@ def _host_tile_lib():
         (0, 1, 1, (1,)),
         (1, 5, 37, (31, 32, 33)),
         (2, 33, 65, (1, 200, 300)),  # S and T one past a tile
-        (3, 70, 40, (2001, 7, 64)),  # W spans several 32-word chunks
-        (4, 64, 64, (96, 32)),  # chunk boundary exactly at a key end
+        (3, 70, 40, (2001, 7, 64)),  # W spans several 16-word chunks
+        (4, 64, 64, (509, 1533, 32)),  # keys end on both tiles' chunk boundaries (words 16, 64)
     ],
 )
 def test_kernel_tile_body_on_host_matches_reference(seed, S, T, widths):
@@ -207,14 +238,129 @@ def test_kernel_tile_body_on_host_matches_reference(seed, S, T, widths):
         np.random.RandomState(seed), S, T, list(widths)
     )
     catalog = ck.catalog_to_device(tm, th, tn, keys, avail, "cpu")
-    words, flags, valid = ck.signature_side(sig, zone_ok, ct_ok, catalog)
-    out = torch.full((S, T), 7, dtype=torch.uint8)
-    rc = _host_tile_lib().compat_allowed_host(
-        words.data_ptr(), flags.data_ptr(), valid.data_ptr(),
-        catalog.words.data_ptr(), catalog.flags.data_ptr(), catalog.key_end.data_ptr(),
-        S, T, catalog.layout.width, len(catalog.layout.keys), out.data_ptr(),
-    )
-    assert rc == 0
-    assert set(out.unique().tolist()) <= {0, 1}  # every cell written once
+    planes = ck.signature_side(sig, zone_ok, ct_ok, catalog)
     ref = np.asarray(allowed_kernel(sig, tm, th, tn, zone_ok, ct_ok, avail, keys))
-    np.testing.assert_array_equal(out.numpy().astype(bool), ref)
+    for tile in (ck.TILE_SMALL, ck.TILE_LARGE):
+        np.testing.assert_array_equal(_host_allowed(planes, catalog, tile), ref)
+
+
+# widths: a key ending exactly on the large tile's 16-word staging chunk
+# (509 + 3 bits = 16 words), the slice's 2001-value keys (the second ends
+# past the small tile's first 64-word chunk), and W past both rings (the
+# large tile's 48 words, the small tile's 128)
+_TILE_WIDTHS = (509, 2001, 3, 2001, 4, 29)
+
+
+@pytest.mark.parametrize("past", [1, 4])
+@pytest.mark.parametrize("S", [1, 4, 16, 17, 65])
+@pytest.mark.parametrize("tile", [ck.TILE_SMALL, ck.TILE_LARGE])
+def test_tile_shapes_on_host_match_reference(tile, S, past):
+    """Both tile shapes of the kernel's g++-built body, T one or four past
+    the tile (a ragged or a full last 16-byte copy), bit for bit against
+    the JAX kernel and the plain version."""
+    T = ck.TILES[tile][1] + past
+    keys, sig, tm, th, tn, zone_ok, ct_ok, avail = _random_inputs(
+        np.random.RandomState(1000 + S + 7 * tile + past), S, T, list(_TILE_WIDTHS)
+    )
+    catalog = ck.catalog_to_device(tm, th, tn, keys, avail, "cpu")
+    assert catalog.layout.offsets[1] == 16 and catalog.layout.width > 128
+    planes = ck.signature_side(sig, zone_ok, ct_ok, catalog)
+    ref = np.asarray(allowed_kernel(sig, tm, th, tn, zone_ok, ct_ok, avail, keys))
+    got = _host_allowed(planes, catalog, tile)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, ck.allowed_packed_reference(planes, catalog.planes, catalog.layout).numpy())
+    if S > 4:  # a row block read in place from the middle of the planes
+        np.testing.assert_array_equal(_host_allowed(planes, catalog, tile, s0=4), ref[4:])
+    assert planes.stride(0) == -(-S // 4) * 4 and catalog.planes.stride(0) == -(-T // 4) * 4
+
+
+def _fold_planes(vk):
+    """Every has_s/neg_s/valid × overlap pattern on the signature side
+    against every has_t/neg_t × pattern on the type side, one key of vk
+    values: a signature and a type overlap iff their patterns match."""
+    rows_s = [(h, n, v, p) for h in (0, 1) for n in (0, 1) for v in (0, 1) for p in (0, 1)]
+    rows_t = [(h, n, p) for h in (0, 1) for n in (0, 1) for p in (0, 1)]
+    cols = (0, vk - 1)  # the pattern's value bit: the first or the last
+    key = "key-0"
+    sig = {
+        "valid": np.array([v for _, _, v, _ in rows_s], dtype=bool),
+        f"has:{key}": np.array([h for h, _, _, _ in rows_s], dtype=bool),
+        f"neg:{key}": np.array([n for _, n, _, _ in rows_s], dtype=bool),
+        f"mask:{key}": np.zeros((len(rows_s), vk), dtype=bool),
+    }
+    tm = {key: np.zeros((len(rows_t), vk), dtype=bool)}
+    for s, (_, _, _, p) in enumerate(rows_s):
+        sig[f"mask:{key}"][s, cols[p]] = True
+    for t, (_, _, p) in enumerate(rows_t):
+        tm[key][t, cols[p]] = True
+    th = {key: np.array([h for h, _, _ in rows_t], dtype=bool)}
+    tn = {key: np.array([n for _, n, _ in rows_t], dtype=bool)}
+    S, T = len(rows_s), len(rows_t)
+    return (key,), sig, tm, th, tn, np.ones((S, 2), bool), np.ones((S, 1), bool), np.ones((T, 2, 1), bool)
+
+
+@pytest.mark.parametrize("vk", [2, 29, 30, 31, 32, 64])
+def test_flag_fold_exhaustive(vk):
+    """The three flag bits reproduce ¬(hs∧ht) ∨ overlap ∨ (ns∧nt) ∧ valid
+    for every flag combination × overlap / no overlap, including widths
+    whose flag bits spill into a new word (Vk % 32 ∈ {29, 30, 31, 0})."""
+    keys, sig, tm, th, tn, zone_ok, ct_ok, avail = _fold_planes(vk)
+    key = keys[0]
+    want = (
+        sig["valid"][:, None]
+        & (
+            ~(sig[f"has:{key}"][:, None] & th[key][None, :])
+            | (sig[f"mask:{key}"].astype(int) @ tm[key].T.astype(int) > 0)
+            | (sig[f"neg:{key}"][:, None] & tn[key][None, :])
+        )
+    )
+    assert want.any() and not want.all()
+    ref = np.asarray(allowed_kernel(sig, tm, th, tn, zone_ok, ct_ok, avail, keys))
+    np.testing.assert_array_equal(ref, want)
+    np.testing.assert_array_equal(
+        np.asarray(compat_via_pallas(sig, tm, th, tn, keys, interpret=True)), want
+    )
+    t = lambda d: pk.to_tensors(d, "cpu")  # noqa: E731
+    flag_based = pk.allowed_reference(
+        t(sig), t(tm), t(th), t(tn), torch.from_numpy(zone_ok), torch.from_numpy(ct_ok),
+        torch.from_numpy(avail), keys,
+    ).numpy()
+    np.testing.assert_array_equal(flag_based, want)
+
+    catalog = ck.catalog_to_device(tm, th, tn, keys, avail, "cpu")
+    assert catalog.layout.words[0] == -(-(vk + 3) // 32)
+    planes = ck.signature_side(sig, zone_ok, ct_ok, catalog)
+    np.testing.assert_array_equal(
+        ck.allowed_packed_reference(planes, catalog.planes, catalog.layout).numpy(), want
+    )
+    np.testing.assert_array_equal(ck.compat_via_kernel(sig, tm, th, tn, keys, "cpu").numpy(), want)
+    for tile in (ck.TILE_SMALL, ck.TILE_LARGE):
+        np.testing.assert_array_equal(_host_allowed(planes, catalog, tile), want)
+
+
+def test_tile_for_picks_by_rows():
+    assert ck.tile_for(1) == ck.tile_for(ck.SMALL_S_MAX) == ck.TILE_SMALL
+    assert ck.tile_for(ck.SMALL_S_MAX + 1) == ck.tile_for(8192) == ck.TILE_LARGE
+
+
+def test_planes_pad_storage_to_four_rows():
+    """Planes are views into storage padded to 4k rows with zeros, so the
+    kernel's 16-byte copies never leave it; the host body refuses planes
+    that break the contract."""
+    words = np.arange(5 * 3, dtype=np.int32).reshape(5, 3)
+    planes = ck.to_planes(words, "cpu")
+    assert planes.shape == (3, 5) and planes.stride() == (8, 1)
+    np.testing.assert_array_equal(planes.numpy(), words.T)
+    storage = planes.as_strided((3, 8), (8, 1))
+    assert not storage[:, 5:].any()
+    keys, sig, tm, th, tn, zone_ok, ct_ok, avail = _random_inputs(np.random.RandomState(9), 6, 7, [3])
+    catalog = ck.catalog_to_device(tm, th, tn, keys, avail, "cpu")
+    side = ck.signature_side(sig, zone_ok, ct_ok, catalog)
+    out = torch.empty((5, 7), dtype=torch.uint8)
+    view = side[:, 1:]  # starts 4 bytes in: not 16-byte aligned
+    rc = _host_tile_lib().compat_allowed_host(
+        view.data_ptr(), catalog.planes.data_ptr(), catalog.key_off.data_ptr(), 5, 7,
+        side.shape[0], len(catalog.layout.keys), view.stride(0), catalog.planes.stride(0),
+        out.data_ptr(), ck.TILE_SMALL,
+    )
+    assert rc != 0

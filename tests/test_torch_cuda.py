@@ -50,11 +50,11 @@ def _planes(seed, S, T, widths, Z=3, C=2):
 def test_kernel_matches_plain_versions(cuda, seed, S, T, widths):
     keys, sig, tm, th, tn, zone_ok, ct_ok, avail = _planes(seed, S, T, widths)
     catalog = ck.catalog_to_device(tm, th, tn, keys, avail, cuda)
-    side = ck.signature_side(sig, zone_ok, ct_ok, catalog)
+    planes = ck.signature_side(sig, zone_ok, ct_ok, catalog)
     before = ck.COMPAT_ALLOWED.launches
-    got = ck.allowed_via_kernel(*side, catalog, budget_bytes=T * 32).cpu()
+    got = ck.allowed_via_kernel(planes, catalog, budget_bytes=T * 32).cpu()
     assert ck.COMPAT_ALLOWED.launches - before == -(-S // 32)  # one launch per row block
-    plain = ck.allowed_packed_reference(*side, catalog.words, catalog.flags, catalog.layout).cpu()
+    plain = ck.allowed_packed_reference(planes, catalog.planes, catalog.layout).cpu()
     assert torch.equal(got, plain)
     ref = pk.allowed(sig, tm, th, tn, zone_ok, ct_ok, avail, keys, device="cpu")
     assert torch.equal(got, ref)
@@ -63,17 +63,36 @@ def test_kernel_matches_plain_versions(cuda, seed, S, T, widths):
     assert torch.equal(compat, pk.compat_reference(t(sig), t(tm), t(th), t(tn), keys))
 
 
+@pytest.mark.parametrize("tile", [ck.TILE_SMALL, ck.TILE_LARGE])
+@pytest.mark.parametrize("S,T", [(1, 1), (4, 2000), (17, 129), (65, 257), (130, 65)])
+def test_each_tile_shape_matches_plain_version(cuda, tile, S, T):
+    """Each tile shape, forced, on row counts around both tiles and the
+    slice's widths (the 2001-value keys span several staging chunks)."""
+    keys, sig, tm, th, tn, zone_ok, ct_ok, avail = _planes(10 + S, S, T, (2001, 3, 2, 4, 509))
+    catalog = ck.catalog_to_device(tm, th, tn, keys, avail, cuda)
+    planes = ck.signature_side(sig, zone_ok, ct_ok, catalog)
+    out = torch.full((S, T), 7, dtype=torch.uint8, device=cuda)
+    ck.COMPAT_ALLOWED.launch(planes, catalog, out, tile=tile)
+    torch.cuda.synchronize()
+    assert set(out.unique().tolist()) <= {0, 1}
+    assert torch.equal(out.cpu().bool(), ck.allowed_packed_reference(planes.cpu(), catalog.planes.cpu(), catalog.layout))
+    ref = pk.allowed(sig, tm, th, tn, zone_ok, ct_ok, avail, keys, device="cpu")
+    assert torch.equal(out.cpu().bool(), ref)
+
+
 def test_wrapper_rejects_bad_inputs(cuda):
     keys, sig, tm, th, tn, zone_ok, ct_ok, avail = _planes(4, 8, 8, (5,))
     catalog = ck.catalog_to_device(tm, th, tn, keys, avail, cuda)
-    words, flags, valid = ck.signature_side(sig, zone_ok, ct_ok, catalog)
+    planes = ck.signature_side(sig, zone_ok, ct_ok, catalog)
     out = torch.empty((8, 8), dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError, match="sig_words"):
-        ck.COMPAT_ALLOWED.launch(words.cpu(), flags, valid, catalog, out)
-    with pytest.raises(ValueError, match="sig_flags"):
-        ck.COMPAT_ALLOWED.launch(words, flags.int(), valid, catalog, out)
+    with pytest.raises(ValueError, match="sig_planes"):
+        ck.COMPAT_ALLOWED.launch(planes.cpu(), catalog, out)
+    with pytest.raises(ValueError, match="sig_planes"):
+        ck.COMPAT_ALLOWED.launch(planes.long(), catalog, out)
     with pytest.raises(ValueError, match="out"):
-        ck.COMPAT_ALLOWED.launch(words, flags, valid, catalog, out[:, :4])
+        ck.COMPAT_ALLOWED.launch(planes, catalog, out[:, :4])
+    with pytest.raises(ValueError, match="tile"):
+        ck.COMPAT_ALLOWED.launch(planes, catalog, out, tile=5)
 
 
 def test_small_solve_on_card_matches_cpu(cuda):
