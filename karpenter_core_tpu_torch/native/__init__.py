@@ -54,6 +54,18 @@ def load() -> ctypes.CDLL:
             ctypes.c_int32,  # k_open
             _I32P,  # node_ids_out
         ]
+        lib.pack_existing_native.restype = ctypes.c_int64
+        lib.pack_existing_native.argtypes = [
+            _I32P,  # requests
+            ctypes.c_int64,  # P
+            ctypes.c_int64,  # R
+            _I32P,  # sig_ids
+            ctypes.POINTER(ctypes.c_uint8),  # compat
+            ctypes.c_int64,  # S
+            _I32P,  # free_caps (in-out)
+            ctypes.c_int64,  # M
+            _I32P,  # assign_out
+        ]
         lib.cheapest_types_native.restype = None
         lib.cheapest_types_native.argtypes = [
             ctypes.POINTER(ctypes.c_int64),  # usage
@@ -96,6 +108,46 @@ def ffd_pack_native(
         node_ids.ctypes.data_as(_I32P),
     )
     return node_ids, int(count)
+
+
+def pack_existing_native(
+    requests: np.ndarray,  # (P, R) int32, sorted descending by primary
+    sig_ids: np.ndarray,  # (P,) int32
+    compat: np.ndarray,  # (S, M) uint8/bool
+    free_caps: np.ndarray,  # (M, R) int32, MUTATED in place
+) -> Tuple[np.ndarray, int]:
+    """First-fit of each pod, in order, onto the first admissible existing
+    node (fixed node order) whose free capacity holds it; the chosen
+    node's row of ``free_caps`` is reduced in place → (assign (P,) int32
+    node index or -1, pods assigned)."""
+    lib = load()
+    requests = np.ascontiguousarray(requests, dtype=np.int32)
+    sig_ids = np.ascontiguousarray(sig_ids, dtype=np.int32)
+    compat = np.ascontiguousarray(compat, dtype=np.uint8)
+    if free_caps.dtype != np.int32 or not free_caps.flags.c_contiguous:
+        raise ValueError("free_caps must be a C-contiguous int32 array (it is updated in place)")
+    P, R = requests.shape
+    S, M = compat.shape
+    if sig_ids.shape != (P,) or free_caps.shape != (M, R):
+        raise ValueError(
+            f"requests {requests.shape}, sig_ids {sig_ids.shape}, compat {compat.shape}, "
+            f"free_caps {free_caps.shape} disagree"
+        )
+    if P and (sig_ids.min() < 0 or sig_ids.max() >= S):
+        raise ValueError(f"sig_ids out of range for {S} signatures")
+    assign = np.empty(P, dtype=np.int32)
+    n = lib.pack_existing_native(
+        requests.ctypes.data_as(_I32P),
+        P,
+        R,
+        sig_ids.ctypes.data_as(_I32P),
+        compat.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        S,
+        free_caps.ctypes.data_as(_I32P),
+        M,
+        assign.ctypes.data_as(_I32P),
+    )
+    return assign, int(n)
 
 
 def cheapest_types_native(

@@ -1,6 +1,5 @@
 // Native K-open first-fit-decreasing packer: the host half of the
-// port's provisioning solve (a copy of karpenter_core_tpu/native/pack.cc
-// without the existing-node pack, which the port has not taken yet).
+// port's provisioning solve (a copy of karpenter_core_tpu/native/pack.cc).
 //
 // Exact per-pod mirror of the JAX package's device scan
 // (karpenter_core_tpu/solver/pack.py::ffd_pack, itself the tensorized
@@ -118,6 +117,45 @@ int32_t ffd_pack_native(const int32_t* requests, int64_t P, int64_t R,
     ++next_id;
   }
   return next_id;
+}
+
+// First-fit onto EXISTING nodes in fixed order — the reference tries
+// in-flight/real nodes before opening any new claim (scheduler.go:
+// 241-246, existingnode.go:64-120), in initialized-then-name order.
+// requests: (P, R) int32, pre-sorted descending by primary axis.
+// sig_ids: (P,) int32 signature-group index per pod.
+// compat: (S, M) uint8 — signature x node admissibility (taints
+//   tolerated + node labels satisfy the pod's requirements).
+// free_caps: (M, R) int32 remaining capacity, MUTATED in place.
+// assign_out: (P,) int32 node index or -1 (pod left for new-node pack).
+// Returns the number of pods assigned.
+int64_t pack_existing_native(const int32_t* requests, int64_t P, int64_t R,
+                             const int32_t* sig_ids, const uint8_t* compat,
+                             int64_t S, int32_t* free_caps, int64_t M,
+                             int32_t* assign_out) {
+  (void)S;
+  int64_t assigned = 0;
+  for (int64_t p = 0; p < P; ++p) {
+    const int32_t* req = requests + p * R;
+    const uint8_t* row = compat + static_cast<int64_t>(sig_ids[p]) * M;
+    int64_t chosen = -1;
+    for (int64_t m = 0; m < M; ++m) {
+      if (!row[m]) continue;
+      int32_t* f = free_caps + m * R;
+      if (f[0] < req[0]) continue;  // cheap primary-axis reject
+      bool ok = true;
+      for (int64_t r = 1; r < R; ++r) {
+        if (req[r] > f[r]) { ok = false; break; }
+      }
+      if (!ok) continue;
+      for (int64_t r = 0; r < R; ++r) f[r] -= req[r];
+      chosen = m;
+      break;
+    }
+    assign_out[p] = static_cast<int32_t>(chosen);
+    if (chosen >= 0) ++assigned;
+  }
+  return assigned;
 }
 
 // Cheapest viable instance type per packed node

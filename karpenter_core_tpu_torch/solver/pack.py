@@ -10,9 +10,11 @@ viable allocatable vectors.
 
 The JAX package's default route (``engine="auto"`` with the native
 library present) packs every job with its C++ packer at K=1024 open
-slots; that is the route taken here. Its ``lax.scan`` device pack
-(``ffd_pack``/``ffd_pack_batched``) and ``pack_existing`` are not on
-this path.
+slots, and first-fits pods onto existing nodes with the same library;
+that is the route taken here. Its ``lax.scan`` device scans
+(``ffd_pack``/``ffd_pack_batched`` and ``pack_existing``) are not on
+this path: ``pack_existing_reference`` is the plain PyTorch version of
+the existing-node scan, for tests and the card check.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 from .. import native
 
@@ -107,3 +110,48 @@ def batch_pack(jobs: List[tuple]) -> List[Tuple[np.ndarray, int]]:
         )
         for reqs, frontier, cap in jobs
     ]
+
+
+def run_pack_existing(
+    requests: np.ndarray,  # (P, R) int32, sorted descending by primary
+    sig_ids: np.ndarray,  # (P,) int32
+    compat: np.ndarray,  # (S, M) uint8/bool signature x node admissibility
+    free: np.ndarray,  # (M, R) int32 free capacity, nodes in try order
+) -> Tuple[np.ndarray, np.ndarray]:
+    """First-fit pods onto existing nodes in fixed node order on the
+    native packer (the reference tries in-flight/real nodes before any
+    new claim, scheduler.go:241-246) → (assign (P,) int32 node index or
+    -1, remaining free (M, R)). ``free`` is not modified."""
+    if requests.shape[0] == 0 or free.shape[0] == 0:
+        return np.full(requests.shape[0], -1, dtype=np.int32), free
+    free = np.array(free, dtype=np.int32, order="C")
+    assign, _ = native.pack_existing_native(requests, sig_ids, compat, free)
+    return assign, free
+
+
+def pack_existing_reference(
+    requests: torch.Tensor,  # (P, R) int32
+    sig_ids: torch.Tensor,  # (P,) int
+    compat: torch.Tensor,  # (S, M) bool/uint8
+    free: torch.Tensor,  # (M, R) int32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the existing-node first-fit on the
+    tensors' device, one pod at a time and without a host sync: each pod
+    takes the first admissible node whose free capacity holds it.
+    → (assign (P,) int32 node index or -1, remaining free (M, R))."""
+    P = requests.shape[0]
+    free = free.to(torch.int32).clone()
+    assign = torch.full((P,), -1, dtype=torch.int32, device=free.device)
+    if P == 0 or free.shape[0] == 0:
+        return assign, free
+    requests = requests.to(device=free.device, dtype=torch.int32)
+    rows = compat.to(device=free.device, dtype=torch.bool)[sig_ids.to(free.device).long()]
+    minus_one = torch.tensor(-1, dtype=torch.int32, device=free.device)
+    for p in range(P):
+        req = requests[p]
+        fits = rows[p] & (free >= req).all(dim=1)
+        m = fits.to(torch.uint8).argmax()  # the first admissible node
+        found = fits.any()
+        free.index_add_(0, m.view(1), (-req * found).view(1, -1))
+        assign[p] = torch.where(found, m.to(torch.int32), minus_one)
+    return assign, free

@@ -3,17 +3,21 @@
 Counterpart of ``karpenter_core_tpu/solver/solver.py::TPUScheduler`` on
 its plain tensor path:
 
-  host:   signature-group pods → per-(signature, pool) set algebra
+  host:   signature-group pods → first-fit onto existing nodes
+          (existing_node_compat → native/pack.cc), free capacity net of
+          the daemons each node still has to run
+  host:   leftover pods → per-(signature, pool) set algebra
   device: ONE compat ∧ offering kernel launch per pool against the
           catalog's card-resident type side (solver/compat_kernels.py)
-  host:   class-merged pack jobs → C++ first-fit-decreasing pack
-          (native/pack.cc) → cheapest type/offering per node
-  host:   cross-group merge of underfull nodes (merge.py) → NodePlans
+  host:   bounded, NodePool-limit-aware pack rounds: class-merged pack
+          jobs (new nodes carry their pool's daemonset overhead) → C++
+          first-fit-decreasing pack (native/pack.cc) → cheapest
+          type/offering per node → cross-group merge of underfull nodes
+          (merge.py) → NodePlans, stripped where a limit is exceeded
 
 Features the JAX package sends off this path raise NotImplementedError
 with the feature's name instead of routing elsewhere: topology spread,
-pod affinity and anti-affinity, host ports, volumes, existing nodes
-(``state_nodes``), NodePool limits, ``daemonset_pods`` and preference
+pod affinity and anti-affinity, host ports, volumes and preference
 relaxation. The port reads no environment variable: the JAX package's
 defaults it depends on are module constants (pack.NATIVE_K_OPEN,
 compat_kernels.COMPAT_TILE_BYTES, the vector merge engine, the ffd pack
@@ -36,9 +40,13 @@ import torch
 from ..apis import labels as wk
 from ..apis.nodepool import NodePool, order_by_weight
 from ..cloudprovider.types import CloudProvider, InstanceType
-from ..kube.objects import EFFECT_PREFER_NO_SCHEDULE, Pod
-from ..scheduling import Requirements, Taints, resources
-from ..scheduling.requirements import label_requirements, node_selector_requirements
+from ..kube.objects import EFFECT_PREFER_NO_SCHEDULE, OP_IN, Pod
+from ..scheduling import Requirement, Requirements, Taints, resources
+from ..scheduling.requirements import (
+    label_requirements,
+    node_selector_requirements,
+    pod_requirements,
+)
 from . import podcache
 from .backend import resolve_device
 from .compat_kernels import DeviceCatalog, allowed_via_kernel, catalog_to_device, signature_side
@@ -47,6 +55,7 @@ from .encode import (
     PoolEncoding,
     ResourceAxis,
     SignatureGroup,
+    build_axis_from_capacities,
     build_catalog_axis,
     build_requests_matrix_ids,
     encode_instance_types,
@@ -55,12 +64,19 @@ from .encode import (
     extend_encoded_masks,
     finalize_signature_masks,
     group_pods,
+    quantize_capacity,
     quantize_requests,
     unique_requests,
 )
 from .kernels import build_compat_inputs, zone_ct_masks
 from .merge import merge_records_vector
-from .pack import assign_cheapest_types, batch_pack, node_usage_from_assignment, pareto_frontier
+from .pack import (
+    assign_cheapest_types,
+    batch_pack,
+    node_usage_from_assignment,
+    pareto_frontier,
+    run_pack_existing,
+)
 from .stablehash import feed as stable_feed
 from .vocab import Vocab
 
@@ -75,12 +91,14 @@ _RUNTIME_CACHE_MAX = 256
 MAX_INT32 = 2**31 - 1
 
 # wall-time phases of a solve, reported in ``last_timings`` as "<phase>_ms":
-# group (pod memos + signature grouping), encode (catalog and signature
-# encode, the compat kernel and its sync), prepare (pool choice and
-# class-merged pack jobs), pack (the C++ packer), finalize (usage,
-# cheapest type and offering per node), merge (the cross-group merge and
-# its emit)
-PHASES = ("group", "encode", "prepare", "pack", "finalize", "merge")
+# group (pod memos + signature grouping), existing (existing-node compat,
+# free capacity and the first-fit onto existing nodes), encode (catalog
+# and signature encode, daemonset overhead, the compat kernel and its
+# sync), prepare (pool choice and class-merged pack jobs), pack (the C++
+# packer), finalize (usage, cheapest type and offering per node), merge
+# (the cross-group merge and its emit), limits (NodePool remaining
+# limits, their type masks and the enforcement after each pack round)
+PHASES = ("group", "existing", "encode", "prepare", "pack", "finalize", "merge", "limits")
 
 
 @dataclass
@@ -210,6 +228,52 @@ def _catalog_fingerprint(catalog: List[InstanceType]) -> bytes:
     return h.digest()
 
 
+def existing_node_compat(groups: List[SignatureGroup], nodes: list) -> np.ndarray:
+    """(S, M) uint8 admissibility of each signature group on each
+    existing node: taints tolerated + node labels satisfy the group's
+    requirements (existingnode.go:64-82). Computed once per node CLASS
+    (labels minus hostname + taints) — fleets have few classes, so the
+    host set algebra is O(S·classes); hostname-pinned signatures resolve
+    per node."""
+    S, M = len(groups), len(nodes)
+    sig_reqs = [pod_requirements(g.exemplar) for g in groups]
+    hostname_sigs = {s for s, r in enumerate(sig_reqs) if wk.LABEL_HOSTNAME in r}
+    compat = np.zeros((S, M), dtype=np.uint8)
+    node_taints = [Taints(n.taints()) for n in nodes]
+    class_cols: Dict[tuple, np.ndarray] = {}
+    for m, node in enumerate(nodes):
+        labels = node.labels()
+        ckey = (
+            tuple(sorted((k, v) for k, v in labels.items() if k != wk.LABEL_HOSTNAME)),
+            tuple(sorted((t.key, t.value, t.effect) for t in node.taints())),
+        )
+        col = class_cols.get(ckey)
+        if col is None:
+            class_reqs = label_requirements(
+                {k: v for k, v in labels.items() if k != wk.LABEL_HOSTNAME}
+            )
+            col = np.zeros(S, dtype=np.uint8)
+            for s, g in enumerate(groups):
+                if s in hostname_sigs:
+                    continue  # resolved per node below
+                col[s] = (
+                    node_taints[m].tolerates(g.exemplar) is None
+                    and class_reqs.compatible(sig_reqs[s], hint=False) is None
+                )
+            class_cols[ckey] = col
+        compat[:, m] = col
+    for s in hostname_sigs:
+        g = groups[s]
+        for m, node in enumerate(nodes):
+            node_reqs = label_requirements(node.labels())
+            node_reqs.add(Requirement(wk.LABEL_HOSTNAME, OP_IN, [node.hostname()]))
+            compat[s, m] = (
+                node_taints[m].tolerates(g.exemplar) is None
+                and node_reqs.compatible(sig_reqs[s], hint=False) is None
+            )
+    return compat
+
+
 @dataclass
 class NodePlan:
     """One node the solver decided to create."""
@@ -237,7 +301,7 @@ class NodePlan:
 
 @dataclass
 class ExistingNodePlan:
-    """Pods placed onto an existing node (never produced by this slice)."""
+    """Pods placed onto an existing node."""
 
     state_node: object
     pod_indices: List[int]
@@ -378,21 +442,15 @@ class TorchScheduler:
         state_nodes=None,
         daemonset_pods: Optional[List[Pod]] = None,
     ) -> SolverResult:
-        """One batched solve of ``pods`` onto new nodes."""
-        if state_nodes:
-            raise NotImplementedError("existing nodes (state_nodes) are not ported yet")
-        if daemonset_pods:
-            raise NotImplementedError("daemonset_pods overhead is not ported yet")
-        for np_ in self.nodepools:
-            if np_.spec.limits:
-                raise NotImplementedError(
-                    f'NodePool limits are not ported yet (nodepool "{np_.name}")'
-                )
+        """One batched solve of ``pods`` against the cluster: existing
+        nodes (``state_nodes``, ``StateNode``s, read and never modified)
+        first, then new nodes, each carrying the overhead of the
+        ``daemonset_pods`` it would run, within the NodePools' limits."""
         t0 = time.perf_counter()
         self._clock = _DeviceClock(self.device)
         self._phase_ms = dict.fromkeys(PHASES, 0.0)
         try:
-            return self._solve(pods)
+            return self._solve(pods, list(state_nodes or ()), list(daemonset_pods or ()))
         finally:
             total_ms = (time.perf_counter() - t0) * 1000.0
             device_ms = self._clock.ms()
@@ -413,7 +471,7 @@ class TorchScheduler:
         finally:
             self._phase_ms[name] += (time.perf_counter() - t0) * 1000.0
 
-    def _solve(self, pods: List[Pod]) -> SolverResult:
+    def _solve(self, pods: List[Pod], state_nodes: list, daemonset_pods: List[Pod]) -> SolverResult:
         result = SolverResult()
         self._merge_stats = {
             "merge_ms": 0.0,
@@ -432,7 +490,7 @@ class TorchScheduler:
         for g in groups:
             _route_check(g)
         if groups:
-            self._solve_tensor(pods, groups, result)
+            self._solve_tensor(pods, groups, daemonset_pods, state_nodes, result)
             self._check_relaxation(pods, groups, result)
         return result
 
@@ -512,26 +570,120 @@ class TorchScheduler:
         return pools, pool_catalogs
 
     def _solve_tensor(
-        self, pods: List[Pod], groups: List[SignatureGroup], result: SolverResult
+        self,
+        pods: List[Pod],
+        groups: List[SignatureGroup],
+        daemonset_pods: List[Pod],
+        state_nodes: list,
+        result: SolverResult,
     ) -> None:
+        # existing capacity first (scheduler.go:241-246): per-group
+        # indices still needing placement after the existing-node pack
+        leftover: Dict[int, List[int]] = {gi: list(g.pod_indices) for gi, g in enumerate(groups)}
+        if state_nodes:
+            with self._phase("existing"):
+                self._pack_existing(pods, groups, daemonset_pods, state_nodes, leftover, result)
+            if not any(leftover.values()):
+                return
         pools, pool_catalogs = self._build_pools()
         if not pools:
-            for g in groups:
-                for i in g.pod_indices:
+            for idx in leftover.values():
+                for i in idx:
                     result.pod_errors[pods[i].uid] = "no nodepool found"
             return
         with self._phase("encode"):
-            ctx = self._encode_phase(groups, pools, pool_catalogs)
-        self._pack_phase(pods, groups, pools, result, ctx)
+            ctx = self._encode_phase(groups, pools, pool_catalogs, daemonset_pods)
+        self._pack_phase(pods, groups, pools, leftover, state_nodes, result, ctx)
+
+    def _pack_existing(
+        self,
+        pods: List[Pod],
+        groups: List[SignatureGroup],
+        daemonset_pods: List[Pod],
+        state_nodes: list,
+        leftover: Dict[int, List[int]],
+        result: SolverResult,
+    ) -> None:
+        """Pack signature groups onto existing capacity before opening
+        any new node (scheduler.go:241-246; existingnode.go:64-120
+        semantics: taints → node-label/requirement compat → resource
+        fits). Nodes become an (M, R) free-capacity matrix (available
+        minus remaining daemon overhead) in the oracle's try-order
+        (initialized first, then name); admissibility comes from
+        existing_node_compat; the pack itself is the native first-fit,
+        over every pod of the batch in the oracle's pod order. Groups
+        with per-node state (host ports, volumes) or topology never get
+        here: _route_check refuses them."""
+        nodes = sorted(state_nodes, key=lambda n: (not n.initialized(), n.name()))
+        M = len(nodes)
+        # axis spans the nodes' allocatable and every request of the batch
+        axis = extend_axis(
+            build_axis_from_capacities([n.allocatable() for n in nodes]),
+            unique_requests(self._req_ids, self._req_map),
+        )
+        # free capacity: available minus REMAINING daemon overhead
+        # (expected daemons that fit the node, less those already present,
+        # floored at zero — existingnode.go:43-52)
+        free = np.zeros((M, axis.count), dtype=np.int32)
+        for m, node in enumerate(nodes):
+            taints = Taints(node.taints())
+            label_reqs = label_requirements(node.labels())
+            daemons = [
+                p
+                for p in daemonset_pods
+                if taints.tolerates(p) is None
+                and label_reqs.compatible(pod_requirements(p), hint=False) is None
+            ]
+            expected = resources.requests_for_pods(*daemons) if daemons else {}
+            remaining_daemon = {
+                k: v
+                for k, v in resources.subtract(expected, node.daemonset_request_total()).items()
+                if v > 0
+            }
+            avail = resources.subtract(node.available(), remaining_daemon)
+            # an overcommitted node (any negative axis) rejects every pod
+            # in the oracle (resources.fits: 0 ≤ negative is false) — a
+            # zero row reproduces that, since every pod requests pods≥1
+            if not any(v < 0 for v in avail.values()):
+                free[m] = quantize_capacity(avail, axis)
+
+        compat = existing_node_compat(groups, nodes)
+        if not compat.any():
+            return
+        # global pack in the oracle's pod order: all pods descending by
+        # (primary, memory) — queue.go:76
+        pod_idx = np.array([i for g in groups for i in g.pod_indices], dtype=np.int64)
+        sig_ids = np.array(
+            [s for s, g in enumerate(groups) for _ in g.pod_indices], dtype=np.int32
+        )
+        reqs = build_requests_matrix_ids(self._req_ids[pod_idx], axis, self._req_map)
+        order = np.lexsort((-reqs[:, 1], -reqs[:, 0]))
+        pod_idx, sig_ids, reqs = pod_idx[order], sig_ids[order], reqs[order]
+        assign, _ = run_pack_existing(reqs, sig_ids, compat, free)
+
+        by_node: Dict[int, List[int]] = {}
+        for j in np.flatnonzero(assign >= 0):
+            by_node.setdefault(int(assign[j]), []).append(int(pod_idx[j]))
+        if not by_node:
+            return
+        assigned = {i for members in by_node.values() for i in members}
+        for gi, g in enumerate(groups):
+            leftover[gi] = [i for i in g.pod_indices if i not in assigned]
+        for m in sorted(by_node):
+            result.existing_plans.append(
+                ExistingNodePlan(state_node=nodes[m], pod_indices=by_node[m])
+            )
 
     def _encode_phase(
         self,
         groups: List[SignatureGroup],
         pools: List[PoolEncoding],
         pool_catalogs: List[List[InstanceType]],
+        daemonset_pods: List[Pod],
     ) -> dict:
         """Catalog/signature tensorization, ONE kernel launch per pool,
-        per-pod encoding while the card works, then one sync."""
+        per-pod encoding and daemonset overhead while the card works,
+        then one sync."""
         pool_entries = [self._catalog_entry(cat) for cat in pool_catalogs]
         sig_compats: List[List] = [
             [encode_signature_for_pool(g, pool, e.vocab) for g in groups]
@@ -563,11 +715,24 @@ class TorchScheduler:
                 axis_ext,
                 build_requests_matrix_ids(self._req_ids, axis_ext, self._req_map),
             )
-        # no daemonset overhead in this slice: a zero vector per pool
-        daemon_requests = {
-            pool.nodepool.name: quantize_requests({}, matrices[id(e)][0])
-            for pool, e in zip(pools, pool_entries)
-        }
+        # daemonset overhead per pool, added to every planned node's load:
+        # the daemons whose tolerations and node selection admit the
+        # pool's template (well-known labels the template leaves open
+        # are allowed undefined)
+        daemon_requests = {}
+        for pool, e in zip(pools, pool_entries):
+            daemons = [
+                p
+                for p in daemonset_pods
+                if pool.taints.tolerates(p) is None
+                and pool.template_requirements.compatible(
+                    pod_requirements(p), frozenset(wk.WELL_KNOWN_LABELS), hint=False
+                )
+                is None
+            ]
+            daemon_requests[pool.nodepool.name] = quantize_requests(
+                resources.requests_for_pods(*daemons) if daemons else {}, matrices[id(e)][0]
+            )
 
         allowed_per_pool = []
         for allowed, zone_ok, ct_ok in pending:
@@ -588,30 +753,148 @@ class TorchScheduler:
         pods: List[Pod],
         groups: List[SignatureGroup],
         pools: List[PoolEncoding],
+        leftover: Dict[int, List[int]],
+        state_nodes: list,
         result: SolverResult,
         ctx: dict,
     ) -> None:
-        """One pack round: pool choice, class-merged jobs, pack +
-        finalize, cross-group merge."""
-        infos: List[dict] = []
-        jobs: List[tuple] = []
-        metas: List[dict] = []
-        with self._phase("prepare"):
-            for gi, g in enumerate(groups):
-                info = self._choose_pool(
-                    gi, g, pods, pools, ctx["sig_compats"], ctx["allowed_per_pool"], result,
-                    list(g.pod_indices),
+        """Bounded, limit-aware pack rounds: pool choice, class-merged
+        jobs, pack + finalize, cross-group merge, then NodePool limit
+        enforcement over the round's plans (scheduler.go:347-383). Plans
+        that no longer fit a limited pool are stripped and their pods
+        retried against the surviving pools/types next round; pods still
+        pending after the last round were starved by the limits."""
+        with self._phase("limits"):
+            remaining = self._initial_remaining(pools, state_nodes, result.node_plans)
+        # only _enforce_limits reads this; skip on the unlimited path
+        gi_of = (
+            {i: gi for gi, g in enumerate(groups) for i in g.pod_indices} if remaining else {}
+        )
+        last_chosen: Dict[int, str] = {}
+        pending_idx: Dict[int, List[int]] = {gi: idx for gi, idx in leftover.items() if idx}
+        max_rounds = max(len(pools) + 1, 4) if remaining else 1
+        for _round in range(max_rounds):
+            if not pending_idx:
+                break
+            with self._phase("limits"):
+                limit_masks = self._limit_masks(pools, ctx["encoded"], remaining)
+            infos: List[dict] = []
+            jobs: List[tuple] = []
+            metas: List[dict] = []
+            with self._phase("prepare"):
+                for gi in sorted(pending_idx):
+                    info = self._choose_pool(
+                        gi, groups[gi], pods, pools, ctx["sig_compats"], ctx["allowed_per_pool"],
+                        result, pending_idx[gi], limit_masks,
+                    )
+                    if info is not None:
+                        infos.append(info)
+                self._prepare_class_jobs(
+                    infos, ctx["matrices"], ctx["pool_entries"], pools, ctx["encoded"],
+                    ctx["daemon_requests"], pods, result, jobs, metas,
                 )
-                if info is not None:
-                    infos.append(info)
-            self._prepare_class_jobs(
-                infos, ctx["matrices"], ctx["pool_entries"], pools, ctx["encoded"],
-                ctx["daemon_requests"], pods, result, jobs, metas,
-            )
-        records: List[dict] = []
-        self._pack_and_finalize(jobs, metas, pods, result, records)
-        with self._phase("merge"):
-            self._merge_and_emit(records, pods, result)
+            records: List[dict] = []
+            plans_start = len(result.node_plans)
+            self._pack_and_finalize(jobs, metas, pods, result, records)
+            with self._phase("merge"):
+                self._merge_and_emit(records, pods, result)
+            if not remaining:
+                pending_idx = {}
+                break
+            last_chosen.update({info["gi"]: pools[info["chosen"]].nodepool.name for info in infos})
+            with self._phase("limits"):
+                pending_idx = self._enforce_limits(result, plans_start, remaining, gi_of)
+        for gi, idx in pending_idx.items():
+            pool_name = last_chosen.get(gi, pools[0].nodepool.name)
+            for i in idx:
+                result.pod_errors.setdefault(
+                    pods[i].uid,
+                    f'all available instance types exceed limits for nodepool: "{pool_name}"',
+                )
+
+    # ------------------------------------------------------------------
+    # NodePool limits (scheduler.go:76-80, 287-321, 347-383)
+
+    @staticmethod
+    def _initial_remaining(
+        pools: List[PoolEncoding], state_nodes: list, prior_plans: List[NodePlan] = ()
+    ) -> Dict[str, dict]:
+        """Per limited pool: spec limits minus the capacity of its
+        existing nodes (scheduler.go:76-80 + :287-321) and of the
+        NodePlans already emitted in this solve."""
+        remaining: Dict[str, dict] = {}
+        for pool in pools:
+            limits = pool.nodepool.spec.limits
+            if limits:
+                remaining[pool.nodepool.name] = dict(limits)
+        if remaining:
+            for n in state_nodes:
+                name = n.labels().get(wk.NODEPOOL_LABEL_KEY, "")
+                if name in remaining:
+                    remaining[name] = resources.subtract(remaining[name], n.capacity())
+            for plan in prior_plans:
+                if plan.nodepool_name in remaining:
+                    remaining[plan.nodepool_name] = resources.subtract(
+                        remaining[plan.nodepool_name], plan.instance_type.capacity
+                    )
+        return remaining
+
+    @staticmethod
+    def _limit_masks(
+        pools: List[PoolEncoding],
+        encoded: List[EncodedInstanceTypes],
+        remaining: Dict[str, dict],
+    ) -> Optional[List[Optional[np.ndarray]]]:
+        """Per pool, the (T,) mask of instance types whose capacity still
+        fits under the pool's remaining limits (filterByRemainingResources,
+        scheduler.go:367-383); None for unlimited pools."""
+        if not remaining:
+            return None
+        masks: List[Optional[np.ndarray]] = []
+        for pool, enc in zip(pools, encoded):
+            rem = remaining.get(pool.nodepool.name)
+            if rem is None:
+                masks.append(None)
+                continue
+            mask = np.ones(len(enc.instance_types), dtype=bool)
+            for t, it in enumerate(enc.instance_types):
+                for name, r in rem.items():
+                    if it.capacity.get(name, 0) > r:
+                        mask[t] = False
+                        break
+            masks.append(mask)
+        return masks
+
+    @staticmethod
+    def _enforce_limits(
+        result: SolverResult,
+        plans_start: int,
+        remaining: Dict[str, dict],
+        gi_of: Dict[int, int],
+    ) -> Dict[int, List[int]]:
+        """Running reduction over this round's emitted plans in order:
+        subtract each plan's pinned instance-type capacity from its
+        pool's remaining limits; plans that no longer fit are stripped
+        and their pods returned, by group, for the next round (plans pin
+        their type, so exact subtraction is what actually launches)."""
+        kept: List[NodePlan] = []
+        spilled: Dict[int, List[int]] = {}
+        for plan in result.node_plans[plans_start:]:
+            rem = remaining.get(plan.nodepool_name)
+            if rem is None:
+                kept.append(plan)
+                continue
+            cap = plan.instance_type.capacity
+            if any(cap.get(name, 0) > r for name, r in rem.items()):
+                for i in plan.pod_indices:
+                    spilled.setdefault(gi_of[i], []).append(i)
+                continue
+            remaining[plan.nodepool_name] = resources.subtract(rem, cap)
+            kept.append(plan)
+        result.node_plans[plans_start:] = kept
+        return spilled
+
+    # ------------------------------------------------------------------
 
     def _choose_pool(
         self,
@@ -623,19 +906,35 @@ class TorchScheduler:
         allowed_per_pool,
         result: SolverResult,
         indices: List[int],
+        limit_masks: Optional[List[Optional[np.ndarray]]] = None,
     ) -> Optional[dict]:
         """First pool (weight order) whose template accepts the signature
-        and offers at least one viable type (scheduler.go:256-283)."""
+        and offers at least one viable type within its remaining limits
+        (scheduler.go:256-283 + filterByRemainingResources :367).
+        ``indices`` is the group's still-unplaced subset."""
         chosen = None
+        chosen_viable = None
+        limit_starved: List[str] = []
         for pi, pool in enumerate(pools):
             if not sig_compats[pi][gi].compatible:
                 continue
-            if allowed_per_pool[pi][0][gi].any():
+            compat_row = allowed_per_pool[pi][0][gi]
+            if limit_masks is not None and limit_masks[pi] is not None:
+                viable_row = compat_row & limit_masks[pi]
+                if compat_row.any() and not viable_row.any():
+                    limit_starved.append(pool.nodepool.name)
+                    continue
+            else:
+                viable_row = compat_row
+            if viable_row.any():
                 chosen = pi
+                chosen_viable = viable_row
                 break
         if chosen is None:
             err = "; ".join(
-                f'incompatible with nodepool "{p.nodepool.name}", '
+                f'all available instance types exceed limits for nodepool: "{p.nodepool.name}"'
+                if p.nodepool.name in limit_starved
+                else f'incompatible with nodepool "{p.nodepool.name}", '
                 f'{sig_compats[pi][gi].error or "no viable instance type"}'
                 for pi, p in enumerate(pools)
             )
@@ -647,7 +946,7 @@ class TorchScheduler:
             gi=gi,
             indices=indices,
             chosen=chosen,
-            viable=allowed_per_pool[chosen][0][gi],  # (T,) bool
+            viable=chosen_viable,  # (T,) bool, limit-filtered
             zone_ok=allowed_per_pool[chosen][1][gi],  # (Z,)
             ct_ok=allowed_per_pool[chosen][2][gi],  # (C,)
             max_per_node=np.int32(MAX_INT32),

@@ -130,3 +130,50 @@ def test_small_solve_on_card_matches_cpu(cuda):
     cpu = TorchScheduler([pool], provider, device="cpu").solve(pods)
     assert stream(res) == stream(cpu)
     assert res.pod_errors == cpu.pod_errors
+
+
+def test_pack_existing_plain_version_on_card_matches_native(cuda):
+    from karpenter_core_tpu_torch.solver import pack as pp
+
+    rng = np.random.RandomState(21)
+    P, M, S, R = 3000, 200, 5, 3
+    reqs = rng.randint(1, 12, size=(P, R)).astype(np.int32)
+    reqs = reqs[np.lexsort((-reqs[:, 1], -reqs[:, 0]))]
+    sig_ids = rng.randint(0, S, size=P).astype(np.int32)
+    compat = (rng.rand(S, M) > 0.3).astype(np.uint8)
+    free = rng.randint(0, 60, size=(M, R)).astype(np.int32)
+    assign, left = pp.run_pack_existing(reqs, sig_ids, compat, free)
+    got, got_left = pp.pack_existing_reference(
+        *(torch.from_numpy(x).to(cuda) for x in (reqs, sig_ids, compat, free))
+    )
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), assign)
+    np.testing.assert_array_equal(got_left.cpu().numpy(), left)
+    assert (assign >= 0).any() and (assign < 0).any()
+
+
+def test_cluster_solve_on_card_matches_cpu(cuda):
+    """A small live cluster (chip_smoke.py's cluster world, cut down):
+    the card's plans, existing plans and errors equal the CPU solve's."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from karpenter_core_tpu_torch.solver import TorchScheduler
+
+    pools, provider, pods, nodes, daemons, missing = smoke.cluster_world(3000, 200, 60)
+    before = ck.COMPAT_ALLOWED.launches
+    res = TorchScheduler(pools, provider, device="cuda").solve(
+        pods, state_nodes=nodes, daemonset_pods=daemons
+    )
+    assert ck.COMPAT_ALLOWED.launches - before == 2  # one per pool
+    cpu = TorchScheduler(pools, provider, device="cpu").solve(
+        pods, state_nodes=nodes, daemonset_pods=daemons
+    )
+    assert smoke.plan_stream(res) == smoke.plan_stream(cpu)
+    assert smoke.existing_stream(res) == smoke.existing_stream(cpu)
+    assert res.pod_errors == cpu.pod_errors
+    smoke.check_cluster(res, pods, nodes, daemons, missing)

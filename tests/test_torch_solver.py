@@ -7,7 +7,8 @@ route forced in interpret mode) and with ``TorchScheduler(device="cpu")``,
 and requires the identical ordered plan stream
 ``(nodepool, instance type, zone, capacity type, price, pod indices)``
 plus equal ``pod_errors`` (by pod index), ``node_count``,
-``pods_scheduled`` and ``total_price``. The mix is bench config 3's
+``pods_scheduled`` and ``total_price``. The reference runs its default
+pack route, the native packer at K = 1024 (``reference_native``). The mix is bench config 3's
 (``bench.py:469``) without its topology-spread share: 3/9 capacity-type
 selectors, 2/9 ``dedicated`` tolerations, 4/9 plain pods.
 """
@@ -21,6 +22,8 @@ import pytest
 
 from karpenter_core_tpu.solver import TPUScheduler
 from karpenter_core_tpu_torch.solver import TorchScheduler
+from karpenter_core_tpu_torch.solver.solver import PHASES
+from test_torch_native import reference_native
 
 REF = "karpenter_core_tpu"
 PORT = "karpenter_core_tpu_torch"
@@ -109,6 +112,7 @@ def assert_same_plans(port_res, port_pods, ref_res, ref_pods):
 
 
 def _solve_both(monkeypatch, route: str, **kw):
+    reference_native(monkeypatch)
     if route == "pallas":
         monkeypatch.setenv("KARPENTER_TPU_PALLAS_MIN_S", "1")
         monkeypatch.setenv("KARPENTER_TPU_PALLAS_INTERPRET", "1")
@@ -145,8 +149,12 @@ def test_plan_identity(monkeypatch, case, route):
     if case == "two-pools":
         assert {p.nodepool_name for p in res.node_plans} == {"default", "spot-pool"}
     assert set(solver.last_timings) == {"total_ms", "device_ms", "host_ms"} | {
-        f"{name}_ms" for name in ("group", "encode", "prepare", "pack", "finalize", "merge")
+        f"{name}_ms" for name in PHASES
     }
+    assert set(PHASES) == {
+        "group", "existing", "encode", "prepare", "pack", "finalize", "merge", "limits",
+    }
+    assert solver.last_timings["existing_ms"] == 0.0  # no existing nodes in this world
     assert sum(v for k, v in solver.last_timings.items() if k not in ("total_ms", "host_ms")) <= (
         solver.last_timings["total_ms"]
     )
@@ -217,12 +225,17 @@ def _out_of_slice(kind: str):
         pod.spec.containers[0].ports = [ob.ContainerPort(host_port=8080)]
     elif kind == "volumes":
         pod.spec.volumes = [ob.Volume(name="data", persistent_volume_claim="claim-0")]
-    elif kind == "state_nodes":
-        kwargs["state_nodes"] = [object()]
-    elif kind == "daemonset_pods":
-        kwargs["daemonset_pods"] = [pods[1]]
-    elif kind == "NodePool limits":
-        pools[0].spec.limits = {"cpu": 1000}
+    elif kind == "host ports with state_nodes":
+        # existing capacity is in the slice; a host-port group still is not
+        pod.spec.containers[0].ports = [ob.ContainerPort(host_port=8080)]
+        node = ob.Node()
+        node.metadata.name = "node-0"
+        node.metadata.labels = {wk.LABEL_HOSTNAME: "node-0"}
+        pq = importlib.import_module(f"{PORT}.kube.quantity").parse_quantity
+        node.status.capacity = {"cpu": pq("8"), "memory": pq("32Gi"), "pods": pq("110")}
+        node.status.allocatable = dict(node.status.capacity)
+        statenode = importlib.import_module(f"{PORT}.state.statenode")
+        kwargs["state_nodes"] = [statenode.StateNode(node=node)]
     return TorchScheduler(pools, provider, device="cpu"), pods, kwargs
 
 
@@ -234,9 +247,7 @@ def _out_of_slice(kind: str):
         "pod anti-affinity",
         "host ports",
         "volumes",
-        "state_nodes",
-        "daemonset_pods",
-        "NodePool limits",
+        "host ports with state_nodes",
     ],
 )
 def test_out_of_slice_features_raise(kind):
