@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero:
 3. Kernel: the kernel, through the wrapper's own tile pick and with
    each of its two tile shapes forced, against its plain PyTorch
    versions on the card, bit for bit, on seeded ragged planes, the
-   slice's own catalog shapes, S ∈ {4, 16, 17, 64, 65, 128, 512} × T=2048 at the
+   slice's, config 3's and the cluster-spread phase's own catalog shapes
+   (S = 4, 12, 13 × T = 2000), S ∈ {4, 16, 17, 64, 65, 128, 512} × T=2048 at the
    slice's widths and S=8192 × T=2048; one JSON line per shape with
    ``kernel_ms`` (CUDA events around back-to-back launches alone, queued
    behind a device sleep so host enqueue time is hidden), per tile shape,
@@ -39,7 +40,20 @@ Phases, in order; any failure exits non-zero:
    existing node, the limit, every pod accounted once, and the C++
    existing-node first-fit against its plain PyTorch version on the card
    on the solve's own inputs.
-6. A ``{"kernels": [...]}`` line, then the last line
+6. Config 3: bench config 3 whole (``config3_world``: the slice's pods
+   with its zone spread on residues 5 and 6), one cold and three warm
+   solves on the card, the kernel's launches, plans and errors identical
+   to the ``device="cpu"`` solve, the plan invariants and
+   ``check_spread`` (every zone that received a spread group's pods is
+   within max_skew of the group's least-loaded supported zone).
+7. Cluster spread: phase 6's pods plus 800 ``app=ha-web`` pods with a
+   hostname spread (one replica per node) against phase 5's cluster,
+   whose nodes and bound pods also sit in a ``KubeClient`` passed as
+   ``kube_client`` (zone-1 workers labeled ``app=svc-5``, a bound
+   ha-web pod on every 5th node): the same solves and comparisons,
+   ``check_cluster``, ``check_spread`` against the seeds and
+   ``check_hostname``.
+8. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -54,6 +68,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 
@@ -71,6 +86,7 @@ N_TYPES = 2_000
 SEED = 11  # bench.py config 3's RandomState
 N_NODES = 1_000  # existing nodes of the cluster phase
 NODE_SEED = 12
+N_HA = 800  # phase 7's HA front end: one replica per node
 # the NodePool example of Karpenter's documentation (Concepts → NodePools)
 RESERVED_LIMITS = {"cpu": "1000", "memory": "1000Gi"}
 
@@ -380,20 +396,25 @@ def ptxas_usage(log: str) -> dict:
 # -- phase 4: the slice ----------------------------------------------------------
 
 
-def slice_world(n_pods: int = N_PODS, n_types: int = N_TYPES):
+def slice_world(n_pods: int = N_PODS, n_types: int = N_TYPES, spread: bool = False):
     """bench.py config 3 (RandomState(11), 50k pods, instance_types(2000),
-    NodePool "default") without its topology-spread share: residues 5
-    and 6 become plain pods, so the count stays 50,000."""
+    NodePool "default"). Without ``spread`` (phases 4 and 5) it drops the
+    topology-spread share: residues 5 and 6 become plain pods, so the
+    count stays 50,000. With it (``config3_world``) residues 5 and 6
+    carry config 3's zone spread: max_skew 1, DoNotSchedule, selector
+    ``app=svc-{i % 9}``."""
     from karpenter_core_tpu_torch.apis import labels as wk
     from karpenter_core_tpu_torch.apis.nodepool import NodePool
     from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
     from karpenter_core_tpu_torch.kube.objects import (
         Container,
+        LabelSelector,
         Pod,
         PodCondition,
         PodSpec,
         ResourceRequirements,
         Toleration,
+        TopologySpreadConstraint,
     )
     from karpenter_core_tpu_torch.kube.quantity import parse_quantity
 
@@ -418,11 +439,25 @@ def slice_world(n_pods: int = N_PODS, n_types: int = N_TYPES):
             pod.spec.node_selector = {wk.CAPACITY_TYPE_LABEL_KEY: ["spot", "on-demand"][i % 2]}
         elif r < 5:
             pod.spec.tolerations = [Toleration(key="dedicated", operator="Exists")]
+        elif r < 7 and spread:
+            pod.spec.topology_spread_constraints = [
+                TopologySpreadConstraint(
+                    max_skew=1, topology_key=wk.LABEL_TOPOLOGY_ZONE,
+                    when_unsatisfiable="DoNotSchedule",
+                    label_selector=LabelSelector(match_labels={"app": f"svc-{r}"}),
+                )
+            ]
         pod.status.conditions = [
             PodCondition(type="PodScheduled", status="False", reason="Unschedulable")
         ]
         pods.append(pod)
     return [nodepool], provider, pods
+
+
+def config3_world(n_pods: int = N_PODS, n_types: int = N_TYPES):
+    """bench.py config 3 whole (``bench.py:469``): its 2/9 zone-spread
+    share included, nothing reduced."""
+    return slice_world(n_pods, n_types, spread=True)
 
 
 def plan_stream(res) -> list:
@@ -460,10 +495,15 @@ def profile_solve(solver, pods, **solve_kw) -> dict:
     """One warm solve under torch.profiler: the device's busy time (sum
     of self device time over every event), the compat kernel's device
     time, and the idle share of the solve's wall time. Reports "not
-    measured" where the profiler recorded no device time."""
+    measured" where the profiler recorded no device time, and for the
+    kernel's time where it recorded none of the launches the wrapper's
+    counter saw in that solve (``kernel_launches_counted``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+
+    counted_before = ck.COMPAT_ALLOWED.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         solver.solve(pods, **solve_kw)
@@ -478,15 +518,72 @@ def profile_solve(solver, pods, **solve_kw) -> dict:
         if "compat_allowed_" in evt.key and "_kernel" in evt.key:
             kernel_us += dev_us
             kernel_calls += int(evt.count)
+    counted = ck.COMPAT_ALLOWED.launches - counted_before
     if busy_us <= 0.0:
-        return {"profiled_wall_ms": wall_ms, "device_busy_ms": "not measured"}
+        return {"profiled_wall_ms": wall_ms, "device_busy_ms": "not measured",
+                "kernel_launches_counted": counted}
     return {
         "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_us / 1000.0,
         "device_idle_share": 1.0 - busy_us / 1000.0 / wall_ms,
-        "kernel_device_ms_per_launch": kernel_us / 1000.0 / max(kernel_calls, 1),
+        "kernel_device_ms_per_launch": kernel_us / 1000.0 / kernel_calls if kernel_calls else "not measured",
         "kernel_launches_profiled": kernel_calls,
+        "kernel_launches_counted": counted,
     }
+
+
+def solve_runs(solver, pods, **solve_kw):
+    """One cold and three warm solves with the kernel's launches counted
+    from 0 just before and read just after → (cold result, cold ms,
+    [(warm ms, last_timings)], launches). Fails if a warm solve changes
+    the plans."""
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+
+    ck.COMPAT_ALLOWED.launches = 0
+    t0 = time.perf_counter()
+    cold = solver.solve(pods, **solve_kw)
+    cold_ms = (time.perf_counter() - t0) * 1000.0
+    warm_runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        warm = solver.solve(pods, **solve_kw)
+        warm_runs.append(((time.perf_counter() - t0) * 1000.0, dict(solver.last_timings)))
+        if (plan_stream(warm), existing_stream(warm), warm.pod_errors) != (
+            plan_stream(cold), existing_stream(cold), cold.pod_errors
+        ):
+            fail("a warm solve changed the plans")
+    return cold, cold_ms, warm_runs, ck.COMPAT_ALLOWED.launches
+
+
+def timing_row(cold, cold_ms, warm_runs, launches) -> dict:
+    warm_ms = statistics.median(ms for ms, _ in warm_runs)
+    return {
+        "pods_per_s": cold.pods_scheduled / (warm_ms / 1000.0),
+        "cold_ms": cold_ms,
+        "warm_ms": warm_ms,
+        "warm_runs_ms": [ms for ms, _ in warm_runs],
+        "device_ms": statistics.median(t["device_ms"] for _, t in warm_runs),
+        "host_ms": statistics.median(t["host_ms"] for _, t in warm_runs),
+        "warm_phases_ms": {
+            k: statistics.median(t[k] for _, t in warm_runs) for k in warm_runs[0][1] if k.endswith("_ms")
+        },
+        "pods_scheduled": cold.pods_scheduled,
+        "pod_errors": len(cold.pod_errors),
+        "pod_error_kinds": sorted({e.split(":")[0] for e in cold.pod_errors.values()}),
+        "nodes": cold.node_count,
+        "total_price": cold.total_price,
+        "solves": 4,
+        "kernel_launches": launches,
+    }
+
+
+def same_as_cpu(res, cpu, what: str) -> None:
+    if plan_stream(cpu) != plan_stream(res):
+        fail(f"{what}: the plans differ between cuda and cpu")
+    if existing_stream(cpu) != existing_stream(res):
+        fail(f"{what}: the existing plans differ between cuda and cpu")
+    if cpu.pod_errors != res.pod_errors:
+        fail(f"{what}: the pod errors differ between cuda and cpu")
 
 
 # -- phase 5: the cluster --------------------------------------------------------
@@ -509,23 +606,53 @@ def cluster_world(n_pods: int = N_PODS, n_types: int = N_TYPES, n_nodes: int = N
     - Daemonsets ``cni`` (100m / 64Mi, tolerates everything), ``logs``
       (200m / 256Mi) and ``exporter`` (50m / 32Mi, on-demand nodes only).
     """
+    return _cluster_world(n_pods, n_types, n_nodes)[:6]
+
+
+def cluster_spread_world(
+    n_pods: int = N_PODS, n_types: int = N_TYPES, n_nodes: int = N_NODES, n_ha: int = N_HA
+):
+    """``cluster_world`` with bench config 3's pods whole, an HA front
+    end rolling out, and the cluster in a kube store → (nodepools,
+    provider, pods, state_nodes, daemonset_pods, missing, kube):
+
+    - the pending pods are ``config3_world``'s, then ``n_ha`` pods
+      ``app=ha-web`` (250m / 256Mi) with a self-selecting hostname spread
+      (max_skew 1, DoNotSchedule): one replica per node;
+    - the bound worker pods on ``test-zone-1`` nodes carry ``app=svc-5``,
+      so svc-5's zone seeds are skewed;
+    - every 5th node also runs one bound ``app=ha-web`` pod;
+    - ``kube`` holds every node and every bound pod, daemons included.
+    """
+    return _cluster_world(n_pods, n_types, n_nodes, n_ha=n_ha)
+
+
+def _cluster_world(n_pods: int, n_types: int, n_nodes: int, n_ha: Optional[int] = None):
+    """The cluster of phases 5 and 7 (``n_ha`` None: phase 5's, no kube
+    store); the random draws are the same either way."""
     from karpenter_core_tpu_torch.apis import labels as wk
     from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.kube.client import KubeClient
     from karpenter_core_tpu_torch.kube.objects import (
         Container,
+        LabelSelector,
         Node,
         OwnerReference,
         Pod,
+        PodCondition,
         PodSpec,
         ResourceRequirements,
         Taint,
         Toleration,
+        TopologySpreadConstraint,
     )
     from karpenter_core_tpu_torch.kube.quantity import parse_quantity
     from karpenter_core_tpu_torch.scheduling import Taints, resources
     from karpenter_core_tpu_torch.state import StateNode
 
-    pools, provider, pods = slice_world(n_pods, n_types)
+    spread = n_ha is not None
+    pools, provider, pods = slice_world(n_pods, n_types, spread=spread)
+    kube = KubeClient() if spread else None
     default = pools[0]
     default.spec.weight = 0
     reserved = NodePool()
@@ -533,9 +660,10 @@ def cluster_world(n_pods: int = N_PODS, n_types: int = N_TYPES, n_nodes: int = N
     reserved.spec.weight = 10
     reserved.spec.limits = {k: parse_quantity(v) for k, v in RESERVED_LIMITS.items()}
 
-    def pod(name, cpu, mem, node_name="", daemonset=False, tolerations=(), selector=None):
+    def pod(name, cpu, mem, node_name="", daemonset=False, tolerations=(), selector=None, labels=None):
         p = Pod()
         p.metadata.name = name
+        p.metadata.labels = dict(labels or {})
         if daemonset:
             p.metadata.owner_references = [OwnerReference(kind="DaemonSet", name=name)]
         p.spec = PodSpec(
@@ -592,15 +720,21 @@ def cluster_world(n_pods: int = N_PODS, n_types: int = N_TYPES, n_nodes: int = N
         node.status.capacity = dict(it.capacity)
         node.status.allocatable = it.allocatable()
         sn = StateNode(node=node)
+        bound = []
+        worker_labels = (
+            {"app": "svc-5"} if spread and node.metadata.labels[wk.LABEL_TOPOLOGY_ZONE] == "test-zone-1" else {}
+        )
         target = node.status.allocatable["cpu"] * rng.uniform(0.4, 0.8)
         used, j = 0, 0
         while True:
             c, mem = cpus[rng.randint(len(cpus))], mems[rng.randint(len(mems))]
             if used + parse_quantity(c) > target:
                 break
-            sn.update_for_pod(pod(f"{name}-w{j}", c, mem, node_name=name))
+            bound.append(pod(f"{name}-w{j}", c, mem, node_name=name, labels=worker_labels))
             used += parse_quantity(c)
             j += 1
+        if spread and m % 5 == 0:
+            bound.append(pod(f"{name}-ha", "250m", "256Mi", node_name=name, labels={"app": "ha-web"}))
         runs = [
             d
             for d in daemons
@@ -610,10 +744,28 @@ def cluster_world(n_pods: int = N_PODS, n_types: int = N_TYPES, n_nodes: int = N
         absent = runs[:1] if m % 10 == 0 else []  # cni, which every node runs
         for d in runs[len(absent):]:
             cpu, mem = daemon_requests[d.name]
-            sn.update_for_pod(pod(f"{name}-{d.name}", cpu, mem, node_name=name, daemonset=True))
+            bound.append(pod(f"{name}-{d.name}", cpu, mem, node_name=name, daemonset=True))
+        for p in bound:
+            sn.update_for_pod(p)
+        if kube is not None:
+            kube.create(node)
+            for p in bound:
+                kube.create(p)
         missing[name] = resources.requests_for_pods(*absent) if absent else {}
         nodes.append(sn)
-    return [reserved, default], provider, pods, nodes, daemons, missing
+    for k in range(n_ha or 0):
+        p = pod(f"ha-web-{k}", "250m", "256Mi", labels={"app": "ha-web"})
+        p.spec.topology_spread_constraints = [
+            TopologySpreadConstraint(
+                max_skew=1, topology_key=wk.LABEL_HOSTNAME, when_unsatisfiable="DoNotSchedule",
+                label_selector=LabelSelector(match_labels={"app": "ha-web"}),
+            )
+        ]
+        p.status.conditions = [
+            PodCondition(type="PodScheduled", status="False", reason="Unschedulable")
+        ]
+        pods.append(p)
+    return [reserved, default], provider, pods, nodes, daemons, missing, kube
 
 
 def existing_stream(res) -> list:
@@ -738,7 +890,6 @@ def capture_pack_existing(fn):
 def run_cluster_phase(device: str = "cuda", n_pods: int = N_PODS, n_types: int = N_TYPES,
                       n_nodes: int = N_NODES) -> dict:
     """Phase 5 → its summary line (also emitted); fails on any check."""
-    from karpenter_core_tpu_torch.solver import compat_kernels as ck
     from karpenter_core_tpu_torch.solver.solver import TorchScheduler
 
     t0 = time.perf_counter()
@@ -746,32 +897,13 @@ def run_cluster_phase(device: str = "cuda", n_pods: int = N_PODS, n_types: int =
     world_s = time.perf_counter() - t0
     kw = dict(state_nodes=nodes, daemonset_pods=daemons)
     solver = TorchScheduler(pools, provider, device=device)
-    # counts from 0 just before this path, read just after it
-    ck.COMPAT_ALLOWED.launches = 0
-    t0 = time.perf_counter()
-    cold = solver.solve(pods, **kw)
-    cold_ms = (time.perf_counter() - t0) * 1000.0
-    warm_runs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        warm = solver.solve(pods, **kw)
-        warm_runs.append(((time.perf_counter() - t0) * 1000.0, dict(solver.last_timings)))
-        if (plan_stream(warm), existing_stream(warm), warm.pod_errors) != (
-            plan_stream(cold), existing_stream(cold), cold.pod_errors
-        ):
-            fail("a warm cluster solve changed the plans")
-    launches = ck.COMPAT_ALLOWED.launches
-    if launches == 0:
+    cold, cold_ms, warm_runs, launches = solve_runs(solver, pods, **kw)
+    if device == "cuda" and launches == 0:
         fail("the cluster solve never launched the compat kernel")
     cpu, inputs = capture_pack_existing(
         lambda: TorchScheduler(pools, provider, device="cpu").solve(pods, **kw)
     )
-    if plan_stream(cpu) != plan_stream(cold):
-        fail("the cluster solve's plans differ between cuda and cpu")
-    if existing_stream(cpu) != existing_stream(cold):
-        fail("the cluster solve's existing plans differ between cuda and cpu")
-    if cpu.pod_errors != cold.pod_errors:
-        fail("the cluster solve's pod errors differ between cuda and cpu")
+    same_as_cpu(cold, cpu, "cluster")
     summary = check_cluster(cold, pods, nodes, daemons, missing)
     packed = pack_existing_check(inputs, device)
     emit({"pack_existing": packed})
@@ -783,25 +915,183 @@ def run_cluster_phase(device: str = "cuda", n_pods: int = N_PODS, n_types: int =
         ),
         "world_build_s": world_s,
         "bound_pods": sum(len(sn.pod_requests) for sn in nodes),
-        "cold_ms": cold_ms,
-        "warm_ms": statistics.median(ms for ms, _ in warm_runs),
-        "warm_runs_ms": [ms for ms, _ in warm_runs],
-        "device_ms": statistics.median(t["device_ms"] for _, t in warm_runs),
-        "host_ms": statistics.median(t["host_ms"] for _, t in warm_runs),
-        "warm_phases_ms": {
-            k: statistics.median(t[k] for _, t in warm_runs)
-            for k in warm_runs[0][1]
-            if k.endswith("_ms")
-        },
+        **timing_row(cold, cold_ms, warm_runs, launches),
         **summary,
-        "pods_scheduled": cold.pods_scheduled,
-        "pod_errors": len(cold.pod_errors),
-        "pod_error_kinds": sorted({e.split(":")[0] for e in cold.pod_errors.values()}),
-        "new_nodes": cold.node_count,
-        "total_price": cold.total_price,
-        "solves": 4,
-        "kernel_launches": launches,
         **profiled,
+    }
+    emit(row)
+    return row
+
+
+# -- phases 6 and 7: topology spread ---------------------------------------------
+
+
+def check_spread(res, pods, nodes, provider, kube=None) -> list:
+    """Fail unless every zone-spread group holds what the serial greedy
+    guarantees: for each zone that received any of the group's pods, the
+    final count of pods matching its selector (bound pods in ``kube``
+    plus placements on existing and new nodes) minus the minimum over
+    its supported zones is at most max_skew. A group is the pods sharing
+    one (selector, namespace, max_skew); supported zones are those of
+    the catalog's available offerings and of the existing nodes (the
+    worlds here put no zone requirement or node filter on spread pods).
+    → one summary per group."""
+    from karpenter_core_tpu_torch.apis import labels as wk
+
+    zone_key = wk.LABEL_TOPOLOGY_ZONE
+    where = {}
+    for plan in res.node_plans:
+        for i in plan.pod_indices:
+            where[i] = plan.zone
+    for e in res.existing_plans:
+        for i in e.pod_indices:
+            where[i] = e.state_node.labels().get(zone_key)
+    supported = {o.zone for it in provider.instance_types for o in it.offerings if o.available}
+    supported |= {sn.labels()[zone_key] for sn in nodes if zone_key in sn.labels()}
+    bound = []
+    if kube is not None:
+        node_zone = {n.name: n.metadata.labels.get(zone_key) for n in kube.list("Node")}
+        bound = [
+            (p, node_zone.get(p.spec.node_name))
+            for p in kube.list("Pod")
+            if p.spec.node_name
+            and p.status.phase not in ("Succeeded", "Failed")
+            and p.metadata.deletion_timestamp is None
+        ]
+    groups = {}
+    for i, p in enumerate(pods):
+        for c in p.spec.topology_spread_constraints:
+            if c.topology_key == zone_key:
+                key = (c.label_selector.key(), p.namespace, c.max_skew)
+                groups.setdefault(key, (c.label_selector, []))[1].append(i)
+    out = []
+    for (_, ns, skew), (sel, members) in sorted(groups.items(), key=lambda kv: repr(kv[0])):
+        final = dict.fromkeys(supported, 0)
+        for p, z in bound:
+            if z is not None and p.namespace == ns and sel.matches(p.metadata.labels):
+                final[z] = final.get(z, 0) + 1
+        for i, z in where.items():
+            if z is not None and pods[i].namespace == ns and sel.matches(pods[i].metadata.labels):
+                final[z] = final.get(z, 0) + 1
+        lo = min(final[z] for z in supported)
+        received = sorted({where[i] for i in members if i in where})
+        worst = max((final[z] - lo for z in received), default=0)
+        if worst > skew:
+            fail(
+                f"spread {sel.match_labels} breaks max_skew {skew}: final counts "
+                f"{dict(sorted(final.items()))}, pods landed in {received}"
+            )
+        placed = {}
+        for i in members:
+            if i in where:
+                placed[where[i]] = placed.get(where[i], 0) + 1
+        out.append({
+            "selector": dict(sel.match_labels), "max_skew": skew, "pods": len(members),
+            "placed_by_zone": dict(sorted(placed.items())),
+            "final_by_zone": dict(sorted(final.items())), "worst_skew": worst,
+        })
+    if not out:
+        fail("the world has no zone-spread group")
+    return out
+
+
+def check_hostname(res, pods, kube, app: str = "ha-web") -> dict:
+    """Fail unless every node that received a pod ``app=<app>`` (existing
+    or new) holds at most max_skew of them, bound pods in ``kube``
+    included: one replica per node at max_skew 1."""
+    from karpenter_core_tpu_torch.apis import labels as wk
+
+    members = [i for i, p in enumerate(pods) if p.metadata.labels.get("app") == app]
+    if not members:
+        fail(f"the world has no {app} pod")
+    (cap,) = {
+        c.max_skew
+        for i in members
+        for c in pods[i].spec.topology_spread_constraints
+        if c.topology_key == wk.LABEL_HOSTNAME
+    }
+    bound = {}
+    for p in kube.list("Pod"):
+        if p.spec.node_name and p.metadata.labels.get("app") == app:
+            bound[p.spec.node_name] = bound.get(p.spec.node_name, 0) + 1
+    on_existing = on_new = 0
+    for e in res.existing_plans:
+        n = sum(1 for i in e.pod_indices if pods[i].metadata.labels.get("app") == app)
+        on_existing += n
+        if n and n + bound.get(e.state_node.name(), 0) > cap:
+            fail(f"existing node {e.state_node.name()} holds {n} + {bound.get(e.state_node.name(), 0)} {app} pods")
+    for plan in res.node_plans:
+        n = sum(1 for i in plan.pod_indices if pods[i].metadata.labels.get("app") == app)
+        on_new += n
+        if n > cap:
+            fail(f"a new {plan.instance_type.name} node holds {n} {app} pods")
+    return {
+        "hostname_spread": app, "max_skew": cap, "pods": len(members),
+        "on_existing": on_existing, "on_new": on_new,
+        "errors": sum(1 for i in members if pods[i].uid in res.pod_errors),
+        "bound_seeds": sum(bound.values()),
+    }
+
+
+def run_config3_phase(device: str = "cuda", n_pods: int = N_PODS, n_types: int = N_TYPES) -> dict:
+    """Phase 6: bench config 3 whole, spread share included → its line
+    (also emitted); fails on any check."""
+    from karpenter_core_tpu_torch.solver.solver import TorchScheduler
+
+    pools, provider, pods = config3_world(n_pods, n_types)
+    solver = TorchScheduler(pools, provider, device=device)
+    cold, cold_ms, warm_runs, launches = solve_runs(solver, pods)
+    if device == "cuda" and launches < 4:
+        fail(f"config 3 launched the compat kernel {launches} times in 4 solves")
+    same_as_cpu(cold, TorchScheduler(pools, provider, device="cpu").solve(pods), "config 3")
+    check_invariants(cold, pods)
+    spread = check_spread(cold, pods, [], provider)
+    row = {
+        "config3": f"{n_pods} pods x {n_types} types (bench config 3, zone spread on 2/9)",
+        **timing_row(cold, cold_ms, warm_runs, launches),
+        "spread": spread,
+        **(profile_solve(solver, pods) if device == "cuda" else {}),
+    }
+    emit(row)
+    return row
+
+
+def run_cluster_spread_phase(
+    device: str = "cuda", n_pods: int = N_PODS, n_types: int = N_TYPES, n_nodes: int = N_NODES,
+    n_ha: int = N_HA,
+) -> dict:
+    """Phase 7: config 3 and an HA front end against the live cluster,
+    seeded from its kube store → its line (also emitted); fails on any
+    check."""
+    from karpenter_core_tpu_torch.solver.solver import TorchScheduler
+
+    t0 = time.perf_counter()
+    pools, provider, pods, nodes, daemons, missing, kube = cluster_spread_world(
+        n_pods, n_types, n_nodes, n_ha
+    )
+    world_s = time.perf_counter() - t0
+    kw = dict(state_nodes=nodes, daemonset_pods=daemons)
+    solver = TorchScheduler(pools, provider, device=device, kube_client=kube)
+    cold, cold_ms, warm_runs, launches = solve_runs(solver, pods, **kw)
+    if device == "cuda" and launches < 4:
+        fail(f"the cluster spread solve launched the compat kernel {launches} times in 4 solves")
+    cpu = TorchScheduler(pools, provider, device="cpu", kube_client=kube).solve(pods, **kw)
+    same_as_cpu(cold, cpu, "cluster spread")
+    summary = check_cluster(cold, pods, nodes, daemons, missing)
+    spread = check_spread(cold, pods, nodes, provider, kube)
+    ha = check_hostname(cold, pods, kube)
+    row = {
+        "cluster_spread": (
+            f"{len(pods)} pods ({n_pods} config 3 + {n_ha} ha-web) x {n_types} types x "
+            f"{n_nodes} existing nodes, kube store seeds"
+        ),
+        "world_build_s": world_s,
+        "bound_pods": len(kube.list("Pod")),
+        **timing_row(cold, cold_ms, warm_runs, launches),
+        **summary,
+        "spread": spread,
+        "hostname": ha,
+        **(profile_solve(solver, pods, **kw) if device == "cuda" else {}),
     }
     emit(row)
     return row
@@ -868,6 +1158,19 @@ def main() -> None:
     slice_row = kernel_case(
         "slice 50k x 2000", sp, reps=200, plain_reps=20, sm_mhz=sm_mhz, profiled=True
     )
+    # the compat shapes of phases 6 and 7 (S = 12 and 13 signatures), from
+    # their own worlds, built afresh so those phases' pods meet the solver
+    # unmemoized
+    spread_rows = [
+        kernel_case(
+            "config3 50k x 2000", slice_planes(*config3_world()), reps=200, plain_reps=20,
+            sm_mhz=sm_mhz, profiled=True,
+        ),
+        kernel_case(
+            "cluster-spread 50.8k x 2000", slice_planes(*cluster_spread_world()[:3]), reps=200,
+            plain_reps=20, sm_mhz=sm_mhz, profiled=True,
+        ),
+    ]
     widths = [sp["tm"][k].shape[1] for k in sp["keys"]]
     for S in (4, 16, 17, 64, 65, 128, 512):
         kernel_case(
@@ -882,56 +1185,28 @@ def main() -> None:
 
     # 4. the slice on the card: counts from 0 just before the main path
     solver = TorchScheduler(pools, provider, device="cuda")
-    ck.COMPAT_ALLOWED.launches = 0
-    t0 = time.perf_counter()
-    cold = solver.solve(pods)
-    cold_ms = (time.perf_counter() - t0) * 1000.0
-    warm_runs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        warm = solver.solve(pods)
-        warm_runs.append(((time.perf_counter() - t0) * 1000.0, dict(solver.last_timings)))
-    launches = ck.COMPAT_ALLOWED.launches
-    if launches == 0:
+    cold, cold_ms, warm_runs, slice_launches = solve_runs(solver, pods)
+    if slice_launches == 0:
         fail("the solve never launched the compat kernel")
-    warm_ms = statistics.median(ms for ms, _ in warm_runs)
-    device_ms = statistics.median(t["device_ms"] for _, t in warm_runs)
-    if plan_stream(warm) != plan_stream(cold):
-        fail("warm solve changed the plans")
-    cpu = TorchScheduler(pools, provider, device="cpu").solve(pods)
-    if plan_stream(cpu) != plan_stream(cold) or cpu.pod_errors != cold.pod_errors:
-        fail("the cuda solve's plans differ from the cpu solve's")
+    same_as_cpu(cold, TorchScheduler(pools, provider, device="cpu").solve(pods), "slice")
     check_invariants(cold, pods)
-    profiled = profile_solve(solver, pods)
-    slice_launches = launches
     emit(
         {
             "slice": f"{N_PODS} pods x {N_TYPES} types (bench config 3 mix without spread)",
-            "pods_per_s": cold.pods_scheduled / (warm_ms / 1000.0),
-            "cold_ms": cold_ms,
-            "warm_ms": warm_ms,
-            "warm_runs_ms": [ms for ms, _ in warm_runs],
-            "device_ms": device_ms,
-            "host_ms": statistics.median(t["host_ms"] for _, t in warm_runs),
-            "pods_scheduled": cold.pods_scheduled,
-            "pod_errors": len(cold.pod_errors),
-            "nodes": cold.node_count,
-            "total_price": cold.total_price,
-            "solves": 4,
-            "kernel_launches": launches,
-            "warm_phases_ms": {
-                k: statistics.median(t[k] for _, t in warm_runs)
-                for k in warm_runs[0][1]
-                if k.endswith("_ms")
-            },
-            **profiled,
+            **timing_row(cold, cold_ms, warm_runs, slice_launches),
+            **profile_solve(solver, pods),
         }
     )
 
     # 5. the cluster: existing nodes, daemonset overhead, NodePool limits
     cluster = run_cluster_phase("cuda")
 
-    # 6. the kernels line, then the last line
+    # 6. bench config 3 whole; 7. with the cluster, its kube store and an
+    # HA front end
+    config3 = run_config3_phase("cuda")
+    cluster_spread = run_cluster_spread_phase("cuda")
+
+    # 8. the kernels line, then the last line
     emit(
         {
             "kernels": [
@@ -940,11 +1215,16 @@ def main() -> None:
                     "route": "cuda",
                     "source": "karpenter_core_tpu_torch/csrc/compat_allowed.cu",
                     "replaces": "karpenter_core_tpu/solver/pallas_kernels.py:118",
-                    "launches": slice_launches + cluster["kernel_launches"],
+                    "launches": slice_launches + cluster["kernel_launches"]
+                    + config3["kernel_launches"] + cluster_spread["kernel_launches"],
                     "launches_by_path": {
                         "slice": slice_launches, "cluster": cluster["kernel_launches"],
+                        "config3": config3["kernel_launches"],
+                        "cluster-spread": cluster_spread["kernel_launches"],
                     },
-                    "max_abs_err": max(slice_row["max_abs_err"], big_row["max_abs_err"]),
+                    "max_abs_err": max(
+                        row["max_abs_err"] for row in [slice_row, big_row, *spread_rows]
+                    ),
                     "ms": slice_row["kernel_ms"],
                     "kernel_ms": slice_row["kernel_ms"],
                     "profiled_kernel_ms": slice_row["profiled_kernel_ms"],
@@ -961,6 +1241,17 @@ def main() -> None:
                             "library_ms", "bound_ms", "bound_by", "alu_ceiling_ms",
                         )
                     },
+                    "at_spread_paths": [
+                        {
+                            k: row[k]
+                            for k in (
+                                "shape", "S", "T", "W", "kernel_ms", "profiled_kernel_ms",
+                                "wrapper_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                "max_abs_err",
+                            )
+                        }
+                        for row in spread_rows
+                    ],
                     "compat_route": slice_row["compat_route"],
                     "ptxas": usage,
                 }

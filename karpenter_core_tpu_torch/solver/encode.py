@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
 
+from ..apis import labels as wk
 from ..apis.nodepool import NodePool
 from ..cloudprovider.types import InstanceType
 from ..kube.objects import OP_DOES_NOT_EXIST, OP_NOT_IN, Pod
@@ -424,6 +425,178 @@ class SignatureGroup:
     pod_indices: List[int] = field(default_factory=list)  # into the batch array
     # interned signature id (podcache.intern_sig)
     sig_id: Optional[int] = None
+
+    # -- topology predicates: which constraint shapes the group carries
+    # and whether they tensorize (the JAX package's routing inputs)
+
+    def _is_inns_term(self, term) -> bool:
+        """Term scoped to the pod's own namespace (no namespace selector,
+        namespaces empty or the pod's own)."""
+        if term.namespace_selector is not None:
+            return False
+        ns = list(term.namespaces)
+        return not ns or ns == [self.exemplar.namespace]
+
+    def _is_self_term(self, term) -> bool:
+        """The term's selector matches the exemplar's own labels in its
+        own namespace (the per-deployment co-location/isolation pattern)."""
+        sel = term.label_selector
+        if sel is None or not sel.matches(self.exemplar.metadata.labels):
+            return False
+        return self._is_inns_term(term)
+
+    def tensor_affinity_terms(self) -> Optional[list]:
+        """The group's required pod-affinity terms when the whole set has
+        the tensorizable shape: every term on zone/hostname, in-namespace,
+        selector present, at most one hostname term, no preferred terms,
+        no anti-affinity or spread mix — else None."""
+        a = self.exemplar.spec.affinity
+        if a is None or a.pod_affinity is None:
+            return None
+        if a.pod_anti_affinity is not None:
+            return None
+        if self.exemplar.spec.topology_spread_constraints:
+            return None
+        if a.pod_affinity.preferred or not a.pod_affinity.required:
+            return None
+        hostname_terms = 0
+        for term in a.pod_affinity.required:
+            if term.topology_key not in (wk.LABEL_TOPOLOGY_ZONE, wk.LABEL_HOSTNAME):
+                return None
+            if term.topology_key == wk.LABEL_HOSTNAME:
+                hostname_terms += 1
+            if term.label_selector is None:
+                return None
+            if not self._is_inns_term(term):
+                return None
+        if hostname_terms > 1:
+            return None
+        return list(a.pod_affinity.required)
+
+    def tensor_pod_affinity(self) -> Optional[str]:
+        """Primary topology key of the tensorizable required affinity
+        terms (hostname when any term is host-scoped, else zone); None
+        when the shape is not tensorizable."""
+        terms = self.tensor_affinity_terms()
+        if terms is None:
+            return None
+        if any(t.topology_key == wk.LABEL_HOSTNAME for t in terms):
+            return wk.LABEL_HOSTNAME
+        return wk.LABEL_TOPOLOGY_ZONE
+
+    def affinity_terms(self) -> list:
+        """The required pod-affinity terms behind tensor_pod_affinity
+        (call only when it returned a key)."""
+        return list(self.exemplar.spec.affinity.pod_affinity.required)
+
+    @property
+    def zone_anti_isolated(self) -> bool:
+        """Required self-anti-affinity on zone: at most one pod of the
+        group per zone."""
+        a = self.exemplar.spec.affinity
+        if a is None or a.pod_anti_affinity is None:
+            return False
+        return any(
+            term.topology_key == wk.LABEL_TOPOLOGY_ZONE and self._is_self_term(term)
+            for term in a.pod_anti_affinity.required
+        )
+
+    def tensor_anti_terms(self) -> Optional[list]:
+        """The group's required anti-affinity terms when the whole set
+        tensorizes: every term on zone/hostname and in-namespace, no
+        preferred terms, no pod-affinity mix; mixed with spread only when
+        every selector-bearing term is a hostname self term. Else None."""
+        a = self.exemplar.spec.affinity
+        if a is None or a.pod_anti_affinity is None:
+            return None
+        if a.pod_anti_affinity.preferred:
+            return None
+        if a.pod_affinity is not None:
+            return None
+        req = list(a.pod_anti_affinity.required)
+        if not req:
+            return None
+        for term in req:
+            if term.topology_key not in (wk.LABEL_TOPOLOGY_ZONE, wk.LABEL_HOSTNAME):
+                return None
+            if term.label_selector is not None and not self._is_inns_term(term):
+                return None
+        if self.exemplar.spec.topology_spread_constraints and not all(
+            t.topology_key == wk.LABEL_HOSTNAME and self._is_self_term(t)
+            for t in req
+            if t.label_selector is not None
+        ):
+            return None
+        return req
+
+    def anti_exclusion_terms(self) -> list:
+        """Non-self tensor anti terms (the selector anchors to other
+        pods); empty when none tensorize."""
+        terms = self.tensor_anti_terms()
+        if terms is None:
+            return []
+        return [t for t in terms if t.label_selector is not None and not self._is_self_term(t)]
+
+    @property
+    def has_relational(self) -> bool:
+        """Pod affinity or anti-affinity of a shape that does not
+        tensorize (needs the oracle's per-pod walk)."""
+        a = self.exemplar.spec.affinity
+        if a is None:
+            return False
+        if a.pod_affinity is not None and (a.pod_affinity.required or a.pod_affinity.preferred):
+            if self.tensor_affinity_terms() is None:
+                return True
+        if a.pod_anti_affinity is not None:
+            if self.tensor_anti_terms() is None:
+                return True
+        return False
+
+    @property
+    def has_stateful_node_constraints(self) -> bool:
+        """Host ports or PVC volumes: per-node conflict state
+        (hostportusage.go:70, volumeusage.go:79)."""
+        spec = self.exemplar.spec
+        if any(p.host_port for c in spec.containers + spec.init_containers for p in c.ports):
+            return True
+        return any(v.persistent_volume_claim is not None or v.ephemeral for v in spec.volumes)
+
+    @property
+    def tensor_stateful(self) -> bool:
+        """Stateful group without pod affinity, anti-affinity or spread
+        (the shape the JAX package folds into its pack scan)."""
+        if not self.has_stateful_node_constraints:
+            return False
+        spec = self.exemplar.spec
+        if spec.topology_spread_constraints:
+            return False
+        a = spec.affinity
+        return a is None or (a.pod_affinity is None and a.pod_anti_affinity is None)
+
+    @property
+    def hostname_isolated(self) -> bool:
+        """Required self-anti-affinity on hostname: one pod per node."""
+        a = self.exemplar.spec.affinity
+        if a is None or a.pod_anti_affinity is None:
+            return False
+        return any(
+            term.topology_key == wk.LABEL_HOSTNAME and self._is_self_term(term)
+            for term in a.pod_anti_affinity.required
+        )
+
+    def zone_spread(self):
+        """The zone topology-spread constraint, if any."""
+        for c in self.exemplar.spec.topology_spread_constraints:
+            if c.topology_key == wk.LABEL_TOPOLOGY_ZONE:
+                return c
+        return None
+
+    def hostname_spread(self):
+        """The hostname topology-spread constraint, if any."""
+        for c in self.exemplar.spec.topology_spread_constraints:
+            if c.topology_key == wk.LABEL_HOSTNAME:
+                return c
+        return None
 
 
 def group_pods(pods: List[Pod], memos=None) -> List[SignatureGroup]:

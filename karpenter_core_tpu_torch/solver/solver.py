@@ -3,25 +3,39 @@
 Counterpart of ``karpenter_core_tpu/solver/solver.py::TPUScheduler`` on
 its plain tensor path:
 
+  host:   route signature groups (the JAX package's default constraint
+          engine); every group it would park or send to its oracle
+          raises NotImplementedError naming the feature
   host:   signature-group pods → first-fit onto existing nodes
           (existing_node_compat → native/pack.cc), free capacity net of
-          the daemons each node still has to run
+          the daemons each node still has to run; topology-constrained
+          groups wait for their domains
   host:   leftover pods → per-(signature, pool) set algebra
   device: ONE compat ∧ offering kernel launch per pool against the
           catalog's card-resident type side (solver/compat_kernels.py)
-  host:   bounded, NodePool-limit-aware pack rounds: class-merged pack
-          jobs (new nodes carry their pool's daemonset overhead) → C++
-          first-fit-decreasing pack (native/pack.cc) → cheapest
-          type/offering per node → cross-group merge of underfull nodes
-          (merge.py) → NodePlans, stripped where a limit is exceeded
+  host:   bounded, NodePool-limit-aware pack rounds: zone-spread groups
+          water-fill seeded per-zone counts (topology_tensor.py) and try
+          their zone's existing nodes first, hostname-capped groups fill
+          per-node quotas on existing nodes, then class-merged and
+          zone-pinned pack jobs (new nodes carry their pool's daemonset
+          overhead and per-node pod caps) → C++ first-fit-decreasing pack
+          (native/pack.cc) → cheapest type/offering per node →
+          cross-group merge of underfull nodes under each side's
+          per-node hostname limits (merge.py) → NodePlans, stripped
+          where a NodePool limit is exceeded
 
-Features the JAX package sends off this path raise NotImplementedError
-with the feature's name instead of routing elsewhere: topology spread,
-pod affinity and anti-affinity, host ports, volumes and preference
-relaxation. The port reads no environment variable: the JAX package's
-defaults it depends on are module constants (pack.NATIVE_K_OPEN,
-compat_kernels.COMPAT_TILE_BYTES, the vector merge engine, the ffd pack
-backend with the native engine).
+Spread seeds count the pods bound in ``kube_client`` (the JAX package's
+``kube_client``); the port has no cluster-state object, no warm store
+and no tracer, so seeds are recounted on every solve and nothing is
+memoized across solves but the catalog encodings. Features the JAX
+package sends off this path raise NotImplementedError with the
+feature's name instead of routing elsewhere: pod affinity, zone and
+non-self pod anti-affinity, constraints counting a group of those,
+host ports, volumes and preference relaxation. The port reads no
+environment variable: the JAX package's defaults it depends on are
+module constants (pack.NATIVE_K_OPEN, compat_kernels.COMPAT_TILE_BYTES,
+the vector merge engine, the ffd pack backend with the native engine,
+the tensor constraint engine).
 """
 
 from __future__ import annotations
@@ -40,7 +54,8 @@ import torch
 from ..apis import labels as wk
 from ..apis.nodepool import NodePool, order_by_weight
 from ..cloudprovider.types import CloudProvider, InstanceType
-from ..kube.objects import EFFECT_PREFER_NO_SCHEDULE, OP_IN, Pod
+from ..kube.objects import EFFECT_PREFER_NO_SCHEDULE, OP_IN, SCHEDULE_ANYWAY, Pod
+from ..scheduler.topology import TopologyNodeFilter
 from ..scheduling import Requirement, Requirements, Taints, resources
 from ..scheduling.requirements import (
     label_requirements,
@@ -55,6 +70,7 @@ from .encode import (
     PoolEncoding,
     ResourceAxis,
     SignatureGroup,
+    _selector_key,
     build_axis_from_capacities,
     build_catalog_axis,
     build_requests_matrix_ids,
@@ -78,6 +94,12 @@ from .pack import (
     run_pack_existing,
 )
 from .stablehash import feed as stable_feed
+from .topology_tensor import (
+    interleave_by_quota,
+    seed_counts_for_constraint,
+    seed_counts_for_selector,
+    spread_quotas,
+)
 from .vocab import Vocab
 
 log = logging.getLogger("karpenter.torch.solver")
@@ -184,15 +206,52 @@ def _rank_order(idx: np.ndarray, rank: np.ndarray) -> np.ndarray:
 
 def _job_prices(meta: dict) -> np.ndarray:
     """Per viable type, the cheapest offering price admitted by the
-    job's zone/capacity-type requirements — the price model for packed
-    nodes."""
+    job's zone/capacity-type requirements (zone-pinned when set) — the
+    price model for packed nodes."""
     enc = meta["enc"]
     viable_idx = meta["viable_idx"]
-    zone_ok, ct_ok = meta["zone_ok"], meta["ct_ok"]
+    zone_ok, ct_ok, zone = meta["zone_ok"], meta["ct_ok"], meta["zone"]
+    if zone is not None:
+        zi = enc.zones.index(zone)
+        zprices = enc.offering_price[viable_idx, zi, :][:, ct_ok]
+        return np.where(np.isfinite(zprices), zprices, np.inf).min(axis=1)
     op = enc.offering_price[viable_idx][:, zone_ok, :][:, :, ct_ok].reshape(len(viable_idx), -1)
     if not op.size:
         return np.full(len(viable_idx), np.inf)
     return np.where(np.isfinite(op), op, np.inf).min(axis=1)
+
+
+def _group_node_limits(group: SignatureGroup) -> list:
+    """Hostname-level per-node constraints a node holding this group's
+    pods must keep satisfying if other pods merge onto it: (selector,
+    namespace, max matching pods per node) triples from hostname
+    topology spread and hostname self-anti-affinity (routing refuses the
+    other anti-affinity shapes)."""
+    limits = []
+    ns = group.exemplar.namespace
+    hs = group.hostname_spread()
+    if hs is not None:
+        limits.append((hs.label_selector, ns, int(hs.max_skew)))
+    for term in group.tensor_anti_terms() or ():
+        if term.topology_key == wk.LABEL_HOSTNAME and group._is_self_term(term):
+            limits.append((term.label_selector, ns, 1))
+    return limits
+
+
+def _viable_zones(
+    enc: EncodedInstanceTypes,
+    viable: np.ndarray,
+    zone_ok: np.ndarray,
+    ct_ok: np.ndarray,
+) -> Tuple[List[str], Dict[str, np.ndarray]]:
+    """Zones the signature allows that have ≥1 viable type with an
+    available allowed offering, plus each zone's viable-type mask."""
+    zones = [z for zi, z in enumerate(enc.zones) if zone_ok[zi]]
+    zone_types = {
+        z: viable & enc.offering_avail[:, enc.zones.index(z), :][:, ct_ok].any(axis=1)
+        for z in zones
+    }
+    return [z for z in zones if zone_types[z].any()], zone_types
 
 
 def _requirements_fingerprint(reqs) -> tuple:
@@ -379,32 +438,178 @@ class _DeviceClock:
         return total
 
 
-def _route_check(group: SignatureGroup) -> None:
-    """Raise NotImplementedError for a group the slice does not carry."""
-    spec = group.exemplar.spec
-    if spec.topology_spread_constraints:
-        raise NotImplementedError(
-            "topology spread (zone/hostname spread) is not ported yet"
+def _exclude(pool: List[SignatureGroup], subset: List[SignatureGroup]) -> List[SignatureGroup]:
+    """``pool`` minus ``subset``, by identity (dataclass __eq__ is deep)."""
+    ids = {id(g) for g in subset}
+    return [g for g in pool if id(g) not in ids]
+
+
+def _affinity_selectors(group: SignatureGroup) -> list:
+    """Selectors of every pod-affinity and anti-affinity term, required
+    and preferred."""
+    a = group.exemplar.spec.affinity
+    if a is None:
+        return []
+    sels = []
+    for pa in (a.pod_affinity, a.pod_anti_affinity):
+        if pa is None:
+            continue
+        sels.extend(t.label_selector for t in pa.required if t.label_selector is not None)
+        sels.extend(
+            w.pod_affinity_term.label_selector
+            for w in pa.preferred
+            if w.pod_affinity_term.label_selector is not None
         )
+    return sels
+
+
+def _counts_another_group(group: SignatureGroup, groups: List[SignatureGroup]) -> bool:
+    """A tensorizable anti-affinity term of ``group`` selects the labels
+    of another group of the batch."""
+    sels = [t.label_selector for t in group.tensor_anti_terms() or () if t.label_selector is not None]
+    return bool(sels) and any(
+        sel.matches(h.exemplar.metadata.labels) for h in groups if h is not group for sel in sels
+    )
+
+
+def route_groups(
+    groups: List[SignatureGroup],
+) -> Tuple[List[SignatureGroup], List[SignatureGroup], List[SignatureGroup]]:
+    """The JAX package's group routing under its default (tensor)
+    constraint engine (``TPUScheduler._route_groups_impl``, without the
+    cross-solve route memo) → (tensor, parked, oracle groups)."""
+    relational = [
+        g
+        for g in groups
+        if g.has_relational or (g.has_stateful_node_constraints and not g.tensor_stateful)
+    ]
+    tensor_groups = _exclude(groups, relational)
+    # pods selected by a relational pod's affinity terms must schedule
+    # in the same (oracle) world, or affinity can't anchor to them
+    selectors = [sel for g in relational for sel in _affinity_selectors(g)]
+    pulled = [
+        g
+        for g in tensor_groups
+        if any(sel.matches(g.exemplar.metadata.labels) for sel in selectors)
+    ]
+    tensor_groups = _exclude(tensor_groups, pulled)
+    oracle_groups = relational + pulled
+    # a tensorizable anti group whose selector matches another batch
+    # group needs the oracle's interleaving (topology.go:190-219)
+    cross = [g for g in tensor_groups if _counts_another_group(g, groups)]
+    tensor_groups = _exclude(tensor_groups, cross)
+    oracle_groups = oracle_groups + cross
+    # tensorizable pod affinity resolves post-pack (parked)
+    parked = [g for g in tensor_groups if g.tensor_pod_affinity() is not None]
+    tensor_groups = _exclude(tensor_groups, parked)
+    # groups counted by an oracle group's spread or affinity selectors,
+    # and parked groups anchoring on oracle pods, join the oracle world
+    # (fixpoint)
+    frontier = list(oracle_groups)
+    while frontier and (tensor_groups or parked):
+        frontier_sels = [
+            s
+            for g in frontier
+            for s in [
+                c.label_selector
+                for c in g.exemplar.spec.topology_spread_constraints
+                if c.label_selector is not None
+            ]
+            + _affinity_selectors(g)
+        ]
+        frontier_labels = [g.exemplar.metadata.labels for g in frontier]
+        moved = []
+        if frontier_sels:
+            moved += [
+                g
+                for g in tensor_groups + parked
+                if any(s.matches(g.exemplar.metadata.labels) for s in frontier_sels)
+            ]
+        moved_ids = {id(m) for m in moved}
+        for g in parked:
+            if id(g) in moved_ids:
+                continue
+            if any(
+                t.label_selector is not None and t.label_selector.matches(labels)
+                for t in g.affinity_terms()
+                for labels in frontier_labels
+            ):
+                moved.append(g)
+        if not moved:
+            break
+        tensor_groups = _exclude(tensor_groups, moved)
+        parked = _exclude(parked, moved)
+        oracle_groups = oracle_groups + moved
+        frontier = moved
+    return tensor_groups, parked, oracle_groups
+
+
+def _unported_feature(group: SignatureGroup, groups: List[SignatureGroup]) -> Optional[str]:
+    """Why the slice cannot solve ``group`` itself, or None when its own
+    constraints are in the slice (it may still be pulled off the tensor
+    path by another group's)."""
+    spec = group.exemplar.spec
     a = spec.affinity
-    if a is not None:
-        if a.pod_affinity is not None and (a.pod_affinity.required or a.pod_affinity.preferred):
-            raise NotImplementedError("pod affinity is not ported yet")
-        if a.pod_anti_affinity is not None and (
-            a.pod_anti_affinity.required or a.pod_anti_affinity.preferred
+    stateful = group.has_stateful_node_constraints
+    if stateful and not group.tensor_stateful:
+        return "topology spread or pod (anti-)affinity together with host ports or volumes"
+    if group.has_relational:
+        if (
+            a.pod_affinity is not None
+            and (a.pod_affinity.required or a.pod_affinity.preferred)
+            and group.tensor_affinity_terms() is None
         ):
-            raise NotImplementedError("pod anti-affinity is not ported yet")
+            return (
+                "pod affinity with preferred terms, another topology key or namespace, "
+                "several hostname terms, or mixed with anti-affinity or spread"
+            )
+        return (
+            "pod anti-affinity with preferred terms, another topology key or namespace, "
+            "or mixed with pod affinity or a spread other than hostname self-isolation"
+        )
+    if group.tensor_pod_affinity() is not None:
+        return "pod affinity"
+    if group.zone_anti_isolated:
+        return "pod anti-affinity on zone"
+    if _counts_another_group(group, groups):
+        return "pod anti-affinity whose selector matches another group of the batch"
+    if group.anti_exclusion_terms():
+        return "pod anti-affinity against other pods"
     if any(p.host_port for c in spec.containers + spec.init_containers for p in c.ports):
-        raise NotImplementedError("host ports are not ported yet")
-    if any(v.persistent_volume_claim is not None or v.ephemeral for v in spec.volumes):
-        raise NotImplementedError("volumes are not ported yet")
+        return "host ports"
+    if stateful:
+        return "volumes"
+    return None
+
+
+def _check_routing(groups: List[SignatureGroup]) -> None:
+    """Raise NotImplementedError, naming the feature, unless every group
+    stays on the slice's tensor path: the JAX package would park or send
+    to its oracle any group this refuses, or fold constraints into its
+    pack that are not ported (host ports, volumes, zone and non-self
+    anti-affinity). A refused batch is never solved another way."""
+    tensor_groups, parked, oracle_groups = route_groups(groups)
+    blocked = {id(g) for g in parked + oracle_groups}
+    blocked.update(id(g) for g in tensor_groups if _unported_feature(g, groups) is not None)
+    if not blocked:
+        return
+    for g in groups:
+        feature = _unported_feature(g, groups)
+        if feature is not None:
+            raise NotImplementedError(f"{feature} is not ported yet")
+    raise NotImplementedError(
+        "a group counted by another group's pod affinity or anti-affinity is not ported yet"
+    )
 
 
 def _relaxable(pod: Pod, prefer_no_schedule: bool) -> bool:
     """Whether the JAX package's preference ladder would relax this pod
     (scheduler/preferences.py): preferred node affinity, a required
-    node-affinity term beyond the first, or any PreferNoSchedule pool
-    taint (counted even when the pod already tolerates it)."""
+    node-affinity term beyond the first, a ScheduleAnyway topology
+    spread, or any PreferNoSchedule pool taint (counted even when the
+    pod already tolerates it)."""
+    if any(c.when_unsatisfiable == SCHEDULE_ANYWAY for c in pod.spec.topology_spread_constraints):
+        return True
     a = pod.spec.affinity
     if a is not None and a.node_affinity is not None:
         na = a.node_affinity
@@ -421,18 +626,33 @@ class TorchScheduler:
         nodepools: List[NodePool],
         cloud_provider: CloudProvider,
         device=None,
+        kube_client=None,
     ):
+        """``kube_client`` (``kube.client.KubeClient``, as the JAX
+        package's ``kube_client``) is read for the bound pods that seed
+        topology-spread domain counts; with None the seeds are empty."""
         self.device = resolve_device(device)
         self.nodepools = order_by_weight(
             [np_ for np_ in nodepools if np_.metadata.deletion_timestamp is None]
         )
         self.cloud_provider = cloud_provider
+        self.kube_client = kube_client
         # device/host wall-time split of the most recent solve
         self.last_timings: Optional[Dict[str, float]] = None
         self.last_merge_stats: Optional[Dict[str, object]] = None
         self._merge_stats: Dict[str, object] = {}
         self._catalogs: "OrderedDict[tuple, _CatalogEntry]" = OrderedDict()
         self._clock = _DeviceClock(self.device)
+        # per-solve topology state (rebuilt in _solve and _solve_tensor;
+        # empty defaults keep direct sub-method calls in tests working)
+        self._batch_pods: List[Pod] = []
+        self._batch_uids_cache: Optional[set] = None
+        self._seed_cache: Dict[tuple, Dict[str, int]] = {}
+        self._match_cache: Dict[Tuple[tuple, int], bool] = {}
+        self._fold_cache: Dict[tuple, dict] = {}
+        self._prep_zone_ledger: List[Tuple[int, str]] = []
+        self._ledger_selectors: List[tuple] = []
+        self._existing_ctx: Optional[dict] = None
 
     # ------------------------------------------------------------------
 
@@ -471,6 +691,13 @@ class TorchScheduler:
         finally:
             self._phase_ms[name] += (time.perf_counter() - t0) * 1000.0
 
+    @property
+    def _batch_uids(self) -> set:
+        """Lazy uid set of the solve batch (seed paths only)."""
+        if self._batch_uids_cache is None:
+            self._batch_uids_cache = {p.uid for p in self._batch_pods}
+        return self._batch_uids_cache
+
     def _solve(self, pods: List[Pod], state_nodes: list, daemonset_pods: List[Pod]) -> SolverResult:
         result = SolverResult()
         self._merge_stats = {
@@ -485,10 +712,22 @@ class TorchScheduler:
             self._req_ids = np.fromiter((m.req_id for m in memos), dtype=np.int64, count=len(memos))
             self._req_map = {m.req_id: m.requests for m in memos}
             groups = group_pods(pods, memos=memos)
+            _check_routing(groups)
         # merge-pass pairwise Requirements.intersects memo (content keyed)
         self._intersects_cache: Dict[tuple, bool] = {}
-        for g in groups:
-            _route_check(g)
+        # spread-count seeding excludes the batch being scheduled
+        # (topology.go:71-75) and is cached per constraint per solve; the
+        # uid set materializes lazily (only seeded paths read it)
+        self._batch_pods = pods
+        self._batch_uids_cache = None
+        self._seed_cache = {}
+        # selector-content match caches: many groups carry distinct
+        # selector objects with identical content
+        self._match_cache = {}
+        # per-selector incremental committed-placement counters (cursors
+        # over the grow-only plan lists); cleared when limit enforcement
+        # strips plans
+        self._fold_cache = {}
         if groups:
             self._solve_tensor(pods, groups, daemonset_pods, state_nodes, result)
             self._check_relaxation(pods, groups, result)
@@ -577,8 +816,30 @@ class TorchScheduler:
         state_nodes: list,
         result: SolverResult,
     ) -> None:
+        # prep-time (pod index, zone) ledger of zone-pinned assignments:
+        # later counting groups fold these, so mutually counting groups
+        # see a serially consistent order (each counts everything
+        # assigned before it, like the oracle's Record stream). Only pods
+        # a cross-counting selector can see are ledgered: a spread
+        # selector matching only its own group is fully accounted by that
+        # group's water-fill.
+        self._prep_zone_ledger = []
+        self._ledger_selectors = []
+        for g in groups:
+            zc = g.zone_spread()
+            if zc is None:
+                continue
+            sel = zc.label_selector
+            if sel is None or any(
+                h is not g
+                and h.exemplar.namespace == g.exemplar.namespace
+                and sel.matches(h.exemplar.metadata.labels)
+                for h in groups
+            ):
+                self._ledger_selectors.append((sel, g.exemplar.namespace))
         # existing capacity first (scheduler.go:241-246): per-group
         # indices still needing placement after the existing-node pack
+        self._existing_ctx = None
         leftover: Dict[int, List[int]] = {gi: list(g.pod_indices) for gi, g in enumerate(groups)}
         if state_nodes:
             with self._phase("existing"):
@@ -611,23 +872,29 @@ class TorchScheduler:
         minus remaining daemon overhead) in the oracle's try-order
         (initialized first, then name); admissibility comes from
         existing_node_compat; the pack itself is the native first-fit,
-        over every pod of the batch in the oracle's pod order. Groups
-        with per-node state (host ports, volumes) or topology never get
-        here: _route_check refuses them."""
+        over every pod of the packed groups in the oracle's pod order.
+
+        Zone-spread and hostname-capped groups are not packed here: they
+        get zones or per-node quotas first (_prepare_class_jobs) and
+        then try existing nodes against the free capacity this stashes
+        in ``self._existing_ctx`` (nodes, free, axis, node_zones,
+        compat_rows), which every later existing-node pack updates."""
         nodes = sorted(state_nodes, key=lambda n: (not n.initialized(), n.name()))
         M = len(nodes)
         # axis spans the nodes' allocatable and every request of the batch
+        # (zone-pinned spread packs quantize against it later)
         axis = extend_axis(
             build_axis_from_capacities([n.allocatable() for n in nodes]),
             unique_requests(self._req_ids, self._req_map),
         )
+        node_labels = [n.labels() for n in nodes]
         # free capacity: available minus REMAINING daemon overhead
         # (expected daemons that fit the node, less those already present,
         # floored at zero — existingnode.go:43-52)
         free = np.zeros((M, axis.count), dtype=np.int32)
         for m, node in enumerate(nodes):
             taints = Taints(node.taints())
-            label_reqs = label_requirements(node.labels())
+            label_reqs = label_requirements(node_labels[m])
             daemons = [
                 p
                 for p in daemonset_pods
@@ -646,20 +913,38 @@ class TorchScheduler:
             # zero row reproduces that, since every pod requests pods≥1
             if not any(v < 0 for v in avail.values()):
                 free[m] = quantize_capacity(avail, axis)
-
-        compat = existing_node_compat(groups, nodes)
+        self._existing_ctx = dict(
+            nodes=nodes,
+            free=free,
+            axis=axis,
+            node_zones=np.array([lbls.get(wk.LABEL_TOPOLOGY_ZONE, "") for lbls in node_labels]),
+            compat_rows={},
+        )
+        # topology-constrained groups are domain-assigned before they
+        # touch existing capacity: keep them out of this selector-blind
+        # first-fit
+        pack = [
+            (gi, g)
+            for gi, g in enumerate(groups)
+            if g.zone_spread() is None and g.hostname_spread() is None and not g.hostname_isolated
+        ]
+        if not pack:
+            return
+        sub_groups = [g for _, g in pack]
+        compat = existing_node_compat(sub_groups, nodes)
         if not compat.any():
             return
         # global pack in the oracle's pod order: all pods descending by
         # (primary, memory) — queue.go:76
-        pod_idx = np.array([i for g in groups for i in g.pod_indices], dtype=np.int64)
+        pod_idx = np.array([i for g in sub_groups for i in g.pod_indices], dtype=np.int64)
         sig_ids = np.array(
-            [s for s, g in enumerate(groups) for _ in g.pod_indices], dtype=np.int32
+            [s for s, g in enumerate(sub_groups) for _ in g.pod_indices], dtype=np.int32
         )
         reqs = build_requests_matrix_ids(self._req_ids[pod_idx], axis, self._req_map)
         order = np.lexsort((-reqs[:, 1], -reqs[:, 0]))
         pod_idx, sig_ids, reqs = pod_idx[order], sig_ids[order], reqs[order]
-        assign, _ = run_pack_existing(reqs, sig_ids, compat, free)
+        assign, free_out = run_pack_existing(reqs, sig_ids, compat, free)
+        self._existing_ctx["free"] = np.ascontiguousarray(free_out, dtype=np.int32)
 
         by_node: Dict[int, List[int]] = {}
         for j in np.flatnonzero(assign >= 0):
@@ -667,7 +952,7 @@ class TorchScheduler:
         if not by_node:
             return
         assigned = {i for members in by_node.values() for i in members}
-        for gi, g in enumerate(groups):
+        for gi, g in pack:
             leftover[gi] = [i for i in g.pod_indices if i not in assigned]
         for m in sorted(by_node):
             result.existing_plans.append(
@@ -865,8 +1150,8 @@ class TorchScheduler:
             masks.append(mask)
         return masks
 
-    @staticmethod
     def _enforce_limits(
+        self,
         result: SolverResult,
         plans_start: int,
         remaining: Dict[str, dict],
@@ -891,6 +1176,10 @@ class TorchScheduler:
                 continue
             remaining[plan.nodepool_name] = resources.subtract(rem, cap)
             kept.append(plan)
+        if len(kept) != len(result.node_plans) - plans_start:
+            # plans were stripped: the incremental fold counters assumed
+            # a grow-only plan list — rebuild from scratch
+            self._fold_cache = {}
         result.node_plans[plans_start:] = kept
         return spilled
 
@@ -941,6 +1230,24 @@ class TorchScheduler:
             for i in indices:
                 result.pod_errors[pods[i].uid] = err
             return None
+        # per-node pod cap from hostname spread / self anti-affinity
+        max_per_node = np.int32(MAX_INT32)
+        solo_cross_hostname = False
+        hs = group.hostname_spread()
+        if hs is not None:
+            sel = hs.label_selector
+            if sel is None or sel.matches(group.exemplar.metadata.labels):
+                max_per_node = np.int32(hs.max_skew)
+            else:
+                # non-self-selecting hostname spread: the reference adds
+                # no +1 for non-matching pods (topologygroup.go:166-175)
+                # and the hostname min is always 0, so fresh nodes are
+                # always admissible and the group's own pods stack
+                # freely — but it must not share nodes with pods its
+                # selector counts, so it packs solo on new nodes only
+                solo_cross_hostname = True
+        if group.hostname_isolated:
+            max_per_node = np.int32(1)
         return dict(
             group=group,
             gi=gi,
@@ -949,7 +1256,8 @@ class TorchScheduler:
             viable=chosen_viable,  # (T,) bool, limit-filtered
             zone_ok=allowed_per_pool[chosen][1][gi],  # (Z,)
             ct_ok=allowed_per_pool[chosen][2][gi],  # (C,)
-            max_per_node=np.int32(MAX_INT32),
+            max_per_node=max_per_node,
+            solo_cross_hostname=solo_cross_hostname,
             merged=sig_compats[chosen][gi].merged,  # template ∩ pod reqs
         )
 
@@ -966,33 +1274,503 @@ class TorchScheduler:
         jobs: List[tuple],
         metas: List[dict],
     ) -> None:
-        # groups pack together only when their FULL merged requirement
-        # sets agree — the (viable, zone, ct) masks alone miss keys that
-        # don't project onto catalog dimensions (custom node labels)
+        """Class-merged pack jobs. Groups pack together only when their
+        FULL merged requirement sets agree — the (viable, zone, ct) masks
+        alone miss keys that don't project onto catalog dimensions
+        (custom node labels). Hostname-capped groups stay solo (their cap
+        is enforced per job). Within a class, every zone-spread group
+        water-fills its own pods over the zones and the class's plain
+        pods ride along round-robin; each zone's bucket packs as one
+        zone-pinned job."""
         classes: Dict[tuple, List[dict]] = {}
         for info in infos:
-            key = (
-                info["chosen"],
-                info["viable"].tobytes(),
-                info["zone_ok"].tobytes(),
-                info["ct_ok"].tobytes(),
-                _requirements_fingerprint(info["merged"]),
-            )
+            if int(info["max_per_node"]) < MAX_INT32 or info["solo_cross_hostname"]:
+                key = ("solo", id(info["group"]))
+            else:
+                key = (
+                    info["chosen"],
+                    info["viable"].tobytes(),
+                    info["zone_ok"].tobytes(),
+                    info["ct_ok"].tobytes(),
+                    _requirements_fingerprint(info["merged"]),
+                )
             classes.setdefault(key, []).append(info)
         for members in classes.values():
             chosen = members[0]["chosen"]
             pool, enc = pools[chosen], encoded[chosen]
+            viable = members[0]["viable"]
+            zone_ok, ct_ok = members[0]["zone_ok"], members[0]["ct_ok"]
+            max_per_node = members[0]["max_per_node"]
+            merged = members[0]["merged"]
+            # hostname-level per-node limits of this class's group (solo
+            # classes only — shared classes carry none): the merge pass
+            # enforces them on any combined membership
+            node_limits = _group_node_limits(members[0]["group"])
+            daemon = daemon_requests[pool.nodepool.name]
             requests_matrix = matrices[id(pool_entries[chosen])][1]
-            idx = np.asarray([i for m in members for i in m["indices"]], dtype=np.int64)
-            reqs = requests_matrix[idx]
-            # descending by primary then memory (queue.go:76 ordering)
-            order = np.lexsort((-reqs[:, 1], -reqs[:, 0]))
-            self._prepare_job(
-                idx[order], reqs[order], enc, members[0]["viable"], members[0]["zone_ok"],
-                members[0]["ct_ok"], daemon_requests[pool.nodepool.name],
-                members[0]["max_per_node"], pool, pods, result, jobs, metas,
-                merged=members[0]["merged"],
+            spread = [m for m in members if m["group"].zone_spread() is not None]
+            plain = [m for m in members if m["group"].zone_spread() is None]
+
+            def sorted_idx(group_pods: List[int]) -> Tuple[np.ndarray, np.ndarray]:
+                idx = np.asarray(group_pods, dtype=np.int64)
+                reqs = requests_matrix[idx]
+                # descending by primary then memory (queue.go:76 ordering)
+                order = np.lexsort((-reqs[:, 1], -reqs[:, 0]))
+                return idx[order], reqs[order]
+
+            def prepare(idx, reqs, job_viable, zone=None):
+                self._prepare_job(
+                    idx, reqs, enc, job_viable, zone_ok, ct_ok, daemon, max_per_node, pool,
+                    pods, result, jobs, metas, zone=zone, merged=merged,
+                    per_node_limits=node_limits,
+                )
+
+            g0 = members[0]["group"]
+            if (
+                len(members) == 1
+                and int(max_per_node) < MAX_INT32
+                and self._existing_ctx is not None
+                and g0.zone_spread() is None
+            ):
+                # hostname-capped group with existing capacity: fill each
+                # node's quota (cap minus its matching pods) before
+                # opening capped new nodes. Groups that also zone-spread
+                # skip this: their pods are zone-assigned first and take
+                # new zone-pinned nodes, where the cap still applies.
+                idx0, _ = sorted_idx(members[0]["indices"])
+                left = self._pack_hostname_existing(
+                    members[0], idx0, int(max_per_node), pods, result
+                )
+                if not left:
+                    continue
+                members[0] = dict(members[0], indices=left)
+                spread, plain = [], [members[0]]
+
+            if not spread:
+                prepare(*sorted_idx([i for m in members for i in m["indices"]]), viable)
+                continue
+
+            zones, zone_types = _viable_zones(enc, viable, zone_ok, ct_ok)
+            if not zones:
+                for m in spread:
+                    for i in m["indices"]:
+                        result.pod_errors[pods[i].uid] = (
+                            "no zone with viable offering for topology spread"
+                        )
+                if plain:
+                    prepare(*sorted_idx([i for m in plain for i in m["indices"]]), viable)
+                continue
+
+            # per-group min-skew zone assignment from seeded domain
+            # counters (topology.go:125-148 Record + topologygroup.go:
+            # 93-104 min-skew selection, in closed form); zone-assigned
+            # pods try existing nodes in their zone before new ones
+            buckets: Dict[str, list] = {z: [] for z in zones}
+            Z = len(zones)
+            for m in spread:
+                g_idx, _ = sorted_idx(m["indices"])
+                self._spread_assign(m, g_idx, zones, enc, pods, result, buckets)
+            # plain pods ride along only when the zone choice doesn't
+            # shrink the viable set — otherwise a pod needing a type
+            # offered in one zone could land in a bucket without it
+            ride_along = plain and all(
+                bool(np.array_equal(zone_types[z], viable)) for z in zones
             )
+            if ride_along:
+                p_idx, _ = sorted_idx([i for m in plain for i in m["indices"]])
+                for zi, z in enumerate(zones):
+                    part = p_idx[zi::Z]
+                    if part.size:
+                        buckets[z].append(part)
+                        self._ledger_add(pods, part, z)
+            elif plain:
+                prepare(*sorted_idx([i for m in plain for i in m["indices"]]), viable)
+            for z in zones:
+                if buckets[z]:
+                    prepare(*sorted_idx(np.concatenate(buckets[z])), zone_types[z], zone=z)
+
+    # ------------------------------------------------------------------
+    # topology spread on the tensor path (topology_tensor.py)
+
+    def _spread_seeds(self, group: SignatureGroup, constraint) -> Dict[str, int]:
+        """Bound matching-pod counts per domain for one constraint, from
+        ``kube_client``, cached per solve (batch pods are excluded). The
+        JAX package also reuses them across solves while its cluster
+        state's generation holds; the port has no cluster state and
+        counts again on every solve."""
+        key = (
+            constraint.topology_key,
+            _selector_key(constraint.label_selector),
+            group.exemplar.namespace,
+            # counting drops pods on nodes failing the exemplar's node
+            # filter — groups with different node selection must not
+            # share counts
+            TopologyNodeFilter.for_pod(group.exemplar).key(),
+        )
+        seeds = self._seed_cache.get(key)
+        if seeds is None:
+            seeds = seed_counts_for_constraint(
+                self.kube_client, group.exemplar, constraint, self._batch_uids
+            )
+            self._seed_cache[key] = seeds
+        return seeds
+
+    @staticmethod
+    def _sel_fp(sel) -> tuple:
+        # cached on the selector object itself (selectors are immutable
+        # once built; the hot paths call this very often)
+        fp = getattr(sel, "_solver_fp", None)
+        if fp is None:
+            fp = (
+                tuple(sorted(sel.match_labels.items())),
+                tuple((e.key, e.operator, tuple(e.values)) for e in sel.match_expressions),
+            )
+            sel._solver_fp = fp
+        return fp
+
+    def _sel_matches(self, sel, i: int, pods: List[Pod]) -> bool:
+        if sel is None:
+            return True
+        key = (self._sel_fp(sel), i)
+        hit = self._match_cache.get(key)
+        if hit is None:
+            hit = sel.matches(pods[i].metadata.labels)
+            self._match_cache[key] = hit
+        return hit
+
+    def _fold_committed(
+        self,
+        seeds: Dict[str, int],
+        selector,
+        namespace: str,
+        pods: List[Pod],
+        result: SolverResult,
+    ) -> Dict[str, int]:
+        """Per-zone counts of THIS solve's committed placements matching
+        a selector, folded into the seeds — later passes (limit-spill
+        rounds) must see them: the oracle records every landing
+        immediately (topology.go:125). Free when no plans exist yet."""
+        if not (result.node_plans or result.existing_plans):
+            return seeds
+        # incremental: per selector content, a cursor state counts each
+        # plan member exactly once
+        key = (self._sel_fp(selector) if selector is not None else None, namespace)
+        st = self._fold_cache.get(key)
+        if st is None:
+            st = {"sizes": {}, "ec": 0, "counts": {}}
+            self._fold_cache[key] = st
+        counts = st["counts"]
+
+        def _count(members, start, zone):
+            n = 0
+            for i in members[start:]:
+                if pods[i].namespace == namespace and self._sel_matches(selector, i, pods):
+                    n += 1
+            if n and zone:
+                counts[zone] = counts.get(zone, 0) + n
+
+        sizes = st["sizes"]
+        for plan in result.node_plans:
+            pid = id(plan)
+            seen = sizes.get(pid, 0)
+            members = plan.pod_indices
+            if len(members) > seen:  # a new plan, or one that grew
+                _count(members, seen, plan.zone)
+                sizes[pid] = len(members)
+        eplans = result.existing_plans
+        for eplan in eplans[st["ec"] :]:
+            _count(eplan.pod_indices, 0, eplan.state_node.labels().get(wk.LABEL_TOPOLOGY_ZONE))
+        st["ec"] = len(eplans)
+        if not counts:
+            return seeds
+        seeds = dict(seeds)
+        for z, n in counts.items():
+            seeds[z] = seeds.get(z, 0) + n
+        return seeds
+
+    def _ledger_add(self, pods: List[Pod], part, zone: str) -> None:
+        if not self._ledger_selectors:
+            return
+        for i in part.tolist():
+            p = pods[int(i)]
+            for sel, ns in self._ledger_selectors:
+                if ns == p.namespace and self._sel_matches(sel, int(i), pods):
+                    self._prep_zone_ledger.append((int(i), zone))
+                    break
+
+    def _fold_ledger(
+        self,
+        seeds: Dict[str, int],
+        selector,
+        namespace: str,
+        pods: List[Pod],
+    ) -> Dict[str, int]:
+        """Fold this solve's prep-time zone-pinned assignments into the
+        seeds — the in-batch analogue of the oracle recording each
+        placement before counting the next (topology.go:125). Unpinned
+        jobs are absent: they correspond to pods placed after every
+        counting group."""
+        if not self._prep_zone_ledger:
+            return seeds
+        seeds = dict(seeds)
+        for i, z in self._prep_zone_ledger:
+            if pods[i].namespace == namespace and self._sel_matches(selector, i, pods):
+                seeds[z] = seeds.get(z, 0) + 1
+        return seeds
+
+    def _existing_compat_row(self, group: SignatureGroup, ctx: dict) -> np.ndarray:
+        """(M,) admissibility of one group on the existing nodes, cached
+        per group in the existing-node context."""
+        row = ctx["compat_rows"].get(id(group))
+        if row is None:
+            row = existing_node_compat([group], ctx["nodes"])[0]
+            ctx["compat_rows"][id(group)] = row
+        return row
+
+    def _spread_assign(
+        self,
+        m: dict,
+        g_idx: np.ndarray,
+        zones: List[str],
+        enc: EncodedInstanceTypes,
+        pods: List[Pod],
+        result: SolverResult,
+        buckets: Dict[str, list],
+    ) -> None:
+        """Assign one spread group's pods to zones by seeded min-skew
+        quotas, route each zone's pods through existing capacity first,
+        and append the remainder to the new-node buckets."""
+        group: SignatureGroup = m["group"]
+        c = group.zone_spread()
+        P = len(g_idx)
+        if P == 0:
+            return
+        seeds = self._fold_ledger(
+            self._fold_committed(
+                self._spread_seeds(group, c), c.label_selector, group.exemplar.namespace, pods,
+                result,
+            ),
+            c.label_selector,
+            group.exemplar.namespace,
+            pods,
+        )
+        ctx = self._existing_ctx
+        merged = m["merged"]
+        zone_req = merged.get_req(wk.LABEL_TOPOLOGY_ZONE) if merged is not None else None
+
+        def allowed(z: str) -> bool:
+            return zone_req is None or zone_req.has(z)
+
+        # placement domains A: new-node-eligible zones, plus zones whose
+        # existing nodes admit the group (scheduler.go:241-246 order).
+        # Hostname-capped groups can't use the existing-node first-fit
+        # (it has no per-node matching-count quota), so for them
+        # existing-only zones are not placement domains.
+        can_use_existing = (
+            ctx is not None
+            and int(m["max_per_node"]) >= MAX_INT32
+            and not m.get("solo_cross_hostname")
+        )
+        place = list(zones)
+        existing_zones: set = set()
+        if can_use_existing:
+            row = self._existing_compat_row(group, ctx).astype(bool)
+            for z in sorted(set(ctx["node_zones"][row].tolist())):
+                if z and allowed(z):
+                    existing_zones.add(z)
+                    if z not in place:
+                        place.append(z)
+        # pod-supported domains D: the full universe filtered by the
+        # merged requirements — supported-but-unplaceable domains pin the
+        # global min at their seed count (topologygroup.go:177,193-212)
+        universe = set(enc.zones) | set(seeds) | existing_zones
+        supported = {d for d in universe if allowed(d)}
+        ext = supported - set(place)
+        ext_min = min(seeds.get(d, 0) for d in ext) if ext else None
+        # min_domains applies to DoNotSchedule only
+        min_domains = c.min_domains if c.when_unsatisfiable != SCHEDULE_ANYWAY else None
+        counts = np.array([seeds.get(z, 0) for z in place], dtype=np.int64)
+        sel = c.label_selector
+        if sel is None or sel.matches(group.exemplar.metadata.labels):
+            quotas, unplaced = spread_quotas(
+                counts, ext_min, c.max_skew, min_domains, len(supported), P
+            )
+        else:
+            # cross-selector spread: the group's own placements never move
+            # the counts (topologygroup.go:166-175 adds the +1 only when
+            # the pod matches its own selector), so the min-count domain
+            # is static and every pod takes it
+            if min_domains is not None and len(supported) < min_domains:
+                global_min = 0  # topologygroup.go:205-210
+            else:
+                global_min = min((seeds.get(d, 0) for d in supported), default=0)
+            admissible = [zi for zi in range(len(place)) if counts[zi] - global_min <= c.max_skew]
+            quotas = np.zeros(len(place), dtype=np.int64)
+            if admissible:
+                quotas[min(admissible, key=lambda zi: counts[zi])] = P
+                unplaced = 0
+            else:
+                unplaced = P
+        parts = interleave_by_quota(g_idx, quotas)
+        if unplaced:
+            # DoNotSchedule overflow fails like the oracle's DoesNotExist
+            # next domain; ScheduleAnyway groups reach here only through
+            # the relaxation ladder, which the port refuses
+            for i in g_idx[P - unplaced :]:
+                result.pod_errors[pods[i].uid] = (
+                    f"would violate max-skew for topology spread on {c.topology_key}"
+                )
+        respill: List[np.ndarray] = []
+        for zi, z in enumerate(place):
+            part = parts[zi]
+            if part.size and can_use_existing and z in existing_zones:
+                # pods landing on existing nodes become existing plans at
+                # prep — _fold_committed counts those; no ledger entry
+                part = self._pack_spread_existing(part, z, group, ctx, result)
+            if part.size == 0:
+                continue
+            if z in buckets:  # new-node-eligible zone
+                buckets[z].append(part)
+                self._ledger_add(pods, part, z)
+            else:
+                respill.append(part)
+        if respill:
+            # existing-only zones out of free capacity: retarget the
+            # least-loaded new-node zone (bounded skew divergence — the
+            # oracle would interleave these per pod)
+            spill = np.concatenate(respill)
+            tgt = min(zones, key=lambda z: seeds.get(z, 0) + sum(int(p.size) for p in buckets[z]))
+            buckets[tgt].append(spill)
+            self._ledger_add(pods, spill, tgt)
+
+    def _pack_hostname_existing(
+        self,
+        m: dict,
+        idx: np.ndarray,  # the group's pod indices, descending by size
+        cap: int,
+        pods: List[Pod],
+        result: SolverResult,
+    ) -> List[int]:
+        """Fill existing nodes up to each node's hostname quota: the cap
+        minus the node's matching pods, bound (seeds) or placed earlier
+        in this solve — hostname domains always see a global min of 0
+        (topologygroup.go:193-196). A group with both a hostname spread
+        and self anti-affinity takes the minimum over both constraints'
+        quotas. Host-side first-fit, O(P·M). Returns the indices still
+        needing new nodes."""
+        group: SignatureGroup = m["group"]
+        ctx = self._existing_ctx
+        nodes = ctx["nodes"]
+        ns = group.exemplar.namespace
+        constraints: List[tuple] = []
+        hs = group.hostname_spread()
+        if hs is not None:
+            constraints.append((int(hs.max_skew), hs.label_selector, self._spread_seeds(group, hs)))
+        if group.hostname_isolated:
+            term = next(
+                t
+                for t in group.exemplar.spec.affinity.pod_anti_affinity.required
+                if t.topology_key == wk.LABEL_HOSTNAME
+            )
+            skey = ("anti-host", _selector_key(term.label_selector), ns)
+            seeds = self._seed_cache.get(skey)
+            if seeds is None:
+                seeds = seed_counts_for_selector(
+                    self.kube_client, group.exemplar, wk.LABEL_HOSTNAME, term.label_selector,
+                    self._batch_uids,
+                )
+                self._seed_cache[skey] = seeds
+            constraints.append((1, term.label_selector, seeds))
+
+        def committed(selector) -> Dict[str, int]:
+            # matching pods this solve already put on each existing node
+            out: Dict[str, int] = {}
+            for eplan in result.existing_plans:
+                n = sum(
+                    1
+                    for i in eplan.pod_indices
+                    if pods[i].namespace == ns
+                    and (selector is None or selector.matches(pods[i].metadata.labels))
+                )
+                if n:
+                    name = eplan.state_node.hostname() or eplan.state_node.name()
+                    out[name] = out.get(name, 0) + n
+            return out
+
+        row = self._existing_compat_row(group, ctx).astype(bool)
+        quota = np.where(row, np.int64(cap), np.int64(0)).astype(np.int64)
+        for c_cap, selector, seeds in constraints:
+            done = committed(selector)
+            q_c = np.array(
+                [
+                    max(
+                        0,
+                        c_cap
+                        - max(seeds.get(n.hostname(), 0), seeds.get(n.name(), 0))
+                        - max(done.get(n.hostname(), 0), done.get(n.name(), 0)),
+                    )
+                    for n in nodes
+                ],
+                dtype=np.int64,
+            )
+            quota = np.minimum(quota, q_c)
+        if not quota.any():
+            return list(idx)
+        reqs = build_requests_matrix_ids(self._req_ids[idx], ctx["axis"], self._req_map)
+        free = ctx["free"]
+        by_node: Dict[int, List[int]] = {}
+        leftover: List[int] = []
+        eligible = np.flatnonzero(quota > 0)
+        for j, i in enumerate(idx):
+            placed = False
+            for mi in eligible:
+                if quota[mi] > 0 and (free[mi] >= reqs[j]).all():
+                    free[mi] -= reqs[j]
+                    quota[mi] -= 1
+                    by_node.setdefault(int(mi), []).append(int(i))
+                    placed = True
+                    break
+            if not placed:
+                leftover.append(int(i))
+        for mi in sorted(by_node):
+            result.existing_plans.append(
+                ExistingNodePlan(state_node=nodes[mi], pod_indices=by_node[mi])
+            )
+        return leftover
+
+    def _pack_spread_existing(
+        self,
+        part: np.ndarray,
+        zone: str,
+        group: SignatureGroup,
+        ctx: dict,
+        result: SolverResult,
+    ) -> np.ndarray:
+        """First-fit one zone bucket onto that zone's admitting existing
+        nodes (zone-pinned so committed domain counts stay exact) on the
+        native first-fit; returns the indices that still need a new
+        node."""
+        row = self._existing_compat_row(group, ctx).astype(bool)
+        mask = row & (ctx["node_zones"] == zone)
+        if not mask.any():
+            return part
+        reqs = build_requests_matrix_ids(self._req_ids[part], ctx["axis"], self._req_map)
+        assign, free_out = run_pack_existing(
+            reqs, np.zeros(len(part), dtype=np.int32), mask[None, :].astype(np.uint8), ctx["free"]
+        )
+        ctx["free"] = np.ascontiguousarray(free_out, dtype=np.int32)
+        placed = assign >= 0
+        if placed.any():
+            by_node: Dict[int, List[int]] = {}
+            for j in np.flatnonzero(placed):
+                by_node.setdefault(int(assign[j]), []).append(int(part[j]))
+            for mnode in sorted(by_node):
+                result.existing_plans.append(
+                    ExistingNodePlan(state_node=ctx["nodes"][mnode], pod_indices=by_node[mnode])
+                )
+        return part[~placed]
+
+    # ------------------------------------------------------------------
 
     def _prepare_job(
         self,
@@ -1009,7 +1787,9 @@ class TorchScheduler:
         result: SolverResult,
         jobs: List[tuple],
         metas: List[dict],
+        zone: Optional[str] = None,
         merged=None,
+        per_node_limits: Optional[list] = None,
     ) -> None:
         viable_idx = np.flatnonzero(viable)
         if len(viable_idx) == 0:
@@ -1036,9 +1816,11 @@ class TorchScheduler:
                 zone_ok=zone_ok,
                 ct_ok=ct_ok,
                 pool=pool,
+                zone=zone,
                 daemon=daemon,
                 max_per_node=int(max_per_node),
                 merged=merged,
+                per_node_limits=per_node_limits or [],
             )
         )
 
@@ -1102,7 +1884,7 @@ class TorchScheduler:
         if ok_nodes.size:
             t_global = viable_idx[chosen_types[ok_nodes]]
             off_zone, off_ct, off_price = self._cheapest_offering_batch(
-                enc, t_global, meta["zone_ok"], meta["ct_ok"], None
+                enc, t_global, meta["zone_ok"], meta["ct_ok"], meta["zone"]
             )
         else:
             t_global = np.zeros(0, dtype=np.int64)
@@ -1133,7 +1915,9 @@ class TorchScheduler:
         merge_all: bool,
     ) -> None:
         """Positional node memberships become pod indices; plan nodes
-        emit NodePlans and underfull tails become merge records."""
+        emit NodePlans and underfull tails become merge records. Capped
+        and limited groups merge too: the merge check enforces each
+        side's per-node limits on the combined membership."""
         idx, enc = meta["idx"], meta["enc"]
         for i in idx[skel.unsched]:
             result.pod_errors[pods[i].uid] = (
@@ -1144,8 +1928,11 @@ class TorchScheduler:
         viable_bool = np.zeros(len(enc.instance_types), dtype=bool)
         viable_bool[meta["viable_idx"]] = True
         to_record = skel.ok.copy() if merge_all else skel.ok & skel.underfull
+        # records of one job share its per-job arrays and lists (the
+        # merge engines replace, never mutate, record entries)
+        job_limits = list(meta["per_node_limits"])
         max_per_node = meta["max_per_node"]
-        pool = meta["pool"]
+        pool, zone = meta["pool"], meta["zone"]
         positions, bounds = skel.positions, skel.bounds
         for n in range(skel.node_count):
             members = idx[positions[bounds[n] : bounds[n + 1]]].tolist()
@@ -1158,7 +1945,7 @@ class TorchScheduler:
                     dict(
                         enc=enc,
                         pool=pool,
-                        zone=None,
+                        zone=zone,
                         zone_ok=meta["zone_ok"],
                         ct_ok=meta["ct_ok"],
                         viable=viable_bool,
@@ -1168,7 +1955,7 @@ class TorchScheduler:
                         alloc_cap=skel.alloc_cap,
                         merged=meta["merged"],
                         max_per_node=max_per_node,
-                        limits=[],
+                        limits=job_limits,
                     )
                 )
                 continue
@@ -1183,7 +1970,7 @@ class TorchScheduler:
                     pod_indices=members,
                     requirements=meta["merged"],
                     max_pods_per_node=int(max_per_node),
-                    node_limits=[],
+                    node_limits=list(job_limits),
                     _pod_requests=[self._all_requests[i] for i in members],
                 )
             )
@@ -1284,9 +2071,10 @@ class TorchScheduler:
         viable=None,
     ) -> bool:
         """Exact tail of one merge-pair check — requirement-set
-        intersection, combined-load fits, offering availability on the
-        intersected masks — then the apply (Requirements union,
-        membership join). Mutates ``m``; True when ``r`` was absorbed."""
+        intersection, hostname-level per-node limits, combined-load
+        fits, offering availability on the intersected masks — then the
+        apply (Requirements union, limit-count carry-over, membership
+        join). Mutates ``m``; True when ``r`` was absorbed."""
         enc = r["enc"]
         if zone is None:
             zone = m["zone"] if m["zone"] is not None else r["zone"]
@@ -1304,6 +2092,17 @@ class TorchScheduler:
                 self._intersects_cache[ikey] = compat_ok
             if not compat_ok:
                 return False
+        limits = m.get("limits", []) + r.get("limits", [])
+        # every hostname-level constraint of either side must hold on the
+        # merged membership (the oracle's per-node count at placement);
+        # per-side counts are cached so large memberships aren't
+        # rescanned per pair
+        for sel, ns, cap in limits:
+            count = self._record_limit_count(m, sel, ns, pods) + self._record_limit_count(
+                r, sel, ns, pods
+            )
+            if count > cap:
+                return False
         usage = m["usage"] + r["usage"]
         alloc = self._alloc_full(enc, r["daemon"])
         fits = viable & np.all(usage[None, :] <= alloc, axis=1)
@@ -1318,6 +2117,24 @@ class TorchScheduler:
             return False
         combined = Requirements(*m["merged"].values_list())
         combined.add(*r["merged"].values_list())
+        # merge the per-selector count caches additively BEFORE the
+        # memberships join: keys cached on both sides stay exact (counts
+        # are disjoint membership sums); one-sided keys are completed now,
+        # while the sides are still separate (their selectors ride in
+        # _limit_sels)
+        m_cache = m.get("_limit_counts") or {}
+        r_cache = r.get("_limit_counts") or {}
+        shared = m_cache.keys() & r_cache.keys()
+        counts = {k: m_cache[k] + r_cache[k] for k in shared}
+        if limits:
+            sels = {**(r.get("_limit_sels") or {}), **(m.get("_limit_sels") or {})}
+            for k in (m_cache.keys() | r_cache.keys()) - shared:
+                if k not in sels:
+                    continue
+                counts[k] = self._record_limit_count(m, sels[k], k[1], pods) + (
+                    self._record_limit_count(r, sels[k], k[1], pods)
+                )
+            m["_limit_sels"] = sels
         m.update(
             usage=usage,
             zone=zone,
@@ -1325,11 +2142,28 @@ class TorchScheduler:
             ct_ok=ct_ok,
             viable=viable,
             merged=combined,
-            limits=m.get("limits", []) + r.get("limits", []),
+            limits=limits,
             max_per_node=min(m.get("max_per_node", MAX_INT32), r.get("max_per_node", MAX_INT32)),
         )
         m["members"].extend(r["members"])
+        m["_limit_counts"] = counts
         return True
+
+    def _record_limit_count(self, record: dict, sel, ns: str, pods: List[Pod]) -> int:
+        """Members of a merge record matching (sel, ns), cached on the
+        record with the selector beside it."""
+        cache = record.setdefault("_limit_counts", {})
+        key = (self._sel_fp(sel) if sel is not None else None, ns)
+        count = cache.get(key)
+        if count is None:
+            count = sum(
+                1
+                for i in record["members"]
+                if pods[i].namespace == ns and self._sel_matches(sel, i, pods)
+            )
+            cache[key] = count
+            record.setdefault("_limit_sels", {})[key] = sel
+        return count
 
     def _emit_record(self, m: dict, pods: List[Pod], result: SolverResult) -> None:
         enc, zone_ok, ct_ok, zone = m["enc"], m["zone_ok"], m["ct_ok"], m["zone"]

@@ -144,3 +144,135 @@ def test_pack_existing_check_on_the_solve_inputs(smoke, solved):
     *_, inputs = solved
     row = smoke.pack_existing_check(inputs, "cpu")
     assert row["max_abs_err"] == 0 and row["assigned"] > 0 and row["M"] == 60
+
+
+# -- phases 6 and 7: bench config 3 whole, and with the cluster's kube store -----
+
+
+def _ref_smoke():
+    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
+        return _load("chip_smoke_ref", f.read().replace("karpenter_core_tpu_torch", "karpenter_core_tpu"))
+
+
+SPREAD_WORLDS = {
+    # (pods, types, nodes, ha-web pods)
+    "config3": (3000, 200, None, None),
+    "config3-wider": (5000, 400, None, None),
+    "cluster-spread": (3000, 200, 60, 50),
+    # more replicas than admitting nodes: the rest open capped new nodes
+    "cluster-spread-more-replicas": (1500, 120, 40, 120),
+}
+
+
+def _spread_world(module, world):
+    n_pods, n_types, n_nodes, n_ha = SPREAD_WORLDS[world]
+    if n_nodes is None:
+        pools, provider, pods = module.config3_world(n_pods, n_types)
+        return pools, provider, pods, {}, None
+    pools, provider, pods, nodes, daemons, _, kube = module.cluster_spread_world(
+        n_pods, n_types, n_nodes, n_ha
+    )
+    return pools, provider, pods, dict(state_nodes=nodes, daemonset_pods=daemons), kube
+
+
+@pytest.mark.parametrize("world", sorted(SPREAD_WORLDS))
+def test_spread_world_plan_identity(smoke, monkeypatch, world):
+    """Phases 6 and 7's worlds, cut down, from the JAX package's classes
+    (the script's own builders with the package name swapped) solve to
+    the same plans, all on the reference's tensor path."""
+    from karpenter_core_tpu.solver import TPUScheduler
+    from test_torch_existing import errors_by_index
+    from test_torch_native import reference_native
+
+    reference_native(monkeypatch)
+    results = []
+    for module in (_ref_smoke(), smoke):
+        pools, provider, pods, kw, kube = _spread_world(module, world)
+        if module is smoke:
+            solver = TorchScheduler(pools, provider, device="cpu", kube_client=kube)
+        else:
+            solver = TPUScheduler(pools, provider, kube_client=kube)
+        results.append((solver.solve(pods, **kw), pods, solver))
+    (ref, ref_pods, ref_solver), (res, pods, _) = results
+    assert ref.oracle_results is None
+    assert ref_solver.last_route_stats["oracle"] == 0 and ref_solver.last_route_stats["parked"] == 0
+    assert smoke.plan_stream(res) == smoke.plan_stream(ref)
+    assert smoke.existing_stream(res) == smoke.existing_stream(ref)
+    assert errors_by_index(res, pods) == errors_by_index(ref, ref_pods)
+    assert (res.node_count, res.pods_scheduled, res.total_price) == (
+        ref.node_count, ref.pods_scheduled, ref.total_price,
+    )
+    assert any(p.spec.topology_spread_constraints for p in pods)
+
+
+@pytest.fixture(scope="module")
+def spread_solved(smoke):
+    pools, provider, pods, kw, kube = _spread_world(smoke, "cluster-spread")
+    res = TorchScheduler(pools, provider, device="cpu", kube_client=kube).solve(pods, **kw)
+    return res, pods, kw["state_nodes"], provider, kube
+
+
+def test_spread_world_shape(smoke, spread_solved):
+    res, pods, nodes, provider, kube = spread_solved
+    assert len(pods) == 3050 and len(nodes) == 60
+    bound = kube.list("Pod")
+    assert sum(1 for p in bound if p.metadata.labels.get("app") == "ha-web") == 12
+    zone1 = {sn.name() for sn in nodes if sn.labels()["topology.kubernetes.io/zone"] == "test-zone-1"}
+    svc5 = [p for p in bound if p.metadata.labels.get("app") == "svc-5"]
+    assert svc5 and all(p.spec.node_name in zone1 for p in svc5)
+    assert sum(len(sn.pod_requests) for sn in nodes) == len(bound)
+
+
+def test_spread_checks_hold_on_the_cpu_plan(smoke, spread_solved):
+    res, pods, nodes, provider, kube = spread_solved
+    groups = smoke.check_spread(res, pods, nodes, provider, kube)
+    by_sel = {g["selector"]["app"]: g for g in groups}
+    assert set(by_sel) == {"svc-5", "svc-6"}
+    # svc-5's zone-1 seeds steer its pending pods to zones 2 and 3
+    assert "test-zone-1" not in by_sel["svc-5"]["placed_by_zone"]
+    assert by_sel["svc-5"]["final_by_zone"]["test-zone-1"] > 0
+    ha = smoke.check_hostname(res, pods, kube)
+    assert ha["pods"] == 50 and ha["on_existing"] + ha["on_new"] == 50 and ha["bound_seeds"] == 12
+    smoke.check_cluster(res, pods, nodes, *_daemons_missing(smoke))
+    pools, provider3, pods3, _, _ = _spread_world(smoke, "config3")
+    res3 = TorchScheduler(pools, provider3, device="cpu").solve(pods3)
+    smoke.check_invariants(res3, pods3)
+    assert [g["worst_skew"] for g in smoke.check_spread(res3, pods3, [], provider3)] == [0, 0]
+
+
+def _daemons_missing(smoke):
+    _, _, _, _, daemons, missing, _ = smoke.cluster_spread_world(*SPREAD_WORLDS["cluster-spread"][:3], 50)
+    return daemons, missing
+
+
+@pytest.mark.parametrize(
+    "fault", ["zone skew", "two replicas on a new node", "replica beside a bound one"]
+)
+def test_spread_checks_refuse_a_broken_plan(smoke, spread_solved, fault):
+    res, pods, nodes, provider, kube = spread_solved
+    bad = copy.copy(res)
+    bad.node_plans = [copy.copy(p) for p in res.node_plans]
+    bad.existing_plans = [copy.copy(e) for e in res.existing_plans]
+    ha = [p for p in bad.node_plans if any(pods[i].metadata.labels.get("app") == "ha-web" for i in p.pod_indices)]
+    if fault == "zone skew":
+        # every new node holding svc-6 pods in zone 2 moves to zone 1
+        for p in bad.node_plans:
+            if p.zone == "test-zone-2" and any(pods[i].metadata.labels.get("app") == "svc-6" for i in p.pod_indices):
+                p.zone = "test-zone-1"
+        with pytest.raises(SystemExit):
+            smoke.check_spread(bad, pods, nodes, provider, kube)
+        return
+    first, second = ha[0], ha[1]
+    moved = next(i for i in second.pod_indices if pods[i].metadata.labels.get("app") == "ha-web")
+    second.pod_indices = [i for i in second.pod_indices if i != moved]
+    if fault == "two replicas on a new node":
+        first.pod_indices = first.pod_indices + [moved]
+    else:
+        seeded = next(
+            e for e in bad.existing_plans
+            if any(p.spec.node_name == e.state_node.name() and p.metadata.labels.get("app") == "ha-web"
+                   for p in kube.list("Pod"))
+        )
+        seeded.pod_indices = seeded.pod_indices + [moved]
+    with pytest.raises(SystemExit):
+        smoke.check_hostname(bad, pods, kube)

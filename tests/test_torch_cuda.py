@@ -152,9 +152,7 @@ def test_pack_existing_plain_version_on_card_matches_native(cuda):
     assert (assign >= 0).any() and (assign < 0).any()
 
 
-def test_cluster_solve_on_card_matches_cpu(cuda):
-    """A small live cluster (chip_smoke.py's cluster world, cut down):
-    the card's plans, existing plans and errors equal the CPU solve's."""
+def _smoke():
     import importlib.util
     import os
 
@@ -162,7 +160,15 @@ def test_cluster_solve_on_card_matches_cpu(cuda):
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_cluster_solve_on_card_matches_cpu(cuda):
+    """A small live cluster (chip_smoke.py's cluster world, cut down):
+    the card's plans, existing plans and errors equal the CPU solve's."""
     from karpenter_core_tpu_torch.solver import TorchScheduler
+
+    smoke = _smoke()
 
     pools, provider, pods, nodes, daemons, missing = smoke.cluster_world(3000, 200, 60)
     before = ck.COMPAT_ALLOWED.launches
@@ -177,3 +183,42 @@ def test_cluster_solve_on_card_matches_cpu(cuda):
     assert smoke.existing_stream(res) == smoke.existing_stream(cpu)
     assert res.pod_errors == cpu.pod_errors
     smoke.check_cluster(res, pods, nodes, daemons, missing)
+
+
+def test_zone_spread_solve_on_card_matches_cpu(cuda):
+    """Bench config 3 whole, cut down (chip_smoke.py's config3_world):
+    zone-spread groups solve on the card to the CPU solve's plans, the
+    kernel launched, and every spread group within its max_skew."""
+    from karpenter_core_tpu_torch.solver import TorchScheduler
+
+    smoke = _smoke()
+    pools, provider, pods = smoke.config3_world(3000, 200)
+    before = ck.COMPAT_ALLOWED.launches
+    res = TorchScheduler(pools, provider, device="cuda").solve(pods)
+    assert ck.COMPAT_ALLOWED.launches - before == 1  # one pool
+    cpu = TorchScheduler(pools, provider, device="cpu").solve(pods)
+    assert smoke.plan_stream(res) == smoke.plan_stream(cpu)
+    assert res.pod_errors == cpu.pod_errors
+    smoke.check_invariants(res, pods)
+    assert len(smoke.check_spread(res, pods, [], provider)) == 2
+
+
+def test_hostname_spread_solve_on_card_matches_cpu(cuda):
+    """chip_smoke.py's cluster-spread world cut down: hostname spread
+    (one replica per node) and seeded zone spread against existing nodes
+    and a kube store, on the card, equal to the CPU solve."""
+    from karpenter_core_tpu_torch.solver import TorchScheduler
+
+    smoke = _smoke()
+    pools, provider, pods, nodes, daemons, missing, kube = smoke.cluster_spread_world(3000, 200, 60, 50)
+    kw = dict(state_nodes=nodes, daemonset_pods=daemons)
+    before = ck.COMPAT_ALLOWED.launches
+    res = TorchScheduler(pools, provider, device="cuda", kube_client=kube).solve(pods, **kw)
+    assert ck.COMPAT_ALLOWED.launches - before >= 2  # one per pool per round
+    cpu = TorchScheduler(pools, provider, device="cpu", kube_client=kube).solve(pods, **kw)
+    assert smoke.plan_stream(res) == smoke.plan_stream(cpu)
+    assert smoke.existing_stream(res) == smoke.existing_stream(cpu)
+    assert res.pod_errors == cpu.pod_errors
+    smoke.check_cluster(res, pods, nodes, daemons, missing)
+    smoke.check_spread(res, pods, nodes, provider, kube)
+    assert smoke.check_hostname(res, pods, kube)["pods"] == 50

@@ -10,7 +10,9 @@ plus equal ``pod_errors`` (by pod index), ``node_count``,
 ``pods_scheduled`` and ``total_price``. The reference runs its default
 pack route, the native packer at K = 1024 (``reference_native``). The mix is bench config 3's
 (``bench.py:469``) without its topology-spread share: 3/9 capacity-type
-selectors, 2/9 ``dedicated`` tolerations, 4/9 plain pods.
+selectors, 2/9 ``dedicated`` tolerations, 4/9 plain pods (the spread
+share is in ``tests/test_torch_topology.py``). Shapes outside the
+slice raise NotImplementedError naming the feature.
 """
 
 from __future__ import annotations
@@ -203,12 +205,15 @@ def _out_of_slice(kind: str):
     sel = ob.LabelSelector(match_labels={"app": "svc-0"})
     kwargs = {}
     if kind == "topology spread":
+        # zone spread is in the slice; together with a host port it is
+        # not (the JAX package sends that group to its oracle)
         pod.spec.topology_spread_constraints = [
             ob.TopologySpreadConstraint(
                 max_skew=1, topology_key=wk.LABEL_TOPOLOGY_ZONE,
                 when_unsatisfiable="DoNotSchedule", label_selector=sel,
             )
         ]
+        pod.spec.containers[0].ports = [ob.ContainerPort(host_port=8080)]
     elif kind == "pod affinity":
         pod.spec.affinity = ob.Affinity(
             pod_affinity=ob.PodAffinity(
@@ -216,6 +221,8 @@ def _out_of_slice(kind: str):
             )
         )
     elif kind == "pod anti-affinity":
+        # hostname self-anti-affinity is in the slice; this selector also
+        # matches other groups of the batch (app=svc-0 without the term)
         pod.spec.affinity = ob.Affinity(
             pod_anti_affinity=ob.PodAntiAffinity(
                 required=[ob.PodAffinityTerm(topology_key=wk.LABEL_HOSTNAME, label_selector=sel)]
@@ -254,6 +261,24 @@ def test_out_of_slice_features_raise(kind):
     solver, pods, kwargs = _out_of_slice(kind)
     with pytest.raises(NotImplementedError, match=kind.split()[0]):
         solver.solve(pods, **kwargs)
+
+
+def test_schedule_anyway_spread_failure_raises():
+    """A failing pod with a ScheduleAnyway spread is one the JAX
+    package's preference ladder would relax (the constraint is stripped
+    and the pod retried): outside the slice, never a different plan."""
+    ob = importlib.import_module(f"{PORT}.kube.objects")
+    wk = importlib.import_module(f"{PORT}.apis.labels")
+    pools, provider, pods = world(PORT, seed=12, n_pods=10)
+    pods[0].spec.node_selector = {"team": "nobody"}
+    pods[0].spec.topology_spread_constraints = [
+        ob.TopologySpreadConstraint(
+            max_skew=1, topology_key=wk.LABEL_TOPOLOGY_ZONE, when_unsatisfiable="ScheduleAnyway",
+            label_selector=ob.LabelSelector(match_labels={"app": "svc-0"}),
+        )
+    ]
+    with pytest.raises(NotImplementedError, match="relaxation"):
+        TorchScheduler(pools, provider, device="cpu").solve(pods)
 
 
 def test_relaxable_failure_raises():
