@@ -489,6 +489,29 @@ class SignatureGroup:
         (call only when it returned a key)."""
         return list(self.exemplar.spec.affinity.pod_affinity.required)
 
+    def affinity_term(self):
+        """First required pod-affinity term (single-term callers)."""
+        return self.exemplar.spec.affinity.pod_affinity.required[0]
+
+    def affinity_self_selecting(self) -> bool:
+        """Whether the group's pods match every one of their own affinity
+        selectors — gates the bootstrap-one-domain rule
+        (topologygroup.go:226-232: only self-selecting pods may seed an
+        empty domain)."""
+        return all(
+            t.label_selector is None or t.label_selector.matches(self.exemplar.metadata.labels)
+            for t in self.affinity_terms()
+        )
+
+    def self_pod_affinity(self) -> Optional[str]:
+        """Topology key of a single self-selecting required pod-affinity
+        term on zone/hostname, when that is the group's only affinity
+        shape — else None."""
+        key = self.tensor_pod_affinity()
+        if key is None or not self._is_self_term(self.affinity_term()):
+            return None
+        return key
+
     @property
     def zone_anti_isolated(self) -> bool:
         """Required self-anti-affinity on zone: at most one pod of the

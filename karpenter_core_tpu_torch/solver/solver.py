@@ -1,39 +1,51 @@
 """TorchScheduler: the batched provisioning solve on PyTorch and CUDA.
 
 Counterpart of ``karpenter_core_tpu/solver/solver.py::TPUScheduler`` on
-its plain tensor path:
+its tensor path:
 
   host:   route signature groups (the JAX package's default constraint
-          engine); every group it would park or send to its oracle
-          raises NotImplementedError naming the feature
+          engine): tensor groups, parked pod-affinity groups, and the
+          groups it would send to its oracle, which raise
+          NotImplementedError naming the feature
   host:   signature-group pods → first-fit onto existing nodes
           (existing_node_compat → native/pack.cc), free capacity net of
-          the daemons each node still has to run; topology-constrained
-          groups wait for their domains
-  host:   leftover pods → per-(signature, pool) set algebra
+          the daemons each node still has to run, nodes holding a pod a
+          non-self anti-affinity term counts masked out; topology-
+          constrained groups wait for their domains
+  host:   leftover and parked pods → per-(signature, pool) set algebra
   device: ONE compat ∧ offering kernel launch per pool against the
           catalog's card-resident type side (solver/compat_kernels.py)
-  host:   bounded, NodePool-limit-aware pack rounds: zone-spread groups
-          water-fill seeded per-zone counts (topology_tensor.py) and try
-          their zone's existing nodes first, hostname-capped groups fill
-          per-node quotas on existing nodes, then class-merged and
-          zone-pinned pack jobs (new nodes carry their pool's daemonset
-          overhead and per-node pod caps) → C++ first-fit-decreasing pack
-          (native/pack.cc) → cheapest type/offering per node →
-          cross-group merge of underfull nodes under each side's
-          per-node hostname limits (merge.py) → NodePlans, stripped
-          where a NodePool limit is exceeded
+  host:   bounded, NodePool-limit-aware pack rounds: non-self zone
+          anti-affinity narrows each group's zones before its frontier,
+          zone-spread groups water-fill seeded per-zone counts
+          (topology_tensor.py) and try their zone's existing nodes first,
+          hostname-capped groups fill per-node quotas on existing nodes,
+          zone self-anti-affinity groups take one pod per free zone, then
+          class-merged and zone-pinned pack jobs (new nodes carry their
+          pool's daemonset overhead and per-node pod caps) → C++
+          first-fit-decreasing pack (native/pack.cc) → cheapest
+          type/offering per node → cross-group merge of underfull nodes
+          under each side's per-node hostname limits (merge.py) →
+          NodePlans, stripped where a NodePool limit is exceeded
+  host:   the pod-affinity post-pass: parked groups one at a time in
+          anchor-dependency order, each against the placements committed
+          so far (zone anchors intersected per term, hostname anchors on
+          existing nodes and on planned nodes, which grow their type to
+          take joiners or give up one matching pod to seed a fresh
+          anchor), to a fixpoint
 
-Spread seeds count the pods bound in ``kube_client`` (the JAX package's
-``kube_client``); the port has no cluster-state object, no warm store
-and no tracer, so seeds are recounted on every solve and nothing is
-memoized across solves but the catalog encodings. Features the JAX
-package sends off this path raise NotImplementedError with the
-feature's name instead of routing elsewhere: pod affinity, zone and
-non-self pod anti-affinity, constraints counting a group of those,
-host ports, volumes and preference relaxation. The port reads no
-environment variable: the JAX package's defaults it depends on are
-module constants (pack.NATIVE_K_OPEN, compat_kernels.COMPAT_TILE_BYTES,
+Spread and affinity seeds count the pods bound in ``kube_client`` (the
+JAX package's ``kube_client``); the port has no cluster-state object, no
+warm store and no tracer, so seeds are recounted on every solve and
+nothing is memoized across solves but the catalog encodings. Features
+the JAX package sends off this path raise NotImplementedError with the
+feature's name instead of routing elsewhere: preferred pod (anti-)
+affinity, pod affinity mixed with anti-affinity or spread, two hostname
+affinity terms, terms on other keys or namespaces, anti-affinity whose
+selector matches another group of the batch, constraints counting a
+group of those, host ports, volumes and preference relaxation. The port
+reads no environment variable: the JAX package's defaults it depends on
+are module constants (pack.NATIVE_K_OPEN, compat_kernels.COMPAT_TILE_BYTES,
 the vector merge engine, the ffd pack backend with the native engine,
 the tensor constraint engine).
 """
@@ -58,6 +70,7 @@ from ..kube.objects import EFFECT_PREFER_NO_SCHEDULE, OP_IN, SCHEDULE_ANYWAY, Po
 from ..scheduler.topology import TopologyNodeFilter
 from ..scheduling import Requirement, Requirements, Taints, resources
 from ..scheduling.requirements import (
+    ALLOW_UNDEFINED_WELL_KNOWN_LABELS,
     label_requirements,
     node_selector_requirements,
     pod_requirements,
@@ -99,6 +112,7 @@ from .topology_tensor import (
     seed_counts_for_constraint,
     seed_counts_for_selector,
     spread_quotas,
+    water_fill,
 )
 from .vocab import Vocab
 
@@ -119,8 +133,13 @@ MAX_INT32 = 2**31 - 1
 # sync), prepare (pool choice and class-merged pack jobs), pack (the C++
 # packer), finalize (usage, cheapest type and offering per node), merge
 # (the cross-group merge and its emit), limits (NodePool remaining
-# limits, their type masks and the enforcement after each pack round)
-PHASES = ("group", "existing", "encode", "prepare", "pack", "finalize", "merge", "limits")
+# limits, their type masks and the enforcement after each pack round),
+# affinity (the pod-affinity post-pass). Phases partition the solve: a
+# phase entered inside another (the post-pass's packs and merges) counts
+# in its own phase only.
+PHASES = (
+    "group", "existing", "encode", "prepare", "pack", "finalize", "merge", "limits", "affinity",
+)
 
 
 @dataclass
@@ -225,16 +244,19 @@ def _group_node_limits(group: SignatureGroup) -> list:
     """Hostname-level per-node constraints a node holding this group's
     pods must keep satisfying if other pods merge onto it: (selector,
     namespace, max matching pods per node) triples from hostname
-    topology spread and hostname self-anti-affinity (routing refuses the
-    other anti-affinity shapes)."""
+    topology spread and hostname anti-affinity. A non-self hostname anti
+    term contributes cap 0: the node must never gain a selector-matching
+    pod (routing keeps every batch group off such selectors, so the
+    limit guards merges and joins)."""
     limits = []
     ns = group.exemplar.namespace
     hs = group.hostname_spread()
     if hs is not None:
         limits.append((hs.label_selector, ns, int(hs.max_skew)))
     for term in group.tensor_anti_terms() or ():
-        if term.topology_key == wk.LABEL_HOSTNAME and group._is_self_term(term):
-            limits.append((term.label_selector, ns, 1))
+        if term.topology_key != wk.LABEL_HOSTNAME or term.label_selector is None:
+            continue
+        limits.append((term.label_selector, ns, 1 if group._is_self_term(term) else 0))
     return limits
 
 
@@ -350,6 +372,9 @@ class NodePlan:
     node_limits: list = field(default_factory=list)
     _pod_requests: Optional[list] = field(default=None, repr=False)
     _requests: Optional[dict] = field(default=None, repr=False)
+    # the post-pass charged this plan's capacity to its pool's limits
+    # when it opened it (a reseeded anchor): enforcement skips it
+    _limits_accounted: bool = field(default=False, repr=False)
 
     @property
     def requests(self) -> Optional[dict]:
@@ -545,9 +570,9 @@ def route_groups(
 
 
 def _unported_feature(group: SignatureGroup, groups: List[SignatureGroup]) -> Optional[str]:
-    """Why the slice cannot solve ``group`` itself, or None when its own
-    constraints are in the slice (it may still be pulled off the tensor
-    path by another group's)."""
+    """Why the port cannot solve ``group`` itself, or None when its own
+    constraints are on the port's path (it may still be pulled off it by
+    another group's)."""
     spec = group.exemplar.spec
     a = spec.affinity
     stateful = group.has_stateful_node_constraints
@@ -567,14 +592,8 @@ def _unported_feature(group: SignatureGroup, groups: List[SignatureGroup]) -> Op
             "pod anti-affinity with preferred terms, another topology key or namespace, "
             "or mixed with pod affinity or a spread other than hostname self-isolation"
         )
-    if group.tensor_pod_affinity() is not None:
-        return "pod affinity"
-    if group.zone_anti_isolated:
-        return "pod anti-affinity on zone"
     if _counts_another_group(group, groups):
         return "pod anti-affinity whose selector matches another group of the batch"
-    if group.anti_exclusion_terms():
-        return "pod anti-affinity against other pods"
     if any(p.host_port for c in spec.containers + spec.init_containers for p in c.ports):
         return "host ports"
     if stateful:
@@ -582,17 +601,17 @@ def _unported_feature(group: SignatureGroup, groups: List[SignatureGroup]) -> Op
     return None
 
 
-def _check_routing(groups: List[SignatureGroup]) -> None:
-    """Raise NotImplementedError, naming the feature, unless every group
-    stays on the slice's tensor path: the JAX package would park or send
-    to its oracle any group this refuses, or fold constraints into its
-    pack that are not ported (host ports, volumes, zone and non-self
-    anti-affinity). A refused batch is never solved another way."""
+def _check_routing(groups: List[SignatureGroup]) -> Tuple[List[SignatureGroup], List[SignatureGroup]]:
+    """The JAX package's route split → (tensor groups, parked groups).
+    Raise NotImplementedError, naming the feature, when it would send a
+    group to its oracle, or fold constraints into its pack that are not
+    ported (host ports, volumes). A refused batch is never solved
+    another way."""
     tensor_groups, parked, oracle_groups = route_groups(groups)
-    blocked = {id(g) for g in parked + oracle_groups}
-    blocked.update(id(g) for g in tensor_groups if _unported_feature(g, groups) is not None)
-    if not blocked:
-        return
+    if not oracle_groups and all(
+        _unported_feature(g, groups) is None for g in tensor_groups + parked
+    ):
+        return tensor_groups, parked
     for g in groups:
         feature = _unported_feature(g, groups)
         if feature is not None:
@@ -653,6 +672,11 @@ class TorchScheduler:
         self._prep_zone_ledger: List[Tuple[int, str]] = []
         self._ledger_selectors: List[tuple] = []
         self._existing_ctx: Optional[dict] = None
+        self._anti_zone_excl_cache: Dict[int, frozenset] = {}
+        self._plan_match_cache: Dict[Tuple[tuple, int], Tuple[int, bool]] = {}
+        self._join_types_cache: Dict[tuple, tuple] = {}
+        self._phase_ms: Dict[str, float] = dict.fromkeys(PHASES, 0.0)
+        self._phase_inner: List[float] = [0.0]
 
     # ------------------------------------------------------------------
 
@@ -669,6 +693,7 @@ class TorchScheduler:
         t0 = time.perf_counter()
         self._clock = _DeviceClock(self.device)
         self._phase_ms = dict.fromkeys(PHASES, 0.0)
+        self._phase_inner = [0.0]  # ms of phases nested in the open one
         try:
             return self._solve(pods, list(state_nodes or ()), list(daemonset_pods or ()))
         finally:
@@ -684,12 +709,17 @@ class TorchScheduler:
 
     @contextmanager
     def _phase(self, name: str):
-        """Wall time of one solve phase into ``last_timings[name + "_ms"]``."""
+        """Wall time of one solve phase into ``last_timings[name + "_ms"]``,
+        less the phases opened inside it."""
         t0 = time.perf_counter()
+        self._phase_inner.append(0.0)
         try:
             yield
         finally:
-            self._phase_ms[name] += (time.perf_counter() - t0) * 1000.0
+            ms = (time.perf_counter() - t0) * 1000.0
+            inner = self._phase_inner.pop()
+            self._phase_ms[name] += ms - inner
+            self._phase_inner[-1] += ms
 
     @property
     def _batch_uids(self) -> set:
@@ -712,7 +742,7 @@ class TorchScheduler:
             self._req_ids = np.fromiter((m.req_id for m in memos), dtype=np.int64, count=len(memos))
             self._req_map = {m.req_id: m.requests for m in memos}
             groups = group_pods(pods, memos=memos)
-            _check_routing(groups)
+            tensor_groups, parked = _check_routing(groups)
         # merge-pass pairwise Requirements.intersects memo (content keyed)
         self._intersects_cache: Dict[tuple, bool] = {}
         # spread-count seeding excludes the batch being scheduled
@@ -728,9 +758,18 @@ class TorchScheduler:
         # over the grow-only plan lists); cleared when limit enforcement
         # strips plans
         self._fold_cache = {}
-        if groups:
-            self._solve_tensor(pods, groups, daemonset_pods, state_nodes, result)
-            self._check_relaxation(pods, groups, result)
+        # zones each non-self zone anti-affinity group may not use, per
+        # group of this solve
+        self._anti_zone_excl_cache = {}
+        # (selector fingerprint, id(plan)) → (members seen, matched): the
+        # post-pass's anchor scans rescan a plan only when it grew
+        self._plan_match_cache = {}
+        # admissible types of a post-pass join or reseed, per (plan
+        # requirements, joiner requirements, zone, capacity type, viable)
+        self._join_types_cache = {}
+        if tensor_groups or parked:
+            self._solve_tensor(pods, tensor_groups, daemonset_pods, state_nodes, result, parked)
+            self._check_relaxation(pods, tensor_groups + parked, result)
         return result
 
     def _check_relaxation(self, pods, groups, result: SolverResult) -> None:
@@ -815,6 +854,7 @@ class TorchScheduler:
         daemonset_pods: List[Pod],
         state_nodes: list,
         result: SolverResult,
+        parked_groups: List[SignatureGroup] = (),
     ) -> None:
         # prep-time (pod index, zone) ledger of zone-pinned assignments:
         # later counting groups fold these, so mutually counting groups
@@ -837,24 +877,35 @@ class TorchScheduler:
                 for h in groups
             ):
                 self._ledger_selectors.append((sel, g.exemplar.namespace))
+        # parked (pod-affinity) groups join the catalog and compat encode
+        # but skip the pack rounds: they resolve after them, one by one
+        parked_from = len(groups)
+        groups = list(groups) + list(parked_groups)
         # existing capacity first (scheduler.go:241-246): per-group
         # indices still needing placement after the existing-node pack
         self._existing_ctx = None
-        leftover: Dict[int, List[int]] = {gi: list(g.pod_indices) for gi, g in enumerate(groups)}
+        leftover: Dict[int, List[int]] = {
+            gi: list(groups[gi].pod_indices) for gi in range(parked_from)
+        }
         if state_nodes:
             with self._phase("existing"):
-                self._pack_existing(pods, groups, daemonset_pods, state_nodes, leftover, result)
-            if not any(leftover.values()):
+                self._pack_existing(
+                    pods, groups[:parked_from], daemonset_pods, state_nodes, leftover, result
+                )
+            if not any(leftover.values()) and not parked_groups:
                 return
         pools, pool_catalogs = self._build_pools()
         if not pools:
-            for idx in leftover.values():
-                for i in idx:
+            for gi in range(parked_from):
+                for i in leftover[gi]:
+                    result.pod_errors[pods[i].uid] = "no nodepool found"
+            for g in groups[parked_from:]:
+                for i in g.pod_indices:
                     result.pod_errors[pods[i].uid] = "no nodepool found"
             return
         with self._phase("encode"):
             ctx = self._encode_phase(groups, pools, pool_catalogs, daemonset_pods)
-        self._pack_phase(pods, groups, pools, leftover, state_nodes, result, ctx)
+        self._pack_phase(pods, groups, parked_from, pools, leftover, state_nodes, result, ctx)
 
     def _pack_existing(
         self,
@@ -920,18 +971,29 @@ class TorchScheduler:
             node_zones=np.array([lbls.get(wk.LABEL_TOPOLOGY_ZONE, "") for lbls in node_labels]),
             compat_rows={},
         )
-        # topology-constrained groups are domain-assigned before they
-        # touch existing capacity: keep them out of this selector-blind
+        # topology-constrained groups (zone spread, zone self-anti-
+        # affinity, hostname caps) are domain-assigned before they touch
+        # existing capacity: keep them out of this selector-blind
         # first-fit
         pack = [
             (gi, g)
             for gi, g in enumerate(groups)
-            if g.zone_spread() is None and g.hostname_spread() is None and not g.hostname_isolated
+            if g.zone_spread() is None
+            and g.tensor_pod_affinity() is None
+            and not g.zone_anti_isolated
+            and g.hostname_spread() is None
+            and not g.hostname_isolated
         ]
         if not pack:
             return
         sub_groups = [g for _, g in pack]
+        # nodes a non-self anti-affinity term excludes (zones or hosts
+        # holding a selector-matching pod) fold in per group
         compat = existing_node_compat(sub_groups, nodes)
+        for s, g in enumerate(sub_groups):
+            excl = self._anti_exclusion_row(g, self._existing_ctx)
+            if excl is not None:
+                compat[s] &= ~excl
         if not compat.any():
             return
         # global pack in the oracle's pod order: all pods descending by
@@ -1037,6 +1099,7 @@ class TorchScheduler:
         self,
         pods: List[Pod],
         groups: List[SignatureGroup],
+        parked_from: int,
         pools: List[PoolEncoding],
         leftover: Dict[int, List[int]],
         state_nodes: list,
@@ -1048,7 +1111,9 @@ class TorchScheduler:
         enforcement over the round's plans (scheduler.go:347-383). Plans
         that no longer fit a limited pool are stripped and their pods
         retried against the surviving pools/types next round; pods still
-        pending after the last round were starved by the limits."""
+        pending after the last round were starved by the limits. Then
+        the parked groups (``groups[parked_from:]``) go through the
+        pod-affinity post-pass."""
         with self._phase("limits"):
             remaining = self._initial_remaining(pools, state_nodes, result.node_plans)
         # only _enforce_limits reads this; skip on the unlimited path
@@ -1069,8 +1134,8 @@ class TorchScheduler:
             with self._phase("prepare"):
                 for gi in sorted(pending_idx):
                     info = self._choose_pool(
-                        gi, groups[gi], pods, pools, ctx["sig_compats"], ctx["allowed_per_pool"],
-                        result, pending_idx[gi], limit_masks,
+                        gi, groups[gi], pods, pools, ctx["encoded"], ctx["sig_compats"],
+                        ctx["allowed_per_pool"], result, pending_idx[gi], limit_masks,
                     )
                     if info is not None:
                         infos.append(info)
@@ -1095,6 +1160,12 @@ class TorchScheduler:
                 result.pod_errors.setdefault(
                     pods[i].uid,
                     f'all available instance types exceed limits for nodepool: "{pool_name}"',
+                )
+        if parked_from < len(groups):
+            with self._phase("affinity"):
+                self._affinity_postpass(
+                    pods, groups, list(range(parked_from, len(groups))), pools, result, remaining,
+                    ctx,
                 )
 
     # ------------------------------------------------------------------
@@ -1161,12 +1232,14 @@ class TorchScheduler:
         subtract each plan's pinned instance-type capacity from its
         pool's remaining limits; plans that no longer fit are stripped
         and their pods returned, by group, for the next round (plans pin
-        their type, so exact subtraction is what actually launches)."""
+        their type, so exact subtraction is what actually launches).
+        Plans the post-pass already charged (reseeded anchors) are kept
+        as they are."""
         kept: List[NodePlan] = []
         spilled: Dict[int, List[int]] = {}
         for plan in result.node_plans[plans_start:]:
             rem = remaining.get(plan.nodepool_name)
-            if rem is None:
+            if rem is None or plan._limits_accounted:
                 kept.append(plan)
                 continue
             cap = plan.instance_type.capacity
@@ -1177,9 +1250,12 @@ class TorchScheduler:
             remaining[plan.nodepool_name] = resources.subtract(rem, cap)
             kept.append(plan)
         if len(kept) != len(result.node_plans) - plans_start:
-            # plans were stripped: the incremental fold counters assumed
-            # a grow-only plan list — rebuild from scratch
+            # plans were stripped: the incremental fold counters and the
+            # plan match cache (keyed on plan ids, which a stripped plan
+            # frees for reuse) assumed a grow-only plan list — rebuild
+            # from scratch
             self._fold_cache = {}
+            self._plan_match_cache = {}
         result.node_plans[plans_start:] = kept
         return spilled
 
@@ -1191,6 +1267,7 @@ class TorchScheduler:
         group: SignatureGroup,
         pods: List[Pod],
         pools: List[PoolEncoding],
+        encoded: List[EncodedInstanceTypes],
         sig_compats,
         allowed_per_pool,
         result: SolverResult,
@@ -1203,11 +1280,30 @@ class TorchScheduler:
         ``indices`` is the group's still-unplaced subset."""
         chosen = None
         chosen_viable = None
+        chosen_zone_ok = None
         limit_starved: List[str] = []
+        # non-self zone anti-affinity: the zones holding a matching pod
+        # leave the pool's zone_ok and, through the offerings, its viable
+        # row before the frontier — on copies: the kernel's rows are the
+        # signature's, the exclusion is this solve's cluster state. A
+        # pool left with no admissible zone is skipped like an
+        # incompatible one.
+        excl_zones = self._anti_excluded_zones(group) if group.anti_exclusion_terms() else frozenset()
         for pi, pool in enumerate(pools):
             if not sig_compats[pi][gi].compatible:
                 continue
             compat_row = allowed_per_pool[pi][0][gi]
+            zone_row = allowed_per_pool[pi][1][gi]
+            if excl_zones:
+                enc = encoded[pi]
+                zmask = np.array([z in excl_zones for z in enc.zones], dtype=bool)
+                if zmask.any():
+                    zone_row = zone_row & ~zmask
+                    # the offering leg of the allowed row on the narrowed
+                    # zones (the compat leg does not depend on zones)
+                    compat_row = compat_row & enc.offering_avail[:, zone_row, :][
+                        :, :, allowed_per_pool[pi][2][gi]
+                    ].any(axis=(1, 2))
             if limit_masks is not None and limit_masks[pi] is not None:
                 viable_row = compat_row & limit_masks[pi]
                 if compat_row.any() and not viable_row.any():
@@ -1218,6 +1314,7 @@ class TorchScheduler:
             if viable_row.any():
                 chosen = pi
                 chosen_viable = viable_row
+                chosen_zone_ok = zone_row
                 break
         if chosen is None:
             err = "; ".join(
@@ -1253,8 +1350,8 @@ class TorchScheduler:
             gi=gi,
             indices=indices,
             chosen=chosen,
-            viable=chosen_viable,  # (T,) bool, limit-filtered
-            zone_ok=allowed_per_pool[chosen][1][gi],  # (Z,)
+            viable=chosen_viable,  # (T,) bool, limit- and exclusion-filtered
+            zone_ok=chosen_zone_ok,  # (Z,) narrowed by anti-affinity exclusion
             ct_ok=allowed_per_pool[chosen][2][gi],  # (C,)
             max_per_node=max_per_node,
             solo_cross_hostname=solo_cross_hostname,
@@ -1281,10 +1378,15 @@ class TorchScheduler:
         is enforced per job). Within a class, every zone-spread group
         water-fills its own pods over the zones and the class's plain
         pods ride along round-robin; each zone's bucket packs as one
-        zone-pinned job."""
+        zone-pinned job. A zone self-anti-affinity group stays solo and
+        takes one pod per free zone (_affinity_assign)."""
         classes: Dict[tuple, List[dict]] = {}
         for info in infos:
-            if int(info["max_per_node"]) < MAX_INT32 or info["solo_cross_hostname"]:
+            if (
+                int(info["max_per_node"]) < MAX_INT32
+                or info["solo_cross_hostname"]
+                or info["group"].zone_anti_isolated
+            ):
                 key = ("solo", id(info["group"]))
             else:
                 key = (
@@ -1326,6 +1428,12 @@ class TorchScheduler:
                 )
 
             g0 = members[0]["group"]
+            if len(members) == 1 and g0.zone_anti_isolated:
+                idx0, reqs0 = sorted_idx(members[0]["indices"])
+                self._affinity_assign(
+                    members[0], idx0, reqs0, enc, pool, daemon, pods, result, jobs, metas
+                )
+                continue
             if (
                 len(members) == 1
                 and int(max_per_node) < MAX_INT32
@@ -1519,13 +1627,83 @@ class TorchScheduler:
         return seeds
 
     def _existing_compat_row(self, group: SignatureGroup, ctx: dict) -> np.ndarray:
-        """(M,) admissibility of one group on the existing nodes, cached
-        per group in the existing-node context."""
+        """(M,) admissibility of one group on the existing nodes, less
+        the nodes its non-self anti-affinity excludes, cached per group
+        in the existing-node context."""
         row = ctx["compat_rows"].get(id(group))
         if row is None:
             row = existing_node_compat([group], ctx["nodes"])[0]
+            excl = self._anti_exclusion_row(group, ctx)
+            if excl is not None:
+                row = (row.astype(bool) & ~excl).astype(row.dtype)
             ctx["compat_rows"][id(group)] = row
         return row
+
+    # ------------------------------------------------------------------
+    # required anti-affinity against pods outside the batch: static
+    # domain exclusion from seeded counts (routing sends every group
+    # whose term selector matches another batch group to the oracle, so
+    # no placement of this solve can move those counts)
+
+    def _anti_seeds(self, group: SignatureGroup, term, topology_key: str) -> Dict[str, int]:
+        """Bound matching-pod counts per domain for one anti-affinity
+        term (no node filter, topologygroup.go:70-76), cached per solve.
+        The JAX package also reuses them across solves under its cluster
+        generation; the port has no cluster state."""
+        key = ("anti", topology_key, _selector_key(term.label_selector), group.exemplar.namespace)
+        seeds = self._seed_cache.get(key)
+        if seeds is None:
+            seeds = seed_counts_for_selector(
+                self.kube_client, group.exemplar, topology_key, term.label_selector,
+                self._batch_uids,
+            )
+            self._seed_cache[key] = seeds
+        return seeds
+
+    def _anti_excluded_zones(self, group: SignatureGroup) -> frozenset:
+        """Zones a non-self required anti-affinity term forbids: every
+        zone already holding a selector-matching pod. Cached per group
+        for the solve."""
+        gid = id(group)
+        excl = self._anti_zone_excl_cache.get(gid)
+        if excl is None:
+            zones: set = set()
+            for term in group.anti_exclusion_terms():
+                if term.topology_key != wk.LABEL_TOPOLOGY_ZONE:
+                    continue
+                seeds = self._anti_seeds(group, term, wk.LABEL_TOPOLOGY_ZONE)
+                zones.update(z for z, n in seeds.items() if n > 0)
+            excl = frozenset(zones)
+            self._anti_zone_excl_cache[gid] = excl
+        return excl
+
+    def _anti_excluded_hosts(self, group: SignatureGroup) -> frozenset:
+        """Hostnames a non-self required anti-affinity term forbids
+        (existing nodes already holding a matching pod); a new node is an
+        empty hostname domain and always admissible."""
+        hosts: set = set()
+        for term in group.anti_exclusion_terms():
+            if term.topology_key != wk.LABEL_HOSTNAME:
+                continue
+            seeds = self._anti_seeds(group, term, wk.LABEL_HOSTNAME)
+            hosts.update(h for h, n in seeds.items() if n > 0)
+        return frozenset(hosts)
+
+    def _anti_exclusion_row(self, group: SignatureGroup, ctx: dict) -> Optional[np.ndarray]:
+        """(M,) bool mask of the existing nodes the group's non-self
+        anti-affinity terms exclude (zone and hostname), or None when it
+        carries none."""
+        if not group.anti_exclusion_terms():
+            return None
+        nodes = ctx["nodes"]
+        excl = np.zeros(len(nodes), dtype=bool)
+        zones = self._anti_excluded_zones(group)
+        if zones:
+            excl |= np.isin(ctx["node_zones"], sorted(zones))
+        hosts = self._anti_excluded_hosts(group)
+        if hosts:
+            excl |= np.array([(n.hostname() in hosts or n.name() in hosts) for n in nodes])
+        return excl
 
     def _spread_assign(
         self,
@@ -1770,6 +1948,867 @@ class TorchScheduler:
                 )
         return part[~placed]
 
+    def _affinity_assign(
+        self,
+        m: dict,
+        idx: np.ndarray,  # the group's pod indices, descending by size
+        reqs: np.ndarray,
+        enc: EncodedInstanceTypes,
+        pool: PoolEncoding,
+        daemon: np.ndarray,
+        pods: List[Pod],
+        result: SolverResult,
+        jobs: List[tuple],
+        metas: List[dict],
+    ) -> None:
+        """Zone self-anti-affinity: at most one pod per zone; zones
+        already holding a matching pod are full and the pods left over
+        fail (nextDomainAntiAffinity, topologygroup.go:249-257). Each
+        placed pod tries its zone's existing nodes, else takes a one-pod
+        zone-pinned job kept out of the merge."""
+        group: SignatureGroup = m["group"]
+        zone_ok, ct_ok = m["zone_ok"], m["ct_ok"]
+        P = len(idx)
+        ctx = self._existing_ctx
+        zones, zone_types = _viable_zones(enc, m["viable"], zone_ok, ct_ok)
+        term = next(
+            t
+            for t in group.exemplar.spec.affinity.pod_anti_affinity.required
+            if t.topology_key == wk.LABEL_TOPOLOGY_ZONE
+        )
+        seeds = self._fold_committed(
+            seed_counts_for_selector(
+                self.kube_client, group.exemplar, wk.LABEL_TOPOLOGY_ZONE, term.label_selector,
+                self._batch_uids,
+            ),
+            term.label_selector,
+            group.exemplar.namespace,
+            pods,
+            result,
+        )
+        counts = np.array([min(seeds.get(z, 0), 1) for z in zones], dtype=np.int64)
+        quotas, _ = water_fill(counts, P, ceiling=1)
+        pos = 0
+        for zi, z in enumerate(zones):
+            if quotas[zi] <= 0:
+                continue
+            part = idx[pos : pos + 1]
+            r = reqs[pos : pos + 1]
+            pos += 1
+            if ctx is not None:
+                part = self._pack_spread_existing(part, z, group, ctx, result)
+            if part.size:
+                self._prepare_job(
+                    part, r, enc, zone_types[z], zone_ok, ct_ok, daemon, np.int32(1), pool, pods,
+                    result, jobs, metas, zone=z, merged=m["merged"], no_merge=True,
+                )
+        for i in idx[pos:]:
+            result.pod_errors[pods[i].uid] = (
+                "pod anti-affinity on zone: no zone without a matching pod"
+            )
+
+    # ------------------------------------------------------------------
+    # the pod-affinity post-pass: parked groups against the placements
+    # committed by the pack rounds (topologygroup.go:215-247)
+
+    def _plan_has_match(self, plan: NodePlan, sel, ns: str, pods: List[Pod]) -> bool:
+        """Whether any member of ``plan`` matches (sel, ns). Cached per
+        selector content and plan; rescans only the members added since
+        the last check."""
+        members = plan.pod_indices
+        if sel is None:
+            return any(pods[i].namespace == ns for i in members)
+        key = (self._sel_fp(sel), id(plan))
+        seen, matched = self._plan_match_cache.get(key, (0, False))
+        if matched:
+            return True
+        if seen < len(members):
+            for i in members[seen:]:
+                if pods[i].namespace == ns and self._sel_matches(sel, i, pods):
+                    matched = True
+                    break
+            self._plan_match_cache[key] = (len(members), matched)
+        return matched
+
+    @staticmethod
+    def _topo_order_parked(groups: List[SignatureGroup], parked_idx: List[int]) -> List[int]:
+        """Anchor-dependency order: when one of A's affinity selectors
+        matches B's labels, B resolves first (its placements are A's
+        admissible domains). Kahn's algorithm; a cycle falls back to
+        input order (the cycle member that goes first sees no in-batch
+        anchors, as the reference does under that pod order)."""
+        sels_of = {
+            gi: [t.label_selector for t in groups[gi].affinity_terms() if t.label_selector is not None]
+            for gi in parked_idx
+        }
+        deps: Dict[int, set] = {gi: set() for gi in parked_idx}
+        for gi in parked_idx:
+            sels = sels_of[gi]
+            if not sels:
+                continue
+            for gj in parked_idx:
+                if gj != gi and any(sel.matches(groups[gj].exemplar.metadata.labels) for sel in sels):
+                    deps[gi].add(gj)
+        order: List[int] = []
+        placed: set = set()
+        pending = list(parked_idx)
+        while pending:
+            ready = [gi for gi in pending if deps[gi] <= placed]
+            if not ready:
+                ready = [pending[0]]  # a cycle: break it in input order
+            for gi in ready:
+                order.append(gi)
+                placed.add(gi)
+            pending = [gi for gi in pending if gi not in placed]
+        return order
+
+    def _affinity_postpass(
+        self,
+        pods: List[Pod],
+        groups: List[SignatureGroup],
+        parked_idx: List[int],
+        pools: List[PoolEncoding],
+        result: SolverResult,
+        remaining: Dict[str, dict],
+        ctx: dict,
+    ) -> None:
+        """Resolve the parked required pod-affinity groups after the pack
+        rounds, one group at a time in anchor-dependency order, each
+        against every placement committed so far: its admissible domains
+        are the reference's counts at placement (topologygroup.go:215-247)
+        under the pod order that places counted groups first. Rounds
+        repeat while one makes progress (the oracle's retry queue,
+        queue.go): a group that failed for want of anchors retries after
+        later groups placed pods its selectors match."""
+        encoded = ctx["encoded"]
+        order = self._topo_order_parked(groups, parked_idx)
+        gi_of = (
+            {i: gi for gi in parked_idx for i in groups[gi].pod_indices} if remaining else {}
+        )
+        pending: Dict[int, List[int]] = {gi: list(groups[gi].pod_indices) for gi in order}
+        for _ in range(len(order) + 1):
+            progress = False
+            for gi in order:
+                idxs = pending.get(gi)
+                if not idxs:
+                    continue
+                group = groups[gi]
+                # the last round's failures were provisional
+                for i in idxs:
+                    result.pod_errors.pop(pods[i].uid, None)
+                # limits move as plans emit: masks per attempt
+                with self._phase("limits"):
+                    limit_masks = self._limit_masks(pools, encoded, remaining)
+                info = self._choose_pool(
+                    gi, group, pods, pools, encoded, ctx["sig_compats"], ctx["allowed_per_pool"],
+                    result, idxs, limit_masks,
+                )
+                if info is None:
+                    pending[gi] = []  # incompatibility is terminal
+                    continue
+                chosen = info["chosen"]
+                pool, enc = pools[chosen], encoded[chosen]
+                requests_matrix = ctx["matrices"][id(ctx["pool_entries"][chosen])][1]
+                idx = np.asarray(info["indices"], dtype=np.int64)
+                reqs = requests_matrix[idx]
+                sort = np.lexsort((-reqs[:, 1], -reqs[:, 0]))
+                idx, reqs = idx[sort], reqs[sort]
+                daemon = ctx["daemon_requests"][pool.nodepool.name]
+                jobs: List[tuple] = []
+                metas: List[dict] = []
+                plans_start = len(result.node_plans)
+                if group.tensor_pod_affinity() == wk.LABEL_TOPOLOGY_ZONE:
+                    self._postpass_zone_affinity(
+                        info, group, idx, reqs, enc, pool, daemon, pods, result, jobs, metas,
+                        requests_matrix, remaining,
+                    )
+                else:
+                    self._postpass_hostname_affinity(
+                        info, group, idx, reqs, enc, pool, daemon, pods, result,
+                        requests_matrix, remaining,
+                    )
+                if jobs:
+                    records: List[dict] = []
+                    self._pack_and_finalize(jobs, metas, pods, result, records, merge_all=False)
+                    with self._phase("merge"):
+                        self._merge_and_emit(records, pods, result)
+                if remaining:
+                    # a limited pool: plans over the remaining budget are
+                    # stripped and their pods fail (the pool is starved,
+                    # a retry cannot help — scheduler.go:347-383)
+                    with self._phase("limits"):
+                        spilled = self._enforce_limits(result, plans_start, remaining, gi_of)
+                    pool_name = pool.nodepool.name
+                    for sidx in spilled.values():
+                        for i in sidx:
+                            result.pod_errors[pods[i].uid] = (
+                                f'all available instance types exceed limits for nodepool: "{pool_name}"'
+                            )
+                failed = [i for i in idxs if pods[i].uid in result.pod_errors]
+                if len(failed) < len(idxs):
+                    progress = True
+                pending[gi] = failed
+            if not progress:
+                break
+
+    def _postpass_zone_affinity(
+        self,
+        info: dict,
+        group: SignatureGroup,
+        idx: np.ndarray,
+        reqs: np.ndarray,
+        enc: EncodedInstanceTypes,
+        pool: PoolEncoding,
+        daemon: np.ndarray,
+        pods: List[Pod],
+        result: SolverResult,
+        jobs: List[tuple],
+        metas: List[dict],
+        requests_matrix: np.ndarray,
+        remaining: Dict[str, dict],
+    ) -> None:
+        """Zone pod affinity against committed placements: the pods may
+        go to any viable zone where every required term already counts a
+        matching pod (per-term anchor sets intersected). A term with no
+        anchor anywhere must be self-selecting and bootstraps: then the
+        whole group lands in one zone, since its first placement anchors
+        the empty terms there (topologygroup.go:215-232)."""
+        terms = group.affinity_terms()
+        zone_ok, ct_ok, viable = info["zone_ok"], info["ct_ok"], info["viable"]
+        ctx = self._existing_ctx
+        zones, zone_types = _viable_zones(enc, viable, zone_ok, ct_ok)
+
+        def zone_price(z: str) -> float:
+            zi = enc.zones.index(z)
+            p = enc.offering_price[zone_types[z], zi, :][:, ct_ok]
+            p = np.where(np.isfinite(p), p, np.inf)
+            return float(p.min()) if p.size else np.inf
+
+        own_labels = group.exemplar.metadata.labels
+        anchored_sets: List[set] = []
+        bootstrap_ok = True
+        for term in terms:
+            seeds = self._fold_committed(
+                seed_counts_for_selector(
+                    self.kube_client, group.exemplar, wk.LABEL_TOPOLOGY_ZONE, term.label_selector,
+                    self._batch_uids,
+                ),
+                term.label_selector,
+                group.exemplar.namespace,
+                pods,
+                result,
+            )
+            anchors_t = {z for z, v in seeds.items() if v > 0}
+            if anchors_t:
+                anchored_sets.append(anchors_t)
+            elif term.label_selector is not None and not term.label_selector.matches(own_labels):
+                bootstrap_ok = False  # an empty term the group cannot seed itself
+        if not bootstrap_ok:
+            for i in idx:
+                result.pod_errors[pods[i].uid] = "pod affinity: no pod matches the affinity selector"
+            return
+        has_bootstrap_terms = len(anchored_sets) < len(terms)
+        anchors: List[str] = []
+        if anchored_sets:
+            inter = set.intersection(*anchored_sets)
+            anchors = [z for z in zones if z in inter]
+            if not anchors:
+                # matching pods exist, but no viable zone holds every term
+                for i in idx:
+                    result.pod_errors[pods[i].uid] = "pod affinity anchors are outside viable zones"
+                return
+            if has_bootstrap_terms:
+                # the first placement seeds the empty terms in its zone;
+                # the later pods must follow it there
+                anchors = [min(anchors, key=zone_price)]
+        if anchors:
+            part = idx
+            if ctx is not None:
+                for z in anchors:
+                    if not part.size:
+                        break
+                    part = self._pack_spread_existing(part, z, group, ctx, result)
+            if part.size:
+                # this solve's planned nodes in anchor zones take the pods
+                # too (the oracle fills in-flight claims before opening
+                # nodes, scheduler.go:241-246)
+                anchor_plans = [p for p in result.node_plans if p.zone in anchors]
+                if anchor_plans:
+                    part = self._join_planned_nodes(
+                        part, anchor_plans, info, enc, pool, daemon, pods, result,
+                        requests_matrix, remaining,
+                    )
+            if part.size:
+                sub = np.isin(idx, part)
+                zmask = zone_ok & np.array([z in anchors for z in enc.zones], dtype=bool)
+                v = viable & enc.offering_avail[:, zmask, :][:, :, ct_ok].any(axis=(1, 2))
+                self._prepare_job(
+                    idx[sub], reqs[sub], enc, v, zmask, ct_ok, daemon, info["max_per_node"], pool,
+                    pods, result, jobs, metas, merged=info["merged"],
+                )
+            return
+        if not group.affinity_self_selecting():
+            # no matching pod anywhere, and only a self-selecting group
+            # may seed its own domain
+            for i in idx:
+                result.pod_errors[pods[i].uid] = "pod affinity: no pod matches the affinity selector"
+            return
+        if not zones:
+            for i in idx:
+                result.pod_errors[pods[i].uid] = "no zone with viable offering for pod affinity"
+            return
+        # bootstrap one zone, the cheapest viable offering's (the oracle
+        # takes any viable domain)
+        z_star = min(zones, key=zone_price)
+        part = idx
+        if ctx is not None:
+            part = self._pack_spread_existing(part, z_star, group, ctx, result)
+        if part.size:
+            star_plans = [p for p in result.node_plans if p.zone == z_star]
+            if star_plans:
+                part = self._join_planned_nodes(
+                    part, star_plans, info, enc, pool, daemon, pods, result, requests_matrix,
+                    remaining,
+                )
+        if part.size:
+            sub = np.isin(idx, part)
+            self._prepare_job(
+                idx[sub], reqs[sub], enc, zone_types[z_star], zone_ok, ct_ok, daemon,
+                info["max_per_node"], pool, pods, result, jobs, metas, zone=z_star,
+                merged=info["merged"],
+            )
+
+    def _postpass_hostname_affinity(
+        self,
+        info: dict,
+        group: SignatureGroup,
+        idx: np.ndarray,
+        reqs: np.ndarray,
+        enc: EncodedInstanceTypes,
+        pool: PoolEncoding,
+        daemon: np.ndarray,
+        pods: List[Pod],
+        result: SolverResult,
+        requests_matrix: np.ndarray,
+        remaining: Dict[str, dict],
+    ) -> None:
+        """Hostname pod affinity against committed placements: anchors
+        are existing nodes holding matching pods and this solve's planned
+        nodes holding matching members (which grow their type to take
+        joiners, as the oracle's in-flight claims re-narrow). With no
+        anchor, a self-selecting group bootstraps one node and anyone
+        else fails (topologygroup.go:215-232). Zone terms beside the
+        hostname term narrow the anchors to the zones every zone term
+        admits."""
+        terms = group.affinity_terms()
+        host_term = next(t for t in terms if t.topology_key == wk.LABEL_HOSTNAME)
+        zone_terms = [t for t in terms if t.topology_key == wk.LABEL_TOPOLOGY_ZONE]
+        ns = group.exemplar.namespace
+        sel = host_term.label_selector
+        ctx = self._existing_ctx
+        own_labels = group.exemplar.metadata.labels
+        zone_filter: Optional[set] = None
+        zone_bootstrap = False
+        for zt in zone_terms:
+            zseeds = self._fold_committed(
+                seed_counts_for_selector(
+                    self.kube_client, group.exemplar, wk.LABEL_TOPOLOGY_ZONE, zt.label_selector,
+                    self._batch_uids,
+                ),
+                zt.label_selector, ns, pods, result,
+            )
+            anchors_t = {z for z, v in zseeds.items() if v > 0}
+            if anchors_t:
+                zone_filter = anchors_t if zone_filter is None else (zone_filter & anchors_t)
+            elif zt.label_selector is not None and not zt.label_selector.matches(own_labels):
+                for i in idx:
+                    result.pod_errors[pods[i].uid] = (
+                        "pod affinity: no pod matches the affinity selector"
+                    )
+                return
+            else:
+                zone_bootstrap = True  # an empty zone term the group seeds
+        if zone_filter is not None and not zone_filter:
+            for i in idx:
+                result.pod_errors[pods[i].uid] = "pod affinity anchors are outside viable zones"
+            return
+        seeds = seed_counts_for_selector(
+            self.kube_client, group.exemplar, wk.LABEL_HOSTNAME, sel, self._batch_uids
+        )
+        # existing nodes that gained matching pods in this solve anchor too
+        for eplan in result.existing_plans:
+            if any(
+                pods[i].namespace == ns and self._sel_matches(sel, i, pods)
+                for i in eplan.pod_indices
+            ):
+                name = eplan.state_node.hostname() or eplan.state_node.name()
+                seeds[name] = seeds.get(name, 0) + 1
+        planned_anchors = [
+            p
+            for p in result.node_plans
+            if self._plan_has_match(p, sel, ns, pods)
+            and (zone_filter is None or p.zone in zone_filter)
+        ]
+        if zone_bootstrap and (seeds or planned_anchors):
+            # an empty self-seeded zone term pins the group to the zone of
+            # its first anchor (node order, then plan order: the oracle's
+            # first fit)
+            z_star = None
+            if ctx is not None and seeds:
+                for n, z in zip(ctx["nodes"], ctx["node_zones"]):
+                    if (n.hostname() in seeds or n.name() in seeds) and (
+                        zone_filter is None or z in zone_filter
+                    ):
+                        z_star = str(z)
+                        break
+            if z_star is None and planned_anchors:
+                z_star = planned_anchors[0].zone
+            if z_star is not None:
+                zone_filter = {z_star}
+                planned_anchors = [p for p in planned_anchors if p.zone == z_star]
+        left = idx
+        if seeds and ctx is not None and left.size:
+            left = self._pack_affinity_hostname_existing(
+                left, group, seeds, ctx, result, zone_filter=zone_filter
+            )
+        if planned_anchors and left.size:
+            left = self._join_planned_nodes(
+                left, planned_anchors, info, enc, pool, daemon, pods, result, requests_matrix,
+                remaining,
+            )
+        if left.size and planned_anchors:
+            # full anchors: the oracle's anchors take joiners while they
+            # grow across many claims; the same outcome comes from moving
+            # one matching pod off a full anchor plan onto a fresh node in
+            # its zone and putting the joiners beside it
+            left = self._reseed_anchor_nodes(
+                left, planned_anchors, info, enc, pool, daemon, pods, result, requests_matrix,
+                sel, ns, remaining,
+            )
+        if not left.size:
+            return
+        if not seeds and not planned_anchors:
+            if group.affinity_self_selecting():
+                binfo = info
+                if zone_filter is not None:
+                    zmask = info["zone_ok"] & np.array(
+                        [z in zone_filter for z in enc.zones], dtype=bool
+                    )
+                    v = info["viable"] & enc.offering_avail[:, zmask, :][:, :, info["ct_ok"]].any(
+                        axis=(1, 2)
+                    )
+                    if not v.any():
+                        for i in left:
+                            result.pod_errors[pods[i].uid] = (
+                                "pod affinity anchors are outside viable zones"
+                            )
+                        return
+                    binfo = dict(info, zone_ok=zmask, viable=v)
+                sub = np.isin(idx, left)
+                self._pack_affinity_hostname_new(
+                    idx[sub], reqs[sub], enc, pool, daemon, binfo, pods, result
+                )
+                return
+            for i in left:
+                result.pod_errors[pods[i].uid] = "pod affinity: no pod matches the affinity selector"
+            return
+        # anchors exist but are full: a fresh node is a zero-count domain
+        for i in left:
+            result.pod_errors[pods[i].uid] = "pod affinity on hostname: anchor nodes are full"
+
+    def _join_types(
+        self,
+        plan: NodePlan,
+        merged,
+        zi: int,
+        ci: int,
+        viable: np.ndarray,
+        enc: EncodedInstanceTypes,
+        pin: bool,
+    ) -> tuple:
+        """Catalog indices of the types a node holding ``plan``'s pods
+        and pods of requirements ``merged`` may take at offering (zi, ci),
+        cached per solve. ``pin`` (joins) adds the plan's zone and
+        capacity type to the combined requirements and first checks the
+        joiner against them; a reseed's fresh node skips both."""
+        key = (plan.requirements.fingerprint(), merged.fingerprint(), zi, ci, viable.tobytes())
+        cached = self._join_types_cache.get(key)
+        if cached is not None:
+            return cached
+        combined = Requirements(*plan.requirements.values_list())
+        combined.add(*merged.values_list())
+        if pin:
+            combined.add(
+                Requirement(wk.LABEL_TOPOLOGY_ZONE, OP_IN, [plan.zone]),
+                Requirement(wk.CAPACITY_TYPE_LABEL_KEY, OP_IN, [plan.capacity_type]),
+            )
+        if pin and merged.compatible(combined, ALLOW_UNDEFINED_WELL_KNOWN_LABELS, hint=False) is not None:
+            cached = ()
+        else:
+            tmask = viable & enc.offering_avail[:, zi, ci]
+            cached = tuple(
+                int(t)
+                for t in np.flatnonzero(tmask)
+                if combined.compatible(
+                    enc.instance_types[t].requirements, ALLOW_UNDEFINED_WELL_KNOWN_LABELS, hint=False
+                )
+                is None
+            )
+        self._join_types_cache[key] = cached
+        return cached
+
+    @staticmethod
+    def _prefix_fit(usage: np.ndarray, jreqs: np.ndarray, alloc: np.ndarray) -> Tuple[int, np.ndarray]:
+        """Longest prefix of ``jreqs`` that some row of ``alloc`` holds on
+        top of ``usage`` → (its length, the cumulative loads)."""
+        cum = usage[None, :] + np.cumsum(jreqs, axis=0)
+        fits_any = (cum[:, None, :] <= alloc[None, :, :]).all(-1).any(1)
+        n_fit = int(fits_any.sum()) if fits_any.all() else int(np.argmin(fits_any))
+        return n_fit, cum
+
+    def _reseed_anchor_nodes(
+        self,
+        left: np.ndarray,
+        plans: List[NodePlan],
+        info: dict,
+        enc: EncodedInstanceTypes,
+        pool: PoolEncoding,
+        daemon: np.ndarray,
+        pods: List[Pod],
+        result: SolverResult,
+        requests_matrix: np.ndarray,
+        sel,
+        ns: str,
+        remaining: Dict[str, dict],
+    ) -> np.ndarray:
+        """Seed fresh anchor nodes for hostname-affinity leftovers: take
+        one selector-matching pod from a full anchor plan that holds more
+        than one, open a new node in the same zone and capacity type with
+        it, and first-fit the leftovers there. Zones do not change, so
+        every committed zone count and zone constraint holds. Mutates the
+        donor plan in place, as the JAX package does. Unlike the JAX
+        package, it moves no pod whose own hostname affinity, or that of
+        a pod it anchors, the move would break (_donor_movable); where no
+        such pod is moved, the plans are the JAX package's."""
+        merged = info["merged"]
+        viable = info["viable"]
+        joiner = info["group"].exemplar
+        alloc = self._alloc_full(enc, daemon)
+        # worklist: a fresh node whose joiners also match the selector
+        # (self-selecting groups) becomes a donor itself
+        worklist = sorted(plans, key=lambda p: -len(p.pod_indices))
+        wi = 0
+        while wi < len(worklist):
+            donor_plan = worklist[wi]
+            wi += 1
+            if not left.size:
+                break
+            if donor_plan.max_pods_per_node < MAX_INT32 or donor_plan.node_limits:
+                continue
+            if donor_plan.nodepool_name != pool.nodepool.name:
+                continue
+            if donor_plan.requirements is None or merged is None:
+                continue
+            if donor_plan.requirements.intersects(merged) is not None:
+                continue
+            if donor_plan.zone not in enc.zones or donor_plan.capacity_type not in enc.capacity_types:
+                continue
+            zi = enc.zones.index(donor_plan.zone)
+            ci = enc.capacity_types.index(donor_plan.capacity_type)
+            if not (info["zone_ok"][zi] and info["ct_ok"][ci]):
+                continue
+            matching = [
+                i
+                for i in donor_plan.pod_indices
+                if pods[i].namespace == ns and self._sel_matches(sel, i, pods)
+            ]
+            if len(matching) < 2:
+                continue  # the donor keeps an anchor of its own
+            while left.size and len(matching) > 1:
+                donor = next(
+                    (i for i in reversed(matching) if self._donor_movable(i, donor_plan, joiner, pods)),
+                    None,
+                )
+                if donor is None:
+                    break
+                matching.remove(donor)
+                # the new node carries the donor too: its types must
+                # satisfy both sides' requirements
+                t_idx = np.array(
+                    self._join_types(donor_plan, merged, zi, ci, viable, enc, pin=False),
+                    dtype=np.int64,
+                )
+                if t_idx.size == 0:
+                    return left
+                usage = requests_matrix[[donor]].astype(np.int64).sum(axis=0)
+                n_fit, cum = self._prefix_fit(
+                    usage, requests_matrix[left].astype(np.int64), alloc[t_idx]
+                )
+                if n_fit == 0:
+                    matching.append(donor)
+                    break
+                fits = (cum[n_fit - 1][None, :] <= alloc[t_idx]).all(axis=1)
+                prices = enc.offering_price[t_idx, zi, ci]
+                prices = np.where(fits & np.isfinite(prices), prices, np.inf)
+                t_local = int(np.argmin(prices))
+                if not np.isfinite(prices[t_local]):
+                    matching.append(donor)
+                    break
+                t = int(t_idx[t_local])
+                rem = remaining.get(pool.nodepool.name) if remaining else None
+                if rem is not None:
+                    cap = enc.instance_types[t].capacity
+                    if any(v > rem.get(name, 0) for name, v in cap.items() if v > 0):
+                        matching.append(donor)
+                        break  # no limit headroom for another node
+                    remaining[pool.nodepool.name] = resources.subtract(rem, cap)
+                # detach the donor (same zone, so the committed counts
+                # hold; the plan's match cache forgets the shrunk plan)
+                pos = donor_plan.pod_indices.index(donor)
+                donor_plan.pod_indices.pop(pos)
+                if donor_plan._pod_requests is not None:
+                    donor_plan._pod_requests.pop(pos)
+                donor_plan._requests = None
+                pid = id(donor_plan)
+                self._plan_match_cache = {
+                    k: v for k, v in self._plan_match_cache.items() if k[1] != pid
+                }
+                members = [int(donor)] + [int(i) for i in left[:n_fit]]
+                combined = Requirements(*donor_plan.requirements.values_list())
+                combined.add(*merged.values_list())
+                # its limits are charged above: the post-pass enforcement
+                # must not subtract or strip it again
+                new_plan = NodePlan(
+                    nodepool_name=pool.nodepool.name,
+                    instance_type=enc.instance_types[t],
+                    zone=donor_plan.zone,
+                    capacity_type=donor_plan.capacity_type,
+                    price=float(enc.offering_price[t, zi, ci]),
+                    pod_indices=members,
+                    requirements=combined,
+                    _pod_requests=[self._all_requests[i] for i in members],
+                    _limits_accounted=True,
+                )
+                result.node_plans.append(new_plan)
+                worklist.append(new_plan)
+                # the donor is already counted in this zone; only the
+                # joiners are new to the committed counters
+                for st in self._fold_cache.values():
+                    st["sizes"][id(new_plan)] = 1
+                left = left[n_fit:]
+        return left
+
+    @staticmethod
+    def _donor_movable(donor: int, plan: NodePlan, joiner: Pod, pods: List[Pod]) -> bool:
+        """Whether moving ``donor`` off ``plan`` onto a fresh node beside
+        pods like ``joiner`` keeps every required hostname pod affinity:
+        each of the donor's own terms must match the donor or the
+        joiners, and each term of another member that the donor matches
+        must still match a pod left on the plan. (The JAX package's
+        reseed moves donors unchecked and can strand a pod away from
+        every pod its hostname term selects; bench config 6 does so.)"""
+
+        def host_terms(i: int) -> list:
+            a = pods[i].spec.affinity
+            if a is None or a.pod_affinity is None:
+                return []
+            return [
+                t
+                for t in a.pod_affinity.required
+                if t.topology_key == wk.LABEL_HOSTNAME and t.label_selector is not None
+            ]
+
+        d = pods[donor]
+        for t in host_terms(donor):
+            if not (
+                t.label_selector.matches(d.metadata.labels)
+                or (joiner.namespace == d.namespace and t.label_selector.matches(joiner.metadata.labels))
+            ):
+                return False
+        for m in plan.pod_indices:
+            if m == donor:
+                continue
+            ns = pods[m].namespace
+            for t in host_terms(m):
+                if d.namespace != ns or not t.label_selector.matches(d.metadata.labels):
+                    continue
+                if not any(
+                    j != donor and pods[j].namespace == ns and t.label_selector.matches(pods[j].metadata.labels)
+                    for j in plan.pod_indices
+                ):
+                    return False
+        return True
+
+    def _join_planned_nodes(
+        self,
+        left: np.ndarray,
+        plans: List[NodePlan],
+        info: dict,
+        enc: EncodedInstanceTypes,
+        pool: PoolEncoding,
+        daemon: np.ndarray,
+        pods: List[Pod],
+        result: SolverResult,
+        requests_matrix: np.ndarray,
+        remaining: Optional[Dict[str, dict]] = None,
+    ) -> np.ndarray:
+        """First-fit ``left`` (descending by size) onto this solve's
+        planned anchor nodes, growing each node's instance type within
+        the commonly viable set — pods joining an in-flight NodeClaim
+        whose instance options re-narrow (scheduler.go:241-246). Mutates
+        the joined plans in place, as the JAX package does. Returns the
+        indices no anchor could take."""
+        merged = info["merged"]
+        viable = info["viable"]
+        alloc = self._alloc_full(enc, daemon)
+        for plan in plans:
+            if not left.size:
+                break
+            if plan.max_pods_per_node < MAX_INT32 or plan.node_limits:
+                continue  # capped or limited nodes never take joiners
+            if plan.nodepool_name != pool.nodepool.name:
+                continue
+            if plan.requirements is None or merged is None:
+                continue
+            if plan.requirements.intersects(merged) is not None:
+                continue
+            if plan.zone not in enc.zones or plan.capacity_type not in enc.capacity_types:
+                continue
+            zi = enc.zones.index(plan.zone)
+            ci = enc.capacity_types.index(plan.capacity_type)
+            # the joiner's own zone and capacity type must admit the
+            # plan's pinned offering
+            if not (info["zone_ok"][zi] and info["ct_ok"][ci]):
+                continue
+            cached = self._join_types(plan, merged, zi, ci, viable, enc, pin=True)
+            if not cached:
+                continue
+            t_idx = np.array(cached, dtype=np.int64)
+            usage = requests_matrix[plan.pod_indices].astype(np.int64).sum(axis=0)
+            n_fit, cum = self._prefix_fit(usage, requests_matrix[left].astype(np.int64), alloc[t_idx])
+            if n_fit == 0:
+                continue
+            fits = (cum[n_fit - 1][None, :] <= alloc[t_idx]).all(axis=1)
+            prices = enc.offering_price[t_idx, zi, ci]
+            prices = np.where(fits & np.isfinite(prices), prices, np.inf)
+            t_local = int(np.argmin(prices))
+            if not np.isfinite(prices[t_local]):
+                continue
+            t = int(t_idx[t_local])
+            it_new = enc.instance_types[t]
+            rem = remaining.get(plan.nodepool_name) if remaining else None
+            if rem is not None and it_new is not plan.instance_type:
+                # growing the node takes the capacity delta from the limit
+                delta = resources.subtract(it_new.capacity, plan.instance_type.capacity)
+                if any(v > rem.get(name, 0) for name, v in delta.items() if v > 0):
+                    continue
+                remaining[plan.nodepool_name] = resources.subtract(rem, delta)
+            members = left[:n_fit].tolist()
+            plan.pod_indices.extend(int(i) for i in members)
+            plan.instance_type = it_new
+            plan.price = float(enc.offering_price[t, zi, ci])
+            combined = Requirements(*plan.requirements.values_list())
+            combined.add(*merged.values_list())
+            plan.requirements = combined
+            if plan._pod_requests is not None:
+                plan._pod_requests.extend(self._all_requests[int(i)] for i in members)
+            plan._requests = None
+            left = left[n_fit:]
+        return left
+
+    def _pack_affinity_hostname_existing(
+        self,
+        idx: np.ndarray,
+        group: SignatureGroup,
+        seeds: Dict[str, int],
+        ctx: dict,
+        result: SolverResult,
+        zone_filter: Optional[set] = None,
+    ) -> np.ndarray:
+        """First-fit the group onto the existing nodes already holding a
+        matching pod (the only admissible domains once anchors exist),
+        within ``zone_filter`` when the group's zone terms narrow it, on
+        the native first-fit."""
+        row = self._existing_compat_row(group, ctx).astype(bool)
+        anchor = np.array([n.hostname() in seeds or n.name() in seeds for n in ctx["nodes"]])
+        mask = row & anchor
+        if zone_filter is not None:
+            mask &= np.isin(ctx["node_zones"], sorted(zone_filter))
+        if not mask.any():
+            return idx
+        reqs = build_requests_matrix_ids(self._req_ids[idx], ctx["axis"], self._req_map)
+        assign, free_out = run_pack_existing(
+            reqs, np.zeros(len(idx), dtype=np.int32), mask[None, :].astype(np.uint8), ctx["free"]
+        )
+        ctx["free"] = np.ascontiguousarray(free_out, dtype=np.int32)
+        placed = assign >= 0
+        by_node: Dict[int, List[int]] = {}
+        for j in np.flatnonzero(placed):
+            by_node.setdefault(int(assign[j]), []).append(int(idx[j]))
+        for mnode in sorted(by_node):
+            result.existing_plans.append(
+                ExistingNodePlan(state_node=ctx["nodes"][mnode], pod_indices=by_node[mnode])
+            )
+        return idx[~placed]
+
+    def _pack_affinity_hostname_new(
+        self,
+        idx: np.ndarray,
+        reqs: np.ndarray,
+        enc: EncodedInstanceTypes,
+        pool: PoolEncoding,
+        daemon: np.ndarray,
+        m: dict,
+        pods: List[Pod],
+        result: SolverResult,
+    ) -> None:
+        """Bootstrap one co-located node: the longest size-descending
+        prefix some viable type holds becomes one NodePlan, the rest fail
+        (a second node would be a zero-count hostname domain the pods
+        cannot join, as in the oracle)."""
+        viable_idx = np.flatnonzero(m["viable"])
+        if len(viable_idx) == 0:
+            for i in idx:
+                result.pod_errors[pods[i].uid] = "no viable instance type"
+            return
+        alloc = self._alloc_full(enc, daemon)[viable_idx]
+        n_fit, cum = self._prefix_fit(np.zeros(reqs.shape[1], dtype=np.int64), reqs.astype(np.int64), alloc)
+        if n_fit == 0:
+            for i in idx:
+                result.pod_errors[pods[i].uid] = "no instance type fits the first co-located pod"
+            return
+        fits = (cum[n_fit - 1][None, :] <= alloc).all(axis=1)
+        zone_ok, ct_ok = m["zone_ok"], m["ct_ok"]
+        prices = enc.offering_price[viable_idx][:, zone_ok, :][:, :, ct_ok].reshape(len(viable_idx), -1)
+        p = (
+            np.where(np.isfinite(prices), prices, np.inf).min(axis=1)
+            if prices.size
+            else np.full(len(viable_idx), np.inf)
+        )
+        p = np.where(fits, p, np.inf)
+        t_local = int(np.argmin(p))
+        if not np.isfinite(p[t_local]):
+            for i in idx:
+                result.pod_errors[pods[i].uid] = "packed node has no fitting instance type"
+            return
+        t = int(viable_idx[t_local])
+        offering_zone, offering_ct, offering_price = self._cheapest_offering(enc, t, zone_ok, ct_ok, None)
+        members = idx[:n_fit].tolist()
+        result.node_plans.append(
+            NodePlan(
+                nodepool_name=pool.nodepool.name,
+                instance_type=enc.instance_types[t],
+                zone=offering_zone,
+                capacity_type=offering_ct,
+                price=offering_price,
+                pod_indices=members,
+                requirements=m["merged"],
+                _pod_requests=[self._all_requests[i] for i in members],
+            )
+        )
+        for i in idx[n_fit:]:
+            result.pod_errors[pods[i].uid] = "pod affinity on hostname: co-located node is full"
+
     # ------------------------------------------------------------------
 
     def _prepare_job(
@@ -1790,6 +2829,7 @@ class TorchScheduler:
         zone: Optional[str] = None,
         merged=None,
         per_node_limits: Optional[list] = None,
+        no_merge: bool = False,
     ) -> None:
         viable_idx = np.flatnonzero(viable)
         if len(viable_idx) == 0:
@@ -1821,6 +2861,7 @@ class TorchScheduler:
                 max_per_node=int(max_per_node),
                 merged=merged,
                 per_node_limits=per_node_limits or [],
+                no_merge=no_merge,
             )
         )
 
@@ -1917,7 +2958,8 @@ class TorchScheduler:
         """Positional node memberships become pod indices; plan nodes
         emit NodePlans and underfull tails become merge records. Capped
         and limited groups merge too: the merge check enforces each
-        side's per-node limits on the combined membership."""
+        side's per-node limits on the combined membership. Only no_merge
+        jobs (zone self-anti-affinity) stay out of the merge."""
         idx, enc = meta["idx"], meta["enc"]
         for i in idx[skel.unsched]:
             result.pod_errors[pods[i].uid] = (
@@ -1927,7 +2969,12 @@ class TorchScheduler:
             return
         viable_bool = np.zeros(len(enc.instance_types), dtype=bool)
         viable_bool[meta["viable_idx"]] = True
-        to_record = skel.ok.copy() if merge_all else skel.ok & skel.underfull
+        if meta["no_merge"]:
+            to_record = np.zeros(skel.node_count, dtype=bool)
+        elif merge_all:
+            to_record = skel.ok.copy()
+        else:
+            to_record = skel.ok & skel.underfull
         # records of one job share its per-job arrays and lists (the
         # merge engines replace, never mutate, record entries)
         job_limits = list(meta["per_node_limits"])

@@ -222,3 +222,35 @@ def test_hostname_spread_solve_on_card_matches_cpu(cuda):
     smoke.check_cluster(res, pods, nodes, daemons, missing)
     smoke.check_spread(res, pods, nodes, provider, kube)
     assert smoke.check_hostname(res, pods, kube)["pods"] == 50
+
+
+def test_affinity_solve_on_card_matches_cpu(cuda):
+    """chip_smoke.py's phase 8 and 9 worlds cut down: bench config 6's
+    pod-affinity post-pass, and config 13's anti_dense with a zone quorum
+    against existing nodes and a kube store, on the card, each equal to
+    its CPU solve and passing the phases' checks."""
+    from karpenter_core_tpu_torch.solver import TorchScheduler
+
+    smoke = _smoke()
+    pools, provider, pods = smoke.config6_world(700, 40)
+    before = ck.COMPAT_ALLOWED.launches
+    res = TorchScheduler(pools, provider, device="cuda").solve(pods)
+    assert ck.COMPAT_ALLOWED.launches - before == 1  # one pool
+    cpu = TorchScheduler(pools, provider, device="cpu").solve(pods)
+    assert smoke.plan_stream(res) == smoke.plan_stream(cpu)
+    assert res.pod_errors == cpu.pod_errors
+    smoke.check_invariants(res, pods)
+    assert smoke.check_affinity(res, pods)["affinity_pods"] == 200
+    smoke.check_spread_serial(res, pods, provider)
+
+    pools, provider, pods, nodes, daemons, missing, kube = smoke.anti_cluster_world(1000, 200, 30)
+    kw = dict(state_nodes=nodes, daemonset_pods=daemons)
+    before = ck.COMPAT_ALLOWED.launches
+    res = TorchScheduler(pools, provider, device="cuda", kube_client=kube).solve(pods, **kw)
+    assert ck.COMPAT_ALLOWED.launches - before >= 2  # one per pool per round
+    cpu = TorchScheduler(pools, provider, device="cpu", kube_client=kube).solve(pods, **kw)
+    assert smoke.plan_stream(res) == smoke.plan_stream(cpu)
+    assert smoke.existing_stream(res) == smoke.existing_stream(cpu)
+    assert res.pod_errors == cpu.pod_errors
+    smoke.check_cluster(res, pods, nodes, daemons, missing, spill=False)
+    assert sorted(smoke.check_anti(res, pods, kube)["quorum_by_zone"].values()) == [1, 1, 1]

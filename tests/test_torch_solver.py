@@ -154,9 +154,10 @@ def test_plan_identity(monkeypatch, case, route):
         f"{name}_ms" for name in PHASES
     }
     assert set(PHASES) == {
-        "group", "existing", "encode", "prepare", "pack", "finalize", "merge", "limits",
+        "group", "existing", "encode", "prepare", "pack", "finalize", "merge", "limits", "affinity",
     }
     assert solver.last_timings["existing_ms"] == 0.0  # no existing nodes in this world
+    assert solver.last_timings["affinity_ms"] == 0.0  # and no pod-affinity post-pass
     assert sum(v for k, v in solver.last_timings.items() if k not in ("total_ms", "host_ms")) <= (
         solver.last_timings["total_ms"]
     )
@@ -215,9 +216,13 @@ def _out_of_slice(kind: str):
         ]
         pod.spec.containers[0].ports = [ob.ContainerPort(host_port=8080)]
     elif kind == "pod affinity":
+        # required zone affinity is on the port's path (the post-pass);
+        # with a preferred term the JAX package sends the group to its
+        # oracle
+        term = ob.PodAffinityTerm(topology_key=wk.LABEL_TOPOLOGY_ZONE, label_selector=sel)
         pod.spec.affinity = ob.Affinity(
             pod_affinity=ob.PodAffinity(
-                required=[ob.PodAffinityTerm(topology_key=wk.LABEL_TOPOLOGY_ZONE, label_selector=sel)]
+                required=[term], preferred=[ob.WeightedPodAffinityTerm(1, term)]
             )
         )
     elif kind == "pod anti-affinity":

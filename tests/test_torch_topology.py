@@ -24,8 +24,12 @@ Three layers, each against the JAX package run unchanged on the CPU:
   scheduled and price must be identical. Nothing here has a tolerance:
   plans compare exactly.
 
-Shapes the JAX package parks, sends to its oracle or folds into masks the
-port does not carry raise NotImplementedError naming the feature.
+The three shapes the port refused before it carried pod affinity and
+zone and non-self anti-affinity (one pod-affinity group, zone
+self-anti-affinity, anti-affinity against bound pods) are plan-identity
+cases here too; the reference parks the first. Shapes the JAX package
+sends to its oracle or folds into masks the port does not carry (host
+ports, volumes) raise NotImplementedError naming the feature.
 """
 
 from __future__ import annotations
@@ -247,10 +251,11 @@ class TKit(Kit):
         return self.state_node(name, cpu=cpu, labels={self.wk.LABEL_TOPOLOGY_ZONE: zone})
 
 
-def solve_both(monkeypatch, build):
+def solve_both(monkeypatch, build, parked: bool = False):
     """Solve ``build(kit)`` → dict(pools, provider, pods, state_nodes,
     daemons, kube) with both packages; the reference must stay on its
-    tensor path and the results must be identical → (port result, port
+    tensor path, parking pods for its pod-affinity post-pass exactly when
+    ``parked``, and the results must be identical → (port result, port
     pods, port solver)."""
     reference_native(monkeypatch)
     out = []
@@ -267,7 +272,7 @@ def solve_both(monkeypatch, build):
     (ref, ref_pods, ref_solver), (res, pods, solver) = out
     assert ref.oracle_results is None
     assert ref_solver.last_route_stats["oracle"] == 0
-    assert ref_solver.last_route_stats["parked"] == 0
+    assert (ref_solver.last_route_stats["parked"] > 0) == parked
     assert plan_stream(res) == plan_stream(ref)
     assert existing_stream(res) == existing_stream(ref)
     assert errors_by_index(res, pods) == errors_by_index(ref, ref_pods)
@@ -664,7 +669,26 @@ def _random_cluster(seed):
     return build
 
 
+def _once_refused(kind: str):
+    """A shape the port refused before it carried it: the pods of
+    ``_refused(kind)``, with a bound ``app=bound`` pod on an existing
+    node for the anti-affinity against other pods."""
+    def build(k):
+        sns = [k.zone_node(f"n-{z}", z, cpu="4") for z in ZONES]
+        kube = _kube_with(k, sns)
+        _bind(k, kube, sns[1].name(), {"app": "bound"}, 1, "bound")
+        return dict(pools=[k.nodepool()], provider=k.provider(), pods=_refused(kind, k),
+                    state_nodes=sns, kube=kube)
+    return build
+
+
+# the reference parks these for its post-pack pod-affinity pass
+PARKED = {"pod-affinity"}
+
 SCENARIOS = {
+    "pod-affinity": _once_refused("pod affinity"),
+    "pod-anti-affinity-on-zone": _once_refused("pod anti-affinity on zone"),
+    "pod-anti-affinity-against-other-pods": _once_refused("pod anti-affinity against other pods"),
     "zone-requirement-limits-domains": _zone_requirement,
     "node-filter-seeds": _node_filter_seeds,
     "cross-hostname-spread-solo": _cross_hostname,
@@ -696,7 +720,7 @@ SCENARIOS = {
 
 @pytest.mark.parametrize("case", sorted(SCENARIOS))
 def test_topology_plan_identity(monkeypatch, case):
-    res, pods, solver = solve_both(monkeypatch, SCENARIOS[case])
+    res, pods, solver = solve_both(monkeypatch, SCENARIOS[case], parked=case in PARKED)
     assert res.pods_scheduled + len(res.pod_errors) == len(pods)
     counts = zone_counts(res, pods)
     if case == "seeded-counts-balance":
@@ -713,6 +737,12 @@ def test_topology_plan_identity(monkeypatch, case):
         assert all(len(p.pod_indices) == 1 for p in res.node_plans)
     elif case == "limit-spill-rounds":
         assert {p.nodepool_name for p in res.node_plans} == {"reserved", "default"}
+    elif case == "pod-anti-affinity-against-other-pods":
+        # the node holding the bound app=bound pod takes no anti pod
+        assert all(
+            e.state_node.name() != f"n-{ZONES[1]}" or all(pods[i].name != "a" for i in e.pod_indices)
+            for e in res.existing_plans
+        )
     elif case == "isolated-and-spread-new-nodes":
         assert all(p.max_pods_per_node == 1 for p in res.node_plans if any(
             pods[i].metadata.labels.get("app") == "web" for i in p.pod_indices))
@@ -764,6 +794,14 @@ def _refused(kind: str, k):
     wk = k.wk
     pods = [k.pod(f"p-{i}", {"cpu": "500m"}, labels={"app": "plain"}) for i in range(4)]
     web = {"app": "web"}
+
+    def with_affinity(pod, terms, anti=()):
+        pod.spec.affinity = k.ob.Affinity(
+            pod_affinity=k.ob.PodAffinity(required=list(terms)),
+            pod_anti_affinity=k.ob.PodAntiAffinity(required=list(anti)) if anti else None,
+        )
+        return pod
+
     if kind == "pod affinity":
         a = k.tpod("a", labels=web)
         a.spec.affinity = k.ob.Affinity(
@@ -799,31 +837,51 @@ def _refused(kind: str, k):
             )
         )
         pods.append(a)
+    elif kind == "pod affinity mixed with anti-affinity":
+        pods.append(with_affinity(
+            k.tpod("a", labels=web), [k.term(wk.LABEL_TOPOLOGY_ZONE, web)],
+            anti=[k.term(wk.LABEL_HOSTNAME, web)],
+        ))
+    elif kind == "two hostname affinity terms":
+        pods.append(with_affinity(
+            k.tpod("a", labels={"app": "web", "tier": "front"}),
+            [k.term(wk.LABEL_HOSTNAME, web), k.term(wk.LABEL_HOSTNAME, {"tier": "front"})],
+        ))
+    elif kind == "host ports":
+        a = k.tpod("a", labels=web)
+        a.spec.containers[0].ports = [k.ob.ContainerPort(host_port=8080)]
+        pods.append(a)
+    elif kind == "volumes":
+        a = k.tpod("a", labels=web)
+        a.spec.volumes = [k.ob.Volume(name="data", ephemeral=True)]
+        pods.append(a)
     return pods
 
 
 REFUSED = {
-    "pod affinity": "pod affinity",
-    "pod anti-affinity on zone": "pod anti-affinity on zone",
-    "pod anti-affinity against other pods": "pod anti-affinity against other pods",
     "pod anti-affinity whose selector matches another group": "matches another group",
     "pod anti-affinity with preferred terms": "pod anti-affinity with preferred terms",
     "topology spread together with host ports": "host ports",
     "spread counted by an unported group": "pod affinity with preferred terms",
+    "pod affinity mixed with anti-affinity": "mixed with anti-affinity",
+    "two hostname affinity terms": "several hostname terms",
+    "host ports": "host ports",
+    "volumes": "volumes",
 }
 
 
 @pytest.mark.parametrize("kind", sorted(REFUSED))
 def test_refused_shapes_raise(monkeypatch, kind):
     """The reference takes these off its tensor path or into masks the
-    port lacks; the port raises, naming the feature."""
+    port lacks (host ports, volumes); the port raises, naming the
+    feature."""
     reference_native(monkeypatch)
     k = TKit(REF)
     ref = TPUScheduler([k.nodepool()], k.provider(), kube_client=k.KubeClient())
     ref.solve(_refused(kind, k))
     stats = ref.last_route_stats
     off_path = stats["oracle"] + stats["parked"]
-    if kind in ("pod anti-affinity on zone", "pod anti-affinity against other pods"):
+    if kind in ("host ports", "volumes"):
         assert off_path == 0  # tensor masks the port does not carry
     else:
         assert off_path > 0
