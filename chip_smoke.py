@@ -72,9 +72,22 @@ Phases, in order; any failure exits non-zero:
    cluster), and ``check_anti`` (no anti pod shares an excluded zone or node with
    a matching pod, one quorum member per zone).
 
-Then a ``{"kernels": [...]}`` line (the kernel's cases at phases 8's and
-9's shapes too), and the last line ``{"ok": true, "device": {...}}``.
-The profiled warm solves of phases 4–9 report device times only from
+10. Stateful: config 13's ``stateful_dense`` (10,000 pods: ephemeral
+   volumes, host ports 8000–8011, plain; 16 existing nodes with CSI
+   attach limit 8, built in the solver's units) and ``spread_skew`` as
+   the bench builds them, then ``stateful_cluster_world``: phase 5's
+   cluster with CSI limits, mounted claims and node-exporter's
+   hostPort 9100, a ``db`` pool, the ``stateful_dense`` pods, 100
+   hostPort-9100 agents and three 50-replica StatefulSets whose claims
+   pin zones: the same solves and comparisons (the CPU solve on its
+   own copy of the pods), ``check_cluster`` where there are nodes,
+   ``check_ports``, ``check_volumes``, ``check_zone_pins`` (``check_spread``
+   for ``spread_skew``), and the C++ first-fit against its plain version
+   on the card on every stateful first-fit's inputs.
+
+Then a ``{"kernels": [...]}`` line (the kernel's cases at the shapes of
+phases 8–10 too), and the last line ``{"ok": true, "device": {...}}``.
+The profiled warm solves of phases 4–10 report device times only from
 traces that hold every kernel launch of the solve (``profile_solve``).
 
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -117,6 +130,9 @@ N_ANTI = 10_000  # bench.py config 13 anti_dense: pods, RandomState
 ANTI_SEED = 13
 N_ANTI_TYPES = 200  # the catalog config 13 builds
 N_QUORUM = 6  # phase 9's zone quorum: three place, one per zone
+N_STATEFUL = 10_000  # bench.py config 13 stateful_dense and spread_skew: pods
+CSI_DRIVER = "ebs.csi.bench"  # the CSI driver of config 13's default StorageClass
+N_REPLICAS = 50  # phase 10's stateful cluster: replicas of each of three StatefulSets
 
 
 def fail(msg: str) -> None:
@@ -166,9 +182,10 @@ def random_planes(rng, S, T, widths, Z=3, C=2):
     )
 
 
-def slice_planes(pools, provider, pods):
-    """The compat inputs the slice's solve builds (one pool), from the
-    port's own encode functions."""
+def slice_planes(pools, provider, pods, kube=None):
+    """The compat inputs the slice's solve builds (the first pool), from
+    the port's own encode functions; with ``kube``, after the solve's
+    PVC zone pins join the pods."""
     from karpenter_core_tpu_torch.solver import podcache
     from karpenter_core_tpu_torch.solver.encode import (
         encode_signature_for_pool,
@@ -179,7 +196,9 @@ def slice_planes(pools, provider, pods):
     from karpenter_core_tpu_torch.solver.kernels import build_compat_inputs, zone_ct_masks
     from karpenter_core_tpu_torch.solver.solver import TorchScheduler
 
-    solver = TorchScheduler(pools, provider, device="cpu")
+    solver = TorchScheduler(pools, provider, device="cpu", kube_client=kube)
+    if kube is not None:
+        solver._inject_volume_zones(pods)
     groups = group_pods(pods, memos=podcache.get_memos(pods))
     enc_pools, catalogs = solver._build_pools()
     entry = solver._catalog_entry(catalogs[0])
@@ -910,14 +929,15 @@ def existing_stream(res) -> list:
     return [(e.state_node.name(), list(e.pod_indices)) for e in res.existing_plans]
 
 
-def check_cluster(res, pods, nodes, daemons, missing, spill: bool = True) -> dict:
+def check_cluster(res, pods, nodes, daemons, missing, spill: bool = True, pools=()) -> dict:
     """Fail unless the cluster solve's plans hold: every pod placed,
     planned or errored exactly once; each existing node's placements
     plus its bound pods and its missing daemons fit its allocatable;
     each new node's pods plus its daemons fit its type; ``reserved``
     stays within its limits and, with ``spill`` (the 50k-pod worlds,
     whose new nodes outgrow its limits), some pods spill to
-    ``default``."""
+    ``default``. A new node of a pool in ``pools`` runs the daemons that
+    tolerate the pool's taints; other new nodes run every daemon."""
     from karpenter_core_tpu_torch.apis import labels as wk
     from karpenter_core_tpu_torch.kube.quantity import parse_quantity
     from karpenter_core_tpu_torch.scheduling import Taints, resources
@@ -943,10 +963,14 @@ def check_cluster(res, pods, nodes, daemons, missing, spill: bool = True) -> dic
         taints = Taints(sn.taints())
         if any(taints.tolerates(pods[i]) is not None for i in e.pod_indices):
             fail(f"a pod on {sn.name()} does not tolerate its taints")
-    # no pool carries a taint or a capacity-type requirement: every new
-    # node runs all three daemons
-    overhead = resources.requests_for_pods(*daemons)
+    # no pool carries a capacity-type requirement: a new node runs every
+    # daemon its pool's taints admit
+    taints = {p.name: Taints(p.spec.template.taints) for p in pools}
     for plan in res.node_plans:
+        pool_taints = taints.get(plan.nodepool_name)
+        overhead = resources.requests_for_pods(
+            *(d for d in daemons if pool_taints is None or pool_taints.tolerates(d) is None)
+        )
         if not resources.fits(resources.merge(plan.requests, overhead), plan.instance_type.allocatable()):
             fail(f"plan on {plan.instance_type.name} overflows its allocatable with its daemons")
     used = resources.merge(
@@ -1005,9 +1029,10 @@ def pack_existing_check(inputs, device: str = "cuda") -> dict:
     }
 
 
-def capture_pack_existing(fn):
+def capture_pack_existing(fn, calls: int = 1):
     """Run ``fn()`` and return the inputs the solve handed to
-    ``run_pack_existing`` (copies)."""
+    ``run_pack_existing`` (copies): those of its one call, or with
+    ``calls`` None the list of every call's."""
     from karpenter_core_tpu_torch.solver import solver as solver_mod
 
     real = solver_mod.run_pack_existing
@@ -1022,7 +1047,9 @@ def capture_pack_existing(fn):
         out = fn()
     finally:
         solver_mod.run_pack_existing = real
-    if len(seen) != 1:
+    if calls is None:
+        return out, seen
+    if len(seen) != calls:
         fail(f"the solve ran the existing-node pack {len(seen)} times, not once")
     return out, seen[0]
 
@@ -1687,6 +1714,424 @@ def run_anti_phase(device: str = "cuda", n_pods: int = N_ANTI, n_nodes: int = N_
         rows.append(row)
     return tuple(rows)
 
+
+# -- phase 10: host ports and CSI volumes ------------------------------------------
+
+
+def stateful_dense_pods(n_pods: int = N_STATEFUL) -> list:
+    """bench.py config 13 ``stateful_dense``'s pending pods
+    (``bench.py:2102-2134``, RandomState(13)): 40 % StatefulSet-shaped
+    pods with one generic ephemeral volume (250m or 500m, 512Mi or 1Gi),
+    30 % host-port deployments (250m / 256Mi) on one of the 12 ports
+    8000–8011, 30 % plain 500m / 512Mi."""
+    from karpenter_core_tpu_torch.kube.objects import ContainerPort, Volume
+
+    rng = np.random.RandomState(ANTI_SEED)
+    pods = []
+    for i in range(n_pods):
+        roll = rng.rand()
+        if roll < 0.4:
+            p = pending_pod(f"bench-{i}", ["250m", "500m"][rng.randint(2)], ["512Mi", "1Gi"][rng.randint(2)])
+            p.spec.volumes = [Volume(name="data", ephemeral=True)]
+        elif roll < 0.7:
+            p = pending_pod(f"bench-{i}", "250m", "256Mi")
+            p.spec.containers[0].ports = [ContainerPort(host_port=8000 + int(rng.randint(12)))]
+        else:
+            p = pending_pod(f"bench-{i}", "500m", "512Mi")
+        pods.append(p)
+    return pods
+
+
+def _default_storage_class(kube) -> None:
+    """The default StorageClass of config 13 (``bench-standard``,
+    provisioner ``ebs.csi.bench``)."""
+    from karpenter_core_tpu_torch.kube.objects import StorageClass
+
+    sc = StorageClass(provisioner=CSI_DRIVER)
+    sc.metadata.name = "bench-standard"
+    sc.metadata.annotations = {"storageclass.kubernetes.io/is-default-class": "true"}
+    kube.create(sc)
+
+
+def stateful_dense_world(n_pods: int = N_STATEFUL, n_types: int = N_ANTI_TYPES, bench_units: bool = False):
+    """bench.py config 13 ``stateful_dense`` (``bench.py:2102-2150``):
+    ``stateful_dense_pods``, ``instance_types(n_types)``, one NodePool
+    ``default``, a kube store holding the default StorageClass, and 16
+    initialized nodes ``csi-node-m`` in zones ``test-zone-(m % 3 + 1)``
+    with CSI attach limit 8 for ``ebs.csi.bench`` → (nodepools, provider,
+    pods, state_nodes, [], missing, kube). The nodes hold 16 CPU, 64Gi
+    and 110 pods in the solver's units (``parse_quantity``); with
+    ``bench_units`` they hold the raw integers ``bench.py`` writes (16e9
+    nano-CPU, but 64·2^30 nano-bytes and 110 nano-pods: no pod fits)."""
+    from karpenter_core_tpu_torch.apis import labels as wk
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_core_tpu_torch.kube.client import KubeClient
+    from karpenter_core_tpu_torch.kube.objects import Node
+    from karpenter_core_tpu_torch.kube.quantity import parse_quantity
+    from karpenter_core_tpu_torch.state import StateNode
+
+    provider = FakeCloudProvider()
+    provider.instance_types = instance_types(n_types)
+    nodepool = NodePool()
+    nodepool.metadata.name = "default"
+    kube = KubeClient()
+    _default_storage_class(kube)
+    pods = stateful_dense_pods(n_pods)
+    if bench_units:
+        capacity = {"cpu": 16 * 10**9, "memory": 64 * 1024**3, "pods": 110}
+    else:
+        capacity = {"cpu": parse_quantity("16"), "memory": parse_quantity("64Gi"), "pods": parse_quantity("110")}
+    nodes = []
+    for m in range(16):
+        node = Node()
+        node.metadata.name = f"csi-node-{m}"
+        node.metadata.labels = {
+            wk.NODEPOOL_LABEL_KEY: "default",
+            wk.LABEL_HOSTNAME: f"csi-node-{m}",
+            wk.LABEL_TOPOLOGY_ZONE: f"test-zone-{m % 3 + 1}",
+            wk.NODE_REGISTERED_LABEL_KEY: "true",
+            wk.NODE_INITIALIZED_LABEL_KEY: "true",
+        }
+        node.status.capacity = dict(capacity)
+        node.status.allocatable = dict(capacity)
+        sn = StateNode(node=node)
+        sn.volume_usage.csi_limits = {CSI_DRIVER: 8}
+        nodes.append(sn)
+    return [nodepool], provider, pods, nodes, [], {sn.name(): {} for sn in nodes}, kube
+
+
+def spread_skew_world(n_pods: int = N_STATEFUL, n_types: int = N_ANTI_TYPES):
+    """bench.py config 13 ``spread_skew`` as the bench builds it
+    (``bench.py:2009-2034``, RandomState(13)): pods ``app=svc-d`` (d
+    uniform in 0..19; 250m, 500m or 1 CPU; 256Mi or 1Gi) with a zone
+    spread (max_skew 1, DoNotSchedule) on their own service, against
+    seeds skewed to ``test-zone-1``: every even service has ``d % 5 + 1``
+    bound pods on ``seed-test-zone-1``. ``instance_types(n_types)``, one
+    NodePool ``default``, no existing nodes → (nodepools, provider, pods,
+    [], [], {}, kube)."""
+    from karpenter_core_tpu_torch.apis import labels as wk
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_core_tpu_torch.kube.client import KubeClient
+    from karpenter_core_tpu_torch.kube.objects import LabelSelector, Node, TopologySpreadConstraint
+
+    provider = FakeCloudProvider()
+    provider.instance_types = instance_types(n_types)
+    nodepool = NodePool()
+    nodepool.metadata.name = "default"
+    kube = KubeClient()
+    node = Node()
+    node.metadata.name = "seed-test-zone-1"
+    node.metadata.labels = {wk.LABEL_TOPOLOGY_ZONE: "test-zone-1"}
+    for d in range(0, 20, 2):
+        for k in range(d % 5 + 1):
+            if kube.get("Node", node.name) is None:
+                kube.create(node)
+            kube.create(bound_anchor(f"seed-skew-{d}-{k}", {"app": f"svc-{d}"}, node.name))
+    rng = np.random.RandomState(ANTI_SEED)
+    pods = []
+    for i in range(n_pods):
+        d = rng.randint(20)
+        p = pending_pod(
+            f"bench-{i}", ["250m", "500m", "1"][rng.randint(3)], ["256Mi", "1Gi"][rng.randint(2)],
+            labels={"app": f"svc-{d}"},
+        )
+        p.spec.topology_spread_constraints = [
+            TopologySpreadConstraint(
+                max_skew=1, topology_key=wk.LABEL_TOPOLOGY_ZONE, when_unsatisfiable="DoNotSchedule",
+                label_selector=LabelSelector(match_labels={"app": f"svc-{d}"}),
+            )
+        ]
+        pods.append(p)
+    return [nodepool], provider, pods, [], [], {}, kube
+
+
+def stateful_cluster_world(
+    n_pods: int = N_STATEFUL, n_types: int = N_TYPES, n_nodes: int = N_NODES, n_replicas: int = N_REPLICAS
+):
+    """``stateful_dense_pods`` and three StatefulSets against phase 5's
+    cluster in a kube store → (nodepools, provider, pods, state_nodes,
+    daemonset_pods, missing, kube):
+
+    - the cluster is ``_cluster_world``'s (RandomState(12), pools
+      ``reserved`` and ``default``), every node with a CSI attach limit
+      of 25 for ``ebs.csi.bench`` (EBS on Nitro instances); on every
+      third node the first 20–25 bound workers (RandomState(14); all of
+      them where it runs fewer) mount one claim each (four of 1,000
+      nodes full);
+    - the ``exporter`` daemon takes hostPort 9100, as Prometheus'
+      node-exporter does, on every on-demand node;
+    - a third NodePool ``db`` (label and taint ``workload=db``) for the
+      databases;
+    - pending: ``stateful_dense_pods(n_pods)``; ``n_pods // 100``
+      ``app=metrics-agent`` pods on hostPort 9100 (100m / 128Mi), which
+      the exporter's nodes refuse; and three StatefulSets of
+      ``n_replicas`` replicas, each replica with its own claim:
+      ``pg`` (2 CPU / 8Gi, on ``db``) and ``redis`` (500m / 2Gi, any
+      node) with claims bound to PersistentVolumes pinned to zone
+      ``test-zone-(k % 3 + 1)``, ``kafka`` (1 CPU / 4Gi, on ``db``) with
+      unbound claims of StorageClass ``zonal`` (allowed topologies
+      ``test-zone-1`` and ``test-zone-2``)."""
+    from karpenter_core_tpu_torch.apis import labels as wk
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.kube.objects import (
+        ContainerPort,
+        PersistentVolume,
+        PersistentVolumeClaim,
+        StorageClass,
+        Taint,
+        Toleration,
+        Volume,
+    )
+    from karpenter_core_tpu_torch.scheduling.volumes import get_volumes
+
+    pools, provider, _, nodes, daemons, missing, kube = _cluster_world(0, n_types, n_nodes, store=True)
+    _default_storage_class(kube)
+    zonal = StorageClass(provisioner=CSI_DRIVER, zones=["test-zone-1", "test-zone-2"])
+    zonal.metadata.name = "zonal"
+    kube.create(zonal)
+    exporter = next(d for d in daemons if d.name == "exporter")
+    exporter.spec.containers[0].ports = [ContainerPort(host_port=9100)]
+    bound_by_node = {}
+    for p in kube.list("Pod"):
+        bound_by_node.setdefault(p.spec.node_name, []).append(p)
+    rng = np.random.RandomState(NODE_SEED + 2)
+    for m, sn in enumerate(nodes):
+        sn.volume_usage.csi_limits = {CSI_DRIVER: 25}
+        bound = kube.get("Pod", f"{sn.name()}-exporter", namespace="default")
+        if bound is not None:
+            bound.spec.containers[0].ports = [ContainerPort(host_port=9100)]
+            sn.update_for_pod(bound)
+        if m % 3:
+            continue
+        workers = [w for w in bound_by_node.get(sn.name(), ()) if w.name.startswith(f"{sn.name()}-w")]
+        for p in workers[: int(rng.randint(20, 26))]:
+            claim = PersistentVolumeClaim(storage_class_name="bench-standard")
+            claim.metadata.name = f"data-{p.name}"
+            kube.create(claim)
+            p.spec.volumes = [Volume(name="data", persistent_volume_claim=claim.name)]
+            sn.volume_usage.add(p, get_volumes(kube, p))
+    db = NodePool()
+    db.metadata.name = "db"
+    db.spec.template.metadata.labels = {"workload": "db"}
+    db.spec.template.taints = [Taint(key="workload", value="db", effect="NoSchedule")]
+    pods = stateful_dense_pods(n_pods)
+    for k in range(n_pods // 100):
+        p = pending_pod(f"metrics-agent-{k}", "100m", "128Mi", labels={"app": "metrics-agent"})
+        p.spec.containers[0].ports = [ContainerPort(host_port=9100)]
+        pods.append(p)
+    for sts, cpu, mem, on_db, pinned in (
+        ("pg", "2", "8Gi", True, True), ("kafka", "1", "4Gi", True, False), ("redis", "500m", "2Gi", False, True),
+    ):
+        for k in range(n_replicas):
+            claim = PersistentVolumeClaim(storage_class_name="bench-standard" if pinned else "zonal")
+            claim.metadata.name = f"data-{sts}-{k}"
+            if pinned:
+                pv = PersistentVolume(zones=[f"test-zone-{k % 3 + 1}"], driver=CSI_DRIVER)
+                pv.metadata.name = f"pv-{sts}-{k}"
+                kube.create(pv)
+                claim.volume_name = pv.name
+            kube.create(claim)
+            p = pending_pod(f"{sts}-{k}", cpu, mem, labels={"app": sts})
+            p.spec.volumes = [Volume(name="data", persistent_volume_claim=claim.name)]
+            if on_db:
+                p.spec.node_selector = {"workload": "db"}
+                p.spec.tolerations = [Toleration(key="workload", value="db", effect="NoSchedule")]
+            pods.append(p)
+    return [*pools, db], provider, pods, nodes, daemons, missing, kube
+
+
+def pod_host_ports(pod) -> list:
+    from karpenter_core_tpu_torch.scheduling.hostports import HostPort
+
+    return [
+        HostPort(ip=p.host_ip or "0.0.0.0", port=p.host_port, protocol=p.protocol or "TCP")
+        for c in pod.spec.containers + pod.spec.init_containers
+        for p in c.ports
+        if p.host_port
+    ]
+
+
+def check_ports(res, pods, nodes=()) -> dict:
+    """Fail unless no node, existing or new, holds two pods whose host
+    ports conflict (``HostPort.matches``: same protocol and port, equal
+    IPs or either unspecified), the existing nodes' own reservations
+    counted."""
+    where = placements(res)
+    by_node = {}
+    for sn in nodes:
+        for key, ports in sn.host_port_usage.reserved.items():
+            if ports:
+                by_node.setdefault(("existing", sn.name()), []).append((("bound",) + key, ports))
+    port_pods = 0
+    for i, (_, node) in where.items():
+        ports = pod_host_ports(pods[i])
+        if ports:
+            port_pods += 1
+            by_node.setdefault(node, []).append((i, ports))
+    for node, entries in by_node.items():
+        for a in range(len(entries)):
+            for b in range(a):
+                if any(x.matches(y) for x in entries[a][1] for y in entries[b][1]):
+                    fail(f"pods {entries[a][0]} and {entries[b][0]} on {node} hold conflicting host ports")
+    return {
+        "port_pods_placed": port_pods,
+        "port_pods_on_existing": sum(1 for i, (_, n) in where.items() if n[0] == "existing" and pod_host_ports(pods[i])),
+    }
+
+
+def pod_volume_ids(pod, kube) -> dict:
+    """driver → claim ids of a pod's volumes, resolved PVC → bound PV's
+    driver, else its StorageClass's (the default class for ephemeral
+    volumes and claims without one); an ephemeral volume's claim is
+    ``<pod>-<volume>``."""
+    classes = kube.list("StorageClass")
+    default = next(
+        (sc.name for sc in classes if sc.metadata.annotations.get("storageclass.kubernetes.io/is-default-class") == "true"),
+        None,
+    )
+    out = {}
+    for v in pod.spec.volumes:
+        if v.persistent_volume_claim:
+            pvc = kube.get("PersistentVolumeClaim", v.persistent_volume_claim, namespace=pod.namespace)
+            if pvc is None:
+                continue
+            claim, pv_name, sc_name = v.persistent_volume_claim, pvc.volume_name, pvc.storage_class_name or default
+        elif v.ephemeral:
+            claim, pv_name, sc_name = f"{pod.name}-{v.name}", "", default
+        else:
+            continue
+        pv = kube.get("PersistentVolume", pv_name) if pv_name else None
+        sc = kube.get("StorageClass", sc_name) if sc_name else None
+        driver = pv.driver if pv is not None and pv.driver else (sc.provisioner if sc is not None else "")
+        if driver:
+            out.setdefault(driver, set()).add(f"{pod.namespace}/{claim}")
+    return out
+
+
+def check_volumes(res, pods, nodes, kube) -> dict:
+    """Fail unless, on every existing node and for every CSI driver, the
+    claims it mounts and those its new pods bring, shared claims counted
+    once, stay within its attach limit."""
+    by_name = {sn.name(): sn for sn in nodes}
+    volume_pods = 0
+    for e in res.existing_plans:
+        sn = by_name[e.state_node.name()]
+        mounted = {d: set(ids) for d, ids in sn.volume_usage.volumes.items()}
+        for i in e.pod_indices:
+            ids = pod_volume_ids(pods[i], kube)
+            volume_pods += bool(ids)
+            for d, claims in ids.items():
+                mounted.setdefault(d, set()).update(claims)
+        for d, claims in mounted.items():
+            limit = sn.volume_usage.csi_limits.get(d)
+            if limit is not None and len(claims) > limit:
+                fail(f"existing node {sn.name()} mounts {len(claims)} {d} volumes, over its limit {limit}")
+    return {
+        "volume_pods_on_existing": volume_pods,
+        "volume_pods_placed": sum(1 for i in placements(res) if pods[i].spec.volumes),
+    }
+
+
+def check_zone_pins(res, pods, kube) -> dict:
+    """Fail unless every placed pod whose claim is pinned (a bound PV
+    with zones, else a StorageClass with allowed zones) sits in a zone
+    the pin allows."""
+    where = placements(res)
+    pinned = 0
+    for i, (zone, node) in sorted(where.items()):
+        for v in pods[i].spec.volumes:
+            if not v.persistent_volume_claim:
+                continue
+            pvc = kube.get("PersistentVolumeClaim", v.persistent_volume_claim, namespace=pods[i].namespace)
+            if pvc is None:
+                continue
+            pv = kube.get("PersistentVolume", pvc.volume_name) if pvc.volume_name else None
+            sc = kube.get("StorageClass", pvc.storage_class_name) if pvc.storage_class_name else None
+            zones = pv.zones if pv is not None and pv.zones else (sc.zones if sc is not None else [])
+            if not zones:
+                continue
+            pinned += 1
+            if zone not in zones:
+                fail(f"pod {pods[i].name} on {node} sits in {zone}, outside its claim's zones {zones}")
+    return {"pinned_placed": pinned}
+
+
+
+def stateful_pack_check(calls, axis_width: int, device: str = "cuda") -> dict:
+    """``pack_existing_check`` on every existing-node first-fit of a
+    solve whose inputs carry port or ephemeral-volume columns beyond the
+    resource axis (the stateful pass) → their sums."""
+    extended = [c for c in calls if c[3].shape[1] > axis_width]
+    rows = [pack_existing_check(c, device) for c in extended]
+    return {
+        "calls": len(calls), "extended_calls": len(extended),
+        "P": sum(r["P"] for r in rows), "max_R": max((r["R"] for r in rows), default=0),
+        "assigned": sum(r["assigned"] for r in rows),
+        "native_ms": sum(r["native_ms"] for r in rows),
+        f"plain_ms_on_{device}": sum(r[f"plain_ms_on_{device}"] for r in rows),
+        "max_abs_err": max((r["max_abs_err"] for r in rows), default=0),
+    }
+
+
+def run_stateful_phase(device: str = "cuda", n_pods: int = N_STATEFUL, n_nodes: int = N_NODES,
+                       n_replicas: int = N_REPLICAS, n_types=(N_ANTI_TYPES, N_TYPES)) -> tuple:
+    """Phase 10: config 13 ``stateful_dense`` (its nodes in the solver's
+    units) and ``spread_skew`` as the bench builds them, then the
+    stateful cluster → their three lines (also emitted); fails on any
+    check. The CPU solve gets its own copy of the pods, made before the
+    card's solves pin their claims' zones."""
+    import copy
+
+    from karpenter_core_tpu_torch.solver.solver import TorchScheduler
+
+    rows = []
+    for name, world, args in (
+        ("stateful_dense", stateful_dense_world, (n_pods, n_types[0])),
+        ("spread_skew", spread_skew_world, (n_pods, n_types[0])),
+        ("stateful_cluster", stateful_cluster_world, (n_pods, n_types[1], n_nodes, n_replicas)),
+    ):
+        t0 = time.perf_counter()
+        pools, provider, pods, nodes, daemons, missing, kube = world(*args)
+        cpu_pods = copy.deepcopy(pods)
+        world_s = time.perf_counter() - t0
+        kw = dict(state_nodes=nodes, daemonset_pods=daemons)
+        solver = TorchScheduler(pools, provider, device=device, kube_client=kube)
+        cold, cold_ms, warm_runs, launches = solve_runs(solver, pods, **kw)
+        if device == "cuda" and launches < 4 * len(pools):
+            fail(f"{name} launched the compat kernel {launches} times in 4 solves")
+        cpu_solver = TorchScheduler(pools, provider, device="cpu", kube_client=kube)
+        cpu, calls = capture_pack_existing(lambda: cpu_solver.solve(cpu_pods, **kw), calls=None)
+        same_as_cpu(cold, cpu, name)
+        row = {
+            name: (
+                f"{len(pods)} pods x {len(provider.instance_types)} types"
+                + (f" x {len(nodes)} existing nodes" if nodes else ", no existing nodes")
+                + f", {len(pools)} nodepools, kube store"
+            ),
+            "world_build_s": world_s,
+            **timing_row(cold, cold_ms, warm_runs, launches),
+        }
+        if nodes:
+            row.update(check_cluster(cold, pods, nodes, daemons, missing, spill=False, pools=pools))
+            if solver._existing_ctx is not None:
+                row["pack_existing"] = stateful_pack_check(calls, solver._existing_ctx["axis"].count, device)
+        else:
+            check_invariants(cold, pods)
+        if name == "spread_skew":
+            row["spread"] = check_spread(cold, pods, nodes, provider, kube)
+        else:
+            row["ports"] = check_ports(cold, pods, nodes)
+            row["volumes"] = check_volumes(cold, pods, nodes, kube)
+            row["zone_pins"] = check_zone_pins(cold, pods, kube)
+        if device == "cuda":
+            row.update(profile_solve(solver, pods, **kw))
+        emit(row)
+        rows.append(row)
+    return tuple(rows)
+
+
 def main() -> None:
     import torch
 
@@ -1788,6 +2233,17 @@ def main() -> None:
             plain_reps=20, sm_mhz=sm_mhz, profiled=True,
         ),
     ]
+    # the compat shapes of phase 10, from their own worlds, claims pinned
+    stateful_rows = []
+    for label, world in (
+        ("stateful-dense 10k x 200", stateful_dense_world),
+        ("spread-skew 10k x 200", spread_skew_world),
+        ("stateful-cluster 10.25k x 2000", stateful_cluster_world),
+    ):
+        w = world()
+        stateful_rows.append(kernel_case(
+            label, slice_planes(*w[:3], kube=w[6]), reps=200, plain_reps=20, sm_mhz=sm_mhz, profiled=True,
+        ))
     big_row = kernel_case(
         "S=8192 x T=2048",
         random_planes(np.random.RandomState(1), 8192, 2048, widths), reps=20, plain_reps=5,
@@ -1822,12 +2278,18 @@ def main() -> None:
     config6 = run_config6_phase("cuda")
     anti_dense, anti_cluster = run_anti_phase("cuda")
 
+    # 10. config 13's stateful_dense and spread_skew, and the stateful
+    # cluster: host ports, CSI limits and zone-pinned claims
+    stateful_dense, spread_skew, stateful_cluster = run_stateful_phase("cuda")
+
     # the kernels line, then the last line
     paths = {
         "slice": slice_launches, "cluster": cluster["kernel_launches"],
         "config3": config3["kernel_launches"], "cluster-spread": cluster_spread["kernel_launches"],
         "config6": config6["kernel_launches"], "anti-dense": anti_dense["kernel_launches"],
         "anti-cluster": anti_cluster["kernel_launches"],
+        "stateful-dense": stateful_dense["kernel_launches"], "spread-skew": spread_skew["kernel_launches"],
+        "stateful-cluster": stateful_cluster["kernel_launches"],
     }
     path_keys = (
         "shape", "S", "T", "W", "kernel_ms", "profiled_kernel_ms", "wrapper_ms", "plain_ms",
@@ -1845,7 +2307,7 @@ def main() -> None:
                     "launches_by_path": paths,
                     "max_abs_err": max(
                         row["max_abs_err"]
-                        for row in [slice_row, big_row, *spread_rows, *affinity_rows]
+                        for row in [slice_row, big_row, *spread_rows, *affinity_rows, *stateful_rows]
                     ),
                     "ms": slice_row["kernel_ms"],
                     "kernel_ms": slice_row["kernel_ms"],
@@ -1865,6 +2327,7 @@ def main() -> None:
                     },
                     "at_spread_paths": [{k: row[k] for k in path_keys} for row in spread_rows],
                     "at_affinity_paths": [{k: row[k] for k in path_keys} for row in affinity_rows],
+                    "at_stateful_paths": [{k: row[k] for k in path_keys} for row in stateful_rows],
                     "compat_route": slice_row["compat_route"],
                     "ptxas": usage,
                 }

@@ -1,6 +1,6 @@
 """Host-port conflict tracking (ref pkg/scheduling/hostportusage.go), the
 port's copy of ``karpenter_core_tpu/scheduling/hostports.py``: the usage a
-``StateNode`` holds. The solve does not route host-port pods yet."""
+``StateNode`` holds, which the solve's port columns read."""
 
 from __future__ import annotations
 

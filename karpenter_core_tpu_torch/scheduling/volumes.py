@@ -3,8 +3,8 @@ pkg/scheduling/volumeusage.go, storageclass.go).
 
 The reference resolves a pod's PVCs → storage class → CSI driver, then
 counts mounted volumes per driver against the node's reported CSI limit.
-The port carries the per-node usage a ``StateNode`` holds; resolving a
-pod's volumes needs a kube client and is not ported yet.
+The port carries the per-node usage a ``StateNode`` holds and the
+resolution chain against its ``KubeClient``.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Set
 
 from ..kube.objects import Pod
+
+DEFAULT_STORAGE_CLASS_ANNOTATION = "storageclass.kubernetes.io/is-default-class"
 
 
 class Volumes(Dict[str, Set[str]]):
@@ -31,6 +33,53 @@ class Volumes(Dict[str, Set[str]]):
     def insert(self, other: "Volumes") -> None:
         for k, v in other.items():
             self.setdefault(k, set()).update(v)
+
+
+def get_volumes(kube_client, pod: Pod) -> Volumes:
+    """Resolve the pod's PVC-backed volumes to CSI drivers
+    (volumeusage.go:79 GetVolumes)."""
+    vols = Volumes()
+    default_sc = _default_storage_class(kube_client)
+    for volume in pod.spec.volumes:
+        if volume.persistent_volume_claim:
+            pvc = kube_client.get("PersistentVolumeClaim", volume.persistent_volume_claim, namespace=pod.namespace)
+            if pvc is None:
+                raise KeyError(f"pvc {pod.namespace}/{volume.persistent_volume_claim} not found")
+            pvc_id = f"{pod.namespace}/{volume.persistent_volume_claim}"
+            sc_name = pvc.storage_class_name or default_sc
+            volume_name = pvc.volume_name
+        elif volume.ephemeral:
+            # https://kubernetes.io/docs/concepts/storage/ephemeral-volumes/#persistentvolumeclaim-naming
+            pvc_id = f"{pod.namespace}/{pod.name}-{volume.name}"
+            sc_name = default_sc
+            volume_name = ""
+        else:
+            continue
+        driver = _resolve_driver(kube_client, volume_name, sc_name)
+        if driver:
+            vols.add(driver, pvc_id)
+    return vols
+
+
+def _default_storage_class(kube_client) -> Optional[str]:
+    for sc in kube_client.list("StorageClass"):
+        if sc.metadata.annotations.get(DEFAULT_STORAGE_CLASS_ANNOTATION) == "true":
+            return sc.name
+    return None
+
+
+def _resolve_driver(kube_client, volume_name: str, storage_class_name: Optional[str]) -> str:
+    """Bound PV's driver wins, else the storage class provisioner
+    (volumeusage.go:121-160 resolveDriver)."""
+    if volume_name:
+        pv = kube_client.get("PersistentVolume", volume_name)
+        if pv is not None and pv.driver:
+            return pv.driver
+    if storage_class_name:
+        sc = kube_client.get("StorageClass", storage_class_name)
+        if sc is not None:
+            return sc.provisioner
+    return ""
 
 
 class VolumeUsage:

@@ -28,6 +28,7 @@ from ..apis.nodepool import NodePool
 from ..cloudprovider.types import InstanceType
 from ..kube.objects import OP_DOES_NOT_EXIST, OP_NOT_IN, Pod
 from ..scheduling import Requirement, Requirements, Taints
+from .constraint_tensors import canonical_ports
 from .stablehash import stable_hash
 from ..scheduling.requirements import (
     ALLOW_UNDEFINED_WELL_KNOWN_LABELS,
@@ -595,6 +596,17 @@ class SignatureGroup:
             return False
         a = spec.affinity
         return a is None or (a.pod_affinity is None and a.pod_anti_affinity is None)
+
+    def host_ports(self) -> tuple:
+        """Canonical (protocol, port, ip) triples of the group's host
+        ports (identical across members: ports ride the signature)."""
+        return canonical_ports(self.exemplar)
+
+    @property
+    def has_volumes(self) -> bool:
+        return any(
+            v.persistent_volume_claim is not None or v.ephemeral for v in self.exemplar.spec.volumes
+        )
 
     @property
     def hostname_isolated(self) -> bool:

@@ -7,11 +7,16 @@ its tensor path:
           engine): tensor groups, parked pod-affinity groups, and the
           groups it would send to its oracle, which raise
           NotImplementedError naming the feature
+  host:   PersistentVolume and StorageClass zone pins join the node
+          affinity of volume-bearing pods (VolumeTopology.inject)
   host:   signature-group pods → first-fit onto existing nodes
           (existing_node_compat → native/pack.cc), free capacity net of
           the daemons each node still has to run, nodes holding a pod a
           non-self anti-affinity term counts masked out; topology-
-          constrained groups wait for their domains
+          constrained groups wait for their domains; host-port and
+          volume groups follow one at a time, their ports and ephemeral
+          claims as extra first-fit columns and the CSI attach limits as
+          a per-node mask (constraint_tensors.py)
   host:   leftover and parked pods → per-(signature, pool) set algebra
   device: ONE compat ∧ offering kernel launch per pool against the
           catalog's card-resident type side (solver/compat_kernels.py)
@@ -22,17 +27,20 @@ its tensor path:
           hostname-capped groups fill per-node quotas on existing nodes,
           zone self-anti-affinity groups take one pod per free zone, then
           class-merged and zone-pinned pack jobs (new nodes carry their
-          pool's daemonset overhead and per-node pod caps) → C++
+          pool's daemonset overhead and per-node pod caps; host ports
+          are extra request and frontier columns) → C++
           first-fit-decreasing pack (native/pack.cc) → cheapest
           type/offering per node → cross-group merge of underfull nodes
-          under each side's per-node hostname limits (merge.py) →
-          NodePlans, stripped where a NodePool limit is exceeded
+          under each side's per-node hostname limits and host ports
+          (merge.py) → NodePlans, stripped where a NodePool limit is
+          exceeded
   host:   the pod-affinity post-pass: parked groups one at a time in
           anchor-dependency order, each against the placements committed
           so far (zone anchors intersected per term, hostname anchors on
           existing nodes and on planned nodes, which grow their type to
           take joiners or give up one matching pod to seed a fresh
-          anchor), to a fixpoint
+          anchor), to a fixpoint; run again with the donor guard where
+          that fixpoint strands a pod from its hostname anchors
 
 Spread and affinity seeds count the pods bound in ``kube_client`` (the
 JAX package's ``kube_client``); the port has no cluster-state object, no
@@ -42,8 +50,9 @@ the JAX package sends off this path raise NotImplementedError with the
 feature's name instead of routing elsewhere: preferred pod (anti-)
 affinity, pod affinity mixed with anti-affinity or spread, two hostname
 affinity terms, terms on other keys or namespaces, anti-affinity whose
-selector matches another group of the batch, constraints counting a
-group of those, host ports, volumes and preference relaxation. The port
+selector matches another group of the batch, host ports or volumes
+together with a spread or pod (anti-)affinity, constraints counting a
+group of those, and preference relaxation. The port
 reads no environment variable: the JAX package's defaults it depends on
 are module constants (pack.NATIVE_K_OPEN, compat_kernels.COMPAT_TILE_BYTES,
 the vector merge engine, the ffd pack backend with the native engine,
@@ -68,6 +77,7 @@ from ..apis.nodepool import NodePool, order_by_weight
 from ..cloudprovider.types import CloudProvider, InstanceType
 from ..kube.objects import EFFECT_PREFER_NO_SCHEDULE, OP_IN, SCHEDULE_ANYWAY, Pod
 from ..scheduler.topology import TopologyNodeFilter
+from ..scheduler.volumetopology import VolumeTopology
 from ..scheduling import Requirement, Requirements, Taints, resources
 from ..scheduling.requirements import (
     ALLOW_UNDEFINED_WELL_KNOWN_LABELS,
@@ -75,9 +85,20 @@ from ..scheduling.requirements import (
     node_selector_requirements,
     pod_requirements,
 )
+from ..scheduling.volumes import Volumes
 from . import podcache
 from .backend import resolve_device
 from .compat_kernels import DeviceCatalog, allowed_via_kernel, catalog_to_device, signature_side
+from .constraint_tensors import (
+    GroupVolumes,
+    PortFeatures,
+    eph_free_columns,
+    node_reserved_ports,
+    ports_conflict,
+    ports_from_triples,
+    resolve_group_volumes,
+    volume_admit_row,
+)
 from .encode import (
     EncodedInstanceTypes,
     PoolEncoding,
@@ -573,10 +594,8 @@ def _unported_feature(group: SignatureGroup, groups: List[SignatureGroup]) -> Op
     """Why the port cannot solve ``group`` itself, or None when its own
     constraints are on the port's path (it may still be pulled off it by
     another group's)."""
-    spec = group.exemplar.spec
-    a = spec.affinity
-    stateful = group.has_stateful_node_constraints
-    if stateful and not group.tensor_stateful:
+    a = group.exemplar.spec.affinity
+    if group.has_stateful_node_constraints and not group.tensor_stateful:
         return "topology spread or pod (anti-)affinity together with host ports or volumes"
     if group.has_relational:
         if (
@@ -594,19 +613,13 @@ def _unported_feature(group: SignatureGroup, groups: List[SignatureGroup]) -> Op
         )
     if _counts_another_group(group, groups):
         return "pod anti-affinity whose selector matches another group of the batch"
-    if any(p.host_port for c in spec.containers + spec.init_containers for p in c.ports):
-        return "host ports"
-    if stateful:
-        return "volumes"
     return None
 
 
 def _check_routing(groups: List[SignatureGroup]) -> Tuple[List[SignatureGroup], List[SignatureGroup]]:
     """The JAX package's route split → (tensor groups, parked groups).
     Raise NotImplementedError, naming the feature, when it would send a
-    group to its oracle, or fold constraints into its pack that are not
-    ported (host ports, volumes). A refused batch is never solved
-    another way."""
+    group to its oracle. A refused batch is never solved another way."""
     tensor_groups, parked, oracle_groups = route_groups(groups)
     if not oracle_groups and all(
         _unported_feature(g, groups) is None for g in tensor_groups + parked
@@ -619,6 +632,19 @@ def _check_routing(groups: List[SignatureGroup]) -> Tuple[List[SignatureGroup], 
     raise NotImplementedError(
         "a group counted by another group's pod affinity or anti-affinity is not ported yet"
     )
+
+
+def _hostname_affinity_terms(pod: Pod) -> list:
+    """The pod's required pod-affinity terms on hostname that carry a
+    selector."""
+    a = pod.spec.affinity
+    if a is None or a.pod_affinity is None:
+        return []
+    return [
+        t
+        for t in a.pod_affinity.required
+        if t.topology_key == wk.LABEL_HOSTNAME and t.label_selector is not None
+    ]
 
 
 def _relaxable(pod: Pod, prefer_no_schedule: bool) -> bool:
@@ -659,6 +685,9 @@ class TorchScheduler:
         # device/host wall-time split of the most recent solve
         self.last_timings: Optional[Dict[str, float]] = None
         self.last_merge_stats: Optional[Dict[str, object]] = None
+        # whether the last solve's post-pass ran a second time with the
+        # reseed guard on (_affinity_postpass)
+        self.last_reseed_redo = False
         self._merge_stats: Dict[str, object] = {}
         self._catalogs: "OrderedDict[tuple, _CatalogEntry]" = OrderedDict()
         self._clock = _DeviceClock(self.device)
@@ -673,8 +702,11 @@ class TorchScheduler:
         self._ledger_selectors: List[tuple] = []
         self._existing_ctx: Optional[dict] = None
         self._anti_zone_excl_cache: Dict[int, frozenset] = {}
+        self._group_vols_cache: Dict[int, GroupVolumes] = {}
         self._plan_match_cache: Dict[Tuple[tuple, int], Tuple[int, bool]] = {}
         self._join_types_cache: Dict[tuple, tuple] = {}
+        self._reseed_guard = False
+        self._reseeded: List[NodePlan] = []
         self._phase_ms: Dict[str, float] = dict.fromkeys(PHASES, 0.0)
         self._phase_inner: List[float] = [0.0]
 
@@ -694,6 +726,7 @@ class TorchScheduler:
         self._clock = _DeviceClock(self.device)
         self._phase_ms = dict.fromkeys(PHASES, 0.0)
         self._phase_inner = [0.0]  # ms of phases nested in the open one
+        self.last_reseed_redo = False
         try:
             return self._solve(pods, list(state_nodes or ()), list(daemonset_pods or ()))
         finally:
@@ -737,6 +770,12 @@ class TorchScheduler:
             "merge_pairs_applied": 0,
         }
         with self._phase("group"):
+            # PV and StorageClass zone pins join volume-bearing pods' node
+            # affinity before the memo read, so grouping and the compat
+            # algebra see them (the JAX package's oracle injects them in
+            # build_scheduler)
+            if self.kube_client is not None:
+                self._inject_volume_zones(pods)
             memos, _ = podcache.get_memos_rvs(pods)
             self._all_requests = [m.requests for m in memos]
             self._req_ids = np.fromiter((m.req_id for m in memos), dtype=np.int64, count=len(memos))
@@ -758,9 +797,10 @@ class TorchScheduler:
         # over the grow-only plan lists); cleared when limit enforcement
         # strips plans
         self._fold_cache = {}
-        # zones each non-self zone anti-affinity group may not use, per
-        # group of this solve
+        # zones each non-self zone anti-affinity group may not use, and
+        # the resolved volumes, per group of this solve
         self._anti_zone_excl_cache = {}
+        self._group_vols_cache = {}
         # (selector fingerprint, id(plan)) → (members seen, matched): the
         # post-pass's anchor scans rescan a plan only when it grew
         self._plan_match_cache = {}
@@ -929,7 +969,10 @@ class TorchScheduler:
         get zones or per-node quotas first (_prepare_class_jobs) and
         then try existing nodes against the free capacity this stashes
         in ``self._existing_ctx`` (nodes, free, axis, node_zones,
-        compat_rows), which every later existing-node pack updates."""
+        compat_rows), which every later existing-node pack updates.
+        Host-port and volume groups pack after the global first-fit, one
+        group at a time (_pack_stateful_existing): their per-node
+        conflict state is live across placements."""
         nodes = sorted(state_nodes, key=lambda n: (not n.initialized(), n.name()))
         M = len(nodes)
         # axis spans the nodes' allocatable and every request of the batch
@@ -975,7 +1018,7 @@ class TorchScheduler:
         # affinity, hostname caps) are domain-assigned before they touch
         # existing capacity: keep them out of this selector-blind
         # first-fit
-        pack = [
+        free_groups = [
             (gi, g)
             for gi, g in enumerate(groups)
             if g.zone_spread() is None
@@ -984,8 +1027,24 @@ class TorchScheduler:
             and g.hostname_spread() is None
             and not g.hostname_isolated
         ]
-        if not pack:
-            return
+        pack = [(gi, g) for gi, g in free_groups if not g.has_stateful_node_constraints]
+        stateful = [(gi, g) for gi, g in free_groups if g.has_stateful_node_constraints]
+        if pack:
+            self._pack_existing_global(pack, nodes, axis, free, leftover, result)
+        if stateful:
+            self._pack_stateful_existing(stateful, leftover, result)
+
+    def _pack_existing_global(
+        self,
+        pack: List[tuple],
+        nodes: list,
+        axis: ResourceAxis,
+        free: np.ndarray,
+        leftover: Dict[int, List[int]],
+        result: SolverResult,
+    ) -> None:
+        """One first-fit of every pod of the ``(gi, group)`` pairs in
+        ``pack`` onto the existing nodes, in the oracle's pod order."""
         sub_groups = [g for _, g in pack]
         # nodes a non-self anti-affinity term excludes (zones or hosts
         # holding a selector-matching pod) fold in per group
@@ -1020,6 +1079,91 @@ class TorchScheduler:
             result.existing_plans.append(
                 ExistingNodePlan(state_node=nodes[m], pod_indices=by_node[m])
             )
+
+    def _pack_stateful_existing(
+        self,
+        stateful: List[tuple],
+        leftover: Dict[int, List[int]],
+        result: SolverResult,
+    ) -> None:
+        """Pack host-port and volume groups onto existing capacity, one
+        group at a time in the reference's order, with their per-node
+        conflict state enforced in the first-fit:
+
+        - host ports ride as pseudo-resource columns appended to the
+          free matrix (``constraint_tensors.PortFeatures``, the exact
+          additive encoding of HostPort.matches), so conflicts with the
+          nodes' reservations and between this group's own placements
+          both hold in the C++ first-fit;
+        - volume admissibility is a per-(group, node) mask over the
+          union check (a group's shared claims charge a node once), and
+          generic-ephemeral PVCs are additive per-driver columns; the
+          groups run against a live port-reservation list and a live
+          volume overlay, so the order of the groups decides which one
+          takes a node's last attach slot, as in the reference."""
+        ctx = self._existing_ctx
+        nodes = ctx["nodes"]
+        # live port reservations: each node's own plus this pass's
+        reserved = [list(node_reserved_ports(n)) for n in nodes]
+        # live volume overlay: driver → pvc ids this pass added, per node
+        vol_overlay: Dict[int, Volumes] = {}
+        for gi, g in stateful:
+            idx = np.asarray(leftover.get(gi, list(g.pod_indices)), dtype=np.int64)
+            if idx.size == 0:
+                continue
+            row = self._existing_compat_row(g, ctx).astype(bool)
+            gv = self._group_volumes(g) if g.has_volumes else None
+            if gv is not None:
+                for m in np.flatnonzero(row):
+                    vu = nodes[m].volume_usage
+                    over = vol_overlay.get(int(m))
+                    mounted = vu.volumes.union(over) if over else vu.volumes
+                    if not volume_admit_row(gv, mounted, vu.csi_limits):
+                        row[m] = False
+            if not row.any():
+                continue
+            reqs = build_requests_matrix_ids(self._req_ids[idx], ctx["axis"], self._req_map)
+            order = np.lexsort((-reqs[:, 1], -reqs[:, 0]))
+            idx, reqs = idx[order], reqs[order]
+            ports = g.host_ports()
+            eph_drivers = sorted(gv.eph_counts) if gv is not None else []
+            free = ctx["free"]
+            cols, req_cols = [free], [reqs]
+            if ports:
+                feats = PortFeatures([ports])
+                cols.append(feats.free_matrix(reserved))
+                req_cols.append(np.tile(feats.load_row(ports), (len(idx), 1)))
+            if eph_drivers:
+                cols.append(eph_free_columns(eph_drivers, nodes, vol_overlay))
+                load_v = np.array([gv.eph_counts[d] for d in eph_drivers], dtype=np.int32)
+                req_cols.append(np.tile(load_v, (len(idx), 1)))
+            free_ext = np.ascontiguousarray(np.hstack(cols), dtype=np.int32)
+            reqs_ext = np.ascontiguousarray(np.hstack(req_cols), dtype=np.int32)
+            assign, free_out = run_pack_existing(
+                reqs_ext, np.zeros(len(idx), dtype=np.int32), row[None, :].astype(np.uint8), free_ext
+            )
+            # the shared state keeps the resource columns only
+            ctx["free"] = np.ascontiguousarray(free_out[:, : free.shape[1]], dtype=np.int32)
+            placed = assign >= 0
+            by_node: Dict[int, List[int]] = {}
+            for j in np.flatnonzero(placed):
+                by_node.setdefault(int(assign[j]), []).append(int(idx[j]))
+            for m in sorted(by_node):
+                members = by_node[m]
+                if ports:
+                    reserved[m].extend(ports_from_triples(ports) * len(members))
+                if gv is not None and not gv.empty:
+                    over = vol_overlay.setdefault(m, Volumes())
+                    for driver, ids in gv.shared.items():
+                        for pid in ids:
+                            over.add(driver, pid)
+                    for driver, n_per_pod in gv.eph_counts.items():
+                        for i in members:
+                            pod = self._batch_pods[i]
+                            for e in range(n_per_pod):
+                                over.add(driver, f"{pod.namespace}/{pod.name}-eph{e}")
+                result.existing_plans.append(ExistingNodePlan(state_node=nodes[m], pod_indices=members))
+            leftover[gi] = [int(i) for i in idx[~placed]]
 
     def _encode_phase(
         self,
@@ -1410,6 +1554,18 @@ class TorchScheduler:
             node_limits = _group_node_limits(members[0]["group"])
             daemon = daemon_requests[pool.nodepool.name]
             requests_matrix = matrices[id(pool_entries[chosen])][1]
+            # host-port sets per pod: a class can mix port-bearing and
+            # portless groups, and the job's appended port columns let
+            # the packer enforce every conflict
+            ports_of: Optional[Dict[int, tuple]] = None
+            if any(m["group"].has_stateful_node_constraints for m in members):
+                ports_of = {}
+                for m in members:
+                    p = m["group"].host_ports()
+                    if p:
+                        for i in m["indices"]:
+                            ports_of[int(i)] = p
+                ports_of = ports_of or None
             spread = [m for m in members if m["group"].zone_spread() is not None]
             plain = [m for m in members if m["group"].zone_spread() is None]
 
@@ -1424,7 +1580,7 @@ class TorchScheduler:
                 self._prepare_job(
                     idx, reqs, enc, job_viable, zone_ok, ct_ok, daemon, max_per_node, pool,
                     pods, result, jobs, metas, zone=zone, merged=merged,
-                    per_node_limits=node_limits,
+                    per_node_limits=node_limits, pod_ports=ports_of,
                 )
 
             g0 = members[0]["group"]
@@ -1638,6 +1794,34 @@ class TorchScheduler:
                 row = (row.astype(bool) & ~excl).astype(row.dtype)
             ctx["compat_rows"][id(group)] = row
         return row
+
+    def _group_volumes(self, group: SignatureGroup) -> GroupVolumes:
+        """Per-solve memo of resolve_group_volumes (the PVC → StorageClass
+        → driver chain reads the kube store once per signature)."""
+        gv = self._group_vols_cache.get(id(group))
+        if gv is None:
+            gv = resolve_group_volumes(self.kube_client, group)
+            self._group_vols_cache[id(group)] = gv
+        return gv
+
+    def _inject_volume_zones(self, pods: List[Pod]) -> None:
+        """VolumeTopology.inject on the solve's own pods: PVC-pinned zone
+        requirements join each pod's node affinity so the compat algebra
+        sees them. A pod whose computed pin is already injected is
+        skipped (no memo churn on a re-solve); a pod with volumes but no
+        pin never changes."""
+        vt = VolumeTopology(self.kube_client)
+        for pod in pods:
+            if not pod.spec.volumes:
+                continue
+            reqs = [r for volume in pod.spec.volumes for r in vt._requirements_for_volume(pod, volume)]
+            if not reqs:
+                continue
+            key = tuple(sorted((r.key, r.operator, tuple(r.values)) for r in reqs))
+            if pod.__dict__.get("_karp_volzone_key") == key:
+                continue  # pin already injected and unchanged
+            vt.inject(pod)
+            pod.__dict__["_karp_volzone_key"] = key
 
     # ------------------------------------------------------------------
     # required anti-affinity against pods outside the batch: static
@@ -2079,12 +2263,99 @@ class TorchScheduler:
         under the pod order that places counted groups first. Rounds
         repeat while one makes progress (the oracle's retry queue,
         queue.go): a group that failed for want of anchors retries after
-        later groups placed pods its selectors match."""
-        encoded = ctx["encoded"]
+        later groups placed pods its selectors match.
+
+        The hostname reseeds move donors as the JAX package does. Where
+        the fixpoint leaves a moved donor, or a pod it anchored, with no
+        pod its hostname term selects on its node (the JAX package's
+        plan breaks that affinity; later joins often re-anchor a donor,
+        and then the plan is the JAX package's), the post-pass runs
+        again from the state before it, moving only donors whose move
+        keeps every such term (_donor_movable)."""
         order = self._topo_order_parked(groups, parked_idx)
-        gi_of = (
-            {i: gi for gi in parked_idx for i in groups[gi].pod_indices} if remaining else {}
+        snapshot = self._postpass_snapshot(result, remaining)
+        self._reseed_guard = False
+        self._reseeded = []
+        self._postpass_rounds(pods, groups, order, pools, result, remaining, ctx)
+        if self._reseeded and self._reseed_stranded(result, pods):
+            self._postpass_restore(snapshot, result, remaining)
+            self._reseed_guard = True
+            self._postpass_rounds(pods, groups, order, pools, result, remaining, ctx)
+        self.last_reseed_redo = self._reseed_guard
+
+    def _postpass_snapshot(self, result: SolverResult, remaining: Dict[str, dict]) -> tuple:
+        """What the post-pass may change: the plans' memberships, types,
+        prices and requirements, the plan and existing-plan lists, the
+        pod errors, the remaining limits and the existing nodes' free
+        capacity (every post-pass write replaces these arrays and dicts
+        or appends to the lists)."""
+        plans = [
+            (
+                p,
+                {
+                    **p.__dict__,
+                    "pod_indices": list(p.pod_indices),
+                    "_pod_requests": None if p._pod_requests is None else list(p._pod_requests),
+                },
+            )
+            for p in result.node_plans
+        ]
+        free = None if self._existing_ctx is None else self._existing_ctx["free"]
+        return (
+            plans, len(result.existing_plans), dict(result.pod_errors),
+            {k: dict(v) for k, v in remaining.items()}, free,
         )
+
+    def _postpass_restore(self, snapshot: tuple, result: SolverResult, remaining: Dict[str, dict]) -> None:
+        """Undo the post-pass: everything ``_postpass_snapshot`` took back
+        as it was."""
+        plans, n_existing, errors, limits, free = snapshot
+        for p, state in plans:
+            p.__dict__.update(state)
+        result.node_plans[:] = [p for p, _ in plans]
+        del result.existing_plans[n_existing:]
+        result.pod_errors.clear()
+        result.pod_errors.update(errors)
+        remaining.clear()
+        remaining.update(limits)
+        if free is not None:
+            self._existing_ctx["free"] = free
+        # incremental caches over the plan lists: rebuilt from scratch
+        self._fold_cache = {}
+        self._plan_match_cache = {}
+
+    def _reseed_stranded(self, result: SolverResult, pods: List[Pod]) -> bool:
+        """Whether a plan a reseed took a pod from or opened holds, at
+        the fixpoint, a pod with a required hostname pod-affinity term
+        that no pod on the plan (itself included) matches."""
+        touched = {id(p) for p in self._reseeded}
+        for plan in result.node_plans:
+            if id(plan) not in touched:
+                continue
+            members = [pods[i] for i in plan.pod_indices]
+            for pod in members:
+                for t in _hostname_affinity_terms(pod):
+                    if not any(
+                        o.namespace == pod.namespace and t.label_selector.matches(o.metadata.labels)
+                        for o in members
+                    ):
+                        return True
+        return False
+
+    def _postpass_rounds(
+        self,
+        pods: List[Pod],
+        groups: List[SignatureGroup],
+        order: List[int],
+        pools: List[PoolEncoding],
+        result: SolverResult,
+        remaining: Dict[str, dict],
+        ctx: dict,
+    ) -> None:
+        """The parked groups in ``order``, in rounds until one makes no
+        progress."""
+        encoded = ctx["encoded"]
+        gi_of = {i: gi for gi in order for i in groups[gi].pod_indices} if remaining else {}
         pending: Dict[int, List[int]] = {gi: list(groups[gi].pod_indices) for gi in order}
         for _ in range(len(order) + 1):
             progress = False
@@ -2486,10 +2757,11 @@ class TorchScheduler:
         than one, open a new node in the same zone and capacity type with
         it, and first-fit the leftovers there. Zones do not change, so
         every committed zone count and zone constraint holds. Mutates the
-        donor plan in place, as the JAX package does. Unlike the JAX
-        package, it moves no pod whose own hostname affinity, or that of
-        a pod it anchors, the move would break (_donor_movable); where no
-        such pod is moved, the plans are the JAX package's."""
+        donor plan in place, as the JAX package does, and records both
+        plans in ``self._reseeded`` for the post-pass's fixpoint check.
+        Under ``self._reseed_guard`` (the post-pass's second run) it
+        moves no pod whose own hostname affinity, or that of a pod it
+        anchors, the move would break (_donor_movable)."""
         merged = info["merged"]
         viable = info["viable"]
         joiner = info["group"].exemplar
@@ -2526,7 +2798,11 @@ class TorchScheduler:
                 continue  # the donor keeps an anchor of its own
             while left.size and len(matching) > 1:
                 donor = next(
-                    (i for i in reversed(matching) if self._donor_movable(i, donor_plan, joiner, pods)),
+                    (
+                        i
+                        for i in reversed(matching)
+                        if not self._reseed_guard or self._donor_movable(i, donor_plan, joiner, pods)
+                    ),
                     None,
                 )
                 if donor is None:
@@ -2591,6 +2867,7 @@ class TorchScheduler:
                 )
                 result.node_plans.append(new_plan)
                 worklist.append(new_plan)
+                self._reseeded += (donor_plan, new_plan)
                 # the donor is already counted in this zone; only the
                 # joiners are new to the committed counters
                 for st in self._fold_cache.values():
@@ -2607,19 +2884,8 @@ class TorchScheduler:
         must still match a pod left on the plan. (The JAX package's
         reseed moves donors unchecked and can strand a pod away from
         every pod its hostname term selects; bench config 6 does so.)"""
-
-        def host_terms(i: int) -> list:
-            a = pods[i].spec.affinity
-            if a is None or a.pod_affinity is None:
-                return []
-            return [
-                t
-                for t in a.pod_affinity.required
-                if t.topology_key == wk.LABEL_HOSTNAME and t.label_selector is not None
-            ]
-
         d = pods[donor]
-        for t in host_terms(donor):
+        for t in _hostname_affinity_terms(d):
             if not (
                 t.label_selector.matches(d.metadata.labels)
                 or (joiner.namespace == d.namespace and t.label_selector.matches(joiner.metadata.labels))
@@ -2629,7 +2895,7 @@ class TorchScheduler:
             if m == donor:
                 continue
             ns = pods[m].namespace
-            for t in host_terms(m):
+            for t in _hostname_affinity_terms(pods[m]):
                 if d.namespace != ns or not t.label_selector.matches(d.metadata.labels):
                     continue
                 if not any(
@@ -2830,7 +3096,15 @@ class TorchScheduler:
         merged=None,
         per_node_limits: Optional[list] = None,
         no_merge: bool = False,
+        pod_ports: Optional[Dict[int, tuple]] = None,
     ) -> None:
+        """One pack job (requests, frontier, per-node pod cap) and its
+        finalize meta. Host-port feature columns are appended to the
+        job's requests, and the fresh-node port capacities tiled onto
+        every frontier row (constant columns keep the frontier's
+        dominance), so the packer enforces port conflicts; meta["reqs"]
+        and meta["alloc"] stay resource-only, so finalize prices and
+        usage never see the port columns."""
         viable_idx = np.flatnonzero(viable)
         if len(viable_idx) == 0:
             for i in idx:
@@ -2845,7 +3119,23 @@ class TorchScheduler:
         if frontier is None:
             frontier = pareto_frontier(alloc)
             _cache_put(enc, cache_key, frontier)
-        jobs.append((reqs, frontier, np.int32(max_per_node)))
+        job_reqs, job_frontier = reqs, frontier
+        port_features: tuple = ()
+        port_sets = None
+        if pod_ports:
+            sets = [pod_ports.get(int(i), ()) for i in idx]
+            if any(sets):
+                feats = PortFeatures(sets)
+                port_sets = sets
+                port_features = tuple(feats.features)
+                job_reqs = np.ascontiguousarray(
+                    np.hstack([reqs, feats.load_matrix(sets)]), dtype=np.int32
+                )
+                job_frontier = np.ascontiguousarray(
+                    np.hstack([frontier, np.tile(feats.caps, (frontier.shape[0], 1))]),
+                    dtype=np.int32,
+                )
+        jobs.append((job_reqs, job_frontier, np.int32(max_per_node)))
         metas.append(
             dict(
                 idx=idx,
@@ -2862,6 +3152,8 @@ class TorchScheduler:
                 merged=merged,
                 per_node_limits=per_node_limits or [],
                 no_merge=no_merge,
+                port_features=port_features,
+                pod_port_sets=port_sets,
             )
         )
 
@@ -2980,31 +3272,38 @@ class TorchScheduler:
         job_limits = list(meta["per_node_limits"])
         max_per_node = meta["max_per_node"]
         pool, zone = meta["pool"], meta["zone"]
+        port_sets = meta["pod_port_sets"]
         positions, bounds = skel.positions, skel.bounds
         for n in range(skel.node_count):
-            members = idx[positions[bounds[n] : bounds[n + 1]]].tolist()
+            pos_slice = positions[bounds[n] : bounds[n + 1]]
+            members = idx[pos_slice].tolist()
             if not skel.ok[n]:
                 for i in members:
                     result.pod_errors[pods[i].uid] = "packed node has no fitting instance type"
                 continue
             if to_record[n]:
-                records.append(
-                    dict(
-                        enc=enc,
-                        pool=pool,
-                        zone=zone,
-                        zone_ok=meta["zone_ok"],
-                        ct_ok=meta["ct_ok"],
-                        viable=viable_bool,
-                        usage=skel.usage64[n],
-                        members=members,
-                        daemon=meta["daemon"],
-                        alloc_cap=skel.alloc_cap,
-                        merged=meta["merged"],
-                        max_per_node=max_per_node,
-                        limits=job_limits,
-                    )
+                rec = dict(
+                    enc=enc,
+                    pool=pool,
+                    zone=zone,
+                    zone_ok=meta["zone_ok"],
+                    ct_ok=meta["ct_ok"],
+                    viable=viable_bool,
+                    usage=skel.usage64[n],
+                    members=members,
+                    daemon=meta["daemon"],
+                    alloc_cap=skel.alloc_cap,
+                    merged=meta["merged"],
+                    max_per_node=max_per_node,
+                    limits=job_limits,
                 )
+                if port_sets is not None:
+                    # the node's reserved ports ride the record, so the
+                    # merge can reject conflicting combinations
+                    node_ports = sorted({t for p in pos_slice for t in port_sets[int(p)]})
+                    if node_ports:
+                        rec["ports"] = tuple(node_ports)
+                records.append(rec)
                 continue
             o = int(skel.ok_ord[n])
             result.node_plans.append(
@@ -3121,7 +3420,8 @@ class TorchScheduler:
         intersection, hostname-level per-node limits, combined-load
         fits, offering availability on the intersected masks — then the
         apply (Requirements union, limit-count carry-over, membership
-        join). Mutates ``m``; True when ``r`` was absorbed."""
+        join). Mutates ``m``; True when ``r`` was absorbed. Both merge
+        engines go through it, so its host-port guard holds in each."""
         enc = r["enc"]
         if zone is None:
             zone = m["zone"] if m["zone"] is not None else r["zone"]
@@ -3131,6 +3431,11 @@ class TorchScheduler:
             ct_ok = m["ct_ok"] & r["ct_ok"]
         if viable is None:
             viable = m["viable"] & r["viable"]
+        # two nodes whose reserved host ports conflict never fold: the
+        # oracle's HostPortUsage.conflicts on the combined membership
+        m_ports, r_ports = m.get("ports"), r.get("ports")
+        if m_ports and r_ports and ports_conflict(m_ports, r_ports):
+            return False
         if not skip_intersects:
             ikey = (m["merged"].fingerprint(), r["merged"].fingerprint())
             compat_ok = self._intersects_cache.get(ikey)
@@ -3194,6 +3499,8 @@ class TorchScheduler:
         )
         m["members"].extend(r["members"])
         m["_limit_counts"] = counts
+        if m_ports or r_ports:
+            m["ports"] = tuple(sorted(set(m_ports or ()) | set(r_ports or ())))
         return True
 
     def _record_limit_count(self, record: dict, sel, ns: str, pods: List[Pod]) -> int:

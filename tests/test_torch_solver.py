@@ -198,13 +198,16 @@ def test_vector_merge_matches_scalar_merge():
     assert clusters(vec) == clusters(scal)
 
 
-def _out_of_slice(kind: str):
-    ob = importlib.import_module(f"{PORT}.kube.objects")
-    wk = importlib.import_module(f"{PORT}.apis.labels")
-    pools, provider, pods = world(PORT, seed=10, n_pods=20)
+def _out_of_slice(kind: str, pkg: str = PORT):
+    """(nodepools, provider, pods, solve kwargs, kube client) of one
+    shape, built from ``pkg``'s classes."""
+    ob = importlib.import_module(f"{pkg}.kube.objects")
+    wk = importlib.import_module(f"{pkg}.apis.labels")
+    pools, provider, pods = world(pkg, seed=10, n_pods=20)
     pod = pods[0]
     sel = ob.LabelSelector(match_labels={"app": "svc-0"})
     kwargs = {}
+    kube = None
     if kind == "topology spread":
         # zone spread is in the slice; together with a host port it is
         # not (the JAX package sends that group to its oracle)
@@ -233,22 +236,44 @@ def _out_of_slice(kind: str):
                 required=[ob.PodAffinityTerm(topology_key=wk.LABEL_HOSTNAME, label_selector=sel)]
             )
         )
-    elif kind == "host ports":
-        pod.spec.containers[0].ports = [ob.ContainerPort(host_port=8080)]
+    elif kind in ("host ports", "host ports with state_nodes"):
+        # two pods on one wildcard port conflict; a third on a specific
+        # IP of another port shares a node with either
+        for p in pods[:2]:
+            p.spec.containers[0].ports = [ob.ContainerPort(host_port=8080)]
+        pods[2].spec.containers[0].ports = [ob.ContainerPort(host_port=9090, host_ip="10.0.0.1")]
     elif kind == "volumes":
+        # a claim bound to a PersistentVolume in test-zone-2 pins its pod
+        kube = importlib.import_module(f"{pkg}.kube.client").KubeClient()
+        pv = ob.PersistentVolume(zones=["test-zone-2"], driver="ebs.csi.aws.com")
+        pv.metadata.name = "pv-0"
+        kube.create(pv)
+        claim = ob.PersistentVolumeClaim(volume_name="pv-0")
+        claim.metadata.name = "claim-0"
+        kube.create(claim)
         pod.spec.volumes = [ob.Volume(name="data", persistent_volume_claim="claim-0")]
-    elif kind == "host ports with state_nodes":
-        # existing capacity is in the slice; a host-port group still is not
-        pod.spec.containers[0].ports = [ob.ContainerPort(host_port=8080)]
+        pods[1].spec.volumes = [ob.Volume(name="scratch", ephemeral=True)]
+    if kind == "host ports with state_nodes":
+        # the existing node's own pod reserves the wildcard port
         node = ob.Node()
         node.metadata.name = "node-0"
         node.metadata.labels = {wk.LABEL_HOSTNAME: "node-0"}
-        pq = importlib.import_module(f"{PORT}.kube.quantity").parse_quantity
+        pq = importlib.import_module(f"{pkg}.kube.quantity").parse_quantity
         node.status.capacity = {"cpu": pq("8"), "memory": pq("32Gi"), "pods": pq("110")}
         node.status.allocatable = dict(node.status.capacity)
-        statenode = importlib.import_module(f"{PORT}.state.statenode")
-        kwargs["state_nodes"] = [statenode.StateNode(node=node)]
-    return TorchScheduler(pools, provider, device="cpu"), pods, kwargs
+        sn = importlib.import_module(f"{pkg}.state.statenode").StateNode(node=node)
+        holder = ob.Pod()
+        holder.metadata.name = "holder"
+        holder.spec = ob.PodSpec(node_name="node-0", containers=[ob.Container(name="main")])
+        holder.spec.containers[0].ports = [ob.ContainerPort(host_port=9090)]
+        sn.update_for_pod(holder)
+        kwargs["state_nodes"] = [sn]
+    return pools, provider, pods, kwargs, kube
+
+
+# shapes the port refused before it carried host ports and volumes: each
+# is now a plan-identity case under its old id
+SOLVED = ("host ports", "volumes", "host ports with state_nodes")
 
 
 @pytest.mark.parametrize(
@@ -262,10 +287,30 @@ def _out_of_slice(kind: str):
         "host ports with state_nodes",
     ],
 )
-def test_out_of_slice_features_raise(kind):
-    solver, pods, kwargs = _out_of_slice(kind)
-    with pytest.raises(NotImplementedError, match=kind.split()[0]):
-        solver.solve(pods, **kwargs)
+def test_out_of_slice_features_raise(monkeypatch, kind):
+    """Shapes outside the slice raise, naming the feature; the host-port
+    and volume shapes (``SOLVED``) solve to the JAX package's plans."""
+    if kind not in SOLVED:
+        pools, provider, pods, kwargs, kube = _out_of_slice(kind)
+        with pytest.raises(NotImplementedError, match=kind.split()[0]):
+            TorchScheduler(pools, provider, device="cpu", kube_client=kube).solve(pods, **kwargs)
+        return
+    reference_native(monkeypatch)
+    pools, provider, ref_pods, kwargs, kube = _out_of_slice(kind, REF)
+    ref_solver = TPUScheduler(pools, provider, kube_client=kube)
+    ref = ref_solver.solve(ref_pods, **kwargs)
+    assert ref.oracle_results is None and ref_solver.last_route_stats["oracle"] == 0
+    pools, provider, pods, kwargs, kube = _out_of_slice(kind, PORT)
+    res = TorchScheduler(pools, provider, device="cpu", kube_client=kube).solve(pods, **kwargs)
+    assert_same_plans(res, pods, ref, ref_pods)
+    assert [(e.state_node.name(), e.pod_indices) for e in res.existing_plans] == [
+        (e.state_node.name(), e.pod_indices) for e in ref.existing_plans
+    ]
+    where = {i: p for p in res.node_plans for i in p.pod_indices}
+    if kind == "volumes":
+        assert where[0].zone == "test-zone-2"
+    elif kind == "host ports":
+        assert where[0] is not where[1]
 
 
 def test_schedule_anyway_spread_failure_raises():

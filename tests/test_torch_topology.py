@@ -27,9 +27,9 @@ Three layers, each against the JAX package run unchanged on the CPU:
 The three shapes the port refused before it carried pod affinity and
 zone and non-self anti-affinity (one pod-affinity group, zone
 self-anti-affinity, anti-affinity against bound pods) are plan-identity
-cases here too; the reference parks the first. Shapes the JAX package
-sends to its oracle or folds into masks the port does not carry (host
-ports, volumes) raise NotImplementedError naming the feature.
+cases here too; the reference parks the first, and so are host ports
+and volumes. Shapes the JAX package sends to its oracle raise
+NotImplementedError naming the feature.
 """
 
 from __future__ import annotations
@@ -848,9 +848,10 @@ def _refused(kind: str, k):
             [k.term(wk.LABEL_HOSTNAME, web), k.term(wk.LABEL_HOSTNAME, {"tier": "front"})],
         ))
     elif kind == "host ports":
-        a = k.tpod("a", labels=web)
-        a.spec.containers[0].ports = [k.ob.ContainerPort(host_port=8080)]
-        pods.append(a)
+        for name in ("a", "b"):  # one wildcard port: never on one node
+            a = k.tpod(name, labels=web)
+            a.spec.containers[0].ports = [k.ob.ContainerPort(host_port=8080)]
+            pods.append(a)
     elif kind == "volumes":
         a = k.tpod("a", labels=web)
         a.spec.volumes = [k.ob.Volume(name="data", ephemeral=True)]
@@ -872,19 +873,25 @@ REFUSED = {
 
 @pytest.mark.parametrize("kind", sorted(REFUSED))
 def test_refused_shapes_raise(monkeypatch, kind):
-    """The reference takes these off its tensor path or into masks the
-    port lacks (host ports, volumes); the port raises, naming the
-    feature."""
+    """The reference takes these off its tensor path; the port raises,
+    naming the feature. Host ports and volumes, which the reference
+    keeps on its tensor path, are plan-identity cases since the port
+    carries them."""
+    if kind in ("host ports", "volumes"):
+        res, pods, _ = solve_both(
+            monkeypatch,
+            lambda k: dict(pools=[k.nodepool()], provider=k.provider(), pods=_refused(kind, k), kube=k.KubeClient()),
+        )
+        if kind == "host ports":
+            where = {pods[i].name: id(p) for p in res.node_plans for i in p.pod_indices}
+            assert where["a"] != where["b"]
+        return
     reference_native(monkeypatch)
     k = TKit(REF)
     ref = TPUScheduler([k.nodepool()], k.provider(), kube_client=k.KubeClient())
     ref.solve(_refused(kind, k))
     stats = ref.last_route_stats
-    off_path = stats["oracle"] + stats["parked"]
-    if kind in ("host ports", "volumes"):
-        assert off_path == 0  # tensor masks the port does not carry
-    else:
-        assert off_path > 0
+    assert stats["oracle"] + stats["parked"] > 0
     k = TKit(PORT)
     with pytest.raises(NotImplementedError, match=REFUSED[kind]):
         TorchScheduler([k.nodepool()], k.provider(), device="cpu", kube_client=k.KubeClient()).solve(
