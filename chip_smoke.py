@@ -85,9 +85,32 @@ Phases, in order; any failure exits non-zero:
    for ``spread_skew``), and the C++ first-fit against its plain version
    on the card on every stateful first-fit's inputs.
 
+11. Oracle and relaxation: bench config 1 (1,000 uniform pods × 10
+   types) through the port's greedy scheduler (``build_scheduler(...)
+   .solve``) as the bench runs it, host only; ``oracle_mix_world``
+   (config 6 whole plus 342 pods of Helm releases with Bitnami's soft
+   pod anti-affinity, ten one-selector releases and two postgresql
+   releases whose selector matches their primary and read replicas),
+   which the solve's routing sends to the greedy fallback, as built and
+   against phase 5's cluster in a kube store (``oracle_cluster_world``);
+   ``relax_cluster_world`` (phase 5's world with every ``test-zone-3``
+   offering unavailable, every 5th pod preferring that zone and every
+   20th with a two-term required zone affinity whose first term no
+   offering meets), which the preference-relaxation retry solves; and
+   ``packing_parity_vs_oracle`` (``bench.py:214-243``) of the solve on
+   the card against the port's greedy scheduler on config 6's
+   1,500-pod stratified subsample and on config 1. Each path: the same
+   solves and cuda-vs-cpu comparisons (the greedy fallback's claims
+   included), ``check_oracle`` (exactly the release pods routed off,
+   one replica per node wherever the soft preference held, every claim
+   fits its cheapest option), ``check_affinity`` and
+   ``check_spread_serial`` for config 6's part, ``check_cluster`` on the
+   clusters, no new node in the drought zone, and a relaxation that
+   placed pods.
+
 Then a ``{"kernels": [...]}`` line (the kernel's cases at the shapes of
-phases 8–10 too), and the last line ``{"ok": true, "device": {...}}``.
-The profiled warm solves of phases 4–10 report device times only from
+phases 8–11 too), and the last line ``{"ok": true, "device": {...}}``.
+The profiled warm solves of phases 4–11 report device times only from
 traces that hold every kernel launch of the solve (``profile_solve``).
 
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -95,6 +118,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import copy
 import json
 import re
 import statistics
@@ -133,6 +157,16 @@ N_QUORUM = 6  # phase 9's zone quorum: three place, one per zone
 N_STATEFUL = 10_000  # bench.py config 13 stateful_dense and spread_skew: pods
 CSI_DRIVER = "ebs.csi.bench"  # the CSI driver of config 13's default StorageClass
 N_REPLICAS = 50  # phase 10's stateful cluster: replicas of each of three StatefulSets
+N_CONFIG1 = 1_000  # bench.py config 1: uniform pods
+N_RELEASES = 10  # phase 11's Helm releases with the soft anti-affinity preset, and their
+N_RELEASE_REPLICAS = 30  # replicas; requests drawn per release from RandomState(21)
+RELEASE_SEED = 21
+RELEASE_CHARTS = (
+    "redis", "memcached", "rabbitmq", "kafka", "mongodb", "nginx", "keycloak", "elasticsearch",
+    "mariadb", "minio",
+)
+DROUGHT_ZONE = "test-zone-3"  # phase 11's relax-cluster: every offering there unavailable
+N_PARITY = 1_500  # bench.py config 6's stratified subsample for packing parity
 
 
 def fail(msg: str) -> None:
@@ -599,6 +633,10 @@ def check_invariants(res, pods) -> None:
             want = pods[i].spec.node_selector.get(wk.CAPACITY_TYPE_LABEL_KEY)
             if want is not None and want != plan.capacity_type:
                 fail(f"pod {i} selects {want} but lands on {plan.capacity_type}")
+    greedy = set(oracle_placements(res, pods))
+    if seen & greedy:
+        fail(f"{len(seen & greedy)} pods are planned by both the tensor path and the greedy fallback")
+    seen |= greedy
     errored = {i for i, p in enumerate(pods) if p.uid in res.pod_errors}
     if seen & errored or len(seen | errored) != len(pods):
         fail(f"{len(pods) - len(seen | errored)} pods neither planned nor errored")
@@ -931,38 +969,53 @@ def existing_stream(res) -> list:
 
 def check_cluster(res, pods, nodes, daemons, missing, spill: bool = True, pools=()) -> dict:
     """Fail unless the cluster solve's plans hold: every pod placed,
-    planned or errored exactly once; each existing node's placements
-    plus its bound pods and its missing daemons fit its allocatable;
-    each new node's pods plus its daemons fit its type; ``reserved``
-    stays within its limits and, with ``spill`` (the 50k-pod worlds,
-    whose new nodes outgrow its limits), some pods spill to
-    ``default``. A new node of a pool in ``pools`` runs the daemons that
-    tolerate the pool's taints; other new nodes run every daemon."""
+    planned or errored exactly once (the greedy fallback's placements
+    included); each existing node's placements, over every plan that
+    names it, plus its bound pods and its missing daemons fit its
+    allocatable; each new node's pods plus its daemons fit its type;
+    ``reserved``'s new nodes from the tensor path stay within its limits
+    and, with ``spill`` (the 50k-pod worlds, whose new nodes outgrow its
+    limits), some pods spill to ``default``. A new node of a pool in
+    ``pools`` runs the daemons that tolerate the pool's taints; other new
+    nodes run every daemon. The greedy fallback's claims in ``reserved``
+    are reported beside the limit, not held to it: the greedy scheduler
+    starts from the pools' limits less the existing nodes, without the
+    tensor path's new nodes, as the JAX package's does."""
     from karpenter_core_tpu_torch.apis import labels as wk
     from karpenter_core_tpu_torch.kube.quantity import parse_quantity
     from karpenter_core_tpu_torch.scheduling import Taints, resources
 
-    seen = {}
-    for where, members in [(("new", i), p.pod_indices) for i, p in enumerate(res.node_plans)] + [
+    index = {p.uid: i for i, p in enumerate(pods)}
+    placed = [(("new", i), p.pod_indices) for i, p in enumerate(res.node_plans)] + [
         (("existing", e.state_node.name()), e.pod_indices) for e in res.existing_plans
-    ]:
+    ]
+    greedy = res.oracle_results
+    if greedy is not None:
+        placed += [(("claim", n), [index[p.uid] for p in c.pods]) for n, c in enumerate(greedy.new_node_claims)]
+        placed += [
+            (("existing", e.name()), [index[p.uid] for p in e.pods]) for e in greedy.existing_nodes if e.pods
+        ]
+    seen = {}
+    on_node = {}
+    for where, members in placed:
         for i in members:
             if i in seen:
                 fail(f"pod {i} is placed twice: {seen[i]} and {where}")
             seen[i] = where
+        if where[0] == "existing":
+            on_node.setdefault(where[1], []).extend(members)
     errored = {i for i, p in enumerate(pods) if p.uid in res.pod_errors}
     if set(seen) & errored or len(set(seen) | errored) != len(pods):
         fail(f"{len(pods) - len(set(seen) | errored)} pods neither placed, planned nor errored")
-    for e in res.existing_plans:
-        sn = e.state_node
-        load = resources.merge(
-            *(resources.requests_for_pods(pods[i]) for i in e.pod_indices), missing[sn.name()]
-        )
+    by_name = {sn.name(): sn for sn in nodes}
+    for name, members in on_node.items():
+        sn = by_name[name]
+        load = resources.merge(*(resources.requests_for_pods(pods[i]) for i in members), missing[name])
         if not resources.fits(load, sn.available()):
-            fail(f"existing node {sn.name()} is overcommitted by its placements")
+            fail(f"existing node {name} is overcommitted by its placements")
         taints = Taints(sn.taints())
-        if any(taints.tolerates(pods[i]) is not None for i in e.pod_indices):
-            fail(f"a pod on {sn.name()} does not tolerate its taints")
+        if any(taints.tolerates(pods[i]) is not None for i in members):
+            fail(f"a pod on {name} does not tolerate its taints")
     # no pool carries a capacity-type requirement: a new node runs every
     # daemon its pool's taints admit
     taints = {p.name: Taints(p.spec.template.taints) for p in pools}
@@ -980,6 +1033,14 @@ def check_cluster(res, pods, nodes, daemons, missing, spill: bool = True, pools=
     for k, v in RESERVED_LIMITS.items():
         if used.get(k, 0) > parse_quantity(v):
             fail(f"reserved uses {used.get(k, 0)} {k}, over its limit {v}")
+    # the greedy claims' largest option is what its limit tracking charges
+    greedy_reserved = resources.merge(
+        *(
+            resources.max_resources(*(it.capacity for it in c.instance_type_options))
+            for c in (greedy.new_node_claims if greedy is not None else ())
+            if c.nodepool_name == "reserved"
+        )
+    )
     per_pool = {}
     for p in res.node_plans:
         per_pool.setdefault(p.nodepool_name, [0, 0])
@@ -988,12 +1049,13 @@ def check_cluster(res, pods, nodes, daemons, missing, spill: bool = True, pools=
     if spill and per_pool.get("default", [0, 0])[1] == 0:
         fail("no pod spilled to the default pool")
     return {
-        "pods_on_existing": sum(len(e.pod_indices) for e in res.existing_plans),
-        "existing_nodes_used": len(res.existing_plans),
+        "pods_on_existing": sum(len(m) for m in on_node.values()),
+        "existing_nodes_used": len(on_node),
         "new_nodes_by_pool": {k: v[0] for k, v in sorted(per_pool.items())},
         "new_node_pods_by_pool": {k: v[1] for k, v in sorted(per_pool.items())},
         "reserved_cpu_used": used.get("cpu", 0) / 1e9,
         "reserved_memory_gi_used": used.get("memory", 0) / 1e9 / 2**30,
+        "reserved_cpu_greedy_claims_max": greedy_reserved.get("cpu", 0) / 1e9,
     }
 
 
@@ -1593,7 +1655,7 @@ def check_anti(res, pods, kube) -> dict:
     }
 
 
-def check_spread_serial(res, pods, provider) -> list:
+def check_spread_serial(res, pods, provider, first=()) -> list:
     """Fail unless every zone-spread group holds its max_skew in the
     serial order the tensor path schedules a batch whose spread groups
     share one pack class (bench config 6): the spread groups in the
@@ -1605,7 +1667,9 @@ def check_spread_serial(res, pods, provider) -> list:
     have been within max_skew when it came (topologygroup.go:166-175).
     The final counts, which ``check_spread`` reads, also hold the pods
     without a constraint placed later, which the constraint does not
-    bound. → one summary per group."""
+    bound. ``first``: pods placed before every spread group (against a
+    cluster, the unconstrained pods the existing-node first-fit placed).
+    → one summary per group."""
     from karpenter_core_tpu_torch.apis import labels as wk
 
     zone_key = wk.LABEL_TOPOLOGY_ZONE
@@ -1617,7 +1681,7 @@ def check_spread_serial(res, pods, provider) -> list:
             if c.topology_key == zone_key:
                 key = (p.namespace, tuple(sorted(p.metadata.labels.items())), c.label_selector.key(), c.max_skew)
                 groups.setdefault(key, (c, []))[1].append(i)
-    before: list = []
+    before: list = list(first)
     out = []
     for (ns, _, _, skew), (c, members) in groups.items():
         sel = c.label_selector
@@ -2132,6 +2196,434 @@ def run_stateful_phase(device: str = "cuda", n_pods: int = N_STATEFUL, n_nodes: 
     return tuple(rows)
 
 
+# -- phase 11: the greedy oracle, the oracle fallback and preference relaxation --
+
+
+def config1_world(n_pods: int = N_CONFIG1):
+    """bench.py config 1 (``bench.py:388-419``): ``n_pods`` uniform
+    500m / 512Mi pods, ``instance_types(10)``, one NodePool ``default``
+    → ([nodepool], provider, pods)."""
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+
+    provider = FakeCloudProvider()
+    provider.instance_types = instance_types(10)
+    nodepool = NodePool()
+    nodepool.metadata.name = "default"
+    return [nodepool], provider, [pending_pod(f"bench-{i}", "500m", "512Mi") for i in range(n_pods)]
+
+
+def soft_anti_affinity(selector: dict):
+    """Bitnami's ``common.affinities.pods.soft`` (``podAntiAffinityPreset:
+    soft``): one preferred term of weight 1 on ``kubernetes.io/hostname``
+    whose selector is ``selector``."""
+    from karpenter_core_tpu_torch.apis import labels as wk
+    from karpenter_core_tpu_torch.kube.objects import (
+        Affinity,
+        LabelSelector,
+        PodAffinityTerm,
+        PodAntiAffinity,
+        WeightedPodAffinityTerm,
+    )
+
+    term = PodAffinityTerm(topology_key=wk.LABEL_HOSTNAME, label_selector=LabelSelector(match_labels=dict(selector)))
+    return Affinity(pod_anti_affinity=PodAntiAffinity(preferred=[WeightedPodAffinityTerm(1, term)]))
+
+
+def release_pods(n_releases: int = N_RELEASES, replicas: int = N_RELEASE_REPLICAS, seed: int = RELEASE_SEED) -> list:
+    """Helm releases with Bitnami's default soft pod anti-affinity:
+
+    - ``n_releases`` releases ``{chart}-{k}`` of ``replicas`` replicas,
+      labels ``app.kubernetes.io/name``, ``/instance`` and ``/component``,
+      the selector all three (one replica per node while it holds), the
+      requests drawn per release from RandomState(``seed``);
+    - two ``postgresql`` releases whose selector leaves out ``component``:
+      a primary (1 replica, 1 CPU / 2Gi) and 20 read replicas (500m /
+      1Gi), so each selector matches two groups of the batch.
+    """
+    rng = np.random.RandomState(seed)
+    pods = []
+    for k in range(n_releases):
+        chart = RELEASE_CHARTS[k % len(RELEASE_CHARTS)]
+        labels = {
+            "app.kubernetes.io/name": chart,
+            "app.kubernetes.io/instance": f"{chart}-{k}",
+            "app.kubernetes.io/component": "server",
+        }
+        cpu = ["250m", "500m", "1", "2"][rng.randint(4)]
+        mem = ["256Mi", "1Gi", "2Gi", "4Gi"][rng.randint(4)]
+        for j in range(replicas):
+            p = pending_pod(f"{chart}-{k}-server-{j}", cpu, mem, labels=labels)
+            p.spec.affinity = soft_anti_affinity(labels)
+            pods.append(p)
+    for k in range(2):
+        base = {"app.kubernetes.io/name": "postgresql", "app.kubernetes.io/instance": f"pg-{k}"}
+        for component, n, cpu, mem in (("primary", 1, "1", "2Gi"), ("read", 20, "500m", "1Gi")):
+            for j in range(n):
+                p = pending_pod(
+                    f"pg-{k}-{component}-{j}", cpu, mem,
+                    labels={**base, "app.kubernetes.io/component": component},
+                )
+                p.spec.affinity = soft_anti_affinity(base)
+                pods.append(p)
+    return pods
+
+
+def oracle_mix_world(n_pods: int = N_CONFIG6, n_types: int = N_CONFIG6_TYPES, n_releases: int = N_RELEASES):
+    """Bench config 6 whole (``config6_world``) and ``release_pods`` →
+    ([nodepool], provider, pods, [], [], {}, None): the release pods go
+    to the greedy fallback, config 6's to the tensor path."""
+    pools, provider, pods = config6_world(n_pods, n_types)
+    return pools, provider, pods + release_pods(n_releases), [], [], {}, None
+
+
+def oracle_cluster_world(
+    n_pods: int = N_CONFIG6, n_types: int = N_TYPES, n_nodes: int = N_NODES, n_releases: int = N_RELEASES
+):
+    """``oracle_mix_world``'s pods against phase 5's cluster in a kube
+    store (``_cluster_world``: pools ``reserved`` and ``default``, the
+    ``instance_types(n_types)`` catalog, ``n_nodes`` nodes with their
+    bound pods, three daemonsets) → (nodepools, provider, pods,
+    state_nodes, daemonset_pods, missing, kube)."""
+    pools, provider, _, nodes, daemons, missing, kube = _cluster_world(0, n_types, n_nodes, store=True)
+    pods = config6_world(n_pods, 1)[2] + release_pods(n_releases)
+    return pools, provider, pods, nodes, daemons, missing, kube
+
+
+def relax_cluster_world(n_pods: int = N_PODS, n_types: int = N_TYPES, n_nodes: int = N_NODES):
+    """Phase 5's world whole (``cluster_world``) under a capacity drought
+    and with soft preferences → (nodepools, provider, pods, state_nodes,
+    daemonset_pods, missing, None):
+
+    - every offering in ``test-zone-3`` is unavailable, as bench config
+      10's capacity-drought shape marks a zone (``bench.py:1495-1568``);
+    - every 5th pod prefers ``test-zone-3`` (preferred node affinity,
+      weight 100): existing nodes there may take it, a new node cannot;
+    - every 20th pod also has a required node affinity of two terms, the
+      first naming ``test-zone-4``, a zone no offering has, the second
+      ``test-zone-1`` or ``test-zone-2``.
+    """
+    from karpenter_core_tpu_torch.apis import labels as wk
+    from karpenter_core_tpu_torch.kube.objects import (
+        Affinity,
+        NodeAffinity,
+        NodeSelector,
+        NodeSelectorRequirement,
+        NodeSelectorTerm,
+        PreferredSchedulingTerm,
+    )
+
+    pools, provider, pods, nodes, daemons, missing = cluster_world(n_pods, n_types, n_nodes)
+    for it in provider.instance_types:
+        for o in it.offerings:
+            if o.zone == DROUGHT_ZONE:
+                o.available = False
+
+    def zone_term(*zones):
+        return NodeSelectorTerm(
+            match_expressions=[NodeSelectorRequirement(wk.LABEL_TOPOLOGY_ZONE, "In", list(zones))]
+        )
+
+    for i, p in enumerate(pods):
+        if i % 5:
+            continue
+        na = NodeAffinity(preferred=[PreferredSchedulingTerm(weight=100, preference=zone_term(DROUGHT_ZONE))])
+        if i % 20 == 0:
+            na.required = NodeSelector(
+                node_selector_terms=[zone_term("test-zone-4"), zone_term("test-zone-1", "test-zone-2")]
+            )
+        p.spec.affinity = Affinity(node_affinity=na)
+    return pools, provider, pods, nodes, daemons, missing, None
+
+
+def greedy_stream(results, pods) -> dict:
+    """A greedy ``Results`` by content: claims (nodepool, pod indices,
+    instance-type options), existing nodes' pods, errors by pod index."""
+    index = {p.uid: i for i, p in enumerate(pods)}
+    return dict(
+        claims=[
+            (c.nodepool_name, [index[p.uid] for p in c.pods], [it.name for it in c.instance_type_options])
+            for c in results.new_node_claims
+        ],
+        existing=[(e.name(), [index[p.uid] for p in e.pods]) for e in results.existing_nodes if e.pods],
+        errors={index[uid]: err for uid, err in results.pod_errors.items()},
+    )
+
+
+def same_oracle_as_cpu(res, pods, cpu, cpu_pods, what: str) -> None:
+    mine = greedy_stream(res.oracle_results, pods) if res.oracle_results is not None else None
+    theirs = greedy_stream(cpu.oracle_results, cpu_pods) if cpu.oracle_results is not None else None
+    if mine != theirs:
+        fail(f"{what}: the greedy fallback's claims differ between cuda and cpu")
+
+
+def oracle_placements(res, pods) -> dict:
+    """pod index → node key of every greedy-fallback placement: existing
+    nodes ``("existing", name)``, claims ``("claim", ordinal)``."""
+    where = {}
+    if res.oracle_results is None:
+        return where
+    index = {p.uid: i for i, p in enumerate(pods)}
+    for n, c in enumerate(res.oracle_results.new_node_claims):
+        for p in c.pods:
+            where[index[p.uid]] = ("claim", n)
+    for e in res.oracle_results.existing_nodes:
+        for p in e.pods:
+            where[index[p.uid]] = ("existing", e.name())
+    return where
+
+
+def check_oracle(res, pods, n_release_pods: int, route: dict) -> dict:
+    """Fail unless the greedy fallback took exactly the release pods
+    (``route``: the solve's ``last_route_stats``), every release pod that
+    kept its soft anti-affinity shares no node with another pod its
+    selector matches (placements of the tensor path and of the fallback
+    both), and every claim's requests fit its cheapest option."""
+    from karpenter_core_tpu_torch.cloudprovider.types import order_by_price
+    from karpenter_core_tpu_torch.scheduling import resources
+
+    if route["oracle"] != n_release_pods or res.oracle_results is None:
+        fail(f"{route['oracle']} pods went to the greedy fallback, not the {n_release_pods} release pods")
+    where = {i: node for i, (_, node) in placements(res).items()}
+    where.update(oracle_placements(res, pods))
+    by_node = {}
+    for i, node in where.items():
+        by_node.setdefault(node, []).append(i)
+    kept = relaxed = 0
+    for i, p in enumerate(pods):
+        if "app.kubernetes.io/instance" not in p.metadata.labels:
+            continue
+        a = p.spec.affinity
+        if a is None or a.pod_anti_affinity is None or not a.pod_anti_affinity.preferred:
+            relaxed += 1
+            continue
+        kept += 1
+        if i not in where:
+            continue
+        sel = a.pod_anti_affinity.preferred[0].pod_affinity_term.label_selector
+        for j in by_node[where[i]]:
+            if j != i and sel.matches(pods[j].metadata.labels):
+                fail(f"release pod {p.name} shares {where[i]} with {pods[j].name}, which its soft anti-affinity matches")
+    claims = res.oracle_results.new_node_claims
+    for c in claims:
+        cheapest = order_by_price(c.instance_type_options, c.requirements)[0]
+        if not resources.fits(c.requests, cheapest.allocatable()):
+            fail(f"a greedy claim's requests overflow its cheapest option {cheapest.name}")
+    return {
+        "oracle_pods": route["oracle"], "oracle_share": route["oracle_share"],
+        "oracle_claims": len(claims),
+        "oracle_on_existing": sum(len(e.pods) for e in res.oracle_results.existing_nodes),
+        "soft_kept": kept, "soft_relaxed": relaxed,
+    }
+
+
+def first_fit(res, pods) -> list:
+    """Pods without a topology spread or pod affinity that the solve put
+    on existing nodes: the existing-node first-fit places them before any
+    spread group gets its zones."""
+    return [
+        i
+        for i, (_, node) in placements(res).items()
+        if node[0] == "existing"
+        and not pods[i].spec.topology_spread_constraints
+        and not (pods[i].spec.affinity is not None and pods[i].spec.affinity.pod_affinity is not None)
+    ]
+
+
+def run_config1_phase(n_pods: int = N_CONFIG1) -> dict:
+    """Phase 11, config1: bench config 1 through the port's greedy
+    scheduler, as the bench runs it (a warm build and solve, then a fresh
+    build and the timed solve); its claims must equal those of a solve of
+    the same world built afresh. Host only: no kernel runs."""
+    from karpenter_core_tpu_torch.scheduler.builder import build_scheduler
+
+    pools, provider, pods = config1_world(n_pods)
+    build_scheduler(None, None, pools, provider, pods).solve(pods)
+    sched = build_scheduler(None, None, pools, provider, pods)
+    t0 = time.perf_counter()
+    res = sched.solve(pods)
+    dt = time.perf_counter() - t0
+    pools2, provider2, pods2 = config1_world(n_pods)
+    again = build_scheduler(None, None, pools2, provider2, pods2).solve(pods2)
+    if greedy_stream(res, pods) != greedy_stream(again, pods2):
+        fail("config1: the greedy scheduler's claims differ between two builds of the world")
+    if res.pod_errors:
+        fail(f"config1: {len(res.pod_errors)} pods failed")
+    per_node = np.asarray([len(c.pods) for c in res.new_node_claims] or [0], dtype=np.float64)
+    row = {
+        "config1": f"{n_pods} uniform 500m/512Mi pods x 10 types (bench config 1), the greedy scheduler "
+                   "on the host: nothing of this runs on the card",
+        "pods_per_s": sum(len(c.pods) for c in res.new_node_claims) / dt,
+        "solve_ms": dt * 1000.0,
+        "nodes": len(res.new_node_claims),
+        "pods_per_node_min": int(per_node.min()), "pods_per_node_max": int(per_node.max()),
+        "pods_per_node_mean": float(per_node.mean()), "pods_per_node_stddev": float(per_node.std()),
+    }
+    emit(row)
+    return row
+
+
+def run_oracle_phase(device: str = "cuda", n_pods: int = N_CONFIG6, n_nodes: int = N_NODES,
+                     n_releases: int = N_RELEASES, n_types=(N_CONFIG6_TYPES, N_TYPES)) -> tuple:
+    """Phase 11, oracle-mix and oracle-cluster: bench config 6 and the
+    Helm releases, as built and against phase 5's cluster → their two
+    lines (also emitted); fails on any check."""
+    from karpenter_core_tpu_torch.solver.solver import TorchScheduler
+
+    rows = []
+    for name, world, args in (
+        ("oracle_mix", oracle_mix_world, (n_pods, n_types[0], n_releases)),
+        ("oracle_cluster", oracle_cluster_world, (n_pods, n_types[1], n_nodes, n_releases)),
+    ):
+        t0 = time.perf_counter()
+        pools, provider, pods, nodes, daemons, missing, kube = world(*args)
+        world_s = time.perf_counter() - t0
+        n_release = len(pods) - n_pods
+        # the CPU solve's own copy, taken before any solve (the greedy
+        # scheduler relaxes the pods it is given in place)
+        cpu_pods = copy.deepcopy(pods)
+        kw = dict(state_nodes=nodes, daemonset_pods=daemons)
+        solver = TorchScheduler(pools, provider, device=device, kube_client=kube)
+        cold, cold_ms, warm_runs, launches = solve_runs(solver, pods, **kw)
+        if device == "cuda" and launches < 4 * len(pools):
+            fail(f"{name} launched the compat kernel {launches} times in 4 solves")
+        route = dict(solver.last_route_stats)
+        cpu = TorchScheduler(pools, provider, device="cpu", kube_client=kube).solve(cpu_pods, **kw)
+        same_as_cpu(cold, cpu, name)
+        same_oracle_as_cpu(cold, pods, cpu, cpu_pods, name)
+        if not nodes:
+            check_invariants(cold, pods)
+        row = {
+            name: (
+                f"{len(pods)} pods ({n_pods} bench config 6 + {n_release} Helm release pods with "
+                f"Bitnami's soft anti-affinity) x {len(provider.instance_types)} types"
+                + (f" x {len(nodes)} existing nodes, kube store seeds" if nodes else ", no existing nodes")
+            ),
+            "world_build_s": world_s,
+            **timing_row(cold, cold_ms, warm_runs, launches),
+            **(check_cluster(cold, pods, nodes, daemons, missing, spill=False) if nodes else {}),
+            "oracle": check_oracle(cold, pods, n_release, route),
+            "affinity": check_affinity(cold, pods, kube),
+            "spread": check_spread_serial(cold, pods, provider, first=first_fit(cold, pods)),
+            **(profile_solve(solver, pods, **kw) if device == "cuda" else {}),
+        }
+        emit(row)
+        rows.append(row)
+    return tuple(rows)
+
+
+def run_relax_phase(device: str = "cuda", n_pods: int = N_PODS, n_types: int = N_TYPES,
+                    n_nodes: int = N_NODES) -> dict:
+    """Phase 11, relax-cluster: ``relax_cluster_world`` → its line (also
+    emitted); fails on any check."""
+    from karpenter_core_tpu_torch.solver.solver import TorchScheduler
+
+    t0 = time.perf_counter()
+    pools, provider, pods, nodes, daemons, missing, _ = relax_cluster_world(n_pods, n_types, n_nodes)
+    world_s = time.perf_counter() - t0
+    kw = dict(state_nodes=nodes, daemonset_pods=daemons)
+    solver = TorchScheduler(pools, provider, device=device)
+    cold, cold_ms, warm_runs, launches = solve_runs(solver, pods, **kw)
+    relax = dict(solver.last_relax_stats)
+    if solver.last_route_stats["oracle"]:
+        fail(f"relax-cluster sent {solver.last_route_stats['oracle']} pods to the greedy fallback")
+    if relax["rounds"] == 0 or relax["pods_placed"] == 0:
+        fail(f"relax-cluster: the relaxation placed no pod ({relax})")
+    if device == "cuda" and launches < 4 * len(pools) * 2:
+        fail(f"relax-cluster launched the compat kernel {launches} times in 4 solves")
+    if cold.pod_errors:
+        fail(f"relax-cluster: {len(cold.pod_errors)} pods failed")
+    if any(p.zone == DROUGHT_ZONE for p in cold.node_plans):
+        fail(f"relax-cluster opened a node in {DROUGHT_ZONE}, whose offerings are all unavailable")
+    cpu = TorchScheduler(pools, provider, device="cpu").solve(pods, **kw)
+    same_as_cpu(cold, cpu, "relax-cluster")
+    where = placements(cold)
+    row = {
+        "relax_cluster": (
+            f"{n_pods} pods x {n_types} types x {n_nodes} existing nodes (phase 5's world), every "
+            f"{DROUGHT_ZONE} offering unavailable, every 5th pod preferring it, every 20th with a "
+            "two-term required zone affinity whose first term no offering meets"
+        ),
+        "world_build_s": world_s,
+        **timing_row(cold, cold_ms, warm_runs, launches),
+        **check_cluster(cold, pods, nodes, daemons, missing),
+        "relax_rounds": relax["rounds"],
+        "relax_pods_retried": relax["pods_retried"],
+        "relax_pods_placed": relax["pods_placed"],
+        "preferring_pods_in_drought_zone": sum(
+            1 for i in range(0, len(pods), 5) if where[i][0] == DROUGHT_ZONE
+        ),
+        "launches_per_solve": launches / 4,
+        **(profile_solve(solver, pods, **kw) if device == "cuda" else {}),
+    }
+    emit(row)
+    return row
+
+
+def packing_parity(pods, provider, nodepool, device: str, subsample: Optional[int] = None) -> dict:
+    """``packing_parity_vs_oracle`` as ``bench.py:214-243`` computes it,
+    the port alone: the port's greedy scheduler against ``TorchScheduler``
+    on ``device`` over the same (stratified every-k-th) pods, with the
+    batched solve's kernel launches counted from 0."""
+    from karpenter_core_tpu_torch.scheduler.builder import build_scheduler
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+    from karpenter_core_tpu_torch.solver.solver import TorchScheduler
+
+    sel = pods
+    if subsample is not None and subsample < len(pods):
+        step = len(pods) / float(subsample)
+        sel = [pods[int(i * step)] for i in range(subsample)]
+    t0 = time.perf_counter()
+    oracle = build_scheduler(None, None, [nodepool], provider, sel).solve(sel)
+    oracle_ms = (time.perf_counter() - t0) * 1000.0
+    o_nodes = len(oracle.new_node_claims)
+    o_sched = sum(len(c.pods) for c in oracle.new_node_claims)
+    ck.COMPAT_ALLOWED.launches = 0
+    t0 = time.perf_counter()
+    batched = TorchScheduler([nodepool], provider, device=device).solve(sel)
+    batched_ms = (time.perf_counter() - t0) * 1000.0
+    launches = ck.COMPAT_ALLOWED.launches
+    if device == "cuda" and launches == 0:
+        fail("the parity solve never launched the compat kernel")
+    if batched.pods_scheduled < o_sched:
+        parity = 0.0  # scheduling fewer pods is a failure, not "fewer nodes"
+    elif batched.node_count <= o_nodes:
+        parity = 1.0  # one-sided: "not worse than the oracle"
+    else:
+        parity = o_nodes / batched.node_count
+    return {
+        "packing_parity_vs_oracle": round(parity, 4),
+        "parity_oracle_nodes": o_nodes,
+        "parity_batched_nodes": batched.node_count,
+        "parity_oracle_pods": o_sched,
+        "parity_batched_pods": batched.pods_scheduled,
+        "parity_pods": len(sel),
+        "oracle_solve_ms": oracle_ms,
+        "batched_cold_solve_ms": batched_ms,
+        "kernel_launches": launches,
+    }
+
+
+def run_parity_phase(device: str = "cuda", n_pods: int = N_CONFIG6, n_types: int = N_CONFIG6_TYPES,
+                     subsample: int = N_PARITY, n_config1: int = N_CONFIG1) -> tuple:
+    """Phase 11, parity: ``packing_parity_vs_oracle`` on config 6's
+    stratified subsample and on config 1 → their two lines."""
+    rows = []
+    pools, provider, pods = config6_world(n_pods, n_types)
+    rows.append({
+        "parity_config6": f"bench config 6's stratified {subsample}-pod subsample (bench.py:759) x {n_types} types",
+        **packing_parity(pods, provider, pools[0], device, subsample),
+    })
+    pools, provider, pods = config1_world(n_config1)
+    rows.append({
+        "parity_config1": f"bench config 1, {n_config1} pods x 10 types",
+        **packing_parity(pods, provider, pools[0], device),
+    })
+    for row in rows:
+        emit(row)
+    return tuple(rows)
+
+
 def main() -> None:
     import torch
 
@@ -2244,6 +2736,17 @@ def main() -> None:
         stateful_rows.append(kernel_case(
             label, slice_planes(*w[:3], kube=w[6]), reps=200, plain_reps=20, sm_mhz=sm_mhz, profiled=True,
         ))
+    # the compat shapes of phase 11's tensor passes, from their own worlds
+    relax_rows = []
+    for label, world in (
+        ("oracle-mix 7.34k x 400", oracle_mix_world),
+        ("oracle-cluster 7.34k x 2000", oracle_cluster_world),
+        ("relax-cluster 50k x 2000", relax_cluster_world),
+    ):
+        w = world()
+        relax_rows.append(kernel_case(
+            label, slice_planes(*w[:3], kube=w[6]), reps=200, plain_reps=20, sm_mhz=sm_mhz, profiled=True,
+        ))
     big_row = kernel_case(
         "S=8192 x T=2048",
         random_planes(np.random.RandomState(1), 8192, 2048, widths), reps=20, plain_reps=5,
@@ -2282,6 +2785,24 @@ def main() -> None:
     # cluster: host ports, CSI limits and zone-pinned claims
     stateful_dense, spread_skew, stateful_cluster = run_stateful_phase("cuda")
 
+    # 11. the greedy scheduler alone (bench config 1, host only), the
+    # greedy fallback beside the tensor path (config 6 and Helm releases
+    # with the soft anti-affinity preset, as built and against the
+    # cluster), preference relaxation against the cluster under a zone
+    # drought, and packing parity against the greedy scheduler
+    config1 = run_config1_phase()
+    oracle_mix, oracle_cluster = run_oracle_phase("cuda")
+    relax_cluster = run_relax_phase("cuda")
+    parity6, parity1 = run_parity_phase("cuda")
+    emit({"phase11": {
+        "config1_pods_per_s": config1["pods_per_s"],
+        "packing_parity_vs_oracle": {
+            "config6_subsample": parity6["packing_parity_vs_oracle"],
+            "config1": parity1["packing_parity_vs_oracle"],
+        },
+        "card": card,
+    }})
+
     # the kernels line, then the last line
     paths = {
         "slice": slice_launches, "cluster": cluster["kernel_launches"],
@@ -2290,6 +2811,9 @@ def main() -> None:
         "anti-cluster": anti_cluster["kernel_launches"],
         "stateful-dense": stateful_dense["kernel_launches"], "spread-skew": spread_skew["kernel_launches"],
         "stateful-cluster": stateful_cluster["kernel_launches"],
+        "oracle-mix": oracle_mix["kernel_launches"], "oracle-cluster": oracle_cluster["kernel_launches"],
+        "relax-cluster": relax_cluster["kernel_launches"],
+        "parity-config6": parity6["kernel_launches"], "parity-config1": parity1["kernel_launches"],
     }
     path_keys = (
         "shape", "S", "T", "W", "kernel_ms", "profiled_kernel_ms", "wrapper_ms", "plain_ms",
@@ -2307,7 +2831,9 @@ def main() -> None:
                     "launches_by_path": paths,
                     "max_abs_err": max(
                         row["max_abs_err"]
-                        for row in [slice_row, big_row, *spread_rows, *affinity_rows, *stateful_rows]
+                        for row in [
+                            slice_row, big_row, *spread_rows, *affinity_rows, *stateful_rows, *relax_rows,
+                        ]
                     ),
                     "ms": slice_row["kernel_ms"],
                     "kernel_ms": slice_row["kernel_ms"],
@@ -2328,6 +2854,7 @@ def main() -> None:
                     "at_spread_paths": [{k: row[k] for k in path_keys} for row in spread_rows],
                     "at_affinity_paths": [{k: row[k] for k in path_keys} for row in affinity_rows],
                     "at_stateful_paths": [{k: row[k] for k in path_keys} for row in stateful_rows],
+                    "at_relax_paths": [{k: row[k] for k in path_keys} for row in relax_rows],
                     "compat_route": slice_row["compat_route"],
                     "ptxas": usage,
                 }

@@ -5,8 +5,13 @@ its tensor path:
 
   host:   route signature groups (the JAX package's default constraint
           engine): tensor groups, parked pod-affinity groups, and the
-          groups it would send to its oracle, which raise
-          NotImplementedError naming the feature
+          groups the tensor path does not take (preferred pod (anti-)
+          affinity, pod affinity mixed with anti-affinity or spread, two
+          hostname affinity terms, terms on other keys or namespaces,
+          anti-affinity whose selector matches another group of the
+          batch, host ports or volumes together with a spread or pod
+          (anti-)affinity, and the groups those count), which go to the
+          greedy scheduler
   host:   PersistentVolume and StorageClass zone pins join the node
           affinity of volume-bearing pods (VolumeTopology.inject)
   host:   signature-group pods → first-fit onto existing nodes
@@ -41,19 +46,24 @@ its tensor path:
           take joiners or give up one matching pod to seed a fresh
           anchor), to a fixpoint; run again with the donor guard where
           that fixpoint strands a pod from its hostname anchors
+  host:   preference relaxation (scheduler/preferences.py's ladder): each
+          round strips one soft constraint from a copy of every failed
+          group's exemplar, back-fills the relaxed pods onto this solve's
+          node plans where they fit, and sends the rest through another
+          tensor pass (one more kernel launch per pool), until nothing
+          relaxes
+  host:   the greedy scheduler (scheduler/, its instance-type filter
+          vectorised over the tensor path's host encodings by
+          oracle_bridge.py) for the routed-off pods, against copies of
+          the existing nodes that carry the tensor path's placements
 
 Spread and affinity seeds count the pods bound in ``kube_client`` (the
 JAX package's ``kube_client``); the port has no cluster-state object, no
 warm store and no tracer, so seeds are recounted on every solve and
 nothing is memoized across solves but the catalog encodings. Features
-the JAX package sends off this path raise NotImplementedError with the
-feature's name instead of routing elsewhere: preferred pod (anti-)
-affinity, pod affinity mixed with anti-affinity or spread, two hostname
-affinity terms, terms on other keys or namespaces, anti-affinity whose
-selector matches another group of the batch, host ports or volumes
-together with a spread or pod (anti-)affinity, constraints counting a
-group of those, and preference relaxation. The port
-reads no environment variable: the JAX package's defaults it depends on
+of the JAX package the port lacks raise NotImplementedError naming
+them: a cluster-state object (``cluster``) and an event recorder. The
+port reads no environment variable: the JAX package's defaults it depends on
 are module constants (pack.NATIVE_K_OPEN, compat_kernels.COMPAT_TILE_BYTES,
 the vector merge engine, the ffd pack backend with the native engine,
 the tensor constraint engine).
@@ -61,6 +71,7 @@ the tensor constraint engine).
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import logging
 import time
@@ -76,6 +87,8 @@ from ..apis import labels as wk
 from ..apis.nodepool import NodePool, order_by_weight
 from ..cloudprovider.types import CloudProvider, InstanceType
 from ..kube.objects import EFFECT_PREFER_NO_SCHEDULE, OP_IN, SCHEDULE_ANYWAY, Pod
+from ..scheduler.builder import build_scheduler
+from ..scheduler.preferences import Preferences
 from ..scheduler.topology import TopologyNodeFilter
 from ..scheduler.volumetopology import VolumeTopology
 from ..scheduling import Requirement, Requirements, Taints, resources
@@ -155,11 +168,16 @@ MAX_INT32 = 2**31 - 1
 # packer), finalize (usage, cheapest type and offering per node), merge
 # (the cross-group merge and its emit), limits (NodePool remaining
 # limits, their type masks and the enforcement after each pack round),
-# affinity (the pod-affinity post-pass). Phases partition the solve: a
-# phase entered inside another (the post-pass's packs and merges) counts
-# in its own phase only.
+# affinity (the pod-affinity post-pass), relax (the preference-relaxation
+# retry's own work: relaxing exemplars, committing placements, the
+# back-fill onto this solve's plans; the JAX package's relax_retry span),
+# oracle (the commit onto the node copies and the greedy scheduler; its
+# oracle_fallback span). Phases partition the solve: a phase entered
+# inside another (the post-pass's packs and merges, the retry's tensor
+# passes) counts in its own phase only.
 PHASES = (
     "group", "existing", "encode", "prepare", "pack", "finalize", "merge", "limits", "affinity",
+    "relax", "oracle",
 )
 
 
@@ -178,6 +196,28 @@ class _CatalogEntry:
     # (vocab-width snapshot, DeviceCatalog): the kernel's type side,
     # resident on the solve device, re-packed only when the vocab grew
     device_catalog: Optional[Tuple[tuple, DeviceCatalog]] = None
+
+
+def catalog_entry(cache: "OrderedDict[tuple, _CatalogEntry]", catalog: List[InstanceType]) -> _CatalogEntry:
+    """``catalog``'s encoding from ``cache``, encoded and inserted on a
+    miss; the cache keeps the CATALOG_CACHE_MAX most recently used. The
+    identity key is revalidated by the content fingerprint on every
+    lookup (the entry's strong ref keeps the ids from recycling)."""
+    key = tuple(map(id, catalog))
+    fp = _catalog_fingerprint(catalog)
+    entry = cache.get(key)
+    if entry is not None and entry.fingerprint == fp:
+        cache.move_to_end(key)
+        return entry
+    vocab = Vocab()
+    axis = build_catalog_axis(catalog)
+    enc = encode_instance_types(list(catalog), axis, vocab)
+    entry = _CatalogEntry(list(catalog), fp, vocab, axis, enc)
+    cache[key] = entry
+    cache.move_to_end(key)
+    while len(cache) > CATALOG_CACHE_MAX:
+        cache.popitem(last=False)
+    return entry
 
 
 def _cache_put(enc: EncodedInstanceTypes, key: tuple, value) -> None:
@@ -418,21 +458,29 @@ class SolverResult:
     node_plans: List[NodePlan] = field(default_factory=list)
     existing_plans: List[ExistingNodePlan] = field(default_factory=list)
     pod_errors: Dict[str, str] = field(default_factory=dict)  # pod uid → error
-    oracle_results: Optional[object] = None  # no oracle fallback in this slice
+    oracle_results: Optional[object] = None  # scheduler.Results of the greedy fallback
 
     @property
     def node_count(self) -> int:
-        return len(self.node_plans)
+        n = len(self.node_plans)
+        if self.oracle_results is not None:
+            n += len(self.oracle_results.new_node_claims)
+        return n
 
     @property
     def total_price(self) -> float:
+        # the greedy scheduler's claims carry instance-type options, not
+        # a chosen offering: the price is the tensor path's plans' only
         return sum(p.price for p in self.node_plans)
 
     @property
     def pods_scheduled(self) -> int:
-        return sum(len(p.pod_indices) for p in self.node_plans) + sum(
-            len(p.pod_indices) for p in self.existing_plans
-        )
+        n = sum(len(p.pod_indices) for p in self.node_plans)
+        n += sum(len(p.pod_indices) for p in self.existing_plans)
+        if self.oracle_results is not None:
+            n += sum(len(c.pods) for c in self.oracle_results.new_node_claims)
+            n += sum(len(e.pods) for e in self.oracle_results.existing_nodes)
+        return n
 
 
 @dataclass
@@ -590,50 +638,6 @@ def route_groups(
     return tensor_groups, parked, oracle_groups
 
 
-def _unported_feature(group: SignatureGroup, groups: List[SignatureGroup]) -> Optional[str]:
-    """Why the port cannot solve ``group`` itself, or None when its own
-    constraints are on the port's path (it may still be pulled off it by
-    another group's)."""
-    a = group.exemplar.spec.affinity
-    if group.has_stateful_node_constraints and not group.tensor_stateful:
-        return "topology spread or pod (anti-)affinity together with host ports or volumes"
-    if group.has_relational:
-        if (
-            a.pod_affinity is not None
-            and (a.pod_affinity.required or a.pod_affinity.preferred)
-            and group.tensor_affinity_terms() is None
-        ):
-            return (
-                "pod affinity with preferred terms, another topology key or namespace, "
-                "several hostname terms, or mixed with anti-affinity or spread"
-            )
-        return (
-            "pod anti-affinity with preferred terms, another topology key or namespace, "
-            "or mixed with pod affinity or a spread other than hostname self-isolation"
-        )
-    if _counts_another_group(group, groups):
-        return "pod anti-affinity whose selector matches another group of the batch"
-    return None
-
-
-def _check_routing(groups: List[SignatureGroup]) -> Tuple[List[SignatureGroup], List[SignatureGroup]]:
-    """The JAX package's route split → (tensor groups, parked groups).
-    Raise NotImplementedError, naming the feature, when it would send a
-    group to its oracle. A refused batch is never solved another way."""
-    tensor_groups, parked, oracle_groups = route_groups(groups)
-    if not oracle_groups and all(
-        _unported_feature(g, groups) is None for g in tensor_groups + parked
-    ):
-        return tensor_groups, parked
-    for g in groups:
-        feature = _unported_feature(g, groups)
-        if feature is not None:
-            raise NotImplementedError(f"{feature} is not ported yet")
-    raise NotImplementedError(
-        "a group counted by another group's pod affinity or anti-affinity is not ported yet"
-    )
-
-
 def _hostname_affinity_terms(pod: Pod) -> list:
     """The pod's required pod-affinity terms on hostname that carry a
     selector."""
@@ -647,24 +651,6 @@ def _hostname_affinity_terms(pod: Pod) -> list:
     ]
 
 
-def _relaxable(pod: Pod, prefer_no_schedule: bool) -> bool:
-    """Whether the JAX package's preference ladder would relax this pod
-    (scheduler/preferences.py): preferred node affinity, a required
-    node-affinity term beyond the first, a ScheduleAnyway topology
-    spread, or any PreferNoSchedule pool taint (counted even when the
-    pod already tolerates it)."""
-    if any(c.when_unsatisfiable == SCHEDULE_ANYWAY for c in pod.spec.topology_spread_constraints):
-        return True
-    a = pod.spec.affinity
-    if a is not None and a.node_affinity is not None:
-        na = a.node_affinity
-        if na.preferred:
-            return True
-        if na.required is not None and len(na.required.node_selector_terms) > 1:
-            return True
-    return prefer_no_schedule
-
-
 class TorchScheduler:
     def __init__(
         self,
@@ -672,10 +658,19 @@ class TorchScheduler:
         cloud_provider: CloudProvider,
         device=None,
         kube_client=None,
+        cluster=None,
+        recorder=None,
     ):
         """``kube_client`` (``kube.client.KubeClient``, as the JAX
         package's ``kube_client``) is read for the bound pods that seed
-        topology-spread domain counts; with None the seeds are empty."""
+        topology-spread and affinity domain counts, and for the volumes
+        of the pods; with None the seeds are empty. The JAX package's
+        ``cluster`` (cluster-state object) and ``recorder`` (events) are
+        not ported: each must be None."""
+        if cluster is not None:
+            raise NotImplementedError("the cluster-state object is not ported yet")
+        if recorder is not None:
+            raise NotImplementedError("events are not ported yet")
         self.device = resolve_device(device)
         self.nodepools = order_by_weight(
             [np_ for np_ in nodepools if np_.metadata.deletion_timestamp is None]
@@ -684,6 +679,14 @@ class TorchScheduler:
         self.kube_client = kube_client
         # device/host wall-time split of the most recent solve
         self.last_timings: Optional[Dict[str, float]] = None
+        # pods per route of the most recent solve (tensor, parked, oracle)
+        # and the oracle's share, as the JAX package's last_route_stats
+        self.last_route_stats: Optional[Dict[str, object]] = None
+        # preference relaxation of the most recent solve: rounds that
+        # retried a group, the pods retried and those the retries placed
+        self.last_relax_stats: Optional[Dict[str, int]] = None
+        self._relax_rounds = 0
+        self._relax_retried: set = set()
         self.last_merge_stats: Optional[Dict[str, object]] = None
         # whether the last solve's post-pass ran a second time with the
         # reseed guard on (_affinity_postpass)
@@ -709,6 +712,12 @@ class TorchScheduler:
         self._reseeded: List[NodePlan] = []
         self._phase_ms: Dict[str, float] = dict.fromkeys(PHASES, 0.0)
         self._phase_inner: List[float] = [0.0]
+        # per solve: the existing plans already committed onto the node
+        # copies, and the copies (id of the caller's node → its copy)
+        self._committed_plans: set = set()
+        self._node_copies: Dict[int, object] = {}
+        # catalog entries this solve has validated, by catalog identity
+        self._solve_entries: Dict[tuple, _CatalogEntry] = {}
 
     # ------------------------------------------------------------------
 
@@ -719,17 +728,21 @@ class TorchScheduler:
         daemonset_pods: Optional[List[Pod]] = None,
     ) -> SolverResult:
         """One batched solve of ``pods`` against the cluster: existing
-        nodes (``state_nodes``, ``StateNode``s, read and never modified)
-        first, then new nodes, each carrying the overhead of the
-        ``daemonset_pods`` it would run, within the NodePools' limits."""
+        nodes (``state_nodes``, ``StateNode``s, read and never modified:
+        the relaxation retries and the greedy fallback see copies that
+        carry this solve's placements) first, then new nodes, each
+        carrying the overhead of the ``daemonset_pods`` it would run,
+        within the NodePools' limits."""
         t0 = time.perf_counter()
         self._clock = _DeviceClock(self.device)
         self._phase_ms = dict.fromkeys(PHASES, 0.0)
         self._phase_inner = [0.0]  # ms of phases nested in the open one
         self.last_reseed_redo = False
+        self._solve_entries = {}
         try:
             return self._solve(pods, list(state_nodes or ()), list(daemonset_pods or ()))
         finally:
+            self._solve_entries = {}
             total_ms = (time.perf_counter() - t0) * 1000.0
             device_ms = self._clock.ms()
             self.last_timings = {
@@ -772,8 +785,9 @@ class TorchScheduler:
         with self._phase("group"):
             # PV and StorageClass zone pins join volume-bearing pods' node
             # affinity before the memo read, so grouping and the compat
-            # algebra see them (the JAX package's oracle injects them in
-            # build_scheduler)
+            # algebra see them (build_scheduler injects them once more into
+            # the greedy fallback's pods, as the JAX package's does; the
+            # repeated requirement intersects to itself)
             if self.kube_client is not None:
                 self._inject_volume_zones(pods)
             memos, _ = podcache.get_memos_rvs(pods)
@@ -781,7 +795,18 @@ class TorchScheduler:
             self._req_ids = np.fromiter((m.req_id for m in memos), dtype=np.int64, count=len(memos))
             self._req_map = {m.req_id: m.requests for m in memos}
             groups = group_pods(pods, memos=memos)
-            tensor_groups, parked = _check_routing(groups)
+            tensor_groups, parked, oracle_groups = route_groups(groups)
+            oracle_pods = [pods[i] for g in oracle_groups for i in g.pod_indices]
+            counts = {
+                "tensor": sum(len(g.pod_indices) for g in tensor_groups),
+                "parked": sum(len(g.pod_indices) for g in parked),
+                "oracle": len(oracle_pods),
+            }
+            total = sum(counts.values())
+            self.last_route_stats = {
+                **counts,
+                "oracle_share": round(counts["oracle"] / total, 4) if total else 0.0,
+            }
         # merge-pass pairwise Requirements.intersects memo (content keyed)
         self._intersects_cache: Dict[tuple, bool] = {}
         # spread-count seeding excludes the batch being scheduled
@@ -807,47 +832,271 @@ class TorchScheduler:
         # admissible types of a post-pass join or reseed, per (plan
         # requirements, joiner requirements, zone, capacity type, viable)
         self._join_types_cache = {}
+        self._committed_plans = set()
+        self._node_copies = {}
+        self._relax_rounds = 0
+        self._relax_retried: set = set()
         if tensor_groups or parked:
             self._solve_tensor(pods, tensor_groups, daemonset_pods, state_nodes, result, parked)
-            self._check_relaxation(pods, tensor_groups + parked, result)
+            with self._phase("relax"):
+                self._relax_and_retry(pods, tensor_groups + parked, daemonset_pods, result, state_nodes)
+        self.last_relax_stats = {
+            "rounds": self._relax_rounds,
+            "pods_retried": len(self._relax_retried),
+            "pods_placed": sum(1 for i in self._relax_retried if pods[i].uid not in result.pod_errors),
+        }
+        if oracle_pods:
+            with self._phase("oracle"):
+                # the greedy scheduler must see capacity net of the tensor
+                # path's placements: commit them onto the node copies
+                self._commit_existing_plans(pods, result, state_nodes)
+                self._solve_oracle(
+                    oracle_pods, self._copies(state_nodes), daemonset_pods, result
+                )
         return result
 
-    def _check_relaxation(self, pods, groups, result: SolverResult) -> None:
-        """The JAX package re-enters failed, relaxable groups through its
-        preference ladder; that retry is not ported, so such a batch
-        raises rather than returning a different plan."""
+    def _copies(self, state_nodes: list) -> list:
+        """This solve's copies of ``state_nodes``, made on first use."""
+        for n in state_nodes:
+            if id(n) not in self._node_copies:
+                self._node_copies[id(n)] = n.deep_copy()
+        return [self._node_copies[id(n)] for n in state_nodes]
+
+    def _commit_existing_plans(self, pods: List[Pod], result: SolverResult, state_nodes: list) -> None:
+        """Reflect the placements on existing nodes in this solve's node
+        copies (once per plan), so later passes (relaxation retries, the
+        greedy scheduler) see capacity net of what is already promised.
+        The JAX package commits onto the caller's nodes."""
+        copies = self._copies(state_nodes)
+        by_id = {id(n): c for n, c in zip(state_nodes, copies)}
+        for plan in result.existing_plans:
+            if id(plan) in self._committed_plans:
+                continue
+            self._committed_plans.add(id(plan))
+            node_copy = by_id[id(plan.state_node)]
+            for i in plan.pod_indices:
+                node_copy.update_for_pod(pods[i])
+
+    def _relax_and_retry(
+        self,
+        pods: List[Pod],
+        groups: List[SignatureGroup],
+        daemonset_pods: List[Pod],
+        result: SolverResult,
+        state_nodes: list,
+    ) -> None:
+        """Preference relaxation fixpoint for the tensor path
+        (preferences.go:38-60 ladder, scheduler.go:163-169 re-queue):
+        each round strips ONE soft constraint from every failed group's
+        exemplar (the whole group shares the signature) and re-enters the
+        pipeline with just the failed pods; stops when nothing relaxes.
+
+        As in the JAX package, retried pods see the existing nodes net of
+        the committed placements, and this solve's new-node plans only
+        through the back-fill, so a relaxed group can open a node where
+        the greedy scheduler would back-fill an in-flight claim."""
         if not result.pod_errors:
-            return
-        prefer = any(
-            t.effect == EFFECT_PREFER_NO_SCHEDULE
-            for np_ in self.nodepools
-            for t in np_.spec.template.taints
+            return  # nothing failed: no group can need relaxation
+        prefs = Preferences(
+            any(
+                t.effect == EFFECT_PREFER_NO_SCHEDULE
+                for np_ in self.nodepools
+                for t in np_.spec.template.taints
+            )
         )
-        for g in groups:
-            if any(pods[i].uid in result.pod_errors for i in g.pod_indices) and _relaxable(
-                g.exemplar, prefer
+        for _ in range(10):  # ladder depth bound (terms strip one per round)
+            retry: List[SignatureGroup] = []
+            for g in groups:
+                failed = [i for i in g.pod_indices if pods[i].uid in result.pod_errors]
+                if not failed:
+                    continue
+                # relax a COPY: the exemplar is the caller's live Pod, and
+                # a persisted relaxation would survive into later solves
+                exemplar = copy.deepcopy(g.exemplar)
+                if not prefs.relax(exemplar):
+                    continue
+                retry.append(SignatureGroup(signature=g.signature, exemplar=exemplar, pod_indices=failed))
+            if not retry:
+                return
+            self._relax_rounds += 1
+            for g in retry:
+                for i in g.pod_indices:
+                    self._relax_retried.add(i)
+                    result.pod_errors.pop(pods[i].uid, None)
+            # capacity promised to earlier placements must be visible
+            # before the retry packs onto existing nodes again
+            self._commit_existing_plans(pods, result, state_nodes)
+            # in-flight claims first: a relaxed pod back-fills a node plan
+            # already emitted this solve before opening a new one
+            # (scheduler.go:163-169 re-queues through existing claims)
+            retry = self._backfill_node_plans(pods, retry, daemonset_pods, result)
+            if not retry:
+                return
+            parked_retry = [g for g in retry if g.tensor_pod_affinity() is not None]
+            regular_retry = [g for g in retry if g.tensor_pod_affinity() is None]
+            copies = self._copies(state_nodes)
+            originals = {id(c): n for n, c in zip(state_nodes, copies)}
+            first_new = len(result.existing_plans)
+            self._solve_tensor(pods, regular_retry, daemonset_pods, copies, result, parked_retry)
+            # the retry packed onto the copies; its plans name the
+            # caller's nodes, as every other existing plan does
+            for plan in result.existing_plans[first_new:]:
+                plan.state_node = originals[id(plan.state_node)]
+            groups = retry
+
+    _BACKFILL_SCAN_CAP = 256  # plans examined per retry group
+
+    def _backfill_node_plans(
+        self,
+        pods: List[Pod],
+        retry: List[SignatureGroup],
+        daemonset_pods: List[Pod],
+        result: SolverResult,
+    ) -> List[SignatureGroup]:
+        """Place relaxed-retry pods onto NodePlans already emitted this
+        solve when the plan's node would admit them and its pinned
+        instance type still has room: the greedy scheduler's re-queued
+        pods see earlier in-flight claims (scheduler.go:163-169,241-246);
+        without this, a relaxed pod opens a node the greedy scheduler
+        would back-fill. Returns the groups still needing a full retry
+        pass."""
+        if not result.node_plans:
+            return retry
+        # each plan's summed pod requests, kept up to date as pods join
+        # (the same sums as merging its pod list for every probe)
+        plan_load: Dict[int, dict] = {}
+        pools_by_name = {np_.name: np_ for np_ in self.nodepools}
+        # per-pool daemon overhead once, not per (pod × plan)
+        daemon_by_pool = {
+            name: self._daemon_overhead_for(np_, daemonset_pods) for name, np_ in pools_by_name.items()
+        }
+        remaining: List[SignatureGroup] = []
+        for g in retry:
+            if (
+                g.zone_spread() is not None
+                or g.hostname_spread() is not None
+                or g.hostname_isolated
+                or g.tensor_pod_affinity() is not None
+                or g.zone_anti_isolated
+                or g.anti_exclusion_terms()
+                or g.has_stateful_node_constraints
             ):
-                raise NotImplementedError("preference relaxation is not ported yet")
+                # topology/affinity/stateful-constrained pods must go
+                # through their seeded domain-assignment / masked pack
+                # paths; a plain back-fill append ignores domain counts,
+                # per-node caps, and port/volume conflict state
+                remaining.append(g)
+                continue
+            pod_reqs = pod_requirements(g.exemplar)
+            # the group's pods share their exemplar: taints per pool and
+            # requirement compatibility per plan are decided once (a plan's
+            # requirements change here only by merging the group's own,
+            # which leaves their compatibility as it was)
+            intolerant = {
+                name: Taints(np_.spec.template.taints).tolerates(g.exemplar) is not None
+                for name, np_ in pools_by_name.items()
+            }
+            compatible: Dict[int, bool] = {}
+            unplaced: List[int] = []
+            for i in g.pod_indices:
+                placed = False
+                for plan in result.node_plans[: self._BACKFILL_SCAN_CAP]:
+                    np_ = pools_by_name.get(plan.nodepool_name)
+                    if np_ is None or plan.requirements is None:
+                        continue
+                    if plan.max_pods_per_node < MAX_INT32 or plan.node_limits:
+                        # capped/limited plans (hostname spread / anti-
+                        # affinity groups) never take foreign pods: the
+                        # constraint the cap models may be violated
+                        continue
+                    if intolerant[plan.nodepool_name]:
+                        continue
+                    if id(plan) not in compatible:
+                        # the launched node carries the plan's merged labels
+                        # plus its pinned type/zone/capacity-type
+                        node_reqs = Requirements(*plan.requirements.values_list())
+                        node_reqs.add(*plan.instance_type.requirements.values_list())
+                        node_reqs.add(
+                            Requirement(wk.LABEL_TOPOLOGY_ZONE, OP_IN, [plan.zone]),
+                            Requirement(wk.CAPACITY_TYPE_LABEL_KEY, OP_IN, [plan.capacity_type]),
+                        )
+                        err = node_reqs.compatible(pod_reqs, ALLOW_UNDEFINED_WELL_KNOWN_LABELS, hint=False)
+                        compatible[id(plan)] = not err
+                    if not compatible[id(plan)]:
+                        continue
+                    base = plan_load.get(id(plan))
+                    if base is None:
+                        base = plan_load[id(plan)] = resources.merge(*(plan._pod_requests or ()))
+                    load = resources.merge(base, self._all_requests[i], daemon_by_pool[plan.nodepool_name])
+                    if not resources.fits(load, plan.instance_type.allocatable()):
+                        continue
+                    plan.pod_indices.append(i)
+                    if plan._pod_requests is not None:
+                        plan._pod_requests.append(self._all_requests[i])
+                        plan_load[id(plan)] = resources.merge(base, self._all_requests[i])
+                    plan._requests = None  # recompute lazily
+                    merged = Requirements(*plan.requirements.values_list())
+                    merged.add(*pod_reqs.values_list())
+                    plan.requirements = merged
+                    placed = True
+                    break
+                if not placed:
+                    unplaced.append(i)
+            if unplaced:
+                remaining.append(
+                    SignatureGroup(signature=g.signature, exemplar=g.exemplar, pod_indices=unplaced)
+                )
+        return remaining
+
+    def _daemon_overhead_for(self, nodepool: NodePool, daemonset_pods: List[Pod]) -> dict:
+        """Daemonset request total for a pool's nodes (the per-pool
+        computation of the encode phase)."""
+        if not daemonset_pods:
+            return {}
+        template_reqs = node_selector_requirements(nodepool.spec.template.requirements)
+        template_reqs.add(
+            *label_requirements(
+                {**nodepool.spec.template.metadata.labels, wk.NODEPOOL_LABEL_KEY: nodepool.name}
+            ).values_list()
+        )
+        taints = Taints(nodepool.spec.template.taints)
+        daemons = [
+            p
+            for p in daemonset_pods
+            if taints.tolerates(p) is None
+            and template_reqs.compatible(pod_requirements(p), frozenset(wk.WELL_KNOWN_LABELS), hint=False)
+            is None
+        ]
+        return resources.requests_for_pods(*daemons) if daemons else {}
+
+    def _solve_oracle(self, pods: List[Pod], state_nodes: list, daemonset_pods: List[Pod], result: SolverResult) -> None:
+        """The greedy scheduler for the routed-off ``pods``; its filter
+        reads this scheduler's catalog entries."""
+        scheduler = build_scheduler(
+            self.kube_client,
+            None,
+            self.nodepools,
+            self.cloud_provider,
+            pods,
+            state_nodes=state_nodes,
+            daemonset_pods=daemonset_pods,
+            catalog_entry=self._catalog_entry,
+        )
+        res = scheduler.solve(pods)
+        result.oracle_results = res
+        for uid, err in res.pod_errors.items():
+            result.pod_errors[uid] = err
 
     # ------------------------------------------------------------------
 
     def _catalog_entry(self, catalog: List[InstanceType]) -> _CatalogEntry:
-        # identity key revalidated by the content fingerprint on every
-        # lookup (the entry's strong ref keeps the ids from recycling)
+        # a solve's later passes (relaxation retries, the greedy
+        # fallback's filter) reuse the entry its first pass validated:
+        # nothing in a solve changes a catalog
         key = tuple(map(id, catalog))
-        fp = _catalog_fingerprint(catalog)
-        entry = self._catalogs.get(key)
-        if entry is not None and entry.fingerprint == fp:
-            self._catalogs.move_to_end(key)
-            return entry
-        vocab = Vocab()
-        axis = build_catalog_axis(catalog)
-        enc = encode_instance_types(list(catalog), axis, vocab)
-        entry = _CatalogEntry(list(catalog), fp, vocab, axis, enc)
-        self._catalogs[key] = entry
-        self._catalogs.move_to_end(key)
-        while len(self._catalogs) > CATALOG_CACHE_MAX:
-            self._catalogs.popitem(last=False)
+        entry = self._solve_entries.get(key)
+        if entry is None:
+            entry = self._solve_entries[key] = catalog_entry(self._catalogs, catalog)
         return entry
 
     def _device_catalog(self, entry: _CatalogEntry) -> DeviceCatalog:

@@ -3,8 +3,10 @@
 An AST scan of every module of ``karpenter_core_tpu_torch`` and of
 ``chip_smoke.py`` finds no such import (nor any environment read: the
 port has no knobs yet), and a port solve against a live cluster
-(existing node, daemonset, NodePool limit) in a fresh interpreter runs
-under a meta-path hook that raises on importing either.
+(existing node, daemonset, NodePool limit), whose batch also reaches
+the greedy fallback (soft pod anti-affinity) and a preference-relaxation
+round (an impossible preferred zone), runs in a fresh interpreter under
+a meta-path hook that raises on importing either.
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ def _forbidden(name: str) -> bool:
 def test_sources_found():
     srcs = _sources()
     assert os.path.join(PORT_DIR, "solver", "solver.py") in srcs
+    for module in ("scheduler.py", "builder.py", "nodeclaim.py", "existingnode.py", "queue.py",
+                   "preferences.py", "topology.py"):
+        assert os.path.join(PORT_DIR, "scheduler", module) in srcs
+    assert os.path.join(PORT_DIR, "solver", "oracle_bridge.py") in srcs
     assert os.path.exists(os.path.join(REPO, "chip_smoke.py"))
     assert len(srcs) > 20
 
@@ -78,12 +84,16 @@ except ImportError:
 from karpenter_core_tpu_torch.apis import labels as wk
 from karpenter_core_tpu_torch.apis.nodepool import NodePool
 from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
-from karpenter_core_tpu_torch.kube.objects import Container, Pod, PodSpec, ResourceRequirements, Toleration
+from karpenter_core_tpu_torch.kube.objects import (
+    Affinity, Container, LabelSelector, NodeAffinity, NodeSelectorRequirement, NodeSelectorTerm, Pod,
+    PodAffinityTerm, PodAntiAffinity, PodSpec, PreferredSchedulingTerm, ResourceRequirements, Toleration,
+    WeightedPodAffinityTerm,
+)
 from karpenter_core_tpu_torch.kube.quantity import parse_quantity
 from karpenter_core_tpu_torch.solver import TorchScheduler
 
 provider = FakeCloudProvider()
-provider.instance_types = instance_types(20)
+provider.instance_types = instance_types(40)
 pool = NodePool()
 pool.metadata.name = "default"
 pods = []
@@ -96,12 +106,21 @@ for i in range(90):
         p.spec.node_selector = {wk.CAPACITY_TYPE_LABEL_KEY: ["spot", "on-demand"][i % 2]}
     elif i % 9 < 5:
         p.spec.tolerations = [Toleration(key="dedicated", operator="Exists")]
+    if i < 6:  # a release with a soft one-per-node anti-affinity: the greedy fallback
+        p.metadata.labels = {"app.kubernetes.io/name": "cache"}
+        p.spec.affinity = Affinity(pod_anti_affinity=PodAntiAffinity(preferred=[WeightedPodAffinityTerm(
+            1, PodAffinityTerm(topology_key=wk.LABEL_HOSTNAME,
+                               label_selector=LabelSelector(match_labels={"app.kubernetes.io/name": "cache"})))]))
+    elif i < 9:  # a zone no offering has, preferred: relaxed and retried
+        p.spec.affinity = Affinity(node_affinity=NodeAffinity(preferred=[PreferredSchedulingTerm(
+            weight=100, preference=NodeSelectorTerm(match_expressions=[
+                NodeSelectorRequirement(wk.LABEL_TOPOLOGY_ZONE, "In", ["no-such-zone"])]))]))
     pods.append(p)
 # a live cluster: one existing node with a bound pod, a daemonset, a limit
 from karpenter_core_tpu_torch.kube.objects import Node, OwnerReference
 from karpenter_core_tpu_torch.state import StateNode
 
-pool.spec.limits = {"cpu": parse_quantity("40")}
+pool.spec.limits = {"cpu": parse_quantity("400")}
 node = Node()
 node.metadata.name = "node-0"
 node.metadata.labels = {wk.NODEPOOL_LABEL_KEY: "default", wk.LABEL_HOSTNAME: "node-0"}
@@ -118,8 +137,11 @@ ds.metadata.name = "ds"
 ds.metadata.owner_references = [OwnerReference(kind="DaemonSet", name="ds")]
 ds.spec = PodSpec(containers=[Container(name="main", resources=ResourceRequirements(
     requests={"cpu": parse_quantity("100m")}))])
-res = TorchScheduler([pool], provider, device="cpu").solve(pods, state_nodes=[sn], daemonset_pods=[ds])
+solver = TorchScheduler([pool], provider, device="cpu")
+res = solver.solve(pods, state_nodes=[sn], daemonset_pods=[ds])
 assert res.existing_plans, "nothing landed on the existing node"
+assert res.oracle_results is not None and solver.last_route_stats["oracle"] == 6
+assert solver.last_relax_stats["rounds"] >= 1 and solver.last_relax_stats["pods_placed"] == 3
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "karpenter_core_tpu"))
 print(json.dumps({"scheduled": res.pods_scheduled, "errors": len(res.pod_errors), "nodes": res.node_count, "leaked": leaked}))
 """

@@ -11,8 +11,9 @@ plus equal ``pod_errors`` (by pod index), ``node_count``,
 pack route, the native packer at K = 1024 (``reference_native``). The mix is bench config 3's
 (``bench.py:469``) without its topology-spread share: 3/9 capacity-type
 selectors, 2/9 ``dedicated`` tolerations, 4/9 plain pods (the spread
-share is in ``tests/test_torch_topology.py``). Shapes outside the
-slice raise NotImplementedError naming the feature.
+share is in ``tests/test_torch_topology.py``). The shapes the JAX
+package sends to its greedy oracle or relaxes solve to its plans and
+claims too.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from karpenter_core_tpu.solver import TPUScheduler
 from karpenter_core_tpu_torch.solver import TorchScheduler
 from karpenter_core_tpu_torch.solver.solver import PHASES
 from test_torch_native import reference_native
+from test_torch_oracle import assert_same_results, same_start
 
 REF = "karpenter_core_tpu"
 PORT = "karpenter_core_tpu_torch"
@@ -155,9 +157,11 @@ def test_plan_identity(monkeypatch, case, route):
     }
     assert set(PHASES) == {
         "group", "existing", "encode", "prepare", "pack", "finalize", "merge", "limits", "affinity",
+        "relax", "oracle",
     }
     assert solver.last_timings["existing_ms"] == 0.0  # no existing nodes in this world
     assert solver.last_timings["affinity_ms"] == 0.0  # and no pod-affinity post-pass
+    assert solver.last_timings["oracle_ms"] == 0.0  # nor a pod for the greedy scheduler
     assert sum(v for k, v in solver.last_timings.items() if k not in ("total_ms", "host_ms")) <= (
         solver.last_timings["total_ms"]
     )
@@ -271,8 +275,9 @@ def _out_of_slice(kind: str, pkg: str = PORT):
     return pools, provider, pods, kwargs, kube
 
 
-# shapes the port refused before it carried host ports and volumes: each
-# is now a plan-identity case under its old id
+# shapes the port refused before it carried host ports and volumes, and
+# (the first three) before it carried the greedy fallback: each is a
+# plan-identity case under its old id
 SOLVED = ("host ports", "volumes", "host ports with state_nodes")
 
 
@@ -288,66 +293,115 @@ SOLVED = ("host ports", "volumes", "host ports with state_nodes")
     ],
 )
 def test_out_of_slice_features_raise(monkeypatch, kind):
-    """Shapes outside the slice raise, naming the feature; the host-port
-    and volume shapes (``SOLVED``) solve to the JAX package's plans."""
-    if kind not in SOLVED:
-        pools, provider, pods, kwargs, kube = _out_of_slice(kind)
-        with pytest.raises(NotImplementedError, match=kind.split()[0]):
-            TorchScheduler(pools, provider, device="cpu", kube_client=kube).solve(pods, **kwargs)
-        return
+    """Every shape solves to the JAX package's plans and greedy claims:
+    the reference sends the first three to its oracle and keeps the
+    host-port and volume shapes (``SOLVED``) on its tensor path."""
     reference_native(monkeypatch)
+    same_start(monkeypatch)
     pools, provider, ref_pods, kwargs, kube = _out_of_slice(kind, REF)
     ref_solver = TPUScheduler(pools, provider, kube_client=kube)
     ref = ref_solver.solve(ref_pods, **kwargs)
-    assert ref.oracle_results is None and ref_solver.last_route_stats["oracle"] == 0
+    if kind in SOLVED:
+        assert ref.oracle_results is None and ref_solver.last_route_stats["oracle"] == 0
+    else:
+        assert ref.oracle_results is not None and ref_solver.last_route_stats["oracle"] > 0
+    same_start(monkeypatch)
     pools, provider, pods, kwargs, kube = _out_of_slice(kind, PORT)
-    res = TorchScheduler(pools, provider, device="cpu", kube_client=kube).solve(pods, **kwargs)
+    solver = TorchScheduler(pools, provider, device="cpu", kube_client=kube)
+    res = solver.solve(pods, **kwargs)
     assert_same_plans(res, pods, ref, ref_pods)
-    assert [(e.state_node.name(), e.pod_indices) for e in res.existing_plans] == [
-        (e.state_node.name(), e.pod_indices) for e in ref.existing_plans
-    ]
+    assert_same_results(res, pods, ref, ref_pods)
+    assert solver.last_route_stats == {
+        k: v for k, v in ref_solver.last_route_stats.items() if k != "engine"
+    }
     where = {i: p for p in res.node_plans for i in p.pod_indices}
     if kind == "volumes":
         assert where[0].zone == "test-zone-2"
     elif kind == "host ports":
         assert where[0] is not where[1]
+    elif kind not in SOLVED:
+        assert solver.last_timings["oracle_ms"] > 0.0
 
 
-def test_schedule_anyway_spread_failure_raises():
+def _relaxed_by_reference(monkeypatch) -> list:
+    """Record every relaxation the JAX package's preference ladder applies."""
+    from karpenter_core_tpu.scheduler.preferences import Preferences
+
+    applied = []
+    real = Preferences.relax
+
+    def relax(self, pod):
+        out = real(self, pod)
+        applied.append(out)
+        return out
+
+    monkeypatch.setattr(Preferences, "relax", relax)
+    return applied
+
+
+def _solve_relaxable(monkeypatch, mutate, seed):
+    """The slice's world with ``mutate`` applied to pod 0, solved by both
+    packages → (port result, port pods, port solver, reference result,
+    reference pods, relaxations the reference applied)."""
+    reference_native(monkeypatch)
+    applied = _relaxed_by_reference(monkeypatch)
+    out = []
+    for pkg in (REF, PORT):
+        same_start(monkeypatch)
+        pools, provider, pods = world(pkg, seed=seed, n_pods=10)
+        mutate(pkg, pods[0])
+        solver = (TPUScheduler(pools, provider) if pkg == REF else TorchScheduler(pools, provider, device="cpu"))
+        out.append((solver.solve(pods), pods, solver))
+    (ref, ref_pods, _), (res, pods, solver) = out
+    return res, pods, solver, ref, ref_pods, applied
+
+
+def test_schedule_anyway_spread_failure_raises(monkeypatch):
     """A failing pod with a ScheduleAnyway spread is one the JAX
-    package's preference ladder would relax (the constraint is stripped
-    and the pod retried): outside the slice, never a different plan."""
-    ob = importlib.import_module(f"{PORT}.kube.objects")
-    wk = importlib.import_module(f"{PORT}.apis.labels")
-    pools, provider, pods = world(PORT, seed=12, n_pods=10)
-    pods[0].spec.node_selector = {"team": "nobody"}
-    pods[0].spec.topology_spread_constraints = [
-        ob.TopologySpreadConstraint(
-            max_skew=1, topology_key=wk.LABEL_TOPOLOGY_ZONE, when_unsatisfiable="ScheduleAnyway",
-            label_selector=ob.LabelSelector(match_labels={"app": "svc-0"}),
-        )
-    ]
-    with pytest.raises(NotImplementedError, match="relaxation"):
-        TorchScheduler(pools, provider, device="cpu").solve(pods)
+    package's preference ladder relaxes (the constraint is stripped and
+    the pod retried): the port relaxes it too, and both keep the error
+    its node selector leaves."""
+
+    def mutate(pkg, pod):
+        ob = importlib.import_module(f"{pkg}.kube.objects")
+        wk = importlib.import_module(f"{pkg}.apis.labels")
+        pod.spec.node_selector = {"team": "nobody"}
+        pod.spec.topology_spread_constraints = [
+            ob.TopologySpreadConstraint(
+                max_skew=1, topology_key=wk.LABEL_TOPOLOGY_ZONE, when_unsatisfiable="ScheduleAnyway",
+                label_selector=ob.LabelSelector(match_labels={"app": "svc-0"}),
+            )
+        ]
+
+    res, pods, solver, ref, ref_pods, applied = _solve_relaxable(monkeypatch, mutate, seed=12)
+    assert True in applied  # the reference relaxed
+    assert solver.last_relax_stats["rounds"] >= 1
+    assert_same_results(res, pods, ref, ref_pods)
+    assert pods[0].uid in res.pod_errors
+    assert pods[0].spec.topology_spread_constraints  # relaxed on a copy
 
 
-def test_relaxable_failure_raises():
-    """A failing pod the JAX package would relax (preferred node
-    affinity) is outside the slice."""
-    ob = importlib.import_module(f"{PORT}.kube.objects")
-    pools, provider, pods = world(PORT, seed=11, n_pods=10)
-    pods[0].spec.node_selector = {"team": "nobody"}
-    pods[0].spec.affinity = ob.Affinity(
-        node_affinity=ob.NodeAffinity(
-            preferred=[
-                ob.PreferredSchedulingTerm(
-                    weight=1,
-                    preference=ob.NodeSelectorTerm(
-                        match_expressions=[ob.NodeSelectorRequirement("size", ob.OP_IN, ["small"])]
-                    ),
-                )
-            ]
+def test_relaxable_failure_raises(monkeypatch):
+    """A failing pod the JAX package relaxes (preferred node affinity):
+    the port relaxes it too, to the same plans and errors."""
+
+    def mutate(pkg, pod):
+        ob = importlib.import_module(f"{pkg}.kube.objects")
+        pod.spec.node_selector = {"team": "nobody"}
+        pod.spec.affinity = ob.Affinity(
+            node_affinity=ob.NodeAffinity(
+                preferred=[
+                    ob.PreferredSchedulingTerm(
+                        weight=1,
+                        preference=ob.NodeSelectorTerm(
+                            match_expressions=[ob.NodeSelectorRequirement("size", ob.OP_IN, ["small"])]
+                        ),
+                    )
+                ]
+            )
         )
-    )
-    with pytest.raises(NotImplementedError, match="relaxation"):
-        TorchScheduler(pools, provider, device="cpu").solve(pods)
+
+    res, pods, solver, ref, ref_pods, applied = _solve_relaxable(monkeypatch, mutate, seed=11)
+    assert True in applied
+    assert solver.last_relax_stats["rounds"] >= 1
+    assert_same_results(res, pods, ref, ref_pods)

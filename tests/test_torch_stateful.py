@@ -47,6 +47,7 @@ from karpenter_core_tpu_torch.solver import pack as port_pack
 from test_torch_cluster import REPO, _load
 from test_torch_existing import errors_by_index, existing_stream, plan_stream
 from test_torch_native import reference_native
+from test_torch_oracle import solve_pair
 from test_torch_topology import TKit, solve_both
 
 REF = "karpenter_core_tpu"
@@ -447,27 +448,30 @@ def test_zone_pin_injected_once(monkeypatch):
     assert len(terms[0].match_expressions) == 1
 
 
-def test_stateful_groups_with_topology_raise():
+def test_stateful_groups_with_topology_raise(monkeypatch):
     """Host ports or volumes together with topology spread or pod
-    (anti-)affinity stay outside the slice (the JAX package's oracle
-    takes them)."""
-    k = TKit(PORT)
-    web = {"app": "web"}
+    (anti-)affinity: the JAX package's oracle takes the group, and the
+    port's greedy fallback gives its claims."""
     for variant in ("spread", "affinity", "anti-affinity"):
-        pod = k.tpod("a", labels=web)
-        pod.spec.volumes = [k.ob.Volume(name="data", ephemeral=True)]
-        if variant == "spread":
-            pod.spec.topology_spread_constraints = [k.spread(k.wk.LABEL_TOPOLOGY_ZONE, labels=web)]
-        elif variant == "affinity":
-            pod.spec.affinity = k.ob.Affinity(
-                pod_affinity=k.ob.PodAffinity(required=[k.term(k.wk.LABEL_TOPOLOGY_ZONE, web)])
-            )
-        else:
-            pod.spec.affinity = k.ob.Affinity(
-                pod_anti_affinity=k.ob.PodAntiAffinity(required=[k.term(k.wk.LABEL_HOSTNAME, web)])
-            )
-        with pytest.raises(NotImplementedError, match="together with host ports or volumes"):
-            TorchScheduler([k.nodepool()], k.provider(), device="cpu", kube_client=k.KubeClient()).solve([pod])
+
+        def build(k):
+            web = {"app": "web"}
+            pod = k.tpod("a", labels=web)
+            pod.spec.volumes = [k.ob.Volume(name="data", ephemeral=True)]
+            if variant == "spread":
+                pod.spec.topology_spread_constraints = [k.spread(k.wk.LABEL_TOPOLOGY_ZONE, labels=web)]
+            elif variant == "affinity":
+                pod.spec.affinity = k.ob.Affinity(
+                    pod_affinity=k.ob.PodAffinity(required=[k.term(k.wk.LABEL_TOPOLOGY_ZONE, web)])
+                )
+            else:
+                pod.spec.affinity = k.ob.Affinity(
+                    pod_anti_affinity=k.ob.PodAntiAffinity(required=[k.term(k.wk.LABEL_HOSTNAME, web)])
+                )
+            return dict(pools=[k.nodepool()], provider=k.provider(), pods=[pod], kube=k.KubeClient())
+
+        res, _, _, _ = solve_pair(monkeypatch, build, TKit, route={"oracle": 1})
+        assert res.oracle_results is not None and res.pods_scheduled == 1, variant
 
 
 # -- chip_smoke.py phase 10, cut down ---------------------------------------------

@@ -28,8 +28,8 @@ The three shapes the port refused before it carried pod affinity and
 zone and non-self anti-affinity (one pod-affinity group, zone
 self-anti-affinity, anti-affinity against bound pods) are plan-identity
 cases here too; the reference parks the first, and so are host ports
-and volumes. Shapes the JAX package sends to its oracle raise
-NotImplementedError naming the feature.
+and volumes. The shapes the JAX package sends to its greedy oracle are
+plan-identity cases as well, its claims included.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ from karpenter_core_tpu_torch.solver import TorchScheduler
 from karpenter_core_tpu_torch.solver import topology_tensor as port_tt
 from test_torch_existing import Kit, errors_by_index, existing_stream, plan_stream
 from test_torch_native import reference_native
+from test_torch_oracle import solve_pair
 
 REF = "karpenter_core_tpu"
 PORT = "karpenter_core_tpu_torch"
@@ -859,6 +860,8 @@ def _refused(kind: str, k):
     return pods
 
 
+# shapes the port refused before it carried the greedy fallback, with the
+# feature each refusal named; the reference sends each to its oracle
 REFUSED = {
     "pod anti-affinity whose selector matches another group": "matches another group",
     "pod anti-affinity with preferred terms": "pod anti-affinity with preferred terms",
@@ -873,10 +876,10 @@ REFUSED = {
 
 @pytest.mark.parametrize("kind", sorted(REFUSED))
 def test_refused_shapes_raise(monkeypatch, kind):
-    """The reference takes these off its tensor path; the port raises,
-    naming the feature. Host ports and volumes, which the reference
-    keeps on its tensor path, are plan-identity cases since the port
-    carries them."""
+    """Every shape solves to the JAX package's plans: host ports and
+    volumes stay on both tensor paths; the other six go to the
+    reference's greedy oracle, and the port's plans, errors and greedy
+    claims equal it."""
     if kind in ("host ports", "volumes"):
         res, pods, _ = solve_both(
             monkeypatch,
@@ -886,14 +889,11 @@ def test_refused_shapes_raise(monkeypatch, kind):
             where = {pods[i].name: id(p) for p in res.node_plans for i in p.pod_indices}
             assert where["a"] != where["b"]
         return
-    reference_native(monkeypatch)
-    k = TKit(REF)
-    ref = TPUScheduler([k.nodepool()], k.provider(), kube_client=k.KubeClient())
-    ref.solve(_refused(kind, k))
-    stats = ref.last_route_stats
-    assert stats["oracle"] + stats["parked"] > 0
-    k = TKit(PORT)
-    with pytest.raises(NotImplementedError, match=REFUSED[kind]):
-        TorchScheduler([k.nodepool()], k.provider(), device="cpu", kube_client=k.KubeClient()).solve(
-            _refused(kind, k)
-        )
+    res, w, solver, ref_solver = solve_pair(
+        monkeypatch,
+        lambda k: dict(pools=[k.nodepool()], provider=k.provider(), pods=_refused(kind, k), kube=k.KubeClient()),
+        TKit,
+    )
+    assert ref_solver.last_route_stats["oracle"] > 0
+    assert res.oracle_results is not None
+    assert res.pods_scheduled + len(res.pod_errors) == len(w["pods"])
