@@ -5,8 +5,9 @@ NVIDIA card and check it.
 Phases, in order; any failure exits non-zero:
 
 1. Device: require CUDA; print the card's name and power limit.
-2. Build: compile the Hopper compat∧offering kernel (nvcc) and the C++
-   packer (g++) from the repo's sources, in parallel.
+2. Build: compile the Hopper compat∧offering kernel, the three pack
+   kernels (nvcc) and the C++ packer (g++) from the repo's sources, one
+   compiler each, in parallel.
 3. Kernel: the kernel, through the wrapper's own tile pick and with
    each of its two tile shapes forced, against its plain PyTorch
    versions on the card, bit for bit, on seeded ragged planes, the
@@ -108,8 +109,30 @@ Phases, in order; any failure exits non-zero:
    clusters, no new node in the drought zone, and a relaxation that
    placed pods.
 
-Then a ``{"kernels": [...]}`` line (the kernel's cases at the shapes of
-phases 8–11 too), and the last line ``{"ok": true, "device": {...}}``.
+12. Pack engines: with ``KARPENTER_TORCH_NATIVE=0`` (the device engine)
+   bench config 3 whole and phase 5's cluster, one cold and three warm
+   solves on the card with the launches of the FFD scan kernel
+   (``csrc/ffd_pack.cu``) and the existing-node first-fit kernel
+   (``csrc/pack_existing.cu``) counted, plans, existing plans and errors
+   equal to the ``device="cpu"`` solve through their plain versions, and
+   the idle share; the LP backend (``KARPENTER_TORCH_PACK_BACKEND=lp``)
+   on bench config 10 whole: each of its eleven shapes under ffd and lp
+   on the card, plans equal to the CPU's, each shape's $/hr equal to the
+   JAX package's (``CONFIG10_REFERENCE``), lp <= ffd, bound <= cost, the
+   same pods, the 41.2 % adversarial saving and a dual-ascent launch
+   (``csrc/dual_ascent.cu``) in every lp solve; config 10 again under lp
+   with the native packer off (repair packs through the scan kernel);
+   bench config 5 whole (10,000 pods x 2,000 types x 6 zones) under ffd,
+   lp and auto (threshold pinned): 164 nodes at $873.4703/hr each, the
+   cost guard keeping FFD, the calibrated threshold on its own line.
+   Then every distinct captured call of each pack kernel against its
+   plain version on the card (B5 and B6 bit for bit, B7's routes exactly
+   and weights within ``W_RTOL``) with ``kernel_ms`` (events around
+   queued launches), the plain version's time and ``bound_ms``.
+
+Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
+shapes of phases 8–11 too, and the three pack kernels), and the last
+line ``{"ok": true, "device": {...}}``.
 The profiled warm solves of phases 4–11 report device times only from
 traces that hold every kernel launch of the solve (``profile_solve``).
 
@@ -119,7 +142,9 @@ Run from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import copy
+import hashlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -1100,9 +1125,9 @@ def capture_pack_existing(fn, calls: int = 1):
     real = solver_mod.run_pack_existing
     seen = []
 
-    def spy(reqs, sig_ids, compat, free):
+    def spy(reqs, sig_ids, compat, free, **kw):
         seen.append(tuple(np.array(x) for x in (reqs, sig_ids, compat, free)))
-        return real(reqs, sig_ids, compat, free)
+        return real(reqs, sig_ids, compat, free, **kw)
 
     solver_mod.run_pack_existing = spy
     try:
@@ -2624,9 +2649,647 @@ def run_parity_phase(device: str = "cuda", n_pods: int = N_CONFIG6, n_types: int
     return tuple(rows)
 
 
+# -- phase 12: the pack engines (device scans and the LP backend) --------------
+
+N_CONFIG5 = 10_000  # bench.py config 5: pods, types, six zones, RandomState(3)
+N_CONFIG5_TYPES = 2_000
+# bench config 10 (bench.py:1463-1660), $/hr per shape under ffd and lp as
+# the JAX package gives them: bench.py's config10() run on the JAX
+# package on a CPU host (JAX_PLATFORMS=cpu, default knobs, its native
+# packer), the run tests/test_torch_lp.py repeats against these values
+CONFIG10_REFERENCE = {
+    "bignode-trap": (100.0, 68.8),
+    "midsize-sweetspot": (74.6, 50.6),
+    "podcap-trap": (25.6, 17.6),
+    "hetero-split": (99.0, 59.8),
+    "hetero-split-narrow": (82.0, 82.0),
+    "hetero-split-wide": (150.0, 30.9),
+    "spot-cliff-steep": (104.0, 35.7),
+    "spot-cliff-shallow": (33.8, 33.02),
+    "capacity-drought": (54.7, 44.8),
+    "superlinear-ladder": (88.0, 54.4),
+    "linear-control": (128.1026, 128.1026),
+}
+CONFIG10_SAVING_PCT = 41.2  # adversarial shapes, 811.7 -> 477.62 $/hr
+# bench config 5 whole under ffd, lp and auto (nodes, $/hr): bench.py's
+# config 5 world solved by the JAX package on a CPU host under each backend
+CONFIG5_REFERENCE = (164, 873.4703)
+
+
+def config10_shapes() -> list:
+    """bench.py config 10's eleven price shapes (``_price_shapes``) from
+    the port's classes: (name, catalog, pods), pods named as
+    ``_mk_pod`` names them."""
+    from karpenter_core_tpu_torch.cloudprovider.fake import instance_types, new_instance_type
+    from karpenter_core_tpu_torch.cloudprovider.types import Offering
+
+    def it(name, cpu, mem_gi, pods, price, available=True):
+        return new_instance_type(
+            name,
+            {"cpu": str(cpu), "memory": f"{mem_gi}Gi", "pods": str(pods)},
+            offerings=[
+                Offering("on-demand", "test-zone-1", price, available),
+                Offering("on-demand", "test-zone-2", price, available),
+            ],
+        )
+
+    def mk(name, cpu, mem):
+        return pending_pod(f"bench-{name}", cpu, mem)
+
+    rng = np.random.RandomState(17)
+    shapes = [
+        ("bignode-trap", [it("huge", 64, 128, 110, 20.0), it("small", 4, 8, 110, 0.8)],
+         [mk(f"big-{i}", "1", "2Gi") for i in range(256)]),
+        ("midsize-sweetspot",
+         [it("xl", 96, 192, 220, 14.0), it("m", 48, 96, 110, 4.6), it("s", 8, 16, 110, 1.1)],
+         [mk(f"mid-{i}", "2", "3Gi") for i in range(240)]),
+        ("podcap-trap", [it("dense", 16, 32, 32, 3.2), it("lean", 16, 32, 8, 0.55)],
+         [mk(f"cap-{i}", "100m", "128Mi") for i in range(256)]),
+    ]
+
+    def hetero(tag, gen_price, cpu_price, mem_price):
+        cat = [it(f"general-{tag}", 32, 64, 110, gen_price), it(f"cpuopt-{tag}", 32, 8, 110, cpu_price),
+               it(f"memopt-{tag}", 4, 64, 110, mem_price)]
+        pods = [mk(f"cpuh-{tag}-{i}", "3", "256Mi") for i in range(96)] + [
+            mk(f"memh-{tag}-{i}", "100m", "4Gi") for i in range(96)
+        ]
+        return cat, pods
+
+    shapes.append(("hetero-split", *hetero("mid", 9.9, 3.6, 3.4)))
+    shapes.append(("hetero-split-narrow", *hetero("nar", 8.2, 6.9, 6.7)))
+    shapes.append(("hetero-split-wide", *hetero("wide", 15.0, 1.9, 1.7)))
+    cliff = [it("cliff-s", 4, 8, 110, 0.6), it("cliff-m", 8, 16, 110, 1.3), it("cliff-l", 16, 32, 110, 8.0)]
+    shapes.append(("spot-cliff-steep", cliff, [mk(f"spot-{i}", "1", "2Gi") for i in range(192)]))
+    shallow = [it("shal-s", 4, 8, 110, 0.62), it("shal-m", 8, 16, 110, 1.2), it("shal-l", 16, 32, 110, 2.6)]
+    shapes.append(("spot-cliff-shallow", shallow, [mk(f"shal-{i}", "1", "2Gi") for i in range(192)]))
+    drought = [
+        it("dry-s", 4, 8, 110, 0.7),
+        it("dry-m1", 8, 16, 110, 1.3, available=False),
+        it("dry-m2", 16, 32, 110, 2.5, available=False),
+        it("dry-l", 64, 128, 110, 18.0),
+    ]
+    shapes.append(("capacity-drought", drought, [mk(f"dry-{i}", "1", "2Gi") for i in range(192)]))
+    ladder = [it("lad-4", 4, 8, 110, 0.8), it("lad-8", 8, 16, 110, 1.7), it("lad-16", 16, 32, 110, 3.8),
+              it("lad-32", 32, 64, 110, 9.0), it("lad-64", 64, 128, 110, 22.0)]
+    shapes.append(("superlinear-ladder", ladder, [mk(f"lad-{i}", "1", "2Gi") for i in range(224)]))
+    lin = [
+        mk(f"lin-{i}", ["250m", "500m", "1", "2"][rng.randint(4)], ["512Mi", "1Gi", "2Gi"][rng.randint(3)])
+        for i in range(400)
+    ]
+    shapes.append(("linear-control", instance_types(20), lin))
+    return shapes
+
+
+def config5_world(n_pods: int = N_CONFIG5, n_types: int = N_CONFIG5_TYPES):
+    """bench.py config 5 (``config5``, :617-671): spot-weighted packing,
+    2,000 types x 6 zones with on-demand and spot offerings drawn from
+    RandomState(3), 10,000 pods → (nodepool, provider, pods)."""
+    from karpenter_core_tpu_torch.apis import labels as wk
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.cloudprovider.fake import (
+        FakeCloudProvider,
+        new_instance_type,
+        price_from_resources,
+    )
+    from karpenter_core_tpu_torch.cloudprovider.types import Offering
+    from karpenter_core_tpu_torch.kube.quantity import parse_quantity
+
+    rng = np.random.RandomState(3)
+    zones = [f"test-zone-{z}" for z in range(1, 7)]
+    cat = []
+    for i in range(n_types):
+        cpu, mem = (i % 64) + 1, 2 * ((i % 64) + 1)
+        res = {"cpu": str(cpu), "memory": f"{mem}Gi", "pods": str(max(110, cpu * 8))}
+        base = price_from_resources({k: parse_quantity(v) for k, v in res.items()})
+        offerings = []
+        for z in zones:
+            od = base * (1.0 + 0.05 * rng.rand())
+            spot = od * (0.25 + 0.5 * rng.rand())
+            offerings.append(Offering(wk.CAPACITY_TYPE_ON_DEMAND, z, od))
+            offerings.append(Offering(wk.CAPACITY_TYPE_SPOT, z, spot))
+        cat.append(new_instance_type(f"fake-it-{i}", res, offerings=offerings))
+    provider = FakeCloudProvider()
+    provider.instance_types = cat
+    nodepool = NodePool()
+    nodepool.metadata.name = "default"
+    pods = []
+    for i in range(n_pods):
+        cpu = ["250m", "500m", "1", "2"][rng.randint(4)]
+        mem = ["512Mi", "1Gi", "2Gi"][rng.randint(3)]
+        pods.append(pending_pod(f"bench-{i}", cpu, mem))
+    return nodepool, provider, pods
+
+
+def plan_sha256(res) -> str:
+    """Digest of the ordered plan stream (the ROADMAP's plan identity)."""
+    return hashlib.sha256(json.dumps(plan_stream(res)).encode()).hexdigest()
+
+
+def pack_kernels() -> dict:
+    """The pack engines' kernel wrappers, by kernel name."""
+    from karpenter_core_tpu_torch.solver import pack
+    from karpenter_core_tpu_torch.solver.backends import lp
+
+    return {"ffd_pack": pack.FFD_PACK, "pack_existing": pack.PACK_EXISTING, "dual_ascent": lp.DUAL_ASCENT}
+
+
+def reset_pack_launches() -> None:
+    for k in pack_kernels().values():
+        k.launches = 0
+
+
+def pack_launches() -> dict:
+    return {name: k.launches for name, k in pack_kernels().items()}
+
+
+class knobs:
+    """Environment knobs set for a block, restored after it."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class capture:
+    """Record (on the CPU) the tensor arguments of every call of
+    ``module.attr`` inside the block, up to ``limit`` calls."""
+
+    def __init__(self, module, attr: str, limit: int = 1 << 30):
+        self.module, self.attr, self.limit, self.calls = module, attr, limit, []
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.attr)
+
+        def spy(*args):
+            if len(self.calls) < self.limit:
+                self.calls.append(tuple(a.detach().cpu().clone() if hasattr(a, "detach") else a for a in args))
+            return real(*args)
+
+        setattr(self.module, self.attr, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.real)
+
+
+class timed:
+    """Sum the wall time of every call of ``module.attr`` inside the block
+    (a device function's callers sync on its result, so this is its
+    share of the solve)."""
+
+    def __init__(self, module, attr: str):
+        self.module, self.attr, self.ms, self.n = module, attr, 0.0, 0
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.attr)
+
+        def spy(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                self.ms += (time.perf_counter() - t0) * 1000.0
+                self.n += 1
+
+        setattr(self.module, self.attr, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.real)
+
+
+def config10_rows(device: str, profile: bool = False) -> list:
+    """bench config 10 on ``device``: each shape solved under ffd and lp
+    (a cold solve, the scheduler fresh and the relax memo empty, then a
+    warm one) → one row per shape: $/hr, nodes, pods, plan digest, cold
+    and warm ms of both, the cold lp solve's pack stats, pack and relax
+    ms and dual-ascent launches, and the relaxation lower bound of the lp
+    plan; with ``profile`` a profiled cold lp solve too (the idle share)."""
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_core_tpu_torch.solver import TorchScheduler, backends, plancost
+    from karpenter_core_tpu_torch.solver.backends import lp
+
+    rows = []
+    for name, catalog, pods in config10_shapes():
+        row = {"shape": name, "pods": len(pods), "types": len(catalog)}
+        for bk in ("ffd", "lp"):
+            backends.reset_for_tests()
+            provider = FakeCloudProvider()
+            provider.instance_types = list(catalog)
+            pool = NodePool()
+            pool.metadata.name = "default"
+            solver = TorchScheduler([pool], provider, device=device)
+            before = lp.DUAL_ASCENT.launches
+            with knobs(KARPENTER_TORCH_PACK_BACKEND=bk):
+                with timed(lp, "relax") as relax:
+                    t0 = time.perf_counter()
+                    res = solver.solve(pods)
+                    solve_ms = (time.perf_counter() - t0) * 1000.0
+                if bk == "lp":
+                    row["dual_ascent_launches"] = lp.DUAL_ASCENT.launches - before
+                    row["relax_ms"] = relax.ms
+                    row["relax_share"] = relax.ms / solve_ms
+                    row["pack_ms"] = solver.last_timings["pack_ms"]
+                    row["stats"] = dict(solver.last_pack_stats)
+                t0 = time.perf_counter()
+                solver.solve(pods)  # warm: the relax memo hits, no dual ascent
+                row[f"{bk}_warm_ms"] = (time.perf_counter() - t0) * 1000.0
+                if profile and bk == "lp":
+                    # a cold lp solve under the profiler: its relaxations run again
+                    backends.reset_for_tests()
+                    row["lp_cold_profile"] = profile_solve(solver, pods)
+            row[bk] = round(res.total_price, 4)
+            row[f"{bk}_nodes"] = res.node_count
+            row[f"{bk}_pods"] = res.pods_scheduled
+            row[f"{bk}_sha"] = plan_sha256(res)
+            row[f"{bk}_ms"] = solve_ms
+            if bk == "lp":
+                row["bound"] = plancost.relaxation_lower_bound(res.node_plans, catalog, device=device)
+        rows.append(row)
+    return rows
+
+
+def check_config10(rows) -> dict:
+    """The JAX package's $/hr per shape and backend, lp <= ffd, bound <=
+    cost, the same pods scheduled under both, and the adversarial
+    saving."""
+    for r in rows:
+        want = CONFIG10_REFERENCE[r["shape"]]
+        if (r["ffd"], r["lp"]) != want:
+            fail(f"config10 {r['shape']}: $/hr {(r['ffd'], r['lp'])}, the JAX package gives {want}")
+        if r["lp"] > r["ffd"] + 1e-6:
+            fail(f"config10 {r['shape']}: lp {r['lp']} prices above ffd {r['ffd']}")
+        if r["bound"] > r["lp"] + 1e-6:
+            fail(f"config10 {r['shape']}: bound {r['bound']} above the lp plan's {r['lp']}")
+        if r["lp_pods"] != r["ffd_pods"]:
+            fail(f"config10 {r['shape']}: lp schedules {r['lp_pods']} pods, ffd {r['ffd_pods']}")
+    adv = [r for r in rows if r["shape"] != "linear-control"]
+    ffd, lp = sum(r["ffd"] for r in adv), sum(r["lp"] for r in adv)
+    saving = round((ffd - lp) / ffd * 100.0, 1)
+    if saving != CONFIG10_SAVING_PCT:
+        fail(f"config10: adversarial saving {saving} %, the JAX package's is {CONFIG10_SAVING_PCT} %")
+    return {"adversarial_ffd": round(ffd, 4), "adversarial_lp": round(lp, 4), "saving_pct": saving}
+
+
+def events_ms(fn, reps: int) -> float:
+    """CUDA events around ``reps`` back-to-back calls of ``fn`` queued
+    behind a device sleep (host enqueue hidden) → ms per call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    sleep = getattr(torch.cuda, "_sleep", None)
+    if sleep is not None:
+        sleep(DEVICE_SLEEP_CYCLES)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_row(bytes_moved: float, ops: float) -> dict:
+    b, o = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(b, o), "bound_by": "bytes" if b >= o else "operations", "bytes": bytes_moved, "ops": ops}
+
+
+def ffd_kernel_case(call, reps: int = 3) -> dict:
+    """The FFD scan kernel against its plain version on the card, on one
+    captured call (requests, frontiers, caps, k_open, n_pods), bit for
+    bit, with both times and the bound: each real pod's requests read
+    once, the frontiers once, ids and counts written once; the fit tests
+    the pods need, (K + 1) x F x R int32 compares each at most."""
+    import torch
+
+    from karpenter_core_tpu_torch.solver import pack
+
+    req, front, caps, k_open, n = (a.cuda() if hasattr(a, "cuda") else a for a in call)
+    G, P, R = req.shape
+    F = front.shape[1]
+    ids, counts = pack.ffd_pack_batched(req, front, caps, k_open, n)
+    m = int(n.max())
+    t0 = time.perf_counter()
+    plain_ids, plain_counts = pack.ffd_pack_reference(req[:, :m], front, caps, k_open)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1000.0
+    plain_ids = torch.nn.functional.pad(plain_ids, (0, P - m), value=-1)
+    if not (torch.equal(ids, plain_ids) and torch.equal(counts, plain_counts)):
+        fail(f"ffd_pack kernel differs from its plain version at G={G} P={P} F={F} R={R}")
+    pods = int(n.sum())
+    return {
+        "G": G, "P": P, "F": F, "R": R, "pods": pods, "max_abs_err": 0,
+        "kernel_ms": events_ms(lambda: pack.ffd_pack_batched(req, front, caps, k_open, n), reps),
+        "plain_ms": plain_ms,
+        **bound_row(pods * R * 4 + G * F * R * 4 + pods * 4 + G * 8, pods * (k_open + 1) * F * R),
+    }
+
+
+def existing_kernel_case(call, reps: int = 3) -> dict:
+    """The existing-node first-fit kernel against its plain version on
+    the card, bit for bit; the bound counts the node checks this data
+    needs (each pod walks the nodes up to the one it takes, all of them
+    when it fits none, R compares each)."""
+    import torch
+
+    from karpenter_core_tpu_torch.solver import pack
+
+    req, sig, compat, free = (a.cuda() for a in call)
+    P, R = req.shape
+    S, M = compat.shape
+    assign, free_out = pack.pack_existing(req, sig, compat, free)
+    t0 = time.perf_counter()
+    plain_assign, plain_free = pack.pack_existing_reference(req, sig, compat, free)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1000.0
+    if not (torch.equal(assign, plain_assign) and torch.equal(free_out, plain_free)):
+        fail(f"pack_existing kernel differs from its plain version at P={P} M={M} R={R}")
+    walked = torch.where(assign >= 0, assign + 1, torch.full_like(assign, M)).sum().item()
+    return {
+        "P": P, "M": M, "R": R, "S": S, "placed": int((assign >= 0).sum()), "max_abs_err": 0,
+        "kernel_ms": events_ms(lambda: pack.pack_existing(req, sig, compat, free), reps),
+        "plain_ms": plain_ms,
+        **bound_row(P * (R + 1) * 4 + S * M + 2 * M * R * 4 + P * 4, walked * R),
+    }
+
+
+def dual_kernel_case(call, reps: int = 5) -> dict:
+    """The dual-ascent kernel against its plain version on the card: t*
+    and has_fit equal, w within W_RTOL (tests/test_torch_lp.py). The
+    bound counts the work this data needs, not the padded shape's: the
+    real signatures (count > 0), the valid types some real signature
+    fits, and per iteration the routing over the pairs that fit (2R
+    flops each), the projection and the update of those types (4R each)
+    and the demand sums of the routed signatures (R each); the bytes
+    read the real rows and the valid mask once (1 byte per type) and
+    write the real rows of w, t* and has_fit once."""
+    import torch
+
+    from karpenter_core_tpu_torch.solver.backends import lp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reqs, counts, alloc, prices, valid, w0, iters = (a.cuda() if hasattr(a, "cuda") else a for a in call)
+    S, R = reqs.shape
+    T = alloc.shape[0]
+    w, t_star, has_fit = lp.dual_ascent(reqs, counts, alloc, prices, valid, w0, iters)
+    t0 = time.perf_counter()
+    pw, pt, ph = lp.dual_ascent_reference(reqs, counts, alloc, prices, valid, w0, iters)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1000.0
+    if not (torch.equal(t_star, pt) and torch.equal(has_fit, ph)):
+        fail(f"dual_ascent kernel's routes differ from its plain version at S={S} T={T} R={R}")
+    if not torch.allclose(w, pw, rtol=W_RTOL, atol=0.0):
+        fail(f"dual_ascent kernel's weights differ from its plain version beyond rtol {W_RTOL}")
+    real = counts > 0
+    fit = (reqs[:, None, :] <= alloc[None, :, :]).all(dim=-1) & valid[None, :] & real[:, None]
+    s_real, t_valid = int(real.sum()), int(valid.sum())
+    pairs, t_fit, s_routed = int(fit.sum()), int(fit.any(dim=0).sum()), int(fit.any(dim=1).sum())
+    flops = (iters + 1) * (pairs * 2 * R + t_fit * 4 * R) + iters * (s_routed * R + t_fit * 4 * R)
+    nbytes = s_real * (R + 1) * 4 + t_valid * (2 * R + 1) * 4 + T + t_valid * R * 4 + s_real * 5
+    return {
+        "S": S, "T": T, "R": R, "iters": iters, "s_real": s_real, "t_valid": t_valid, "pairs": pairs,
+        "max_abs_err": float((w - pw).abs().max()),
+        "bit_equal": bool(torch.equal(w, pw)),
+        "kernel_ms": events_ms(lambda: lp.dual_ascent(reqs, counts, alloc, prices, valid, w0, iters), reps),
+        "plain_ms": plain_ms,
+        **bound_row(nbytes, flops),
+    }
+
+
+W_RTOL = 1e-5  # dual weights, kernel against plain version (tests/test_torch_lp.py)
+
+
+def device_engine_path(label: str, device: str, world, solve_kw: dict, cpu_world=None) -> tuple:
+    """One device-engine path (KARPENTER_TORCH_NATIVE=0): cold and three
+    warm solves on ``device`` with the pack kernels' launches counted from
+    0, the kernels' captured inputs, the same world solved on the CPU
+    through the plain scans (``cpu_world``: a smaller world when the
+    plain scans would take too long) → (row, ffd calls, existing calls)."""
+    from karpenter_core_tpu_torch.solver import TorchScheduler, pack
+
+    pools, provider, pods = world[:3]
+    with knobs(KARPENTER_TORCH_NATIVE=0):
+        solver = TorchScheduler(pools, provider, device=device)
+        with capture(pack, "ffd_pack_batched", 64) as ffd, capture(pack, "pack_existing", 64) as ex:
+            reset_pack_launches()
+            with timed(pack, "batch_pack") as scan:
+                cold, cold_ms, warm_runs, launches = solve_runs(solver, pods, **solve_kw)
+            kernels = pack_launches()
+        # batch_pack syncs on its results: its wall time holds the scans
+        row = {"path": label, **timing_row(cold, cold_ms, warm_runs, launches), "pack_kernel_launches": kernels,
+               "batch_pack_ms_per_solve": scan.ms / 4}
+        if device == "cuda":
+            if kernels["ffd_pack"] == 0 or (solve_kw.get("state_nodes") and kernels["pack_existing"] == 0):
+                fail(f"{label}: the device engine's solves launched {kernels}")
+            row.update(profile_solve(solver, pods, **solve_kw))
+        check = cpu_world or world
+        cpu_pods = check[2]
+        ref = TorchScheduler(check[0], check[1], device="cpu")
+        t0 = time.perf_counter()
+        cpu = ref.solve(cpu_pods, **check[3]) if cpu_world else ref.solve(pods, **solve_kw)
+        row["cpu_solve_s"] = time.perf_counter() - t0
+        if cpu_world is None:
+            same_as_cpu(cold, cpu, label)
+        else:
+            res = TorchScheduler(check[0], check[1], device=device).solve(cpu_pods, **check[3])
+            same_as_cpu(res, cpu, f"{label} at {len(cpu_pods)} pods")
+            row["cpu_compare_pods"] = len(cpu_pods)
+    return row, ffd.calls, ex.calls
+
+
+def run_pack_phase(device: str = "cuda", n_pods: int = N_PODS, n_types: int = N_TYPES, n_nodes: int = N_NODES,
+                   cpu_pods: Optional[int] = None) -> dict:
+    """Phase 12 → its rows and the kernel cases."""
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.solver import TorchScheduler, backends, calibrate
+    from karpenter_core_tpu_torch.solver.backends import lp
+
+    out: dict = {"paths": [], "launches": {}}
+    # the device engine on config 3 whole and on phase 5's cluster
+    small = None
+    if cpu_pods is not None:
+        pools, provider, pods = config3_world(cpu_pods, n_types)
+        small = (pools, provider, pods, {})
+    row, ffd_calls, _ = device_engine_path(
+        "config3-device", device, config3_world(n_pods, n_types), {}, small
+    )
+    out["paths"].append(row)
+    out["launches"]["config3-device"] = row["pack_kernel_launches"]
+    cw = cluster_world(n_pods, n_types, n_nodes)
+    small = None
+    if cpu_pods is not None:
+        sw = cluster_world(cpu_pods, n_types, n_nodes)
+        small = (sw[0], sw[1], sw[2], dict(state_nodes=sw[3], daemonset_pods=sw[4]))
+    row, cluster_ffd, ex_calls = device_engine_path(
+        "cluster-device", device, cw, dict(state_nodes=cw[3], daemonset_pods=cw[4]), small
+    )
+    out["paths"].append(row)
+    out["launches"]["cluster-device"] = row["pack_kernel_launches"]
+    out["ffd_calls"], out["existing_calls"] = ffd_calls + cluster_ffd, ex_calls
+
+    # the LP backend on bench config 10 whole: the card, then the CPU
+    with capture(lp, "dual_ascent", 512) as duals:
+        reset_pack_launches()
+        rows = config10_rows(device, profile=device == "cuda")
+        out["launches"]["config10"] = pack_launches()
+    if device == "cuda":
+        cpu_rows = config10_rows("cpu")
+        for r, c in zip(rows, cpu_rows):
+            if (r["ffd_sha"], r["lp_sha"]) != (c["ffd_sha"], c["lp_sha"]):
+                fail(f"config10 {r['shape']}: the plans differ between cuda and cpu")
+        for r in rows:
+            if r["dual_ascent_launches"] == 0:
+                fail(f"config10 {r['shape']}: the lp solve launched no dual ascent")
+    out["config10"] = {"rows": rows, **check_config10(rows)}
+    # config 10's repair packs through the device scan (lp, native off)
+    with knobs(KARPENTER_TORCH_NATIVE=0):
+        reset_pack_launches()
+        dev_rows = config10_rows_device(device)
+        out["launches"]["config10-device"] = pack_launches()
+    out["config10_device"] = dev_rows
+
+    # bench config 5 whole under ffd, lp and auto (threshold pinned), at size
+    cal = calibrate.lp_calibration(device)
+    emit({"lp_calibration": cal})
+    nodepool, provider, pods = config5_world()
+    c5 = {}
+    with capture(lp, "dual_ascent", 8) as big_duals:
+        for bk in ("ffd", "lp", "auto"):
+            backends.reset_for_tests()
+            with knobs(KARPENTER_TORCH_PACK_BACKEND=bk, KARPENTER_TORCH_LP_MIN_WORK=1), timed(lp, "relax") as relax:
+                solver = TorchScheduler([nodepool], provider, device=device)
+                reset_pack_launches()
+                cold_stats = []
+                real_solve = solver.solve
+
+                def solve_and_keep_stats(*a, **kw):
+                    res = real_solve(*a, **kw)
+                    cold_stats.append(dict(solver.last_pack_stats))
+                    return res
+
+                solver.solve = solve_and_keep_stats
+                cold, cold_ms, warm_runs, launches = solve_runs(solver, pods)
+                solver.solve = real_solve
+                kernels = pack_launches()
+                row = {"path": f"config5-{bk}", **timing_row(cold, cold_ms, warm_runs, launches),
+                       "pack_kernel_launches": kernels, "pack_stats": cold_stats[0],
+                       "warm_ascent_iters": [st.get("ascent_iters", 0) for st in cold_stats[1:]],
+                       "relax_ms_4_solves": relax.ms, "relax_share": relax.ms / (cold_ms + sum(m for m, _ in warm_runs)),
+                       "plan_sha256": plan_sha256(cold)}
+                if device == "cuda":
+                    row.update(profile_solve(solver, pods))
+            if (cold.node_count, round(cold.total_price, 4)) != CONFIG5_REFERENCE:
+                fail(f"config5 {bk}: {cold.node_count} nodes at {cold.total_price}/hr, "
+                     f"the JAX package gives {CONFIG5_REFERENCE}")
+            if bk != "ffd":
+                if kernels["dual_ascent"] == 0 and device == "cuda":
+                    fail(f"config5 {bk}: no dual ascent launched")
+                if row["pack_stats"].get("ffd_kept") != 1 or row["pack_stats"].get("lp_won") != 0:
+                    fail(f"config5 {bk}: the cost guard did not keep FFD ({row['pack_stats']})")
+            c5[bk] = cold
+            out["paths"].append(row)
+            out["launches"][f"config5-{bk}"] = kernels
+    if len({plan_sha256(r) for r in c5.values()}) != 1:
+        fail("config5: ffd, lp and auto give different plans")
+    if device == "cuda":
+        with knobs(KARPENTER_TORCH_PACK_BACKEND="lp"):
+            backends.reset_for_tests()
+            cpu = TorchScheduler([nodepool], provider, device="cpu").solve(pods)
+        same_as_cpu(c5["lp"], cpu, "config5 lp")
+    out["dual_calls"] = duals.calls + big_duals.calls
+    backends.reset_for_tests()
+    return out
+
+
+def config10_rows_device(device: str) -> list:
+    """config 10 under lp with the native packer off: the FFD candidate
+    and every repair pack (one-row frontiers) through the device scan; lp
+    <= ffd's plan, and on the card the plans equal the CPU's."""
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_core_tpu_torch.solver import TorchScheduler, backends
+
+    rows = []
+    for name, catalog, pods in config10_shapes():
+        got = {}
+        for dev in (device, "cpu") if device == "cuda" else (device,):
+            for bk in ("ffd", "lp"):
+                backends.reset_for_tests()
+                provider = FakeCloudProvider()
+                provider.instance_types = list(catalog)
+                pool = NodePool()
+                pool.metadata.name = "default"
+                with knobs(KARPENTER_TORCH_PACK_BACKEND=bk):
+                    res = TorchScheduler([pool], provider, device=dev).solve(pods)
+                got[(dev, bk)] = (plan_sha256(res), round(res.total_price, 4), res.pods_scheduled)
+        if device == "cuda" and got[("cuda", "lp")] != got[("cpu", "lp")]:
+            fail(f"config10 {name} on the device scan: the plans differ between cuda and cpu")
+        if got[(device, "lp")][1] > got[(device, "ffd")][1] + 1e-6 or got[(device, "lp")][2] != got[(device, "ffd")][2]:
+            fail(f"config10 {name} on the device scan: lp {got[(device, 'lp')]} against ffd {got[(device, 'ffd')]}")
+        rows.append({"shape": name, "ffd": got[(device, "ffd")][1], "lp": got[(device, "lp")][1]})
+    return rows
+
+
+def distinct_shapes(calls) -> list:
+    """The first captured call of each distinct argument shape (tensor
+    shapes and scalar arguments), in capture order."""
+    seen, out = set(), []
+    for call in calls:
+        key = tuple(tuple(a.shape) if hasattr(a, "shape") else a for a in call)
+        if key not in seen:
+            seen.add(key)
+            out.append(call)
+    return out
+
+
+PACK_SOURCES = {
+    "ffd_pack": ("karpenter_core_tpu_torch/csrc/ffd_pack.cu", "karpenter_core_tpu/solver/pack.py:80"),
+    "pack_existing": ("karpenter_core_tpu_torch/csrc/pack_existing.cu", "karpenter_core_tpu/solver/pack.py:155"),
+    "dual_ascent": ("karpenter_core_tpu_torch/csrc/dual_ascent.cu", "karpenter_core_tpu/solver/backends/lp.py:97"),
+}
+
+
+def pack_kernel_entry(name: str, rows: list, launches: dict) -> dict:
+    """One pack kernel's entry of the kernels line: its launches on the
+    phase-12 paths, and the numbers of its largest case (by kernel
+    time), the other cases beside them."""
+    main = max(rows, key=lambda r: r["kernel_ms"])
+    by_path = {path: counts[name] for path, counts in launches.items()}
+    source, replaces = PACK_SOURCES[name]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main["kernel_ms"], "kernel_ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        # no one PyTorch call computes a sequential scan or an iterated ascent
+        "library_ms": None,
+        "cases": rows,
+    }
+
+
 def main() -> None:
     import torch
 
+    t_start = time.perf_counter()
     # 1. device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
@@ -2657,12 +3320,15 @@ def main() -> None:
 
     # 2. build, one compiler per source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         kernel_build = pool.submit(ck.COMPAT_ALLOWED.build)
         packer_build = pool.submit(native.build)
+        pack_builds = {name: pool.submit(k.build) for name, k in pack_kernels().items()}
         (kernel_lib, kernel_log), (packer_lib, _) = kernel_build.result(), packer_build.result()
+        pack_libs = {name: f.result() for name, f in pack_builds.items()}
     build_s = time.perf_counter() - t0
-    emit({"build_s": build_s, "kernel_lib": kernel_lib, "packer_lib": packer_lib})
+    emit({"build_s": build_s, "kernel_lib": kernel_lib, "packer_lib": packer_lib,
+          "pack_kernel_libs": {name: lib for name, (lib, _) in pack_libs.items()}})
     for line in kernel_log.splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
@@ -2670,6 +3336,8 @@ def main() -> None:
     emit({"ptxas": usage})
     if len(usage) != 2:
         fail(f"ptxas reported {sorted(usage)}, not both tile instantiations")
+    for name, (_, log) in pack_libs.items():
+        emit({"ptxas_" + name: [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]})
 
     # 3. kernel vs plain versions on the card
     rng = np.random.RandomState(0)
@@ -2753,6 +3421,7 @@ def main() -> None:
         sm_mhz=sm_mhz, profiled=True, clock_launches=2000,
     )
 
+    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 3"})
     # 4. the slice on the card: counts from 0 just before the main path
     solver = TorchScheduler(pools, provider, device="cuda")
     cold, cold_ms, warm_runs, slice_launches = solve_runs(solver, pods)
@@ -2802,6 +3471,33 @@ def main() -> None:
         },
         "card": card,
     }})
+
+    emit({"elapsed_s": time.perf_counter() - t_start, "before": "phase 12"})
+    # 12. the pack engines on the card: the device FFD scan and the
+    # existing-node first-fit (native packer off) on config 3 whole and on
+    # phase 5's cluster, the LP backend on bench config 10 whole and on
+    # config 5 whole (one relaxation over 2,000 types)
+    pack = run_pack_phase("cuda")
+    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 12 paths"})
+    for r in pack["paths"]:
+        emit({"phase12": r["path"], **{k: v for k, v in r.items() if k != "path"}, "card": card})
+    emit({"phase12": "config10", **{k: v for k, v in pack["config10"].items() if k != "rows"}, "card": card})
+    for r in pack["config10"]["rows"]:
+        emit({"phase12_config10_shape": r["shape"], **{k: v for k, v in r.items() if k != "shape"}})
+    emit({"phase12": "config10-device-scan", "rows": pack["config10_device"]})
+    cases = {"ffd_pack": [], "pack_existing": [], "dual_ascent": []}
+    for call in distinct_shapes(pack["ffd_calls"]):
+        cases["ffd_pack"].append(ffd_kernel_case(call))
+    for call in distinct_shapes(pack["existing_calls"]):
+        cases["pack_existing"].append(existing_kernel_case(call))
+    for call in distinct_shapes(pack["dual_calls"]):
+        cases["dual_ascent"].append(dual_kernel_case(call))
+    for name, rows in cases.items():
+        if not rows:
+            fail(f"no {name} call was captured on the main paths")
+        for row in rows:
+            emit({"pack_kernel_case": name, **row, "card": card})
+    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 12"})
 
     # the kernels line, then the last line
     paths = {
@@ -2857,7 +3553,8 @@ def main() -> None:
                     "at_relax_paths": [{k: row[k] for k in path_keys} for row in relax_rows],
                     "compat_route": slice_row["compat_route"],
                     "ptxas": usage,
-                }
+                },
+                *[pack_kernel_entry(name, cases[name], pack["launches"]) for name in cases],
             ]
         }
     )

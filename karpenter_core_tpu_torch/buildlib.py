@@ -11,13 +11,26 @@ A failed build raises with the compiler's output: there is no fallback.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import subprocess
 import tempfile
-from typing import List, Tuple
+import threading
+from typing import List, Optional, Sequence, Tuple
 
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
+CSRC = os.path.join(os.path.dirname(__file__), "csrc")
+# the CUDA toolkit's compiler where the toolkit is installed, else nvcc on PATH
+NVCC = "/usr/local/cuda/bin/nvcc" if os.path.exists("/usr/local/cuda/bin/nvcc") else "nvcc"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+]
+# a csrc/*.cu source compiled by g++ as C++: its __host__ __device__ step
+# functions behind the *_host entry point, for the CPU tests (no FMA
+# contraction, as the kernels' explicit round-to-nearest intrinsics)
+HOST_CXX = ["g++", "-x", "c++", "-O2", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
 
 
 def library_path(src: str, cmd: List[str]) -> str:
@@ -64,3 +77,56 @@ def build_shared(src: str, cmd: List[str], timeout: float = 600.0) -> Tuple[str,
         if os.path.exists(tmp):
             os.unlink(tmp)
     return path, log
+
+
+class CudaKernel:
+    """A ``csrc/*.cu`` source built by nvcc into a plain-C library, its
+    launch function bound through ctypes. ``launches`` counts every
+    launch made through ``launch`` and nowhere else."""
+
+    def __init__(self, source: str, symbol: str, argtypes: Sequence) -> None:
+        self.src = os.path.join(CSRC, source)
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    def build(self) -> Tuple[str, str]:
+        """Compile the source if needed → (library path, nvcc output)."""
+        return build_shared(self.src, [NVCC] + NVCC_FLAGS, timeout=600.0)
+
+    def lib(self) -> ctypes.CDLL:
+        """The built library, loaded once."""
+        if self._lib is None:
+            with self._lock:
+                if self._lib is None:
+                    lib = ctypes.CDLL(self.build()[0])
+                    fn = getattr(lib, self.symbol)
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = self.argtypes
+                    self._lib = lib
+        return self._lib
+
+    def launch(self, *args) -> None:
+        """Call the launch function; raise on a nonzero cudaError."""
+        err = getattr(self.lib(), self.symbol)(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} failed: cudaError {err}")
+        self.launches += 1
+
+
+def check_tensor(name: str, t, dtype, shape: tuple, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel's launch function takes."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
+def host_library(source: str) -> ctypes.CDLL:
+    """``csrc/<source>`` built by g++ as C++ (its ``*_host`` entry
+    points), for the CPU tests of a kernel's step functions."""
+    return ctypes.CDLL(build_shared(os.path.join(CSRC, source), HOST_CXX, timeout=300.0)[0])

@@ -5,7 +5,10 @@ placement depends on every earlier one, so it runs on the host in C++
 while the card computes the signature x type masks. ``pack.cc`` is
 compiled by ``g++`` at first use into the port's gitignored build
 directory (``buildlib.BUILD_DIR``), never next to the source. If it
-cannot be built, loading raises: there is no "unavailable" path.
+cannot be built, loading raises: a failed build never turns into the
+device engine. ``KARPENTER_TORCH_NATIVE=0`` (the JAX package's
+``KARPENTER_TPU_NATIVE``) makes ``available()`` false, and the pack
+engines' ``auto`` route then takes the device scans.
 """
 
 from __future__ import annotations
@@ -26,6 +29,14 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
+
+
+def available() -> bool:
+    """Whether the pack engines' ``auto`` route takes this packer: true
+    unless ``KARPENTER_TORCH_NATIVE`` is ``0`` (read per call). True does
+    not build anything; the first packer call does, and raises if it
+    cannot."""
+    return os.environ.get("KARPENTER_TORCH_NATIVE", "1") != "0"
 
 
 def build() -> Tuple[str, str]:

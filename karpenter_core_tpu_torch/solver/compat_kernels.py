@@ -29,8 +29,6 @@ the port's build directory and called through ``ctypes``.
 from __future__ import annotations
 
 import ctypes
-import os
-import threading
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -61,13 +59,6 @@ SMALL_S_MAX = 128
 # key offsets the kernel holds in shared memory (csrc MAX_KEYS)
 MAX_KEYS = 1023
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc", "compat_allowed.cu")
-# the CUDA toolkit's compiler where the toolkit is installed, else nvcc on PATH
-NVCC = "/usr/local/cuda/bin/nvcc" if os.path.exists("/usr/local/cuda/bin/nvcc") else "nvcc"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-]
 
 
 def tile_for(S: int) -> int:
@@ -332,34 +323,15 @@ def allowed_packed_reference(
 # -- the kernel ----------------------------------------------------------------
 
 
-class _CompatAllowedKernel:
+class _CompatAllowedKernel(buildlib.CudaKernel):
     """ctypes binding of ``compat_allowed_launch``; ``launches`` counts
     every launch it makes."""
 
     def __init__(self) -> None:
-        self.launches = 0
-        self._lib: Optional[ctypes.CDLL] = None
-        self._lock = threading.Lock()
-
-    def build(self) -> Tuple[str, str]:
-        """Compile the source if needed → (library path, nvcc output)."""
-        return buildlib.build_shared(SRC, [NVCC] + NVCC_FLAGS, timeout=600.0)
-
-    def lib(self) -> ctypes.CDLL:
-        """The built library, loaded once."""
-        if self._lib is not None:
-            return self._lib
-        with self._lock:
-            if self._lib is None:
-                path, _ = self.build()
-                lib = ctypes.CDLL(path)
-                lib.compat_allowed_launch.restype = ctypes.c_int
-                lib.compat_allowed_launch.argtypes = (
-                    [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6
-                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                )
-                self._lib = lib
-        return self._lib
+        super().__init__(
+            "compat_allowed.cu", "compat_allowed_launch",
+            [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+        )
 
     def launch(
         self,
@@ -394,17 +366,15 @@ class _CompatAllowedKernel:
         tile = tile_for(S) if tile is None else tile
         if tile not in TILES:
             raise ValueError(f"unknown tile shape {tile}")
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = self.lib().compat_allowed_launch(
+        super().launch(
             sig_planes.data_ptr(), catalog.planes.data_ptr(), catalog.key_off.data_ptr(),
-            S, T, W, K, sig_planes.stride(0), catalog.planes.stride(0), out.data_ptr(), tile, stream,
+            S, T, W, K, sig_planes.stride(0), catalog.planes.stride(0), out.data_ptr(), tile,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
-        if err != 0:
-            raise RuntimeError(f"compat_allowed_launch failed: cudaError {err}")
-        self.launches += 1
 
 
 COMPAT_ALLOWED = _CompatAllowedKernel()
+SRC = COMPAT_ALLOWED.src
 
 
 def allowed_via_kernel(

@@ -1,32 +1,40 @@
-"""Bin-packing, host part: K-open first-fit-decreasing on the C++ packer.
+"""Bin-packing: K-open first-fit-decreasing, on the C++ packer or the card.
 
-Counterpart of the host half of ``karpenter_core_tpu/solver/pack.py``.
-The oracle packs each pod into the open claim with the fewest pods that
-still fits (scheduler.go:247-254), where "fits" means *some* instance
-type can hold the claim's accumulated requests. A claim's viable type
-set is fully determined by its accumulated usage, so per-node state
-collapses to a usage vector checked against the Pareto frontier of the
-viable allocatable vectors.
+Counterpart of ``karpenter_core_tpu/solver/pack.py``. The oracle packs
+each pod into the open claim with the fewest pods that still fits
+(scheduler.go:247-254), where "fits" means *some* instance type can hold
+the claim's accumulated requests. A claim's viable type set is fully
+determined by its accumulated usage, so per-node state collapses to a
+usage vector checked against the Pareto frontier of the viable
+allocatable vectors.
 
-The JAX package's default route (``engine="auto"`` with the native
-library present) packs every job with its C++ packer at K=1024 open
-slots, and first-fits pods onto existing nodes with the same library;
-that is the route taken here. Its ``lax.scan`` device scans
-(``ffd_pack``/``ffd_pack_batched`` and ``pack_existing``) are not on
-this path: ``pack_existing_reference`` is the plain PyTorch version of
-the existing-node scan, for tests and the card check.
+Two engines, chosen as the JAX package chooses them (``engine=``):
+
+- ``native``: the port's C++ packer (``native/pack.cc``) at K = min(1024,
+  P) open slots, and its existing-node first-fit. ``auto`` takes it
+  unless ``KARPENTER_TORCH_NATIVE=0``.
+- ``device``: the scans on the scheduler's device at the reference's
+  K = 16 (``ffd_pack_batched``, ``pack_existing``): on a CUDA tensor the
+  Hopper kernels ``csrc/ffd_pack.cu`` and ``csrc/pack_existing.cu``, on a
+  CPU tensor their plain PyTorch versions (``ffd_pack_reference``,
+  ``pack_existing_reference``). K = 16 evicts slots the native K = 1024
+  keeps open, so the two engines' plans differ, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import ctypes
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import native
+from .. import buildlib, native
+from .backend import resolve_device
 
 INT_INF = np.int32(2**31 - 1)
+# open slots of the device scan: the JAX package's ffd_pack default
+K_OPEN = 16
 
 # open-slot bound of the native packer — the JAX package's
 # KARPENTER_TPU_K_OPEN default (pack.py:43-46): K=1024 reproduces the
@@ -93,40 +101,208 @@ def assign_cheapest_types(
 ) -> np.ndarray:
     """Per node, the cheapest viable type that holds its load — the launch
     decision the fake provider makes (fake/cloudprovider.go:105-110).
-    → (N,) int32 index into the viable-type axis, -1 if none fits."""
+    → (N,) int32 index into the viable-type axis, -1 if none fits. On the
+    C++ packer when it is on, else numpy over blocks of nodes sized so
+    the (n, T, R) transient stays near 32M elements."""
     N = node_usage.shape[0]
     if N == 0 or allocatable.shape[0] == 0:
         return np.full(N, -1, dtype=np.int32)
-    return native.cheapest_types_native(node_usage, allocatable, prices)
+    if native.available():
+        return native.cheapest_types_native(node_usage, allocatable, prices)
+    T_, R_ = allocatable.shape
+    step = max(1, min(1024, 32_000_000 // max(1, T_ * R_)))
+    best = np.empty(N, dtype=np.int32)
+    for s in range(0, N, step):
+        blk = node_usage[s : s + step]
+        fits = np.all(blk[:, None, :] <= allocatable[None, :, :], axis=-1)  # (n, T)
+        priced = np.where(fits, prices[None, :], np.inf)
+        b = np.argmin(priced, axis=1).astype(np.int32)
+        b[~fits.any(axis=1)] = -1
+        best[s : s + step] = b
+    return best
 
 
-def batch_pack(jobs: List[tuple]) -> List[Tuple[np.ndarray, int]]:
-    """Pack every (requests, frontier, max_per_node) job with the native
-    packer at K = min(NATIVE_K_OPEN, P) → [(node_ids, node_count)]
-    aligned with ``jobs``."""
-    return [
-        native.ffd_pack_native(
-            reqs, frontier, int(cap), k_open=max(1, min(NATIVE_K_OPEN, reqs.shape[0]))
+# -- the device FFD scan ---------------------------------------------------------
+
+FFD_PACK = buildlib.CudaKernel(
+    "ffd_pack.cu", "ffd_pack_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [ctypes.c_void_p] * 3
+)
+
+
+def ffd_pack_reference(
+    requests: torch.Tensor,  # (G, P, R) int32, each job sorted descending by primary
+    frontiers: torch.Tensor,  # (G, F, R) int32
+    caps: torch.Tensor,  # (G,) int32 per-node pod caps
+    k_open: int = K_OPEN,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the device scan, all jobs side by side,
+    one pod step at a time on the tensors' device: the JAX package's
+    ``ffd_pack`` step, in int32 and, for the slot key, float32.
+    → (node_ids (G, P) int32, -1 ⇒ unschedulable; node counts (G,))."""
+    G, P, R = requests.shape
+    dev = requests.device
+    rows = torch.arange(G, device=dev)
+    usage = torch.full((G, k_open, R), int(INT_INF), dtype=torch.int32, device=dev)
+    count = torch.zeros((G, k_open), dtype=torch.int32, device=dev)
+    node_id = torch.full((G, k_open), -1, dtype=torch.int32, device=dev)
+    next_id = torch.zeros(G, dtype=torch.int32, device=dev)
+    out = torch.full((G, P), -1, dtype=torch.int32, device=dev)
+    caps = caps.to(torch.int32)[:, None]
+    fmax0 = frontiers.max(dim=1).values[:, 0]
+    tiny = torch.tensor(1e-7, dtype=torch.float32, device=dev)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    int_inf = torch.tensor(int(INT_INF), dtype=torch.int32, device=dev)
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    minus_one = -one
+    for p in range(P):
+        req = requests[:, p]  # (G, R)
+        active = node_id >= 0
+        # usage <= frontier - req: no int32 overflow on the INT_INF rows
+        remaining = frontiers - req[:, None, :]
+        fit = (usage[:, :, None, :] <= remaining[:, None, :, :]).all(-1).any(-1)
+        fit = fit & active & (count < caps)
+        fresh = (req[:, None, :] <= frontiers).all(-1).any(-1)
+        # fewest pods first, ties to the oldest node, in float32
+        key = torch.where(fit, count.to(torch.float32) + node_id.to(torch.float32) * tiny, inf)
+        k_star = key.argmin(dim=1)
+        any_fit = fit[rows, k_star]
+        headroom = torch.where(active, fmax0[:, None] - usage[:, :, 0], int_inf)
+        k_evict = headroom.argmin(dim=1)
+        k_closed = (~active).to(torch.uint8).argmax(dim=1)
+        k_new = torch.where(active.all(dim=1), k_evict, k_closed)
+        k_sel = torch.where(any_fit, k_star, k_new)
+        open_new = ~any_fit & fresh
+        do_update = any_fit | open_new
+        sel_usage = usage[rows, k_sel]
+        new_usage = torch.where(any_fit[:, None], sel_usage + req, req)
+        new_count = torch.where(any_fit, count[rows, k_sel] + one, one)
+        new_id = torch.where(any_fit, node_id[rows, k_sel], next_id)
+        usage[rows, k_sel] = torch.where(do_update[:, None], new_usage, sel_usage)
+        count[rows, k_sel] = torch.where(do_update, new_count, count[rows, k_sel])
+        node_id[rows, k_sel] = torch.where(do_update, new_id, node_id[rows, k_sel])
+        next_id = next_id + open_new.to(torch.int32)
+        out[:, p] = torch.where(do_update, new_id, minus_one)
+    return out, next_id
+
+
+def ffd_pack_batched(
+    requests: torch.Tensor,  # (G, P, R) int32
+    frontiers: torch.Tensor,  # (G, F, R) int32
+    caps: torch.Tensor,  # (G,) int32
+    k_open: int = K_OPEN,
+    n_pods: Optional[torch.Tensor] = None,  # (G,) int32 real pods per job
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Counterpart of ``ffd_pack_batched``: every job's scan, one launch
+    of ``csrc/ffd_pack.cu`` on a CUDA tensor (or a raise), the plain
+    version on a CPU tensor. ``n_pods`` are the jobs' real pod counts:
+    the pods past them must be padding (requests above the frontier
+    max), which the reference scans and the kernel skips."""
+    G, P, R = requests.shape
+    dev = requests.device
+    if n_pods is None:
+        n_pods = torch.full((G,), P, dtype=torch.int32, device=dev)
+    if dev.type == "cpu":
+        n = int(n_pods.max()) if G else 0
+        ids, counts = ffd_pack_reference(requests[:, :n], frontiers, caps, k_open)
+        return torch.nn.functional.pad(ids, (0, P - n), value=-1), counts
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    F = frontiers.shape[1]
+    buildlib.check_tensor("requests", requests, torch.int32, (G, P, R), dev)
+    buildlib.check_tensor("frontiers", frontiers, torch.int32, (G, F, R), dev)
+    buildlib.check_tensor("caps", caps, torch.int32, (G,), dev)
+    buildlib.check_tensor("n_pods", n_pods, torch.int32, (G,), dev)
+    node_ids = torch.empty((G, P), dtype=torch.int32, device=dev)
+    counts = torch.empty(G, dtype=torch.int32, device=dev)
+    if G:
+        FFD_PACK.launch(
+            requests.data_ptr(), frontiers.data_ptr(), caps.data_ptr(), n_pods.data_ptr(),
+            G, P, F, R, k_open, node_ids.data_ptr(), counts.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
-        for reqs, frontier, cap in jobs
-    ]
+    return node_ids, counts
 
 
-def run_pack_existing(
-    requests: np.ndarray,  # (P, R) int32, sorted descending by primary
-    sig_ids: np.ndarray,  # (P,) int32
-    compat: np.ndarray,  # (S, M) uint8/bool signature x node admissibility
-    free: np.ndarray,  # (M, R) int32 free capacity, nodes in try order
-) -> Tuple[np.ndarray, np.ndarray]:
-    """First-fit pods onto existing nodes in fixed node order on the
-    native packer (the reference tries in-flight/real nodes before any
-    new claim, scheduler.go:241-246) → (assign (P,) int32 node index or
-    -1, remaining free (M, R)). ``free`` is not modified."""
-    if requests.shape[0] == 0 or free.shape[0] == 0:
-        return np.full(requests.shape[0], -1, dtype=np.int32), free
-    free = np.array(free, dtype=np.int32, order="C")
-    assign, _ = native.pack_existing_native(requests, sig_ids, compat, free)
-    return assign, free
+def ffd_pack(
+    requests: torch.Tensor,  # (P, R) int32, sorted descending by primary
+    frontier: torch.Tensor,  # (F, R) int32
+    max_pods_per_node: int,
+    k_open: int = K_OPEN,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One job's scan → (node_ids (P,) int32, node count ())."""
+    cap = torch.tensor([max_pods_per_node], dtype=torch.int32, device=requests.device)
+    ids, counts = ffd_pack_batched(requests[None], frontier[None], cap, k_open)
+    return ids[0], counts[0]
+
+
+def _pad_class(p: int) -> int:
+    """Scan-length size classes: powers of two up to 4096, then 4096
+    multiples — a small job never inherits the biggest job's scan length."""
+    if p <= 4096:
+        return max(128, 1 << (p - 1).bit_length())
+    return -(-p // 4096) * 4096
+
+
+def batch_pack(jobs: List[tuple], engine: str = "auto", device=None) -> List[Tuple[np.ndarray, int]]:
+    """Pack every (requests, frontier, max_per_node) job → [(node_ids,
+    node_count)] aligned with ``jobs``.
+
+    ``auto`` takes the C++ packer at K = min(1024, P) unless
+    ``KARPENTER_TORCH_NATIVE=0`` turns it off, then the device scan;
+    ``native`` requires the C++ packer; ``device`` runs the scan at K =
+    16 on ``device`` (None: the card), one launch per (size class, width)
+    class: stateful jobs carry host-port columns, so one solve can hold
+    jobs of several widths. Each job's padding pods exceed its own
+    frontier max, so they emit -1 without touching state."""
+    if not jobs:
+        return []
+    if engine in ("auto", "native"):
+        if native.available():
+            return [
+                native.ffd_pack_native(
+                    reqs, frontier, int(cap), k_open=max(1, min(NATIVE_K_OPEN, reqs.shape[0]))
+                )
+                for reqs, frontier, cap in jobs
+            ]
+        if engine == "native":
+            raise RuntimeError("native packer requested but KARPENTER_TORCH_NATIVE=0")
+    elif engine != "device":
+        raise ValueError(f"unknown pack engine {engine!r} (auto | native | device)")
+    dev = resolve_device(device)
+    F_pad = 1 << max((max(len(j[1]) for j in jobs) - 1).bit_length(), 0)
+    classes: dict = {}
+    for g, job in enumerate(jobs):
+        classes.setdefault((_pad_class(job[0].shape[0]), job[0].shape[1]), []).append(g)
+    results: list = [None] * len(jobs)
+    for (p_pad, R), members in classes.items():
+        G = len(members)
+        requests = np.zeros((G, p_pad, R), dtype=np.int32)
+        frontiers = np.zeros((G, F_pad, R), dtype=np.int32)
+        caps = np.zeros(G, dtype=np.int32)
+        n_pods = np.zeros(G, dtype=np.int32)
+        for slot, g in enumerate(members):
+            reqs, frontier, cap = jobs[g]
+            requests[slot, :, :] = frontier.max(axis=0) + 1  # padding: unschedulable
+            requests[slot, : reqs.shape[0]] = reqs
+            frontiers[slot, : len(frontier)] = frontier
+            caps[slot] = min(int(cap), int(INT_INF))
+            n_pods[slot] = reqs.shape[0]
+        node_ids, counts = ffd_pack_batched(
+            torch.from_numpy(requests).to(dev), torch.from_numpy(frontiers).to(dev),
+            torch.from_numpy(caps).to(dev), K_OPEN, torch.from_numpy(n_pods).to(dev),
+        )
+        node_ids, counts = node_ids.cpu().numpy(), counts.cpu().numpy()  # one sync per class
+        for slot, g in enumerate(members):
+            results[g] = (node_ids[slot, : jobs[g][0].shape[0]], int(counts[slot]))
+    return results
+
+
+# -- the existing-node first-fit -------------------------------------------------
+
+PACK_EXISTING = buildlib.CudaKernel(
+    "pack_existing.cu", "pack_existing_launch",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 3,
+)
 
 
 def pack_existing_reference(
@@ -155,3 +331,75 @@ def pack_existing_reference(
         free.index_add_(0, m.view(1), (-req * found).view(1, -1))
         assign[p] = torch.where(found, m.to(torch.int32), minus_one)
     return assign, free
+
+
+def pack_existing(
+    requests: torch.Tensor,  # (P, R) int32, sorted descending by primary
+    sig_ids: torch.Tensor,  # (P,) int32
+    compat: torch.Tensor,  # (S, M) uint8
+    free: torch.Tensor,  # (M, R) int32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Counterpart of ``pack_existing``: one launch of
+    ``csrc/pack_existing.cu`` on CUDA tensors (or a raise), the plain
+    version on CPU tensors → (assign (P,) int32, remaining free (M, R))."""
+    dev = free.device
+    if dev.type == "cpu":
+        return pack_existing_reference(requests, sig_ids, compat, free)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    P, R = requests.shape
+    S, M = compat.shape
+    buildlib.check_tensor("requests", requests, torch.int32, (P, R), dev)
+    buildlib.check_tensor("sig_ids", sig_ids, torch.int32, (P,), dev)
+    buildlib.check_tensor("compat", compat, torch.uint8, (S, M), dev)
+    buildlib.check_tensor("free", free, torch.int32, (M, R), dev)
+    assign = torch.empty(P, dtype=torch.int32, device=dev)
+    free_out = torch.empty((M, R), dtype=torch.int32, device=dev)
+    if P == 0 or M == 0:
+        assign.fill_(-1)
+        free_out.copy_(free)
+        return assign, free_out
+    PACK_EXISTING.launch(
+        requests.data_ptr(), sig_ids.data_ptr(), compat.data_ptr(), free.data_ptr(),
+        P, R, S, M, free_out.data_ptr(), assign.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    return assign, free_out
+
+
+def run_pack_existing(
+    requests: np.ndarray,  # (P, R) int32, sorted descending by primary
+    sig_ids: np.ndarray,  # (P,) int32
+    compat: np.ndarray,  # (S, M) uint8/bool signature x node admissibility
+    free: np.ndarray,  # (M, R) int32 free capacity, nodes in try order
+    engine: str = "auto",
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """First-fit pods onto existing nodes in fixed node order (the
+    reference tries in-flight/real nodes before any new claim,
+    scheduler.go:241-246) → (assign (P,) int32 node index or -1,
+    remaining free (M, R)). ``free`` is not modified. Engines as in
+    ``batch_pack``."""
+    if requests.shape[0] == 0 or free.shape[0] == 0:
+        return np.full(requests.shape[0], -1, dtype=np.int32), free
+    if engine in ("auto", "native"):
+        if native.available():
+            free = np.array(free, dtype=np.int32, order="C")
+            assign, _ = native.pack_existing_native(requests, sig_ids, compat, free)
+            return assign, free
+        if engine == "native":
+            raise RuntimeError("native packer requested but KARPENTER_TORCH_NATIVE=0")
+    elif engine != "device":
+        raise ValueError(f"unknown pack engine {engine!r} (auto | native | device)")
+    dev = resolve_device(device)
+    S = compat.shape[0]
+    sig_ids = np.ascontiguousarray(sig_ids, dtype=np.int32)
+    if sig_ids.size and (sig_ids.min() < 0 or sig_ids.max() >= S):
+        raise ValueError(f"sig_ids out of range for {S} signatures")
+    assign, free_out = pack_existing(
+        torch.from_numpy(np.ascontiguousarray(requests, dtype=np.int32)).to(dev),
+        torch.from_numpy(sig_ids).to(dev),
+        torch.from_numpy(np.ascontiguousarray(compat, dtype=np.uint8)).to(dev),
+        torch.from_numpy(np.ascontiguousarray(free, dtype=np.int32)).to(dev),
+    )
+    return assign.cpu().numpy(), free_out.cpu().numpy()

@@ -15,7 +15,8 @@ its tensor path:
   host:   PersistentVolume and StorageClass zone pins join the node
           affinity of volume-bearing pods (VolumeTopology.inject)
   host:   signature-group pods → first-fit onto existing nodes
-          (existing_node_compat → native/pack.cc), free capacity net of
+          (existing_node_compat → native/pack.cc, or with
+          KARPENTER_TORCH_NATIVE=0 csrc/pack_existing.cu on the card), free capacity net of
           the daemons each node still has to run, nodes holding a pod a
           non-self anti-affinity term counts masked out; topology-
           constrained groups wait for their domains; host-port and
@@ -33,11 +34,16 @@ its tensor path:
           zone self-anti-affinity groups take one pod per free zone, then
           class-merged and zone-pinned pack jobs (new nodes carry their
           pool's daemonset overhead and per-node pod caps; host ports
-          are extra request and frontier columns) → C++
-          first-fit-decreasing pack (native/pack.cc) → cheapest
+          are extra request and frontier columns) → the pack backend
+          (backends/: ffd, lp or auto, KARPENTER_TORCH_PACK_BACKEND):
+          first-fit-decreasing on the C++ packer (native/pack.cc), or
+          with KARPENTER_TORCH_NATIVE=0 the FFD scan kernel on the card
+          (csrc/ffd_pack.cu); the lp backend adds the dual-ascent kernel
+          (csrc/dual_ascent.cu), repair packs and a cost guard → cheapest
           type/offering per node → cross-group merge of underfull nodes
           under each side's per-node hostname limits and host ports
-          (merge.py) → NodePlans, stripped where a NodePool limit is
+          (merge.py; a merge of an LP-chosen node may not raise its
+          price) → NodePlans, stripped where a NodePool limit is
           exceeded
   host:   the pod-affinity post-pass: parked groups one at a time in
           anchor-dependency order, each against the placements committed
@@ -62,11 +68,14 @@ JAX package's ``kube_client``); the port has no cluster-state object, no
 warm store and no tracer, so seeds are recounted on every solve and
 nothing is memoized across solves but the catalog encodings. Features
 of the JAX package the port lacks raise NotImplementedError naming
-them: a cluster-state object (``cluster``) and an event recorder. The
-port reads no environment variable: the JAX package's defaults it depends on
-are module constants (pack.NATIVE_K_OPEN, compat_kernels.COMPAT_TILE_BYTES,
-the vector merge engine, the ffd pack backend with the native engine,
-the tensor constraint engine).
+them: a cluster-state object (``cluster``) and an event recorder. Three
+pack knobs are read as the JAX package reads their ``KARPENTER_TPU_*``
+twins (``KARPENTER_TORCH_PACK_BACKEND``, ``_NATIVE``, ``_LP_MIN_WORK``);
+its other defaults the port depends on are module constants
+(pack.NATIVE_K_OPEN, compat_kernels.COMPAT_TILE_BYTES, lp.LP_ITERS,
+lp.LP_REFINE_ROUNDS, lp.LP_BRANCH_K, plancost.COST_WEIGHTS, the
+``lprelax`` cap in incremental, the vector merge engine, the tensor
+constraint engine).
 """
 
 from __future__ import annotations
@@ -99,7 +108,7 @@ from ..scheduling.requirements import (
     pod_requirements,
 )
 from ..scheduling.volumes import Volumes
-from . import podcache
+from . import backends, plancost, podcache
 from .backend import resolve_device
 from .compat_kernels import DeviceCatalog, allowed_via_kernel, catalog_to_device, signature_side
 from .constraint_tensors import (
@@ -133,9 +142,9 @@ from .encode import (
 )
 from .kernels import build_compat_inputs, zone_ct_masks
 from .merge import merge_records_vector
+from .incremental import CacheStats
 from .pack import (
     assign_cheapest_types,
-    batch_pack,
     node_usage_from_assignment,
     pareto_frontier,
     run_pack_existing,
@@ -164,8 +173,9 @@ MAX_INT32 = 2**31 - 1
 # group (pod memos + signature grouping), existing (existing-node compat,
 # free capacity and the first-fit onto existing nodes), encode (catalog
 # and signature encode, daemonset overhead, the compat kernel and its
-# sync), prepare (pool choice and class-merged pack jobs), pack (the C++
-# packer), finalize (usage, cheapest type and offering per node), merge
+# sync), prepare (pool choice and class-merged pack jobs), pack (the pack
+# backend: the C++ packer or the FFD scan kernel, and the LP's relaxations
+# and repair packs), finalize (usage, cheapest type and offering per node), merge
 # (the cross-group merge and its emit), limits (NodePool remaining
 # limits, their type masks and the enforcement after each pack round),
 # affinity (the pod-affinity post-pass), relax (the preference-relaxation
@@ -501,6 +511,9 @@ class JobSkeleton:
     off_zone: list
     off_ct: list
     off_price: np.ndarray
+    # True when the LP backend's cost guard chose this partition over
+    # FFD's: merges of these nodes must not raise plan cost
+    cost_guard: bool = False
 
 
 class _DeviceClock:
@@ -688,6 +701,15 @@ class TorchScheduler:
         self._relax_rounds = 0
         self._relax_retried: set = set()
         self.last_merge_stats: Optional[Dict[str, object]] = None
+        # the pack backend's outcome in the most recent solve (which
+        # backend, LP guard wins, relaxation bound sums, refinement and
+        # branch counters), its relax-memo hits, and the multi-objective
+        # report of its new plans (None when it emitted none)
+        self.last_pack_stats: Optional[Dict[str, object]] = None
+        self.last_cache_stats: Optional[dict] = None
+        self.last_pareto: Optional[dict] = None
+        self._pack_backend_stats: Dict[str, object] = {}
+        self._cstats = CacheStats()
         # whether the last solve's post-pass ran a second time with the
         # reseed guard on (_affinity_postpass)
         self.last_reseed_redo = False
@@ -752,6 +774,8 @@ class TorchScheduler:
                 **{f"{name}_ms": ms for name, ms in self._phase_ms.items()},
             }
             self.last_merge_stats = dict(self._merge_stats)
+            self.last_pack_stats = dict(self._pack_backend_stats)
+            self.last_cache_stats = self._cstats.to_dict()
 
     @contextmanager
     def _phase(self, name: str):
@@ -782,6 +806,9 @@ class TorchScheduler:
             "merge_candidates_screened": 0,
             "merge_pairs_applied": 0,
         }
+        self._pack_backend_stats = {}
+        self._cstats = CacheStats()
+        self.last_pareto = None
         with self._phase("group"):
             # PV and StorageClass zone pins join volume-bearing pods' node
             # affinity before the memo read, so grouping and the compat
@@ -853,6 +880,9 @@ class TorchScheduler:
                 self._solve_oracle(
                     oracle_pods, self._copies(state_nodes), daemonset_pods, result
                 )
+        if result.node_plans:
+            # reporting only: computed after the plans are final
+            self.last_pareto = plancost.pareto_report(result.node_plans)
         return result
 
     def _copies(self, state_nodes: list) -> list:
@@ -1313,7 +1343,7 @@ class TorchScheduler:
         reqs = build_requests_matrix_ids(self._req_ids[pod_idx], axis, self._req_map)
         order = np.lexsort((-reqs[:, 1], -reqs[:, 0]))
         pod_idx, sig_ids, reqs = pod_idx[order], sig_ids[order], reqs[order]
-        assign, free_out = run_pack_existing(reqs, sig_ids, compat, free)
+        assign, free_out = run_pack_existing(reqs, sig_ids, compat, free, device=self.device)
         self._existing_ctx["free"] = np.ascontiguousarray(free_out, dtype=np.int32)
 
         by_node: Dict[int, List[int]] = {}
@@ -1389,7 +1419,8 @@ class TorchScheduler:
             free_ext = np.ascontiguousarray(np.hstack(cols), dtype=np.int32)
             reqs_ext = np.ascontiguousarray(np.hstack(req_cols), dtype=np.int32)
             assign, free_out = run_pack_existing(
-                reqs_ext, np.zeros(len(idx), dtype=np.int32), row[None, :].astype(np.uint8), free_ext
+                reqs_ext, np.zeros(len(idx), dtype=np.int32), row[None, :].astype(np.uint8), free_ext,
+                device=self.device,
             )
             # the shared state keeps the resource columns only
             ctx["free"] = np.ascontiguousarray(free_out[:, : free.shape[1]], dtype=np.int32)
@@ -2367,7 +2398,8 @@ class TorchScheduler:
             return part
         reqs = build_requests_matrix_ids(self._req_ids[part], ctx["axis"], self._req_map)
         assign, free_out = run_pack_existing(
-            reqs, np.zeros(len(part), dtype=np.int32), mask[None, :].astype(np.uint8), ctx["free"]
+            reqs, np.zeros(len(part), dtype=np.int32), mask[None, :].astype(np.uint8), ctx["free"],
+            device=self.device,
         )
         ctx["free"] = np.ascontiguousarray(free_out, dtype=np.int32)
         placed = assign >= 0
@@ -3253,7 +3285,8 @@ class TorchScheduler:
             return idx
         reqs = build_requests_matrix_ids(self._req_ids[idx], ctx["axis"], self._req_map)
         assign, free_out = run_pack_existing(
-            reqs, np.zeros(len(idx), dtype=np.int32), mask[None, :].astype(np.uint8), ctx["free"]
+            reqs, np.zeros(len(idx), dtype=np.int32), mask[None, :].astype(np.uint8), ctx["free"],
+            device=self.device,
         )
         ctx["free"] = np.ascontiguousarray(free_out, dtype=np.int32)
         placed = assign >= 0
@@ -3415,21 +3448,60 @@ class TorchScheduler:
         records: List[dict],
         merge_all: Optional[bool] = None,
     ) -> None:
-        """Pack every job on the native packer, then finalize in job
-        order."""
+        """Pack every job through the active pack backend (ffd | lp |
+        auto, ``KARPENTER_TORCH_PACK_BACKEND``), then finalize in job
+        order. The backend only decides the pod→node partition; pricing
+        and finalize are backend-agnostic."""
+        backend = backends.active_backend()
         with self._phase("pack"):
-            packed = batch_pack(jobs)
+            # backend.lock spans the call and the reads of its per-call
+            # outputs: a concurrent solve on the shared singleton must not
+            # overwrite last_stats/last_job_flags between them
+            with backend.lock:
+                packed = (
+                    backend.pack_jobs(jobs, metas, device=self.device, stats=self._cstats)
+                    if jobs
+                    else []
+                )
+                self._observe_pack_backend(backend, bool(jobs))
+                # True where the LP partition won: those jobs' merge
+                # records are cost-guarded
+                flags = list(getattr(backend, "last_job_flags", ()) or ())
+        if len(flags) != len(jobs):
+            flags = [False] * len(jobs)
         if merge_all is None:
             # small plans: every node joins the merge pass (the oracle
             # back-fills leftover space on full nodes too); large plans:
             # only underfull tails
             merge_all = sum(int(count) for _, count in packed) <= 256
         with self._phase("finalize"):
-            for meta, (node_ids, node_count) in zip(metas, packed):
-                skel = self._job_skeleton(meta, node_ids, int(node_count))
+            for meta, (node_ids, node_count), guard in zip(metas, packed, flags):
+                skel = self._job_skeleton(meta, node_ids, int(node_count), cost_guard=guard)
                 self._emit_skeleton(meta, skel, pods, result, records, merge_all)
 
-    def _job_skeleton(self, meta: dict, node_ids: np.ndarray, node_count: int) -> JobSkeleton:
+    def _observe_pack_backend(self, backend, dispatched: bool) -> None:
+        """The pack backend's per-call outcome (LP guard wins, relaxation
+        bound sum, refinement and branch counters) summed into this
+        solve's ``last_pack_stats``."""
+        stats = getattr(backend, "last_stats", None) if dispatched else None
+        acc = self._pack_backend_stats
+        acc["backend"] = backend.name
+        if not stats:
+            return
+        for k in (
+            "jobs", "lp_won", "ffd_kept", "ffd_kept_cold", "ffd_kept_refined", "refine_rounds",
+            "refine_accepted", "branches_considered", "branches_pruned", "branches_explored",
+            "branches_won", "ascent_iters",
+        ):
+            if k in stats:
+                acc[k] = acc.get(k, 0) + int(stats[k])
+        for k in ("lp_bound_sum", "lp_saved_per_hr"):
+            if k in stats:
+                acc[k] = round(acc.get(k, 0.0) + float(stats[k]), 6)
+
+    def _job_skeleton(
+        self, meta: dict, node_ids: np.ndarray, node_count: int, cost_guard: bool = False
+    ) -> JobSkeleton:
         """The finalize computation for one packed job, positional over
         the job's size-sorted pod order."""
         reqs, enc = meta["reqs"], meta["enc"]
@@ -3444,7 +3516,7 @@ class TorchScheduler:
                 np.zeros(0, dtype=bool), np.zeros(0, dtype=bool),
                 np.zeros((0, R), dtype=np.int64),
                 alloc.max(axis=0) if alloc.size else np.zeros(R, np.int32),
-                z, z, [], [], np.zeros(0),
+                z, z, [], [], np.zeros(0), cost_guard,
             )
         usage = node_usage_from_assignment(reqs, node_ids, node_count)
         chosen_types = assign_cheapest_types(usage, alloc, _job_prices(meta))
@@ -3460,6 +3532,14 @@ class TorchScheduler:
         usage64 = usage.astype(np.int64)
         ok = chosen_types >= 0
         underfull = np.all(usage64 * 2 <= alloc_cap.astype(np.int64)[None, :], axis=1)
+        if cost_guard:
+            # LP-chosen partitions: a node is a merge candidate only when
+            # it is underfull for its chosen type — the LP sizes nodes for
+            # cheap small types, and fullness against the biggest viable
+            # type would send every such node through a merge the cost
+            # guard then rejects pair by pair
+            chosen_alloc = alloc[np.maximum(chosen_types, 0)].astype(np.int64)
+            underfull = ok & np.all(usage64 * 2 <= chosen_alloc, axis=1)
         ok_nodes = np.flatnonzero(ok)
         ok_ord = np.full(node_count, -1, dtype=np.int64)
         ok_ord[ok_nodes] = np.arange(ok_nodes.size)
@@ -3485,6 +3565,7 @@ class TorchScheduler:
             off_zone=off_zone,
             off_ct=off_ct,
             off_price=off_price,
+            cost_guard=bool(cost_guard),
         )
 
     def _emit_skeleton(
@@ -3512,7 +3593,7 @@ class TorchScheduler:
         viable_bool[meta["viable_idx"]] = True
         if meta["no_merge"]:
             to_record = np.zeros(skel.node_count, dtype=bool)
-        elif merge_all:
+        elif merge_all and not skel.cost_guard:
             to_record = skel.ok.copy()
         else:
             to_record = skel.ok & skel.underfull
@@ -3552,6 +3633,8 @@ class TorchScheduler:
                     node_ports = sorted({t for p in pos_slice for t in port_sets[int(p)]})
                     if node_ports:
                         rec["ports"] = tuple(node_ports)
+                if skel.cost_guard:
+                    rec["_cost_guard"] = True
                 records.append(rec)
                 continue
             o = int(skel.ok_ord[n])
@@ -3716,6 +3799,16 @@ class TorchScheduler:
         off_ok = enc.offering_avail[:, zmask][:, :, ct_ok].any(axis=(1, 2))
         if not (fits & off_ok).any():
             return False
+        # cost guard: when either side's partition was chosen by the LP
+        # backend for its price, the merged node may not cost more than
+        # the two nodes it replaces (FFD records never carry the flag)
+        guarded = bool(m.get("_cost_guard") or r.get("_cost_guard"))
+        merged_price: Optional[float] = None
+        if guarded:
+            pm = np.where(fits & off_ok, _offering_pmin(enc, zmask, ct_ok), np.inf)
+            merged_price = float(pm.min())
+            if merged_price > self._record_price(m) + self._record_price(r) + 1e-9:
+                return False
         combined = Requirements(*m["merged"].values_list())
         combined.add(*r["merged"].values_list())
         # merge the per-selector count caches additively BEFORE the
@@ -3750,7 +3843,32 @@ class TorchScheduler:
         m["_limit_counts"] = counts
         if m_ports or r_ports:
             m["ports"] = tuple(sorted(set(m_ports or ()) | set(r_ports or ())))
+        if guarded:
+            m["_cost_guard"] = True
+            m["_price"] = merged_price
+        else:
+            m.pop("_price", None)
         return True
+
+    def _record_price(self, rec: dict) -> float:
+        """The price this record would emit at: cheapest offering of the
+        cheapest viable type that holds its usage, under its own zone and
+        capacity-type masks (the _emit_record choice), cached on the
+        record — the merge guard prices each side once."""
+        p = rec.get("_price")
+        if p is not None:
+            return p
+        enc = rec["enc"]
+        zmask = rec["zone_ok"]
+        if rec["zone"] is not None:
+            zmask = np.zeros(len(enc.zones), dtype=bool)
+            zmask[enc.zones.index(rec["zone"])] = True
+        alloc = self._alloc_full(enc, rec["daemon"])
+        fits = rec["viable"] & np.all(rec["usage"][None, :] <= alloc, axis=1)
+        prices = np.where(fits, _offering_pmin(enc, zmask, rec["ct_ok"]), np.inf)
+        p = float(prices.min()) if prices.size else float("inf")
+        rec["_price"] = p
+        return p
 
     def _record_limit_count(self, record: dict, sel, ns: str, pods: List[Pod]) -> int:
         """Members of a merge record matching (sel, ns), cached on the

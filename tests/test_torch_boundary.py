@@ -1,12 +1,18 @@
 """The port stands alone: no ``jax`` and nothing of ``karpenter_core_tpu``.
 
 An AST scan of every module of ``karpenter_core_tpu_torch`` and of
-``chip_smoke.py`` finds no such import (nor any environment read: the
-port has no knobs yet), and a port solve against a live cluster
-(existing node, daemonset, NodePool limit), whose batch also reaches
-the greedy fallback (soft pod anti-affinity) and a preference-relaxation
-round (an impossible preferred zone), runs in a fresh interpreter under
-a meta-path hook that raises on importing either.
+``chip_smoke.py`` finds no such import, and no environment read but of
+the port's three knobs (``KNOBS``, never the JAX package's
+``KARPENTER_TPU_*``; its other defaults are module constants); only
+``chip_smoke.py`` sets knobs (for its phases).
+A port solve against a live cluster (existing node, daemonset, NodePool
+limit), whose batch also reaches the greedy fallback (soft pod
+anti-affinity) and a preference-relaxation round (an impossible
+preferred zone), then the same batch through the ``auto`` pack backend
+with the native packer off (LP routing, the dual ascent's plain version,
+the device scans' plain versions) and the LP routing calibration, runs in
+a fresh interpreter under a meta-path hook that raises on importing
+either.
 """
 
 from __future__ import annotations
@@ -43,26 +49,66 @@ def test_sources_found():
                    "preferences.py", "topology.py"):
         assert os.path.join(PORT_DIR, "scheduler", module) in srcs
     assert os.path.join(PORT_DIR, "solver", "oracle_bridge.py") in srcs
+    for module in ("pack.py", "plancost.py", "incremental.py", "calibrate.py",
+                   os.path.join("backends", "__init__.py"), os.path.join("backends", "lp.py")):
+        assert os.path.join(PORT_DIR, "solver", module) in srcs
+    assert os.path.join(PORT_DIR, "native", "__init__.py") in srcs
     assert os.path.exists(os.path.join(REPO, "chip_smoke.py"))
     assert len(srcs) > 20
 
 
+# the port's environment knobs: the pack backend, the native packer's
+# switch and the auto backend's threshold override
+KNOBS = ("KARPENTER_TORCH_PACK_BACKEND", "KARPENTER_TORCH_NATIVE", "KARPENTER_TORCH_LP_MIN_WORK")
+
+
+def _docstrings(tree) -> set:
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                out.add(id(first.value))
+    return out
+
+
+def _is_environ(node) -> bool:
+    return isinstance(node, ast.Attribute) and node.attr == "environ"
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_no_forbidden_import_or_env_read(path):
+    """No forbidden import; every knob-like literal or keyword is one of
+    ``KNOBS``, environment reads name one by a literal (chip_smoke.py's
+    knob setter reads back the keywords it was given); only
+    chip_smoke.py writes the environment."""
     tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    docs = _docstrings(tree)
+    script = os.path.basename(path) == "chip_smoke.py"
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             bad = [a.name for a in node.names if _forbidden(a.name)]
             assert not bad, f"{path}:{node.lineno} imports {bad}"
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             assert not _forbidden(node.module or ""), f"{path}:{node.lineno} imports {node.module}"
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs:
+            if node.value.startswith("KARPENTER_") and node.value.replace("_", "").isalnum():
+                assert node.value in KNOBS, f"{path}:{node.lineno} names {node.value}"
+        elif isinstance(node, ast.keyword) and (node.arg or "").startswith("KARPENTER_"):
+            assert node.arg in KNOBS, f"{path}:{node.lineno} sets {node.arg}"
         elif isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
-            if node.func.attr == "getenv" or (
-                isinstance(node.func.value, ast.Attribute) and node.func.value.attr == "environ"
-            ):
-                pytest.fail(f"{path}:{node.lineno} reads the environment")
-        elif isinstance(node, ast.Subscript) and isinstance(node.value, ast.Attribute):
-            assert node.value.attr != "environ", f"{path}:{node.lineno} reads the environment"
+            if node.func.attr == "getenv":
+                pytest.fail(f"{path}:{node.lineno} reads the environment through getenv")
+            if _is_environ(node.func.value):
+                if node.func.attr in ("pop", "setdefault", "update", "clear"):
+                    assert script, f"{path}:{node.lineno} writes the environment"
+                elif node.args and isinstance(node.args[0], ast.Constant):
+                    key = node.args[0].value
+                    assert key in KNOBS, f"{path}:{node.lineno} reads {key}"
+                else:
+                    assert script, f"{path}:{node.lineno} reads the environment by a variable"
+        elif isinstance(node, ast.Subscript) and _is_environ(node.value):
+            assert script, f"{path}:{node.lineno} indexes the environment"
 
 
 _SCRIPT = r"""
@@ -142,6 +188,15 @@ res = solver.solve(pods, state_nodes=[sn], daemonset_pods=[ds])
 assert res.existing_plans, "nothing landed on the existing node"
 assert res.oracle_results is not None and solver.last_route_stats["oracle"] == 6
 assert solver.last_relax_stats["rounds"] >= 1 and solver.last_relax_stats["pods_placed"] == 3
+# the pack seam: auto (every job routed to the LP lane) on the device scans
+import os
+from karpenter_core_tpu_torch.solver import calibrate
+
+os.environ.update(KARPENTER_TORCH_PACK_BACKEND="auto", KARPENTER_TORCH_NATIVE="0", KARPENTER_TORCH_LP_MIN_WORK="1")
+res2 = solver.solve(pods, state_nodes=[sn], daemonset_pods=[ds])
+assert solver.last_pack_stats["backend"] == "auto" and solver.last_pack_stats["ascent_iters"] > 0
+assert res2.pods_scheduled + len(res2.pod_errors) == 90
+assert calibrate.lp_calibration("cpu")["lp_min_job_work"] >= 1024
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "karpenter_core_tpu"))
 print(json.dumps({"scheduled": res.pods_scheduled, "errors": len(res.pod_errors), "nodes": res.node_count, "leaked": leaked}))
 """

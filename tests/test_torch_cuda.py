@@ -254,3 +254,154 @@ def test_affinity_solve_on_card_matches_cpu(cuda):
     assert res.pod_errors == cpu.pod_errors
     smoke.check_cluster(res, pods, nodes, daemons, missing, spill=False)
     assert sorted(smoke.check_anti(res, pods, kube)["quorum_by_zone"].values()) == [1, 1, 1]
+
+
+# -- the pack engines: the FFD scan, the existing-node first-fit, the dual ascent --
+
+
+def _ffd_class(seed, G, P, F, R, cap, lo=1, hi=60):
+    """A padded class of FFD jobs as ``batch_pack`` builds it (sentinel
+    padding pods past each job's pods)."""
+    rng = np.random.RandomState(seed)
+    req = np.zeros((G, P, R), np.int32)
+    front = rng.randint(50, 400, size=(G, F, R)).astype(np.int32)
+    n = rng.randint(1, P + 1, size=G).astype(np.int32)
+    for g in range(G):
+        r = rng.randint(lo, hi, size=(n[g], R)).astype(np.int32)
+        req[g] = front[g].max(axis=0) + 1
+        req[g, : n[g]] = r[np.argsort(-r[:, 0], kind="stable")]
+    return req, front, np.full(G, cap, np.int32), n
+
+
+@pytest.mark.parametrize(
+    "seed,G,P,F,R,cap,k_open",
+    [(0, 1, 1, 1, 1, 110, 16), (1, 5, 300, 7, 3, 7, 16), (2, 64, 512, 32, 4, 110, 16),
+     (3, 3, 600, 2, 2, 2**31 - 1, 16), (4, 4, 200, 4, 9, 2, 32), (5, 2, 100, 3, 3, 110, 1)],
+)
+def test_ffd_pack_kernel_matches_plain_version(cuda, seed, G, P, F, R, cap, k_open):
+    from karpenter_core_tpu_torch.solver import pack
+
+    arrays = _ffd_class(seed, G, P, F, R, cap, hi=120 if seed == 3 else 60)
+    req, front, caps, n = (torch.from_numpy(a).to(cuda) for a in arrays)
+    before = pack.FFD_PACK.launches
+    ids, counts = pack.ffd_pack_batched(req, front, caps, k_open, n)
+    torch.cuda.synchronize()
+    assert pack.FFD_PACK.launches - before == 1
+    plain_ids, plain_counts = pack.ffd_pack_reference(req, front, caps, k_open)
+    assert torch.equal(ids, plain_ids) and torch.equal(counts, plain_counts)
+    cpu_ids, cpu_counts = pack.ffd_pack_reference(*(torch.from_numpy(a) for a in arrays[:3]), k_open)
+    assert torch.equal(ids.cpu(), cpu_ids) and torch.equal(counts.cpu(), cpu_counts)
+
+
+@pytest.mark.parametrize("seed,P,M,S,R", [(0, 1, 1, 1, 1), (1, 300, 40, 5, 3), (2, 2000, 1100, 6, 4), (3, 500, 3000, 4, 20)])
+def test_pack_existing_kernel_matches_plain_version(cuda, seed, P, M, S, R):
+    from karpenter_core_tpu_torch.solver import pack
+
+    rng = np.random.RandomState(seed)
+    req = torch.from_numpy(rng.randint(1, 40, size=(P, R)).astype(np.int32)).to(cuda)
+    sig = torch.from_numpy(rng.randint(0, S, size=P).astype(np.int32)).to(cuda)
+    compat = torch.from_numpy((rng.rand(S, M) < 0.6).astype(np.uint8)).to(cuda)
+    free = torch.from_numpy(rng.randint(0, 200, size=(M, R)).astype(np.int32)).to(cuda)
+    before = pack.PACK_EXISTING.launches
+    assign, out = pack.pack_existing(req, sig, compat, free)
+    torch.cuda.synchronize()
+    assert pack.PACK_EXISTING.launches - before == 1
+    plain_assign, plain_free = pack.pack_existing_reference(req, sig, compat, free)
+    assert torch.equal(assign, plain_assign) and torch.equal(out, plain_free)
+    assert torch.equal(free, torch.from_numpy(np.asarray(free.cpu())).to(cuda))  # input untouched
+
+
+@pytest.mark.parametrize("seed,S,T,R,iters", [(0, 1, 1, 1, 8), (1, 8, 64, 3, 160), (2, 37, 300, 5, 160), (3, 16, 2048, 6, 160), (4, 64, 2048, 12, 40)])
+def test_dual_ascent_kernel_matches_plain_version(cuda, seed, S, T, R, iters):
+    """t* and has_fit exactly; w within the rtol of tests/test_torch_lp.py
+    (both sum in the same order, so they agree bit for bit in practice).
+    T = 2048 with R = 12 takes the global-scratch layout."""
+    from karpenter_core_tpu_torch.solver.backends import lp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(seed)
+    Sp, Tp = max(8, 1 << (S - 1).bit_length()), max(8, 1 << (T - 1).bit_length())
+    reqs = np.zeros((Sp, R), np.float32)
+    reqs[:S] = rng.randint(1, 200, size=(S, R))
+    counts = np.zeros(Sp, np.float32)
+    counts[:S] = rng.randint(1, 50, size=S)
+    alloc = np.zeros((Tp, R), np.float32)
+    alloc[:T] = rng.randint(100, 4000, size=(T, R))
+    prices = np.full(Tp, np.float32(1e12), np.float32)
+    prices[:T] = rng.rand(T) * 10 + 0.5
+    valid = np.zeros(Tp, bool)
+    valid[:T] = rng.rand(T) < 0.9
+    w0 = (1.0 / np.maximum(alloc, 1.0)).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda) for a in (reqs, counts, alloc, prices, valid, w0)]
+    before = lp.DUAL_ASCENT.launches
+    w, t_star, has_fit = lp.dual_ascent(*args, iters)
+    torch.cuda.synchronize()
+    assert lp.DUAL_ASCENT.launches - before == 1
+    pw, pt, ph = lp.dual_ascent_reference(*args, iters)
+    assert torch.equal(t_star, pt) and torch.equal(has_fit, ph)
+    assert torch.allclose(w, pw, rtol=1e-5, atol=0.0)
+    cw, ct, ch = lp.dual_ascent_reference(*(torch.from_numpy(a) for a in (reqs, counts, alloc, prices, valid, w0)), iters)
+    assert torch.equal(t_star.cpu(), ct) and torch.equal(has_fit.cpu(), ch)
+    assert torch.allclose(w.cpu(), cw, rtol=1e-5, atol=0.0)
+
+
+def test_pack_wrappers_reject_bad_inputs(cuda):
+    from karpenter_core_tpu_torch.solver import pack
+    from karpenter_core_tpu_torch.solver.backends import lp
+
+    req = torch.ones((1, 4, 2), dtype=torch.int64, device=cuda)
+    front = torch.ones((1, 1, 2), dtype=torch.int32, device=cuda)
+    caps = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="requests"):
+        pack.ffd_pack_batched(req, front, caps)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        pack.ffd_pack_batched(req.to(torch.int32), front, caps, k_open=40)
+    with pytest.raises(ValueError, match="compat"):
+        pack.pack_existing(
+            torch.ones((2, 2), dtype=torch.int32, device=cuda), torch.zeros(2, dtype=torch.int32, device=cuda),
+            torch.ones((1, 3), dtype=torch.bool, device=cuda), torch.ones((3, 2), dtype=torch.int32, device=cuda),
+        )
+    f = lambda *shape: torch.ones(shape, dtype=torch.float32, device=cuda)  # noqa: E731
+    with pytest.raises(RuntimeError, match="cudaError"):
+        lp.dual_ascent(f(8, 17), f(8), f(8, 17), f(8), torch.ones(8, dtype=torch.bool, device=cuda), f(8, 17), 8)
+
+
+def test_device_engine_and_lp_solves_on_card_match_cpu(cuda, monkeypatch):
+    """The device engine (native packer off) on a small cluster and the LP
+    backend on two config-10 shapes, on the card: each launches its
+    kernels and equals its CPU solve."""
+    from karpenter_core_tpu_torch.solver import TorchScheduler, backends, pack
+    from karpenter_core_tpu_torch.solver.backends import lp
+
+    smoke = _smoke()
+    monkeypatch.setenv("KARPENTER_TORCH_NATIVE", "0")
+    pools, provider, pods, nodes, daemons, missing = smoke.cluster_world(2000, 120, 40)
+    kw = dict(state_nodes=nodes, daemonset_pods=daemons)
+    before = (pack.FFD_PACK.launches, pack.PACK_EXISTING.launches)
+    res = TorchScheduler(pools, provider, device="cuda").solve(pods, **kw)
+    assert pack.FFD_PACK.launches > before[0] and pack.PACK_EXISTING.launches > before[1]
+    cpu = TorchScheduler(pools, provider, device="cpu").solve(pods, **kw)
+    assert smoke.plan_stream(res) == smoke.plan_stream(cpu)
+    assert smoke.existing_stream(res) == smoke.existing_stream(cpu)
+    assert res.pod_errors == cpu.pod_errors
+    smoke.check_cluster(res, pods, nodes, daemons, missing)
+    monkeypatch.delenv("KARPENTER_TORCH_NATIVE")
+    monkeypatch.setenv("KARPENTER_TORCH_PACK_BACKEND", "lp")
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider
+
+    for name, catalog, pods in smoke.config10_shapes()[:4:3]:
+        got = []
+        for dev in ("cuda", "cpu"):
+            backends.reset_for_tests()
+            provider = FakeCloudProvider()
+            provider.instance_types = list(catalog)
+            pool = NodePool()
+            pool.metadata.name = "default"
+            before = lp.DUAL_ASCENT.launches
+            res = TorchScheduler([pool], provider, device=dev).solve(pods)
+            if dev == "cuda":
+                assert lp.DUAL_ASCENT.launches - before == 3  # one relax, two refinements
+            got.append((smoke.plan_sha256(res), round(res.total_price, 4)))
+        assert got[0] == got[1]
+        assert got[0][1] == smoke.CONFIG10_REFERENCE[name][1]
