@@ -128,7 +128,9 @@ Phases, in order; any failure exits non-zero:
    Then every distinct captured call of each pack kernel against its
    plain version on the card (B5 and B6 bit for bit, B7's routes exactly
    and weights within ``W_RTOL``) with ``kernel_ms`` (events around
-   queued launches), the plain version's time and ``bound_ms``.
+   queued launches), the plain version's time and ``bound_ms``; for the
+   two scans also ``step_us``, the time of one pod step (over the
+   longest job's pods for B5, over all pods for B6).
 
 Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
 shapes of phases 8–11 too, and the three pack kernels), and the last
@@ -2977,7 +2979,9 @@ def ffd_kernel_case(call, reps: int = 3) -> dict:
     captured call (requests, frontiers, caps, k_open, n_pods), bit for
     bit, with both times and the bound: each real pod's requests read
     once, the frontiers once, ids and counts written once; the fit tests
-    the pods need, (K + 1) x F x R int32 compares each at most."""
+    the pods need, (K + 1) x F x R int32 compares each at most.
+    ``step_us``: the kernel's time over the longest job's pods (the
+    jobs run side by side)."""
     import torch
 
     from karpenter_core_tpu_torch.solver import pack
@@ -2995,9 +2999,10 @@ def ffd_kernel_case(call, reps: int = 3) -> dict:
     if not (torch.equal(ids, plain_ids) and torch.equal(counts, plain_counts)):
         fail(f"ffd_pack kernel differs from its plain version at G={G} P={P} F={F} R={R}")
     pods = int(n.sum())
+    kernel_ms = events_ms(lambda: pack.ffd_pack_batched(req, front, caps, k_open, n), reps)
     return {
-        "G": G, "P": P, "F": F, "R": R, "pods": pods, "max_abs_err": 0,
-        "kernel_ms": events_ms(lambda: pack.ffd_pack_batched(req, front, caps, k_open, n), reps),
+        "G": G, "P": P, "F": F, "R": R, "pods": pods, "longest_job": m, "max_abs_err": 0,
+        "kernel_ms": kernel_ms, "step_us": kernel_ms * 1000.0 / max(m, 1),
         "plain_ms": plain_ms,
         **bound_row(pods * R * 4 + G * F * R * 4 + pods * 4 + G * 8, pods * (k_open + 1) * F * R),
     }
@@ -3007,7 +3012,8 @@ def existing_kernel_case(call, reps: int = 3) -> dict:
     """The existing-node first-fit kernel against its plain version on
     the card, bit for bit; the bound counts the node checks this data
     needs (each pod walks the nodes up to the one it takes, all of them
-    when it fits none, R compares each)."""
+    when it fits none, R compares each). ``step_us``: the kernel's time
+    over the pods."""
     import torch
 
     from karpenter_core_tpu_torch.solver import pack
@@ -3023,11 +3029,59 @@ def existing_kernel_case(call, reps: int = 3) -> dict:
     if not (torch.equal(assign, plain_assign) and torch.equal(free_out, plain_free)):
         fail(f"pack_existing kernel differs from its plain version at P={P} M={M} R={R}")
     walked = torch.where(assign >= 0, assign + 1, torch.full_like(assign, M)).sum().item()
+    kernel_ms = events_ms(lambda: pack.pack_existing(req, sig, compat, free), reps)
     return {
         "P": P, "M": M, "R": R, "S": S, "placed": int((assign >= 0).sum()), "max_abs_err": 0,
-        "kernel_ms": events_ms(lambda: pack.pack_existing(req, sig, compat, free), reps),
+        "kernel_ms": kernel_ms, "step_us": kernel_ms * 1000.0 / max(P, 1),
         "plain_ms": plain_ms,
         **bound_row(P * (R + 1) * 4 + S * M + 2 * M * R * 4 + P * 4, walked * R),
+    }
+
+
+def synthetic_scan_calls(seed: int = 0) -> dict:
+    """Scan calls at shapes a solve gives but phase 12's paths do not,
+    from a seed, each (label, call): the stateful widths (cpu, memory and
+    pods, then host-port columns holding 1 and CSI-driver volume columns
+    holding 16, a pod asking for each with chance 0.05 and 0.3), which
+    take B5's shared-memory rows and B6's wide register path, and a
+    cluster past 4,096 nodes, which takes B6's generic path."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+
+    def columns(shape, R, free_lo, free_hi):
+        free = np.zeros(shape + (R,), np.int32)
+        free[..., 0] = rng.randint(free_lo[0], free_hi[0], shape)
+        free[..., 1] = rng.randint(free_lo[1], free_hi[1], shape)
+        free[..., 2] = 110
+        for r in range(3, R):
+            free[..., r] = 1 if r % 2 else 16
+        return free
+
+    def pods(shape, R):
+        req = np.zeros(shape + (R,), np.int32)
+        req[..., 0] = rng.randint(100, 2000, shape)
+        req[..., 1] = rng.randint(128, 4096, shape)
+        req[..., 2] = 1
+        for r in range(3, R):
+            req[..., r] = rng.rand(*shape) < (0.05 if r % 2 else 0.3)
+        return req
+
+    def existing(P, M, R, S):
+        compat = (rng.rand(S, M) < 0.7).astype(np.uint8) if S > 1 else np.ones((1, M), np.uint8)
+        arrays = (pods((P,), R), rng.randint(0, S, P).astype(np.int32), compat,
+                  columns((M,), R, (4000, 16000), (64000, 256000)))
+        return tuple(torch.from_numpy(a) for a in arrays)
+
+    G, P, R = 4, 4096, 12
+    req = pods((G, P), R)
+    req = req[np.arange(G)[:, None], np.argsort(-req[..., 0], axis=1, kind="stable")]
+    ffd = (torch.from_numpy(req), torch.from_numpy(columns((G, 3), R, (8000, 32000), (64000, 256000))),
+           torch.full((G,), 110, dtype=torch.int32), 16, torch.full((G,), P, dtype=torch.int32))
+    return {
+        "ffd_pack": [("stateful width 12", ffd)],
+        "pack_existing": [("stateful width 12, 1,000 nodes", existing(10_000, 1000, 12, 1)),
+                          ("5,000 nodes", existing(10_000, 5000, 3, 4))],
     }
 
 
@@ -3271,7 +3325,7 @@ def pack_kernel_entry(name: str, rows: list, launches: dict) -> dict:
     """One pack kernel's entry of the kernels line: its launches on the
     phase-12 paths, and the numbers of its largest case (by kernel
     time), the other cases beside them."""
-    main = max(rows, key=lambda r: r["kernel_ms"])
+    main = max((r for r in rows if "synthetic" not in r), key=lambda r: r["kernel_ms"])
     by_path = {path: counts[name] for path, counts in launches.items()}
     source, replaces = PACK_SOURCES[name]
     return {
@@ -3282,6 +3336,7 @@ def pack_kernel_entry(name: str, rows: list, launches: dict) -> dict:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         # no one PyTorch call computes a sequential scan or an iterated ascent
         "library_ms": None,
+        **({"step_us": main["step_us"]} if "step_us" in main else {}),
         "cases": rows,
     }
 
@@ -3337,7 +3392,10 @@ def main() -> None:
     if len(usage) != 2:
         fail(f"ptxas reported {sorted(usage)}, not both tile instantiations")
     for name, (_, log) in pack_libs.items():
-        emit({"ptxas_" + name: [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]})
+        emit({"ptxas_" + name: [
+            line.strip() for line in log.splitlines()
+            if "entry function" in line or "registers" in line or "spill" in line
+        ]})
 
     # 3. kernel vs plain versions on the card
     rng = np.random.RandomState(0)
@@ -3495,6 +3553,10 @@ def main() -> None:
     for name, rows in cases.items():
         if not rows:
             fail(f"no {name} call was captured on the main paths")
+    scan_case = {"ffd_pack": ffd_kernel_case, "pack_existing": existing_kernel_case}
+    for name, calls in synthetic_scan_calls().items():
+        cases[name] += [{"synthetic": label, **scan_case[name](call)} for label, call in calls]
+    for name, rows in cases.items():
         for row in rows:
             emit({"pack_kernel_case": name, **row, "card": card})
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 12"})

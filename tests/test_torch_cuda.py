@@ -273,15 +273,11 @@ def _ffd_class(seed, G, P, F, R, cap, lo=1, hi=60):
     return req, front, np.full(G, cap, np.int32), n
 
 
-@pytest.mark.parametrize(
-    "seed,G,P,F,R,cap,k_open",
-    [(0, 1, 1, 1, 1, 110, 16), (1, 5, 300, 7, 3, 7, 16), (2, 64, 512, 32, 4, 110, 16),
-     (3, 3, 600, 2, 2, 2**31 - 1, 16), (4, 4, 200, 4, 9, 2, 32), (5, 2, 100, 3, 3, 110, 1)],
-)
-def test_ffd_pack_kernel_matches_plain_version(cuda, seed, G, P, F, R, cap, k_open):
+def _ffd_kernel_check(cuda, arrays, k_open):
+    """One launch of the FFD kernel on a padded class, bit for bit against
+    the plain version on the card and on the CPU → (ids, counts)."""
     from karpenter_core_tpu_torch.solver import pack
 
-    arrays = _ffd_class(seed, G, P, F, R, cap, hi=120 if seed == 3 else 60)
     req, front, caps, n = (torch.from_numpy(a).to(cuda) for a in arrays)
     before = pack.FFD_PACK.launches
     ids, counts = pack.ffd_pack_batched(req, front, caps, k_open, n)
@@ -291,24 +287,125 @@ def test_ffd_pack_kernel_matches_plain_version(cuda, seed, G, P, F, R, cap, k_op
     assert torch.equal(ids, plain_ids) and torch.equal(counts, plain_counts)
     cpu_ids, cpu_counts = pack.ffd_pack_reference(*(torch.from_numpy(a) for a in arrays[:3]), k_open)
     assert torch.equal(ids.cpu(), cpu_ids) and torch.equal(counts.cpu(), cpu_counts)
+    return ids.cpu().numpy(), counts.cpu().numpy()
 
 
-@pytest.mark.parametrize("seed,P,M,S,R", [(0, 1, 1, 1, 1), (1, 300, 40, 5, 3), (2, 2000, 1100, 6, 4), (3, 500, 3000, 4, 20)])
-def test_pack_existing_kernel_matches_plain_version(cuda, seed, P, M, S, R):
+@pytest.mark.parametrize(
+    "seed,G,P,F,R,cap,k_open",
+    [(0, 1, 1, 1, 1, 110, 16), (1, 5, 300, 7, 3, 7, 16), (2, 64, 512, 32, 4, 110, 16),
+     (3, 3, 600, 2, 2, 2**31 - 1, 16), (4, 4, 200, 4, 9, 2, 32), (5, 2, 100, 3, 3, 110, 1)],
+)
+def test_ffd_pack_kernel_matches_plain_version(cuda, seed, G, P, F, R, cap, k_open):
+    _ffd_kernel_check(cuda, _ffd_class(seed, G, P, F, R, cap, hi=120 if seed == 3 else 60), k_open)
+
+
+def _ffd_key_ties():
+    """Ones onto a 300 x 300 frontier: counts in the hundreds and ids past
+    16 round to equal float32 keys, which tie to the lower slot."""
+    req = np.ones((2, 6000, 2), np.int32)
+    front = np.full((2, 1, 2), 300, np.int32)
+    return req, front, np.array([2**31 - 1, 250], np.int32), np.full(2, 6000, np.int32)
+
+
+def _ffd_eviction_tie():
+    """Every pod needs a node of its own and every open slot has the same
+    headroom: the evicted slot is the first of the least."""
+    req = np.zeros((3, 96, 2), np.int32)
+    req[:, :, 0] = np.repeat([70, 60], 48)[None]
+    req[:, :, 1] = 10
+    n = np.array([96, 95, 33], np.int32)
+    for g in range(3):
+        req[g, n[g] :] = 101  # padding: above the frontier
+    front = np.full((3, 1, 2), 100, np.int32)
+    return req, front, np.array([110, 2**31 - 1, 1], np.int32), n
+
+
+# edge cases of the warp-per-job design, each (arrays, k_open)
+FFD_EDGE_CASES = {
+    "key-ties-at-large-counts": lambda: (_ffd_key_ties(), 16),
+    "eviction-tie": lambda: (_ffd_eviction_tie(), 16),
+    "cap-1": lambda: (_ffd_class(30, 4, 300, 3, 3, 1), 16),
+    "cap-int-inf": lambda: (_ffd_class(31, 4, 600, 2, 2, 2**31 - 1, lo=40, hi=120), 16),
+    "frontier-40-rows": lambda: (_ffd_class(32, 3, 400, 40, 3, 110), 16),
+    "frontier-64-rows": lambda: (_ffd_class(33, 2, 300, 64, 4, 110), 32),
+    "width-12": lambda: (_ffd_class(34, 5, 250, 3, 12, 110), 16),
+    "width-20": lambda: (_ffd_class(35, 5, 250, 3, 20, 110), 16),
+    "jobs-5-ragged": lambda: (_ffd_class(36, 5, 500, 4, 3, 110), 16),
+    "jobs-7-ragged": lambda: (_ffd_class(37, 7, 129, 2, 5, 7), 16),
+    "pods-333": lambda: (_ffd_class(38, 1, 333, 3, 3, 110), 16),
+    "k-1": lambda: (_ffd_class(39, 3, 200, 3, 3, 110), 1),
+    "k-4": lambda: (_ffd_class(40, 3, 300, 3, 3, 110, lo=40, hi=120), 4),
+    "k-32": lambda: (_ffd_class(41, 3, 700, 3, 3, 110, lo=40, hi=120), 32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FFD_EDGE_CASES))
+def test_ffd_pack_kernel_edge_cases(cuda, case):
+    arrays, k_open = FFD_EDGE_CASES[case]()
+    ids, counts = _ffd_kernel_check(cuda, arrays, k_open)
+    if case == "eviction-tie":
+        assert (counts > 32).all()
+    if case == "key-ties-at-large-counts":
+        assert (ids >= 16).any()
+
+
+def _existing_kernel_check(cuda, arrays):
+    """One launch of the first-fit kernel, bit for bit against the plain
+    version on the card → assign (numpy)."""
     from karpenter_core_tpu_torch.solver import pack
 
-    rng = np.random.RandomState(seed)
-    req = torch.from_numpy(rng.randint(1, 40, size=(P, R)).astype(np.int32)).to(cuda)
-    sig = torch.from_numpy(rng.randint(0, S, size=P).astype(np.int32)).to(cuda)
-    compat = torch.from_numpy((rng.rand(S, M) < 0.6).astype(np.uint8)).to(cuda)
-    free = torch.from_numpy(rng.randint(0, 200, size=(M, R)).astype(np.int32)).to(cuda)
+    req, sig, compat, free = (torch.from_numpy(a).to(cuda) for a in arrays)
     before = pack.PACK_EXISTING.launches
     assign, out = pack.pack_existing(req, sig, compat, free)
     torch.cuda.synchronize()
     assert pack.PACK_EXISTING.launches - before == 1
     plain_assign, plain_free = pack.pack_existing_reference(req, sig, compat, free)
     assert torch.equal(assign, plain_assign) and torch.equal(out, plain_free)
-    assert torch.equal(free, torch.from_numpy(np.asarray(free.cpu())).to(cuda))  # input untouched
+    assert torch.equal(free.cpu(), torch.from_numpy(arrays[3]))  # input untouched
+    return assign.cpu().numpy()
+
+
+def _existing_arrays(seed, P, M, S, R, p_compat=0.6, free_hi=200):
+    rng = np.random.RandomState(seed)
+    req = rng.randint(1, 40, size=(P, R)).astype(np.int32)
+    sig = rng.randint(0, S, size=P).astype(np.int32)
+    compat = (rng.rand(S, M) < p_compat).astype(np.uint8)
+    free = rng.randint(0, free_hi, size=(M, R)).astype(np.int32)
+    return req, sig, compat, free
+
+
+@pytest.mark.parametrize("seed,P,M,S,R", [(0, 1, 1, 1, 1), (1, 300, 40, 5, 3), (2, 2000, 1100, 6, 4), (3, 500, 3000, 4, 20)])
+def test_pack_existing_kernel_matches_plain_version(cuda, seed, P, M, S, R):
+    _existing_kernel_check(cuda, _existing_arrays(seed, P, M, S, R))
+
+
+# edge cases of the one-barrier design: several nodes per thread on each
+# register path and its edges (4,096 nodes at 4 axes, 2,048 at 16), the
+# generic path past them and past 64 signatures, pods that fit nowhere,
+# ragged chunks
+EXISTING_EDGE_CASES = {
+    "narrow-4096-nodes": lambda: _existing_arrays(58, 700, 4096, 4, 4),
+    "wide-2048-nodes-16-axes": lambda: _existing_arrays(59, 700, 2048, 3, 16),
+    "generic-2049-nodes-16-axes": lambda: _existing_arrays(60, 700, 2049, 3, 16),
+    "wide-5-axes-1-signature": lambda: _existing_arrays(61, 900, 1000, 1, 5),
+    "nodes-2500": lambda: _existing_arrays(50, 1500, 2500, 4, 3),
+    "nodes-5000-wide": lambda: _existing_arrays(51, 800, 5000, 3, 10),
+    "signatures-100": lambda: _existing_arrays(52, 1200, 700, 100, 3),
+    "signatures-80-free-in-device-memory": lambda: _existing_arrays(53, 600, 30_000, 80, 4),
+    "fit-nowhere": lambda: _existing_arrays(54, 400, 600, 4, 3, p_compat=0.0),
+    "full-nodes": lambda: _existing_arrays(55, 400, 600, 4, 3, free_hi=1),
+    "pods-257": lambda: _existing_arrays(56, 257, 900, 5, 3),
+    "pods-1000": lambda: _existing_arrays(57, 1000, 200, 5, 6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXISTING_EDGE_CASES))
+def test_pack_existing_kernel_edge_cases(cuda, case):
+    assign = _existing_kernel_check(cuda, EXISTING_EDGE_CASES[case]())
+    if case in ("fit-nowhere", "full-nodes"):
+        assert (assign == -1).all()
+    else:
+        assert (assign >= 0).any()
 
 
 @pytest.mark.parametrize("seed,S,T,R,iters", [(0, 1, 1, 1, 8), (1, 8, 64, 3, 160), (2, 37, 300, 5, 160), (3, 16, 2048, 6, 160), (4, 64, 2048, 12, 40)])

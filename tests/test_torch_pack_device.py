@@ -11,13 +11,17 @@ numpy-seeded jobs:
 - the plain FFD scan and ``batch_pack(engine="device")`` against the JAX
   package's ``ffd_pack_batched`` and ``batch_pack(engine="device")``:
   ragged P and F in one batch, per-node caps, unschedulable pods, slot
-  eviction past 16 open nodes, stateful extra columns, and the bench
-  engine shootout's 64 jobs x 512 pods x 4 axes with 32-row frontiers
+  eviction past 16 open nodes and eviction ties, float32 key ties at
+  large counts, closed slots after an eviction, stateful extra columns
+  (widths 5, 12 and 20), frontiers past 32 rows, and the bench engine
+  shootout's 64 jobs x 512 pods x 4 axes with 32-row frontiers
   (``bench.py:2565-2568``);
 - the plain first-fit and ``run_pack_existing(engine="device")`` against
-  the JAX ``pack_existing`` scan;
-- each kernel's step functions, the ``.cu`` source built by g++ as C++
-  (``ffd_pack_host``, ``pack_existing_host``), against the same;
+  the JAX ``pack_existing`` scan, on each of the kernel's paths;
+- each kernel's step, the ``.cu`` source built by g++ as C++
+  (``ffd_pack_host``, ``pack_existing_host``: the card's lane and thread
+  functions, each warp collective a loop over the lanes), against the
+  same;
 - a whole solve on the device engine against ``TPUScheduler`` with its
   native packer off, alone and against a small cluster: plans, existing
   plans and errors identical;
@@ -141,7 +145,56 @@ def _shootout(seed):
     return jobs
 
 
+def _key_ties(seed):
+    # counts in the hundreds and node ids past 16: count + id * 1e-7
+    # rounds to equal float32 keys, which must tie to the lower slot
+    del seed
+    reqs = np.ones((3000, 2), np.int32)
+    front = np.array([[300, 300]], np.int32)
+    return [(reqs, front, np.int32(2**31 - 1)), (reqs, front, np.int32(250))]
+
+
+def _eviction_tie(seed):
+    # every pod needs a node of its own and the slots' headrooms tie: the
+    # evicted slot is the first of the least
+    rng = np.random.RandomState(seed)
+    reqs = np.sort(rng.choice([60, 70], size=(90, 1)), axis=0)[::-1]
+    reqs = np.hstack([reqs, np.full_like(reqs, 10)]).astype(np.int32)
+    return [(reqs, np.array([[100, 100]], np.int32), np.int32(110))]
+
+
+def _closed_after_eviction(seed):
+    # a job that evicts, then in the same batch jobs that open closed
+    # slots in order (cap 1 forces a node per pod) and fill them again
+    rng = np.random.RandomState(seed)
+    evict = _job(rng, 300, 2, 2, 2**31 - 1, lo=40, hi=120, front=(200, 260))
+    capped = _job(rng, 10, 2, 2, 1)
+    return [evict, capped, _job(rng, 50, 3, 2, 4)]
+
+
+def _wide(seed, extra):
+    # stateful widths: port-feature columns past the base axes
+    rng = np.random.RandomState(seed)
+    jobs = []
+    for _ in range(3):
+        reqs, frontier, cap = _job(rng, int(rng.randint(40, 200)), 3, 3, 110)
+        ports = (rng.rand(len(reqs), extra) < 0.2).astype(np.int32)
+        jobs.append((np.hstack([reqs, ports]), np.hstack([frontier, np.ones((3, extra), np.int32)]), cap))
+    return jobs
+
+
+def _wide_frontier(seed):
+    rng = np.random.RandomState(seed)
+    return [_job(rng, 333, 40, 3, 110, front=(30, 400)), _job(rng, 65, 33, 3, 7, front=(30, 400))]
+
+
 FFD_CASES = {
+    "key-ties-at-large-counts": lambda: _key_ties(0),
+    "eviction-tie": lambda: _eviction_tie(17),
+    "closed-after-eviction": lambda: _closed_after_eviction(18),
+    "width-12": lambda: _wide(19, 9),
+    "width-20": lambda: _wide(20, 17),
+    "frontier-past-32": lambda: _wide_frontier(21),
     "ragged-0": lambda: _ragged(0),
     "ragged-1": lambda: _ragged(1),
     "ragged-2": lambda: _ragged(2),
@@ -193,13 +246,15 @@ def test_batch_pack_device_matches_reference(case):
         for g, (rids, rn) in enumerate(ref):
             assert np.array_equal(h_ids[g, : len(rids)], np.asarray(rids)) and h_cnt[g] == int(rn)
             assert (h_ids[g, len(rids) :] == -1).all()
-    if case == "eviction-past-16":
+    if case in ("eviction-past-16", "eviction-tie"):
         assert all(int(n) > 16 for _, n in got)
     if case == "unschedulable":
         assert (np.asarray(got[0][0]) == -1).sum() == (jobs[0][0][:, 0] == 10_000).sum()
 
 
-@pytest.mark.parametrize("case", sorted(c for c in FFD_CASES if c not in ("stateful-columns", "shootout-64x512x4")))
+@pytest.mark.parametrize(
+    "case", sorted(c for c in FFD_CASES if c not in ("stateful-columns", "shootout-64x512x4", "width-12", "width-20"))
+)
 def test_ffd_scan_and_kernel_steps_match_reference(case):
     """One class, padded as the reference pads it: the plain scan
     (``ffd_pack_reference`` through ``ffd_pack_batched``) and the
@@ -288,6 +343,12 @@ EXISTING_CASES = {
     **{f"seed-{s}": (lambda s=s: _existing(s)) for s in range(4)},
     "wide-columns": lambda: _existing(9, P=200, M=30, S=3, R=9),
     "many-nodes": lambda: _existing(10, P=400, M=1100, S=4, R=4),
+    # the kernel's other paths: the wide register rows at their edge
+    # (2,048 nodes, 16 axes), the generic path past 64 signatures and
+    # past the register paths' nodes
+    "wide-2048-nodes-16-axes": lambda: _existing(24, P=300, M=2048, S=3, R=16),
+    "signatures-past-64": lambda: _existing(22, P=600, M=300, S=100, R=3),
+    "free-in-device-memory": lambda: _existing(23, P=150, M=30_000, S=70, R=4),
     "all-incompatible": lambda: (lambda r, s, c, f: (r, s, np.zeros_like(c), f))(*_existing(11)),
     "full-nodes": lambda: (lambda r, s, c, f: (r, s, c, np.zeros_like(f)))(*_existing(12)),
 }
