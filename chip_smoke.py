@@ -126,11 +126,18 @@ Phases, in order; any failure exits non-zero:
    lp and auto (threshold pinned): 164 nodes at $873.4703/hr each, the
    cost guard keeping FFD, the calibrated threshold on its own line.
    Then every distinct captured call of each pack kernel against its
-   plain version on the card (B5 and B6 bit for bit, B7's routes exactly
-   and weights within ``W_RTOL``) with ``kernel_ms`` (events around
-   queued launches), the plain version's time and ``bound_ms``; for the
-   two scans also ``step_us``, the time of one pod step (over the
-   longest job's pods for B5, over all pods for B6).
+   plain version on the card, bit for bit, with ``kernel_ms`` (events
+   around queued launches), the plain version's time and ``bound_ms``;
+   for the two scans also ``step_us``, the time of one pod step (over
+   the longest job's pods for B5, over all pods for B6), for B7
+   ``iter_us`` (over its iterations) and its plan (threads, replicas,
+   layout);
+   synthetic calls at shapes no path gives (``synthetic_scan_calls``,
+   ``synthetic_dual_calls``: B5 at widths 12 and 700, B6 wide and past
+   4,096 nodes, B7 at 4,096 types and with its work area in device
+   memory); and ``lp.relax`` split into its uploads, kernel, downloads
+   and host bound on a captured config 5 and config 10 call
+   (``relax_split``).
 
 Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
 shapes of phases 8–11 too, and the three pack kernels), and the last
@@ -2849,6 +2856,34 @@ class capture:
         setattr(self.module, self.attr, self.real)
 
 
+class capture_kw:
+    """Record the arguments of the first ``limit`` calls of
+    ``module.attr`` inside the block as keyword dicts (numpy arrays
+    copied; ``device`` left out)."""
+
+    def __init__(self, module, attr: str, limit: int = 1):
+        self.module, self.attr, self.limit, self.calls = module, attr, limit, []
+
+    def __enter__(self):
+        import inspect
+
+        real = self.real = getattr(self.module, self.attr)
+        sig = inspect.signature(real)
+
+        def spy(*args, **kw):
+            if len(self.calls) < self.limit:
+                bound = sig.bind(*args, **kw).arguments
+                self.calls.append({k: (np.array(v) if isinstance(v, np.ndarray) else v)
+                                   for k, v in bound.items() if k != "device"})
+            return real(*args, **kw)
+
+        setattr(self.module, self.attr, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.real)
+
+
 class timed:
     """Sum the wall time of every call of ``module.attr`` inside the block
     (a device function's callers sync on its result, so this is its
@@ -3043,8 +3078,9 @@ def synthetic_scan_calls(seed: int = 0) -> dict:
     from a seed, each (label, call): the stateful widths (cpu, memory and
     pods, then host-port columns holding 1 and CSI-driver volume columns
     holding 16, a pod asking for each with chance 0.05 and 0.3), which
-    take B5's shared-memory rows and B6's wide register path, and a
-    cluster past 4,096 nodes, which takes B6's generic path."""
+    take B5's shared-memory rows and B6's wide register path, a width
+    past what B5 prefetches (700 columns), and a cluster past 4,096 nodes,
+    which takes B6's generic path."""
     import torch
 
     rng = np.random.RandomState(seed)
@@ -3073,28 +3109,35 @@ def synthetic_scan_calls(seed: int = 0) -> dict:
                   columns((M,), R, (4000, 16000), (64000, 256000)))
         return tuple(torch.from_numpy(a) for a in arrays)
 
-    G, P, R = 4, 4096, 12
-    req = pods((G, P), R)
-    req = req[np.arange(G)[:, None], np.argsort(-req[..., 0], axis=1, kind="stable")]
-    ffd = (torch.from_numpy(req), torch.from_numpy(columns((G, 3), R, (8000, 32000), (64000, 256000))),
-           torch.full((G,), 110, dtype=torch.int32), 16, torch.full((G,), P, dtype=torch.int32))
+    def ffd_class(G, P, R):
+        req = pods((G, P), R)
+        req = req[np.arange(G)[:, None], np.argsort(-req[..., 0], axis=1, kind="stable")]
+        return (torch.from_numpy(req), torch.from_numpy(columns((G, 3), R, (8000, 32000), (64000, 256000))),
+                torch.full((G,), 110, dtype=torch.int32), 16, torch.full((G,), P, dtype=torch.int32))
+
+    # drawn in this order, so each case keeps its data as cases are added
+    width12 = ffd_class(4, 4096, 12)
+    existing_calls = [("stateful width 12, 1,000 nodes", existing(10_000, 1000, 12, 1)),
+                      ("5,000 nodes", existing(10_000, 5000, 3, 4))]
+    # width 12 prefetches its requests and keeps the usage rows in shared
+    # memory; width 700 reads its requests in place
     return {
-        "ffd_pack": [("stateful width 12", ffd)],
-        "pack_existing": [("stateful width 12, 1,000 nodes", existing(10_000, 1000, 12, 1)),
-                          ("5,000 nodes", existing(10_000, 5000, 3, 4))],
+        "ffd_pack": [("stateful width 12", width12), ("width 700, requests in place", ffd_class(4, 1024, 700))],
+        "pack_existing": existing_calls,
     }
 
 
 def dual_kernel_case(call, reps: int = 5) -> dict:
-    """The dual-ascent kernel against its plain version on the card: t*
-    and has_fit equal, w within W_RTOL (tests/test_torch_lp.py). The
-    bound counts the work this data needs, not the padded shape's: the
-    real signatures (count > 0), the valid types some real signature
-    fits, and per iteration the routing over the pairs that fit (2R
-    flops each), the projection and the update of those types (4R each)
-    and the demand sums of the routed signatures (R each); the bytes
-    read the real rows and the valid mask once (1 byte per type) and
-    write the real rows of w, t* and has_fit once."""
+    """The dual-ascent kernel against its plain version on the card, bit
+    for bit (t*, has_fit and w).
+    The bound counts the work this data needs, not the padded shape's:
+    the real signatures (count > 0), the valid types some real signature
+    fits, and per iteration the routing over the pairs that fit (2R flops
+    each), the projection and the update of those types (4R each) and the
+    demand sums of the routed signatures (R each); the bytes read the real
+    rows and the valid mask once (1 byte per type) and write the real rows
+    of w, t* and has_fit once. ``iter_us``: the kernel's time over its
+    iters + 1 routes."""
     import torch
 
     from karpenter_core_tpu_torch.solver.backends import lp
@@ -3103,6 +3146,7 @@ def dual_kernel_case(call, reps: int = 5) -> dict:
     reqs, counts, alloc, prices, valid, w0, iters = (a.cuda() if hasattr(a, "cuda") else a for a in call)
     S, R = reqs.shape
     T = alloc.shape[0]
+    plan = lp.dual_ascent_plan(S, T, R)
     w, t_star, has_fit = lp.dual_ascent(reqs, counts, alloc, prices, valid, w0, iters)
     t0 = time.perf_counter()
     pw, pt, ph = lp.dual_ascent_reference(reqs, counts, alloc, prices, valid, w0, iters)
@@ -3110,25 +3154,75 @@ def dual_kernel_case(call, reps: int = 5) -> dict:
     plain_ms = (time.perf_counter() - t0) * 1000.0
     if not (torch.equal(t_star, pt) and torch.equal(has_fit, ph)):
         fail(f"dual_ascent kernel's routes differ from its plain version at S={S} T={T} R={R}")
-    if not torch.allclose(w, pw, rtol=W_RTOL, atol=0.0):
-        fail(f"dual_ascent kernel's weights differ from its plain version beyond rtol {W_RTOL}")
+    if not torch.equal(w, pw):
+        fail(f"dual_ascent kernel's weights differ from its plain version at S={S} T={T} R={R} "
+             f"(max {float((w - pw).abs().max())})")
     real = counts > 0
     fit = (reqs[:, None, :] <= alloc[None, :, :]).all(dim=-1) & valid[None, :] & real[:, None]
     s_real, t_valid = int(real.sum()), int(valid.sum())
     pairs, t_fit, s_routed = int(fit.sum()), int(fit.any(dim=0).sum()), int(fit.any(dim=1).sum())
     flops = (iters + 1) * (pairs * 2 * R + t_fit * 4 * R) + iters * (s_routed * R + t_fit * 4 * R)
     nbytes = s_real * (R + 1) * 4 + t_valid * (2 * R + 1) * 4 + T + t_valid * R * 4 + s_real * 5
+    kernel_ms = events_ms(lambda: lp.dual_ascent(reqs, counts, alloc, prices, valid, w0, iters), reps)
     return {
         "S": S, "T": T, "R": R, "iters": iters, "s_real": s_real, "t_valid": t_valid, "pairs": pairs,
-        "max_abs_err": float((w - pw).abs().max()),
-        "bit_equal": bool(torch.equal(w, pw)),
-        "kernel_ms": events_ms(lambda: lp.dual_ascent(reqs, counts, alloc, prices, valid, w0, iters), reps),
+        "plan": plan,
+        "max_abs_err": float((w - pw).abs().max()), "bit_equal": True,
+        "kernel_ms": kernel_ms, "iter_us": kernel_ms * 1000.0 / (iters + 1),
         "plain_ms": plain_ms,
         **bound_row(nbytes, flops),
     }
 
 
-W_RTOL = 1e-5  # dual weights, kernel against plain version (tests/test_torch_lp.py)
+def synthetic_dual_calls(seed: int = 0) -> list:
+    """Dual-ascent calls at shapes no phase-12 path gives, from a seed,
+    each (label, call), padded as ``lp.relax`` pads: a catalog past 2,048
+    types (T = 4,096 × S = 64, R = 3) and a work area past shared memory
+    (T = 2,048 × S = 64, R = 12, 40 iterations), which takes the
+    device-memory layout."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+
+    def call(S, T, R, iters):
+        s_real, t_real = S - S // 4, T - T // 40
+        reqs = np.zeros((S, R), np.float32)
+        reqs[:s_real] = rng.randint(1, 200, size=(s_real, R))
+        counts = np.zeros(S, np.float32)
+        counts[:s_real] = rng.randint(1, 50, size=s_real)
+        alloc = np.zeros((T, R), np.float32)
+        alloc[:t_real] = rng.randint(100, 4000, size=(t_real, R))
+        prices = np.full(T, np.float32(1e12), np.float32)
+        prices[:t_real] = rng.rand(t_real) * 10 + 0.5
+        valid = np.arange(T) < t_real
+        w0 = (1.0 / np.maximum(alloc, 1.0)).astype(np.float32)
+        return tuple(torch.from_numpy(a) for a in (reqs, counts, alloc, prices, valid, w0)) + (iters,)
+
+    return [("catalog of 4,096 types", call(64, 4096, 3, 160)),
+            ("work area in device memory", call(64, 2048, 12, 40))]
+
+
+def relax_split(call: dict, reps: int = 10) -> dict:
+    """One captured ``lp.relax`` call (keyword arguments) on the card,
+    split into its parts (pad, the six uploads, the kernel, the three
+    downloads, the host's float64 bound), median ms over ``reps``, beside
+    the whole call unsplit (no syncs between its parts)."""
+    from karpenter_core_tpu_torch.solver.backends import lp
+
+    parts: dict = {}
+    for _ in range(reps + 1):
+        got: dict = {}
+        lp.relax(**call, device="cuda", timings=got)
+        for k, v in got.items():
+            parts.setdefault(k, []).append(v)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        lp.relax(**call, device="cuda")
+    out = {k: float(np.median(v[1:])) for k, v in parts.items()}
+    out["relax_ms"] = (time.perf_counter() - t0) * 1000.0 / reps
+    reqs, alloc = call["reqs"], call["alloc"]
+    out.update({"S": int(reqs.shape[0]), "T": int(alloc.shape[0]), "iters": int(call["iters"])})
+    return out
 
 
 def device_engine_path(label: str, device: str, world, solve_kw: dict, cpu_world=None) -> tuple:
@@ -3200,7 +3294,7 @@ def run_pack_phase(device: str = "cuda", n_pods: int = N_PODS, n_types: int = N_
     out["ffd_calls"], out["existing_calls"] = ffd_calls + cluster_ffd, ex_calls
 
     # the LP backend on bench config 10 whole: the card, then the CPU
-    with capture(lp, "dual_ascent", 512) as duals:
+    with capture(lp, "dual_ascent", 512) as duals, capture_kw(lp, "relax") as relax10:
         reset_pack_launches()
         rows = config10_rows(device, profile=device == "cuda")
         out["launches"]["config10"] = pack_launches()
@@ -3225,7 +3319,7 @@ def run_pack_phase(device: str = "cuda", n_pods: int = N_PODS, n_types: int = N_
     emit({"lp_calibration": cal})
     nodepool, provider, pods = config5_world()
     c5 = {}
-    with capture(lp, "dual_ascent", 8) as big_duals:
+    with capture(lp, "dual_ascent", 8) as big_duals, capture_kw(lp, "relax") as relax5:
         for bk in ("ffd", "lp", "auto"):
             backends.reset_for_tests()
             with knobs(KARPENTER_TORCH_PACK_BACKEND=bk, KARPENTER_TORCH_LP_MIN_WORK=1), timed(lp, "relax") as relax:
@@ -3269,6 +3363,7 @@ def run_pack_phase(device: str = "cuda", n_pods: int = N_PODS, n_types: int = N_
             cpu = TorchScheduler([nodepool], provider, device="cpu").solve(pods)
         same_as_cpu(c5["lp"], cpu, "config5 lp")
     out["dual_calls"] = duals.calls + big_duals.calls
+    out["relax_calls"] = {"config5": relax5.calls, "config10": relax10.calls}
     backends.reset_for_tests()
     return out
 
@@ -3321,10 +3416,12 @@ PACK_SOURCES = {
 }
 
 
-def pack_kernel_entry(name: str, rows: list, launches: dict) -> dict:
+def pack_kernel_entry(name: str, rows: list, launches: dict, relax_rows: Optional[dict] = None) -> dict:
     """One pack kernel's entry of the kernels line: its launches on the
     phase-12 paths, and the numbers of its largest case (by kernel
-    time), the other cases beside them."""
+    time), the other cases beside them; for B7 the ``lp.relax`` call
+    around it (``wrapper_ms``: config 5's whole relax call, and each
+    split)."""
     main = max((r for r in rows if "synthetic" not in r), key=lambda r: r["kernel_ms"])
     by_path = {path: counts[name] for path, counts in launches.items()}
     source, replaces = PACK_SOURCES[name]
@@ -3337,6 +3434,8 @@ def pack_kernel_entry(name: str, rows: list, launches: dict) -> dict:
         # no one PyTorch call computes a sequential scan or an iterated ascent
         "library_ms": None,
         **({"step_us": main["step_us"]} if "step_us" in main else {}),
+        **({"iter_us": main["iter_us"], "plan": main["plan"]} if "iter_us" in main else {}),
+        **({"wrapper_ms": relax_rows["config5"]["relax_ms"], "relax_split": relax_rows} if relax_rows else {}),
         "cases": rows,
     }
 
@@ -3556,9 +3655,17 @@ def main() -> None:
     scan_case = {"ffd_pack": ffd_kernel_case, "pack_existing": existing_kernel_case}
     for name, calls in synthetic_scan_calls().items():
         cases[name] += [{"synthetic": label, **scan_case[name](call)} for label, call in calls]
+    cases["dual_ascent"] += [{"synthetic": label, **dual_kernel_case(call)} for label, call in synthetic_dual_calls()]
     for name, rows in cases.items():
         for row in rows:
             emit({"pack_kernel_case": name, **row, "card": card})
+    # lp.relax around the kernel: uploads, kernel, downloads, host bound
+    relax_splits = {}
+    for label, calls in pack["relax_calls"].items():
+        if not calls:
+            fail(f"no lp.relax call was captured on the {label} path")
+        relax_splits[label] = relax_split(calls[0])
+        emit({"relax_split": label, **relax_splits[label], "card": card})
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 12"})
 
     # the kernels line, then the last line
@@ -3616,7 +3723,8 @@ def main() -> None:
                     "compat_route": slice_row["compat_route"],
                     "ptxas": usage,
                 },
-                *[pack_kernel_entry(name, cases[name], pack["launches"]) for name in cases],
+                *[pack_kernel_entry(name, cases[name], pack["launches"],
+                                    relax_splits if name == "dual_ascent" else None) for name in cases],
             ]
         }
     )

@@ -82,12 +82,15 @@ def build_shared(src: str, cmd: List[str], timeout: float = 600.0) -> Tuple[str,
 class CudaKernel:
     """A ``csrc/*.cu`` source built by nvcc into a plain-C library, its
     launch function bound through ctypes. ``launches`` counts every
-    launch made through ``launch`` and nowhere else."""
+    launch made through ``launch`` and nowhere else. ``helpers``: the
+    library's other functions, name → (restype, argtypes), bound once
+    when the library loads."""
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence) -> None:
+    def __init__(self, source: str, symbol: str, argtypes: Sequence, helpers: Optional[dict] = None) -> None:
         self.src = os.path.join(CSRC, source)
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.helpers = dict(helpers or {})
         self.launches = 0
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
@@ -105,6 +108,9 @@ class CudaKernel:
                     fn = getattr(lib, self.symbol)
                     fn.restype = ctypes.c_int
                     fn.argtypes = self.argtypes
+                    for name, (restype, argtypes) in self.helpers.items():
+                        helper = getattr(lib, name)
+                        helper.restype, helper.argtypes = restype, list(argtypes)
                     self._lib = lib
         return self._lib
 

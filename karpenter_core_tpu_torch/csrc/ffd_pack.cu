@@ -54,6 +54,11 @@
 // the chunk's ids go out in one coalesced store. The frontier is staged
 // in the warp's shared block when it fits (else read from device
 // memory); jobs per block drop from 4 to 2 or 1 for wide R or large F.
+// Where even one warp's block does not fit (R past 639 at K = 16), the
+// class reads its request rows in place from device memory instead of
+// prefetching them, and past R = 3,198 its K usage columns live in a
+// device-memory scratch buffer the wrapper passes: every width packs,
+// and a class that fits keeps the prefetching layout.
 //
 // Bound. Bytes, as chip_smoke.py counts them: each real pod's requests
 // read once, the frontiers once, the ids and counts written once:
@@ -298,27 +303,45 @@ HD void fetch_chunk(int32_t* buf, const int32_t* jreq, int base, int n, int R, i
   copy_commit();
 }
 
+// How a class is laid out: jobs (warps) per block, whether the frontier
+// is staged in shared memory, whether requests are prefetched in chunks
+// (else read in place from device memory), whether the usage columns of
+// shared-memory rows live in the warp's block (else in a device-memory
+// scratch buffer, K * R int32 a job).
+struct BlockPlan {
+  int warps;
+  bool front_in_smem, prefetch, usage_in_smem;
+};
+
 // int32 of one warp's shared block: the chunk's node ids, the two
-// request chunks, the frontier when staged, the usage columns when rows
-// live there
-HD size_t warp_ints(int F, int R, int K, bool front_in_smem, bool smem_rows) {
-  return CHUNK + static_cast<size_t>(2 * CHUNK) * R + (front_in_smem ? static_cast<size_t>(F) * R : 0) +
-         (smem_rows ? static_cast<size_t>(K) * R : 0);
+// request chunks when prefetched, the frontier when staged, the usage
+// columns when rows live there
+HD size_t warp_ints(int F, int R, int K, bool smem_rows, const BlockPlan& b) {
+  return CHUNK + (b.prefetch ? static_cast<size_t>(2 * CHUNK) * R : 0) +
+         (b.front_in_smem ? static_cast<size_t>(F) * R : 0) +
+         (smem_rows && b.usage_in_smem ? static_cast<size_t>(K) * R : 0);
 }
 
-// Jobs per block and whether the frontier is staged, for `smem_rows`;
-// false when one warp's block does not fit the budget.
-bool plan_blocks(int F, int R, int K, bool smem_rows, int* warps, bool* front_in_smem) {
-  for (int staged = 1; staged >= 0; --staged) {
-    for (int w = WARPS; w >= 1; w /= 2) {
-      if (warp_ints(F, R, K, staged, smem_rows) * 4 * w <= SMEM_BUDGET) {
-        *warps = w;
-        *front_in_smem = staged;
-        return true;
+// The first layout whose warp blocks fit the budget, in this order: the
+// requests prefetched and the usage columns in shared memory (every
+// class up to R = 639 at K = 16), then the requests read in place, then
+// also the usage columns in device memory (any width); within each, the
+// frontier staged before not, four jobs a block before two and one.
+BlockPlan plan_blocks(int F, int R, int K, bool smem_rows) {
+  for (int tier = 0; tier < 3; ++tier) {
+    for (int staged = 1; staged >= 0; --staged) {
+      for (int w = WARPS; w >= 1; w /= 2) {
+        const BlockPlan b{w, staged == 1, tier == 0, tier < 2};
+        if (warp_ints(F, R, K, smem_rows, b) * 4 * w <= SMEM_BUDGET) return b;
       }
     }
   }
-  return false;
+  return BlockPlan{1, false, false, false};  // CHUNK ints: always fits
+}
+
+// int32 of the usage scratch a job needs under `b` (0: none)
+int64_t usage_scratch_ints(int R, int K, bool smem_rows, const BlockPlan& b) {
+  return smem_rows && !b.usage_in_smem ? static_cast<int64_t>(K) * R : 0;
 }
 
 #ifdef __CUDACC__
@@ -334,24 +357,26 @@ template <class Row>
 __global__ void __launch_bounds__(WARPS * 32)
     ffd_pack_kernel(const int32_t* __restrict__ req, const int32_t* __restrict__ front,
                     const int32_t* __restrict__ caps, const int32_t* __restrict__ n_pods, int G, int P_ld,
-                    int F, int R, int K, int front_in_smem, int32_t* __restrict__ node_ids,
-                    int32_t* __restrict__ counts) {
+                    int F, int R, int K, BlockPlan plan, int32_t* usage_scratch,
+                    int32_t* __restrict__ node_ids, int32_t* __restrict__ counts) {
   extern __shared__ int32_t smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;  // the lanes under this one
   const int g = blockIdx.x * (blockDim.x >> 5) + warp;
   if (g >= G) return;  // whole warps leave; no block barrier follows
   constexpr bool smem_rows = Row::kAxes == 0;
-  int32_t* sout = smem + warp * warp_ints(F, R, K, front_in_smem, smem_rows);
+  const bool front_in_smem = plan.front_in_smem, prefetch = plan.prefetch;
+  int32_t* sout = smem + warp * warp_ints(F, R, K, smem_rows, plan);
   int32_t* chunk0 = sout + CHUNK;
-  int32_t* sfront = chunk0 + 2 * CHUNK * R;
-  int32_t* usage = sfront + (front_in_smem ? F * R : 0);
+  int32_t* sfront = chunk0 + (prefetch ? 2 * CHUNK * R : 0);
+  int32_t* usage = plan.usage_in_smem ? sfront + (front_in_smem ? F * R : 0)
+                                      : usage_scratch + static_cast<int64_t>(g) * K * R;
   const int32_t* jreq = req + static_cast<int64_t>(g) * P_ld * R;
   const int32_t* gfront = front + static_cast<int64_t>(g) * F * R;
   int32_t* out = node_ids + static_cast<int64_t>(g) * P_ld;
   const int P = n_pods[g];
   const int32_t cap = caps[g];
-  fetch_chunk(chunk0, jreq, 0, P < CHUNK ? P : CHUNK, R, lane, 32);
+  if (prefetch) fetch_chunk(chunk0, jreq, 0, P < CHUNK ? P : CHUNK, R, lane, 32);
   if (front_in_smem) {
     for (int i = lane; i < F * R; i += 32) sfront[i] = gfront[i];
   }
@@ -372,8 +397,8 @@ __global__ void __launch_bounds__(WARPS * 32)
   for (int base = 0; base < P; base += CHUNK) {
     copy_wait();
     __syncwarp();  // the chunk landed, every lane's copies visible
-    const int32_t* buf = chunk0 + ((base / CHUNK) & 1) * CHUNK * R;
-    if (base + CHUNK < P) {
+    const int32_t* buf = prefetch ? chunk0 + ((base / CHUNK) & 1) * CHUNK * R : jreq + static_cast<int64_t>(base) * R;
+    if (prefetch && base + CHUNK < P) {
       const int n_next = P - base - CHUNK < CHUNK ? P - base - CHUNK : CHUNK;
       fetch_chunk(chunk0 + (((base / CHUNK) + 1) & 1) * CHUNK * R, jreq, base + CHUNK, n_next, R, lane, 32);
     }
@@ -416,20 +441,20 @@ __global__ void __launch_bounds__(WARPS * 32)
 
 template <class Row>
 int launch_rows(const int32_t* req, const int32_t* front, const int32_t* caps, const int32_t* n_pods,
-                int G, int P_ld, int F, int R, int K, int32_t* node_ids, int32_t* counts,
+                int G, int P_ld, int F, int R, int K, int32_t* scratch, int32_t* node_ids, int32_t* counts,
                 cudaStream_t stream) {
-  int warps;
-  bool front_in_smem;
-  if (!plan_blocks(F, R, K, Row::kAxes == 0, &warps, &front_in_smem)) {
+  constexpr bool smem_rows = Row::kAxes == 0;
+  const BlockPlan plan = plan_blocks(F, R, K, smem_rows);
+  if (usage_scratch_ints(R, K, smem_rows, plan) > 0 && scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = warp_ints(F, R, K, front_in_smem, Row::kAxes == 0) * 4 * warps;
+  const size_t smem = warp_ints(F, R, K, smem_rows, plan) * 4 * plan.warps;
   cudaError_t err = cudaFuncSetAttribute(ffd_pack_kernel<Row>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((G + warps - 1) / warps);
-  ffd_pack_kernel<Row><<<blocks, warps * 32, smem, stream>>>(req, front, caps, n_pods, G, P_ld, F, R, K,
-                                                               front_in_smem, node_ids, counts);
+  const unsigned blocks = static_cast<unsigned>((G + plan.warps - 1) / plan.warps);
+  ffd_pack_kernel<Row><<<blocks, plan.warps * 32, smem, stream>>>(req, front, caps, n_pods, G, P_ld, F, R, K,
+                                                                    plan, scratch, node_ids, counts);
   return static_cast<int>(cudaGetLastError());
 }
 #else
@@ -458,7 +483,7 @@ uint32_t lanes_equal(const T (&v)[32], T x) {
 // kernel's row type.
 template <class Row>
 void pack_job_host(const int32_t* jreq, const int32_t* fr, int P, int P_ld, int F, int R, int K,
-                   int32_t cap, int32_t* out, int32_t* count) {
+                   int32_t cap, bool prefetch, int32_t* out, int32_t* count) {
   constexpr bool smem_rows = Row::kAxes == 0;
   std::vector<int32_t> usage(static_cast<size_t>(K) * R), buf(static_cast<size_t>(CHUNK) * R);
   using Vec = typename Row::Vec;
@@ -475,13 +500,14 @@ void pack_job_host(const int32_t* jreq, const int32_t* fr, int P, int P_ld, int 
   int32_t next_id = 0;
   for (int base = 0; base < P; base += CHUNK) {
     const int n = P - base < CHUNK ? P - base : CHUNK;
-    fetch_chunk(buf.data(), jreq, base, n, R, 0, 1);
+    const int32_t* rows = prefetch ? buf.data() : jreq + static_cast<int64_t>(base) * R;
+    if (prefetch) fetch_chunk(buf.data(), jreq, base, n, R, 0, 1);
     bool fresh_lane[32];
-    for (int l = 0; l < 32; ++l) fresh_lane[l] = l < n && pod_fresh(buf.data() + l * R, fr, F, R);
+    for (int l = 0; l < 32; ++l) fresh_lane[l] = l < n && pod_fresh(rows + l * R, fr, F, R);
     const uint32_t fresh = lanes_ballot(fresh_lane);
     for (int j = 0; j < n; ++j) {
       Vec rq;
-      load_row(rq, buf.data() + j * R, R);
+      load_row(rq, rows + j * R, R);
       uint32_t bid[32];
       for (int l = 0; l < 32; ++l) bid[l] = lane_bid(s[l], l < K, rq, f0, fr, F, R, cap);
       const uint32_t best = lanes_min(bid);
@@ -514,13 +540,11 @@ void pack_job_host(const int32_t* jreq, const int32_t* fr, int P, int P_ld, int 
 template <class Row>
 int host_rows(const int32_t* rq, const int32_t* fr, const int32_t* cp, const int32_t* np, int64_t G,
               int64_t P_ld, int64_t F, int64_t R, int64_t K, int32_t* out, int32_t* cnt) {
-  int warps;
-  bool front_in_smem;
-  if (!plan_blocks(F, R, K, Row::kAxes == 0, &warps, &front_in_smem)) return 1;
+  const BlockPlan plan = plan_blocks(F, R, K, Row::kAxes == 0);
   for (int64_t g = 0; g < G; ++g) {
     if (np[g] < 0 || np[g] > P_ld) return 1;
-    pack_job_host<Row>(rq + g * P_ld * R, fr + g * F * R, np[g], P_ld, F, R, K, cp[g], out + g * P_ld,
-                       cnt + g);
+    pack_job_host<Row>(rq + g * P_ld * R, fr + g * F * R, np[g], P_ld, F, R, K, cp[g], plan.prefetch,
+                       out + g * P_ld, cnt + g);
   }
   return 0;
 }
@@ -535,20 +559,42 @@ bool bad_args(int64_t G, int64_t P_ld, int64_t F, int64_t R, int64_t K) {
 
 extern "C" {
 
+// The layout of a class of width R (plan_blocks) into out[0..6): jobs
+// per block, frontier staged, requests prefetched, usage columns in
+// shared memory, dynamic shared bytes a block, usage scratch int32 a job.
+// Returns 1 for arguments out of range, else 0: every width has a plan.
+int ffd_pack_plan(int64_t F, int64_t R, int64_t K, int64_t* out) {
+  if (bad_args(0, 0, F, R, K)) return 1;
+  const bool smem_rows = R > 4;
+  const BlockPlan b = plan_blocks(F, R, K, smem_rows);
+  const int64_t v[6] = {b.warps, b.front_in_smem, b.prefetch, b.usage_in_smem,
+                        static_cast<int64_t>(warp_ints(F, R, K, smem_rows, b) * 4 * b.warps),
+                        usage_scratch_ints(R, K, smem_rows, b)};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
+}
+
+// int32 elements of usage scratch a job of width R needs (0: none): the
+// launch takes a buffer of G times this many, or null when it is 0.
+int64_t ffd_pack_scratch_ints(int64_t F, int64_t R, int64_t K) {
+  int64_t out[6];
+  return ffd_pack_plan(F, R, K, out) == 0 ? out[5] : 0;
+}
+
 // req (G, P_ld, R), front (G, F, R) int32 row-major and contiguous;
 // caps (G,) and n_pods (G,) int32 (n_pods[g] <= P_ld: the job's real
 // pods, padding past it is never read); node_ids (G, P_ld) int32, -1
 // past n_pods; counts (G,) int32. Rows of up to 4 axes live in
-// registers, wider ones in shared memory; one warp's shared block (the
-// chunk's ids, two 32-pod request chunks and, past 4 axes, the K usage
-// columns) must fit 200 KB, so R <= 639 at K = 16 (533 at K = 32).
-// Returns an error code without running when the arguments break that
-// contract.
+// registers, wider ones in shared memory, or past what one warp's
+// 200 KB block holds (R = 3,198 at K = 16 with requests read in place)
+// in `scratch`: G * ffd_pack_scratch_ints(F, R, K) int32 (null when
+// that is 0). Returns an error code without running when the arguments
+// break that contract.
 #ifdef __CUDACC__
 // Device pointers; launches on `stream` and returns cudaGetLastError().
 int ffd_pack_launch(const void* req, const void* front, const void* caps, const void* n_pods,
-                    int64_t G, int64_t P_ld, int64_t F, int64_t R, int64_t K, void* node_ids,
-                    void* counts, void* stream) {
+                    int64_t G, int64_t P_ld, int64_t F, int64_t R, int64_t K, void* scratch,
+                    void* node_ids, void* counts, void* stream) {
   if (bad_args(G, P_ld, F, R, K)) return static_cast<int>(cudaErrorInvalidValue);
   if (G == 0) return 0;
   auto* rq = static_cast<const int32_t*>(req);
@@ -558,8 +604,9 @@ int ffd_pack_launch(const void* req, const void* front, const void* caps, const 
   auto* ids = static_cast<int32_t*>(node_ids);
   auto* cnt = static_cast<int32_t*>(counts);
   auto st = static_cast<cudaStream_t>(stream);
-  if (R <= 4) return launch_rows<RegRow<4>>(rq, fr, cp, np, G, P_ld, F, R, K, ids, cnt, st);
-  return launch_rows<SmemRow>(rq, fr, cp, np, G, P_ld, F, R, K, ids, cnt, st);
+  auto* us = static_cast<int32_t*>(scratch);
+  if (R <= 4) return launch_rows<RegRow<4>>(rq, fr, cp, np, G, P_ld, F, R, K, us, ids, cnt, st);
+  return launch_rows<SmemRow>(rq, fr, cp, np, G, P_ld, F, R, K, us, ids, cnt, st);
 }
 #else
 // The same step on the CPU, host pointers, same layout as the launch.

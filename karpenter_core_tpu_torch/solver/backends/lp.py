@@ -90,7 +90,21 @@ def _pow2(n: int, floor: int = 8) -> int:
 DUAL_ASCENT = buildlib.CudaKernel(
     "dual_ascent.cu", "dual_ascent_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 5,
+    helpers={"dual_ascent_plan": (ctypes.c_int, [ctypes.c_int64] * 3 + [ctypes.c_void_p])},
 )
+PLAN_FIELDS = ("threads", "owners", "groups", "types", "regs", "global", "bytes")
+
+
+def dual_ascent_plan(S: int, T: int, R: int, lib=None) -> Optional[Dict[str, int]]:
+    """The kernel's layout for (S, T, R): threads of its block, threads of
+    a replica of the types, replicas, types a thread, rows in registers,
+    work area in device memory, its bytes; None where no layout exists.
+    ``lib``: a library exporting ``dual_ascent_plan`` (default: the
+    card's build)."""
+    out = (ctypes.c_int64 * len(PLAN_FIELDS))()
+    if (lib or DUAL_ASCENT.lib()).dual_ascent_plan(S, T, R, out) != 0:
+        return None
+    return dict(zip(PLAN_FIELDS, out))
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -190,15 +204,15 @@ def dual_ascent(
     w = torch.empty((T, R), dtype=torch.float32, device=dev)
     t_star = torch.empty(S, dtype=torch.int32, device=dev)
     has_fit = torch.empty(S, dtype=torch.uint8, device=dev)
-    lib = DUAL_ASCENT.lib()
-    lib.dual_ascent_scratch_floats.restype = ctypes.c_int64
-    lib.dual_ascent_scratch_floats.argtypes = [ctypes.c_int64] * 3
-    n_scratch = lib.dual_ascent_scratch_floats(S, T, R)
-    scratch = torch.empty(max(n_scratch, 1), dtype=torch.float32, device=dev)
+    # no plan (bad arguments): the launch refuses them with a cudaError
+    plan = dual_ascent_plan(S, T, R)
+    scratch = None
+    if plan is not None and plan["global"]:
+        scratch = torch.empty(plan["bytes"] // 4 + 1, dtype=torch.float32, device=dev)
     DUAL_ASCENT.launch(
         reqs.data_ptr(), counts.data_ptr(), alloc.data_ptr(), prices.data_ptr(),
         valid.data_ptr(), w0.data_ptr(), S, T, R, int(iters),
-        scratch.data_ptr() if n_scratch else None,
+        None if scratch is None else scratch.data_ptr(),
         w.data_ptr(), t_star.data_ptr(), has_fit.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -244,13 +258,17 @@ def relax(
     iters: int,
     w0: Optional[np.ndarray] = None,  # (T, R) warm-start weights
     device=None,
+    timings: Optional[Dict[str, float]] = None,
 ) -> Tuple[np.ndarray, np.ndarray, float, np.ndarray]:
     """One padded relaxation solve on ``device`` (None: the card) →
     (t_star (S,), has_fit (S,), bound, w (T, R) converged dual weights).
     ``bound`` is a certified lower bound ($/hr) on any integral plan that
     serves these pods from these types at these prices; ``w`` seeds warm
-    re-ascents."""
+    re-ascents. ``timings``: a dict that gets the call's split in ms
+    (pad, upload, kernel, download, host_bound), the device synchronised
+    between the parts, which only a measurement asks for."""
     dev = resolve_device(device)
+    clock = _Split(dev, timings)
     S, R = reqs.shape
     T = alloc.shape[0]
     S_pad, T_pad = _pow2(S), _pow2(T)
@@ -271,12 +289,15 @@ def relax(
     w0_p = 1.0 / np.maximum(alloc_p, 1.0).astype(np.float32)
     if w0 is not None:
         w0_p[:T] = np.maximum(np.asarray(w0, dtype=np.float32), 1e-12)
+    clock.lap("pad")
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    w, t_star, has_fit = dual_ascent(
-        t(reqs_p), t(counts_p), t(alloc_p), t(prices_p), t(valid_p), t(w0_p), int(iters)
-    )
+    inputs = (t(reqs_p), t(counts_p), t(alloc_p), t(prices_p), t(valid_p), t(w0_p))
+    clock.lap("upload")
+    w, t_star, has_fit = dual_ascent(*inputs, int(iters))
+    clock.lap("kernel")
     # the one sync of the relax call
     w, t_star, has_fit = w.cpu().numpy(), t_star.cpu().numpy()[:S], has_fit.cpu().numpy()[:S]
+    clock.lap("download")
     real = valid_p[:T]
     bound = _host_bound(
         w[:T][real].astype(np.float64),
@@ -285,7 +306,26 @@ def relax(
         alloc_p[:T][real].astype(np.float64),
         prices_p[:T][real].astype(np.float64),
     )
+    clock.lap("host_bound")
     return t_star, has_fit, bound, w[:T]
+
+
+class _Split:
+    """``relax``'s parts timed into ``out`` (ms), the device synchronised
+    at each lap; nothing at all when ``out`` is None."""
+
+    def __init__(self, device, out: Optional[Dict[str, float]]) -> None:
+        self.device, self.out = device, out
+        self.t = time.perf_counter() if out is not None else 0.0
+
+    def lap(self, name: str) -> None:
+        if self.out is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.out[name] = (now - self.t) * 1000.0
+        self.t = now
 
 
 def dual_bound(

@@ -125,7 +125,8 @@ def assign_cheapest_types(
 # -- the device FFD scan ---------------------------------------------------------
 
 FFD_PACK = buildlib.CudaKernel(
-    "ffd_pack.cu", "ffd_pack_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [ctypes.c_void_p] * 3
+    "ffd_pack.cu", "ffd_pack_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [ctypes.c_void_p] * 4,
+    helpers={"ffd_pack_scratch_ints": (ctypes.c_int64, [ctypes.c_int64] * 3)},
 )
 
 
@@ -215,10 +216,14 @@ def ffd_pack_batched(
     node_ids = torch.empty((G, P), dtype=torch.int32, device=dev)
     counts = torch.empty(G, dtype=torch.int32, device=dev)
     if G:
+        # past what one warp's shared block holds, the slots' usage rows
+        # live in device memory: K * R int32 a job
+        n_scratch = FFD_PACK.lib().ffd_pack_scratch_ints(F, R, k_open)
+        scratch = torch.empty(G * n_scratch, dtype=torch.int32, device=dev) if n_scratch > 0 else None
         FFD_PACK.launch(
             requests.data_ptr(), frontiers.data_ptr(), caps.data_ptr(), n_pods.data_ptr(),
-            G, P, F, R, k_open, node_ids.data_ptr(), counts.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            G, P, F, R, k_open, None if scratch is None else scratch.data_ptr(),
+            node_ids.data_ptr(), counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     return node_ids, counts
 

@@ -320,8 +320,34 @@ def _ffd_eviction_tie():
     return req, front, np.array([110, 2**31 - 1, 1], np.int32), n
 
 
-# edge cases of the warp-per-job design, each (arrays, k_open)
+def _ffd_wide(seed, G, P, R):
+    """A class of stateful-width jobs: cpu, memory and pods, then columns
+    of capacity 1 (host ports) and 16 (volumes) that each pod asks for
+    with chance 0.05 and 0.3."""
+    rng = np.random.RandomState(seed)
+    req = np.zeros((G, P, R), np.int32)
+    req[..., 0] = -np.sort(-rng.randint(100, 2000, (G, P)), axis=1)
+    req[..., 1] = rng.randint(128, 4096, (G, P))
+    req[..., 2] = 1
+    front = np.zeros((G, 3, R), np.int32)
+    front[..., 0] = rng.randint(8000, 64000, (G, 3))
+    front[..., 1] = rng.randint(32000, 256000, (G, 3))
+    front[..., 2] = 110
+    for r in range(3, R):
+        front[..., r] = 1 if r % 2 else 16
+        req[..., r] = rng.rand(G, P) < (0.05 if r % 2 else 0.3)
+    return req, front, np.full(G, 110, np.int32), np.full(G, P, np.int32)
+
+
+# edge cases of the warp-per-job design, each (arrays, k_open); widths
+# 700 and 3,000 take the layouts past what a warp's block prefetches
+# (requests read in place; at 3,000 with K = 32 the usage rows in
+# device memory)
 FFD_EDGE_CASES = {
+    "width-700": lambda: (_ffd_wide(42, 4, 300, 700), 16),
+    "width-700-k-32": lambda: (_ffd_wide(43, 4, 300, 700), 32),
+    "width-3000": lambda: (_ffd_wide(44, 3, 200, 3000), 16),
+    "width-3000-k-32": lambda: (_ffd_wide(45, 3, 200, 3000), 32),
     "key-ties-at-large-counts": lambda: (_ffd_key_ties(), 16),
     "eviction-tie": lambda: (_ffd_eviction_tie(), 16),
     "cap-1": lambda: (_ffd_class(30, 4, 300, 3, 3, 1), 16),
@@ -408,11 +434,19 @@ def test_pack_existing_kernel_edge_cases(cuda, case):
         assert (assign >= 0).any()
 
 
-@pytest.mark.parametrize("seed,S,T,R,iters", [(0, 1, 1, 1, 8), (1, 8, 64, 3, 160), (2, 37, 300, 5, 160), (3, 16, 2048, 6, 160), (4, 64, 2048, 12, 40)])
-def test_dual_ascent_kernel_matches_plain_version(cuda, seed, S, T, R, iters):
-    """t* and has_fit exactly; w within the rtol of tests/test_torch_lp.py
-    (both sum in the same order, so they agree bit for bit in practice).
-    T = 2048 with R = 12 takes the global-scratch layout."""
+@pytest.mark.parametrize(
+    "seed,S,T,R,iters,tied",
+    [(0, 1, 1, 1, 8, False), (1, 8, 64, 3, 160, False), (2, 37, 300, 5, 160, False), (3, 16, 2048, 6, 160, False),
+     (4, 64, 2048, 12, 40, False), (5, 16, 2048, 3, 160, True), (6, 64, 4096, 3, 160, False)],
+)
+def test_dual_ascent_kernel_matches_plain_version(cuda, seed, S, T, R, iters, tied):
+    """t*, has_fit and w bit for bit against the plain version on the card
+    (and t*, has_fit exactly and w within the rtol of
+    tests/test_torch_lp.py against it on the CPU), one launch. T = 2048
+    with R = 12 takes the device-memory work area; ``tied`` repeats five
+    type rows over the catalog, so costs tie exactly between types that
+    different threads and warps own; T = 4096 is a catalog past 2,048
+    types."""
     from karpenter_core_tpu_torch.solver.backends import lp
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -426,6 +460,9 @@ def test_dual_ascent_kernel_matches_plain_version(cuda, seed, S, T, R, iters):
     alloc[:T] = rng.randint(100, 4000, size=(T, R))
     prices = np.full(Tp, np.float32(1e12), np.float32)
     prices[:T] = rng.rand(T) * 10 + 0.5
+    if tied:
+        kinds = rng.randint(0, 5, size=T)
+        alloc[:T], prices[:T] = alloc[kinds], prices[kinds]
     valid = np.zeros(Tp, bool)
     valid[:T] = rng.rand(T) < 0.9
     w0 = (1.0 / np.maximum(alloc, 1.0)).astype(np.float32)
@@ -436,7 +473,7 @@ def test_dual_ascent_kernel_matches_plain_version(cuda, seed, S, T, R, iters):
     assert lp.DUAL_ASCENT.launches - before == 1
     pw, pt, ph = lp.dual_ascent_reference(*args, iters)
     assert torch.equal(t_star, pt) and torch.equal(has_fit, ph)
-    assert torch.allclose(w, pw, rtol=1e-5, atol=0.0)
+    assert torch.equal(w, pw)
     cw, ct, ch = lp.dual_ascent_reference(*(torch.from_numpy(a) for a in (reqs, counts, alloc, prices, valid, w0)), iters)
     assert torch.equal(t_star.cpu(), ct) and torch.equal(has_fit.cpu(), ch)
     assert torch.allclose(w.cpu(), cw, rtol=1e-5, atol=0.0)

@@ -119,6 +119,8 @@ def _host():
         lib = buildlib.host_library("dual_ascent.cu")
         lib.dual_ascent_host.restype = ctypes.c_int
         lib.dual_ascent_host.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 3
+        lib.dual_ascent_plan.restype = ctypes.c_int
+        lib.dual_ascent_plan.argtypes = [ctypes.c_int64] * 3 + [ctypes.c_void_p]
         _HOST.append(lib)
     return _HOST[0]
 
@@ -168,20 +170,29 @@ def _config10_inputs():
     return calls
 
 
-def _compare_ascent(args, iters):
-    rw, rt, rh = map(np.asarray, ref_lp._dual_ascent_kernel(*map(jnp.asarray, args), iters))
+def _compare_ascent(args, iters, against_jax=True):
     pw, pt, ph = (t.numpy() for t in port_lp.dual_ascent_reference(*map(torch.from_numpy, args), iters))
-    assert np.array_equal(pt, rt) and np.array_equal(ph, rh)
-    np.testing.assert_allclose(pw, rw, rtol=W_RTOL, atol=0)
+    if against_jax:
+        rw, rt, rh = map(np.asarray, ref_lp._dual_ascent_kernel(*map(jnp.asarray, args), iters))
+        assert np.array_equal(pt, rt) and np.array_equal(ph, rh)
+        np.testing.assert_allclose(pw, rw, rtol=W_RTOL, atol=0)
+    got = _host_ascent(args, iters)
+    assert all(np.array_equal(a, b) for a, b in zip(got, (pw, pt, ph)))
+    return pw, pt, ph
+
+
+def _host_ascent(args, iters):
+    """The kernel's g++-built steps → (w, t*, has_fit)."""
     Sp, R = args[0].shape
     Tp = args[2].shape[0]
     hw, ht, hh = np.empty((Tp, R), np.float32), np.empty(Sp, np.int32), np.empty(Sp, np.uint8)
+    # the inputs as the C function reads them, held here while it runs
+    held = [np.ascontiguousarray(a, dtype=np.uint8 if i == 4 else np.float32) for i, a in enumerate(args[:6])]
     rc = _host().dual_ascent_host(
-        *(a.ctypes.data for a in args[:4]), args[4].astype(np.uint8).ctypes.data, args[5].ctypes.data,
-        Sp, Tp, R, iters, hw.ctypes.data, ht.ctypes.data, hh.ctypes.data,
+        *(a.ctypes.data for a in held), Sp, Tp, R, iters, hw.ctypes.data, ht.ctypes.data, hh.ctypes.data,
     )
     assert rc == 0
-    assert np.array_equal(hw, pw) and np.array_equal(ht, pt) and np.array_equal(hh.astype(bool), ph)
+    return hw, ht, hh.astype(bool)
 
 
 @pytest.mark.parametrize("seed", range(12))
@@ -195,6 +206,78 @@ def test_dual_ascent_matches_reference_on_config10_inputs():
     assert sorted({c[6] for c in calls}) == [40, 160]
     for *args, iters in calls:
         _compare_ascent(tuple(args), iters)
+
+
+def _edge_inputs(seed, S, T, R, tied=False, no_fit=False):
+    """Unpadded inputs built to break a parallel argmin. ``tied`` repeats
+    three type rows (allocatable and price) over the catalog, so costs
+    tie exactly between types that different threads and warps own, and
+    the lowest index must win; ``no_fit`` gives one signature a row above
+    every type and another one that fits only an invalid type."""
+    rng = np.random.RandomState(300 + seed)
+    reqs = rng.randint(1, 200, size=(S, R)).astype(np.float32)
+    counts = rng.randint(1, 50, size=S).astype(np.float32)
+    alloc = rng.randint(100, 4000, size=(T, R)).astype(np.float32)
+    prices = (rng.rand(T) * 10 + 0.5).astype(np.float32)
+    valid = rng.rand(T) < 0.9
+    if tied:
+        kinds = rng.randint(0, 3, size=T)
+        alloc, prices = alloc[kinds], prices[kinds]
+    if no_fit:
+        reqs[S // 2] = 5000.0
+        reqs[S // 3] = 4500.0
+        alloc[T - 1], valid[T - 1] = 6000.0, False
+    w0 = (1.0 / np.maximum(alloc, 1.0)).astype(np.float32)
+    return reqs, counts, alloc, prices, valid, w0
+
+
+# (seed, S, T, R, iters, options): exact ties across threads and warps;
+# fit bits in more than one word (33, 64) and past the register
+# path (100); T not a multiple of the thread count; one and sixteen
+# axes; signatures that fit nothing; no iteration; a work area past
+# shared memory. The 100-signature tie is held port against port only:
+# at its iteration 34 two types of different rows cost the same to
+# within float32 rounding, and XLA's dot (its own summation order) routes
+# one signature to the other of the two (ROADMAP.md, C).
+DUAL_EDGE_CASES = {
+    "tied-rows-2048": (0, 16, 2048, 3, 160, dict(tied=True)),
+    "tied-rows-1500": (1, 12, 1500, 2, 160, dict(tied=True)),
+    "tied-rows-100-signatures": (2, 100, 256, 3, 40, dict(tied=True, against_jax=False)),
+    "signatures-33": (3, 33, 300, 3, 160, {}),
+    "signatures-64": (4, 64, 700, 4, 160, {}),
+    "types-1000": (5, 9, 1000, 3, 160, {}),
+    "axes-1": (6, 20, 500, 1, 160, {}),
+    "axes-16": (7, 24, 300, 16, 160, {}),
+    "fits-nothing": (8, 10, 200, 3, 160, dict(no_fit=True)),
+    "iters-0": (9, 16, 2048, 3, 0, {}),
+    "work-area-in-device-memory": (10, 64, 2048, 12, 40, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DUAL_EDGE_CASES))
+def test_dual_ascent_edge_cases(case):
+    """The JAX kernel, the plain version and the kernel's host build on
+    inputs built to break a parallel argmin: routes equal, w within
+    W_RTOL of JAX and bit-equal between the port's two."""
+    seed, S, T, R, iters, options = DUAL_EDGE_CASES[case]
+    args = _edge_inputs(seed, S, T, R, tied=options.get("tied", False), no_fit=options.get("no_fit", False))
+    pw, pt, ph = _compare_ascent(args, iters, against_jax=options.get("against_jax", True))
+    reqs, counts, alloc, prices, valid, w0 = args
+    if options.get("tied"):
+        # some route's winner has a valid twin at a higher index: a tie
+        # broken by index, not a unique minimum
+        twins = [
+            ((alloc == alloc[t]).all(1) & (prices == prices[t]) & (pw == pw[t]).all(1) & valid)[t + 1 :].any()
+            for t in pt[ph]
+        ]
+        assert any(twins)
+    if options.get("no_fit"):
+        assert not ph[S // 2] and not ph[S // 3] and pt[S // 2] == 0 and ph.sum() == S - 2
+    if iters == 0:
+        assert np.array_equal(pw, w0)
+    plan = port_lp.dual_ascent_plan(S, T, R, lib=_host())
+    assert plan["global"] == (case == "work-area-in-device-memory")
+    assert plan["regs"] == (R <= 4 and S <= 64 and plan["types"] <= 2)
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -71,6 +71,8 @@ def _host(source: str):
         if source == "ffd_pack.cu":
             lib.ffd_pack_host.restype = ctypes.c_int
             lib.ffd_pack_host.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [ctypes.c_void_p] * 2
+            lib.ffd_pack_plan.restype = ctypes.c_int
+            lib.ffd_pack_plan.argtypes = [ctypes.c_int64] * 3 + [ctypes.c_void_p]
         else:
             lib.pack_existing_host.restype = ctypes.c_int
             lib.pack_existing_host.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 2
@@ -310,6 +312,60 @@ def test_ffd_key_ties_at_large_counts():
         rids, rn = ref_pack.ffd_pack(jnp.asarray(reqs), jnp.asarray(front), jnp.int32(cap), k_open=16)
         ids, n = port_pack.ffd_pack(torch.from_numpy(reqs), torch.from_numpy(front), cap)
         assert np.array_equal(ids.numpy(), np.asarray(rids)) and int(n) == int(rn)
+
+
+# a warp's shared block: 200 KB of int32; the chunk's 32 ids, two 32-pod
+# request chunks when prefetched, the K usage columns past 4 axes
+_SMEM_INTS = 200 * 1024 // 4
+
+
+def _ffd_plan(F, R, K):
+    out = (ctypes.c_int64 * 6)()
+    assert _host("ffd_pack.cu").ffd_pack_plan(F, R, K, out) == 0
+    return dict(zip(("warps", "front_in_smem", "prefetch", "usage_in_smem", "smem_bytes", "scratch_ints"), out))
+
+
+@pytest.mark.parametrize("k_open", [16, 32])
+def test_ffd_plan_covers_every_width(k_open):
+    """Every width up to 4,096 has a layout within the budget: requests
+    prefetched while one warp's block holds them (R <= 639 at K = 16,
+    533 at K = 32, as before), then read in place, and past the usage
+    columns' room (3,198 and 1,599) the usage in device memory."""
+    prefetch_max = (_SMEM_INTS - 32) // (64 + k_open)
+    usage_max = (_SMEM_INTS - 32) // k_open
+    for F in (1, 8):
+        for R in range(1, 4097):
+            plan = _ffd_plan(F, R, k_open)
+            assert plan["warps"] in (1, 2, 4) and plan["smem_bytes"] <= 200 * 1024
+            assert plan["prefetch"] == (R <= 4 or R <= prefetch_max), R
+            assert plan["usage_in_smem"] == (R <= 4 or R <= usage_max), R
+            assert plan["scratch_ints"] == (0 if plan["usage_in_smem"] or R <= 4 else k_open * R)
+
+
+@pytest.mark.parametrize("extra,k_open", [(697, 16), (697, 32), (3297, 16), (3297, 32)])
+def test_ffd_wide_rows_every_layout(extra, k_open):
+    """Widths past the prefetched layout (R = 700: requests read in place)
+    and past the usage columns' room (R = 3,300: usage rows in device
+    memory), at K = 16 and 32: the plain scan and the kernel's g++-built
+    step against the JAX scan."""
+    req, front, caps, n = _padded(_wide(22, extra))
+    G, P, R = req.shape
+    plan = _ffd_plan(front.shape[1], R, k_open)
+    assert not plan["prefetch"] and plan["usage_in_smem"] == (R * k_open <= _SMEM_INTS - 32)
+    rids, rn = ref_pack.ffd_pack_batched(jnp.asarray(req), jnp.asarray(front), jnp.asarray(caps), k_open=k_open)
+    rids, rn = np.asarray(rids), np.asarray(rn)
+    ids, cnt = port_pack.ffd_pack_batched(
+        torch.from_numpy(req), torch.from_numpy(front), torch.from_numpy(caps), k_open, torch.from_numpy(n)
+    )
+    assert np.array_equal(ids.numpy(), rids) and np.array_equal(cnt.numpy(), rn)
+    h_ids = np.full((G, P), 7, np.int32)
+    h_cnt = np.zeros(G, np.int32)
+    assert _host("ffd_pack.cu").ffd_pack_host(
+        req.ctypes.data, front.ctypes.data, caps.ctypes.data, n.ctypes.data,
+        G, P, front.shape[1], R, k_open, h_ids.ctypes.data, h_cnt.ctypes.data,
+    ) == 0
+    assert np.array_equal(h_ids, rids) and np.array_equal(h_cnt, rn)
+    assert (rn > 1).all()
 
 
 def test_ffd_kernel_refuses_bad_arguments():
