@@ -139,9 +139,40 @@ Phases, in order; any failure exits non-zero:
    and host bound on a captured config 5 and config 10 call
    (``relax_split``).
 
+13. Provisioner: the port's ``Provisioner.reconcile`` over a live
+   in-memory store (``KubeClient`` + ``Informers`` into a ``Cluster`` +
+   ``Recorder`` + ``Metrics``, every clock fixed), on the batched path
+   (``use_tpu_solver``) on the card, each kernel's launches counted from
+   0 just before the reconcile and read just after. 13a
+   ``config2-provisioner``: bench config 2 whole (10,000 pods, 480 + 20
+   GPU types) as pending pods: one reconcile, three ``schedule()``
+   calls, plans equal to a direct ``TorchScheduler.solve``, one claim
+   per plan, a Nominated event per placed pod, ``nodeclaims_created``
+   and ``solver_duration`` counted, the trace ``provisioner.reconcile``
+   → ``snapshot_nodes``, ``pending_pods``, ``solve``,
+   ``create_node_claims``; the same claims from a CPU reconcile in a
+   fresh store; then one parity shadow and its ``solver_parity`` gauge.
+   13b ``cluster-provisioner``: phase 5's world as store objects (1,000
+   nodes with their NodeClaims, the bound pods, three DaemonSets, two
+   pools) and its 50,000 pending pods, reconciled with the C++ packer
+   and with ``KARPENTER_TORCH_NATIVE=0`` (the scan kernels), and with the
+   C++ packer on the CPU: plans equal to the direct solve of phase 5's
+   inputs under the same packer (the device engine's direct solve is
+   phase 12's cluster-device path, held there to the CPU's plain
+   scans), existing placements nominated with no claim,
+   ``check_cluster``; a captured compat call and the device run's
+   existing-node first-fit held against their plain versions. 13c
+   ``anti-cluster-oracle``: phase 9's cluster cut to 200 nodes and 3,000
+   anti pods, three bound guards with required anti-affinity, and phase
+   11's Helm release pods (the greedy fallback, whose topology walks the
+   guards): ``check_inverse`` (no greedy placement in a domain a guard
+   excludes; the tensor path's counted, as the JAX package's), the
+   claims and the fallback's equal to a CPU reconcile's.
+
 Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
-shapes of phases 8–11 too, and the three pack kernels), and the last
-line ``{"ok": true, "device": {...}}``.
+shapes of phases 8–11 too, and the three pack kernels; launches by path,
+phase 13's included), and the last line ``{"ok": true, "device":
+{...}}``.
 The profiled warm solves of phases 4–11 report device times only from
 traces that hold every kernel launch of the solve (``profile_solve``).
 
@@ -3440,6 +3471,620 @@ def pack_kernel_entry(name: str, rows: list, launches: dict, relax_rows: Optiona
     }
 
 
+# -- phase 13: the provisioner entry -----------------------------------------------
+
+N_CONFIG2 = 10_000  # bench.py config 2: pods, RandomState(7), 480 + 20 GPU types
+CONFIG2_SEED = 7
+N_GUARD_NODES = 200  # phase 13c's cut: phase 9's cluster at 200 nodes and 3,000 anti pods
+N_GUARD_ANTI = 3_000
+STORE_CLOCK = 50_000.0  # the fixed clock of phase 13's stores, clusters and recorders
+
+
+def config2_world(n_pods: int = N_CONFIG2):
+    """bench.py config 2 whole (``bench.py:421-466``): ``instance_types(480)``
+    plus 20 ``fake-gpu-g`` types (8(g+1) CPU, 16(g+1) Gi, 110 pods,
+    min(8, g+1) ``nvidia.com/gpu``), one NodePool ``default``, ``n_pods``
+    pods of RandomState(7) sizes, one in ten asking one GPU →
+    ([nodepool], provider, pods)."""
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types, new_instance_type
+    from karpenter_core_tpu_torch.kube.quantity import parse_quantity
+
+    rng = np.random.RandomState(CONFIG2_SEED)
+    provider = FakeCloudProvider()
+    catalog = instance_types(480)
+    for g in range(20):
+        catalog.append(new_instance_type(
+            f"fake-gpu-{g}",
+            {"cpu": str(8 * (g + 1)), "memory": f"{16 * (g + 1)}Gi", "pods": "110",
+             "nvidia.com/gpu": str(min(8, g + 1))},
+        ))
+    provider.instance_types = catalog
+    nodepool = NodePool()
+    nodepool.metadata.name = "default"
+    pods = []
+    for i in range(n_pods):
+        cpu = ["100m", "250m", "500m", "1", "2", "4"][rng.randint(6)]
+        mem = ["128Mi", "512Mi", "1Gi", "2Gi", "4Gi"][rng.randint(5)]
+        pod = pending_pod(f"bench-{i}", cpu, mem)
+        if rng.rand() < 0.1:
+            pod.spec.containers[0].resources.requests["nvidia.com/gpu"] = parse_quantity("1")
+        pods.append(pod)
+    return [nodepool], provider, pods
+
+
+def store_objects(pools, pods, nodes=(), bound=(), daemons=()) -> list:
+    """A live cluster's objects for a store, in the order its watches
+    would see them: for each existing node (``StateNode``) its launched
+    NodeClaim (the node's provider id, labels and resources) and its
+    Node; the ``bound`` pods; a DaemonSet per daemon pod; the NodePools;
+    then the pending ``pods``."""
+    from karpenter_core_tpu_torch.apis.nodeclaim import NodeClaim
+    from karpenter_core_tpu_torch.kube.objects import DaemonSet
+
+    out = []
+    for sn in nodes:
+        nc = NodeClaim()
+        nc.metadata.name = f"claim-{sn.name()}"
+        nc.metadata.labels = dict(sn.node.metadata.labels)
+        nc.status.provider_id = sn.provider_id()
+        nc.status.capacity = dict(sn.node.status.capacity)
+        nc.status.allocatable = dict(sn.node.status.allocatable)
+        out += [nc, sn.node]
+    out += list(bound)
+    for d in daemons:
+        ds = DaemonSet(pod_template_spec=copy.deepcopy(d.spec))
+        ds.metadata.name, ds.metadata.namespace = d.name, d.namespace
+        out.append(ds)
+    return out + list(pools) + list(pods)
+
+
+class Stack:
+    """The port's provisioning stack over one in-memory store on a fixed
+    clock: a ``KubeClient``, ``Informers`` feeding a ``Cluster``, a
+    ``Recorder``, ``Metrics`` and a ``Provisioner`` on the batched path
+    (``use_tpu_solver``) on ``device``. ``objects`` go into the store
+    after the informers start, as a live cluster's watches deliver them."""
+
+    def __init__(self, device: str, provider, objects):
+        from karpenter_core_tpu_torch.events import Recorder
+        from karpenter_core_tpu_torch.kube.client import KubeClient
+        from karpenter_core_tpu_torch.metrics import Metrics
+        from karpenter_core_tpu_torch.provisioning import Provisioner
+        from karpenter_core_tpu_torch.state.cluster import Cluster
+        from karpenter_core_tpu_torch.state.informers import Informers
+
+        clock = lambda: STORE_CLOCK  # noqa: E731
+        self.kube = KubeClient(clock=clock)
+        self.cluster = Cluster(self.kube, provider, clock=clock)
+        self.informers = Informers(self.kube, self.cluster)
+        self.informers.start()
+        for obj in objects:
+            self.kube.create(obj)
+        self.recorder = Recorder(self.kube, clock=clock, capacity=1 << 20)
+        self.metrics = Metrics()
+        self.provisioner = Provisioner(
+            self.kube, provider, self.cluster, recorder=self.recorder, use_tpu_solver=True,
+            metrics=self.metrics, device=device,
+        )
+        if not self.cluster.synced():
+            fail("the cluster state is not synced with its store")
+
+    def stop(self) -> None:
+        self.informers.stop()
+
+    def reset_claims(self) -> None:
+        """Delete the claims a reconcile created, its events and its
+        metric samples, so the next reconcile meets a synced cluster, a
+        fresh event stream and fresh counters."""
+        from karpenter_core_tpu_torch.metrics import Metrics
+
+        for nc in self.kube.list("NodeClaim"):
+            if not nc.status.provider_id:
+                self.kube.delete(nc)
+        self.recorder.reset()
+        self.metrics = self.provisioner.metrics = Metrics()
+        if self.provisioner._tpu_solver is not None:
+            self.provisioner._tpu_solver[1].metrics = self.metrics
+        if not self.cluster.synced():
+            fail("the cluster is not synced after its new claims were deleted")
+
+
+class kept_solves:
+    """Every ``TorchScheduler.solve`` inside the block, kept as (pods,
+    result)."""
+
+    def __enter__(self):
+        from karpenter_core_tpu_torch.solver.solver import TorchScheduler
+
+        self.cls, self.real, self.solves = TorchScheduler, TorchScheduler.solve, []
+        real, solves = self.real, self.solves
+
+        def solve(solver, pods, *args, **kw):
+            res = real(solver, pods, *args, **kw)
+            solves.append((list(pods), res))
+            return res
+
+        TorchScheduler.solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.solve = self.real
+
+
+def all_kernels() -> dict:
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+
+    return {"compat_allowed": ck.COMPAT_ALLOWED, **pack_kernels()}
+
+
+def claim_content(stack) -> list:
+    """The claims a reconcile created as a content multiset: labels,
+    annotations, requirements, requests, owner references, and the pods
+    their Nominated events name."""
+    claims = {nc.name: nc for nc in stack.kube.list("NodeClaim") if not nc.status.provider_id}
+    nominated = {name: [] for name in claims}
+    for e in stack.recorder.find("Nominated"):
+        target = e.message.rsplit(": ", 1)[-1]
+        if target in nominated:
+            nominated[target].append(e.involved_object.name)
+    return sorted(
+        (
+            sorted(nc.metadata.labels.items()), sorted(nc.metadata.annotations.items()),
+            sorted((r.key, r.operator, tuple(sorted(r.values))) for r in nc.spec.requirements),
+            sorted(nc.spec.resources.requests.items()),
+            [(o.kind, o.name) for o in nc.metadata.owner_references],
+            sorted(nominated[nc.name]),
+        )
+        for nc in claims.values()
+    )
+
+
+def trace_split(tr) -> dict:
+    """The root lane's provisioner-level spans of the reconcile's
+    buffered trace, ms; fails unless it holds ``provisioner.reconcile``
+    → ``snapshot_nodes``, ``pending_pods``, ``solve``,
+    ``create_node_claims``."""
+    if tr is None or tr.name != "provisioner.reconcile" or not tr.contains_solve:
+        fail(f"the reconcile left no solve trace in the ring (last: {tr and tr.name})")
+    out = {}
+    for s in tr.spans:
+        if s.tid == tr.root_tid and s.depth <= 1:
+            out[s.name] = out.get(s.name, 0.0) + s.dur_ns / 1e6
+    for name in ("provisioner.reconcile", "snapshot_nodes", "pending_pods", "solve", "create_node_claims"):
+        if name not in out:
+            fail(f"the reconcile's trace has no {name} span ({sorted(out)})")
+    return {f"{k}_ms": v for k, v in out.items()}
+
+
+def reconcile_once(stack, what: str) -> dict:
+    """One ``reconcile`` with every kernel's launch counter set to 0 just
+    before and read just after → its wall ms, the created names, the one
+    batched solve it ran (pods, result), the solver's timings, the
+    trace's span split and the launches."""
+    from karpenter_core_tpu_torch.tracing import tracer
+
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    with kept_solves() as kept:
+        t0 = time.perf_counter()
+        names, reason = stack.provisioner.reconcile()
+        wall_ms = (time.perf_counter() - t0) * 1000.0
+    launches = {name: k.launches for name, k in kernels.items()}
+    if reason is not None or not names:
+        fail(f"{what}: the reconcile created {len(names)} claims, reason {reason!r}")
+    if len(kept.solves) != 1:
+        fail(f"{what}: the reconcile ran {len(kept.solves)} batched solves, not one")
+    pods, res = kept.solves[0]
+    return {
+        "wall_ms": wall_ms, "names": names, "pods": pods, "res": res,
+        "timings": dict(stack.provisioner._tpu_solver[1].last_timings),
+        "trace": trace_split(tracer.RING.last()), "launches": launches,
+    }
+
+
+def check_reconcile(stack, run, what: str) -> dict:
+    """Fail unless one claim stands in the store per new plan, pinned to
+    the plan's pool, type, zone and capacity type, and one per greedy
+    claim; every placed pod has exactly one Nominated event, naming its
+    claim or its existing node; every existing node that took pods is
+    nominated in the cluster; no claim was made for an existing
+    placement; and ``nodeclaims_created`` counts the claims per pool."""
+    from karpenter_core_tpu_torch.apis import labels as wk
+
+    res, pods = run["res"], run["pods"]
+    claims = {nc.name: nc for nc in stack.kube.list("NodeClaim") if not nc.status.provider_id}
+    greedy = res.oracle_results.new_node_claims if res.oracle_results is not None else []
+    if len(claims) != len(res.node_plans) + len(greedy) or sorted(run["names"]) != sorted(claims):
+        fail(f"{what}: {len(claims)} claims for {len(res.node_plans)} plans and {len(greedy)} greedy claims")
+    nominated = {}
+    for e in stack.recorder.find("Nominated"):
+        nominated.setdefault(e.involved_object.name, []).append(e.message.rsplit(": ", 1)[-1])
+    for plan in res.node_plans:
+        nc = claims.get(getattr(plan, "created_claim_name", None))
+        if nc is None:
+            fail(f"{what}: a plan on {plan.instance_type.name} has no claim")
+        req = {r.key: list(r.values) for r in nc.spec.requirements}
+        got = (nc.metadata.labels[wk.NODEPOOL_LABEL_KEY], req[wk.LABEL_INSTANCE_TYPE],
+               req[wk.LABEL_TOPOLOGY_ZONE], req[wk.CAPACITY_TYPE_LABEL_KEY])
+        if got != (plan.nodepool_name, [plan.instance_type.name], [plan.zone], [plan.capacity_type]):
+            fail(f"{what}: claim {nc.name} is {got}, its plan another")
+        for i in plan.pod_indices:
+            if nominated.get(pods[i].name) != [nc.name]:
+                fail(f"{what}: pod {pods[i].name} is not nominated to its claim alone")
+    for c in greedy:
+        for p in c.pods:
+            if nominated.get(p.name) != [c.created_claim_name]:
+                fail(f"{what}: greedy pod {p.name} is not nominated to its claim alone")
+    existing = list(res.existing_plans)
+    if res.oracle_results is not None:
+        existing += [e for e in res.oracle_results.existing_nodes if e.pods]
+    on_existing = 0
+    for e in existing:
+        tensor = hasattr(e, "pod_indices")  # else a greedy ExistingNode
+        name, pid = (e.state_node.name(), e.state_node.provider_id()) if tensor else (e.name(), e.provider_id())
+        if not stack.cluster.is_node_nominated(pid):
+            fail(f"{what}: existing node {name} took pods and is not nominated")
+        members = [pods[i] for i in e.pod_indices] if tensor else list(e.pods)
+        for p in members:
+            if nominated.get(p.name) != [name]:
+                fail(f"{what}: pod {p.name} on {name} has no Nominated event for it alone")
+        on_existing += len(members)
+    placed = res.pods_scheduled
+    if len(nominated) != placed:
+        fail(f"{what}: {len(nominated)} pods have Nominated events, {placed} were placed")
+    per_pool = {}
+    for nc in claims.values():
+        pool = nc.metadata.labels[wk.NODEPOOL_LABEL_KEY]
+        per_pool[pool] = per_pool.get(pool, 0) + 1
+    for pool, n in per_pool.items():
+        if stack.metrics.nodeclaims_created.get(reason="provisioning", nodepool=pool) != n:
+            fail(f"{what}: nodeclaims_created{{nodepool={pool}}} is not its {n} claims")
+    route = stack.metrics.solver_route_pods
+    return {
+        "claims": len(claims), "claims_by_pool": dict(sorted(per_pool.items())),
+        "nominated_pods": len(nominated), "pods_on_existing": on_existing,
+        "nominated_nodes": sum(1 for pid in stack.cluster.nodes if stack.cluster.is_node_nominated(pid)),
+        "pod_errors": len(res.pod_errors),
+        "route_pods": {k[0][1]: v for k, v in sorted(route.values.items())},
+    }
+
+
+def same_plans(run, direct, direct_pods, what: str) -> None:
+    """Fail unless the reconcile's batched solve has the direct solve's
+    plans, existing plans and errors (by pod index: the two batches hold
+    the same pods in the same order, as distinct objects)."""
+    def errors(res, pods):
+        return {i: res.pod_errors[p.uid] for i, p in enumerate(pods) if p.uid in res.pod_errors}
+
+    res = run["res"]
+    if [p.name for p in run["pods"]] != [p.name for p in direct_pods]:
+        fail(f"{what}: the reconcile's batch is not the direct solve's pods in order")
+    if (plan_stream(res), existing_stream(res), errors(res, run["pods"])) != (
+        plan_stream(direct), existing_stream(direct), errors(direct, direct_pods)
+    ):
+        fail(f"{what}: the reconcile's plans differ from the direct solve's")
+
+
+def reconcile_row(run, check: dict) -> dict:
+    t = run["timings"]
+    return {
+        "reconcile_ms": run["wall_ms"], "solve_ms": t["total_ms"], "solve_device_ms": t["device_ms"],
+        **{f"span_{k}": v for k, v in run["trace"].items()},
+        "solve_phases_ms": {k: v for k, v in t.items() if k.endswith("_ms") and k not in ("total_ms", "device_ms", "host_ms")},
+        "nodes": run["res"].node_count, "pods_scheduled": run["res"].pods_scheduled,
+        **check, "kernel_launches": run["launches"],
+    }
+
+
+def run_provisioner_config2(device: str = "cuda", n_pods: int = N_CONFIG2) -> dict:
+    """Phase 13a, config2-provisioner: bench config 2 as pending pods in
+    a store, one reconcile on ``device``, three more ``schedule()``
+    calls, the claims against a direct solve and a CPU reconcile in a
+    fresh store, the metrics and the trace; then one parity shadow."""
+    from karpenter_core_tpu_torch.solver.solver import TorchScheduler
+
+    t0 = time.perf_counter()
+    pools, provider, pods = config2_world(n_pods)
+    stack = Stack(device, provider, store_objects(pools, pods))
+    world_s = time.perf_counter() - t0
+    stack.provisioner.PARITY_SAMPLE_EVERY = 0  # the shadow runs below, after the counts
+    run = reconcile_once(stack, "config2-provisioner")
+    if device == "cuda" and run["launches"]["compat_allowed"] == 0:
+        fail("config2-provisioner: the reconcile never launched the compat kernel")
+    check = check_reconcile(stack, run, "config2-provisioner")
+    warm = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        stack.provisioner.schedule()
+        warm.append((time.perf_counter() - t1) * 1000.0)
+    solves = sum(stack.metrics.solver_duration.totals.values())
+    if solves != 4 or sum(stack.metrics.solver_device_duration.totals.values()) != 4:
+        fail(f"config2-provisioner: solver_duration observed {solves} solves, not 4")
+    direct_pods = config2_world(n_pods)[2]
+    direct = TorchScheduler(pools, provider, device=device).solve(direct_pods)
+    same_plans(run, direct, direct_pods, "config2-provisioner")
+    cpu_pools, _, cpu_pods = config2_world(n_pods)
+    cpu = Stack("cpu", provider, store_objects(cpu_pools, cpu_pods))
+    cpu_run = reconcile_once(cpu, "config2-provisioner on the cpu")
+    if claim_content(cpu) != claim_content(stack):
+        fail("config2-provisioner: the claims differ between cuda and cpu")
+    cpu.stop()
+    # the parity shadow: the greedy scheduler and a batched solve on a
+    # 500-pod subsample, on a daemon thread; it swallows its errors, so
+    # its gauge is read explicitly
+    stack.provisioner.PARITY_SAMPLE_EVERY = 1
+    stack.provisioner.schedule()
+    deadline = time.monotonic() + 120
+    while stack.provisioner._parity_inflight and time.monotonic() < deadline:
+        time.sleep(0.05)
+    parity = stack.metrics.solver_parity.get()
+    if parity is None:
+        fail("config2-provisioner: the parity shadow set no solver_parity")
+    stack.stop()
+    row = {
+        "provisioner": "config2",
+        "world": f"{n_pods} pods (bench config 2, 10 % asking a GPU) x {len(provider.instance_types)} types, no existing nodes",
+        "world_and_store_s": world_s,
+        **reconcile_row(run, check),
+        "schedule_warm_ms": statistics.median(warm), "schedule_warm_runs_ms": warm,
+        "cpu_reconcile_ms": cpu_run["wall_ms"], "solver_parity": parity,
+        "solver_duration_count": solves,
+    }
+    emit(row)
+    return row
+
+
+def run_provisioner_cluster(device: str = "cuda", n_pods: int = N_PODS, n_types: int = N_TYPES,
+                            n_nodes: int = N_NODES) -> dict:
+    """Phase 13b, cluster-provisioner: phase 5's world as objects in a
+    store (1,000 initialized nodes with their NodeClaims, the bound pods,
+    three DaemonSets, pools ``reserved`` and ``default``) fed through the
+    informers, then the 50,000 pending pods: a reconcile with the C++
+    packer and three ``schedule()`` calls, then a reconcile with
+    ``KARPENTER_TORCH_NATIVE=0`` (the device scans), each against a
+    direct solve of phase 5's inputs under the same packer
+    (``solve(pods, state_nodes, daemonset_pods)``), and a CPU reconcile
+    with the C++ packer. The device run's CPU counterpart is phase 12's:
+    its cluster-device path holds the direct device-engine solve of the
+    same inputs to the plain scans on the CPU. One captured compat call,
+    and one existing-node first-fit call of the device run, held against
+    their plain versions."""
+    import torch
+
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+    from karpenter_core_tpu_torch.solver import pack
+    from karpenter_core_tpu_torch.solver import solver as solver_mod
+    from karpenter_core_tpu_torch.solver.solver import TorchScheduler
+
+    t0 = time.perf_counter()
+    pools, provider, pods, nodes, daemons, missing, kube = _cluster_world(n_pods, n_types, n_nodes, store=True)
+    stack = Stack(device, provider, store_objects(pools, pods, nodes, kube.list("Pod"), daemons))
+    world_s = time.perf_counter() - t0
+    stack.provisioner.PARITY_SAMPLE_EVERY = 0  # no shadow solve among the counted ones
+    if len(stack.cluster.nodes) != n_nodes or len(stack.cluster.bindings) != sum(len(sn.pod_requests) for sn in nodes):
+        fail("cluster-provisioner: the cluster state does not hold the store's nodes and bound pods")
+    rows = {}
+    with capture(solver_mod, "allowed_via_kernel", 1) as compat_call:
+        run = reconcile_once(stack, "cluster-provisioner")
+    # the direct solves come after the first reconcile, which so meets
+    # the pods unmemoized
+    direct = TorchScheduler(pools, provider, device=device).solve(pods, state_nodes=nodes, daemonset_pods=daemons)
+    with knobs(KARPENTER_TORCH_NATIVE=0):
+        direct_dev = TorchScheduler(pools, provider, device=device).solve(
+            pods, state_nodes=nodes, daemonset_pods=daemons
+        )
+    same_plans(run, direct, pods, "cluster-provisioner")
+    if device == "cuda" and run["launches"]["compat_allowed"] == 0:
+        fail("cluster-provisioner: the reconcile never launched the compat kernel")
+    check = check_reconcile(stack, run, "cluster-provisioner")
+    summary = check_cluster(run["res"], run["pods"], nodes, daemons, missing)
+    content = claim_content(stack)
+    warm = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        stack.provisioner.schedule()
+        warm.append((time.perf_counter() - t1) * 1000.0)
+    rows["cluster"] = {
+        "provisioner": "cluster", "world_and_store_s": world_s,
+        "store_objects": len(stack.kube.list("Node")) + len(stack.kube.list("Pod")) + len(stack.kube.list("NodeClaim")),
+        **reconcile_row(run, check), **summary,
+        "schedule_warm_ms": statistics.median(warm), "schedule_warm_runs_ms": warm,
+    }
+    # the captured compat call against its plain version, bit for bit
+    sig, catalog = compat_call.calls[0][:2]
+    sig = sig.to(catalog.device)
+    got = ck.allowed_via_kernel(sig, catalog)
+    plain = ck.allowed_packed_reference(sig, catalog.planes, catalog.layout)
+    compat_err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max().item()) if got.numel() else 0
+    if compat_err:
+        fail(f"cluster-provisioner: the captured compat call differs from its plain version ({compat_err})")
+    rows["cluster"]["captured_compat"] = {"S": int(sig.shape[1]), "T": catalog.n_types, "W": int(sig.shape[0]),
+                                          "max_abs_err": compat_err}
+
+    stack.reset_claims()
+    with knobs(KARPENTER_TORCH_NATIVE=0), capture(pack, "pack_existing", 1) as ex_call:
+        dev_run = reconcile_once(stack, "cluster-provisioner device engine")
+    same_plans(dev_run, direct_dev, pods, "cluster-provisioner device engine")
+    if device == "cuda" and (dev_run["launches"]["ffd_pack"] == 0 or dev_run["launches"]["pack_existing"] == 0
+                             or dev_run["launches"]["compat_allowed"] == 0):
+        fail(f"cluster-provisioner device engine: the reconcile launched {dev_run['launches']}")
+    dev_check = check_reconcile(stack, dev_run, "cluster-provisioner device engine")
+    check_cluster(dev_run["res"], dev_run["pods"], nodes, daemons, missing)
+    rows["cluster-device"] = {"provisioner": "cluster-device", **reconcile_row(dev_run, dev_check)}
+    existing_case = existing_kernel_case(ex_call.calls[0]) if device == "cuda" else None
+
+    # the same store on the CPU with the C++ packer: a fresh solver
+    stack.reset_claims()
+    stack.provisioner.device = "cpu"
+    stack.provisioner._tpu_solver = None
+    cpu_run = reconcile_once(stack, "cluster-provisioner on the cpu")
+    if claim_content(stack) != content:
+        fail("cluster-provisioner: the claims differ between cuda and cpu")
+    same_plans(cpu_run, direct, pods, "cluster-provisioner on the cpu")
+    rows["cluster"]["cpu_reconcile_ms"] = cpu_run["wall_ms"]
+    stack.stop()
+    for r in rows.values():
+        emit(r)
+    return {"rows": rows, "existing_case": existing_case, "compat_err": compat_err}
+
+
+def guard_pods(nodes) -> list:
+    """Bound pods with required anti-affinity on existing nodes, each in
+    the store: ``guard-redis`` on ``node-0002`` (test-zone-3) refuses the
+    redis release's pods on its node; ``guard-pg`` on ``node-0001``
+    (test-zone-2) refuses the ``pg-0`` release in its zone; ``guard-team``
+    on ``node-0004`` refuses ``team=t-0`` pods (tensor-routed) on its
+    node."""
+    from karpenter_core_tpu_torch.apis import labels as wk
+    from karpenter_core_tpu_torch.kube.objects import Affinity, LabelSelector, PodAffinityTerm, PodAntiAffinity
+
+    by_name = {sn.name(): sn for sn in nodes}
+    out = []
+    for name, node, key, selector in (
+        ("guard-redis", "node-0002", wk.LABEL_HOSTNAME, {"app.kubernetes.io/name": "redis"}),
+        ("guard-pg", "node-0001", wk.LABEL_TOPOLOGY_ZONE, {"app.kubernetes.io/instance": "pg-0"}),
+        ("guard-team", "node-0004", wk.LABEL_HOSTNAME, {"team": "t-0"}),
+    ):
+        p = bound_anchor(name, {"role": "guard"}, node)
+        p.spec.affinity = Affinity(pod_anti_affinity=PodAntiAffinity(required=[
+            PodAffinityTerm(topology_key=key, label_selector=LabelSelector(match_labels=selector)),
+        ]))
+        by_name[node].update_for_pod(p)
+        out.append(p)
+    return out
+
+
+def guard_world(n_anti: int = N_GUARD_ANTI, n_types: int = N_TYPES, n_nodes: int = N_GUARD_NODES,
+                n_releases: int = N_RELEASES):
+    """Phase 9's ``anti_cluster_world`` (its eight ``ext-*`` anchors on
+    existing nodes) cut to ``n_nodes`` nodes and ``n_anti`` anti pods,
+    the ``guard_pods``, and phase 11's Helm release pods → (pools,
+    provider, pods, nodes, daemons, missing, bound pods: the workers,
+    daemons, anchors and guards)."""
+    pools, provider, pods, nodes, daemons, missing, kube = anti_cluster_world(n_anti, n_types, n_nodes)
+    bound = kube.list("Pod") + guard_pods(nodes)
+    return pools, provider, pods + release_pods(n_releases), nodes, daemons, missing, bound
+
+
+def check_inverse(res, pods, kube, zones) -> dict:
+    """Every bound pod of ``kube`` with required anti-affinity against
+    every placement of the solve its selector matches: a hostname term
+    excludes its node, a zone term its node's zone (a greedy claim may
+    launch in any zone its requirements leave). Fails on a greedy
+    placement in an excluded domain; counts the tensor path's (the JAX
+    package's tensor path does not read the inverse anti-affinity of
+    bound pods either; ROADMAP C8)."""
+    from karpenter_core_tpu_torch.apis import labels as wk
+
+    node_zone = {n.name: n.metadata.labels.get(wk.LABEL_TOPOLOGY_ZONE) for n in kube.list("Node")}
+    tensor = {i: (z, node) for i, (z, node) in placements(res).items()}
+    greedy = {}
+    if res.oracle_results is not None:
+        index = {p.uid: i for i, p in enumerate(pods)}
+        for c in res.oracle_results.new_node_claims:
+            allowed = set(zones)
+            if c.requirements.has(wk.LABEL_TOPOLOGY_ZONE):
+                req = c.requirements.get_req(wk.LABEL_TOPOLOGY_ZONE)
+                allowed = allowed - req.values if req.complement else set(req.values)
+            for p in c.pods:
+                greedy[index[p.uid]] = (allowed, ("claim", id(c)))
+        for e in res.oracle_results.existing_nodes:
+            for p in e.pods:
+                greedy[index[p.uid]] = ({node_zone[e.name()]}, ("existing", e.name()))
+    out = {"guards": 0, "greedy_checked": 0, "tensor_violations": []}
+    for g in kube.list("Pod"):
+        a = g.spec.affinity
+        if not g.spec.node_name or a is None or a.pod_anti_affinity is None or not a.pod_anti_affinity.required:
+            continue
+        out["guards"] += 1
+        for t in a.pod_anti_affinity.required:
+            hostname = t.topology_key == wk.LABEL_HOSTNAME
+            for i, p in enumerate(pods):
+                if p.namespace != g.namespace or not t.label_selector.matches(p.metadata.labels):
+                    continue
+                if i in greedy:
+                    out["greedy_checked"] += 1
+                    allowed, node = greedy[i]
+                    bad = node == ("existing", g.spec.node_name) if hostname else node_zone[g.spec.node_name] in allowed
+                    if bad:
+                        fail(f"greedy placement of {p.name} on {node} is in a domain {g.name} excludes")
+                elif i in tensor:
+                    z, node = tensor[i]
+                    bad = node == ("existing", g.spec.node_name) if hostname else z == node_zone[g.spec.node_name]
+                    if bad:
+                        out["tensor_violations"].append((p.name, g.name))
+    out["tensor_violations"] = sorted(out["tensor_violations"])
+    return out
+
+
+def run_provisioner_guard(device: str = "cuda", n_anti: int = N_GUARD_ANTI, n_types: int = N_TYPES,
+                          n_nodes: int = N_GUARD_NODES, n_releases: int = N_RELEASES) -> dict:
+    """Phase 13c, anti-cluster-oracle: ``guard_world`` in a store, one
+    reconcile on ``device`` and one on the CPU in a fresh store: the
+    claims, the greedy fallback's claims and the inverse-anti-affinity
+    check equal, ``check_anti`` and ``check_oracle`` on the card's
+    solve."""
+    def build(dev):
+        pools, provider, pods, nodes, daemons, missing, bound = guard_world(n_anti, n_types, n_nodes, n_releases)
+        stack = Stack(dev, provider, store_objects(pools, pods, nodes, bound, daemons))
+        return stack, (pools, provider, pods, nodes, daemons, missing)
+
+    t0 = time.perf_counter()
+    stack, (pools, provider, pods, nodes, daemons, missing) = build(device)
+    world_s = time.perf_counter() - t0
+    stack.provisioner.PARITY_SAMPLE_EVERY = 0
+    run = reconcile_once(stack, "anti-cluster-oracle")
+    if device == "cuda" and run["launches"]["compat_allowed"] == 0:
+        fail("anti-cluster-oracle: the reconcile never launched the compat kernel")
+    res, batch = run["res"], run["pods"]
+    check = check_reconcile(stack, run, "anti-cluster-oracle")
+    route = dict(stack.provisioner._tpu_solver[1].last_route_stats)
+    zones = sorted({sn.labels().get("topology.kubernetes.io/zone") for sn in nodes})
+    inverse = check_inverse(res, batch, stack.kube, zones)
+    if inverse["guards"] != 3 or inverse["greedy_checked"] == 0:
+        fail(f"anti-cluster-oracle: the inverse check saw {inverse['guards']} guards, "
+             f"{inverse['greedy_checked']} greedy placements they select")
+    cpu, _ = build("cpu")
+    cpu.provisioner.PARITY_SAMPLE_EVERY = 0
+    cpu_run = reconcile_once(cpu, "anti-cluster-oracle on the cpu")
+    if claim_content(cpu) != claim_content(stack):
+        fail("anti-cluster-oracle: the claims differ between cuda and cpu")
+    same_plans(cpu_run, res, batch, "anti-cluster-oracle on the cpu")
+    same_oracle_as_cpu(res, batch, cpu_run["res"], cpu_run["pods"], "anti-cluster-oracle")
+    if check_inverse(cpu_run["res"], cpu_run["pods"], cpu.kube, zones) != inverse:
+        fail("anti-cluster-oracle: the inverse check differs between cuda and cpu")
+    cpu.stop()
+    row = {
+        "provisioner": "anti-cluster-oracle",
+        "world": (f"{len(pods)} pods ({n_anti} config 13 anti_dense + 6 quorum + {len(pods) - n_anti - N_QUORUM} "
+                  f"Helm release pods) x {len(provider.instance_types)} types x {len(nodes)} existing nodes "
+                  f"(phase 9's cluster cut from {N_NODES}), 8 anchors, 3 guards"),
+        "world_and_store_s": world_s,
+        **reconcile_row(run, check),
+        "oracle": check_oracle(res, batch, len(pods) - n_anti - N_QUORUM, route),
+        "anti": check_anti(res, batch, stack.kube),
+        "inverse_anti": inverse,
+        **check_cluster(res, batch, nodes, daemons, missing, spill=False),
+        "cpu_reconcile_ms": cpu_run["wall_ms"],
+    }
+    stack.stop()
+    emit(row)
+    return row
+
+
+def run_provisioner_phase(device: str = "cuda", sizes: Optional[dict] = None) -> dict:
+    """Phase 13 → its three parts' rows; ``sizes`` cuts them for a
+    rehearsal on the CPU (``config2``, ``cluster`` (pods, types, nodes),
+    ``guard`` (anti pods, types, nodes, releases))."""
+    sizes = sizes or {}
+    out = {"config2": run_provisioner_config2(device, *sizes.get("config2", ()))}
+    out.update(run_provisioner_cluster(device, *sizes.get("cluster", ())))
+    out["guard"] = run_provisioner_guard(device, *sizes.get("guard", ()))
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3668,6 +4313,23 @@ def main() -> None:
         emit({"relax_split": label, **relax_splits[label], "card": card})
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 12"})
 
+    # 13. the provisioner entry: Provisioner.reconcile over a live store on
+    # bench config 2, phase 5's cluster (C++ packer and device scans) and
+    # the anti-affinity / greedy-fallback world
+    prov = run_provisioner_phase("cuda")
+    prov_rows = {"provisioner-config2": prov["config2"], **{
+        f"provisioner-{k}": v for k, v in prov["rows"].items()
+    }, "provisioner-anti-cluster-oracle": prov["guard"]}
+    for path, row in prov_rows.items():
+        pack["launches"][path] = {name: row["kernel_launches"][name] for name in cases}
+    cases["pack_existing"].append({"captured": "provisioner-cluster-device", **prov["existing_case"]})
+    emit({"pack_kernel_case": "pack_existing", **cases["pack_existing"][-1], "card": card})
+    emit({"phase13": {path: {k: row[k] for k in (
+        "reconcile_ms", "solve_ms", "span_snapshot_nodes_ms", "span_pending_pods_ms", "span_solve_ms",
+        "span_create_node_claims_ms", "claims", "nominated_pods", "kernel_launches",
+    )} for path, row in prov_rows.items()}, "card": card})
+    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 13"})
+
     # the kernels line, then the last line
     paths = {
         "slice": slice_launches, "cluster": cluster["kernel_launches"],
@@ -3679,6 +4341,7 @@ def main() -> None:
         "oracle-mix": oracle_mix["kernel_launches"], "oracle-cluster": oracle_cluster["kernel_launches"],
         "relax-cluster": relax_cluster["kernel_launches"],
         "parity-config6": parity6["kernel_launches"], "parity-config1": parity1["kernel_launches"],
+        **{path: row["kernel_launches"]["compat_allowed"] for path, row in prov_rows.items()},
     }
     path_keys = (
         "shape", "S", "T", "W", "kernel_ms", "profiled_kernel_ms", "wrapper_ms", "plain_ms",
@@ -3695,10 +4358,9 @@ def main() -> None:
                     "launches": sum(paths.values()),
                     "launches_by_path": paths,
                     "max_abs_err": max(
-                        row["max_abs_err"]
-                        for row in [
+                        [row["max_abs_err"] for row in [
                             slice_row, big_row, *spread_rows, *affinity_rows, *stateful_rows, *relax_rows,
-                        ]
+                        ]] + [prov["compat_err"]]
                     ),
                     "ms": slice_row["kernel_ms"],
                     "kernel_ms": slice_row["kernel_ms"],

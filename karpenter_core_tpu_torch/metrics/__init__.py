@@ -1,0 +1,2 @@
+from .registry import Counter, Gauge, Histogram, Registry, Metrics
+from .store import MetricsStore

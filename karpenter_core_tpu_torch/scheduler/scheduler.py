@@ -4,8 +4,9 @@ of ``karpenter_core_tpu/scheduler/scheduler.py``.
 
 It is the correctness oracle of the batched solve (``TorchScheduler``,
 whose packing is held to it) and the solve's fallback for the groups
-the tensor path does not take. Events are not ported: the recorder must
-be None.
+the tensor path does not take. With a ``recorder`` it publishes failure
+and nomination events, and with a ``cluster`` it nominates the existing
+nodes it placed pods on.
 """
 
 from __future__ import annotations
@@ -94,8 +95,6 @@ class Scheduler:
         recorder=None,
         opts: Optional[SchedulerOptions] = None,
     ):
-        if recorder is not None:
-            raise NotImplementedError("events are not ported yet")
         self.kube_client = kube_client
         self.node_claim_templates = node_claim_templates
         self.topology = topology
@@ -144,8 +143,8 @@ class Scheduler:
 
         for claim in self.new_node_claims:
             claim.finalize_scheduling()
-        # the reference publishes failure and nomination events here
-        # (scheduler.go:171); with no recorder it publishes nothing
+        if not self.opts.simulation_mode:
+            self._record_results(pods_by_uid, q.list(), errors)
         errors = {uid: e for uid, e in errors.items() if e is not None}
         return Results(
             new_node_claims=self.new_node_claims,
@@ -153,6 +152,19 @@ class Scheduler:
             pod_errors=errors,
             _pods_by_uid=pods_by_uid,
         )
+
+    def _record_results(self, pods_by_uid, failed, errors) -> None:
+        if self.recorder is None:
+            return
+        from ..events import events as ev
+
+        for pod in failed:
+            self.recorder.publish(ev.pod_failed_to_schedule(pod, errors.get(pod.uid)))
+        for existing in self.existing_nodes:
+            if existing.pods and self.cluster is not None:
+                self.cluster.nominate_node_for_pod(existing.provider_id())
+            for pod in existing.pods:
+                self.recorder.publish(ev.nominate_pod(pod, existing.name()))
 
     # -- add one pod (scheduler.go:238) ------------------------------------
 

@@ -6,9 +6,8 @@ topologygroup.go, topologynodefilter.go): the port's copy of
 The batched solve reads the counting half (a group's identity, selector
 and node filter, and ``count_matching_pods_by_domain``, which seeds its
 spread and affinity quotas); the greedy scheduler walks the domains pod
-by pod through ``Topology``. The port has no cluster-state object yet, so
-``Topology`` takes ``cluster=None`` only: the inverse anti-affinity of
-the pods already bound in a cluster is not tracked.
+by pod through ``Topology``, which with a ``cluster`` (state.cluster)
+also tracks the inverse anti-affinity of the pods already bound there.
 """
 
 from __future__ import annotations
@@ -450,13 +449,18 @@ class Topology:
 
     def _update_inverse_affinities(self) -> None:
         """Track existing pods with anti-affinity: they block domains for
-        pods they select (topology.go:190). The walk reads a cluster-state
-        object (``for_pods_with_anti_affinity``), which the port does not
-        have yet; with no cluster there is nothing to track."""
-        if self.cluster is not None:
-            raise NotImplementedError(
-                "the cluster-state object (inverse anti-affinity of bound pods) is not ported yet"
-            )
+        pods they select (topology.go:190)."""
+        if self.cluster is None:
+            return
+
+        def visit(pod: Pod, node) -> bool:
+            if pod.uid not in self.excluded_pods:
+                self._update_inverse_anti_affinity(
+                    pod, node.metadata.labels if node is not None else None
+                )
+            return True
+
+        self.cluster.for_pods_with_anti_affinity(visit)
 
     def _update_inverse_anti_affinity(self, pod: Pod, node_labels: Optional[Dict[str, str]]) -> None:
         """Only required inverse anti-affinities are tracked

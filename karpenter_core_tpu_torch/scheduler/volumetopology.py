@@ -2,13 +2,13 @@
 requirements of its bound or dynamic PVCs (ref
 pkg/controllers/provisioning/scheduling/volumetopology.go).
 
-Counterpart of ``karpenter_core_tpu/scheduler/volumetopology.py``
-without ``validate_persistent_volume_claims``, which belongs to the
-provisioner."""
+Counterpart of ``karpenter_core_tpu/scheduler/volumetopology.py``;
+the provisioner drops the pods ``validate_persistent_volume_claims``
+refuses."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 from ..apis import labels as wk
 from ..kube.objects import (
@@ -68,3 +68,34 @@ class VolumeTopology:
                 if sc is not None and sc.zones:
                     return [NodeSelectorRequirement(wk.LABEL_TOPOLOGY_ZONE, OP_IN, list(sc.zones))]
         return []
+
+    def validate_persistent_volume_claims(self, pod: Pod) -> Optional[str]:
+        """Error if a referenced PVC — explicit, or the implicit
+        ``<pod>-<volume>`` of a generic ephemeral volume — doesn't exist,
+        or an unbound PVC names a storage class that doesn't
+        (volumetopology.go:160-190 ValidatePersistentVolumeClaims +
+        validateStorageClass)."""
+        for volume in pod.spec.volumes:
+            if volume.persistent_volume_claim:
+                pvc_name = volume.persistent_volume_claim
+            elif volume.ephemeral:
+                pvc_name = f"{pod.metadata.name}-{volume.name}"
+            else:
+                continue
+            pvc = self.kube_client.get(
+                "PersistentVolumeClaim", pvc_name, namespace=pod.namespace
+            )
+            if pvc is None:
+                if volume.ephemeral:
+                    continue  # implicit PVC not created yet: nothing to validate
+                return f'configuring volume "{volume.name}", unable to find persistent volume claim "{pvc_name}"'
+            # an unbound claim's storage class must resolve, or the node
+            # we launch can never satisfy the volume
+            if not pvc.volume_name and pvc.storage_class_name:
+                sc = self.kube_client.get("StorageClass", pvc.storage_class_name)
+                if sc is None:
+                    return (
+                        f'configuring volume "{volume.name}", unable to find '
+                        f'storage class "{pvc.storage_class_name}"'
+                    )
+        return None

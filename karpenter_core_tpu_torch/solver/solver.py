@@ -64,11 +64,15 @@ its tensor path:
           the existing nodes that carry the tensor path's placements
 
 Spread and affinity seeds count the pods bound in ``kube_client`` (the
-JAX package's ``kube_client``); the port has no cluster-state object, no
-warm store and no tracer, so seeds are recounted on every solve and
-nothing is memoized across solves but the catalog encodings. Features
-of the JAX package the port lacks raise NotImplementedError naming
-them: a cluster-state object (``cluster``) and an event recorder. Three
+JAX package's ``kube_client``); the port has no warm store, so seeds are
+recounted on every solve and nothing is memoized across solves but the
+catalog encodings. ``cluster`` (state.cluster), ``recorder`` (events)
+and ``metrics`` (metrics.registry) are the JAX package's: the greedy
+fallback walks the cluster's bound anti-affinity pods, nominates its
+existing nodes and publishes its events; each solve runs under a
+``trace_root("solve")`` (joining the provisioner's trace), its phases
+are spans, and its duration, device time, route split, cache and LP
+counters feed the metrics. Three
 pack knobs are read as the JAX package reads their ``KARPENTER_TPU_*``
 twins (``KARPENTER_TORCH_PACK_BACKEND``, ``_NATIVE``, ``_LP_MIN_WORK``);
 its other defaults the port depends on are module constants
@@ -108,6 +112,7 @@ from ..scheduling.requirements import (
     pod_requirements,
 )
 from ..scheduling.volumes import Volumes
+from ..tracing import tracer
 from . import backends, plancost, podcache
 from .backend import resolve_device
 from .compat_kernels import DeviceCatalog, allowed_via_kernel, catalog_to_device, signature_side
@@ -673,23 +678,24 @@ class TorchScheduler:
         kube_client=None,
         cluster=None,
         recorder=None,
+        metrics=None,
     ):
         """``kube_client`` (``kube.client.KubeClient``, as the JAX
         package's ``kube_client``) is read for the bound pods that seed
         topology-spread and affinity domain counts, and for the volumes
-        of the pods; with None the seeds are empty. The JAX package's
-        ``cluster`` (cluster-state object) and ``recorder`` (events) are
-        not ported: each must be None."""
-        if cluster is not None:
-            raise NotImplementedError("the cluster-state object is not ported yet")
-        if recorder is not None:
-            raise NotImplementedError("events are not ported yet")
+        of the pods; with None the seeds are empty. ``cluster``
+        (``state.cluster.Cluster``) and ``recorder``
+        (``events.Recorder``) go to the greedy fallback; ``metrics``
+        (``metrics.registry.Metrics``) takes each solve's samples."""
         self.device = resolve_device(device)
         self.nodepools = order_by_weight(
             [np_ for np_ in nodepools if np_.metadata.deletion_timestamp is None]
         )
         self.cloud_provider = cloud_provider
         self.kube_client = kube_client
+        self.cluster = cluster
+        self.recorder = recorder
+        self.metrics = metrics
         # device/host wall-time split of the most recent solve
         self.last_timings: Optional[Dict[str, float]] = None
         # pods per route of the most recent solve (tensor, parked, oracle)
@@ -761,30 +767,50 @@ class TorchScheduler:
         self._phase_inner = [0.0]  # ms of phases nested in the open one
         self.last_reseed_redo = False
         self._solve_entries = {}
-        try:
-            return self._solve(pods, list(state_nodes or ()), list(daemonset_pods or ()))
-        finally:
-            self._solve_entries = {}
-            total_ms = (time.perf_counter() - t0) * 1000.0
-            device_ms = self._clock.ms()
-            self.last_timings = {
-                "total_ms": total_ms,
-                "device_ms": device_ms,
-                "host_ms": max(total_ms - device_ms, 0.0),
-                **{f"{name}_ms": ms for name, ms in self._phase_ms.items()},
-            }
-            self.last_merge_stats = dict(self._merge_stats)
-            self.last_pack_stats = dict(self._pack_backend_stats)
-            self.last_cache_stats = self._cstats.to_dict()
+        sink = self.metrics.solver_phase_duration if self.metrics is not None else None
+        with tracer.trace_root(
+            "solve", metrics_sink=sink, buffer_if="solve", is_solve=True, pods=len(pods)
+        ):
+            try:
+                return self._solve(pods, list(state_nodes or ()), list(daemonset_pods or ()))
+            finally:
+                self._solve_entries = {}
+                total_ms = (time.perf_counter() - t0) * 1000.0
+                device_ms = self._clock.ms()
+                self.last_timings = {
+                    "total_ms": total_ms,
+                    "device_ms": device_ms,
+                    "host_ms": max(total_ms - device_ms, 0.0),
+                    **{f"{name}_ms": ms for name, ms in self._phase_ms.items()},
+                }
+                self.last_merge_stats = dict(self._merge_stats)
+                self.last_pack_stats = dict(self._pack_backend_stats)
+                self.last_cache_stats = self._cstats.to_dict()
+                if self.metrics is not None:
+                    self._observe_solve(total_ms / 1000.0, device_ms / 1000.0)
+
+    def _observe_solve(self, total_s: float, device_s: float) -> None:
+        """One solve's samples: its duration and device time, and the
+        cross-solve cache traffic of its ``CacheStats``."""
+        m = self.metrics
+        m.solver_duration.observe(total_s)
+        m.solver_device_duration.observe(device_s)
+        for cache, n in self._cstats.hits.items():
+            m.solver_cache_hits.inc(n, cache=cache)
+        for cache, n in self._cstats.misses.items():
+            m.solver_cache_misses.inc(n, cache=cache)
+        for cache, n in self._cstats.evictions.items():
+            m.solver_cache_evictions.inc(n, cache=cache)
 
     @contextmanager
     def _phase(self, name: str):
         """Wall time of one solve phase into ``last_timings[name + "_ms"]``,
-        less the phases opened inside it."""
+        less the phases opened inside it, and a span of the solve's trace."""
         t0 = time.perf_counter()
         self._phase_inner.append(0.0)
         try:
-            yield
+            with tracer.span(name):
+                yield
         finally:
             ms = (time.perf_counter() - t0) * 1000.0
             inner = self._phase_inner.pop()
@@ -834,6 +860,10 @@ class TorchScheduler:
                 **counts,
                 "oracle_share": round(counts["oracle"] / total, 4) if total else 0.0,
             }
+            if self.metrics is not None:
+                for route, n in counts.items():
+                    if n:
+                        self.metrics.solver_route_pods.inc(n, route=route)
         # merge-pass pairwise Requirements.intersects memo (content keyed)
         self._intersects_cache: Dict[tuple, bool] = {}
         # spread-count seeding excludes the batch being scheduled
@@ -1104,12 +1134,13 @@ class TorchScheduler:
         reads this scheduler's catalog entries."""
         scheduler = build_scheduler(
             self.kube_client,
-            None,
+            self.cluster,
             self.nodepools,
             self.cloud_provider,
             pods,
             state_nodes=state_nodes,
             daemonset_pods=daemonset_pods,
+            recorder=self.recorder,
             catalog_entry=self._catalog_entry,
         )
         res = scheduler.solve(pods)
@@ -3498,6 +3529,28 @@ class TorchScheduler:
         for k in ("lp_bound_sum", "lp_saved_per_hr"):
             if k in stats:
                 acc[k] = round(acc.get(k, 0.0) + float(stats[k]), 6)
+        if self.metrics is not None:
+            self._observe_lp_outcomes(stats)
+
+    def _observe_lp_outcomes(self, stats: dict) -> None:
+        """The LP guard's outcome per job (won, or FFD kept before or
+        after the refinement tier) and the branch outcomes of one pack
+        call, as the JAX package counts them."""
+        jobs = self.metrics.solver_lp_jobs
+        if stats.get("lp_won"):
+            jobs.inc(stats["lp_won"], outcome="lp_won")
+        cold = int(stats.get("ffd_kept_cold", 0))
+        refined = int(stats.get("ffd_kept_refined", 0))
+        if cold:
+            jobs.inc(cold, outcome="ffd_kept_cold")
+        if refined:
+            jobs.inc(refined, outcome="ffd_kept_refined")
+        if stats.get("ffd_kept") and not (cold or refined):
+            jobs.inc(stats["ffd_kept"], outcome="ffd_kept")
+        for outcome in ("pruned", "explored", "won"):
+            v = int(stats.get(f"branches_{outcome}", 0))
+            if v:
+                self.metrics.solver_lp_branches.inc(v, outcome=outcome)
 
     def _job_skeleton(
         self, meta: dict, node_ids: np.ndarray, node_count: int, cost_guard: bool = False

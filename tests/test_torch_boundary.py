@@ -10,9 +10,13 @@ limit), whose batch also reaches the greedy fallback (soft pod
 anti-affinity) and a preference-relaxation round (an impossible
 preferred zone), then the same batch through the ``auto`` pack backend
 with the native packer off (LP routing, the dual ascent's plain version,
-the device scans' plain versions) and the LP routing calibration, runs in
-a fresh interpreter under a meta-path hook that raises on importing
-either.
+the device scans' plain versions) and the LP routing calibration, and a
+``Provisioner.reconcile`` through the port's whole stack (``KubeClient``,
+``Informers`` into ``Cluster``, ``Recorder``, ``Metrics``, the tracer)
+on its batched and its greedy path, runs in a fresh interpreter under a
+meta-path hook that raises on importing either. The JAX package's
+environment knobs of that stack are module constants of the port with
+the reference's defaults.
 """
 
 from __future__ import annotations
@@ -53,6 +57,13 @@ def test_sources_found():
                    os.path.join("backends", "__init__.py"), os.path.join("backends", "lp.py")):
         assert os.path.join(PORT_DIR, "solver", module) in srcs
     assert os.path.join(PORT_DIR, "native", "__init__.py") in srcs
+    for module in (
+        ("kube", "client.py"), ("events", "recorder.py"), ("events", "events.py"),
+        ("utils", "pretty.py"), ("tracing", "tracer.py"), ("metrics", "registry.py"),
+        ("metrics", "store.py"), ("state", "cluster.py"), ("state", "informers.py"),
+        ("provisioning", "batcher.py"), ("provisioning", "provisioner.py"),
+    ):
+        assert os.path.join(PORT_DIR, *module) in srcs
     assert os.path.exists(os.path.join(REPO, "chip_smoke.py"))
     assert len(srcs) > 20
 
@@ -111,6 +122,19 @@ def test_no_forbidden_import_or_env_read(path):
             assert script, f"{path}:{node.lineno} indexes the environment"
 
 
+def test_reference_knobs_are_constants():
+    """Where the JAX package reads an environment knob on the provisioning
+    stack, the port has a constant named for it, with its default."""
+    from karpenter_core_tpu_torch.metrics import registry
+    from karpenter_core_tpu_torch.provisioning import Provisioner
+    from karpenter_core_tpu_torch.tracing import tracer
+
+    assert Provisioner.PARITY_SAMPLE_EVERY == 16  # KARPENTER_TPU_PARITY_SAMPLE
+    assert registry.LATENCY_BUCKETS_MS == ""  # KARPENTER_TPU_LATENCY_BUCKETS_MS
+    assert tracer.TRACE is True  # KARPENTER_TPU_TRACE
+    assert tracer.TRACE_BUFFER == 32  # KARPENTER_TPU_TRACE_BUFFER
+
+
 _SCRIPT = r"""
 import importlib.abc, json, sys
 
@@ -132,7 +156,7 @@ from karpenter_core_tpu_torch.apis.nodepool import NodePool
 from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
 from karpenter_core_tpu_torch.kube.objects import (
     Affinity, Container, LabelSelector, NodeAffinity, NodeSelectorRequirement, NodeSelectorTerm, Pod,
-    PodAffinityTerm, PodAntiAffinity, PodSpec, PreferredSchedulingTerm, ResourceRequirements, Toleration,
+    PodAffinityTerm, PodAntiAffinity, PodCondition, PodSpec, PreferredSchedulingTerm, ResourceRequirements, Toleration,
     WeightedPodAffinityTerm,
 )
 from karpenter_core_tpu_torch.kube.quantity import parse_quantity
@@ -197,6 +221,39 @@ res2 = solver.solve(pods, state_nodes=[sn], daemonset_pods=[ds])
 assert solver.last_pack_stats["backend"] == "auto" and solver.last_pack_stats["ascent_iters"] > 0
 assert res2.pods_scheduled + len(res2.pod_errors) == 90
 assert calibrate.lp_calibration("cpu")["lp_min_job_work"] >= 1024
+# the provisioner entry: the whole stack over a store, both paths
+from karpenter_core_tpu_torch.events import Recorder
+from karpenter_core_tpu_torch.kube.client import KubeClient
+from karpenter_core_tpu_torch.metrics import Metrics
+from karpenter_core_tpu_torch.provisioning import Provisioner
+from karpenter_core_tpu_torch.state.cluster import Cluster
+from karpenter_core_tpu_torch.state.informers import Informers
+from karpenter_core_tpu_torch.tracing import tracer
+
+os.environ.update(KARPENTER_TORCH_PACK_BACKEND="ffd", KARPENTER_TORCH_NATIVE="1")
+for batched in (True, False):
+    kube = KubeClient()
+    cluster = Cluster(kube, provider)
+    informers = Informers(kube, cluster)
+    informers.start()
+    recorder, metrics = Recorder(kube), Metrics()
+    live_pool = NodePool()
+    live_pool.metadata.name = "default"
+    kube.create(live_pool)
+    for i, p in enumerate(pods[:30]):
+        q = Pod()
+        q.metadata.name = f"q{i}"
+        q.spec = p.spec
+        q.status.phase = "Pending"
+        q.status.conditions = [PodCondition(type="PodScheduled", status="False", reason="Unschedulable")]
+        kube.create(q)
+    prov = Provisioner(kube, provider, cluster, recorder=recorder, use_tpu_solver=batched, metrics=metrics, device="cpu")
+    names, reason = prov.reconcile()
+    assert reason is None and names and len(kube.list("NodeClaim")) == len(names), (names, reason)
+    assert "Nominated" in recorder.reasons()
+    assert metrics.nodeclaims_created.get(reason="provisioning", nodepool="default") == len(names)
+    assert tracer.RING.last().name == "provisioner.reconcile" and tracer.RING.last().contains_solve
+    informers.stop()
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "karpenter_core_tpu"))
 print(json.dumps({"scheduled": res.pods_scheduled, "errors": len(res.pod_errors), "nodes": res.node_count, "leaked": leaked}))
 """

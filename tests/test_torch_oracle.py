@@ -728,11 +728,33 @@ def test_random_mix_greedy_matches_reference(monkeypatch, seed):
     assert [repr(p.spec.affinity) for p in port_w["pods"]] == [repr(p.spec.affinity) for p in ref_w["pods"]]
 
 
-def test_recorder_and_cluster_are_refused():
-    from karpenter_core_tpu_torch.scheduler.builder import build_scheduler
-
-    w = random_mix(PORT, 0)
-    with pytest.raises(NotImplementedError, match="events"):
-        build_scheduler(None, None, w["pools"], w["provider"], w["pods"], recorder=object())
-    with pytest.raises(NotImplementedError, match="cluster-state"):
-        build_scheduler(None, object(), w["pools"], w["provider"], w["pods"])
+def test_recorder_and_cluster_are_refused(monkeypatch):
+    """The recorder and the cluster-state object are taken, as the JAX
+    package's greedy scheduler takes them: with both, four random mixes
+    give the same claims, the same failure and nomination events, and
+    the same nominated nodes in both packages (the cluster mirrors the
+    mix's kube store through its informers)."""
+    for seed in range(4):
+        out = {}
+        for pkg in (REF, PORT):
+            same_start(monkeypatch)
+            w = random_mix(pkg, seed)
+            imp = lambda m, pkg=pkg: importlib.import_module(f"{pkg}.{m}")  # noqa: E731
+            kube = w["kube"] or imp("kube.client").KubeClient()
+            cluster = imp("state.cluster").Cluster(kube, w["provider"], clock=lambda: 100.0)
+            informers = imp("state.informers").Informers(kube, cluster)
+            informers.start()
+            recorder = imp("events").Recorder(clock=lambda: 100.0)
+            scheduler = imp("scheduler.builder").build_scheduler(
+                kube, cluster, w["pools"], w["provider"], w["pods"],
+                state_nodes=w["state_nodes"], daemonset_pods=w["daemons"], recorder=recorder,
+            )
+            res = scheduler.solve(w["pods"])
+            informers.stop()
+            out[pkg] = dict(
+                stream=greedy_stream(res, w["pods"]),
+                events=[(e.type, e.reason, e.involved_object.name, e.message) for e in recorder.events],
+                nominated=sorted(pid for pid in cluster.nodes if cluster.is_node_nominated(pid)),
+            )
+        assert out[REF]["events"], seed
+        assert out[PORT] == out[REF], seed
