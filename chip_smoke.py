@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero:
    versions on the card, bit for bit, on seeded ragged planes, the
    slice's, config 3's, the cluster-spread, config 6 and both
    anti-affinity phases' own catalog shapes (T = 2000; config 6 T = 400,
-   anti-dense T = 200),
+   anti-dense T = 200), bench config 7's (T = 500) whole and for four of
+   its teams alone (the shape of a warm tick's missing signatures),
    S ∈ {4, 16, 17, 64, 65, 128, 512} × T=2048 at the
    slice's widths and S=8192 × T=2048; one JSON line per shape with
    ``kernel_ms`` (CUDA events around back-to-back launches alone, queued
@@ -169,9 +170,32 @@ Phases, in order; any failure exits non-zero:
    excludes; the tensor path's counted, as the JAX package's), the
    claims and the fallback's equal to a CPU reconcile's.
 
+14. Config 7 ticks: bench config 7 (``bench.py:763-960``) on the card
+   (``run_config7_phase``): 10,000 pods of RandomState(23), 480 + 20 GPU
+   types, 40 teams, 30 ticks at 5 % churn on four teams, every tenth a
+   1 % price rise on every 16th type, a catalog generation bump and a
+   pool weight change. Each tick a restart-shaped cold leg (fresh pods,
+   catalog, pool and TorchScheduler, ``KARPENTER_TORCH_INCREMENTAL=0``)
+   and a warm leg on one long-lived ``TorchScheduler(device="cuda")``:
+   plans identical every tick, the warm leg's compat launches at most
+   the cold leg's; a no-op tick that replays with no compat and no FFD
+   launch; ten more ticks with ``KARPENTER_TORCH_NATIVE=0``, whose FFD
+   scan launches are one per (size class, width) class of the jobs the
+   job memo missed, plans equal to a cold solve of the tick's pods on the
+   same engine and, on its last tick, to a cold CPU solve through the
+   plain scans; a restart (``snapshot``, ``simulate_process_death``,
+   ``restore`` into a fresh card scheduler) whose first solve of the last
+   tick's pods is plan-identical to the un-killed scheduler's with no
+   compat launch; and the last tick's plan equal to a cold CPU solve's.
+   Every compat and FFD call of the phase's solves is captured, and each
+   distinct shape is held against its plain version on the card, bit for
+   bit; ``sections_s`` splits the phase's wall time. Phases 4-13 run
+   with ``KARPENTER_TORCH_INCREMENTAL=0``: they measure the cold
+   pipeline, as before the warm state existed.
+
 Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
 shapes of phases 8–11 too, and the three pack kernels; launches by path,
-phase 13's included), and the last line ``{"ok": true, "device":
+phase 13's and phase 14's legs included), and the last line ``{"ok": true, "device":
 {...}}``.
 The profiled warm solves of phases 4–11 report device times only from
 traces that hold every kernel launch of the solve (``profile_solve``).
@@ -182,6 +206,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import copy
+import gc
 import hashlib
 import json
 import os
@@ -1394,6 +1419,9 @@ def run_cluster_spread_phase(
 # -- phases 8 and 9: pod affinity and anti-affinity -------------------------------
 
 
+_QUANTITIES: dict = {}
+
+
 def pending_pod(name: str, cpu: str, mem: str, labels=None):
     """A pending pod as ``bench.py::_mk_pod`` builds it."""
     from karpenter_core_tpu_torch.kube.objects import (
@@ -1408,7 +1436,11 @@ def pending_pod(name: str, cpu: str, mem: str, labels=None):
     pod = Pod()
     pod.metadata.name = name
     pod.metadata.labels = dict(labels or {})
-    requests = {"cpu": parse_quantity(cpu), "memory": parse_quantity(mem)}
+    # parsed quantities are ints: one parse per distinct string
+    for q in (cpu, mem):
+        if q not in _QUANTITIES:
+            _QUANTITIES[q] = parse_quantity(q)
+    requests = {"cpu": _QUANTITIES[cpu], "memory": _QUANTITIES[mem]}
     pod.spec = PodSpec(containers=[Container(name="main", resources=ResourceRequirements(requests=requests))])
     pod.status.conditions = [PodCondition(type="PodScheduled", status="False", reason="Unschedulable")]
     return pod
@@ -3851,9 +3883,6 @@ def run_provisioner_cluster(device: str = "cuda", n_pods: int = N_PODS, n_types:
     same inputs to the plain scans on the CPU. One captured compat call,
     and one existing-node first-fit call of the device run, held against
     their plain versions."""
-    import torch
-
-    from karpenter_core_tpu_torch.solver import compat_kernels as ck
     from karpenter_core_tpu_torch.solver import pack
     from karpenter_core_tpu_torch.solver import solver as solver_mod
     from karpenter_core_tpu_torch.solver.solver import TorchScheduler
@@ -3893,15 +3922,8 @@ def run_provisioner_cluster(device: str = "cuda", n_pods: int = N_PODS, n_types:
         "schedule_warm_ms": statistics.median(warm), "schedule_warm_runs_ms": warm,
     }
     # the captured compat call against its plain version, bit for bit
-    sig, catalog = compat_call.calls[0][:2]
-    sig = sig.to(catalog.device)
-    got = ck.allowed_via_kernel(sig, catalog)
-    plain = ck.allowed_packed_reference(sig, catalog.planes, catalog.layout)
-    compat_err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max().item()) if got.numel() else 0
-    if compat_err:
-        fail(f"cluster-provisioner: the captured compat call differs from its plain version ({compat_err})")
-    rows["cluster"]["captured_compat"] = {"S": int(sig.shape[1]), "T": catalog.n_types, "W": int(sig.shape[0]),
-                                          "max_abs_err": compat_err}
+    rows["cluster"]["captured_compat"] = compat_call_case(compat_call.calls[0])
+    compat_err = rows["cluster"]["captured_compat"]["max_abs_err"]
 
     stack.reset_claims()
     with knobs(KARPENTER_TORCH_NATIVE=0), capture(pack, "pack_existing", 1) as ex_call:
@@ -4085,6 +4107,443 @@ def run_provisioner_phase(device: str = "cuda", sizes: Optional[dict] = None) ->
     return out
 
 
+# -- phase 14: cross-tick warm state (bench config 7) ------------------------------
+
+N_CONFIG7 = 10_000  # bench.py config 7 (bench.py:763-960): pods, RandomState(23)
+CONFIG7_SEED = 23
+CONFIG7_TEAMS = 40
+CONFIG7_TYPES = 480  # plus 20 GPU types
+CONFIG7_TICKS = 30
+CONFIG7_CHURN = 0.05
+CONFIG7_MUTATE_EVERY = 10
+CONFIG7_NATIVE_OFF_TICKS = 10  # the second warm pass, on the FFD scan kernel
+
+
+def compat_call_case(call, reps: int = 20) -> dict:
+    """One captured ``allowed_via_kernel`` call (signature planes, device
+    catalog) against its plain version on the catalog's device, bit for
+    bit, and the kernel's time on the card."""
+    import torch
+
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+
+    sig, catalog = call[:2]
+    sig = sig.to(catalog.device)
+    got = ck.allowed_via_kernel(sig, catalog)
+    plain = ck.allowed_packed_reference(sig, catalog.planes, catalog.layout)
+    err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max().item()) if got.numel() else 0
+    row = {"S": int(sig.shape[1]), "T": catalog.n_types, "W": int(sig.shape[0]), "max_abs_err": err}
+    if err:
+        fail(f"a captured compat call differs from its plain version: {row}")
+    if catalog.device.type == "cuda":
+        row["kernel_ms"] = events_ms(lambda: ck.allowed_via_kernel(sig, catalog), reps)
+    return row
+
+
+def distinct_compat_calls(calls) -> list:
+    """The first captured compat call of each (signature planes shape,
+    types) pair, in capture order."""
+    seen, out = set(), []
+    for call in calls:
+        key = (tuple(call[0].shape), call[1].n_types)
+        if key not in seen:
+            seen.add(key)
+            out.append(call)
+    return out
+
+
+class Config7:
+    """bench config 7's churning world on the port: ``n_pods`` pods of
+    the config-2 size mix (one in ten asks one GPU) over ``teams`` team
+    deployments (``bench-team`` selector and label), ``cap-{i}`` types
+    ((i % 64) + 1 CPU, twice that in Gi) and 20 GPU types, one pool
+    ``bench-team In t0..t{teams-1}``. ``churn_tick`` swaps about
+    ``churn`` of the pods on a tenth of the teams; ``mutate`` raises the
+    price of every 16th type 1 % in place, bumps the catalog generation
+    and the pool's weight; ``clones`` build the restart-shaped copies of
+    the current tick (fresh pods, catalog and pool objects)."""
+
+    def __init__(self, n_pods: int = N_CONFIG7, n_types: int = CONFIG7_TYPES, teams: int = CONFIG7_TEAMS,
+                 churn: float = CONFIG7_CHURN):
+        from karpenter_core_tpu_torch.apis.nodepool import NodePool
+        from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider, new_instance_type
+        from karpenter_core_tpu_torch.kube.objects import NodeSelectorRequirement
+
+        self.new_instance_type = new_instance_type
+        self.rng = np.random.RandomState(CONFIG7_SEED)
+        self.teams, self.churn = teams, churn
+        self.cat_specs = [
+            (f"cap-{i}", {"cpu": str((i % 64) + 1), "memory": f"{2 * ((i % 64) + 1)}Gi", "pods": "110"})
+            for i in range(n_types)
+        ] + [
+            (f"cap-gpu-{g}", {"cpu": str(8 * (g + 1)), "memory": f"{16 * (g + 1)}Gi", "pods": "110",
+                              "nvidia.com/gpu": str(min(8, g + 1))})
+            for g in range(20)
+        ]
+        self.provider = FakeCloudProvider()
+        self.provider.instance_types = [new_instance_type(n, r) for n, r in self.cat_specs]
+        self.provider.bump_catalog_generation()  # the caller owns catalog invalidation
+        self.pool = NodePool()
+        self.pool.metadata.name = "default"
+        self.pool.spec.template.requirements = [
+            NodeSelectorRequirement("bench-team", "In", [f"t{t}" for t in range(teams)])
+        ]
+        self.counter = 0
+        self.pods = [self.mk(t % teams) for t in range(n_pods)]
+
+    def _pod(self, i: int, spec: tuple):
+        from karpenter_core_tpu_torch.kube.quantity import parse_quantity
+
+        cpu, mem, gpu, team = spec
+        pod = pending_pod(f"bench-{i}", cpu, mem, labels={"bench-team": f"t{team}"})
+        pod.spec.node_selector = {"bench-team": f"t{team}"}
+        if gpu:
+            pod.spec.containers[0].resources.requests["nvidia.com/gpu"] = parse_quantity(gpu)
+        pod.__dict__["_config7_spec"] = spec
+        return pod
+
+    def mk(self, team: int):
+        rng = self.rng
+        cpu = ["100m", "250m", "500m", "1", "2", "4"][rng.randint(6)]
+        mem = ["128Mi", "512Mi", "1Gi", "2Gi", "4Gi"][rng.randint(5)]
+        gpu = "1" if rng.rand() < 0.1 else None
+        self.counter += 1
+        return self._pod(self.counter - 1, (cpu, mem, gpu, team))
+
+    def churn_tick(self) -> None:
+        rng = self.rng
+        hit = rng.choice(self.teams, max(1, self.teams // 10), replace=False)
+        target = int(len(self.pods) * self.churn)
+        removed, keep = 0, []
+        for p in self.pods:
+            t = int(p.metadata.labels["bench-team"][1:])
+            if t in hit and removed < target and rng.rand() < 0.5:
+                removed += 1
+                continue
+            keep.append(p)
+        self.pods = keep + [self.mk(int(hit[k % len(hit)])) for k in range(removed)]
+
+    def mutate(self) -> None:
+        types = self.provider.instance_types
+        for it in types[:: max(1, len(types) // 16)]:
+            for o in it.offerings:
+                o.price *= 1.01
+        self.provider.bump_catalog_generation()
+        self.pool.spec.weight = (self.pool.spec.weight or 0) + 1
+
+    def clones(self) -> tuple:
+        """(pods, provider, pool): fresh objects of the current tick."""
+        from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider
+        from karpenter_core_tpu_torch.cloudprovider.types import Offering
+
+        provider = FakeCloudProvider()
+        provider.instance_types = [
+            self.new_instance_type(name, res, offerings=[
+                Offering(o.capacity_type, o.zone, o.price, o.available) for o in live.offerings
+            ])
+            for (name, res), live in zip(self.cat_specs, self.provider.instance_types)
+        ]
+        pods = [self._pod(i, p.__dict__["_config7_spec"]) for i, p in enumerate(self.pods)]
+        return pods, provider, copy.deepcopy(self.pool)
+
+
+class nogc:
+    """A collector-free timed region, as bench.py's ``nogc``: at this
+    scale the collector owns millions of objects, and a full collection
+    inside a timed solve would be measured as the solve."""
+
+    def __enter__(self):
+        gc.collect()
+        self.was_enabled = gc.isenabled()
+        gc.disable()
+        return self
+
+    def __exit__(self, *exc):
+        if self.was_enabled:
+            gc.enable()
+
+
+def config7_canon(res, pods) -> tuple:
+    """A tick's plans by pod position (the cold leg solves clones, so
+    uids differ; the batch order is shared)."""
+    index = {p.uid: i for i, p in enumerate(pods)}
+    return plan_stream(res), sorted((index[uid], e) for uid, e in res.pod_errors.items())
+
+
+def _pctl(xs: list, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
+
+
+def run_config7_phase(device: str = "cuda", n_pods: int = N_CONFIG7, n_types: int = CONFIG7_TYPES,
+                      ticks: int = CONFIG7_TICKS, native_off_ticks: int = CONFIG7_NATIVE_OFF_TICKS) -> dict:
+    """Phase 14: bench config 7's ticks on ``device``. Every tick solves
+    twice: the cold leg restart-shaped (fresh pods, catalog and pool, a
+    fresh TorchScheduler, KARPENTER_TORCH_INCREMENTAL=0), the warm leg on
+    one long-lived TorchScheduler; the plans must be identical and the
+    warm leg's compat launches at most the cold leg's. Then a no-op tick
+    (a replay: no compat, no FFD launch); a second warm pass with
+    KARPENTER_TORCH_NATIVE=0, whose FFD scan launches are exactly one per
+    (size class, width) class of the jobs the job memo missed, none on a
+    tick whose jobs all hit, its plans equal to a cold solve of the tick's
+    pods on the same engine; a restart: snapshot, simulated process death,
+    restore into a fresh scheduler whose first solve of the last tick's
+    pods is plan-identical and launches no compat kernel; and the last
+    tick's plan against a cold CPU solve (the device-engine pass's last
+    tick's too, through the plain scans). On the card every compat and FFD
+    call the phase's solves make is captured, and each distinct shape is
+    held against its plain version bit for bit. → the phase's row."""
+    import tempfile
+
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+    from karpenter_core_tpu_torch.solver import pack, warmstore
+    from karpenter_core_tpu_torch.solver import solver as solver_mod
+    from karpenter_core_tpu_torch.solver.solver import TorchScheduler
+
+    compat, ffd = ck.COMPAT_ALLOWED, pack.FFD_PACK
+    sections: dict = {}
+    t_section = time.perf_counter()
+
+    def section(name):
+        nonlocal t_section
+        now = time.perf_counter()
+        sections[name] = now - t_section
+        t_section = now
+
+    world = Config7(n_pods, n_types)
+    legs = {leg: {"compat": [], "ffd": [], "host_ms": [], "total_ms": [], "timings": []} for leg in ("cold", "warm")}
+    identical, hit_rates = 0, []
+    hits: dict = {}
+    misses: dict = {}
+
+    def solve(solver, pods, leg):
+        compat.launches = ffd.launches = 0
+        with nogc():
+            res = solver.solve(pods)
+        row = legs[leg]
+        row["compat"].append(compat.launches)
+        row["ffd"].append(ffd.launches)
+        row["host_ms"].append(solver.last_timings["host_ms"])
+        row["total_ms"].append(solver.last_timings["total_ms"])
+        row["timings"].append(dict(solver.last_timings))
+        return res
+
+    def cold_leg(leg="cold"):
+        pods, provider, pool = world.clones()
+        with knobs(KARPENTER_TORCH_INCREMENTAL=0):
+            return solve(TorchScheduler([pool], provider, device=device), pods, leg), pods
+
+    def check_tick(tick, res, ref, ref_pods):
+        nonlocal identical
+        if config7_canon(res, world.pods) == config7_canon(ref, ref_pods):
+            identical += 1
+        else:
+            fail(f"config7 tick {tick}: the warm plans differ from the cold plans")
+        if legs["warm"]["compat"][-1] > legs["cold"]["compat"][-1]:
+            fail(f"config7 tick {tick}: the warm leg launched more compat kernels than the cold leg")
+        cs = warm.last_cache_stats or {}
+        if "hit_rate" in cs:
+            hit_rates.append(cs["hit_rate"])
+        for name, n in cs.get("hits", {}).items():
+            hits[name] = hits.get(name, 0) + n
+        for name, n in cs.get("misses", {}).items():
+            misses[name] = misses.get(name, 0) + n
+
+    # as bench.py's config 7: the earlier phases' survivors frozen out of
+    # every collection, each timed solve collector-free
+    gc.collect()
+    gc.freeze()
+    section("world_s")
+    warm = TorchScheduler([world.pool], world.provider, device=device)
+    with capture(solver_mod, "allowed_via_kernel", 64) as compat_cap:
+        for tick in range(ticks):
+            if tick:
+                world.churn_tick()
+                if tick % CONFIG7_MUTATE_EVERY == 0:
+                    world.mutate()
+            ref, ref_pods = cold_leg()
+            res = solve(warm, world.pods, "warm")
+            check_tick(tick, res, ref, ref_pods)
+    last_plan, last_pods = res, list(world.pods)
+    section("main_pass_s")
+
+    # the no-op tick: unchanged inputs replay whole
+    compat.launches = ffd.launches = 0
+    with nogc():
+        t0 = time.perf_counter()
+        noop = warm.solve(world.pods)
+        noop_wall_ms = (time.perf_counter() - t0) * 1000.0
+    noop_row = {
+        "host_ms": warm.last_timings["host_ms"], "wall_ms": noop_wall_ms,
+        "compat_launches": compat.launches, "ffd_launches": ffd.launches,
+        "cache": warm.last_cache_stats,
+    }
+    if warm.last_cache_stats.get("hits", {}).get("warmstart") != 1:
+        fail(f"config7 no-op tick did not replay: {warm.last_cache_stats}")
+    if compat.launches or ffd.launches:
+        fail(f"config7 no-op tick launched kernels: compat {compat.launches}, ffd {ffd.launches}")
+    if plan_stream(noop) != plan_stream(last_plan):
+        fail("config7 no-op tick changed the plans")
+    section("noop_s")
+
+    # the second warm pass on the device engine: FFD scan launches per
+    # class of the job-memo misses. Its reference is a cold solve of the
+    # tick's own objects (a fresh scheduler, the warm state off): the
+    # plans are checked here, the restart-shaped timing in the first pass
+    native_rows = []
+    with knobs(KARPENTER_TORCH_NATIVE=0), capture(pack, "ffd_pack_batched", 64) as ffd_cap:
+        for k in range(native_off_ticks):
+            if k:
+                world.churn_tick()
+            with knobs(KARPENTER_TORCH_INCREMENTAL=0):
+                ref = solve(TorchScheduler([world.pool], world.provider, device=device), world.pods, "cold")
+            ref_pods = world.pods
+            real = pack.batch_pack
+            calls = []
+
+            def spy(jobs, *a, **kw):
+                calls.append([(pack._pad_class(j[0].shape[0]), j[0].shape[1]) for j in jobs])
+                return real(jobs, *a, **kw)
+
+            pack.batch_pack = spy
+            try:
+                res = solve(warm, world.pods, "warm")
+            finally:
+                pack.batch_pack = real
+            cs = warm.last_cache_stats
+            job_misses = cs.get("misses", {}).get("job", 0)
+            classes = sum(len(set(c)) for c in calls)
+            row = {
+                "tick": k, "job_hits": cs.get("hits", {}).get("job", 0), "job_misses": job_misses,
+                "jobs_packed": sum(len(c) for c in calls), "classes": classes,
+                "ffd_launches": legs["warm"]["ffd"][-1], "cold_ffd_launches": legs["cold"]["ffd"][-1],
+                "compat_launches": legs["warm"]["compat"][-1], "cold_compat_launches": legs["cold"]["compat"][-1],
+                "host_ms": legs["warm"]["host_ms"][-1], "cold_host_ms": legs["cold"]["host_ms"][-1],
+            }
+            native_rows.append(row)
+            if row["jobs_packed"] != job_misses:
+                fail(f"config7 device engine tick {k}: {row['jobs_packed']} jobs packed, {job_misses} job misses")
+            # on the CPU the scan's plain version runs: no launch to count
+            expect = classes if device == "cuda" else 0
+            if row["ffd_launches"] != expect or (classes == 0) != (job_misses == 0):
+                fail(f"config7 device engine tick {k}: {row}")
+            if config7_canon(res, world.pods) != config7_canon(ref, ref_pods):
+                fail(f"config7 device engine tick {k}: the warm plans differ from the cold plans")
+        # the pass's last warm plans against a cold CPU solve through the
+        # plain scans
+        with knobs(KARPENTER_TORCH_INCREMENTAL=0):
+            cpu_scan = TorchScheduler([world.pool], world.provider, device="cpu").solve(world.pods)
+        if config7_canon(res, world.pods) != config7_canon(cpu_scan, world.pods):
+            fail("config7 device engine: the last warm plans differ from a cold CPU solve's")
+    section("native_off_pass_s")
+
+    # the restart: snapshot, process death, restore into a fresh scheduler
+    last_pods, last_provider, last_pool = world.clones()
+    compat.launches = ffd.launches = 0
+    unkilled = warm.solve(world.pods)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = warm.snapshot(directory=tmp)
+        snapshot_ms = (time.perf_counter() - t0) * 1000.0
+        if path is None:
+            fail("config7: the warm store wrote no snapshot")
+        snapshot_bytes = os.path.getsize(path)
+        warmstore.simulate_process_death()
+        last_provider.bump_catalog_generation()
+        restored = TorchScheduler([last_pool], last_provider, device=device)
+        with nogc():
+            t0 = time.perf_counter()
+            outcome = restored.restore(path)
+            restore_ms = (time.perf_counter() - t0) * 1000.0
+    # memo entries of catalogs mutated away since are dropped (their
+    # fingerprint witnesses no live catalog); the live catalog's restore
+    restored_planes = outcome.get("restored", {})
+    if outcome.get("dropped", {}).get("catalog") or not all(
+        restored_planes.get(plane) for plane in ("catalog", "compat", "route", "job")
+    ):
+        fail(f"config7 restore: {outcome}")
+    compat.launches = ffd.launches = 0
+    with nogc():
+        t0 = time.perf_counter()
+        first = restored.solve(last_pods)
+        restored_ms = (time.perf_counter() - t0) * 1000.0
+    restart_row = {
+        "restored": outcome["restored"], "dropped": outcome["dropped"], "restore_ms": restore_ms,
+        "snapshot_ms": snapshot_ms, "snapshot_bytes": snapshot_bytes,
+        "first_solve_ms": restored_ms, "first_solve_host_ms": restored.last_timings["host_ms"],
+        "compat_launches": compat.launches, "ffd_launches": ffd.launches,
+        "cache": restored.last_cache_stats,
+    }
+    if config7_canon(first, last_pods) != config7_canon(unkilled, world.pods):
+        fail("config7: the restored scheduler's first solve differs from the un-killed scheduler's")
+    if compat.launches:
+        fail(f"config7: the restored first solve launched {compat.launches} compat kernels")
+    section("restart_s")
+
+    # the last tick's plan against a cold solve on the CPU
+    with knobs(KARPENTER_TORCH_INCREMENTAL=0):
+        cpu = TorchScheduler([world.pool], world.provider, device="cpu").solve(world.pods)
+    if plan_sha256(cpu) != plan_sha256(first):
+        fail("config7: the last tick's plan differs from the cold CPU solve's")
+    section("cpu_check_s")
+
+    # every distinct compat and FFD shape the phase's solves gave, against
+    # the plain versions on the card (these launches are not counted)
+    kernel_cases = {"compat_allowed": [], "ffd_pack": []}
+    if device == "cuda":
+        kernel_cases["compat_allowed"] = [compat_call_case(c) for c in distinct_compat_calls(compat_cap.calls)]
+        kernel_cases["ffd_pack"] = [ffd_kernel_case(c) for c in distinct_shapes(ffd_cap.calls)]
+        if not kernel_cases["compat_allowed"] or not kernel_cases["ffd_pack"]:
+            fail(f"config7: no compat or FFD call was captured: {len(compat_cap.calls)}, {len(ffd_cap.calls)}")
+    section("kernel_cases_s")
+
+    gc.unfreeze()
+    cold_p50, warm_p50 = _pctl(legs["cold"]["host_ms"][:ticks], 50), _pctl(legs["warm"]["host_ms"][:ticks], 50)
+    return {
+        "ticks": ticks,
+        "plan_identical_ticks": identical,
+        "native_off_plan_identical_ticks": len(native_rows),
+        "cold_tick_host_ms_p50": cold_p50,
+        "cold_tick_host_ms_p99": _pctl(legs["cold"]["host_ms"][:ticks], 99),
+        "warm_tick_host_ms_p50": warm_p50,
+        "warm_tick_host_ms_p99": _pctl(legs["warm"]["host_ms"][:ticks], 99),
+        "cold_over_warm_p50": cold_p50 / warm_p50 if warm_p50 else None,
+        "warm_tick_wall_ms_p50": _pctl(legs["warm"]["total_ms"][:ticks], 50),
+        # each leg's solve phases (last_timings), median over the ticks
+        **{
+            f"{leg}_tick_phases_ms_p50": {
+                k: _pctl([t[k] for t in legs[leg]["timings"][:ticks]], 50)
+                for k in legs[leg]["timings"][0] if k.endswith("_ms")
+            }
+            for leg in ("cold", "warm")
+        },
+        "noop_tick_host_ms": noop_row["host_ms"],
+        "noop": noop_row,
+        "mean_hit_rate": float(np.mean(hit_rates)) if hit_rates else 0.0,
+        "hits": hits,
+        "misses": misses,
+        "launches": {
+            "cold": {"compat": sum(legs["cold"]["compat"][:ticks]), "ffd": sum(legs["cold"]["ffd"][:ticks])},
+            "warm": {"compat": sum(legs["warm"]["compat"][:ticks]), "ffd": sum(legs["warm"]["ffd"][:ticks])},
+            "noop": {"compat": noop_row["compat_launches"], "ffd": noop_row["ffd_launches"]},
+            "native-off-cold": {"compat": sum(r["cold_compat_launches"] for r in native_rows),
+                                "ffd": sum(r["cold_ffd_launches"] for r in native_rows)},
+            "native-off-warm": {"compat": sum(r["compat_launches"] for r in native_rows),
+                                "ffd": sum(r["ffd_launches"] for r in native_rows)},
+            "restored": {"compat": restart_row["compat_launches"], "ffd": restart_row["ffd_launches"]},
+        },
+        "compat_launches_by_tick": {"cold": legs["cold"]["compat"][:ticks], "warm": legs["warm"]["compat"][:ticks]},
+        "native_off": native_rows,
+        "restart": restart_row,
+        "kernel_cases": kernel_cases,
+        "sections_s": sections,
+        "last_plan_sha256": plan_sha256(first),
+        "nodes": len(first.node_plans),
+        "total_price": first.total_price,
+        # the JAX package's 3x warm/cold gate is a TPU number: recorded here, never asserted
+        "tpu_gate_3x_met": bool(warm_p50 and cold_p50 / warm_p50 >= 3.0),
+    }
+
+
 def main() -> None:
     import torch
 
@@ -4217,6 +4676,18 @@ def main() -> None:
         relax_rows.append(kernel_case(
             label, slice_planes(*w[:3], kube=w[6]), reps=200, plain_reps=20, sm_mhz=sm_mhz, profiled=True,
         ))
+    # the compat shapes of phase 14: bench config 7's world whole, and the
+    # signatures of four of its teams alone (a warm tick's missing subset)
+    c7 = Config7()
+    c7_subset = [p for p in c7.pods if p.metadata.labels["bench-team"] in ("t0", "t1", "t2", "t3")]
+    config7_rows = [
+        kernel_case(
+            label, slice_planes([c7.pool], c7.provider, c7_pods), reps=200, plain_reps=20,
+            sm_mhz=sm_mhz, profiled=True,
+        )
+        for label, c7_pods in (("config7 10k x 500", c7.pods), ("config7 4-team subset x 500", c7_subset))
+    ]
+    del c7, c7_subset
     big_row = kernel_case(
         "S=8192 x T=2048",
         random_planes(np.random.RandomState(1), 8192, 2048, widths), reps=20, plain_reps=5,
@@ -4224,111 +4695,127 @@ def main() -> None:
     )
 
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 3"})
-    # 4. the slice on the card: counts from 0 just before the main path
-    solver = TorchScheduler(pools, provider, device="cuda")
-    cold, cold_ms, warm_runs, slice_launches = solve_runs(solver, pods)
-    if slice_launches == 0:
-        fail("the solve never launched the compat kernel")
-    same_as_cpu(cold, TorchScheduler(pools, provider, device="cpu").solve(pods), "slice")
-    check_invariants(cold, pods)
-    emit(
-        {
-            "slice": f"{N_PODS} pods x {N_TYPES} types (bench config 3 mix without spread)",
-            **timing_row(cold, cold_ms, warm_runs, slice_launches),
-            **profile_solve(solver, pods),
-        }
-    )
+    # phases 4-13 measure the cold pipeline: the warm state off, so their
+    # repeated solves of one batch stay pipeline solves (phase 14 runs it)
+    with knobs(KARPENTER_TORCH_INCREMENTAL=0):
+        # 4. the slice on the card: counts from 0 just before the main path
+        solver = TorchScheduler(pools, provider, device="cuda")
+        cold, cold_ms, warm_runs, slice_launches = solve_runs(solver, pods)
+        if slice_launches == 0:
+            fail("the solve never launched the compat kernel")
+        same_as_cpu(cold, TorchScheduler(pools, provider, device="cpu").solve(pods), "slice")
+        check_invariants(cold, pods)
+        emit(
+            {
+                "slice": f"{N_PODS} pods x {N_TYPES} types (bench config 3 mix without spread)",
+                **timing_row(cold, cold_ms, warm_runs, slice_launches),
+                **profile_solve(solver, pods),
+            }
+        )
 
-    # 5. the cluster: existing nodes, daemonset overhead, NodePool limits
-    cluster = run_cluster_phase("cuda")
+        # 5. the cluster: existing nodes, daemonset overhead, NodePool limits
+        cluster = run_cluster_phase("cuda")
 
-    # 6. bench config 3 whole; 7. with the cluster, its kube store and an
-    # HA front end
-    config3 = run_config3_phase("cuda")
-    cluster_spread = run_cluster_spread_phase("cuda")
+        # 6. bench config 3 whole; 7. with the cluster, its kube store and an
+        # HA front end
+        config3 = run_config3_phase("cuda")
+        cluster_spread = run_cluster_spread_phase("cuda")
 
-    # 8. bench config 6 whole; 9. config 13's anti_dense and a zone
-    # quorum against the cluster and its kube store
-    config6 = run_config6_phase("cuda")
-    anti_dense, anti_cluster = run_anti_phase("cuda")
+        # 8. bench config 6 whole; 9. config 13's anti_dense and a zone
+        # quorum against the cluster and its kube store
+        config6 = run_config6_phase("cuda")
+        anti_dense, anti_cluster = run_anti_phase("cuda")
 
-    # 10. config 13's stateful_dense and spread_skew, and the stateful
-    # cluster: host ports, CSI limits and zone-pinned claims
-    stateful_dense, spread_skew, stateful_cluster = run_stateful_phase("cuda")
+        # 10. config 13's stateful_dense and spread_skew, and the stateful
+        # cluster: host ports, CSI limits and zone-pinned claims
+        stateful_dense, spread_skew, stateful_cluster = run_stateful_phase("cuda")
 
-    # 11. the greedy scheduler alone (bench config 1, host only), the
-    # greedy fallback beside the tensor path (config 6 and Helm releases
-    # with the soft anti-affinity preset, as built and against the
-    # cluster), preference relaxation against the cluster under a zone
-    # drought, and packing parity against the greedy scheduler
-    config1 = run_config1_phase()
-    oracle_mix, oracle_cluster = run_oracle_phase("cuda")
-    relax_cluster = run_relax_phase("cuda")
-    parity6, parity1 = run_parity_phase("cuda")
-    emit({"phase11": {
-        "config1_pods_per_s": config1["pods_per_s"],
-        "packing_parity_vs_oracle": {
-            "config6_subsample": parity6["packing_parity_vs_oracle"],
-            "config1": parity1["packing_parity_vs_oracle"],
-        },
-        "card": card,
-    }})
+        # 11. the greedy scheduler alone (bench config 1, host only), the
+        # greedy fallback beside the tensor path (config 6 and Helm releases
+        # with the soft anti-affinity preset, as built and against the
+        # cluster), preference relaxation against the cluster under a zone
+        # drought, and packing parity against the greedy scheduler
+        config1 = run_config1_phase()
+        oracle_mix, oracle_cluster = run_oracle_phase("cuda")
+        relax_cluster = run_relax_phase("cuda")
+        parity6, parity1 = run_parity_phase("cuda")
+        emit({"phase11": {
+            "config1_pods_per_s": config1["pods_per_s"],
+            "packing_parity_vs_oracle": {
+                "config6_subsample": parity6["packing_parity_vs_oracle"],
+                "config1": parity1["packing_parity_vs_oracle"],
+            },
+            "card": card,
+        }})
 
-    emit({"elapsed_s": time.perf_counter() - t_start, "before": "phase 12"})
-    # 12. the pack engines on the card: the device FFD scan and the
-    # existing-node first-fit (native packer off) on config 3 whole and on
-    # phase 5's cluster, the LP backend on bench config 10 whole and on
-    # config 5 whole (one relaxation over 2,000 types)
-    pack = run_pack_phase("cuda")
-    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 12 paths"})
-    for r in pack["paths"]:
-        emit({"phase12": r["path"], **{k: v for k, v in r.items() if k != "path"}, "card": card})
-    emit({"phase12": "config10", **{k: v for k, v in pack["config10"].items() if k != "rows"}, "card": card})
-    for r in pack["config10"]["rows"]:
-        emit({"phase12_config10_shape": r["shape"], **{k: v for k, v in r.items() if k != "shape"}})
-    emit({"phase12": "config10-device-scan", "rows": pack["config10_device"]})
-    cases = {"ffd_pack": [], "pack_existing": [], "dual_ascent": []}
-    for call in distinct_shapes(pack["ffd_calls"]):
-        cases["ffd_pack"].append(ffd_kernel_case(call))
-    for call in distinct_shapes(pack["existing_calls"]):
-        cases["pack_existing"].append(existing_kernel_case(call))
-    for call in distinct_shapes(pack["dual_calls"]):
-        cases["dual_ascent"].append(dual_kernel_case(call))
-    for name, rows in cases.items():
-        if not rows:
-            fail(f"no {name} call was captured on the main paths")
-    scan_case = {"ffd_pack": ffd_kernel_case, "pack_existing": existing_kernel_case}
-    for name, calls in synthetic_scan_calls().items():
-        cases[name] += [{"synthetic": label, **scan_case[name](call)} for label, call in calls]
-    cases["dual_ascent"] += [{"synthetic": label, **dual_kernel_case(call)} for label, call in synthetic_dual_calls()]
-    for name, rows in cases.items():
-        for row in rows:
-            emit({"pack_kernel_case": name, **row, "card": card})
-    # lp.relax around the kernel: uploads, kernel, downloads, host bound
-    relax_splits = {}
-    for label, calls in pack["relax_calls"].items():
-        if not calls:
-            fail(f"no lp.relax call was captured on the {label} path")
-        relax_splits[label] = relax_split(calls[0])
-        emit({"relax_split": label, **relax_splits[label], "card": card})
-    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 12"})
+        emit({"elapsed_s": time.perf_counter() - t_start, "before": "phase 12"})
+        # 12. the pack engines on the card: the device FFD scan and the
+        # existing-node first-fit (native packer off) on config 3 whole and on
+        # phase 5's cluster, the LP backend on bench config 10 whole and on
+        # config 5 whole (one relaxation over 2,000 types)
+        pack = run_pack_phase("cuda")
+        emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 12 paths"})
+        for r in pack["paths"]:
+            emit({"phase12": r["path"], **{k: v for k, v in r.items() if k != "path"}, "card": card})
+        emit({"phase12": "config10", **{k: v for k, v in pack["config10"].items() if k != "rows"}, "card": card})
+        for r in pack["config10"]["rows"]:
+            emit({"phase12_config10_shape": r["shape"], **{k: v for k, v in r.items() if k != "shape"}})
+        emit({"phase12": "config10-device-scan", "rows": pack["config10_device"]})
+        cases = {"ffd_pack": [], "pack_existing": [], "dual_ascent": []}
+        for call in distinct_shapes(pack["ffd_calls"]):
+            cases["ffd_pack"].append(ffd_kernel_case(call))
+        for call in distinct_shapes(pack["existing_calls"]):
+            cases["pack_existing"].append(existing_kernel_case(call))
+        for call in distinct_shapes(pack["dual_calls"]):
+            cases["dual_ascent"].append(dual_kernel_case(call))
+        for name, rows in cases.items():
+            if not rows:
+                fail(f"no {name} call was captured on the main paths")
+        scan_case = {"ffd_pack": ffd_kernel_case, "pack_existing": existing_kernel_case}
+        for name, calls in synthetic_scan_calls().items():
+            cases[name] += [{"synthetic": label, **scan_case[name](call)} for label, call in calls]
+        cases["dual_ascent"] += [{"synthetic": label, **dual_kernel_case(call)} for label, call in synthetic_dual_calls()]
+        for name, rows in cases.items():
+            for row in rows:
+                emit({"pack_kernel_case": name, **row, "card": card})
+        # lp.relax around the kernel: uploads, kernel, downloads, host bound
+        relax_splits = {}
+        for label, calls in pack["relax_calls"].items():
+            if not calls:
+                fail(f"no lp.relax call was captured on the {label} path")
+            relax_splits[label] = relax_split(calls[0])
+            emit({"relax_split": label, **relax_splits[label], "card": card})
+        emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 12"})
 
-    # 13. the provisioner entry: Provisioner.reconcile over a live store on
-    # bench config 2, phase 5's cluster (C++ packer and device scans) and
-    # the anti-affinity / greedy-fallback world
-    prov = run_provisioner_phase("cuda")
-    prov_rows = {"provisioner-config2": prov["config2"], **{
-        f"provisioner-{k}": v for k, v in prov["rows"].items()
-    }, "provisioner-anti-cluster-oracle": prov["guard"]}
-    for path, row in prov_rows.items():
-        pack["launches"][path] = {name: row["kernel_launches"][name] for name in cases}
-    cases["pack_existing"].append({"captured": "provisioner-cluster-device", **prov["existing_case"]})
-    emit({"pack_kernel_case": "pack_existing", **cases["pack_existing"][-1], "card": card})
-    emit({"phase13": {path: {k: row[k] for k in (
-        "reconcile_ms", "solve_ms", "span_snapshot_nodes_ms", "span_pending_pods_ms", "span_solve_ms",
-        "span_create_node_claims_ms", "claims", "nominated_pods", "kernel_launches",
-    )} for path, row in prov_rows.items()}, "card": card})
-    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 13"})
+        # 13. the provisioner entry: Provisioner.reconcile over a live store on
+        # bench config 2, phase 5's cluster (C++ packer and device scans) and
+        # the anti-affinity / greedy-fallback world
+        prov = run_provisioner_phase("cuda")
+        prov_rows = {"provisioner-config2": prov["config2"], **{
+            f"provisioner-{k}": v for k, v in prov["rows"].items()
+        }, "provisioner-anti-cluster-oracle": prov["guard"]}
+        for path, row in prov_rows.items():
+            pack["launches"][path] = {name: row["kernel_launches"][name] for name in cases}
+        cases["pack_existing"].append({"captured": "provisioner-cluster-device", **prov["existing_case"]})
+        emit({"pack_kernel_case": "pack_existing", **cases["pack_existing"][-1], "card": card})
+        emit({"phase13": {path: {k: row[k] for k in (
+            "reconcile_ms", "solve_ms", "span_snapshot_nodes_ms", "span_pending_pods_ms", "span_solve_ms",
+            "span_create_node_claims_ms", "claims", "nominated_pods", "kernel_launches",
+        )} for path, row in prov_rows.items()}, "card": card})
+        emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 13"})
+
+    # 14. bench config 7's ticks: the cross-tick warm state on the card
+    config7 = run_config7_phase("cuda")
+    emit({"phase14": "config7-ticks", **{k: v for k, v in config7.items() if k not in ("native_off", "kernel_cases")},
+          "card": card})
+    for r in config7["native_off"]:
+        emit({"phase14_native_off_tick": r["tick"], **r, "card": card})
+    for r in config7["kernel_cases"]["compat_allowed"]:
+        emit({"compat_case": "config7-captured", **r, "card": card})
+    for r in config7["kernel_cases"]["ffd_pack"]:
+        cases["ffd_pack"].append({"captured": "config7-native-off", **r})
+        emit({"pack_kernel_case": "ffd_pack", **cases["ffd_pack"][-1], "card": card})
+    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 14"})
 
     # the kernels line, then the last line
     paths = {
@@ -4342,7 +4829,10 @@ def main() -> None:
         "relax-cluster": relax_cluster["kernel_launches"],
         "parity-config6": parity6["kernel_launches"], "parity-config1": parity1["kernel_launches"],
         **{path: row["kernel_launches"]["compat_allowed"] for path, row in prov_rows.items()},
+        **{f"config7-{leg}": n["compat"] for leg, n in config7["launches"].items()},
     }
+    for leg, n in config7["launches"].items():
+        pack["launches"][f"config7-{leg}"] = {"ffd_pack": n["ffd"], "pack_existing": 0, "dual_ascent": 0}
     path_keys = (
         "shape", "S", "T", "W", "kernel_ms", "profiled_kernel_ms", "wrapper_ms", "plain_ms",
         "library_ms", "bound_ms", "bound_by", "max_abs_err",
@@ -4360,6 +4850,7 @@ def main() -> None:
                     "max_abs_err": max(
                         [row["max_abs_err"] for row in [
                             slice_row, big_row, *spread_rows, *affinity_rows, *stateful_rows, *relax_rows,
+                            *config7_rows, *config7["kernel_cases"]["compat_allowed"],
                         ]] + [prov["compat_err"]]
                     ),
                     "ms": slice_row["kernel_ms"],
@@ -4382,6 +4873,8 @@ def main() -> None:
                     "at_affinity_paths": [{k: row[k] for k in path_keys} for row in affinity_rows],
                     "at_stateful_paths": [{k: row[k] for k in path_keys} for row in stateful_rows],
                     "at_relax_paths": [{k: row[k] for k in path_keys} for row in relax_rows],
+                    "at_config7_paths": [{k: row[k] for k in path_keys} for row in config7_rows],
+                    "config7_captured": config7["kernel_cases"]["compat_allowed"],
                     "compat_route": slice_row["compat_route"],
                     "ptxas": usage,
                 },

@@ -61,9 +61,9 @@ class PackBackend:
         # a concurrent solve cannot overwrite them mid-read
         self.lock = threading.Lock()
 
-    def job_token(self) -> tuple:
+    def job_token(self, device=None) -> tuple:
         """Everything about this backend's configuration that can change
-        its assignment for fixed job inputs."""
+        its assignment for fixed job inputs on ``device``."""
         raise NotImplementedError
 
     #: per-job guard flags of the last pack_jobs call (True ⇒ the job's
@@ -84,7 +84,7 @@ class FFDBackend(PackBackend):
 
     name = "ffd"
 
-    def job_token(self) -> tuple:
+    def job_token(self, device=None) -> tuple:
         return ("ffd",)
 
     def pack_jobs(

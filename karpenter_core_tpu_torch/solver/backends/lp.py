@@ -475,7 +475,7 @@ class LPBackend(PackBackend):
         converge from a near-optimal w, so a quarter budget suffices."""
         return max(8, self.iterations // 4)
 
-    def job_token(self) -> tuple:
+    def job_token(self, device=None) -> tuple:
         # every knob that can change this backend's partition for fixed
         # job inputs — including the Pareto weights, whose tie-break
         # participates in the guard (two weight settings must never

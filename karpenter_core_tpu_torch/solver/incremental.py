@@ -1,26 +1,86 @@
-"""Content-addressed memo pieces of the JAX package's incremental layer.
+"""Cross-tick incremental solve state.
 
-Counterpart of the parts of ``karpenter_core_tpu/solver/incremental.py``
-that the LP backend's relaxation memo (the ``lprelax`` plane,
-``backends/lp.py``) rests on: the bounded ``LRU`` with its per-solve
-``CacheStats``, the cap of that one cache, and ``job_digest``. Reuse is
-memoization, never approximation: every key is the exact content of a
-deterministic computation. The warm store, the job and merge memos and
-the solve replay are not ported.
+Counterpart of ``karpenter_core_tpu/solver/incremental.py``. The
+provisioner ticks continuously; between ticks most pending pods, the
+NodePools and the instance-type catalog are unchanged. This module holds
+the state that lets a *warm* solve skip the host phases, the compat
+kernel launches and the pack launches a cold solve would repeat, under
+one invariant: **reuse is memoization, never approximation**. Every
+cache is content-addressed by the exact inputs of a deterministic
+computation, so a warm solve is plan-identical to a cold solve of the
+same inputs by construction.
+
+Cache layers, coarsest first:
+
+- **solve replay** (``WarmState.try_replay``): a tick whose inputs are
+  provably the previous tick's (the same pod objects at the same
+  positions with unchanged resource_versions, the same pool
+  fingerprints, catalog generations or fingerprints and daemonsets, and
+  nothing external the solve could read: no kube client, no cluster, no
+  state nodes, no greedy fallback last tick) re-materializes the
+  previous result without entering the pipeline: no kernel launches.
+- **route**: the tensor/parked/greedy split, a pure function of the
+  batch's ordered interned-signature tuple.
+- **compat rows** (``_CatalogEntry.sig_rows``): per (pool fingerprint,
+  interned signature, device) the ``SignaturePoolCompat`` verdict and
+  the compat kernel's allowed/zone/capacity-type rows, as host numpy
+  over the entry's types. The rows are semantic: vocab growth never
+  changes an existing pair's verdict. A warm tick launches the compat
+  kernel on the signatures it has not seen only.
+- **job** (``WarmState.jobs``): per pack job, keyed by a digest of the
+  sorted request matrix and every mask, price and configuration input
+  the pack and the finalize read, the finalize skeleton. A hit skips the
+  pack dispatch (no packer call, no scan launch) and the finalize.
+- **merge** (``WarmState.merges``), **emit** and **mergerow**: the merge
+  pass's outcome over an identified record stream, each cluster's
+  emitted offering by its absorption trail, and each record's packed
+  screen row.
+- **seeds**: topology seed counts keyed by the constraint, valid while
+  the cluster's generation counter (state/cluster.py) is unchanged.
+- **intersects**: the merge screen's ``Requirements.intersects``
+  verdicts, fingerprint-addressed.
+
+Warm states are kept per (cloud provider, tenant scope, device): a CPU
+solve never fills a memo a card solve then serves, so the card's kernels
+run on every miss of the card's own solves.
+
+Kill switch: ``KARPENTER_TORCH_INCREMENTAL=0`` (the JAX package's
+``KARPENTER_TPU_INCREMENTAL``) turns every layer off; the cold pipeline
+is the reference the tests compare against. Each cache is LRU-capped
+(``_CAPS``, the JAX package's defaults as constants) with eviction
+counters.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import threading
 from collections import OrderedDict
+from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
 
-# LRU caps (entries), one per cache: the JAX package's
-# KARPENTER_TPU_LPRELAX_CACHE_MAX default
-_CAPS = {"lprelax": 512}
+# LRU caps (entries), one per cache: the defaults of the JAX package's
+# KARPENTER_TPU_{ROUTE,COMPAT,JOB,MERGE,EMIT,MERGEROW,SEED,LPRELAX}_CACHE_MAX
+_CAPS = {
+    "route": 64,
+    "compat": 4096,
+    "job": 256,
+    "merge": 32,
+    "emit": 2048,
+    "mergerow": 2048,
+    "seeds": 256,
+    # the LP backend's relaxation memo (backends/lp.py)
+    "lprelax": 512,
+}
+_INTERSECTS_MAX = 4096  # content-addressed; clearing only costs re-derivation
+
+
+def enabled() -> bool:
+    """The master switch, read per solve."""
+    return os.environ.get("KARPENTER_TORCH_INCREMENTAL", "1") != "0"
 
 
 def cache_cap(name: str) -> int:
@@ -92,13 +152,310 @@ class LRU:
             return len(self._d)
 
     def items(self) -> list:
-        """Point-in-time (key, value) snapshot in LRU order, oldest first."""
+        """Point-in-time (key, value) snapshot in LRU order, oldest
+        first (the warm store's writer serializes planes through it)."""
         with self._mu:
             return list(self._d.items())
 
     def clear(self) -> None:
         with self._mu:
             self._d.clear()
+
+
+@dataclass
+class SigRow:
+    """One cached (signature, pool) compat verdict and the kernel's rows,
+    host numpy over the catalog entry's types, zones and capacity types
+    (invariant under vocab growth)."""
+
+    compat: object  # encode.SignaturePoolCompat
+    allowed: np.ndarray  # (T,)
+    zone_ok: np.ndarray  # (Z,)
+    ct_ok: np.ndarray  # (C,)
+
+
+@dataclass
+class JobSkeleton:
+    """Pack + finalize products of one job, positional over the job's
+    size-sorted pod order, so a hit tick rebinds members through its own
+    sorted indices without packing or finalizing again."""
+
+    node_count: int
+    positions: np.ndarray  # valid sorted positions, grouped by node
+    bounds: np.ndarray  # (node_count + 1,) into positions
+    unsched: np.ndarray  # positions whose pod packed nowhere
+    ok: np.ndarray  # (N,) node has a fitting type
+    underfull: np.ndarray  # (N,) usage*2 <= alloc_cap
+    usage64: np.ndarray  # (N, R) int64
+    alloc_cap: np.ndarray  # (R,) the merge pass's cheap-reject seed
+    ok_ord: np.ndarray  # (N,) ordinal among ok nodes
+    t_global: np.ndarray  # (n_ok,) chosen type per ok node
+    off_zone: list
+    off_ct: list
+    off_price: np.ndarray
+    # True when the LP backend's cost guard chose this partition over
+    # FFD's: merges of these nodes must not raise plan cost
+    cost_guard: bool = False
+
+
+@dataclass
+class MergeSkeleton:
+    """Recorded outcome of one merge pass over an identified record
+    stream: per emitted cluster, the absorption trail (record keys in
+    first-fit order) and the emitted offering."""
+
+    clusters: list  # [(rkeys tuple, t, zone, ct, price, failed)]
+    applied: int
+
+
+@dataclass
+class _Snapshot:
+    """The previous tick's inputs and result, for whole-solve replay."""
+
+    pods: list  # strong refs keep the id()s stable
+    rvs: list
+    pools_fp: tuple
+    catalog_ids: tuple  # per pool: tuple(map(id, catalog))
+    catalogs: list  # strong refs backing catalog_ids
+    catalog_keys: tuple  # per pool: ("gen", g) | ("fp", f)
+    ds_pods: list
+    ds_key: tuple
+    plans: list  # the recorded NodePlans (cloned on replay, never handed out)
+    errors: dict
+
+
+class WarmState:
+    """All cross-tick state of one (cloud provider, tenant, device)."""
+
+    def __init__(self, provider) -> None:
+        self.provider = provider  # strong ref keeps the id() key stable
+        self.lock = threading.RLock()
+        self.routes = LRU("route")
+        self.jobs = LRU("job")
+        self.merges = LRU("merge")
+        # per-cluster emitted offering keyed by the cluster's absorption
+        # trail (trail ⇒ folded cluster ⇒ emit choice): valid even when
+        # the surrounding record stream changed
+        self.emits = LRU("emit")
+        # per-record packed screen rows of the vector merge
+        self.screen_rows = LRU("mergerow")
+        self.seed_lru = LRU("seeds")
+        self.seed_generation: Optional[int] = None
+        self.intersects: Dict[tuple, bool] = {}
+        self.snapshot: Optional[_Snapshot] = None
+
+    def intersects_cache(self) -> Dict[tuple, bool]:
+        if len(self.intersects) > _INTERSECTS_MAX:
+            self.intersects.clear()  # content-addressed: only costs re-derivation
+        return self.intersects
+
+    # -- topology seed counts (cluster-generation scoped) ----------------
+
+    def seeds_get(self, key: tuple, generation: Optional[int], stats: CacheStats):
+        if generation is None:
+            return None
+        with self.lock:
+            if self.seed_generation != generation:
+                return None
+            return self.seed_lru.get(key, stats)
+
+    def seeds_put(self, key: tuple, generation: Optional[int], seeds, stats: CacheStats) -> None:
+        if generation is None:
+            return
+        with self.lock:
+            if self.seed_generation != generation:
+                self.seed_lru.clear()
+                self.seed_generation = generation
+            self.seed_lru.put(key, dict(seeds), stats)
+
+    # -- whole-solve replay ----------------------------------------------
+
+    def record(self, solver, pods: list, state_nodes, daemonset_pods: list, result, ctx: Optional[tuple]) -> None:
+        """Store this solve for replay, only when every input the solve
+        read is captured by the keys (``ctx`` is the probe's (pools_fp,
+        catalog_ids, catalogs, catalog_keys)); otherwise clear the
+        snapshot, so a stale replay is impossible."""
+        replayable = (
+            ctx is not None
+            and result.oracle_results is None
+            and not result.existing_plans
+            and not state_nodes
+            and solver.kube_client is None
+            and solver.cluster is None
+        )
+        if not replayable:
+            with self.lock:
+                self.snapshot = None
+            return
+        pools_fp, catalog_ids, catalogs, catalog_keys = ctx
+        ds = list(daemonset_pods or ())
+        rvs = getattr(solver, "_batch_rvs", None)
+        snap = _Snapshot(
+            pods=list(pods),
+            rvs=list(rvs) if rvs is not None and len(rvs) == len(pods)
+            else [p.metadata.resource_version for p in pods],
+            pools_fp=pools_fp,
+            catalog_ids=catalog_ids,
+            catalogs=list(catalogs),
+            catalog_keys=catalog_keys,
+            ds_pods=ds,
+            ds_key=tuple((id(p), p.metadata.resource_version) for p in ds),
+            # live plan refs: cloning waits for a replay (consumers set
+            # presentation fields but never mutate the stored containers)
+            plans=list(result.node_plans),
+            errors=dict(result.pod_errors),
+        )
+        with self.lock:
+            self.snapshot = snap
+
+    def try_replay(self, solver, pods: list, rvs: list, state_nodes, daemonset_pods: list, ctx: tuple,
+                   stats: CacheStats):
+        """A re-materialized SolverResult when this tick's inputs are
+        provably the recorded tick's, else None. Identity: the same
+        objects at the same positions with unchanged resource_versions."""
+        with self.lock:
+            snap = self.snapshot
+        if snap is None:
+            stats.miss("warmstart")
+            return None
+        pools_fp, catalog_ids, _catalogs, catalog_keys = ctx
+        ds = list(daemonset_pods or ())
+        if (
+            state_nodes
+            or solver.kube_client is not None
+            or solver.cluster is not None
+            or pools_fp != snap.pools_fp
+            or catalog_ids != snap.catalog_ids
+            or catalog_keys != snap.catalog_keys
+            or len(ds) != len(snap.ds_pods)
+            or any(
+                p is not q or (id(p), p.metadata.resource_version) != k
+                for p, q, k in zip(ds, snap.ds_pods, snap.ds_key)
+            )
+            or len(pods) != len(snap.pods)
+            or rvs != snap.rvs
+            or any(p is not q for p, q in zip(pods, snap.pods))
+        ):
+            stats.miss("warmstart")
+            return None
+        stats.hit("warmstart")
+        from .solver import SolverResult
+
+        out = SolverResult()
+        out.node_plans = [_clone_plan(p) for p in snap.plans]
+        out.pod_errors = dict(snap.errors)
+        return out
+
+
+def _clone_plan(p):
+    """A fresh NodePlan with copied containers (instance type and
+    requirements shared immutably). Built from ``__dict__`` rather than
+    the dataclass constructor, so every stored field (the post-pass's
+    ``_limits_accounted`` too) rides along; the presentation (``pods``)
+    and lazily merged (``_requests``) fields reset to their defaults."""
+    q = object.__new__(type(p))
+    d = q.__dict__
+    d.update(p.__dict__)
+    d["pods"] = None
+    d["_requests"] = None
+    d["pod_indices"] = list(p.pod_indices)
+    d["node_limits"] = list(p.node_limits)
+    reqs = p._pod_requests
+    d["_pod_requests"] = list(reqs) if reqs is not None else None
+    return q
+
+
+# -- per-(provider, tenant, device) state registry -----------------------------
+
+_STATES: "OrderedDict[tuple, WarmState]" = OrderedDict()
+_STATES_LOCK = threading.Lock()
+_STATES_MAX = 4
+
+
+def state_key(solver) -> tuple:
+    """The registry key of ``solver``'s warm state: its cloud provider,
+    tenant scope and device. The device keeps a CPU solve's memo from
+    serving a card solve of the same provider."""
+    return (id(solver.cloud_provider), getattr(solver, "_tenant_scope", ()), str(solver.device))
+
+
+def warm_state_for(solver) -> Optional[WarmState]:
+    """The WarmState of this solver's (provider, tenant, device), or None
+    when the incremental path is off or there is no provider."""
+    if not enabled():
+        return None
+    provider = solver.cloud_provider
+    if provider is None:
+        return None
+    key = state_key(solver)
+    with _STATES_LOCK:
+        st = _STATES.get(key)
+        if st is None or st.provider is not provider:
+            st = WarmState(provider)
+            _STATES[key] = st
+        _STATES.move_to_end(key)
+        while len(_STATES) > _STATES_MAX:
+            _STATES.popitem(last=False)
+    return st
+
+
+def reset() -> None:
+    """Drop every warm state."""
+    with _STATES_LOCK:
+        _STATES.clear()
+
+
+# -- fingerprints / keys -------------------------------------------------------
+
+
+def pool_fingerprint(pool) -> tuple:
+    """Content identity of the pool side of the compat inputs: template
+    requirements (labels and the nodepool label included), taints,
+    weight and name."""
+    np_ = pool.nodepool
+    return (
+        np_.name,
+        getattr(np_.spec, "weight", None),
+        pool.template_requirements.fingerprint(),
+        tuple(sorted((t.key, t.value, t.effect) for t in np_.spec.template.taints)),
+    )
+
+
+def pool_replay_fingerprint(np_) -> tuple:
+    """The wider pool identity of whole-solve replay: everything the
+    solve reads from the pool, limits included."""
+    from ..scheduling.requirements import node_selector_requirements
+
+    return (
+        np_.name,
+        getattr(np_.spec, "weight", None),
+        node_selector_requirements(np_.spec.template.requirements).fingerprint(),
+        tuple(sorted(np_.spec.template.metadata.labels.items())),
+        tuple(sorted((t.key, t.value, t.effect) for t in np_.spec.template.taints)),
+        tuple(sorted(np_.spec.limits.items())) if np_.spec.limits else (),
+    )
+
+
+def catalog_key(provider, nodepool, catalog) -> tuple:
+    """The catalog's invalidation witness: the provider's generation
+    counter when it keeps one, else a content fingerprint that catches
+    in-place price, capacity and requirement mutation."""
+    gen = None
+    cg = getattr(provider, "catalog_generation", None)
+    if callable(cg):
+        gen = cg(nodepool)
+    if gen is not None:
+        return ("gen", gen)
+    from .solver import _catalog_fingerprint
+
+    return ("fp", _catalog_fingerprint(catalog))
+
+
+def route_key(groups) -> Optional[tuple]:
+    """Ordered interned-signature tuple, or None when a group lacks a
+    stable id (relaxation retries build ad-hoc groups)."""
+    key = tuple(g.sig_id for g in groups)
+    return None if any(s is None for s in key) else key
 
 
 def job_digest(reqs: np.ndarray) -> bytes:
@@ -108,3 +465,15 @@ def job_digest(reqs: np.ndarray) -> bytes:
     h.update(reqs.tobytes())
     h.update(str(reqs.shape).encode())
     return h.digest()
+
+
+def pack_engine_token() -> tuple:
+    """The pack-engine configuration a job result depends on, laid out as
+    the JAX package's: the C++ packer's switch (``KARPENTER_TORCH_NATIVE``;
+    off, jobs pack through the FFD scan kernel at K = 16), a mesh size of
+    0 and ``NATIVE_K_OPEN``, then the pod-shard token, which on one
+    device is the reference's single-device ``()``."""
+    from .. import native
+    from .pack import NATIVE_K_OPEN
+
+    return (bool(native.available()), 0, int(NATIVE_K_OPEN), ())

@@ -1,7 +1,7 @@
 """Bucketed, vectorized cross-group merge engine (host numpy).
 
-Counterpart of ``karpenter_core_tpu/solver/merge.py`` without its
-cross-solve screen-row memo. The scalar merge pass
+Counterpart of ``karpenter_core_tpu/solver/merge.py``, its cross-solve
+screen-row memo included. The scalar merge pass
 (`TorchScheduler._merge_scalar`) is a pure-Python O(N·K) pairwise
 first-fit loop: per candidate pair it runs a dozen small numpy ops, two
 fingerprint lookups, and a Requirements rebuild. This module keeps the
@@ -125,37 +125,63 @@ class _Bucket:
         self.zone_ok = zone_ok
         self.ct_ok = ct_ok
 
-        # packed screen rows: viable ∧ self-fits ∧ self-offering
-        viable = np.empty((N, T), dtype=bool)
-        for j, i in enumerate(idxs):
-            viable[j] = records[i]["viable"]
-        # self-fits: types holding each record's OWN usage — combined
-        # usage dominates every member's, so this is a sound screen bit
-        alloc = solver._alloc_full(enc, r0["daemon"])
-        fits = np.empty((N, T), dtype=bool)
-        for s in range(0, N, _FITS_BLOCK):
-            e = min(s + _FITS_BLOCK, N)
-            fits[s:e] = np.all(self.usage[s:e, None, :] <= alloc[None, :, :], axis=-1)
+        # packed screen rows (viable ∧ self-fits ∧ self-offering): a pure
+        # function of each record's content, so records carrying a job-memo
+        # identity reuse last tick's row (solver/incremental.py) instead of
+        # broadcasting the (N, T, R) fits check again
+        ws = getattr(solver, "_warm", None)
+        stats = getattr(solver, "_cstats", None)
+        rkeys = [records[i].get("_rkey") for i in idxs]
+        self.screen8 = np.empty((N, (T + 7) // 8), dtype=np.uint8)
+        missing: List[int] = []
+        if ws is None:
+            missing = list(range(N))
+        else:
+            for j, rk in enumerate(rkeys):
+                row = ws.screen_rows.get(rk, stats) if rk is not None else None
+                if row is None:
+                    missing.append(j)
+                else:
+                    self.screen8[j] = row
 
-        # self-offering: types with an available offering within the
-        # record's own zone/ct masks (zone-pin narrows to one zone);
-        # records of one pack job share masks, so combos dedupe hard
-        off = np.empty((N, T), dtype=bool)
-        combos: Dict[tuple, np.ndarray] = {}
-        avail = enc.offering_avail
-        for j in range(N):
-            if self.zid[j] >= 0:
-                zsel = np.zeros(Z, dtype=bool)
-                zsel[self.zid[j]] = True
-            else:
-                zsel = zone_ok[j]
-            ckey = (zsel.tobytes(), ct_ok[j].tobytes())
-            v = combos.get(ckey)
-            if v is None:
-                v = avail[:, zsel][:, :, ct_ok[j]].any(axis=(1, 2))
-                combos[ckey] = v
-            off[j] = v
-        self.screen8 = np.packbits(viable & fits & off, axis=1)
+        if missing:
+            M = len(missing)
+            viable = np.empty((M, T), dtype=bool)
+            for k, j in enumerate(missing):
+                viable[k] = records[idxs[j]]["viable"]
+            # self-fits: types holding each record's OWN usage — combined
+            # usage dominates every member's, so this is a sound screen bit
+            alloc = solver._alloc_full(enc, r0["daemon"])
+            usage_m = self.usage[missing]
+            fits = np.empty((M, T), dtype=bool)
+            for s in range(0, M, _FITS_BLOCK):
+                e = min(s + _FITS_BLOCK, M)
+                fits[s:e] = np.all(usage_m[s:e, None, :] <= alloc[None, :, :], axis=-1)
+
+            # self-offering: types with an available offering within the
+            # record's own zone/ct masks (zone-pin narrows to one zone);
+            # records of one pack job share masks, so combos dedupe hard
+            off = np.empty((M, T), dtype=bool)
+            combos: Dict[tuple, np.ndarray] = {}
+            avail = enc.offering_avail
+            for k, j in enumerate(missing):
+                if self.zid[j] >= 0:
+                    zsel = np.zeros(Z, dtype=bool)
+                    zsel[self.zid[j]] = True
+                else:
+                    zsel = zone_ok[j]
+                ckey = (zsel.tobytes(), ct_ok[j].tobytes())
+                v = combos.get(ckey)
+                if v is None:
+                    v = avail[:, zsel][:, :, ct_ok[j]].any(axis=(1, 2))
+                    combos[ckey] = v
+                off[k] = v
+
+            sub8 = np.packbits(viable & fits & off, axis=1)
+            for k, j in enumerate(missing):
+                self.screen8[j] = sub8[k]
+                if ws is not None and rkeys[j] is not None:
+                    ws.screen_rows.put(rkeys[j], sub8[k].copy(), stats)
 
         # requirement fingerprints interned per bucket; the intersects
         # matrix is EXACT (the scalar's own check, memoized per distinct

@@ -39,7 +39,6 @@ registered.
 from __future__ import annotations
 
 import weakref
-from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -58,23 +57,22 @@ _IT_ROWS_MAX = 65536
 # strong ref to the list keeps its id from being recycled while mapped.
 _LIST_ROWS: Dict[int, tuple] = {}
 _LIST_ROWS_MAX = 4096
-# the bridge's own catalog entries, for a build_scheduler called outside
-# a solve (bounded like a scheduler's own cache)
-_REGISTRY: "OrderedDict[tuple, object]" = OrderedDict()
 
 
 def _own_entry(catalog: List):
-    from .solver import catalog_entry
+    """The process-wide catalog cache's entry, for a build_scheduler
+    called outside a solve."""
+    from .solver import _catalog_entry
 
-    return catalog_entry(_REGISTRY, catalog)
+    return _catalog_entry(catalog)
 
 
 def refresh(instance_types: List, catalog_entry: Optional[Callable] = None) -> None:
     """Register or refresh the encoding of a pool's full catalog list,
     once per scheduler build, so in-place offering changes are caught by
     the catalog fingerprint and not rechecked per filter call.
-    ``catalog_entry`` maps the list to its entry (default: the bridge's
-    own registry)."""
+    ``catalog_entry`` maps the list to its entry (default: the
+    process-wide catalog cache)."""
     if not instance_types:
         return
     entry = (catalog_entry or _own_entry)(instance_types)

@@ -150,9 +150,32 @@ def get_memos_rvs(pods) -> Tuple[List[PodMemo], List[object]]:
     return out, rvs
 
 
+def sig_for_id() -> Dict[int, tuple]:
+    """Reverse view of the signature intern table (id → signature
+    tuple), for the warm store's writer (solver/warmstore.py): interned
+    ids are process-local ordinals, so persisted keys carry the signature
+    content and re-intern on load."""
+    with _LOCK:
+        return {sid: sig for sig, sid in _SIG_INTERN.items()}
+
+
 def reset() -> None:
     """Test hook: drop the dedup maps (ids stay monotonic, so stale
     memos on live pods remain harmless — they just re-intern)."""
     with _LOCK:
         _REQ_INTERN.clear()
         _SIG_INTERN.clear()
+
+
+def reset_process() -> None:
+    """Restart simulation (warm-store tests): reset the intern maps and
+    their counters as a fresh interpreter would. Unlike ``reset()`` this
+    reuses ids, so callers must also drop every pod object carrying a
+    ``_karp_memo`` from the old world (a restarted process reads its
+    pods afresh)."""
+    global _NEXT_REQ, _NEXT_SIG
+    with _LOCK:
+        _REQ_INTERN.clear()
+        _SIG_INTERN.clear()
+        _NEXT_REQ = itertools.count()
+        _NEXT_SIG = itertools.count()

@@ -64,9 +64,16 @@ its tensor path:
           the existing nodes that carry the tensor path's placements
 
 Spread and affinity seeds count the pods bound in ``kube_client`` (the
-JAX package's ``kube_client``); the port has no warm store, so seeds are
-recounted on every solve and nothing is memoized across solves but the
-catalog encodings. ``cluster`` (state.cluster), ``recorder`` (events)
+JAX package's ``kube_client``). Across solves the JAX package's warm
+state holds (incremental.py, per cloud provider and device): a tick
+whose inputs are provably the last one's replays whole; otherwise the
+route split, the compat rows of known signatures (the kernel launches
+for the missing ones only), the pack and finalize of known jobs, the
+merge pass and the seeds (while the cluster's generation holds) come
+from their memos, content-addressed, so a warm solve is plan-identical
+to a cold one (``KARPENTER_TORCH_INCREMENTAL=0``); warmstore.py writes
+and restores them. The catalog encodings live in a process-wide cache.
+``cluster`` (state.cluster), ``recorder`` (events)
 and ``metrics`` (metrics.registry) are the JAX package's: the greedy
 fallback walks the cluster's bound anti-affinity pods, nominates its
 existing nodes and publishes its events; each solve runs under a
@@ -74,12 +81,13 @@ existing nodes and publishes its events; each solve runs under a
 are spans, and its duration, device time, route split, cache and LP
 counters feed the metrics. Three
 pack knobs are read as the JAX package reads their ``KARPENTER_TPU_*``
-twins (``KARPENTER_TORCH_PACK_BACKEND``, ``_NATIVE``, ``_LP_MIN_WORK``);
-its other defaults the port depends on are module constants
-(pack.NATIVE_K_OPEN, compat_kernels.COMPAT_TILE_BYTES, lp.LP_ITERS,
-lp.LP_REFINE_ROUNDS, lp.LP_BRANCH_K, plancost.COST_WEIGHTS, the
-``lprelax`` cap in incremental, the vector merge engine, the tensor
-constraint engine).
+twins (``KARPENTER_TORCH_PACK_BACKEND``, ``_NATIVE``, ``_LP_MIN_WORK``,
+``_INCREMENTAL``); its other defaults the port depends on are module
+constants (pack.NATIVE_K_OPEN, compat_kernels.COMPAT_TILE_BYTES,
+lp.LP_ITERS, lp.LP_REFINE_ROUNDS, lp.LP_BRANCH_K, plancost.COST_WEIGHTS,
+the cache caps in incremental, CATALOG_CACHE_MAX, the warm store's
+directory and size cap, the vector merge engine, the tensor constraint
+engine).
 """
 
 from __future__ import annotations
@@ -87,7 +95,9 @@ from __future__ import annotations
 import copy
 import hashlib
 import logging
+import threading
 import time
+import weakref
 from collections import OrderedDict
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -147,7 +157,8 @@ from .encode import (
 )
 from .kernels import build_compat_inputs, zone_ct_masks
 from .merge import merge_records_vector
-from .incremental import CacheStats
+from . import incremental
+from .incremental import CacheStats, JobSkeleton, SigRow
 from .pack import (
     assign_cheapest_types,
     node_usage_from_assignment,
@@ -166,7 +177,7 @@ from .vocab import Vocab
 
 log = logging.getLogger("karpenter.torch.solver")
 
-# cached catalog encodings per scheduler — the JAX package's
+# cached catalog encodings, process-wide — the JAX package's
 # KARPENTER_TPU_CATALOG_CACHE_MAX default
 CATALOG_CACHE_MAX = 8
 # bounded per-encoding derived-tensor cache (frontiers, ranks, prices)
@@ -198,41 +209,123 @@ PHASES = (
 
 @dataclass
 class _CatalogEntry:
-    """One catalog generation's tensorization, cached across solves on
-    the scheduler. The vocab grows monotonically as pod batches intern
-    new values; cached masks are re-extended in place
-    (encode.extend_encoded_masks)."""
+    """One catalog generation's tensorization, cached across solves and
+    solvers in ``_CATALOG_CACHE``. Keyed by the catalog's object identity
+    (the strong ``catalog`` ref keeps the ids stable) and revalidated by
+    the provider's catalog generation or a content fingerprint. The
+    vocab grows monotonically as pod batches intern new values; cached
+    masks are re-extended in place (encode.extend_encoded_masks)."""
 
     catalog: List[InstanceType]
     fingerprint: bytes
     vocab: Vocab
     axis: ResourceAxis
     enc: EncodedInstanceTypes
-    # (vocab-width snapshot, DeviceCatalog): the kernel's type side,
-    # resident on the solve device, re-packed only when the vocab grew
+    # provider catalog generation this entry was validated against (a
+    # matching generation skips the content fingerprint on lookup)
+    generation: Optional[int] = None
+    # cross-solve compat rows: (pool fingerprint, interned sig id, device)
+    # → incremental.SigRow, LRU-capped, living and dying with the entry
+    sig_rows: "OrderedDict[tuple, SigRow]" = field(default_factory=OrderedDict)
+    # ((vocab-width snapshot, device), DeviceCatalog): the kernel's type
+    # side, resident on one device, re-packed when the vocab grew or a
+    # solver on another device asks
     device_catalog: Optional[Tuple[tuple, DeviceCatalog]] = None
+    # the cloud providers whose solvers resolved to this entry, held
+    # weakly: once all are gone the entry is released at the next lookup
+    # (it holds its catalog strongly, and a dropped world's catalog of
+    # thousands of types would otherwise stay in the heap until LRU)
+    owners: "weakref.WeakSet" = field(default_factory=weakref.WeakSet)
+    owned: bool = False
+
+    def own(self, owner) -> None:
+        if owner is not None:
+            self.owners.add(owner)
+            self.owned = True
+
+    def orphaned(self) -> bool:
+        return self.owned and not self.owners
 
 
-def catalog_entry(cache: "OrderedDict[tuple, _CatalogEntry]", catalog: List[InstanceType]) -> _CatalogEntry:
-    """``catalog``'s encoding from ``cache``, encoded and inserted on a
-    miss; the cache keeps the CATALOG_CACHE_MAX most recently used. The
-    identity key is revalidated by the content fingerprint on every
-    lookup (the entry's strong ref keeps the ids from recycling)."""
+def _release_orphans() -> None:
+    """Drop the entries whose owners are all gone (callers hold
+    _CATALOG_LOCK)."""
+    for k in [k for k, e in _CATALOG_CACHE.items() if e.orphaned()]:
+        del _CATALOG_CACHE[k]
+
+
+def _cache_insert(key: tuple, entry: _CatalogEntry, stats=None) -> None:
+    """Insert ``entry`` into ``_CATALOG_CACHE`` (callers hold
+    _CATALOG_LOCK): orphaned entries are released first, then the least
+    recently used beyond CATALOG_CACHE_MAX (counted as evictions)."""
+    _release_orphans()
+    _CATALOG_CACHE[key] = entry
+    _CATALOG_CACHE.move_to_end(key)
+    while len(_CATALOG_CACHE) > CATALOG_CACHE_MAX:
+        _CATALOG_CACHE.popitem(last=False)
+        if stats is not None:
+            stats.evict("catalog")
+
+
+def _sig_rows_put(entry: _CatalogEntry, key: tuple, row: SigRow, stats) -> None:
+    """Bounded insert into an entry's compat-row cache (callers hold
+    _CATALOG_LOCK: the entry is shared across solvers)."""
+    entry.sig_rows[key] = row
+    entry.sig_rows.move_to_end(key)
+    cap = incremental.cache_cap("compat")
+    while len(entry.sig_rows) > cap:
+        entry.sig_rows.popitem(last=False)
+        if stats is not None:
+            stats.evict("compat")
+
+
+_CATALOG_CACHE: "OrderedDict[tuple, _CatalogEntry]" = OrderedDict()
+# guards the cache and in-place mutation of its entries (vocab interning,
+# extend_encoded_masks, the device-resident type side, compat rows):
+# entries are shared by every solver of the process
+_CATALOG_LOCK = threading.RLock()
+
+
+def _catalog_entry(
+    catalog: List[InstanceType], generation: Optional[int] = None, stats=None, owner=None
+) -> _CatalogEntry:
+    """``catalog``'s encoding from the process-wide cache, encoded and
+    inserted on a miss; the cache keeps the CATALOG_CACHE_MAX most
+    recently used, and releases at each lookup the entries whose owners
+    (the cloud providers that asked for them) are all gone. An unchanged
+    provider generation skips the content fingerprint; otherwise the
+    fingerprint revalidates the identity key."""
     key = tuple(map(id, catalog))
+    if generation is not None:
+        with _CATALOG_LOCK:
+            _release_orphans()
+            entry = _CATALOG_CACHE.get(key)
+            if entry is not None and entry.generation == generation:
+                _CATALOG_CACHE.move_to_end(key)
+                entry.own(owner)
+                if stats is not None:
+                    stats.hit("catalog")
+                return entry
     fp = _catalog_fingerprint(catalog)
-    entry = cache.get(key)
-    if entry is not None and entry.fingerprint == fp:
-        cache.move_to_end(key)
+    with _CATALOG_LOCK:
+        _release_orphans()
+        entry = _CATALOG_CACHE.get(key)
+        if entry is not None and entry.fingerprint == fp:
+            entry.generation = generation
+            _CATALOG_CACHE.move_to_end(key)
+            entry.own(owner)
+            if stats is not None:
+                stats.hit("catalog")
+            return entry
+        if stats is not None:
+            stats.miss("catalog")
+        vocab = Vocab()
+        axis = build_catalog_axis(catalog)
+        enc = encode_instance_types(list(catalog), axis, vocab)
+        entry = _CatalogEntry(list(catalog), fp, vocab, axis, enc, generation=generation)
+        entry.own(owner)
+        _cache_insert(key, entry, stats)
         return entry
-    vocab = Vocab()
-    axis = build_catalog_axis(catalog)
-    enc = encode_instance_types(list(catalog), axis, vocab)
-    entry = _CatalogEntry(list(catalog), fp, vocab, axis, enc)
-    cache[key] = entry
-    cache.move_to_end(key)
-    while len(cache) > CATALOG_CACHE_MAX:
-        cache.popitem(last=False)
-    return entry
 
 
 def _cache_put(enc: EncodedInstanceTypes, key: tuple, value) -> None:
@@ -498,29 +591,6 @@ class SolverResult:
         return n
 
 
-@dataclass
-class JobSkeleton:
-    """Pack + finalize products of one job, positional over the job's
-    size-sorted pod order."""
-
-    node_count: int
-    positions: np.ndarray  # valid sorted positions, grouped by node
-    bounds: np.ndarray  # (node_count + 1,) into positions
-    unsched: np.ndarray  # positions whose pod packed nowhere
-    ok: np.ndarray  # (N,) node has a fitting type
-    underfull: np.ndarray  # (N,) usage*2 <= alloc_cap
-    usage64: np.ndarray  # (N, R) int64
-    alloc_cap: np.ndarray  # (R,) the merge pass's cheap-reject seed
-    ok_ord: np.ndarray  # (N,) ordinal among ok nodes
-    t_global: np.ndarray  # (n_ok,) chosen type per ok node
-    off_zone: list
-    off_ct: list
-    off_price: np.ndarray
-    # True when the LP backend's cost guard chose this partition over
-    # FFD's: merges of these nodes must not raise plan cost
-    cost_guard: bool = False
-
-
 class _DeviceClock:
     """Device time of a solve from CUDA event pairs (no-op on the CPU)."""
 
@@ -696,8 +766,11 @@ class TorchScheduler:
         self.cluster = cluster
         self.recorder = recorder
         self.metrics = metrics
-        # device/host wall-time split of the most recent solve
+        # device/host wall-time split of the most recent solve, and its
+        # trace's id (the JAX package's last_timings["trace_id"]; the
+        # port keeps last_timings numeric)
         self.last_timings: Optional[Dict[str, float]] = None
+        self.last_trace_id: Optional[str] = None
         # pods per route of the most recent solve (tensor, parked, oracle)
         # and the oracle's share, as the JAX package's last_route_stats
         self.last_route_stats: Optional[Dict[str, object]] = None
@@ -720,8 +793,31 @@ class TorchScheduler:
         # reseed guard on (_affinity_postpass)
         self.last_reseed_redo = False
         self._merge_stats: Dict[str, object] = {}
-        self._catalogs: "OrderedDict[tuple, _CatalogEntry]" = OrderedDict()
         self._clock = _DeviceClock(self.device)
+        # cross-tick warm state (incremental.warm_state_for, resolved per
+        # solve; None with KARPENTER_TORCH_INCREMENTAL=0)
+        self._warm: Optional[incremental.WarmState] = None
+        # the drained-node delta of a disruption simulation (None: a live
+        # solve), carried into every memo key it could shift
+        self._sim_drained: Optional[tuple] = None
+        # the JAX package's tenant scope: the port has no fleet, so every
+        # solver is scope-free
+        self._tenant_scope: tuple = ()
+        # the most recent snapshot/restore outcome (solver/warmstore.py),
+        # and the cache traffic of the last encode_prewarm
+        self.last_warmstore_stats: Optional[dict] = None
+        self.last_prewarm_stats: Optional[dict] = None
+        # per solve: the replay probe's context, the cluster generation
+        # witnessing the seed memo, the seed exclusion key, the catalog
+        # witnesses and pool fingerprints of the job keys, and the merge
+        # screen's intersects memo
+        self._replay_ctx: Optional[tuple] = None
+        self._cluster_gen: Optional[int] = None
+        self._seed_excl: Optional[tuple] = None
+        self._batch_rvs: Optional[list] = None
+        self._enc_keys: Dict[int, tuple] = {}
+        self._pool_fp_by_name: Dict[str, tuple] = {}
+        self._intersects_cache: Dict[tuple, bool] = {}
         # per-solve topology state (rebuilt in _solve and _solve_tensor;
         # empty defaults keep direct sub-method calls in tests working)
         self._batch_pods: List[Pod] = []
@@ -754,13 +850,21 @@ class TorchScheduler:
         pods: List[Pod],
         state_nodes=None,
         daemonset_pods: Optional[List[Pod]] = None,
+        sim_drained: Optional[tuple] = None,
     ) -> SolverResult:
         """One batched solve of ``pods`` against the cluster: existing
         nodes (``state_nodes``, ``StateNode``s, read and never modified:
         the relaxation retries and the greedy fallback see copies that
         carry this solve's placements) first, then new nodes, each
         carrying the overhead of the ``daemonset_pods`` it would run,
-        within the NodePools' limits."""
+        within the NodePools' limits.
+
+        ``sim_drained`` marks a disruption simulation and carries the
+        sorted provider ids of the drained candidates: it rides the seed
+        memo's keys, so a drained-node solve never aliases the undrained
+        one, and a simulation never records the replay snapshot. The
+        content caches (route, compat rows, job, merge, intersects) stay
+        shared: they are keyed by the exact inputs of their computation."""
         t0 = time.perf_counter()
         self._clock = _DeviceClock(self.device)
         self._phase_ms = dict.fromkeys(PHASES, 0.0)
@@ -770,9 +874,11 @@ class TorchScheduler:
         sink = self.metrics.solver_phase_duration if self.metrics is not None else None
         with tracer.trace_root(
             "solve", metrics_sink=sink, buffer_if="solve", is_solve=True, pods=len(pods)
-        ):
+        ) as tr:
             try:
-                return self._solve(pods, list(state_nodes or ()), list(daemonset_pods or ()))
+                return self._solve(
+                    pods, list(state_nodes or ()), list(daemonset_pods or ()), sim_drained
+                )
             finally:
                 self._solve_entries = {}
                 total_ms = (time.perf_counter() - t0) * 1000.0
@@ -783,9 +889,13 @@ class TorchScheduler:
                     "host_ms": max(total_ms - device_ms, 0.0),
                     **{f"{name}_ms": ms for name, ms in self._phase_ms.items()},
                 }
+                self.last_trace_id = tr.trace_id if tr is not None else None
                 self.last_merge_stats = dict(self._merge_stats)
                 self.last_pack_stats = dict(self._pack_backend_stats)
                 self.last_cache_stats = self._cstats.to_dict()
+                if tr is not None and (self._cstats.hits or self._cstats.misses):
+                    # the hit rates ride on the solve's trace
+                    tr.args["cache"] = self.last_cache_stats
                 if self.metrics is not None:
                     self._observe_solve(total_ms / 1000.0, device_ms / 1000.0)
 
@@ -824,8 +934,15 @@ class TorchScheduler:
             self._batch_uids_cache = {p.uid for p in self._batch_pods}
         return self._batch_uids_cache
 
-    def _solve(self, pods: List[Pod], state_nodes: list, daemonset_pods: List[Pod]) -> SolverResult:
+    def _solve(
+        self,
+        pods: List[Pod],
+        state_nodes: list,
+        daemonset_pods: List[Pod],
+        sim_drained: Optional[tuple] = None,
+    ) -> SolverResult:
         result = SolverResult()
+        self._sim_drained = tuple(sim_drained) if sim_drained is not None else None
         self._merge_stats = {
             "merge_ms": 0.0,
             "merge_records": 0,
@@ -835,6 +952,14 @@ class TorchScheduler:
         self._pack_backend_stats = {}
         self._cstats = CacheStats()
         self.last_pareto = None
+        # cross-tick state: the replay probe first — a provably unchanged
+        # tick skips the pipeline; anything unprovable solves in full
+        self._warm = ws = incremental.warm_state_for(self)
+        self._replay_ctx = None
+        # the cluster-generation witness of the seed memo, and the lazy
+        # exclusion key over the batch pods the seed listing could count
+        self._cluster_gen = self.cluster.generation() if self.cluster is not None else None
+        self._seed_excl = None
         with self._phase("group"):
             # PV and StorageClass zone pins join volume-bearing pods' node
             # affinity before the memo read, so grouping and the compat
@@ -843,29 +968,23 @@ class TorchScheduler:
             # repeated requirement intersects to itself)
             if self.kube_client is not None:
                 self._inject_volume_zones(pods)
-            memos, _ = podcache.get_memos_rvs(pods)
-            self._all_requests = [m.requests for m in memos]
-            self._req_ids = np.fromiter((m.req_id for m in memos), dtype=np.int64, count=len(memos))
-            self._req_map = {m.req_id: m.requests for m in memos}
-            groups = group_pods(pods, memos=memos)
-            tensor_groups, parked, oracle_groups = route_groups(groups)
-            oracle_pods = [pods[i] for g in oracle_groups for i in g.pod_indices]
-            counts = {
-                "tensor": sum(len(g.pod_indices) for g in tensor_groups),
-                "parked": sum(len(g.pod_indices) for g in parked),
-                "oracle": len(oracle_pods),
-            }
-            total = sum(counts.values())
-            self.last_route_stats = {
-                **counts,
-                "oracle_share": round(counts["oracle"] / total, 4) if total else 0.0,
-            }
-            if self.metrics is not None:
-                for route, n in counts.items():
-                    if n:
-                        self.metrics.solver_route_pods.inc(n, route=route)
-        # merge-pass pairwise Requirements.intersects memo (content keyed)
-        self._intersects_cache: Dict[tuple, bool] = {}
+            memos, rvs = podcache.get_memos_rvs(pods)
+            self._batch_rvs = rvs
+            replayed = (
+                self._try_replay(ws, pods, rvs, state_nodes, daemonset_pods) if ws is not None else None
+            )
+            if replayed is None:
+                self._bind_requests(memos)
+                groups = group_pods(pods, memos=memos)
+                tensor_groups, parked, oracle_groups = self._route_groups(groups)
+                oracle_pods = [pods[i] for g in oracle_groups for i in g.pod_indices]
+                self._observe_route_split(tensor_groups, parked, oracle_pods)
+        if replayed is not None:
+            # the recorded tick's inputs, so its route and relax stats stand
+            return replayed
+        # merge-pass pairwise Requirements.intersects memo (content keyed:
+        # the warm state shares one bounded map across solves)
+        self._intersects_cache = ws.intersects_cache() if ws is not None else {}
         # spread-count seeding excludes the batch being scheduled
         # (topology.go:71-75) and is cached per constraint per solve; the
         # uid set materializes lazily (only seeded paths read it)
@@ -910,10 +1029,125 @@ class TorchScheduler:
                 self._solve_oracle(
                     oracle_pods, self._copies(state_nodes), daemonset_pods, result
                 )
+        if ws is not None and self._sim_drained is None:
+            # simulations never record: the provisioner's replayable tick
+            # must survive a disruption probe in between
+            ws.record(self, pods, state_nodes, daemonset_pods, result, self._replay_ctx)
         if result.node_plans:
             # reporting only: computed after the plans are final
             self.last_pareto = plancost.pareto_report(result.node_plans)
         return result
+
+    def _bind_requests(self, memos) -> None:
+        """The batch's request views from its pod memos: per pod, its
+        request dict and interned id, and this batch's id → request map
+        (immune to intern-table resets)."""
+        self._all_requests = [m.requests for m in memos]
+        self._req_ids = np.fromiter((m.req_id for m in memos), dtype=np.int64, count=len(memos))
+        self._req_map = {m.req_id: m.requests for m in memos}
+
+    def _observe_route_split(self, tensor_groups, parked, oracle_pods) -> None:
+        """Pods per route into ``last_route_stats`` and the
+        ``solver_route_pods`` counter."""
+        counts = {
+            "tensor": sum(len(g.pod_indices) for g in tensor_groups),
+            "parked": sum(len(g.pod_indices) for g in parked),
+            "oracle": len(oracle_pods),
+        }
+        total = sum(counts.values())
+        self.last_route_stats = {
+            **counts,
+            "oracle_share": round(counts["oracle"] / total, 4) if total else 0.0,
+        }
+        if self.metrics is not None:
+            for route, n in counts.items():
+                if n:
+                    self.metrics.solver_route_pods.inc(n, route=route)
+
+    def _seed_exclusion_key(self) -> tuple:
+        """Sorted uids of the batch pods the seed listing could count
+        (pods with a live binding in the cluster state): the only part of
+        the batch exclusion that moves seed results."""
+        if self._seed_excl is None:
+            if self.cluster is None:
+                self._seed_excl = ()
+            else:
+                bindings = self.cluster.bindings
+                self._seed_excl = tuple(
+                    sorted(p.uid for p in self._batch_pods if (p.namespace, p.name) in bindings)
+                )
+        return self._seed_excl
+
+    def _try_replay(self, ws, pods, rvs, state_nodes, daemonset_pods):
+        """Whole-solve replay probe: compute this tick's invalidation
+        context (pool fingerprints, catalog generations or fingerprints),
+        keep it for the end-of-solve record, and replay the previous
+        result when every input matches. External state the keys cannot
+        witness (state nodes, a kube client, a cluster) → no replay.
+
+        Beside the pools' fingerprints the context carries the pack
+        configuration (the engine token and the active backend's job
+        token, as every job key does): a switch of
+        ``KARPENTER_TORCH_NATIVE`` or ``KARPENTER_TORCH_PACK_BACKEND``
+        between two ticks of unchanged pods packs again. The JAX
+        package's probe leaves them out (ROADMAP queue C)."""
+        if state_nodes or self.kube_client is not None or self.cluster is not None:
+            return None
+        with tracer.span("solve.replay_probe"):
+            pools_fp: List[tuple] = [
+                ("pack", incremental.pack_engine_token(), backends.active_backend().job_token(self.device))
+            ]
+            catalogs: List[list] = []
+            keys: List[tuple] = []
+            for np_ in self.nodepools:
+                try:
+                    its = self.cloud_provider.get_instance_types(np_) or []
+                except Exception:  # noqa: BLE001 — the probe must never fail the solve
+                    return None
+                pools_fp.append(incremental.pool_replay_fingerprint(np_))
+                catalogs.append(its)
+                keys.append(incremental.catalog_key(self.cloud_provider, np_, its))
+            ctx = (
+                tuple(pools_fp),
+                tuple(tuple(map(id, c)) for c in catalogs),
+                catalogs,
+                tuple(keys),
+            )
+            self._replay_ctx = ctx
+            return ws.try_replay(self, pods, rvs, state_nodes, daemonset_pods, ctx, self._cstats)
+
+    def _route_groups(
+        self, groups: List[SignatureGroup]
+    ) -> Tuple[List[SignatureGroup], List[SignatureGroup], List[SignatureGroup]]:
+        """``route_groups`` through the route memo: the split is a pure
+        function of the batch's ordered interned signatures, so it is
+        memoized on that tuple. The JAX package's key also carries its
+        constraint-engine switch; the port has the one (tensor) engine,
+        so that component is fixed."""
+        ws = self._warm
+        key = incremental.route_key(groups) if ws is not None else None
+        if key is not None:
+            key = key + (("ce", "tensor"),)
+            cached = ws.routes.get(key, self._cstats)
+            if cached is not None:
+                t_idx, p_idx, o_idx = cached
+                return (
+                    [groups[i] for i in t_idx],
+                    [groups[i] for i in p_idx],
+                    [groups[i] for i in o_idx],
+                )
+        tensor_groups, parked, oracle_groups = route_groups(groups)
+        if key is not None:
+            pos = {id(g): i for i, g in enumerate(groups)}
+            ws.routes.put(
+                key,
+                (
+                    tuple(pos[id(g)] for g in tensor_groups),
+                    tuple(pos[id(g)] for g in parked),
+                    tuple(pos[id(g)] for g in oracle_groups),
+                ),
+            )
+        return tensor_groups, parked, oracle_groups
 
     def _copies(self, state_nodes: list) -> list:
         """This solve's copies of ``state_nodes``, made on first use."""
@@ -1150,22 +1384,31 @@ class TorchScheduler:
 
     # ------------------------------------------------------------------
 
-    def _catalog_entry(self, catalog: List[InstanceType]) -> _CatalogEntry:
-        # a solve's later passes (relaxation retries, the greedy
-        # fallback's filter) reuse the entry its first pass validated:
-        # nothing in a solve changes a catalog
+    def _catalog_entry(
+        self, catalog: List[InstanceType], generation: Optional[int] = None, count: bool = False
+    ) -> _CatalogEntry:
+        """``catalog``'s entry of the process-wide cache. A solve's later
+        passes (relaxation retries, the greedy fallback's filter) reuse
+        the entry its first pass validated: nothing in a solve changes a
+        catalog. ``count``: the lookup is the encode phase's, counted in
+        the solve's ``catalog`` hits and misses as the JAX package counts
+        its encode lookups."""
         key = tuple(map(id, catalog))
         entry = self._solve_entries.get(key)
         if entry is None:
-            entry = self._solve_entries[key] = catalog_entry(self._catalogs, catalog)
+            entry = _catalog_entry(catalog, generation, self._cstats if count else None, self.cloud_provider)
+            self._solve_entries[key] = entry
+        elif count:
+            self._cstats.hit("catalog")
         return entry
 
     def _device_catalog(self, entry: _CatalogEntry) -> DeviceCatalog:
-        """The kernel's packed type side for ``entry``, resident on the
-        solve device and re-uploaded only when the vocab grew."""
+        """The kernel's packed type side for ``entry``, resident on this
+        solver's device; uploaded again when the vocab grew or the entry
+        last served a solver on another device."""
         enc = entry.enc
         keys = tuple(sorted(enc.key_masks.keys()))
-        snapshot = tuple((k, entry.vocab.key_vocab(k).size) for k in keys)
+        snapshot = (tuple((k, entry.vocab.key_vocab(k).size) for k in keys), str(self.device))
         if entry.device_catalog is not None and entry.device_catalog[0] == snapshot:
             return entry.device_catalog[1]
         with self._clock.track():  # the catalog upload is device work
@@ -1196,6 +1439,87 @@ class TorchScheduler:
             pools.append(PoolEncoding(np_, template_reqs, Taints(np_.spec.template.taints)))
             pool_catalogs.append(its)
         return pools, pool_catalogs
+
+    # -- warming the shared caches off the solve path ----------------------
+
+    def encode_prewarm(self, pods: List[Pod], daemonset_pods: Optional[List[Pod]] = None) -> dict:
+        """Run the host encode of a batch not yet scheduled (pod memos,
+        signature grouping, the route split, the catalog encodings and the
+        compat rows of its signatures, the compat kernel on this solver's
+        device for the rows it lacks), then discard the outputs. It only
+        warms content-addressed caches (pod interning, the catalog entries
+        and their rows under _CATALOG_LOCK, the route memo), so running it
+        beside a solve changes timings, never plans; it reads no cluster
+        state and emits nothing. Call it on a scheduler of its own (its
+        per-solve scratch is not shared with a live solve). → the
+        prewarm's cache traffic."""
+        t0 = time.perf_counter()
+        self._cstats = CacheStats()
+        self._warm = ws = incremental.warm_state_for(self)
+        self._solve_entries = {}
+        self._clock = _DeviceClock(self.device)
+        with tracer.trace_root("encode_prewarm", buffer_if="never", pods=len(pods)):
+            memos, _rvs = podcache.get_memos_rvs(pods)
+            self._bind_requests(memos)
+            self._batch_pods = pods
+            self._batch_uids_cache = None
+            self._intersects_cache = ws.intersects_cache() if ws is not None else {}
+            groups = group_pods(pods, memos=memos)
+            tensor_groups, parked, _oracle_groups = self._route_groups(groups)
+            encode_groups = list(tensor_groups) + list(parked)
+            pools, pool_catalogs = self._build_pools()
+            if encode_groups and pools:
+                with tracer.span("encode"):
+                    self._encode_phase(encode_groups, pools, pool_catalogs, list(daemonset_pods or ()))
+        self._solve_entries = {}
+        stats = self._cstats.to_dict()
+        stats["groups"] = len(groups)
+        stats["prewarm_ms"] = round((time.perf_counter() - t0) * 1000.0, 3)
+        self.last_prewarm_stats = stats
+        return stats
+
+    def prewarm_catalog(self) -> dict:
+        """Re-encode each pool's catalog entry off the solve path after a
+        catalog or price change (the shared cache under _CATALOG_LOCK, the
+        same key and guard), so the next solve finds it warm. → the
+        prewarm's cache traffic."""
+        t0 = time.perf_counter()
+        self._cstats = CacheStats()
+        cg = getattr(self.cloud_provider, "catalog_generation", None)
+        with tracer.trace_root("prewarm_catalog", buffer_if="never"):
+            pools, pool_catalogs = self._build_pools()
+            # generation probes take the provider's own lock: before
+            # _CATALOG_LOCK, so the catalog lock never nests it
+            gens = [cg(p.nodepool) if callable(cg) else None for p in pools]
+            with _CATALOG_LOCK:
+                with tracer.span("encode.catalog"):
+                    for gen, cat in zip(gens, pool_catalogs):
+                        _catalog_entry(cat, generation=gen, stats=self._cstats, owner=self.cloud_provider)
+        stats = self._cstats.to_dict()
+        stats["pools"] = len(pools)
+        stats["prewarm_ms"] = round((time.perf_counter() - t0) * 1000.0, 3)
+        return stats
+
+    # -- warm-state persistence (solver/warmstore.py) ---------------------
+
+    def snapshot(self, directory: Optional[str] = None) -> Optional[str]:
+        """Serialize this solver's cross-solve planes (catalog entries and
+        their compat rows, route, job, merge, emit and screen-row memos,
+        seeds, intersects, this device's ``lprelax`` plane) to a versioned
+        snapshot file → its path, or None when persistence is off or
+        failed (never raises)."""
+        from . import warmstore
+
+        return warmstore.snapshot(self, directory=directory)
+
+    def restore(self, path: str) -> dict:
+        """Restore a snapshot into this solver's warm state, every plane
+        re-anchored to the live world (catalog fingerprints, the cluster
+        witness, re-interned signatures); what fails its witness is
+        dropped and counted. → the outcome, also ``last_warmstore_stats``."""
+        from . import warmstore
+
+        return warmstore.restore(self, path, metrics=self.metrics)
 
     def _solve_tensor(
         self,
@@ -1483,30 +1807,86 @@ class TorchScheduler:
         pool_catalogs: List[List[InstanceType]],
         daemonset_pods: List[Pod],
     ) -> dict:
-        """Catalog/signature tensorization, ONE kernel launch per pool,
-        per-pod encoding and daemonset overhead while the card works,
-        then one sync."""
-        pool_entries = [self._catalog_entry(cat) for cat in pool_catalogs]
-        sig_compats: List[List] = [
-            [encode_signature_for_pool(g, pool, e.vocab) for g in groups]
-            for pool, e in zip(pools, pool_entries)
-        ]
-        for e in {id(e): e for e in pool_entries}.values():
-            extend_encoded_masks(e.enc, e.vocab)
-        for compats, e in zip(sig_compats, pool_entries):
-            finalize_signature_masks(compats, e.vocab)
-        encoded = [e.enc for e in pool_entries]
+        """Catalog/signature tensorization, ONE kernel launch per pool over
+        the signatures the compat-row memo does not hold, per-pod encoding
+        and daemonset overhead while the card works, then one sync."""
+        ws = self._warm
+        device = str(self.device)
+        cg = getattr(self.cloud_provider, "catalog_generation", None)
+        # provider generation probes take the provider's own lock: taken
+        # before _CATALOG_LOCK, so the catalog lock never nests it
+        gens = [cg(p.nodepool) if callable(cg) else None for p in pools]
+        # the lock covers every in-place mutation of the shared entries
+        # (vocab interning, mask extension, the device-side upload, rows)
+        with _CATALOG_LOCK:
+            pool_entries = [
+                self._catalog_entry(cat, gen, count=True) for gen, cat in zip(gens, pool_catalogs)
+            ]
+            # the job memo's catalog witness: the entry's id is stable while
+            # the cache holds it, and the fingerprint guards a recycled id
+            self._enc_keys = {id(e.enc): (id(e), e.fingerprint) for e in pool_entries}
+            pool_fps = [incremental.pool_fingerprint(p) for p in pools]
+            self._pool_fp_by_name = {p.nodepool.name: fp for p, fp in zip(pools, pool_fps)}
+            # per pool: the signatures whose rows this device already holds,
+            # and the missing ones, which alone go through encode and kernel
+            cached_rows: List[list] = []
+            missing_per_pool: List[List[int]] = []
+            with tracer.span("encode.cache_lookup"):
+                for pf, e in zip(pool_fps, pool_entries):
+                    rows: list = [None] * len(groups)
+                    missing: List[int] = []
+                    if ws is None:
+                        missing = list(range(len(groups)))
+                    else:
+                        sr = e.sig_rows
+                        hits = 0
+                        for gi, g in enumerate(groups):
+                            sid = g.sig_id
+                            row = sr.get((pf, sid, device)) if sid is not None else None
+                            if row is None:
+                                missing.append(gi)
+                            else:
+                                sr.move_to_end((pf, sid, device))
+                                rows[gi] = row
+                                hits += 1
+                        if hits:
+                            self._cstats.hit("compat", hits)
+                        if missing:
+                            self._cstats.miss("compat", len(missing))
+                    cached_rows.append(rows)
+                    missing_per_pool.append(missing)
+            sig_compats: List[List] = []
+            for pool, e, rows, missing in zip(pools, pool_entries, cached_rows, missing_per_pool):
+                miss_set = set(missing)
+                sig_compats.append([
+                    encode_signature_for_pool(groups[gi], pool, e.vocab) if gi in miss_set else rows[gi].compat
+                    for gi in range(len(groups))
+                ])
+            # only entries with missing rows interned new values: their masks
+            # are extended and the missing signatures' masks finalized
+            dirty = {id(e): e for e, miss in zip(pool_entries, missing_per_pool) if miss}
+            for e in dirty.values():
+                extend_encoded_masks(e.enc, e.vocab)
+            for compats, e, missing in zip(sig_compats, pool_entries, missing_per_pool):
+                if missing:
+                    finalize_signature_masks([compats[gi] for gi in missing], e.vocab)
+            encoded = [e.enc for e in pool_entries]
 
-        # every pool's launch is enqueued before the first sync
-        pending = []
-        for e, compats in zip(pool_entries, sig_compats):
-            sig_arrays = build_compat_inputs(compats, e.enc, e.vocab)
-            zone_ok, ct_ok = zone_ct_masks(compats, e.enc)
-            catalog = self._device_catalog(e)
-            with self._clock.track():
-                sig = signature_side(sig_arrays, zone_ok, ct_ok, catalog)
-                allowed = allowed_via_kernel(sig, catalog)
-            pending.append((allowed, zone_ok, ct_ok))
+            # every pool's launch is enqueued before the first sync; a pool
+            # whose rows are all cached launches nothing
+            pending = []
+            for e, compats, missing in zip(pool_entries, sig_compats, missing_per_pool):
+                if not missing:
+                    pending.append(None)
+                    continue
+                sub = [compats[gi] for gi in missing]
+                sig_arrays = build_compat_inputs(sub, e.enc, e.vocab)
+                zone_ok, ct_ok = zone_ct_masks(sub, e.enc)
+                catalog = self._device_catalog(e)
+                with self._clock.track():
+                    sig = signature_side(sig_arrays, zone_ok, ct_ok, catalog)
+                    allowed = allowed_via_kernel(sig, catalog)
+                pending.append((allowed, zone_ok, ct_ok, missing))
 
         # per unique catalog: extended axis + quantized request matrix
         uniq_reqs = unique_requests(self._req_ids, self._req_map)
@@ -1537,10 +1917,37 @@ class TorchScheduler:
             )
 
         allowed_per_pool = []
-        for allowed, zone_ok, ct_ok in pending:
-            with self._clock.track():
-                host = allowed.cpu().numpy()
-            allowed_per_pool.append((host, zone_ok, ct_ok))
+        S = len(groups)
+        for pi, item in enumerate(pending):
+            e = pool_entries[pi]
+            if item is not None:
+                allowed_dev, sub_zone, sub_ct, missing = item
+                with self._clock.track():
+                    sub_allowed = allowed_dev.cpu().numpy()
+                if ws is not None:
+                    self._cache_compat_rows(
+                        e, pool_fps[pi], groups, missing, sig_compats[pi], sub_allowed, sub_zone, sub_ct
+                    )
+                if len(missing) == S:
+                    # nothing was cached for this pool: the sub arrays are
+                    # the whole arrays
+                    allowed_per_pool.append((sub_allowed, sub_zone, sub_ct))
+                    continue
+            else:
+                missing = []
+            allowed = np.zeros((S, len(e.enc.instance_types)), dtype=bool)
+            zone_ok = np.zeros((S, len(e.enc.zones)), dtype=bool)
+            ct_ok = np.zeros((S, len(e.enc.capacity_types)), dtype=bool)
+            for gi, row in enumerate(cached_rows[pi]):
+                if row is not None:
+                    allowed[gi] = row.allowed
+                    zone_ok[gi] = row.zone_ok
+                    ct_ok[gi] = row.ct_ok
+            for k, gi in enumerate(missing):
+                allowed[gi] = sub_allowed[k]
+                zone_ok[gi] = sub_zone[k]
+                ct_ok[gi] = sub_ct[k]
+            allowed_per_pool.append((allowed, zone_ok, ct_ok))
         return dict(
             encoded=encoded,
             sig_compats=sig_compats,
@@ -1549,6 +1956,29 @@ class TorchScheduler:
             pool_entries=pool_entries,
             daemon_requests=daemon_requests,
         )
+
+    def _cache_compat_rows(self, entry, pool_fp, groups, missing, compats, allowed, zone_ok, ct_ok) -> None:
+        """Keep freshly computed (signature, pool) compat rows on the
+        catalog entry, keyed by this solver's device. Rows are copied out
+        of the batch arrays, so the cache never pins a whole (S, T)
+        matrix."""
+        device = str(self.device)
+        with _CATALOG_LOCK:
+            for k, gi in enumerate(missing):
+                sid = groups[gi].sig_id
+                if sid is None:
+                    continue
+                _sig_rows_put(
+                    entry,
+                    (pool_fp, sid, device),
+                    SigRow(
+                        compat=compats[gi],
+                        allowed=np.array(allowed[k], dtype=bool),
+                        zone_ok=np.array(zone_ok[k], dtype=bool),
+                        ct_ok=np.array(ct_ok[k], dtype=bool),
+                    ),
+                    self._cstats,
+                )
 
     def _pack_phase(
         self,
@@ -1969,10 +2399,8 @@ class TorchScheduler:
 
     def _spread_seeds(self, group: SignatureGroup, constraint) -> Dict[str, int]:
         """Bound matching-pod counts per domain for one constraint, from
-        ``kube_client``, cached per solve (batch pods are excluded). The
-        JAX package also reuses them across solves while its cluster
-        state's generation holds; the port has no cluster state and
-        counts again on every solve."""
+        ``kube_client``, cached per solve (batch pods are excluded) and
+        across solves while the cluster's generation holds."""
         key = (
             constraint.topology_key,
             _selector_key(constraint.label_selector),
@@ -1984,11 +2412,35 @@ class TorchScheduler:
         )
         seeds = self._seed_cache.get(key)
         if seeds is None:
-            seeds = seed_counts_for_constraint(
-                self.kube_client, group.exemplar, constraint, self._batch_uids
-            )
+            seeds, skey = self._seeds_memo_get(key)
+            if seeds is None:
+                seeds = seed_counts_for_constraint(
+                    self.kube_client, group.exemplar, constraint, self._batch_uids
+                )
+                self._seeds_memo_put(skey, seeds)
             self._seed_cache[key] = seeds
         return seeds
+
+    def _seeds_memo_get(self, key: tuple) -> Tuple[Optional[Dict[str, int]], Optional[tuple]]:
+        """The cross-tick seed memo's counts for ``key`` (None on a miss)
+        and the memo key to store a recount under (None when the memo is
+        off or there is no cluster generation to witness the counts). The
+        key carries the seed exclusion key, the drained set of a
+        disruption simulation and the tenant scope: the generation guard
+        is one cluster's counter, and a simulated world must never alias
+        the live one."""
+        ws = self._warm
+        gen = self._cluster_gen
+        if ws is None or gen is None:
+            return None, None
+        skey = key + (self._seed_exclusion_key(), self._sim_drained, self._tenant_scope)
+        return ws.seeds_get(skey, gen, self._cstats), skey
+
+    def _seeds_memo_put(self, skey: Optional[tuple], seeds: Dict[str, int]) -> None:
+        if skey is not None:
+            # the kube-visible pods and nodes the counts derive from are
+            # witnessed by the cluster-generation guard
+            self._warm.seeds_put(skey, self._cluster_gen, seeds, self._cstats)
 
     @staticmethod
     def _sel_fp(sel) -> tuple:
@@ -2142,16 +2594,19 @@ class TorchScheduler:
 
     def _anti_seeds(self, group: SignatureGroup, term, topology_key: str) -> Dict[str, int]:
         """Bound matching-pod counts per domain for one anti-affinity
-        term (no node filter, topologygroup.go:70-76), cached per solve.
-        The JAX package also reuses them across solves under its cluster
-        generation; the port has no cluster state."""
+        term (no node filter, topologygroup.go:70-76), cached per solve
+        and across solves under the cluster generation (as
+        ``_spread_seeds``)."""
         key = ("anti", topology_key, _selector_key(term.label_selector), group.exemplar.namespace)
         seeds = self._seed_cache.get(key)
         if seeds is None:
-            seeds = seed_counts_for_selector(
-                self.kube_client, group.exemplar, topology_key, term.label_selector,
-                self._batch_uids,
-            )
+            seeds, skey = self._seeds_memo_get(key)
+            if seeds is None:
+                seeds = seed_counts_for_selector(
+                    self.kube_client, group.exemplar, topology_key, term.label_selector,
+                    self._batch_uids,
+                )
+                self._seeds_memo_put(skey, seeds)
             self._seed_cache[key] = seeds
         return seeds
 
@@ -3479,36 +3934,69 @@ class TorchScheduler:
         records: List[dict],
         merge_all: Optional[bool] = None,
     ) -> None:
-        """Pack every job through the active pack backend (ffd | lp |
-        auto, ``KARPENTER_TORCH_PACK_BACKEND``), then finalize in job
-        order. The backend only decides the pod→node partition; pricing
-        and finalize are backend-agnostic."""
+        """Pack and finalize one job batch through the cross-tick job memo:
+        a job whose content-addressed key hits reuses its finalize
+        skeleton (no pack dispatch: no packer call, no scan launch, no
+        upload) and only rebinds node memberships to this tick's batch
+        indices. The misses go through the active pack backend (ffd | lp
+        | auto, ``KARPENTER_TORCH_PACK_BACKEND``) exactly as a cold solve
+        sends them, and fill the memo. Emission follows the metas order
+        either way, so warm and cold solves build identical plan and
+        record streams."""
         backend = backends.active_backend()
+        ws = self._warm
+        keys: List[Optional[tuple]] = [None] * len(jobs)
+        skels: List[Optional[JobSkeleton]] = [None] * len(jobs)
+        if ws is not None and jobs:
+            with tracer.span("pack.cache.lookup", jobs=len(jobs)):
+                for i, (job, meta) in enumerate(zip(jobs, metas)):
+                    keys[i] = key = self._job_key(job, meta, backend)
+                    if key is not None:
+                        skels[i] = ws.jobs.get(key, self._cstats)
+        miss = [i for i in range(len(jobs)) if skels[i] is None]
         with self._phase("pack"):
             # backend.lock spans the call and the reads of its per-call
             # outputs: a concurrent solve on the shared singleton must not
             # overwrite last_stats/last_job_flags between them
             with backend.lock:
                 packed = (
-                    backend.pack_jobs(jobs, metas, device=self.device, stats=self._cstats)
-                    if jobs
+                    backend.pack_jobs(
+                        [jobs[i] for i in miss], [metas[i] for i in miss], device=self.device,
+                        stats=self._cstats,
+                    )
+                    if miss
                     else []
                 )
-                self._observe_pack_backend(backend, bool(jobs))
+                self._observe_pack_backend(backend, bool(miss))
                 # True where the LP partition won: those jobs' merge
                 # records are cost-guarded
                 flags = list(getattr(backend, "last_job_flags", ()) or ())
-        if len(flags) != len(jobs):
-            flags = [False] * len(jobs)
+        if len(flags) != len(miss):
+            flags = [False] * len(miss)
         if merge_all is None:
             # small plans: every node joins the merge pass (the oracle
             # back-fills leftover space on full nodes too); large plans:
             # only underfull tails
-            merge_all = sum(int(count) for _, count in packed) <= 256
+            total_nodes = 0
+            mi = 0
+            for i in range(len(jobs)):
+                if skels[i] is not None:
+                    total_nodes += skels[i].node_count
+                else:
+                    total_nodes += int(packed[mi][1])
+                    mi += 1
+            merge_all = total_nodes <= 256
         with self._phase("finalize"):
-            for meta, (node_ids, node_count), guard in zip(metas, packed, flags):
-                skel = self._job_skeleton(meta, node_ids, int(node_count), cost_guard=guard)
-                self._emit_skeleton(meta, skel, pods, result, records, merge_all)
+            mi = 0
+            for i, meta in enumerate(metas):
+                skel = skels[i]
+                if skel is None:
+                    node_ids, node_count = packed[mi]
+                    skel = self._job_skeleton(meta, node_ids, int(node_count), cost_guard=flags[mi])
+                    mi += 1
+                    if keys[i] is not None:
+                        ws.jobs.put(keys[i], skel, self._cstats)
+                self._emit_skeleton(meta, skel, keys[i], pods, result, records, merge_all)
 
     def _observe_pack_backend(self, backend, dispatched: bool) -> None:
         """The pack backend's per-call outcome (LP guard wins, relaxation
@@ -3551,6 +4039,46 @@ class TorchScheduler:
             v = int(stats.get(f"branches_{outcome}", 0))
             if v:
                 self.metrics.solver_lp_branches.inc(v, outcome=outcome)
+
+    def _job_key(self, job: tuple, meta: dict, backend=None) -> Optional[tuple]:
+        """Content address of one pack job: every input the pack and the
+        finalize read. Equal keys give identical skeletons (the
+        computation is deterministic), which keeps warm solves
+        plan-identical to cold ones. The host-port feature labels are in
+        it because two port universes can give byte-identical request
+        matrices (TCP:80 and TCP:81 wildcard columns); the backend token
+        because two backends may partition equal inputs differently; the
+        tenant scope last, by the JAX package's contract."""
+        enc_key = self._enc_keys.get(id(meta["enc"]))
+        if enc_key is None or self._warm is None:
+            return None
+        pool_fp = self._pool_fp_by_name.get(meta["pool"].nodepool.name)
+        if pool_fp is None:
+            return None
+        reqs, _frontier, mpn = job
+        merged = meta["merged"]
+        limits_key = tuple(
+            (self._sel_fp(sel) if sel is not None else None, ns, int(cap))
+            for sel, ns, cap in meta["per_node_limits"] or ()
+        )
+        return (
+            enc_key,
+            pool_fp,
+            meta["zone"],
+            incremental.job_digest(reqs),
+            meta["viable_idx"].tobytes(),
+            np.asarray(meta["zone_ok"]).tobytes(),
+            np.asarray(meta["ct_ok"]).tobytes(),
+            meta["daemon"].tobytes(),
+            int(mpn),
+            merged.fingerprint() if merged is not None else None,
+            limits_key,
+            bool(meta["no_merge"]),
+            tuple(meta["port_features"] or ()),
+            incremental.pack_engine_token(),
+            backend.job_token(self.device) if backend is not None else ("ffd",),
+            self._tenant_scope,
+        )
 
     def _job_skeleton(
         self, meta: dict, node_ids: np.ndarray, node_count: int, cost_guard: bool = False
@@ -3625,16 +4153,20 @@ class TorchScheduler:
         self,
         meta: dict,
         skel: JobSkeleton,
+        key: Optional[tuple],
         pods: List[Pod],
         result: SolverResult,
         records: List[dict],
         merge_all: bool,
     ) -> None:
-        """Positional node memberships become pod indices; plan nodes
-        emit NodePlans and underfull tails become merge records. Capped
-        and limited groups merge too: the merge check enforces each
-        side's per-node limits on the combined membership. Only no_merge
-        jobs (zone self-anti-affinity) stay out of the merge."""
+        """Rebind one job skeleton to this tick's batch: positional node
+        memberships become pod indices, plan nodes emit NodePlans and
+        underfull tails become merge records, carrying their record
+        identity ``_rkey`` (job key, node ordinal) when the job is
+        memoized. Capped and limited groups merge too: the merge check
+        enforces each side's per-node limits on the combined membership.
+        Only no_merge jobs (zone self-anti-affinity) stay out of the
+        merge."""
         idx, enc = meta["idx"], meta["enc"]
         for i in idx[skel.unsched]:
             result.pod_errors[pods[i].uid] = (
@@ -3688,6 +4220,8 @@ class TorchScheduler:
                         rec["ports"] = tuple(node_ports)
                 if skel.cost_guard:
                     rec["_cost_guard"] = True
+                if key is not None:
+                    rec["_rkey"] = (key, n)
                 records.append(rec)
                 continue
             o = int(skel.ok_ord[n])
@@ -3732,18 +4266,156 @@ class TorchScheduler:
         signature groups (merge.py's vector engine), then emit. A merge
         is legal when the nodes share a pool, the intersected zone/
         capacity-type masks stay nonempty, and some commonly-viable type
-        holds the combined load with an available offering."""
+        holds the combined load with an available offering.
+
+        Through the cross-tick merge memo: when every record carries its
+        identity (job key, node ordinal), the pass is a deterministic
+        function of the identified stream, and a hit replays the recorded
+        absorption trails and emitted offerings. A cluster whose trail
+        the emit memo holds takes its recorded offering."""
         if not records:
             return
         t0 = time.perf_counter()
         st = self._merge_stats
+        ws = self._warm
+        mkey = None
+        if ws is not None and all("_rkey" in r for r in records):
+            mkey = ("vector", int(self._MERGE_SCAN_CAP), tuple(r["_rkey"] for r in records))
+            skel = ws.merges.get(mkey, self._cstats)
+            if skel is not None:
+                with tracer.span("pack.cache.merge_replay", plans=len(skel.clusters)):
+                    self._replay_merge(skel, records, pods, result)
+                st["merge_engine"] = "vector"
+                st["merge_records"] = st.get("merge_records", 0) + len(records)
+                st["merge_pairs_applied"] = st.get("merge_pairs_applied", 0) + skel.applied
+                st["merge_ms"] = st.get("merge_ms", 0.0) + (time.perf_counter() - t0) * 1000.0
+                return
+        applied_before = st.get("merge_pairs_applied", 0)
         records.sort(key=lambda r: -int(r["usage"][0]))
         merged = merge_records_vector(self, records, pods, self._MERGE_SCAN_CAP)
-        for m in merged:
-            self._emit_record(m, pods, result)
+        trails = self._merge_trails(merged, records) if ws is not None else None
+        clusters: Optional[list] = [] if mkey is not None and trails is not None else None
+        for ci, m in enumerate(merged):
+            trail = trails[ci] if trails is not None else None
+            emitted = ws.emits.get(trail, self._cstats) if trail is not None else None
+            if emitted is not None:
+                self._emit_from_choice(m, emitted, pods, result)
+            else:
+                before = len(result.node_plans)
+                self._emit_record(m, pods, result)
+                if len(result.node_plans) > before:
+                    plan = result.node_plans[-1]
+                    emitted = (
+                        self._type_ordinal(m["enc"], plan.instance_type),
+                        plan.zone,
+                        plan.capacity_type,
+                        plan.price,
+                        False,
+                    )
+                else:
+                    emitted = (-1, None, None, 0.0, True)
+                if trail is not None:
+                    ws.emits.put(trail, emitted, self._cstats)
+            if clusters is not None:
+                if trail is None:
+                    clusters = None  # an unrecoverable trail: not memoized
+                else:
+                    clusters.append((trail,) + emitted)
+        if mkey is not None and clusters is not None:
+            ws.merges.put(
+                mkey,
+                incremental.MergeSkeleton(clusters, st.get("merge_pairs_applied", 0) - applied_before),
+                self._cstats,
+            )
         st["merge_engine"] = "vector"
         st["merge_records"] = st.get("merge_records", 0) + len(records)
         st["merge_ms"] = st.get("merge_ms", 0.0) + (time.perf_counter() - t0) * 1000.0
+
+    @staticmethod
+    def _merge_trails(merged: List[dict], records: List[dict]) -> list:
+        """Each merged cluster's absorption trail (the identities of the
+        records whose memberships concatenated into it, in first-fit
+        order), recovered from the membership runs. A cluster touching an
+        unidentified record gets a None trail (not cached)."""
+        by_first = {r["members"][0]: r for r in records if r["members"]}
+        trails = []
+        for m in merged:
+            mem = m["members"]
+            trail: list = []
+            i = 0
+            ok = bool(mem)
+            while i < len(mem):
+                r = by_first.get(mem[i])
+                rkey = r.get("_rkey") if r is not None else None
+                if rkey is None:
+                    ok = False
+                    break
+                rl = len(r["members"])
+                if mem[i : i + rl] != r["members"]:
+                    ok = False
+                    break
+                trail.append(rkey)
+                i += rl
+            trails.append(tuple(trail) if ok and trail else None)
+        return trails
+
+    def _emit_from_choice(self, m: dict, emitted: tuple, pods: List[Pod], result: SolverResult) -> None:
+        """Emit one merged cluster from a memoized offering choice: the
+        NodePlan (or the errors) _emit_record builds for this
+        content-identical cluster."""
+        t, zone, ct, price, failed = emitted
+        if failed:
+            for i in m["members"]:
+                result.pod_errors[pods[i].uid] = "packed node has no fitting instance type"
+            return
+        enc = m["enc"]
+        result.node_plans.append(
+            NodePlan(
+                nodepool_name=m["pool"].nodepool.name,
+                instance_type=enc.instance_types[t],
+                zone=zone,
+                capacity_type=ct,
+                price=price,
+                pod_indices=m["members"],
+                requirements=m["merged"],
+                max_pods_per_node=int(m.get("max_per_node", MAX_INT32)),
+                node_limits=list(m.get("limits", [])),
+                _pod_requests=[self._all_requests[i] for i in m["members"]],
+            )
+        )
+
+    def _replay_merge(self, skel: incremental.MergeSkeleton, records: List[dict], pods, result) -> None:
+        """Re-apply a recorded merge outcome to this tick's content-identical
+        records: fold memberships, requirements and limits in the recorded
+        absorption order and emit the recorded offerings."""
+        by_key = {r["_rkey"]: r for r in records}
+        for cluster in skel.clusters:
+            trail, emitted = cluster[0], cluster[1:]
+            recs = [by_key[k] for k in trail]
+            base = recs[0]
+            members = list(base["members"])
+            merged_req = base["merged"]
+            limits = base["limits"]
+            mpn = base.get("max_per_node", MAX_INT32)
+            for r in recs[1:]:
+                combined = Requirements(*merged_req.values_list())
+                combined.add(*r["merged"].values_list())
+                merged_req = combined
+                limits = limits + r["limits"]
+                mpn = min(mpn, r.get("max_per_node", MAX_INT32))
+                members.extend(r["members"])
+            self._emit_from_choice(
+                dict(base, members=members, merged=merged_req, limits=limits, max_per_node=mpn),
+                emitted, pods, result,
+            )
+
+    @staticmethod
+    def _type_ordinal(enc: EncodedInstanceTypes, it: InstanceType) -> int:
+        table = enc.runtime_caches.get(("type_ord",))
+        if table is None:
+            table = {id(t): i for i, t in enumerate(enc.instance_types)}
+            _cache_put(enc, ("type_ord",), table)
+        return table[id(it)]
 
     def _merge_scalar(self, records: List[dict], pods: List[Pod]) -> List[dict]:
         """Reference merge engine: the pure-Python pairwise first-fit

@@ -53,7 +53,7 @@ def test_sources_found():
                    "preferences.py", "topology.py"):
         assert os.path.join(PORT_DIR, "scheduler", module) in srcs
     assert os.path.join(PORT_DIR, "solver", "oracle_bridge.py") in srcs
-    for module in ("pack.py", "plancost.py", "incremental.py", "calibrate.py",
+    for module in ("pack.py", "plancost.py", "incremental.py", "warmstore.py", "calibrate.py",
                    os.path.join("backends", "__init__.py"), os.path.join("backends", "lp.py")):
         assert os.path.join(PORT_DIR, "solver", module) in srcs
     assert os.path.join(PORT_DIR, "native", "__init__.py") in srcs
@@ -69,8 +69,12 @@ def test_sources_found():
 
 
 # the port's environment knobs: the pack backend, the native packer's
-# switch and the auto backend's threshold override
-KNOBS = ("KARPENTER_TORCH_PACK_BACKEND", "KARPENTER_TORCH_NATIVE", "KARPENTER_TORCH_LP_MIN_WORK")
+# switch, the auto backend's threshold override and the warm state's
+# kill switch
+KNOBS = (
+    "KARPENTER_TORCH_PACK_BACKEND", "KARPENTER_TORCH_NATIVE", "KARPENTER_TORCH_LP_MIN_WORK",
+    "KARPENTER_TORCH_INCREMENTAL",
+)
 
 
 def _docstrings(tree) -> set:
@@ -212,6 +216,26 @@ res = solver.solve(pods, state_nodes=[sn], daemonset_pods=[ds])
 assert res.existing_plans, "nothing landed on the existing node"
 assert res.oracle_results is not None and solver.last_route_stats["oracle"] == 6
 assert solver.last_relax_stats["rounds"] >= 1 and solver.last_relax_stats["pods_placed"] == 3
+# the warm state: an unchanged tick replays; a snapshot restores into a
+# fresh process's scheduler, whose first solve is warm
+import copy, tempfile
+from karpenter_core_tpu_torch.solver import warmstore
+
+warm = TorchScheduler([pool], provider, device="cpu")
+first = warm.solve(pods[9:])
+again = warm.solve(pods[9:])
+assert warm.last_cache_stats["hits"] == {"warmstart": 1}, warm.last_cache_stats
+with tempfile.TemporaryDirectory() as d:
+    path = warm.snapshot(directory=d)
+    warmstore.simulate_process_death()
+    restored = TorchScheduler([pool], provider, device="cpu")
+    outcome = restored.restore(path)
+assert outcome["restored"].get("job", 0) >= 1 and not outcome["dropped"], outcome
+fresh = [copy.deepcopy(p) for p in pods[9:]]
+for p in fresh:
+    p.__dict__.pop("_karp_memo", None)
+res3 = restored.solve(fresh)
+assert restored.last_cache_stats["hits"].get("job", 0) >= 1 and len(res3.node_plans) == len(first.node_plans)
 # the pack seam: auto (every job routed to the LP lane) on the device scans
 import os
 from karpenter_core_tpu_torch.solver import calibrate

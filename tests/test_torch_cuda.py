@@ -132,6 +132,64 @@ def test_small_solve_on_card_matches_cpu(cuda):
     assert res.pod_errors == cpu.pod_errors
 
 
+def test_warm_tick_launches_compat_for_missing_signatures_only(cuda, monkeypatch):
+    """A long-lived card scheduler: a warm tick launches the compat kernel
+    only for signatures whose rows the card's memo lacks (one launch per
+    pool with any, each below one row block), none on a no-op tick or a
+    tick of known signatures, and plans equal to a cold CPU solve."""
+    from karpenter_core_tpu_torch.apis import labels as wk
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_core_tpu_torch.kube.objects import Container, Pod, PodSpec, ResourceRequirements
+    from karpenter_core_tpu_torch.kube.quantity import parse_quantity
+    from karpenter_core_tpu_torch.solver import TorchScheduler, incremental
+
+    monkeypatch.delenv("KARPENTER_TORCH_INCREMENTAL", raising=False)
+    incremental.reset()
+    provider = FakeCloudProvider()
+    provider.instance_types = instance_types(40)
+    from karpenter_core_tpu_torch.kube.objects import NodeSelectorRequirement
+
+    pool = NodePool()
+    pool.metadata.name = "default"
+    pool.spec.template.requirements = [NodeSelectorRequirement("team", "In", [f"t{t}" for t in range(5)])]
+    rng = np.random.RandomState(6)
+
+    def pod(i, team):
+        p = Pod()
+        p.metadata.name = f"p{i}"
+        p.metadata.resource_version = "1"
+        cpu = ["100m", "250m", "500m", "1"][rng.randint(4)]
+        p.spec = PodSpec(containers=[Container(name="main", resources=ResourceRequirements(
+            requests={"cpu": parse_quantity(cpu), "memory": parse_quantity("256Mi")}))])
+        p.spec.node_selector = {"team": f"t{team}", wk.CAPACITY_TYPE_LABEL_KEY: ["spot", "on-demand"][team % 2]}
+        return p
+
+    def stream(res):
+        return [(q.instance_type.name, q.zone, q.capacity_type, q.price, q.pod_indices) for q in res.node_plans]
+
+    pods = [pod(i, i % 3) for i in range(300)]
+    warm = TorchScheduler([pool], provider, device="cuda")
+    ticks = [
+        ("cold", lambda: None),
+        ("noop", lambda: None),
+        ("known signatures", lambda: pods.extend(pod(300 + i, i % 3) for i in range(20))),
+        ("two new signatures", lambda: pods.extend(pod(400 + i, 3 + i % 2) for i in range(10))),
+    ]
+    for name, mutate in ticks:
+        mutate()
+        before = ck.COMPAT_ALLOWED.launches
+        res = warm.solve(pods)
+        launches = ck.COMPAT_ALLOWED.launches - before
+        missing = warm.last_cache_stats.get("misses", {}).get("compat", 0)
+        assert launches == (1 if missing else 0), (name, launches, missing)
+        assert missing == {"cold": 3, "noop": 0, "known signatures": 0, "two new signatures": 2}[name]
+        monkeypatch.setenv("KARPENTER_TORCH_INCREMENTAL", "0")
+        cold = TorchScheduler([pool], provider, device="cpu").solve(list(pods))
+        monkeypatch.delenv("KARPENTER_TORCH_INCREMENTAL")
+        assert stream(res) == stream(cold), name
+
+
 def test_pack_existing_plain_version_on_card_matches_native(cuda):
     from karpenter_core_tpu_torch.solver import pack as pp
 

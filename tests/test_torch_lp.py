@@ -544,6 +544,9 @@ def test_relax_planes_are_per_device(monkeypatch):
     """A CPU solve fills the CPU plane only: the card's plane stays empty,
     so a card solve after it still runs its own ascent."""
     monkeypatch.setenv("KARPENTER_TORCH_PACK_BACKEND", "lp")
+    # the cold pipeline: the warm state would replay the second solve
+    # whole instead of packing it through the relaxation memo
+    monkeypatch.setenv("KARPENTER_TORCH_INCREMENTAL", "0")
     _, catalog, pods = SMOKE.config10_shapes()[0]
     provider, pool = _provider(SMOKE, catalog)
     solver = TorchScheduler([pool], provider, device="cpu")

@@ -370,6 +370,40 @@ def test_reconcile_matches_reference(monkeypatch, use_tpu_solver, seed):
         assert guard_violations(worlds[PORT]) == guard_violations(worlds[REF])
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_two_reconciles_warm_equal_reference_cold(monkeypatch, seed):
+    """The port's Provisioner keeps one TorchScheduler across reconciles,
+    so with its memos on (the default) its second reconcile is a warm
+    solve; the JAX package's runs with its memo off. Between the two, the
+    first reconcile's claims launch (provider ids set) and more pods
+    arrive. The stores are equal after each reconcile, and the port's
+    second solve served compat rows from its memo."""
+    reference_setup(monkeypatch)
+    monkeypatch.delenv("KARPENTER_TORCH_INCREMENTAL", raising=False)
+    importlib.import_module(f"{PORT}.solver.incremental").reset()
+    out, stats = {}, None
+    for pkg in (REF, PORT):
+        w = World(pkg, monkeypatch, use_tpu_solver=True)
+        rich_world(w, seed)
+        rows = []
+        for rnd in range(2):
+            names, reason = w.provisioner.reconcile()
+            rows.append(dict(n_names=len(names), reason=reason, **w.summary()))
+            for nc in w.kube.list("NodeClaim"):
+                if not nc.status.provider_id:
+                    nc.status.provider_id = f"fake:///launched-{nc.name}"
+                    w.kube.update(nc)
+            for i in range(6):
+                w.pending(f"late-{rnd}-{i}", ["250m", "1"][i % 2])
+        if pkg == PORT:
+            stats = w.provisioner._tpu_solver[1].last_cache_stats
+        out[pkg] = rows
+        w.stop()
+    assert out[REF][0]["n_names"] > 0 and out[REF][1]["reason"] is None
+    assert out[PORT] == out[REF]
+    assert stats["hits"].get("compat", 0) > 0, stats
+
+
 def test_inverse_walk_excludes_domains(monkeypatch):
     """Without the walk a web pod would fit node-0 first: a world where
     node-0 is the only existing node with room, and only web pods are

@@ -1,0 +1,173 @@
+"""The port's warm-state persistence ≡ the JAX package's, on the CPU.
+
+``karpenter_core_tpu_torch/solver/warmstore.py`` is the port's copy of
+the JAX package's warm store over the planes the port keeps. Held to it:
+
+- the tests of ``TestSnapshotRoundTrip``, ``TestInvalidationMatrix``,
+  ``TestCorruptSnapshots`` and ``TestWarmstoreDisabled`` of
+  ``tests/test_warmstore.py`` run from their own source on the port
+  (``TorchScheduler(device="cpu")``, ``KARPENTER_TORCH_INCREMENTAL``, the
+  port's magic, and the directory and size cap the port keeps as
+  constants set as constants), but ``test_restore_is_faster_than_cold``,
+  a wall-clock comparison that says nothing of the port on the CPU, and
+  ``test_outcome_surfaced_in_stats_schema``, which reads the JAX
+  package's consolidated stats schema (``solver/stats.py``, not ported:
+  no port caller reads it); the restore outcome it also checks, in the
+  solver's ``last_warmstore_stats`` and the metrics, is held here;
+- a port snapshot restored into a fresh port scheduler after a simulated
+  process death plans as the JAX package's un-killed warm solver does;
+- a snapshot the JAX package wrote is dropped whole by the port, and
+  counted; a port snapshot restored on another device keeps its host
+  planes and drops its device-computed ones, counted.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import pytest
+import torch
+
+from test_torch_incremental import cpu_scheduler, reset_both
+from test_torch_kube_client import PORT, REF, case_id, mirror, mirror_cases, run_mirrored
+from test_torch_native import reference_native
+from test_torch_oracle import same_start
+
+FILE = "test_warmstore.py"
+CLASSES = ("TestSnapshotRoundTrip", "TestInvalidationMatrix", "TestCorruptSnapshots", "TestWarmstoreDisabled")
+LEFT_OUT = ("test_restore_is_faster_than_cold", "test_outcome_surfaced_in_stats_schema")
+CASES = [c for c in mirror_cases(FILE, classes=CLASSES) if c[1] not in LEFT_OUT]
+
+
+def warmstore_mirror():
+    replace = (
+        ("from {pkg}.solver import TPUScheduler, incremental, warmstore",
+         "from {pkg}.solver import incremental, warmstore"),
+        ("@pytest.fixture(autouse=True)\n", ""),
+        ("KARPENTER_TPU_INCREMENTAL", "KARPENTER_TORCH_INCREMENTAL"),
+        ('b"KTPU-WARMSTORE\\n"', 'b"KTORCH-WARMSTORE\\n"'),
+        ('monkeypatch.setenv("KARPENTER_TPU_WARMSTORE_MAX_MB", "0.02")', 'monkeypatch.setattr(warmstore, "MAX_MB", 0.02)'),
+        ('monkeypatch.delenv("KARPENTER_TPU_WARMSTORE_DIR", raising=False)',
+         'monkeypatch.setattr(warmstore, "WARMSTORE_DIR", None)'),
+    )
+    return mirror(FILE, PORT, replace=replace, inject={"TPUScheduler": cpu_scheduler})
+
+
+def test_mirror_covers_the_classes():
+    assert len(CASES) == 21
+    assert {c[0] for c in CASES} == set(CLASSES)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[case_id(c) for c in CASES])
+def test_warmstore_case_holds_the_port(monkeypatch, tmp_path, case):
+    monkeypatch.delenv("KARPENTER_TORCH_INCREMENTAL", raising=False)
+    mod = warmstore_mirror()
+    fresh = mod._fresh_state()
+    next(fresh)
+    try:
+        run_mirrored(mod, *case, extra={"monkeypatch": monkeypatch, "tmp_path": tmp_path})
+    finally:
+        for _ in fresh:
+            pass
+
+
+# -- across packages ---------------------------------------------------------------
+
+
+def mirrored_module(pkg: str):
+    """test_warmstore.py's world-making functions for ``pkg``."""
+    if pkg == PORT:
+        return warmstore_mirror()
+    return mirror(FILE, REF, replace=(("@pytest.fixture(autouse=True)\n", ""),))
+
+
+def test_port_snapshot_restored_plans_as_reference_unkilled(monkeypatch, tmp_path):
+    reference_native(monkeypatch)
+    reset_both()
+    for env in ("KARPENTER_TPU_INCREMENTAL", "KARPENTER_TORCH_INCREMENTAL"):
+        monkeypatch.delenv(env, raising=False)
+    port, ref = mirrored_module(PORT), mirrored_module(REF)
+    specs = ref._specs(7, n=120)
+    same_start(monkeypatch)
+    ref_provider, ref_pool, ref_pods = ref._world(specs)
+    ref_solver = importlib.import_module(f"{REF}.solver").TPUScheduler([ref_pool], ref_provider)
+    for _ in range(2):
+        ref_res = ref_solver.solve(ref_pods)
+
+    port_warmstore = importlib.import_module(f"{PORT}.solver.warmstore")
+    same_start(monkeypatch)
+    path, unkilled = port._snapshot_world(specs, tmp_path)
+    port_warmstore.simulate_process_death()
+    same_start(monkeypatch)
+    provider, pool, pods = port._world(specs)
+    solver = cpu_scheduler([pool], provider)
+    outcome = solver.restore(path)
+    assert outcome["restored"].get("catalog") == 1 and not outcome["dropped"]
+    res = solver.solve(pods)
+    assert port._canon(res) == unkilled == ref._canon(ref_res)
+    hits = solver.last_cache_stats["hits"]
+    assert hits.get("compat", 0) >= 1 and hits.get("job", 0) >= 1
+
+
+def test_restore_outcome_surfaced_in_solver_and_metrics(monkeypatch, tmp_path):
+    """What a restore installed is never silent: the outcome stands in
+    ``last_warmstore_stats`` after the first solve and in the
+    ``warmstore_restored`` counters, plane by plane."""
+    reset_both()
+    monkeypatch.delenv("KARPENTER_TORCH_INCREMENTAL", raising=False)
+    port = mirrored_module(PORT)
+    warmstore = importlib.import_module(f"{PORT}.solver.warmstore")
+    specs = port._specs(2, n=60)
+    path, _ = port._snapshot_world(specs, tmp_path)
+    warmstore.simulate_process_death()
+    provider, pool, pods = port._world(specs)
+    metrics = importlib.import_module(f"{PORT}.metrics").Metrics()
+    solver = cpu_scheduler([pool], provider, metrics=metrics)
+    outcome = solver.restore(path)
+    solver.solve(pods)
+    assert solver.last_warmstore_stats["restored"] == outcome["restored"]
+    assert outcome["restored"]["catalog"] == 1
+    assert metrics.warmstore_restored.get(plane="catalog") == 1
+    assert metrics.warmstore_restored.get(plane="job") >= 1
+
+
+def test_reference_snapshot_is_dropped_whole_and_counted(monkeypatch, tmp_path):
+    reference_native(monkeypatch)
+    reset_both()
+    for env in ("KARPENTER_TPU_INCREMENTAL", "KARPENTER_TORCH_INCREMENTAL"):
+        monkeypatch.delenv(env, raising=False)
+    ref = mirrored_module(REF)
+    specs = ref._specs(8, n=60)
+    ref_path, _ = ref._snapshot_world(specs, tmp_path)
+    port = mirrored_module(PORT)
+    metrics = importlib.import_module(f"{PORT}.metrics").Metrics()
+    provider, pool, pods = port._world(specs)
+    solver = cpu_scheduler([pool], provider, metrics=metrics)
+    outcome = solver.restore(ref_path)
+    assert outcome["restored"] == {} and outcome["reason"] == "bad magic"
+    assert outcome["dropped"] == {"snapshot": 1}
+    assert metrics.warmstore_dropped.get(plane="snapshot") == 1
+    assert solver.solve(pods).node_plans
+
+
+def test_snapshot_on_another_device_keeps_host_planes_only(monkeypatch, tmp_path):
+    """The device-computed planes of a CPU snapshot never reach a solver
+    on the card; the host planes (catalog, route, intersects) do. The
+    solver only names the card: the restore launches nothing."""
+    reset_both()
+    monkeypatch.delenv("KARPENTER_TORCH_INCREMENTAL", raising=False)
+    port = mirrored_module(PORT)
+    warmstore = importlib.import_module(f"{PORT}.solver.warmstore")
+    incremental = importlib.import_module(f"{PORT}.solver.incremental")
+    specs = port._specs(9, n=80)
+    path, _ = port._snapshot_world(specs, tmp_path)
+    warmstore.simulate_process_death()
+    provider, pool, pods = port._world(specs)
+    solver = cpu_scheduler([pool], provider)
+    solver.device = torch.device("cuda")
+    outcome = solver.restore(path)
+    assert outcome["restored"].get("catalog") == 1 and outcome["restored"].get("route", 0) >= 1
+    assert outcome["dropped"].get("job", 0) >= 1 and outcome["dropped"].get("compat", 0) >= 1
+    for plane in ("compat", "job", "merge", "emit", "mergerow"):
+        assert plane not in outcome["restored"]
+    assert len(incremental.warm_state_for(solver).jobs) == 0
