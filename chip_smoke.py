@@ -6,8 +6,8 @@ Phases, in order; any failure exits non-zero:
 
 1. Device: require CUDA; print the card's name and power limit.
 2. Build: compile the Hopper compat∧offering kernel, the three pack
-   kernels (nvcc) and the C++ packer (g++) from the repo's sources, one
-   compiler each, in parallel.
+   kernels, the disruption screens (nvcc) and the C++ packer (g++) from
+   the repo's sources, one compiler each, in parallel.
 3. Kernel: the kernel, through the wrapper's own tile pick and with
    each of its two tile shapes forced, against its plain PyTorch
    versions on the card, bit for bit, on seeded ragged planes, the
@@ -192,15 +192,41 @@ Phases, in order; any failure exits non-zero:
    bit; ``sections_s`` splits the phase's wall time. Phases 4-13 run
    with ``KARPENTER_TORCH_INCREMENTAL=0``: they measure the cold
    pipeline, as before the warm state existed.
+15. Disruption (``run_disruption_phase``), the warm state on, every
+   world built twice (card and CPU) with the same generated identities.
+   15a ``config4-consolidation``: bench config 4 whole
+   (``bench.py:552-602``): 5,000 initialized ``fake-it-4`` nodes with one
+   100m / 128Mi pod each, an hour on, ``get_candidates`` then
+   ``MultiNodeConsolidation.compute_command`` (the batched engine: the
+   prefix and subset screens, the repack bound, greedy simulations);
+   again with ``KARPENTER_TORCH_NATIVE=0`` (the repack bound on B6); both
+   commands and engine stats equal to a CPU run's. 15b
+   ``config9-disruption``: bench config 9 (``bench.py:1150-1460``): 500
+   ``dx-host`` nodes carrying ``scenario_spot_storm(50,000, 20 teams,
+   seed 9)``'s base step (49,973 pods bind), a 5 % budget, the batched
+   solver's simulations; phase A's decision and five steady ones, phase
+   B's churn steps (the storm recovering at 70 %, a price storm), the
+   single-node decision, each batched and sequential with equal command
+   keys, all equal to a CPU run's; the churn steps again with
+   ``KARPENTER_TORCH_NATIVE=0`` (B6 and the FFD scan), the same commands.
+   15c ``controller-e2e``: a 40-node store world with drift, expiration,
+   emptiness and an underutilized pool: the markers, ``reconcile`` until
+   nothing is left, the orchestration queue; conditions, taints, claims,
+   deletion marks, events and disruption metrics equal to a CPU run's.
+   15d: every distinct captured screen call against its plain version on
+   the card, bit for bit, with its time, the reference formula's as one
+   PyTorch expression (``library_ms``), the bound and the largest partial
+   sum. ``sections_s`` splits the phase's wall time.
 
 Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
-shapes of phases 8–11 too, and the three pack kernels; launches by path,
-phase 13's and phase 14's legs included), and the last line ``{"ok": true, "device":
-{...}}``.
+shapes of phases 8–11 too, the three pack kernels and the disruption
+screens; launches by path, phase 13's, 14's and 15's legs included),
+and the last line ``{"ok": true, "device": {...}}``.
 The profiled warm solves of phases 4–11 report device times only from
 traces that hold every kernel launch of the solve (``profile_solve``).
 
-Run from the repository root: ``python3 chip_smoke.py``.
+Run from the repository root: ``python3 chip_smoke.py`` (``--log PATH``
+appends every JSON line to PATH as well).
 """
 
 from __future__ import annotations
@@ -259,13 +285,25 @@ DROUGHT_ZONE = "test-zone-3"  # phase 11's relax-cluster: every offering there u
 N_PARITY = 1_500  # bench.py config 6's stratified subsample for packing parity
 
 
+# ``--log PATH``: every emitted line is appended there too (the output a
+# caller keeps may hold only its end)
+LOG_PATH: Optional[str] = None
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    if LOG_PATH:
+        with open(LOG_PATH, "a") as f:
+            f.write(json.dumps({"fail": msg}) + "\n")
     sys.exit(1)
 
 
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if LOG_PATH:
+        with open(LOG_PATH, "a") as f:
+            f.write(line + "\n")
 
 
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -4544,6 +4582,704 @@ def run_config7_phase(device: str = "cuda", n_pods: int = N_CONFIG7, n_types: in
     }
 
 
+# -- phase 15: disruption (bench configs 4 and 9, the controller) ------------------
+
+N_CONFIG4 = 5_000  # bench.py config 4 (bench.py:552-602): initialized fake-it-4 nodes, one pod each
+N_CONFIG9_NODES = 500  # bench.py config 9 (bench.py:1150-1460): dx-host nodes
+CONFIG9_PODS_PER_NODE = 100
+CONFIG9_SEED = 9  # scenario_spot_storm's seed
+CONFIG9_TEAMS = 20
+CONFIG9_STEADY = 5  # phase A's steady decisions
+N_CONTROLLER_NODES = 40  # phase 15c's store world
+CONTROLLER_SEED = 15
+DISRUPT_CLOCK = 10_000.0  # tests/helpers.py Env's clock at start
+SCREEN_REPLACES = {
+    "prefix": "karpenter_core_tpu/disruption/tpu_repack.py:40",
+    "subsets": "karpenter_core_tpu/disruption/tpu_repack.py:69",
+    "singles": "karpenter_core_tpu/disruption/tpu_repack.py:102",
+}
+
+
+def disrupt_launches() -> dict:
+    """Every kernel phase 15's paths launch, by name: the three screen
+    entries (B8), the existing-node first-fit (B6), the FFD scan (B5)
+    and the compat kernel."""
+    from karpenter_core_tpu_torch.disruption import screen_kernels as sk
+
+    return {**{f"disrupt_screen.{k}": v.launches for k, v in sk.KERNELS.items()},
+            **{k: v.launches for k, v in all_kernels().items()}}
+
+
+def reset_disrupt_launches() -> None:
+    from karpenter_core_tpu_torch.disruption import screen_kernels as sk
+
+    for k in [*sk.KERNELS.values(), *all_kernels().values()]:
+        k.launches = 0
+
+
+class same_identities:
+    """Generated names, claim hostnames and uids restart inside the block
+    (a counter stands in for uuid4), so two runs of one world on two
+    devices give their objects the same identities: the greedy queue
+    breaks ties by uid."""
+
+    def __enter__(self):
+        import itertools
+        import uuid
+
+        from karpenter_core_tpu_torch.kube import objects
+        from karpenter_core_tpu_torch.scheduler import nodeclaim
+
+        objects._sequence = itertools.count(1)
+        nodeclaim._hostname_counter = itertools.count(1)
+        ids = itertools.count(1)
+        self.uuid4, uuid.uuid4 = uuid.uuid4, lambda: uuid.UUID(int=next(ids))
+        return self
+
+    def __exit__(self, *exc):
+        import uuid
+
+        uuid.uuid4 = self.uuid4
+
+
+class DisruptWorld:
+    """tests/helpers.py's ``Env`` on the port, the batched solve's and
+    the screens' device ``device``: an in-memory store, the fake
+    provider (``instance_types(10)``), ``Informers`` feeding a
+    ``Cluster``, a ``Recorder``, a ``Provisioner`` and a
+    ``DisruptionController`` (no validation wait), one NodePool
+    ``default`` (consolidate when underutilized, at once, budget 100 %),
+    all on a clock the world moves (``now``)."""
+
+    def __init__(self, device: str):
+        from karpenter_core_tpu_torch.apis.nodepool import CONSOLIDATION_POLICY_WHEN_UNDERUTILIZED
+        from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+        from karpenter_core_tpu_torch.disruption import DisruptionController
+        from karpenter_core_tpu_torch.events import Recorder
+        from karpenter_core_tpu_torch.kube.client import KubeClient
+        from karpenter_core_tpu_torch.provisioning import Provisioner
+        from karpenter_core_tpu_torch.state.cluster import Cluster
+        from karpenter_core_tpu_torch.state.informers import Informers
+
+        self.now = DISRUPT_CLOCK
+        self.kube = KubeClient()
+        self.provider = FakeCloudProvider()
+        self.provider.instance_types = instance_types(10)
+        self.cluster = Cluster(self.kube, self.provider, clock=self.clock)
+        self.informers = Informers(self.kube, self.cluster)
+        self.informers.start()
+        self.recorder = Recorder()
+        self.provisioner = Provisioner(self.kube, self.provider, self.cluster, recorder=self.recorder, device=device)
+        self.nodepool = self.pool("default", CONSOLIDATION_POLICY_WHEN_UNDERUTILIZED)
+        self.controller = DisruptionController(
+            self.kube, self.cluster, self.provisioner, self.provider, recorder=self.recorder,
+            clock=self.clock, validation_sleep=lambda t: None,
+        )
+
+    def clock(self) -> float:
+        return self.now
+
+    def pool(self, name: str, policy: str):
+        from karpenter_core_tpu_torch.apis.nodepool import Budget, NodePool
+
+        np_ = NodePool()
+        np_.metadata.name = name
+        np_.spec.disruption.budgets = [Budget(nodes="100%")]
+        np_.spec.disruption.consolidation_policy = policy
+        np_.spec.disruption.consolidate_after = 0.0
+        self.kube.create(np_)
+        return np_
+
+    def make_initialized_node(self, instance_type_name: str = "fake-it-4", zone: str = "test-zone-1",
+                              capacity_type: str = "on-demand", pods=(), nodepool=None):
+        """An initialized Node and NodeClaim of ``nodepool`` (the
+        world's own by default), the ``pods`` bound to it and running."""
+        from karpenter_core_tpu_torch.apis import labels as wk
+        from karpenter_core_tpu_torch.apis.nodeclaim import COND_INITIALIZED, COND_LAUNCHED, COND_REGISTERED, NodeClaim
+        from karpenter_core_tpu_torch.kube.objects import Node, next_name
+
+        pool = nodepool or self.nodepool
+        it = next(i for i in self.provider.get_instance_types(pool) if i.name == instance_type_name)
+        provider_id = f"fake:///node-{len(self.kube.list('Node'))}"
+        nc = NodeClaim()
+        nc.metadata.name = f"claim-{len(self.kube.list('NodeClaim'))}"
+        nc.metadata.labels = {
+            wk.NODEPOOL_LABEL_KEY: pool.name, wk.LABEL_INSTANCE_TYPE: instance_type_name,
+            wk.LABEL_TOPOLOGY_ZONE: zone, wk.CAPACITY_TYPE_LABEL_KEY: capacity_type,
+        }
+        nc.metadata.annotations = {wk.NODEPOOL_HASH_ANNOTATION_KEY: pool.static_hash()}
+        nc.status.provider_id = provider_id
+        nc.status.capacity = dict(it.capacity)
+        nc.status.allocatable = it.allocatable()
+        for cond in (COND_LAUNCHED, COND_REGISTERED, COND_INITIALIZED):
+            nc.set_condition(cond, "True")
+        self.kube.create(nc)
+        self.provider.created_node_claims[provider_id] = nc
+        node = Node()
+        node.metadata.name = next_name("node")
+        node.metadata.labels = {**nc.metadata.labels, wk.LABEL_HOSTNAME: node.metadata.name,
+                                wk.NODE_REGISTERED_LABEL_KEY: "true", wk.NODE_INITIALIZED_LABEL_KEY: "true"}
+        node.spec.provider_id = provider_id
+        node.status.capacity = dict(it.capacity)
+        node.status.allocatable = it.allocatable()
+        node.metadata.creation_timestamp = self.now - 100
+        self.kube.create(node)
+        for pod in pods:
+            pod.spec.node_name = node.name
+            pod.status.phase = "Running"
+            pod.status.conditions = []
+            self.kube.create(pod)
+        return node, nc
+
+    def stop(self) -> None:
+        self.informers.stop()
+
+
+def bound_pod(name: str, cpu: str = "100m", mem: Optional[str] = "128Mi", labels=None):
+    """A pod of one container requesting ``cpu`` (and ``mem``), to be
+    bound by ``make_initialized_node``."""
+    from karpenter_core_tpu_torch.kube.objects import Container, Pod, PodSpec, ResourceRequirements
+    from karpenter_core_tpu_torch.kube.quantity import parse_quantity
+
+    pod = Pod()
+    pod.metadata.name = name
+    pod.metadata.labels = dict(labels or {})
+    requests = {"cpu": parse_quantity(cpu)}
+    if mem is not None:
+        requests["memory"] = parse_quantity(mem)
+    pod.spec = PodSpec(containers=[Container(name="c", resources=ResourceRequirements(requests=requests))])
+    return pod
+
+
+def disrupt_cmd_key(cmd) -> tuple:
+    """bench.py's ``_disrupt_cmd_key``: action, disrupted nodes,
+    replacement types."""
+    reps = tuple(tuple(sorted(it.name for it in r.instance_type_options)) for r in (cmd.replacements or []))
+    return (cmd.action(), tuple(sorted(c.name() for c in cmd.candidates)), reps)
+
+
+def _sync(device: str) -> None:
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+
+
+def config4_world(device: str, n_nodes: int = N_CONFIG4) -> DisruptWorld:
+    """bench config 4's world: ``n_nodes`` initialized ``fake-it-4``
+    nodes, each running one 100m / 128Mi pod, an hour on the clock."""
+    w = DisruptWorld(device)
+    for i in range(n_nodes):
+        w.make_initialized_node("fake-it-4", pods=[bound_pod(f"r-{i}")])
+    w.now += 3600.0
+    if not w.cluster.synced():
+        fail("config4: the cluster is not synced with its store")
+    return w
+
+
+def run_config4(device: str, n_nodes: int = N_CONFIG4) -> dict:
+    """Phase 15a: bench config 4 whole on ``device``: ``get_candidates``
+    then ``MultiNodeConsolidation.compute_command`` (the batched engine;
+    the simulations on the greedy scheduler, as the bench's provisioner
+    has no batched path), launches counted from 0 just before."""
+    from karpenter_core_tpu_torch.disruption.helpers import get_candidates
+    from karpenter_core_tpu_torch.disruption.methods import MultiNodeConsolidation
+
+    with same_identities():
+        w = config4_world(device, n_nodes)
+        try:
+            method = MultiNodeConsolidation(w.controller.ctx)
+            reset_disrupt_launches()
+            with nogc():
+                t0 = time.perf_counter()
+                candidates = get_candidates(w.cluster, w.kube, w.recorder, w.clock, w.provider, method.should_disrupt)
+                cmd = method.compute_command(candidates)
+                _sync(device)
+                elapsed = time.perf_counter() - t0
+            launches = disrupt_launches()
+        finally:
+            w.stop()
+    stats = method.last_decision_stats or {}
+    if cmd.action() == "no-op":
+        fail("config4: 5,000 underutilized nodes and no consolidation")
+    return {
+        "candidates": len(candidates), "candidates_per_s": len(candidates) / elapsed,
+        "disrupted": len(cmd.candidates), "action": cmd.action(), "elapsed_ms": elapsed * 1000.0,
+        "decision_ms": stats.get("decision_ms"),
+        "engine": {k: stats.get(k) for k in ("screen_upper_k", "repack_lower_k", "subsets_screened",
+                                             "screen_feasible_subsets", "subsets_verified", "family_capped")},
+        "key": disrupt_cmd_key(cmd), "kernel_launches": launches,
+    }
+
+
+def config9_fleet(device: str, n_nodes: int = N_CONFIG9_NODES, pods_per_node: int = CONFIG9_PODS_PER_NODE,
+                  seed: int = CONFIG9_SEED):
+    """bench config 9's fleet (``bench.py:disrupt_fleet``): ``n_nodes``
+    initialized ``dx-host`` nodes (160 CPU, 320Gi, ``pods_per_node``
+    pods; three in ten spot, two zones) under one pool with the batched
+    solver and a 5 % budget, the catalog ``dx-host`` and ``dx-half``
+    with spot at 0.4 of on-demand; ``scenario_spot_storm(scale=n_nodes *
+    pods_per_node, teams=20, seed)`` as the stream. A pod binds first-fit
+    from a start node given by its name (CRC-32, where the bench takes
+    Python's per-process string hash) under 155 CPU and the pods cap →
+    (world, scenario, bind_step, mutate_catalog)."""
+    import zlib
+
+    from karpenter_core_tpu_torch.apis.nodepool import Budget
+    from karpenter_core_tpu_torch.cloudprovider.fake import new_instance_type, price_from_resources
+    from karpenter_core_tpu_torch.cloudprovider.types import Offering
+    from karpenter_core_tpu_torch.kube.quantity import parse_quantity
+    from karpenter_core_tpu_torch.serving import trafficgen as tg
+
+    def catalog(price_factor: float = 1.0):
+        out = []
+        for name, cpu, mem, pods in (("dx-host", "160", "320Gi", str(pods_per_node)),
+                                     ("dx-half", "80", "160Gi", str(max(1, pods_per_node // 2)))):
+            res = {"cpu": cpu, "memory": mem, "pods": pods}
+            price = price_from_resources({k: parse_quantity(v) for k, v in res.items()}) * price_factor
+            out.append(new_instance_type(name, res, offerings=[
+                Offering(ct, z, price * (0.4 if ct == "spot" else 1.0))
+                for ct in ("spot", "on-demand") for z in ("test-zone-1", "test-zone-2")
+            ]))
+        return out
+
+    w = DisruptWorld(device)
+    w.provider.set_instance_types(catalog())
+    w.provisioner.use_tpu_solver = True
+    w.nodepool.spec.disruption.budgets = [Budget(nodes="5%")]
+    w.kube.apply(w.nodepool)
+    nodes = [
+        w.make_initialized_node("dx-host", zone=f"test-zone-{1 + i % 2}",
+                                capacity_type="spot" if i % 10 < 3 else "on-demand")[0]
+        for i in range(n_nodes)
+    ]
+    cpu_cap_m = 155_000
+    used = {n.name: [0, 0] for n in nodes}
+    by_name: dict = {}
+
+    def bind(spec) -> bool:
+        cpu_m = int(str(spec.cpu)[:-1])
+        start = zlib.crc32(spec.name.encode()) % n_nodes
+        for j in range(n_nodes):
+            node = nodes[(start + j) % n_nodes]
+            u = used[node.name]
+            if u[0] + cpu_m <= cpu_cap_m and u[1] < pods_per_node:
+                pod = bound_pod(spec.name, spec.cpu, spec.mem, labels={"team": f"t{spec.team}"})
+                pod.spec.node_name = node.name
+                pod.status.phase = "Running"
+                w.kube.create(pod)
+                u[0] += cpu_m
+                u[1] += 1
+                by_name[spec.name] = (pod, node.name, cpu_m)
+                return True
+        return False
+
+    def bind_step(step, create_fraction: float = 1.0) -> dict:
+        removed = 0
+        for name in list(step.evicts) + list(step.deletes):
+            ent = by_name.pop(name, None)
+            if ent is None:
+                continue
+            pod, node_name, cpu_m = ent
+            w.kube.delete(pod)
+            used[node_name][0] -= cpu_m
+            used[node_name][1] -= 1
+            removed += 1
+        creates = step.creates[: int(len(step.creates) * create_fraction)]
+        bound = sum(1 for spec in creates if bind(spec))
+        return {"bound": bound, "dropped": len(creates) - bound, "removed": removed}
+
+    storms = [0]
+
+    def mutate_catalog() -> None:
+        storms[0] += 1
+        w.provider.set_instance_types(catalog(1.0 + 0.1 * (storms[0] % 3)))
+
+    scenario = tg.scenario_spot_storm(scale=n_nodes * pods_per_node, teams=CONFIG9_TEAMS, seed=seed)
+    return w, scenario, bind_step, mutate_catalog
+
+
+def disrupt_decide(w: DisruptWorld, mode: str, device: str, single: bool = False):
+    """bench.py's ``disrupt_decide``: one consolidation decision under
+    ``mode`` (batched | sequential), a fresh method on the world's
+    controller-shared engine → (command, ms, engine stats, candidates)."""
+    from karpenter_core_tpu_torch.disruption.budgets import build_disruption_budgets
+    from karpenter_core_tpu_torch.disruption.helpers import get_candidates
+    from karpenter_core_tpu_torch.disruption.methods import MultiNodeConsolidation, SingleNodeConsolidation
+
+    with knobs(KARPENTER_TORCH_DISRUPT_ENGINE=mode):
+        ctx = w.controller.ctx
+        ctx.budgets = build_disruption_budgets(w.cluster, w.kube, w.clock, w.controller.queue)
+        method = (SingleNodeConsolidation if single else MultiNodeConsolidation)(ctx)
+        candidates = get_candidates(w.cluster, w.kube, w.recorder, w.clock, w.provider, method.should_disrupt,
+                                    w.controller.queue)
+        t0 = time.perf_counter()
+        cmd = method.compute_command(candidates)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1000.0
+    return cmd, ms, dict(method.last_decision_stats or {}), len(candidates)
+
+
+ENGINE_STAT_KEYS = ("candidates", "screen_upper_k", "repack_lower_k", "subsets_screened",
+                    "screen_feasible_subsets", "subsets_verified", "family_capped")
+
+
+def run_config9(device: str, n_nodes: int = N_CONFIG9_NODES, pods_per_node: int = CONFIG9_PODS_PER_NODE,
+                steady: int = CONFIG9_STEADY, sequential: bool = True, churn_only: bool = False) -> dict:
+    """Phase 15b: bench config 9 on ``device``. Phase A on the pods-full
+    fleet (a screen-proven no-op, then ``steady`` steady decisions), phase
+    B the stream's churn steps (the storm recovering at 70 %, a price
+    storm after the second step), then the single-node decision. Every
+    decision runs batched and, with ``sequential``, sequential; their
+    command keys must be equal. ``churn_only`` skips the steady decisions
+    and the single-node decision. Launches are counted from 0 just before
+    the first decision. → the row, with every batched key in order
+    (``keys``)."""
+    with same_identities():
+        t0 = time.perf_counter()
+        w, scenario, bind_step, mutate_catalog = config9_fleet(device, n_nodes, pods_per_node)
+        try:
+            base = bind_step(scenario.steps[0])
+            w.now += 3600.0
+            if not w.cluster.synced():
+                fail("config9: the cluster is not synced with its store")
+            build_s = time.perf_counter() - t0
+            keys, steps, steady_ms, churn_ms, seq_churn_ms = [], [], [], [], []
+
+            def decide(label, single=False):
+                cmd_b, ms_b, st, n = disrupt_decide(w, "batched", device, single)
+                row = {"step": label, "batched_ms": ms_b, "action": cmd_b.action(),
+                       "disrupted": len(cmd_b.candidates), "candidates": n,
+                       **{k: st.get(k) for k in ENGINE_STAT_KEYS}, "cache": st.get("cache")}
+                if sequential:
+                    cmd_s, ms_s, _, _ = disrupt_decide(w, "sequential", device, single)
+                    row["sequential_ms"] = ms_s
+                    if disrupt_cmd_key(cmd_s) != disrupt_cmd_key(cmd_b):
+                        fail(f"config9 {label}: batched {disrupt_cmd_key(cmd_b)} != sequential {disrupt_cmd_key(cmd_s)}")
+                keys.append(disrupt_cmd_key(cmd_b))
+                steps.append(row)
+                return row
+
+            reset_disrupt_launches()
+            with nogc():
+                first = decide("A0")
+                if not churn_only:
+                    for i in range(steady):
+                        cmd, ms, st, _ = disrupt_decide(w, "batched", device)
+                        steady_ms.append(ms)
+                        if disrupt_cmd_key(cmd) != keys[0]:
+                            fail("config9: a steady decision differs from the first")
+                for i, step in enumerate(scenario.steps[1:]):
+                    storm = len(step.evicts) > n_nodes * pods_per_node * 0.1
+                    bind_step(step, create_fraction=0.7 if storm else 1.0)
+                    if i == 1:
+                        mutate_catalog()
+                    w.now += 60.0
+                    row = decide(f"B{i + 1}")
+                    churn_ms.append(row["batched_ms"])
+                    if sequential:
+                        seq_churn_ms.append(row["sequential_ms"])
+                if not churn_only:
+                    decide("single", single=True)
+            launches = disrupt_launches()
+        finally:
+            w.stop()
+    return {
+        "pods": base["bound"], "dropped": base["dropped"], "nodes": n_nodes, "steps": steps, "keys": keys,
+        "build_s": build_s, "kernel_launches": launches,
+        # bench config 9's steady no-op on the pods-full fleet, decided by the screen alone
+        "steady_noop_screen_proven": first["action"] == "no-op" and first["screen_upper_k"] == 0,
+        "steady_decision_ms": {"p50": _pctl(steady_ms, 50), "p99": _pctl(steady_ms, 99)} if steady_ms else None,
+        "churn_decision_ms": {"p50": _pctl(churn_ms, 50), "p99": _pctl(churn_ms, 99)},
+        "churn_sequential_ms": ({"p50": _pctl(seq_churn_ms, 50), "p99": _pctl(seq_churn_ms, 99)}
+                                if seq_churn_ms else None),
+    }
+
+
+def controller_world(device: str, n_nodes: int = N_CONTROLLER_NODES, seed: int = CONTROLLER_SEED) -> DisruptWorld:
+    """Phase 15c's store world: ``n_nodes`` nodes of ``fake-it-2`` ..
+    ``fake-it-8`` across two zones, three in ten spot, carrying 0-5 bound
+    pods (100m to 900m) in three pools: ``default`` (underutilized:
+    consolidation; one claim's pool hash stale: drift), ``spare``
+    (``expire_after`` 30 min: expiration) and ``empty`` (consolidate when
+    empty, two empty nodes: emptiness); the provider reports no drift of
+    its own; an hour on the clock."""
+    from karpenter_core_tpu_torch.apis import labels as wk
+    from karpenter_core_tpu_torch.apis.nodepool import CONSOLIDATION_POLICY_WHEN_EMPTY, CONSOLIDATION_POLICY_WHEN_UNDERUTILIZED
+
+    rng = np.random.RandomState(seed)
+    w = DisruptWorld(device)
+    w.provider.drifted = ""
+    spare = w.pool("spare", CONSOLIDATION_POLICY_WHEN_UNDERUTILIZED)
+    spare.spec.disruption.expire_after = 1800.0
+    w.kube.apply(spare)
+    empty = w.pool("empty", CONSOLIDATION_POLICY_WHEN_EMPTY)
+    for i in range(n_nodes):
+        pool = spare if rng.rand() < 0.2 else w.nodepool
+        pods = [bound_pod(f"p-{i}-{j}", f"{int(rng.choice([100, 200, 400, 900]))}m", None)
+                for j in range(int(rng.randint(0, 6)))]
+        w.make_initialized_node(f"fake-it-{int(rng.randint(2, 9))}", zone=f"test-zone-{1 + int(rng.randint(2))}",
+                                capacity_type="spot" if rng.rand() < 0.3 else "on-demand", pods=pods,
+                                nodepool=pool)
+    for _ in range(2):
+        w.make_initialized_node("fake-it-3", nodepool=empty)
+    claims = sorted((nc for nc in w.kube.list("NodeClaim") if nc.metadata.labels[wk.NODEPOOL_LABEL_KEY] == "default"),
+                    key=lambda nc: nc.metadata.name)
+    stale = claims[int(rng.randint(len(claims)))]
+    stale.metadata.annotations[wk.NODEPOOL_HASH_ANNOTATION_KEY] = "stale"
+    w.kube.apply(stale)
+    for pool in w.kube.list("NodePool"):
+        pool.metadata.annotations[wk.NODEPOOL_HASH_ANNOTATION_KEY] = pool.static_hash()
+        w.kube.apply(pool)
+    w.now += 3600.0
+    if not w.cluster.synced():
+        fail("controller-e2e: the cluster is not synced with its store")
+    return w
+
+
+def run_controller_e2e(device: str, n_nodes: int = N_CONTROLLER_NODES) -> dict:
+    """Phase 15c: ``NodeClaimDisruptionController.reconcile_all``, then
+    ``DisruptionController.reconcile`` until it returns nothing, then
+    ``OrchestrationQueue.reconcile``, on the batched solver → the
+    executed methods and the store: conditions, taints, claims, deletion
+    marks, events, the disruption metric samples; launches counted from 0
+    just before the first reconcile."""
+    from karpenter_core_tpu_torch.apis.nodeclaim import COND_EMPTY
+    from karpenter_core_tpu_torch.disruption import NodeClaimDisruptionController
+    from karpenter_core_tpu_torch.metrics import Metrics
+
+    with same_identities():
+        w = controller_world(device, n_nodes)
+        try:
+            w.provisioner.use_tpu_solver = True
+            metrics = Metrics()
+            w.controller.metrics = w.controller.queue.metrics = metrics
+            reset_disrupt_launches()
+            t0 = time.perf_counter()
+            NodeClaimDisruptionController(w.kube, w.provider, w.cluster, clock=w.clock).reconcile_all()
+            for nc in w.kube.list("NodeClaim"):
+                # conditions carry wall-clock stamps; the world runs on its own clock
+                cond = nc.get_condition(COND_EMPTY)
+                if cond is not None:
+                    cond.last_transition_time = w.now - 60.0
+            passes = []
+            for _ in range(3 * n_nodes):
+                done = w.controller.reconcile()
+                passes.append(done)
+                if done is None:
+                    break
+            w.controller.queue.reconcile()
+            _sync(device)
+            elapsed = time.perf_counter() - t0
+            launches = disrupt_launches()
+            store = {
+                "passes": passes,
+                "conditions": sorted((nc.metadata.name, sorted((c.type, c.status) for c in nc.status.conditions))
+                                     for nc in w.kube.list("NodeClaim")),
+                "taints": sorted((n.metadata.name, sorted((t.key, t.value, t.effect) for t in n.spec.taints))
+                                 for n in w.kube.list("Node")),
+                "claims": sorted((nc.metadata.name, sorted(nc.metadata.labels.items()),
+                                  sorted((r.key, r.operator, tuple(sorted(r.values))) for r in nc.spec.requirements),
+                                  nc.metadata.deletion_timestamp is not None)
+                                 for nc in w.kube.list("NodeClaim")),
+                "marked": sorted(pid for pid, n in w.cluster.nodes.items() if n.marked_for_deletion),
+                "events": sorted((e.type, e.reason, getattr(e.involved_object, "name", ""), e.message)
+                                 for e in w.recorder.events),
+                "actions": sorted(metrics.disruption_actions.values.items()),
+                "eligible": sorted(metrics.eligible_nodes.values.items()),
+                "subsets": sorted(metrics.disruption_subsets.values.items()),
+                "disrupted": sorted(metrics.nodeclaims_disrupted.values.items()),
+            }
+        finally:
+            w.stop()
+    methods = {m for m in passes if m}
+    if not {"expiration", "drift", "emptiness", "consolidation"} <= methods:
+        fail(f"controller-e2e: the passes {passes} miss a method")
+    return {"store": store, "elapsed_ms": elapsed * 1000.0, "kernel_launches": launches,
+            "passes": passes, "actions": store["actions"]}
+
+
+def _screen_formula_library(kind: str, args):
+    """The reference's formula as one PyTorch expression on the card
+    (``torch.cumsum`` / ``masks.float() @ loads.float()``): the yardstick
+    of ``library_ms``, never called on the port's path."""
+    import torch
+
+    if kind == "subsets":
+        masks, loads, free, fleet, cap = args
+        m = masks.float()
+        return (m @ loads.float() <= fleet.float()[None] + (1.0 - m) @ free.float() + cap.float()[None]).all(-1)
+    loads, free, fleet, cap = args
+    lf, ff = loads.float(), free.float()
+    if kind == "prefix":
+        surv = ff.sum(0)[None] - torch.cumsum(ff, 0)
+        return (torch.cumsum(lf, 0) <= fleet.float()[None] + surv + cap.float()[None]).all(-1)
+    return (lf <= fleet.float()[None] + (ff.sum(0)[None] - ff) + cap.float()[None]).all(-1)
+
+
+def screen_kernel_case(kind: str, call, path: str, reps: int = 20) -> dict:
+    """One captured screen call against its plain version on the card, bit
+    for bit, with the kernel's time, the plain version's, the reference
+    formula's as one PyTorch expression (and whether it agrees), the
+    bound, and the largest float32 partial sum of the inputs (above 2^24
+    the order of the additions can move a verdict)."""
+    import torch
+
+    from karpenter_core_tpu_torch.disruption import screen_kernels as sk
+
+    args = tuple(a.cuda() for a in call)
+    fn = {"prefix": sk.screen_prefix, "subsets": sk.screen_subsets, "singles": sk.screen_singles}[kind]
+    plain = {"prefix": sk.prefix_screen_reference, "subsets": sk.subset_screen_reference,
+             "singles": sk.single_screen_reference}[kind]
+    before = sk.KERNELS[kind].launches
+    got = fn(*args)
+    t0 = time.perf_counter()
+    want = plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1000.0
+    if not torch.equal(got, want):
+        fail(f"disrupt_screen {kind} differs from its plain version at {[tuple(a.shape) for a in args]}")
+    kernel_ms = events_ms(lambda: fn(*args), reps)
+    library_ms = events_ms(lambda: _screen_formula_library(kind, args), reps)
+    library_agrees = bool(torch.equal(_screen_formula_library(kind, args), got))
+    sk.KERNELS[kind].launches = before  # the comparison's launches are not the path's
+    loads, free = args[-4], args[-3]
+    N, R = loads.shape
+    rows = args[0].shape[0] if kind == "subsets" else N
+    bytes_moved = 2 * N * R * 4 + 2 * R * 4 + rows + (rows * N if kind == "subsets" else 0)
+    ops = {"prefix": 6 * N * R, "singles": 5 * N * R, "subsets": 4 * rows * N * R}[kind]
+    max_sum = float(max(loads.double().sum(0).max().item(), free.double().sum(0).max().item())) if N else 0.0
+    return {
+        "entry": kind, "captured": path, "rows": rows, "N": N, "R": R, "max_abs_err": 0,
+        "true_rows": int(got.sum()), "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_agrees": library_agrees, "max_partial_sum": max_sum, "above_2_24": max_sum >= 2.0**24,
+        **bound_row(bytes_moved, ops),
+    }
+
+
+class capture_screens:
+    """Capture every screen call (the three wrappers' tensors, on the CPU)
+    inside the block, by entry."""
+
+    def __enter__(self):
+        from karpenter_core_tpu_torch.disruption import screen_kernels as sk
+
+        self.caps = {kind: capture(sk, f"screen_{kind}") for kind in ("prefix", "subsets", "singles")}
+        for c in self.caps.values():
+            c.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for c in self.caps.values():
+            c.__exit__(*exc)
+
+    def calls(self) -> dict:
+        return {kind: c.calls for kind, c in self.caps.items()}
+
+
+def run_disruption_phase(device: str = "cuda", sizes: Optional[dict] = None) -> dict:
+    """Phase 15 on ``device`` with the warm state on: 15a bench config 4
+    (also with ``KARPENTER_TORCH_NATIVE=0``: the repack bound on B6),
+    15b bench config 9 (batched against sequential every decision; the
+    churn steps again with ``KARPENTER_TORCH_NATIVE=0``: B6 and the FFD
+    scan), 15c the controller end to end; each against a CPU run of the
+    same world (15b's CPU leg batched only, its steady decisions left
+    out). On the card, 15d holds every distinct captured screen call
+    against its plain version. ``sizes``: {"config4": n_nodes,
+    "config9": (n_nodes, pods_per_node), "controller": n_nodes} → the
+    phase's row."""
+    sizes = {"config4": N_CONFIG4, "config9": (N_CONFIG9_NODES, CONFIG9_PODS_PER_NODE),
+             "controller": N_CONTROLLER_NODES, **(sizes or {})}
+    sections: dict = {}
+    t_section = time.perf_counter()
+
+    def section(name):
+        nonlocal t_section
+        now = time.perf_counter()
+        sections[name] = now - t_section
+        t_section = now
+
+    n9, ppn = sizes["config9"]
+    with capture_screens() as screens:
+        config4 = run_config4(device, sizes["config4"])
+        with knobs(KARPENTER_TORCH_NATIVE=0):
+            config4_native_off = run_config4(device, sizes["config4"])
+        section("config4_s")
+        config9 = run_config9(device, n9, ppn)
+        section("config9_s")
+        with knobs(KARPENTER_TORCH_NATIVE=0):
+            config9_native_off = run_config9(device, n9, ppn, churn_only=True)
+        section("config9_native_off_s")
+        controller = run_controller_e2e(device, sizes["controller"])
+        section("controller_s")
+    # the same worlds on the CPU (the C++ packer; the card's native-off
+    # legs are held to the same commands)
+    cpu4 = run_config4("cpu", sizes["config4"])
+    for label, row in (("config4", config4), ("config4-native-off", config4_native_off)):
+        if (row["key"], row["engine"]) != (cpu4["key"], cpu4["engine"]):
+            fail(f"{label}: the card's command {row['key'][:1]} {row['engine']} differs from the CPU's "
+                 f"{cpu4['key'][:1]} {cpu4['engine']}")
+    section("cpu_config4_s")
+    cpu9 = run_config9("cpu", n9, ppn, steady=0, sequential=False)
+    if cpu9["keys"] != config9["keys"]:
+        fail(f"config9: the card's commands {config9['keys']} differ from the CPU's {cpu9['keys']}")
+    churn_keys = config9["keys"][:-1]
+    if config9_native_off["keys"] != churn_keys:
+        fail(f"config9 native off: {config9_native_off['keys']} differ from the C++ packer's {churn_keys}")
+    section("cpu_config9_s")
+    cpu_ctrl = run_controller_e2e("cpu", sizes["controller"])
+    if cpu_ctrl["store"] != controller["store"]:
+        diff = [k for k in controller["store"] if controller["store"][k] != cpu_ctrl["store"][k]]
+        fail(f"controller-e2e: the card's effects differ from the CPU's in {diff}")
+    section("cpu_controller_s")
+    # 15d: every distinct captured screen shape against its plain version
+    cases = []
+    if device == "cuda":
+        for kind, calls in screens.calls().items():
+            for call in distinct_shapes(calls):
+                cases.append(screen_kernel_case(kind, call, "phase15"))
+        if {c["entry"] for c in cases} != {"prefix", "subsets", "singles"}:
+            fail(f"phase 15 captured no call of some screen entry: {sorted({c['entry'] for c in cases})}")
+    section("kernel_cases_s")
+    return {
+        "config4": config4, "config4_native_off": config4_native_off, "config9": config9,
+        "config9_native_off": config9_native_off, "controller": controller, "screen_cases": cases,
+        "sections_s": sections,
+        "launches": {
+            "config4": config4["kernel_launches"], "config4-native-off": config4_native_off["kernel_launches"],
+            "config9": config9["kernel_launches"], "config9-native-off": config9_native_off["kernel_launches"],
+            "controller-e2e": controller["kernel_launches"],
+        },
+    }
+
+
+def screen_kernel_entry(cases: list, launches: dict) -> dict:
+    """B8's entry of the kernels line: its launches on phase 15's paths,
+    by path and by entry point, and the numbers of its largest captured
+    subset case (bench config 4's family), each entry's largest case
+    beside them."""
+    kinds = ("prefix", "subsets", "singles")
+    by_path = {path: sum(n[f"disrupt_screen.{k}"] for k in kinds) for path, n in launches.items()}
+    entries = {}
+    for kind in kinds:
+        rows = [c for c in cases if c["entry"] == kind]
+        big = max(rows, key=lambda r: r["rows"] * r["N"])
+        entries[kind] = {
+            "replaces": SCREEN_REPLACES[kind],
+            "launches": sum(n[f"disrupt_screen.{kind}"] for n in launches.values()),
+            **{k: big[k] for k in ("rows", "N", "R", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        }
+    main = max((c for c in cases if c["entry"] == "subsets"), key=lambda r: r["rows"] * r["N"])
+    return {
+        "name": "disrupt_screen", "route": "cuda", "source": "karpenter_core_tpu_torch/csrc/disrupt_screen.cu",
+        "replaces": SCREEN_REPLACES["subsets"], "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": main["kernel_ms"], "kernel_ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "entries": entries, "cases": cases,
+    }
+
+
 def main() -> None:
     import torch
 
@@ -4553,6 +5289,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
     try:
         from karpenter_core_tpu_torch import native
+        from karpenter_core_tpu_torch.disruption import screen_kernels as sk
         from karpenter_core_tpu_torch.solver import compat_kernels as ck
         from karpenter_core_tpu_torch.solver.solver import TorchScheduler
     except ImportError as e:
@@ -4578,15 +5315,17 @@ def main() -> None:
 
     # 2. build, one compiler per source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         kernel_build = pool.submit(ck.COMPAT_ALLOWED.build)
         packer_build = pool.submit(native.build)
         pack_builds = {name: pool.submit(k.build) for name, k in pack_kernels().items()}
+        # the three screen entry points share one source and one library
+        pack_builds["disrupt_screen"] = pool.submit(sk.SCREEN_SUBSETS.build)
         (kernel_lib, kernel_log), (packer_lib, _) = kernel_build.result(), packer_build.result()
         pack_libs = {name: f.result() for name, f in pack_builds.items()}
     build_s = time.perf_counter() - t0
     emit({"build_s": build_s, "kernel_lib": kernel_lib, "packer_lib": packer_lib,
-          "pack_kernel_libs": {name: lib for name, (lib, _) in pack_libs.items()}})
+          "kernel_libs": {name: lib for name, (lib, _) in pack_libs.items()}})
     for line in kernel_log.splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
@@ -4817,6 +5556,40 @@ def main() -> None:
         emit({"pack_kernel_case": "ffd_pack", **cases["ffd_pack"][-1], "card": card})
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 14"})
 
+    # 15. disruption on the card, the warm state on: bench config 4 and
+    # config 9 whole, the controller end to end, every screen shape
+    disrupt = run_disruption_phase("cuda")
+    c4, c9 = disrupt["config4"], disrupt["config9"]
+    emit({"phase15": "config4-consolidation", **{k: v for k, v in c4.items() if k != "key"},
+          "native_off_kernel_launches": disrupt["config4_native_off"]["kernel_launches"], "card": card})
+    emit({"phase15": "config9-disruption", **{k: v for k, v in c9.items() if k not in ("keys", "steps")},
+          "identical_decisions": len(c9["keys"]), "card": card})
+    for row in c9["steps"]:
+        emit({"phase15_config9_step": row["step"], **row, "card": card})
+    emit({"phase15": "config9-native-off", **{k: v for k, v in disrupt["config9_native_off"].items()
+                                               if k not in ("keys", "steps")}, "card": card})
+    for row in disrupt["config9_native_off"]["steps"]:
+        emit({"phase15_config9_native_off_step": row["step"], **row, "card": card})
+    emit({"phase15": "controller-e2e", **{k: v for k, v in disrupt["controller"].items() if k != "store"},
+          "card": card})
+    for r in disrupt["screen_cases"]:
+        emit({"screen_case": r["entry"], **r, "card": card})
+    emit({"phase15_sections_s": disrupt["sections_s"]})
+    # every kernel a phase-15 path runs was launched on it
+    for path, want in (("config4", ("disrupt_screen.prefix", "disrupt_screen.subsets")),
+                       ("config4-native-off", ("disrupt_screen.subsets", "pack_existing")),
+                       ("config9", ("disrupt_screen.prefix", "disrupt_screen.subsets", "disrupt_screen.singles",
+                                    "compat_allowed")),
+                       ("config9-native-off", ("disrupt_screen.subsets", "pack_existing", "compat_allowed")),
+                       ("controller-e2e", ("disrupt_screen.prefix", "disrupt_screen.subsets",
+                                           "disrupt_screen.singles", "compat_allowed"))):
+        missing = [k for k in want if not disrupt["launches"][path][k]]
+        if missing:
+            fail(f"phase 15 {path}: {missing} never launched ({disrupt['launches'][path]})")
+    for path, n in disrupt["launches"].items():
+        pack["launches"][f"phase15-{path}"] = {name: n[name] for name in ("ffd_pack", "pack_existing", "dual_ascent")}
+    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 15"})
+
     # the kernels line, then the last line
     paths = {
         "slice": slice_launches, "cluster": cluster["kernel_launches"],
@@ -4830,6 +5603,7 @@ def main() -> None:
         "parity-config6": parity6["kernel_launches"], "parity-config1": parity1["kernel_launches"],
         **{path: row["kernel_launches"]["compat_allowed"] for path, row in prov_rows.items()},
         **{f"config7-{leg}": n["compat"] for leg, n in config7["launches"].items()},
+        **{f"phase15-{path}": n["compat_allowed"] for path, n in disrupt["launches"].items()},
     }
     for leg, n in config7["launches"].items():
         pack["launches"][f"config7-{leg}"] = {"ffd_pack": n["ffd"], "pack_existing": 0, "dual_ascent": 0}
@@ -4880,6 +5654,9 @@ def main() -> None:
                 },
                 *[pack_kernel_entry(name, cases[name], pack["launches"],
                                     relax_splits if name == "dual_ascent" else None) for name in cases],
+                screen_kernel_entry(disrupt["screen_cases"], {
+                    f"phase15-{path}": n for path, n in disrupt["launches"].items()
+                }),
             ]
         }
     )
@@ -4887,4 +5664,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--log"] and len(sys.argv) == 3:
+        LOG_PATH = sys.argv[2]
+        os.makedirs(os.path.dirname(os.path.abspath(LOG_PATH)), exist_ok=True)
+    elif sys.argv[1:]:
+        fail(f"usage: {sys.argv[0]} [--log PATH]")
     main()

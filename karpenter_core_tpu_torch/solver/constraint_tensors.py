@@ -1,8 +1,8 @@
 """Host ports and CSI volume attach limits in array form (host numpy).
 
-Counterpart of ``karpenter_core_tpu/solver/constraint_tensors.py``
-without its disruption-screen axes (``screen_axes_for_candidates``,
-``screen_axes_for_fleet``), which belong to consolidation. Host ports
+Counterpart of ``karpenter_core_tpu/solver/constraint_tensors.py``,
+the consolidation screens' axes (``screen_axes_for_candidates``,
+``screen_axes_for_fleet``) included. Host ports
 and CSI attach limits are the reference's per-node *stateful*
 scheduling constraints (hostportusage.go, volumeusage.go); this module
 turns both into columns the C++ packer enforces without a per-pod host
@@ -313,3 +313,82 @@ def eph_free_columns(
                 mounted |= set(over.get(driver, ()))
             out[m, d] = max(int(limit) - len(mounted), 0)
     return out.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# disruption-screen axes (tpu_repack): sound necessary-condition columns
+#
+# The capacity screens require load ≤ feasible-headroom to be NECESSARY
+# for true feasibility (k_hi == 0 proves the no-op with zero
+# simulations), so appended axes must UNDER-approximate displaced load
+# and OVER-approximate surviving capacity:
+#  - port loads dedup per candidate node (ports that coexisted on one
+#    node never conflict pairwise more than their feature encoding) and
+#    capacity counts every surviving node's conflict-free slots;
+#  - volume loads dedup pvc ids across the WHOLE candidate set (a pvc
+#    appearing on two candidates charges only the first), capacity
+#    treats unlimited drivers as unbounded.
+
+
+def screen_axes_for_candidates(candidates: Sequence, kube_client=None):
+    """→ (feats, drivers, loads_ext (N, F+D), free_ext (N, F+D),
+    new_cap_ext (F+D,)) — the stateful columns screen kernels append to
+    their resource matrices; every array empty-width when the
+    candidates carry no ports/volumes."""
+    from ..utils import pod as podutils
+
+    triples_per_cand: List[list] = []
+    pvcs_per_cand: List[Volumes] = []
+    for c in candidates:
+        triples: list = []
+        vols = Volumes()
+        for p in c.pods or ():
+            if not podutils.is_reschedulable(p):
+                continue
+            triples.extend(canonical_ports(p))
+            if kube_client is not None and p.spec.volumes:
+                try:
+                    from ..scheduling.volumes import get_volumes
+
+                    vols.insert(get_volumes(kube_client, p))
+                except KeyError:
+                    pass  # unresolvable: charge nothing (load under-approx)
+        triples_per_cand.append(triples)
+        pvcs_per_cand.append(vols)
+
+    feats = PortFeatures(triples_per_cand)
+    drivers = sorted({d for v in pvcs_per_cand for d in v})
+    N = len(candidates)
+    F, D = feats.count, len(drivers)
+    loads = np.zeros((N, F + D), dtype=np.int32)
+    free = np.zeros((N, F + D), dtype=np.int32)
+    for i, c in enumerate(candidates):
+        if F:
+            loads[i, :F] = feats.load_row(triples_per_cand[i])
+            free[i, :F] = feats.free_row(node_reserved_ports(c.state_node))
+    if D:
+        seen: Dict[str, set] = {d: set() for d in drivers}
+        for i, c in enumerate(candidates):
+            for d, driver in enumerate(drivers):
+                ids = set(pvcs_per_cand[i].get(driver, ())) - seen[driver]
+                seen[driver] |= ids  # global dedup: later candidates charge 0
+                loads[i, F + d] = len(ids)
+        free[:, F:] = eph_free_columns(drivers, [c.state_node for c in candidates])
+    new_cap = np.concatenate(
+        [feats.caps, np.full(D, 2**30 - 1, dtype=np.int32)]
+    ) if F + D else np.zeros(0, dtype=np.int32)
+    return feats, drivers, loads, free, new_cap
+
+
+def screen_axes_for_fleet(feats: PortFeatures, drivers: Sequence[str], nodes) -> np.ndarray:
+    """(F+D,) int32 aggregated surviving-fleet capacity on the stateful
+    axes (sum of per-node free — an over-approximation of placeable
+    slots, which is the sound direction for the screens)."""
+    F, D = feats.count, len(drivers)
+    total = np.zeros(F + D, dtype=np.int64)
+    for n in nodes:
+        if F:
+            total[:F] += feats.free_row(node_reserved_ports(n))
+        if D:
+            total[F:] += eph_free_columns(drivers, [n])[0]
+    return np.minimum(total, 2**30).astype(np.int32)

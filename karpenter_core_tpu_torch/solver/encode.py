@@ -121,6 +121,14 @@ def extend_axis(
     )
 
 
+def build_resource_axis(
+    pods_requests: Sequence[Dict[str, int]], instance_types: Sequence[InstanceType]
+) -> ResourceAxis:
+    """The catalog axis of ``instance_types`` extended by the pods' own
+    resource names (the consolidation screens' axis)."""
+    return extend_axis(build_catalog_axis(instance_types), pods_requests)
+
+
 def build_requests_matrix(all_requests: Sequence[Dict[str, int]], axis: ResourceAxis) -> np.ndarray:
     """(P, R) int32 ceil-quantized request matrix — one python pass to a
     milli-unit float64 matrix (exact: values < 2^53), then vectorized

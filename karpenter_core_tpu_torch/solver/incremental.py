@@ -63,7 +63,7 @@ from typing import Dict, Optional
 import numpy as np
 
 # LRU caps (entries), one per cache: the defaults of the JAX package's
-# KARPENTER_TPU_{ROUTE,COMPAT,JOB,MERGE,EMIT,MERGEROW,SEED,LPRELAX}_CACHE_MAX
+# KARPENTER_TPU_*_CACHE_MAX
 _CAPS = {
     "route": 64,
     "compat": 4096,
@@ -74,6 +74,11 @@ _CAPS = {
     "seeds": 256,
     # the LP backend's relaxation memo (backends/lp.py)
     "lprelax": 512,
+    # the disruption engine's memos (disruption/engine.py): family bounds
+    # per candidate set, negative drain verdicts per drained subset
+    # (KARPENTER_TPU_DISRUPT_{BOUNDS,VERIFY}_CACHE_MAX)
+    "disruptbounds": 64,
+    "disruptverify": 4096,
 }
 _INTERSECTS_MAX = 4096  # content-addressed; clearing only costs re-derivation
 

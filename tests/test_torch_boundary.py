@@ -13,7 +13,9 @@ with the native packer off (LP routing, the dual ascent's plain version,
 the device scans' plain versions) and the LP routing calibration, and a
 ``Provisioner.reconcile`` through the port's whole stack (``KubeClient``,
 ``Informers`` into ``Cluster``, ``Recorder``, ``Metrics``, the tracer)
-on its batched and its greedy path, runs in a fresh interpreter under a
+on its batched and its greedy path, and a disruption pass (the markers,
+``DisruptionController.reconcile`` under both engines, the orchestration
+queue), runs in a fresh interpreter under a
 meta-path hook that raises on importing either. The JAX package's
 environment knobs of that stack are module constants of the port with
 the reference's defaults.
@@ -73,7 +75,7 @@ def test_sources_found():
 # kill switch
 KNOBS = (
     "KARPENTER_TORCH_PACK_BACKEND", "KARPENTER_TORCH_NATIVE", "KARPENTER_TORCH_LP_MIN_WORK",
-    "KARPENTER_TORCH_INCREMENTAL",
+    "KARPENTER_TORCH_INCREMENTAL", "KARPENTER_TORCH_DISRUPT_ENGINE",
 )
 
 
@@ -277,6 +279,65 @@ for batched in (True, False):
     assert "Nominated" in recorder.reasons()
     assert metrics.nodeclaims_created.get(reason="provisioning", nodepool="default") == len(names)
     assert tracer.RING.last().name == "provisioner.reconcile" and tracer.RING.last().contains_solve
+    informers.stop()
+# the disruption path: markers, the controller under both engines, the
+# orchestration queue, simulations on the batched solver
+from karpenter_core_tpu_torch.apis.nodeclaim import COND_INITIALIZED, COND_LAUNCHED, COND_REGISTERED, NodeClaim
+from karpenter_core_tpu_torch.apis.nodepool import Budget
+from karpenter_core_tpu_torch.disruption import DisruptionController, NodeClaimDisruptionController
+
+provider.drifted = ""
+for engine in ("batched", "sequential"):
+    os.environ["KARPENTER_TORCH_DISRUPT_ENGINE"] = engine
+    now = [10_000.0]
+    clock = lambda: now[0]
+    kube = KubeClient(clock=clock)
+    cluster = Cluster(kube, provider, clock=clock)
+    informers = Informers(kube, cluster)
+    informers.start()
+    recorder, metrics = Recorder(kube, clock=clock), Metrics()
+    live_pool = NodePool()
+    live_pool.metadata.name = "default"
+    live_pool.spec.disruption.budgets = [Budget(nodes="100%")]
+    live_pool.spec.disruption.consolidate_after = 0.0
+    kube.create(live_pool)
+    it = provider.get_instance_types(live_pool)[5]
+    for i in range(6):
+        nc = NodeClaim()
+        nc.metadata.name = f"claim-{i}"
+        nc.metadata.labels = {wk.NODEPOOL_LABEL_KEY: "default", wk.LABEL_INSTANCE_TYPE: it.name,
+                              wk.LABEL_TOPOLOGY_ZONE: "test-zone-1", wk.CAPACITY_TYPE_LABEL_KEY: "on-demand"}
+        nc.status.provider_id = f"fake:///node-{i}"
+        nc.status.capacity, nc.status.allocatable = dict(it.capacity), it.allocatable()
+        for cond in (COND_LAUNCHED, COND_REGISTERED, COND_INITIALIZED):
+            nc.set_condition(cond, "True")
+        kube.create(nc)
+        n = Node()
+        n.metadata.name = f"node-{i}"
+        n.metadata.labels = {**nc.metadata.labels, wk.LABEL_HOSTNAME: n.metadata.name,
+                             wk.NODE_REGISTERED_LABEL_KEY: "true", wk.NODE_INITIALIZED_LABEL_KEY: "true"}
+        n.spec.provider_id = nc.status.provider_id
+        n.status.capacity, n.status.allocatable = dict(it.capacity), it.allocatable()
+        kube.create(n)
+        q = Pod()
+        q.metadata.name = f"r{i}"
+        q.spec = PodSpec(node_name=n.metadata.name, containers=[Container(name="main", resources=ResourceRequirements(
+            requests={"cpu": parse_quantity("100m")}))])
+        q.status.phase = "Running"
+        kube.create(q)
+    now[0] += 3600.0
+    prov = Provisioner(kube, provider, cluster, recorder=recorder, use_tpu_solver=True, metrics=metrics, device="cpu")
+    ctrl = DisruptionController(kube, cluster, prov, provider, recorder=recorder, clock=clock,
+                                validation_sleep=lambda t: None, metrics=metrics)
+    NodeClaimDisruptionController(kube, provider, cluster, clock=clock).reconcile_all()
+    assert ctrl.reconcile() == "consolidation", recorder.reasons()
+    assert "Disruptconsolidation" in recorder.reasons() and ctrl.last_decision_stats["engine"] == engine
+    assert sum(metrics.disruption_actions.values.values()) == 1
+    ctrl.queue.reconcile()
+    if metrics.disruption_actions.get(method="consolidation", action="delete"):
+        assert len(kube.list("NodeClaim")) < 6  # the drained claims went
+    else:
+        assert len(kube.list("NodeClaim")) == 7 and ctrl.queue.commands  # waiting on the replacement
     informers.stop()
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "karpenter_core_tpu"))
 print(json.dumps({"scheduled": res.pods_scheduled, "errors": len(res.pod_errors), "nodes": res.node_count, "leaked": leaked}))
