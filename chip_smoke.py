@@ -213,10 +213,14 @@ Phases, in order; any failure exits non-zero:
    emptiness and an underutilized pool: the markers, ``reconcile`` until
    nothing is left, the orchestration queue; conditions, taints, claims,
    deletion marks, events and disruption metrics equal to a CPU run's.
-   15d: every distinct captured screen call against its plain version on
-   the card, bit for bit, with its time, the reference formula's as one
-   PyTorch expression (``library_ms``), the bound and the largest partial
-   sum. ``sections_s`` splits the phase's wall time.
+   15d: every distinct captured screen call, and the synthetic shapes
+   past them (``synthetic_screen_calls``: the subset family at its cap of
+   8,193 rows and at 8 columns, the prefix at 1,000 × 8 and 4,097 × 3,
+   sums past 2^24), against its plain version on the card, bit for bit,
+   with its time, the reference formula's as one PyTorch expression
+   (``library_ms``), the bound, the chain (``chain_ms``: the dependent
+   adds at FADD_CYCLES cycles each at the maximum SM clock) and the
+   largest partial sum. ``sections_s`` splits the phase's wall time.
 
 Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
 shapes of phases 8–11 too, the three pack kernels and the disruption
@@ -255,6 +259,9 @@ FP32_OPS_PER_S = 67e12
 N_SMS = 132
 LOGIC_PER_CLOCK_PER_SM = 64
 DEVICE_SLEEP_CYCLES = 20_000_000  # ~10 ms at 2 GHz: launches queue up behind it
+# cycles of one dependent float32 add on the CUDA cores: the assumption of
+# the B8 screens' chain_ms (a fixed-order sum is that many cycles a step)
+FADD_CYCLES = 4
 N_PODS = 50_000
 N_TYPES = 2_000
 SEED = 11  # bench.py config 3's RandomState
@@ -5117,12 +5124,24 @@ def _screen_formula_library(kind: str, args):
     return (lf <= fleet.float()[None] + (ff.sum(0)[None] - ff) + cap.float()[None]).all(-1)
 
 
-def screen_kernel_case(kind: str, call, path: str, reps: int = 20) -> dict:
-    """One captured screen call against its plain version on the card, bit
-    for bit, with the kernel's time, the plain version's, the reference
-    formula's as one PyTorch expression (and whether it agrees), the
-    bound, and the largest float32 partial sum of the inputs (above 2^24
-    the order of the additions can move a verdict)."""
+def screen_chain_adds(kind: str, N: int, R: int) -> int:
+    """The longest chain of dependent float32 adds one screen call runs in
+    disrupt_screen.cu: a subset row walks the N candidates once for each
+    chunk of 8 columns, the prefix pass and a single row's total walk
+    them once (the prefix twice past one tile of shared memory, which no
+    shape here reaches)."""
+    return N * max(1, -(-R // 8)) if kind == "subsets" else N
+
+
+def screen_kernel_case(kind: str, call, path: str, sm_mhz: float, reps: int = 20) -> dict:
+    """One screen call against its plain version on the card, bit for bit,
+    with the kernel's time, the plain version's, the reference formula's
+    as one PyTorch expression (and whether it agrees), the bound, the
+    chain (``chain_ms``: ``screen_chain_adds`` dependent float32 adds at
+    FADD_CYCLES cycles each, at the maximum SM clock ``sm_mhz``; an
+    assumption, not a measurement), and the largest float32 partial sum
+    of the inputs (above 2^24 the order of the additions can move a
+    verdict). ``path``: where the call was captured, or "synthetic"."""
     import torch
 
     from karpenter_core_tpu_torch.disruption import screen_kernels as sk
@@ -5149,12 +5168,44 @@ def screen_kernel_case(kind: str, call, path: str, reps: int = 20) -> dict:
     bytes_moved = 2 * N * R * 4 + 2 * R * 4 + rows + (rows * N if kind == "subsets" else 0)
     ops = {"prefix": 6 * N * R, "singles": 5 * N * R, "subsets": 4 * rows * N * R}[kind]
     max_sum = float(max(loads.double().sum(0).max().item(), free.double().sum(0).max().item())) if N else 0.0
+    chain = screen_chain_adds(kind, N, R)
     return {
         "entry": kind, "captured": path, "rows": rows, "N": N, "R": R, "max_abs_err": 0,
         "true_rows": int(got.sum()), "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "library_agrees": library_agrees, "max_partial_sum": max_sum, "above_2_24": max_sum >= 2.0**24,
+        "chain_adds": chain, "chain_ms": chain * FADD_CYCLES / (sm_mhz * 1e3),
         **bound_row(bytes_moved, ops),
     }
+
+
+SYNTHETIC_SCREENS = (("subsets", 8193, 1000, 3), ("subsets", 999, 1000, 8), ("prefix", 0, 1000, 8),
+                     ("prefix", 0, 4097, 3))
+
+
+def synthetic_screen_calls(seed: int = 14) -> list:
+    """Screen calls past the captured shapes, on the CPU: the subset family
+    at its cap (``FAMILY_MAX`` + 1 = 8,193 rows × 1,000 candidates, its
+    first 999 rows prefixes as the engine's family begins), 8 columns at
+    config 4's 999 × 1,000, and the prefix at 1,000 × 8 and 4,097 × 3;
+    loads and free below 2^29 (a quantized memory column), so partial sums
+    pass 2^24. → [(kind, call)]."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    out = []
+    for kind, S, N, R in SYNTHETIC_SCREENS:
+        loads = rng.randint(0, 1 << 29, (N, R)).astype(np.int32)
+        free = rng.randint(0, 1 << 29, (N, R)).astype(np.int32)
+        fleet = rng.randint(0, 1 << 30, R).astype(np.int32)
+        cap = rng.randint(0, 1 << 30, R).astype(np.int32)
+        if kind == "prefix":
+            out.append((kind, (t(loads), t(free), t(fleet), t(cap))))
+            continue
+        masks = (rng.rand(S, N) < 0.5).astype(np.uint8)
+        masks[: N - 1] = np.tril(np.ones((N, N), dtype=np.uint8))[1:]
+        out.append((kind, (t(masks), t(loads), t(free), t(fleet), t(cap))))
+    return out
 
 
 class capture_screens:
@@ -5177,17 +5228,18 @@ class capture_screens:
         return {kind: c.calls for kind, c in self.caps.items()}
 
 
-def run_disruption_phase(device: str = "cuda", sizes: Optional[dict] = None) -> dict:
+def run_disruption_phase(device: str = "cuda", sizes: Optional[dict] = None, sm_mhz: float = 0.0) -> dict:
     """Phase 15 on ``device`` with the warm state on: 15a bench config 4
     (also with ``KARPENTER_TORCH_NATIVE=0``: the repack bound on B6),
     15b bench config 9 (batched against sequential every decision; the
     churn steps again with ``KARPENTER_TORCH_NATIVE=0``: B6 and the FFD
     scan), 15c the controller end to end; each against a CPU run of the
     same world (15b's CPU leg batched only, its steady decisions left
-    out). On the card, 15d holds every distinct captured screen call
-    against its plain version. ``sizes``: {"config4": n_nodes,
-    "config9": (n_nodes, pods_per_node), "controller": n_nodes} → the
-    phase's row."""
+    out). On the card, 15d holds every distinct captured screen call and
+    the synthetic ones (``synthetic_screen_calls``) against its plain
+    version; ``sm_mhz``, the maximum SM clock, prices their chains.
+    ``sizes``: {"config4": n_nodes, "config9": (n_nodes, pods_per_node),
+    "controller": n_nodes} → the phase's row."""
     sizes = {"config4": N_CONFIG4, "config9": (N_CONFIG9_NODES, CONFIG9_PODS_PER_NODE),
              "controller": N_CONTROLLER_NODES, **(sizes or {})}
     sections: dict = {}
@@ -5235,11 +5287,15 @@ def run_disruption_phase(device: str = "cuda", sizes: Optional[dict] = None) -> 
     # 15d: every distinct captured screen shape against its plain version
     cases = []
     if device == "cuda":
+        if sm_mhz <= 0:
+            fail("phase 15d needs the card's maximum SM clock to price the screens' chains")
         for kind, calls in screens.calls().items():
             for call in distinct_shapes(calls):
-                cases.append(screen_kernel_case(kind, call, "phase15"))
+                cases.append(screen_kernel_case(kind, call, "phase15", sm_mhz))
         if {c["entry"] for c in cases} != {"prefix", "subsets", "singles"}:
             fail(f"phase 15 captured no call of some screen entry: {sorted({c['entry'] for c in cases})}")
+        for kind, call in synthetic_screen_calls():
+            cases.append(screen_kernel_case(kind, call, "synthetic", sm_mhz))
     section("kernel_cases_s")
     return {
         "config4": config4, "config4_native_off": config4_native_off, "config9": config9,
@@ -5256,27 +5312,30 @@ def run_disruption_phase(device: str = "cuda", sizes: Optional[dict] = None) -> 
 def screen_kernel_entry(cases: list, launches: dict) -> dict:
     """B8's entry of the kernels line: its launches on phase 15's paths,
     by path and by entry point, and the numbers of its largest captured
-    subset case (bench config 4's family), each entry's largest case
-    beside them."""
+    subset case (bench config 4's family), each entry's largest captured
+    case beside them; the synthetic cases in ``cases``."""
     kinds = ("prefix", "subsets", "singles")
+    keys = ("rows", "N", "R", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "chain_ms")
     by_path = {path: sum(n[f"disrupt_screen.{k}"] for k in kinds) for path, n in launches.items()}
+    captured = [c for c in cases if c["captured"] != "synthetic"]
     entries = {}
     for kind in kinds:
-        rows = [c for c in cases if c["entry"] == kind]
+        rows = [c for c in captured if c["entry"] == kind]
         big = max(rows, key=lambda r: r["rows"] * r["N"])
         entries[kind] = {
             "replaces": SCREEN_REPLACES[kind],
             "launches": sum(n[f"disrupt_screen.{kind}"] for n in launches.values()),
-            **{k: big[k] for k in ("rows", "N", "R", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            **{k: big[k] for k in keys},
+            "synthetic": [{k: c[k] for k in keys} for c in cases if c["captured"] == "synthetic" and c["entry"] == kind],
         }
-    main = max((c for c in cases if c["entry"] == "subsets"), key=lambda r: r["rows"] * r["N"])
+    main = max((c for c in captured if c["entry"] == "subsets"), key=lambda r: r["rows"] * r["N"])
     return {
         "name": "disrupt_screen", "route": "cuda", "source": "karpenter_core_tpu_torch/csrc/disrupt_screen.cu",
         "replaces": SCREEN_REPLACES["subsets"], "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main["kernel_ms"], "kernel_ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-        "entries": entries, "cases": cases,
+        "chain_ms": main["chain_ms"], "entries": entries, "cases": cases,
     }
 
 
@@ -5558,7 +5617,7 @@ def main() -> None:
 
     # 15. disruption on the card, the warm state on: bench config 4 and
     # config 9 whole, the controller end to end, every screen shape
-    disrupt = run_disruption_phase("cuda")
+    disrupt = run_disruption_phase("cuda", sm_mhz=sm_mhz)
     c4, c9 = disrupt["config4"], disrupt["config9"]
     emit({"phase15": "config4-consolidation", **{k: v for k, v in c4.items() if k != "key"},
           "native_off_kernel_launches": disrupt["config4_native_off"]["kernel_launches"], "card": card})

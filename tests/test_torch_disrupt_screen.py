@@ -15,6 +15,11 @@ column functions the card runs):
   version is held to the host build and to a sequential float32 sum in
   numpy, on seeded inputs and on a constructed near-tie whose verdict
   flips with the order of the additions;
+- at the edges of the kernel's structure (register chunks of 8 columns,
+  shared-memory tiles, blocks of subset rows, unaligned mask rows, mask
+  bytes other than 0 and 1) and on ``chip_smoke.py``'s synthetic shapes,
+  below 2^24 against the JAX package, above it plain version against
+  host build, and the near-tie past a tile boundary and in a later chunk;
 - the subset screen on prefix masks equals the prefix screen;
 - the wrappers take the plain version on CPU tensors and refuse other
   devices.
@@ -200,6 +205,153 @@ def test_near_tie_above_2_24_follows_candidate_order(host):
         plain_screen("subsets", loads, free, fleet, cap, masks),
         sequential_screen("subsets", loads, free, fleet, cap, masks),
     )
+
+
+# The kernel's structure: the subset entry holds up to 8 columns in
+# registers (R = 9 and past it walk again), a warp is 32 wide (R = 33),
+# the bench's stateful screen axes reach R = 70; N up to 1,024 is one
+# shared-memory tile (N = 31-33 a ragged one), past it tiles of 512
+# (N = 4,097), 32 subset rows a block (S = 67 and 130 are not multiples
+# of it) and odd N, so mask rows start unaligned.
+EDGE_R = (1, 3, 8, 9, 33, 70)
+EDGE_N = (1, 31, 32, 33, 1000, 4097)
+
+
+def _edge_inputs(rng, N: int, R: int, S: int, hi: int):
+    """Seeded inputs whose verdicts split at any width: three tight
+    columns (the first, the middle and the last, so every register chunk
+    of a wide R holds one) with loads below ``hi`` and free below 2/3 of
+    it (a 40 % mask's load against the other 60 %'s free), every other
+    column loose (loads below 4, the fleet's free 4 N, free below
+    ``hi`` all the same, so its sums grow as large)."""
+    loads = rng.randint(0, 4, (N, R)).astype(np.int32)
+    free = rng.randint(0, hi, (N, R)).astype(np.int32)
+    fleet = np.full(R, 4 * N, dtype=np.int32)
+    cap = np.zeros(R, dtype=np.int32)
+    tight = sorted({0, R // 2, R - 1})
+    loads[:, tight] = rng.randint(0, hi, (N, len(tight)))
+    free[:, tight] = rng.randint(0, max(1, 2 * hi // 3), (N, len(tight)))
+    fleet[tight] = rng.randint(0, max(1, hi), len(tight))
+    cap[tight] = rng.randint(0, max(1, hi), len(tight))
+    masks = rng.rand(S, N) < 0.4
+    return loads, free, fleet, cap, masks
+
+
+@pytest.mark.parametrize("R", EDGE_R)
+@pytest.mark.parametrize("N", EDGE_N)
+@pytest.mark.parametrize("kind", ("prefix", "subsets"))
+def test_structure_edges_below_2_24(host, kind, N, R):
+    rng = np.random.RandomState(1000 + 7 * N + R)
+    S = 67 if N % 2 else 130
+    # a column's sum stays below 2^23
+    loads, free, fleet, cap, masks = _edge_inputs(rng, N, R, S, max(2, (1 << 23) // N))
+    want = jax_screen(kind, loads, free, fleet, cap, masks)
+    if N > 1:
+        assert 0 < want.sum() < len(want)
+    np.testing.assert_array_equal(plain_screen(kind, loads, free, fleet, cap, masks), want)
+    np.testing.assert_array_equal(host_screen(host, kind, loads, free, fleet, cap, masks), want)
+
+
+@pytest.mark.parametrize("R", (3, 9, 70))
+@pytest.mark.parametrize("N", (33, 1000, 4097))
+@pytest.mark.parametrize("kind", ("prefix", "subsets"))
+def test_structure_edges_above_2_24(host, kind, N, R):
+    """Partial sums far past 2^24 at the structure's edges: the plain
+    version and the host build take the same order, bit for bit."""
+    rng = np.random.RandomState(2000 + 7 * N + R)
+    loads, free, fleet, cap, masks = _edge_inputs(rng, N, R, 67, 1 << 29)
+    assert float(free.astype(np.float64).sum(0).max()) > 2.0**24
+    want = plain_screen(kind, loads, free, fleet, cap, masks)
+    assert 0 < want.sum() < len(want)
+    np.testing.assert_array_equal(host_screen(host, kind, loads, free, fleet, cap, masks), want)
+    if N == 33:
+        np.testing.assert_array_equal(sequential_screen(kind, loads, free, fleet, cap, masks), want)
+
+
+@pytest.mark.parametrize("N,R", [(33, 3), (1000, 9), (257, 8)])
+def test_mask_bytes_other_than_one(host, N, R):
+    """A mask byte masks its candidate when it is not 0, whatever its
+    value (the plain version's ``masks.to(torch.bool)``); the kernel
+    folds each byte to 0 or 1 before it selects."""
+    rng = np.random.RandomState(300 + N + R)
+    loads, free, fleet, cap, masks = _edge_inputs(rng, N, R, 70, 1 << 20)
+    masks = (masks * rng.randint(1, 256, masks.shape)).astype(np.uint8)
+    assert masks.max() > 1
+    want = plain_screen("subsets", loads, free, fleet, cap, masks)
+    np.testing.assert_array_equal(want, plain_screen("subsets", loads, free, fleet, cap, masks != 0))
+    np.testing.assert_array_equal(host_screen(host, "subsets", loads, free, fleet, cap, masks), want)
+
+
+def near_tie(N: int, R: int, at: int, col: int):
+    """The near-tie of ``test_near_tie_above_2_24_follows_candidate_order``
+    in column ``col`` of R, its three free values at candidates at,
+    at + 1, at + 2, the load 2^24 + 2 on candidate 0: every other column
+    fits with room to spare. → loads, free, fleet, cap, and one subset row
+    that removes candidate 0 alone."""
+    loads = np.zeros((N, R), dtype=np.int32)
+    free = np.zeros((N, R), dtype=np.int32)
+    loads[:, :] = 1
+    loads[:, col] = 0
+    loads[0, col] = (1 << 24) + 2
+    free[at:at + 3, col] = [1 << 24, 1, 1]
+    fleet = np.full(R, 4 * N, dtype=np.int32)
+    fleet[col] = 0
+    cap = np.zeros(R, dtype=np.int32)
+    masks = np.zeros((1, N), dtype=np.uint8)
+    masks[0, 0] = 1
+    return loads, free, fleet, cap, masks
+
+
+NEAR_TIES = [(4, 1, 1, 0), (1000, 3, 511, 2), (1000, 9, 600, 8), (4097, 70, 4000, 69)]
+
+
+@pytest.mark.parametrize("N,R,at,col", NEAR_TIES)
+def test_near_tie_at_structure_edges(host, N, R, at, col):
+    """In candidate order 2^24 + 1 + 1 stays 2^24, so removing candidate 0
+    (load 2^24 + 2) does not fit; summed from the other end it would. Both
+    redesigned entries, the plain versions and the host build keep the
+    candidate order across tiles, register chunks and warp widths."""
+    loads, free, fleet, cap, masks = near_tie(N, R, at, col)
+    reversed_sum = np.float32(0)
+    for v in free[::-1, col].astype(np.float32):
+        reversed_sum = np.float32(reversed_sum + v)
+    assert np.float32(loads[0, col]) <= reversed_sum  # the other order fits
+    for screen in (plain_screen, lambda *a, **k: host_screen(host, *a, **k)):
+        assert not screen("subsets", loads, free, fleet, cap, masks)[0]
+        # prefix rows before the free values: surviving = the whole total
+        assert not screen("prefix", loads, free, fleet, cap)[:at].any()
+        assert not screen("singles", loads, free, fleet, cap)[0]
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_b8", Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    )
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+@pytest.mark.parametrize("index", range(4))
+def test_chip_smoke_synthetic_screens(host, chip_smoke, index):
+    """The synthetic shapes ``chip_smoke.py`` times on the card (the
+    subset family at its cap, 8 columns, the long prefixes): their sums
+    pass 2^24, and the host build of the kernel source equals the plain
+    version on them, bit for bit."""
+    kind, call = chip_smoke.synthetic_screen_calls()[index]
+    assert kind == chip_smoke.SYNTHETIC_SCREENS[index][0]
+    arrays = [a.numpy() for a in call]
+    masks, (loads, free, fleet, cap) = (arrays[0] if kind == "subsets" else None), arrays[-4:]
+    _, S, N, R = chip_smoke.SYNTHETIC_SCREENS[index]
+    assert loads.shape == (N, R) and (masks is None or masks.shape == (S, N))
+    assert float(free.astype(np.float64).sum(0).max()) > 2.0**24
+    want = plain_screen(kind, loads, free, fleet, cap, masks)
+    np.testing.assert_array_equal(host_screen(host, kind, loads, free, fleet, cap, masks), want)
+    assert chip_smoke.screen_chain_adds(kind, N, R) == (N * -(-R // 8) if kind == "subsets" else N)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
