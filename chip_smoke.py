@@ -221,10 +221,35 @@ Phases, in order; any failure exits non-zero:
    (``library_ms``), the bound, the chain (``chain_ms``: the dependent
    adds at FADD_CYCLES cycles each at the maximum SM clock) and the
    largest partial sum. ``sections_s`` splits the phase's wall time.
+16. Serving (``run_serving_phase``), the warm state on. 16c, the
+   kernels under serving: ``KARPENTER_TORCH_NATIVE=0``, bench config 8's
+   ``rollout`` and ``cascade`` at scale 400 in lockstep through the
+   ``ServingPipeline`` and the ``SequentialLoop`` on the card and the
+   pipeline on the CPU, a ``DisruptionController`` every second tick
+   (the world's clocks fixed, joined nodes labeled as their claims pin,
+   replacements launched): plan streams, disruption passes and stores
+   equal across the three, no fault of the serving logger; every
+   compat, FFD, first-fit and screen call of the card legs' ticks and
+   prewarm thread held to its plain version bit for bit, each distinct
+   shape timed, launches split tick against prewarm. 16a, bench config
+   8 whole (``bench.py:1035-1131``): the five scenarios at scale 400 and
+   pace 0.2 s, each measurement its own ``python -m
+   karpenter_core_tpu_torch.serving.trafficgen`` process (lockstep
+   sequential and pipeline on the card and sequential on the CPU, four
+   at a time; then the free pipeline runs and churn10x's free sequential
+   run one at a time): plan hashes equal, decisions monotonic, no
+   orphaned span; steady latency, pods/s, queues, stage attribution and
+   flight-recorder coverage reported. 16b, bench config 14
+   (``bench.py:2325-2458``): ``restart_wave`` at 600 pods × 480 types,
+   kill at step 6, per seed the kill and the unkilled reference, then
+   the warm and the cold resume, each a process on the card; both
+   resumes' plan hashes equal the reference's. Seed 7 always; 17 and 27
+   while the phase's projection stays within ``SERVING_BUDGET_S`` and the
+   script's within ``SCRIPT_BUDGET_S``.
 
 Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
 shapes of phases 8–11 too, the three pack kernels and the disruption
-screens; launches by path, phase 13's, 14's and 15's legs included),
+screens; launches by path, phase 13's to 16's legs included),
 and the last line ``{"ok": true, "device": {...}}``.
 The profiled warm solves of phases 4–11 report device times only from
 traces that hold every kernel launch of the solve (``profile_solve``).
@@ -4173,7 +4198,8 @@ def compat_call_case(call, reps: int = 20) -> dict:
     from karpenter_core_tpu_torch.solver import compat_kernels as ck
 
     sig, catalog = call[:2]
-    sig = sig.to(catalog.device)
+    # the capture's copy is compact: lay it out in the kernel's padded storage again
+    sig = ck.to_planes(sig.T.contiguous().numpy(), catalog.device)
     got = ck.allowed_via_kernel(sig, catalog)
     plain = ck.allowed_packed_reference(sig, catalog.planes, catalog.layout)
     err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max().item()) if got.numel() else 0
@@ -5339,6 +5365,494 @@ def screen_kernel_entry(cases: list, launches: dict) -> dict:
     }
 
 
+# -- phase 16: the serving pipeline -----------------------------------------------
+
+CONFIG8_SCENARIOS = ("rollout", "spot_storm", "cascade", "diurnal", "churn10x")  # bench.py:1057
+CONFIG8_SCALE = 400  # bench.py config 8: BENCH_STREAM_SCALE and BENCH_STREAM_PACE defaults
+CONFIG8_PACE = 0.2
+CONFIG14_SCALE = 600  # bench.py config 14: restart_wave at 600 pods x 480 types, kill at step 6
+CONFIG14_TYPES = 480
+CONFIG14_KILL = 6
+CONFIG14_SEEDS = (7, 17, 27)
+SERVING_SCALE = 400  # 16c's legs, at config 8's scale
+SERVING_SCENARIOS = ("rollout", "cascade")
+SERVING_CLOCK = 50_000.0  # 16c's world clock at start; it moves SERVING_STEP_S a step,
+SERVING_STEP_S = 60.0  # past the 20 s nomination window
+SERVING_DISRUPT_EVERY = 2
+# the seconds phase 16 may take before 16b stops adding seeds past the first,
+# and the seconds the whole script may have run by then (its limit is 1,200)
+SERVING_BUDGET_S = 240.0
+SCRIPT_BUDGET_S = 1000.0
+
+
+def trafficgen(args: list, timeout: float = 600.0) -> dict:
+    """One ``python -m karpenter_core_tpu_torch.serving.trafficgen`` run
+    from the checkout root → its JSON line with ``process_s`` (the
+    process's wall seconds), or ``{"error": ...}`` on a nonzero exit, a
+    missing line or a fault of the serving logger (the caller fails).
+    The child is killed at ``timeout``."""
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "karpenter_core_tpu_torch.serving.trafficgen", *map(str, args)]
+    try:
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                              timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return {"error": f"{' '.join(cmd[3:])} timed out after {timeout} s"}
+    if proc.returncode != 0:
+        return {"error": f"{' '.join(cmd[3:])} exited {proc.returncode}: {proc.stderr[-2000:]}"}
+    try:
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        return {"error": f"{' '.join(cmd[3:])} printed no JSON line: {proc.stdout[-500:]}"}
+    if out.get("serving_log_faults"):
+        return {"error": f"{' '.join(cmd[3:])}: the serving logger reported {out['serving_log_faults'][:5]}"}
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def trafficgen_all(jobs: dict, workers: int) -> dict:
+    """``trafficgen`` over ``jobs`` (key → args), ``workers`` processes at
+    a time; fails, once all have ended, naming every run that failed."""
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        futures = {key: pool.submit(trafficgen, args) for key, args in jobs.items()}
+    out = {key: f.result() for key, f in futures.items()}
+    errors = [f"{key}: {r['error']}" for key, r in out.items() if "error" in r]
+    if errors:
+        fail("phase 16: " + " | ".join(errors))
+    return out
+
+
+def run_config8_phase(device: str = "cuda", scale: int = CONFIG8_SCALE, pace: float = CONFIG8_PACE,
+                      scenarios=CONFIG8_SCENARIOS, workers: int = 4) -> dict:
+    """16a, bench config 8 (``bench.py:1035-1131``): each scenario in
+    lockstep through the sequential loop and the pipeline on ``device``,
+    and (on the card) through the sequential loop on the CPU, ``workers``
+    processes at a time (identity does not depend on timing); then each
+    free-running through the pipeline, and churn10x's through the
+    sequential loop too, one process at a time (the latency measurement).
+    Every measurement is its own ``trafficgen`` process, as the bench's
+    ``_stream_measure``. Fails unless the plan hashes agree pipeline
+    against sequential and card against CPU, decisions are monotonic,
+    every injected pod is decided in lockstep, and no span is orphaned.
+    → per-scenario rows and the wall seconds."""
+    t0 = time.perf_counter()
+
+    def args(name, mode, drive, dev):
+        return ["--scenario", name, "--mode", mode, "--drive", drive, "--scale", scale, "--pace", pace,
+                "--device", dev]
+
+    jobs = {}
+    for name in scenarios:
+        jobs[(name, "sequential")] = args(name, "sequential", "lockstep", device)
+        jobs[(name, "pipeline")] = args(name, "pipeline", "lockstep", device)
+        if device != "cpu":
+            jobs[(name, "cpu")] = args(name, "sequential", "lockstep", "cpu")
+    lock = trafficgen_all(jobs, workers)
+    lockstep_s = time.perf_counter() - t0
+    free = {}
+    for name in scenarios:
+        free[(name, "pipeline")] = trafficgen_all({0: args(name, "pipeline", "free", device)}, 1)[0]
+        if name == "churn10x":
+            free[(name, "sequential")] = trafficgen_all({0: args(name, "sequential", "free", device)}, 1)[0]
+    rows = {}
+    for name in scenarios:
+        seq, pipe, fr = lock[(name, "sequential")], lock[(name, "pipeline")], free[(name, "pipeline")]
+        cpu = lock.get((name, "cpu"), seq)
+        hashes = {"sequential": seq["plan_sha256"], "pipeline": pipe["plan_sha256"], "cpu": cpu["plan_sha256"]}
+        if len(set(hashes.values())) != 1:
+            fail(f"config8 {name}: the lockstep plan streams differ: {hashes}")
+        for label, run in (("sequential", seq), ("pipeline", pipe), ("free", fr)):
+            if not run["monotonic_decision_order"]:
+                fail(f"config8 {name} {label}: decisions out of tick order")
+        for label, run in (("pipeline", pipe), ("free", fr)):
+            if run.get("orphan_spans") != 0:
+                fail(f"config8 {name} {label}: {run.get('orphan_spans')} orphaned spans")
+        for label, run in (("sequential", seq), ("pipeline", pipe)):
+            if run["pods_decided"] != run["pods_injected"] or run["pod_errors"]:
+                fail(f"config8 {name} {label}: {run['pods_decided']} of {run['pods_injected']} pods decided, "
+                     f"{run['pod_errors']} errors")
+        row = {
+            "steps": pipe["steps"], "pods_injected": pipe["pods_injected"], "plans_emitted": pipe["plans_emitted"],
+            "plan_identical": True, "card_equals_cpu": device != "cpu", "plan_sha256": pipe["plan_sha256"],
+            "monotonic_decision_order": True, "prewarm_runs_lockstep": pipe.get("prewarm", {}).get("runs", 0),
+            "lockstep_wall_s": {"sequential": seq["wall_s"], "pipeline": pipe["wall_s"]},
+            "decision_latency_ms": fr["decision_latency_ms"],
+            "steady_decision_latency_ms": fr["steady_decision_latency_ms"], "steady_samples": fr["steady_samples"],
+            "pods_decided": fr["pods_decided"], "pod_errors": fr["pod_errors"], "ticks": fr["ticks"],
+            "pods_per_sec": fr["pods_per_sec"], "free_wall_s": fr["wall_s"], "queue_stats": fr.get("queues", {}),
+            "stage_attribution_ms": fr.get("stage_attribution_ms", {}),
+            "flightrec_coverage": fr.get("flightrec", {}).get("coverage"), "orphan_spans": fr.get("orphan_spans"),
+            "prewarm_free": {k: fr.get("prewarm", {}).get(k) for k in ("runs", "catalog_prewarms")},
+            "process_s": {"sequential": seq["process_s"], "pipeline": pipe["process_s"], "free": fr["process_s"]},
+        }
+        if (name, "sequential") in free:
+            sq = free[(name, "sequential")]
+            if not sq["monotonic_decision_order"]:
+                fail(f"config8 {name} sequential free: decisions out of tick order")
+            row["sequential_steady_decision_latency_ms"] = sq["steady_decision_latency_ms"]
+            p99_pipe = row["steady_decision_latency_ms"].get("p99", 0.0)
+            p99_seq = sq["steady_decision_latency_ms"].get("p99", 0.0)
+            row["steady_p99_ratio_sequential_over_pipeline"] = p99_seq / p99_pipe if p99_pipe > 0 else None
+        rows[name] = row
+    return {"scenarios": rows, "lockstep_s": lockstep_s, "free_s": time.perf_counter() - t0 - lockstep_s,
+            "wall_s": time.perf_counter() - t0}
+
+
+def run_config14_seed(device: str, seed: int, scale: int = CONFIG14_SCALE, n_types: int = CONFIG14_TYPES,
+                      kill_step: int = CONFIG14_KILL) -> dict:
+    """16b for one seed, bench config 14 (``bench.py:2325-2458``): the
+    kill phase and the unkilled reference side by side, then the warm
+    resume (the snapshot restored before the first tick) and the cold
+    resume alone, each its own ``trafficgen`` process on ``device``.
+    Fails unless both resumes' plan hashes equal the reference's and the
+    warm one restored on the device that wrote the snapshot. → the
+    seed's row."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    base = ["--scenario", "restart_wave", "--n-types", n_types, "--device", device]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-restart-") as workdir:
+        first = trafficgen_all({
+            "kill": base + ["--scale", scale, "--seed", seed, "--restart-kill-at", kill_step, "--workdir", workdir],
+            "reference": base + ["--scale", scale, "--seed", seed, "--restart-reference"],
+        }, 2)
+        kill, ref = first["kill"], first["reference"]
+        if not kill.get("snapshot_path"):
+            fail(f"config14 seed {seed}: the kill phase wrote no snapshot")
+        warm = trafficgen_all({0: base + ["--restart-resume", kill["handoff_path"]]}, 1)[0]
+        cold = trafficgen_all({0: base + ["--restart-resume", kill["handoff_path"], "--cold"]}, 1)[0]
+    for mode, out in (("warm", warm), ("cold", cold)):
+        if out["plan_sha256"] != ref["plan_sha256"]:
+            fail(f"config14 seed {seed}: the {mode} resume's plan stream differs from the unkilled reference's")
+    if not warm["restored"] or warm["snapshot_device"] != warm["device"]:
+        fail(f"config14 seed {seed}: the warm resume did not restore on the snapshot's device: "
+             f"{warm['restored']} {warm['snapshot_device']} {warm['device']}")
+    ws = warm.get("warmstore") or {}
+    row = {"seed": seed, "plan_identity": 1.0, "plans_emitted": ref["plans_emitted"], "kill_step": kill_step,
+           "steady_step_ms_p50": kill["steady_step_ms_p50"], "restore_ms": warm["restore_ms"],
+           "warmstore": {"restored": ws.get("restored"), "dropped": ws.get("dropped")},
+           "prewarm_ms": warm["prewarm_ms"], "prewarm": warm["prewarm"],
+           "process_s": {k: v["process_s"] for k, v in (("kill", kill), ("reference", ref), ("warm", warm),
+                                                         ("cold", cold))},
+           "wall_s": time.perf_counter() - t0}
+    for mode, out in (("warm", warm), ("cold", cold)):
+        row[mode] = {k: out[k] for k in ("first_solve_ms", "first_solve_host_ms", "first_solve_device_ms",
+                                         "ticks_to_warm", "post_restart_step_ms")}
+    return row
+
+
+class launch_roles:
+    """Count the launches each kernel makes inside the block by the
+    launching thread: the serving pipeline's prewarm thread
+    (``serve-prewarm``), or any other (``tick``: the plan thread, the
+    sequential loop, the disruption stage). Each kernel's own ``launches``
+    still counts them all."""
+
+    def __init__(self, kernels: dict):
+        self.kernels = kernels
+        self.counts = {name: {"tick": 0, "prewarm": 0} for name in kernels}
+
+    def __enter__(self):
+        import threading
+
+        lock = threading.Lock()
+        for name, kernel in self.kernels.items():
+            real = kernel.launch
+
+            def spy(*args, _real=real, _name=name):
+                _real(*args)
+                role = "prewarm" if threading.current_thread().name == "serve-prewarm" else "tick"
+                with lock:
+                    self.counts[_name][role] += 1
+
+            kernel.launch = spy
+        return self
+
+    def __exit__(self, *exc):
+        for kernel in self.kernels.values():
+            del kernel.launch
+
+
+def serving_kernels() -> dict:
+    from karpenter_core_tpu_torch.disruption import screen_kernels as sk
+
+    return {**all_kernels(), **{f"disrupt_screen.{k}": v for k, v in sk.KERNELS.items()}}
+
+
+def label_joined_nodes(harness) -> None:
+    """Make the harness's kubelet register each joined node with the
+    labels its NodeClaim pins (every single-valued ``In`` requirement, the
+    pods' ``team`` selector among them), as a node launched from the claim
+    carries them; the harness alone labels only instance type, zone,
+    capacity type and hostname, so no pod it schedules could land on an
+    existing node."""
+    real = harness._launch_and_bind
+
+    def launch_and_bind(claim_name, it, zone, ct, pods):
+        real(claim_name, it, zone, ct, pods)
+        nc = harness.kube.get("NodeClaim", claim_name)
+        node = harness.kube.get("Node", f"node-{claim_name}")
+        if nc is None or node is None:
+            return
+        extra = {r.key: r.values[0] for r in nc.spec.requirements
+                 if r.operator == "In" and len(r.values) == 1 and r.key not in node.metadata.labels}
+        if extra:
+            node.metadata.labels.update(extra)
+            harness.kube.apply(node)
+
+    harness._launch_and_bind = launch_and_bind
+
+
+def launch_replacements(harness) -> None:
+    """The lifecycle the harness lacks for a disruption stage: launch every
+    NodeClaim that has no provider id (a consolidation's replacement) as
+    the fake provider creates it (its cheapest compatible offering) and
+    join its node, empty, through the harness's kubelet; without it the
+    cluster never syncs again and provisioning waits for ever."""
+    from karpenter_core_tpu_torch.apis import labels as wk
+
+    for nc in sorted(harness.kube.list("NodeClaim"), key=lambda c: c.metadata.name):
+        if nc.status.provider_id or nc.metadata.deletion_timestamp is not None:
+            continue
+        labels = harness.provider.create(nc).metadata.labels
+        it = next(t for t in harness.provider.instance_types if t.name == labels[wk.LABEL_INSTANCE_TYPE])
+        harness._launch_and_bind(nc.metadata.name, it, labels[wk.LABEL_TOPOLOGY_ZONE],
+                                 labels[wk.CAPACITY_TYPE_LABEL_KEY], [])
+
+
+def serving_kernel_leg(device: str, mode: str, scale: int, scenario: str = "rollout") -> dict:
+    """One 16c leg: bench config 8's ``scenario`` (its default seed) in
+    lockstep through ``mode`` (the pipeline, or the sequential loop with the same
+    disruption cadence by hand) on ``device``, a ``DisruptionController``
+    on the harness's store every ``SERVING_DISRUPT_EVERY`` ticks, the
+    world's clocks fixed (``SERVING_CLOCK``, ``SERVING_STEP_S`` a step),
+    no parity shadow. → the plan stream, the disruption passes, the
+    store's claims and marked nodes, each kernel's launches by role and
+    the serving logger's faults."""
+    from karpenter_core_tpu_torch.apis.nodepool import Budget
+    from karpenter_core_tpu_torch.disruption import DisruptionController
+    from karpenter_core_tpu_torch.serving import PipelineConfig, SequentialLoop, ServingPipeline
+    from karpenter_core_tpu_torch.serving import trafficgen as tg
+
+    with same_identities():
+        sc = tg.build_scenario(scenario, scale=scale)
+        h = tg.TrafficHarness(teams=sc.teams, device=device)
+        now = [SERVING_CLOCK]
+        clock = lambda: now[0]  # noqa: E731
+        for part in (h.kube, h.cluster, h.recorder):
+            part.clock = clock
+        h.provisioner.PARITY_SAMPLE_EVERY = 0
+        # tests/helpers.py Env's pool: consolidate when underutilized, at once, budget 100 %
+        pool = h.kube.get("NodePool", "default")
+        pool.spec.disruption.budgets = [Budget(nodes="100%")]
+        pool.spec.disruption.consolidate_after = 0.0
+        h.kube.apply(pool)
+        ctrl = DisruptionController(h.kube, h.cluster, h.provisioner, h.provider, recorder=h.recorder, clock=clock,
+                                    validation_sleep=lambda t: None, metrics=h.metrics)
+        disrupt_pass = ctrl.reconcile
+
+        def reconcile():
+            executed = disrupt_pass()
+            launch_replacements(h)
+            return executed
+
+        ctrl.reconcile = reconcile
+        label_joined_nodes(h)
+        rec = tg._StreamRecorder(h)
+        config = PipelineConfig(idle_seconds=0.02, max_seconds=1.0, disrupt_every=SERVING_DISRUPT_EVERY)
+        h.warmup()
+        passes = []
+        t0 = time.perf_counter()
+        with tg._ServingFaults() as faults, launch_roles(serving_kernels()) as roles:
+            if mode == "pipeline":
+                pipe = ServingPipeline(h.provisioner, metrics=h.metrics, config=config, on_decision=rec,
+                                       disruption=ctrl)
+                h.on_catalog_event = pipe.observe_catalog_event
+                pipe.attach_watch()
+                pipe.hold()
+                pipe.start()
+                try:
+                    for i, step in enumerate(sc.steps):
+                        now[0] += SERVING_STEP_S
+                        h.inject_step(step, i)
+                        pipe.release()
+                        if not pipe.quiesce(timeout=300.0):
+                            fail(f"16c {device} pipeline: no quiesce at step {i}")
+                        pipe.hold()
+                    passes = [(p["tick"], p["executed"]) for p in pipe._disrupt_log]
+                    prewarm = pipe.debug_state()["prewarm"]
+                finally:
+                    pipe.stop()
+            else:
+                loop = SequentialLoop(h.provisioner, metrics=h.metrics, config=config, on_decision=rec)
+                loop.attach_watch()
+                prewarm = None
+                try:
+                    for i, step in enumerate(sc.steps):
+                        now[0] += SERVING_STEP_S
+                        h.inject_step(step, i)
+                        tick = loop.step_once()["tick"]
+                        if tick % SERVING_DISRUPT_EVERY == 0:
+                            passes.append((tick, ctrl.reconcile()))
+                finally:
+                    loop.stop()
+            _sync(device)
+        wall_s = time.perf_counter() - t0
+        store = {
+            "claims": sorted((nc.metadata.name, nc.metadata.labels.get("node.kubernetes.io/instance-type"),
+                              nc.metadata.deletion_timestamp is not None) for nc in h.kube.list("NodeClaim")),
+            "marked": sorted(pid for pid, n in h.cluster.nodes.items() if n.marked_for_deletion),
+            "taints": sorted((n.metadata.name, sorted((t.key, t.effect) for t in n.spec.taints))
+                             for n in h.kube.list("Node") if n.spec.taints),
+        }
+        h.close()
+    return {"stream": rec.stream, "passes": passes, "store": store, "launches": roles.counts,
+            "faults": faults.faults, "wall_s": wall_s, "pods": sc.total_creates, "prewarm": prewarm}
+
+
+def hold_serving_call(kind: str, call) -> None:
+    """One captured call against its plain version on the card, bit for
+    bit (the wrapper's launch, then the plain PyTorch version)."""
+    import torch
+
+    from karpenter_core_tpu_torch.disruption import screen_kernels as sk
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+    from karpenter_core_tpu_torch.solver import pack
+
+    if kind == "compat_allowed":
+        catalog = call[1]
+        sig = ck.to_planes(call[0].T.contiguous().numpy(), catalog.device)
+        same = torch.equal(ck.allowed_via_kernel(sig, catalog),
+                           ck.allowed_packed_reference(sig, catalog.planes, catalog.layout))
+    elif kind == "ffd_pack":
+        req, front, caps, k_open, n = (a.cuda() if hasattr(a, "cuda") else a for a in call)
+        ids, counts = pack.ffd_pack_batched(req, front, caps, k_open, n)
+        m = int(n.max())
+        plain_ids, plain_counts = pack.ffd_pack_reference(req[:, :m], front, caps, k_open)
+        plain_ids = torch.nn.functional.pad(plain_ids, (0, req.shape[1] - m), value=-1)
+        same = torch.equal(ids, plain_ids) and torch.equal(counts, plain_counts)
+    elif kind == "pack_existing":
+        args = tuple(a.cuda() for a in call)
+        got, want = pack.pack_existing(*args), pack.pack_existing_reference(*args)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+    else:
+        entry = kind.split(".")[1]
+        args = tuple(a.cuda() for a in call)
+        fn = {"prefix": sk.screen_prefix, "subsets": sk.screen_subsets, "singles": sk.screen_singles}[entry]
+        plain = {"prefix": sk.prefix_screen_reference, "subsets": sk.subset_screen_reference,
+                 "singles": sk.single_screen_reference}[entry]
+        same = torch.equal(fn(*args), plain(*args))
+    if not same:
+        fail(f"16c: a captured {kind} call differs from its plain version")
+
+
+def run_serving_kernels_phase(device: str = "cuda", scale: int = SERVING_SCALE, sm_mhz: float = 0.0,
+                              scenarios=SERVING_SCENARIOS) -> dict:
+    """16c, the kernels under serving, ``KARPENTER_TORCH_NATIVE=0`` (the
+    device scans): for each scenario, ``serving_kernel_leg`` through the
+    pipeline and the sequential loop on ``device`` and through the
+    pipeline on the CPU; plan streams, disruption passes and the stores
+    equal across the three, no serving-logger fault. ``rollout``'s waves
+    empty whole nodes, so every pass deletes empty nodes and reaches no
+    screen; ``cascade``'s partial evictions leave underutilized nodes for
+    the multi- and single-node consolidations (B8 and the repack bound on
+    B6). On the card every compat, FFD, first-fit and B8 call the card
+    legs' ticks and prewarm thread make is captured and held against its
+    plain version bit for bit, each distinct shape timed (the phase 12,
+    14 and 15 cases), and each kernel of the path must have launched.
+    → the phase's row."""
+    from karpenter_core_tpu_torch.solver import pack
+    from karpenter_core_tpu_torch.solver import solver as solver_mod
+
+    legs = {}
+    with knobs(KARPENTER_TORCH_NATIVE=0):
+        with capture(solver_mod, "allowed_via_kernel") as compat_cap, \
+                capture(pack, "ffd_pack_batched") as ffd_cap, capture(pack, "pack_existing") as ex_cap, \
+                capture_screens() as screens:
+            for name in scenarios:
+                for mode in ("pipeline", "sequential"):
+                    legs[(name, mode)] = serving_kernel_leg(device, mode, scale, name)
+        if device != "cpu":
+            for name in scenarios:
+                legs[(name, "cpu")] = serving_kernel_leg("cpu", "pipeline", scale, name)
+    rows = {}
+    for name in scenarios:
+        ref = legs[(name, "pipeline")]
+        for (leg_name, label), leg in legs.items():
+            if leg_name != name:
+                continue
+            if leg["faults"]:
+                fail(f"16c {name} {label}: the serving logger reported {leg['faults'][:5]}")
+            for key in ("stream", "passes", "store"):
+                if leg[key] != ref[key]:
+                    fail(f"16c {name}: the {label} leg's {key} differs from the {device} pipeline's")
+        if not ref["stream"]:
+            fail(f"16c {name}: the leg emitted no plan")
+        rows[name] = {
+            "plans": len(ref["stream"]), "pods": ref["pods"], "passes": ref["passes"],
+            "claims": len(ref["store"]["claims"]), "marked_nodes": len(ref["store"]["marked"]),
+            "launches": {mode: legs[(name, mode)]["launches"] for mode in ("pipeline", "sequential")},
+            "wall_s": {label: leg["wall_s"] for (n, label), leg in legs.items() if n == name},
+            "prewarm": ref["prewarm"],
+        }
+    calls = {"compat_allowed": compat_cap.calls, "ffd_pack": ffd_cap.calls, "pack_existing": ex_cap.calls,
+             **{f"disrupt_screen.{k}": v for k, v in screens.calls().items()}}
+    launches = {mode: {k: {"tick": sum(r["launches"][mode][k]["tick"] for r in rows.values()),
+                           "prewarm": sum(r["launches"][mode][k]["prewarm"] for r in rows.values())}
+                       for k in serving_kernels()}
+                for mode in ("pipeline", "sequential")}
+    if not all(calls[k] for k in ("compat_allowed", "ffd_pack", "pack_existing")) or not any(
+            calls[k] for k in calls if k.startswith("disrupt_screen")):
+        fail(f"16c: a kernel of the path was never called: {({k: len(v) for k, v in calls.items()})}")
+    cases = {}
+    if device == "cuda":
+        totals = {k: sum(n[k]["tick"] + n[k]["prewarm"] for n in launches.values()) for k in serving_kernels()}
+        for name in ("compat_allowed", "ffd_pack", "pack_existing"):
+            if not totals[name]:
+                fail(f"16c: {name} never launched on the serving legs ({totals})")
+        if not sum(n for name, n in totals.items() if name.startswith("disrupt_screen")):
+            fail(f"16c: no disruption screen launched on the serving legs ({totals})")
+        for kind, kind_calls in calls.items():
+            for call in kind_calls:
+                hold_serving_call(kind, call)
+        cases["compat_allowed"] = [compat_call_case(c) for c in distinct_compat_calls(calls["compat_allowed"])]
+        cases["ffd_pack"] = [ffd_kernel_case(c) for c in distinct_shapes(calls["ffd_pack"])]
+        cases["pack_existing"] = [existing_kernel_case(c) for c in distinct_shapes(calls["pack_existing"])]
+        cases["disrupt_screen"] = [
+            screen_kernel_case(k.split(".")[1], c, "phase16", sm_mhz)
+            for k in calls if k.startswith("disrupt_screen") for c in distinct_shapes(calls[k])
+        ]
+    return {"scenarios": rows, "captured_calls": {k: len(v) for k, v in calls.items()}, "launches": launches,
+            "cases": cases}
+
+
+def run_serving_phase(device: str = "cuda", sizes: Optional[dict] = None, sm_mhz: float = 0.0,
+                      budget_s: float = SERVING_BUDGET_S) -> dict:
+    """Phase 16 on ``device``: 16c the kernels under serving, 16a bench
+    config 8, 16b bench config 14 (the first seed always, the next while
+    the phase's projected time stays within ``budget_s``).
+    ``sizes``: {"kernels": 16c's scale, "config8": (scale, pace,
+    scenarios), "config14": (scale, types, kill step, seeds), or None to
+    leave 16b out} → the phase's row."""
+    sizes = {"kernels": SERVING_SCALE, "config8": (CONFIG8_SCALE, CONFIG8_PACE, CONFIG8_SCENARIOS),
+             "config14": (CONFIG14_SCALE, CONFIG14_TYPES, CONFIG14_KILL, CONFIG14_SEEDS), **(sizes or {})}
+    t0 = time.perf_counter()
+    kernels = run_serving_kernels_phase(device, sizes["kernels"], sm_mhz)
+    kernels_s = time.perf_counter() - t0
+    scale, pace, scenarios = sizes["config8"]
+    config8 = run_config8_phase(device, scale, pace, scenarios)
+    seeds = []
+    if sizes["config14"] is not None:
+        c14_scale, c14_types, kill_step, c14_seeds = sizes["config14"]
+        for seed in c14_seeds:
+            elapsed = time.perf_counter() - t0
+            if seeds and elapsed + seeds[-1]["wall_s"] > budget_s:
+                break
+            seeds.append(run_config14_seed(device, seed, c14_scale, c14_types, kill_step))
+    return {"kernels": kernels, "kernels_s": kernels_s, "config8": config8, "config14": seeds,
+            "config14_seeds": [r["seed"] for r in seeds], "wall_s": time.perf_counter() - t0}
+
+
 def main() -> None:
     import torch
 
@@ -5649,6 +6163,33 @@ def main() -> None:
         pack["launches"][f"phase15-{path}"] = {name: n[name] for name in ("ffd_pack", "pack_existing", "dual_ascent")}
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 15"})
 
+    # 16. the serving pipeline on the card: 16c the kernels under serving
+    # (native off, a disruption stage), 16a bench config 8 whole, 16b
+    # bench config 14 (each measurement its own process)
+    serving = run_serving_phase("cuda", sm_mhz=sm_mhz, budget_s=min(
+        SERVING_BUDGET_S, SCRIPT_BUDGET_S - (time.perf_counter() - t_start)))
+    sk16 = serving["kernels"]
+    emit({"phase16": "kernels-under-serving", **{k: v for k, v in sk16.items() if k != "cases"}, "card": card})
+    for name, rows in sk16["cases"].items():
+        for r in rows:
+            emit({"phase16_kernel_case": name, **r, "card": card})
+    for name, row in serving["config8"]["scenarios"].items():
+        emit({"phase16_config8": name, **row, "card": card})
+    emit({"phase16": "config8", **{k: v for k, v in serving["config8"].items() if k != "scenarios"},
+          "card": card})
+    for row in serving["config14"]:
+        emit({"phase16_config14_seed": row["seed"], **row, "card": card})
+    emit({"phase16": "config14", "seeds": serving["config14_seeds"], "wall_s": serving["wall_s"],
+          "kernels_s": serving["kernels_s"], "card": card})
+    for mode, counts in sk16["launches"].items():
+        pack["launches"][f"phase16-{mode}"] = {
+            name: counts[name]["tick"] + counts[name]["prewarm"] for name in ("ffd_pack", "pack_existing", "dual_ascent")
+        }
+    cases["ffd_pack"] += [{"captured": "phase16", **r} for r in sk16["cases"]["ffd_pack"]]
+    cases["pack_existing"] += [{"captured": "phase16", **r} for r in sk16["cases"]["pack_existing"]]
+    disrupt["screen_cases"] += sk16["cases"]["disrupt_screen"]
+    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 16"})
+
     # the kernels line, then the last line
     paths = {
         "slice": slice_launches, "cluster": cluster["kernel_launches"],
@@ -5663,6 +6204,8 @@ def main() -> None:
         **{path: row["kernel_launches"]["compat_allowed"] for path, row in prov_rows.items()},
         **{f"config7-{leg}": n["compat"] for leg, n in config7["launches"].items()},
         **{f"phase15-{path}": n["compat_allowed"] for path, n in disrupt["launches"].items()},
+        **{f"phase16-{mode}-{role}": n["compat_allowed"][role] for mode, n in sk16["launches"].items()
+           for role in ("tick", "prewarm")},
     }
     for leg, n in config7["launches"].items():
         pack["launches"][f"config7-{leg}"] = {"ffd_pack": n["ffd"], "pack_existing": 0, "dual_ascent": 0}
@@ -5684,6 +6227,7 @@ def main() -> None:
                         [row["max_abs_err"] for row in [
                             slice_row, big_row, *spread_rows, *affinity_rows, *stateful_rows, *relax_rows,
                             *config7_rows, *config7["kernel_cases"]["compat_allowed"],
+                            *sk16["cases"]["compat_allowed"],
                         ]] + [prov["compat_err"]]
                     ),
                     "ms": slice_row["kernel_ms"],
@@ -5708,13 +6252,16 @@ def main() -> None:
                     "at_relax_paths": [{k: row[k] for k in path_keys} for row in relax_rows],
                     "at_config7_paths": [{k: row[k] for k in path_keys} for row in config7_rows],
                     "config7_captured": config7["kernel_cases"]["compat_allowed"],
+                    "serving_captured": sk16["cases"]["compat_allowed"],
                     "compat_route": slice_row["compat_route"],
                     "ptxas": usage,
                 },
                 *[pack_kernel_entry(name, cases[name], pack["launches"],
                                     relax_splits if name == "dual_ascent" else None) for name in cases],
                 screen_kernel_entry(disrupt["screen_cases"], {
-                    f"phase15-{path}": n for path, n in disrupt["launches"].items()
+                    **{f"phase15-{path}": n for path, n in disrupt["launches"].items()},
+                    **{f"phase16-{mode}": {name: c["tick"] + c["prewarm"] for name, c in n.items()}
+                       for mode, n in sk16["launches"].items()},
                 }),
             ]
         }

@@ -10,9 +10,9 @@ keeping everything downstream backend-agnostic.
 
 The reference reads ``KARPENTER_TPU_PARITY_SAMPLE`` for the parity
 shadow's period; the port keeps its default as the class constant
-``PARITY_SAMPLE_EVERY`` (16 solves; 0 turns the shadow off). The
-reference's serving hook (``encode_done_listener``) waits for the
-serving slice of the port.
+``PARITY_SAMPLE_EVERY`` (16 solves; 0 turns the shadow off).
+``encode_done_listener`` is the serving pipeline's double-buffer hook,
+forwarded to the live ``TorchScheduler`` on every solve.
 """
 
 from __future__ import annotations
@@ -79,6 +79,10 @@ class Provisioner:
         # pool ordering/filtering and the catalog encodings off the tick
         # path and `last_timings`/`last_cache_stats` continuous
         self._tpu_solver = None  # (nodepool key, TorchScheduler, nodepools)
+        # serving double-buffer hook, forwarded to the live TorchScheduler:
+        # fires when the authoritative encode hands off to pack
+        # (serving/pipeline.py overlaps the next batch's prewarm with it)
+        self.encode_done_listener = None
 
     def trigger(self) -> None:
         self.batcher.trigger()
@@ -230,6 +234,7 @@ class Provisioner:
             )
             # the held nodepool list keeps the key's id()s stable
             self._tpu_solver = (key, solver, list(nodepools))
+        solver.encode_done_listener = self.encode_done_listener
         sr = solver.solve(
             pods,
             state_nodes=state_nodes,
@@ -257,7 +262,13 @@ class Provisioner:
                 plan.pods = [pods[i] for i in plan.pod_indices]
             results.tpu_plans = sr.node_plans  # consumed by reconcile
         # tensor-path placements onto existing nodes are nominations —
-        # mirror the oracle's _record_results (nominate + event, no claim)
+        # mirror the oracle's _record_results (nominate + event, no claim).
+        # They ride the results as ``existing_plans`` so the serving
+        # decision step settles their pods and a binder binds them (the
+        # reference's decision step reads the attribute but its
+        # provisioner never sets it, so a pod it places on an existing
+        # node is never decided nor bound and is placed again each tick)
+        results.existing_plans = sr.existing_plans
         for plan in sr.existing_plans:
             plan.pods = [pods[i] for i in plan.pod_indices]
             if self.cluster is not None:

@@ -101,7 +101,7 @@ import weakref
 from collections import OrderedDict
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -771,6 +771,13 @@ class TorchScheduler:
         # port keeps last_timings numeric)
         self.last_timings: Optional[Dict[str, float]] = None
         self.last_trace_id: Optional[str] = None
+        # serving double-buffer hook: called (no args) the moment the
+        # authoritative encode hands off to pack; the pipeline's prewarm
+        # stage encodes the next batch while this pack runs
+        self.encode_done_listener: Optional[Callable[[], None]] = None
+        # the reference's per-solve device-plane stats (compiles,
+        # transfers, footprint): the port has no device plane yet
+        self.last_device_stats: Optional[dict] = None
         # pods per route of the most recent solve (tensor, parked, oracle)
         # and the oracle's share, as the JAX package's last_route_stats
         self.last_route_stats: Optional[Dict[str, object]] = None
@@ -1579,6 +1586,12 @@ class TorchScheduler:
             return
         with self._phase("encode"):
             ctx = self._encode_phase(groups, pools, pool_catalogs, daemonset_pods)
+        listener = self.encode_done_listener
+        if listener is not None:
+            try:
+                listener()
+            except Exception:  # noqa: BLE001 — a listener bug must not fail the solve
+                log.debug("encode_done_listener failed", exc_info=True)
         self._pack_phase(pods, groups, parked_from, pools, leftover, state_nodes, result, ctx)
 
     def _pack_existing(

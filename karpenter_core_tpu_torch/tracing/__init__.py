@@ -1,11 +1,13 @@
 """Solve-trace subsystem: the port's copy of ``karpenter_core_tpu/tracing``.
 
-  tracer.py — thread-local span stack, monotonic clocks, ring buffer,
-              cross-thread TraceContext capture/adopt + orphan counter
+  tracer.py    — thread-local span stack, monotonic clocks, ring buffer,
+                 cross-thread TraceContext capture/adopt + orphan counter
+  flightrec.py — per-decision flight recorder: bounded ring of decision
+                 records, SLO burn-rate windows
 
-The reference's flight recorder (``flightrec.py``), Chrome trace-event
-export (``export.py``), slow-solve capture (``capture.py``) and device
-plane (``deviceplane.py``) are not ported yet.
+The reference's Chrome trace-event export (``export.py``), slow-solve
+capture (``capture.py``), device plane (``deviceplane.py``) and the
+flight recorder's breach dumps are not ported yet.
 """
 
 from .tracer import (  # noqa: F401
@@ -25,3 +27,4 @@ from .tracer import (  # noqa: F401
     span,
     trace_root,
 )
+from .flightrec import RECORDER, DecisionRecord, FlightRecorder  # noqa: F401,E402

@@ -16,9 +16,12 @@ the device scans' plain versions) and the LP routing calibration, and a
 on its batched and its greedy path, and a disruption pass (the markers,
 ``DisruptionController.reconcile`` under both engines, the orchestration
 queue), runs in a fresh interpreter under a
-meta-path hook that raises on importing either. The JAX package's
-environment knobs of that stack are module constants of the port with
-the reference's defaults.
+meta-path hook that raises on importing either; so does the serving CLI
+(``python -m karpenter_core_tpu_torch.serving.trafficgen``: a free
+pipeline run, a kill and a warm resume with its boot prewarm). The JAX
+package's environment knobs of that stack, the serving pipeline's, the
+flight recorder's and the boot prewarm's included, are module constants
+of the port with the reference's defaults.
 """
 
 from __future__ import annotations
@@ -64,6 +67,9 @@ def test_sources_found():
         ("utils", "pretty.py"), ("tracing", "tracer.py"), ("metrics", "registry.py"),
         ("metrics", "store.py"), ("state", "cluster.py"), ("state", "informers.py"),
         ("provisioning", "batcher.py"), ("provisioning", "provisioner.py"),
+        ("serving", "__init__.py"), ("serving", "queues.py"), ("serving", "latency.py"),
+        ("serving", "pipeline.py"), ("serving", "trafficgen.py"), ("tracing", "flightrec.py"),
+        ("solver", "stats.py"), ("solver", "prewarm.py"),
     ):
         assert os.path.join(PORT_DIR, *module) in srcs
     assert os.path.exists(os.path.join(REPO, "chip_smoke.py"))
@@ -139,6 +145,20 @@ def test_reference_knobs_are_constants():
     assert registry.LATENCY_BUCKETS_MS == ""  # KARPENTER_TPU_LATENCY_BUCKETS_MS
     assert tracer.TRACE is True  # KARPENTER_TPU_TRACE
     assert tracer.TRACE_BUFFER == 32  # KARPENTER_TPU_TRACE_BUFFER
+    from karpenter_core_tpu_torch.serving import PipelineConfig, queues
+    from karpenter_core_tpu_torch.solver import prewarm
+    from karpenter_core_tpu_torch.tracing import flightrec
+
+    assert queues.SOLVE_CAP == 1  # KARPENTER_TPU_SERVING_SOLVE_CAP
+    assert queues.TELEMETRY_CAP == 1024  # KARPENTER_TPU_SERVING_TELEMETRY_CAP
+    cfg = PipelineConfig()  # KARPENTER_TPU_SERVING_{IDLE_S,MAX_S,PREWARM,DISRUPT_EVERY,MAX_STALENESS_S}
+    assert (cfg.idle_seconds, cfg.max_seconds, cfg.prewarm, cfg.disrupt_every, cfg.max_staleness_s) == (
+        1.0, 10.0, True, 0, 0.0)
+    assert cfg.warmstore_dir is None and cfg.warmstore_restore is None  # KARPENTER_TPU_WARMSTORE_{DIR,RESTORE}
+    assert flightrec.SLO_TARGET_MS == 500.0  # KARPENTER_TPU_SLO_TARGET_MS
+    assert flightrec.FLIGHTREC_KEEP == 256  # KARPENTER_TPU_FLIGHTREC_KEEP
+    assert flightrec.SLO_BREACH_DUMP_MS is None  # KARPENTER_TPU_SLO_BREACH_DUMP_MS
+    assert prewarm.PREWARM is True  # KARPENTER_TPU_PREWARM
 
 
 _SCRIPT = r"""
@@ -357,3 +377,48 @@ def test_port_solve_under_import_hook():
     assert out["leaked"] == []
     assert out["scheduled"] + out["errors"] == 90
     assert out["nodes"] >= 1
+
+
+_CLI = r"""
+import importlib.abc, runpy, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "karpenter_core_tpu"):
+            raise ImportError(f"boundary: {name} imported")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.argv = ["trafficgen"] + sys.argv[1:]
+try:
+    runpy.run_module("karpenter_core_tpu_torch.serving.trafficgen", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "karpenter_core_tpu"))
+print(leaked)
+"""
+
+
+def test_serving_cli_under_import_hook():
+    """The serving CLI (harness, pipeline, flight recorder, stats, boot
+    prewarm after a restore) in a fresh interpreter under the hook: a
+    free pipeline run, then a kill and a warm resume."""
+    import tempfile
+
+    base = [sys.executable, "-c", _CLI, "--device", "cpu", "--scale", "40", "--seed", "3"]
+    with tempfile.TemporaryDirectory() as d:
+        outs = []
+        for extra in (
+            ["--scenario", "churn10x", "--mode", "pipeline", "--drive", "free", "--pace", "0.01"],
+            ["--scenario", "restart_wave", "--n-types", "24", "--restart-kill-at", "3", "--workdir", d],
+            ["--scenario", "restart_wave", "--restart-resume", os.path.join(d, "handoff.pkl")],
+        ):
+            proc = subprocess.run(base + extra, cwd=REPO, capture_output=True, text=True, timeout=300)
+            assert proc.returncode == 0, proc.stderr[-3000:]
+            lines = proc.stdout.strip().splitlines()
+            assert lines[-1] == "[]", lines[-1]
+            outs.append(json.loads(lines[-2]))
+    free, kill, warm = outs
+    assert free["pods_decided"] > 0 and free["orphan_spans"] == 0 and free["serving_log_faults"] == []
+    assert kill["snapshot_path"] and warm["restored"] and warm["prewarm"]["status"] == "ok"
+

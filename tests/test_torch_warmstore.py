@@ -4,16 +4,14 @@
 the JAX package's warm store over the planes the port keeps. Held to it:
 
 - the tests of ``TestSnapshotRoundTrip``, ``TestInvalidationMatrix``,
-  ``TestCorruptSnapshots`` and ``TestWarmstoreDisabled`` of
-  ``tests/test_warmstore.py`` run from their own source on the port
-  (``TorchScheduler(device="cpu")``, ``KARPENTER_TORCH_INCREMENTAL``, the
+  ``TestCorruptSnapshots``, ``TestServingPipelineHooks`` and
+  ``TestWarmstoreDisabled`` of ``tests/test_warmstore.py`` run from their
+  own source on the port (``TorchScheduler(device="cpu")``, the serving
+  harness on ``device="cpu"``, ``KARPENTER_TORCH_INCREMENTAL``, the
   port's magic, and the directory and size cap the port keeps as
-  constants set as constants), but ``test_restore_is_faster_than_cold``,
-  a wall-clock comparison that says nothing of the port on the CPU, and
-  ``test_outcome_surfaced_in_stats_schema``, which reads the JAX
-  package's consolidated stats schema (``solver/stats.py``, not ported:
-  no port caller reads it); the restore outcome it also checks, in the
-  solver's ``last_warmstore_stats`` and the metrics, is held here;
+  constants set as constants), the consolidated stats schema
+  (``solver/stats.py``) included, but ``test_restore_is_faster_than_cold``,
+  a wall-clock comparison that says nothing of the port on the CPU;
 - a port snapshot restored into a fresh port scheduler after a simulated
   process death plans as the JAX package's un-killed warm solver does;
 - a snapshot the JAX package wrote is dropped whole by the port, and
@@ -34,8 +32,9 @@ from test_torch_native import reference_native
 from test_torch_oracle import same_start
 
 FILE = "test_warmstore.py"
-CLASSES = ("TestSnapshotRoundTrip", "TestInvalidationMatrix", "TestCorruptSnapshots", "TestWarmstoreDisabled")
-LEFT_OUT = ("test_restore_is_faster_than_cold", "test_outcome_surfaced_in_stats_schema")
+CLASSES = ("TestSnapshotRoundTrip", "TestInvalidationMatrix", "TestCorruptSnapshots", "TestServingPipelineHooks",
+           "TestWarmstoreDisabled")
+LEFT_OUT = ("test_restore_is_faster_than_cold",)
 CASES = [c for c in mirror_cases(FILE, classes=CLASSES) if c[1] not in LEFT_OUT]
 
 
@@ -49,12 +48,13 @@ def warmstore_mirror():
         ('monkeypatch.setenv("KARPENTER_TPU_WARMSTORE_MAX_MB", "0.02")', 'monkeypatch.setattr(warmstore, "MAX_MB", 0.02)'),
         ('monkeypatch.delenv("KARPENTER_TPU_WARMSTORE_DIR", raising=False)',
          'monkeypatch.setattr(warmstore, "WARMSTORE_DIR", None)'),
+        ("tg.TrafficHarness(", 'tg.TrafficHarness(device="cpu", '),
     )
     return mirror(FILE, PORT, replace=replace, inject={"TPUScheduler": cpu_scheduler})
 
 
 def test_mirror_covers_the_classes():
-    assert len(CASES) == 21
+    assert len(CASES) == 24
     assert {c[0] for c in CASES} == set(CLASSES)
 
 
