@@ -245,21 +245,41 @@ Phases, in order; any failure exits non-zero:
    the warm and the cold resume, each a process on the card; both
    resumes' plan hashes equal the reference's. Seed 7 always; 17 and 27
    while the phase's projection stays within ``SERVING_BUDGET_S`` and the
-   script's within ``SCRIPT_BUDGET_S``.
+   script's within ``SCRIPT_BUDGET_S`` less phase 17's ``CHAOS_RESERVE_S``.
+17. The chaos pack (``run_chaos_phase``), never cut short. 17a, bench
+   config 15 whole (``bench.py:2460-2530``): ``rollout`` at scale 240,
+   seed 7, under each of the five faults (``watch_flap``,
+   ``watch_hang``, ``latency_spike``, ``failover``, ``clock_skew``) and
+   clean (``--chaos none``) on the card and clean on the CPU, each its own
+   ``trafficgen --chaos`` process, four at a time: every plan hash equal
+   to the card's clean twin, which equals the CPU's; no plan emitted
+   while a guard held, no NodeClaim written while deposed, every pod
+   decided in tick order, a held tick under each holding fault, no fault
+   of the serving logger; steady latency and SLO burn reported. 17b, the
+   kernels under chaos, ``KARPENTER_TORCH_NATIVE=0``: ``run_chaos`` in
+   this process, clean and under ``failover``, in config 15's world
+   (hashes equal 17a's clean twin) and with the joined nodes labeled as
+   their claims pin (the first-fit; equal to each other and to a CPU
+   run); compat, the FFD scan and the first-fit launched under the
+   fault, every captured call held to its plain version bit for bit,
+   each distinct shape timed.
 
 Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
 shapes of phases 8–11 too, the three pack kernels and the disruption
-screens; launches by path, phase 13's to 16's legs included),
+screens; launches by path, phase 13's to 17's legs included),
 and the last line ``{"ok": true, "device": {...}}``.
 The profiled warm solves of phases 4–11 report device times only from
 traces that hold every kernel launch of the solve (``profile_solve``).
 
 Run from the repository root: ``python3 chip_smoke.py`` (``--log PATH``
-appends every JSON line to PATH as well).
+appends every JSON line to PATH as well). ``--phases 16,17`` builds the
+kernels as step 2 does, then runs only the named phases (of 14–17) and
+prints no result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import hashlib
@@ -5410,15 +5430,16 @@ def trafficgen(args: list, timeout: float = 600.0) -> dict:
     return out
 
 
-def trafficgen_all(jobs: dict, workers: int) -> dict:
+def trafficgen_all(jobs: dict, workers: int, phase: str = "phase 16") -> dict:
     """``trafficgen`` over ``jobs`` (key → args), ``workers`` processes at
-    a time; fails, once all have ended, naming every run that failed."""
+    a time; fails, once all have ended, naming ``phase`` and every run
+    that failed."""
     with ThreadPoolExecutor(max_workers=workers) as pool:
         futures = {key: pool.submit(trafficgen, args) for key, args in jobs.items()}
     out = {key: f.result() for key, f in futures.items()}
     errors = [f"{key}: {r['error']}" for key, r in out.items() if "error" in r]
     if errors:
-        fail("phase 16: " + " | ".join(errors))
+        fail(f"{phase}: " + " | ".join(errors))
     return out
 
 
@@ -5710,7 +5731,7 @@ def serving_kernel_leg(device: str, mode: str, scale: int, scenario: str = "roll
             "faults": faults.faults, "wall_s": wall_s, "pods": sc.total_creates, "prewarm": prewarm}
 
 
-def hold_serving_call(kind: str, call) -> None:
+def hold_serving_call(kind: str, call, phase: str = "16c") -> None:
     """One captured call against its plain version on the card, bit for
     bit (the wrapper's launch, then the plain PyTorch version)."""
     import torch
@@ -5743,7 +5764,7 @@ def hold_serving_call(kind: str, call) -> None:
                  "singles": sk.single_screen_reference}[entry]
         same = torch.equal(fn(*args), plain(*args))
     if not same:
-        fail(f"16c: a captured {kind} call differs from its plain version")
+        fail(f"{phase}: a captured {kind} call differs from its plain version")
 
 
 def run_serving_kernels_phase(device: str = "cuda", scale: int = SERVING_SCALE, sm_mhz: float = 0.0,
@@ -5853,18 +5874,222 @@ def run_serving_phase(device: str = "cuda", sizes: Optional[dict] = None, sm_mhz
             "config14_seeds": [r["seed"] for r in seeds], "wall_s": time.perf_counter() - t0}
 
 
-def main() -> None:
+# -- phase 17: the chaos pack ---------------------------------------------------
+
+CONFIG15_SCENARIO = "rollout"  # bench.py config 15 (bench.py:2460-2530): rollout at scale 240, seed 7,
+CONFIG15_SCALE = 240  # the five faults and the clean twin, each its own process
+CONFIG15_SEED = 7
+CONFIG15_FAULTS = ("watch_flap", "watch_hang", "latency_spike", "failover", "clock_skew")
+# the faults whose degradation is a held tick, and the hold counter that shows it
+CONFIG15_HOLDING = {"watch_flap": "stale", "watch_hang": "stale", "failover": "leader"}
+CHAOS_IN_PROCESS = ("none", "failover")  # 17b's faults, native packing off
+# the seconds kept for phase 17 out of SCRIPT_BUDGET_S: phase 16 has the rest
+CHAOS_RESERVE_S = 60.0
+
+
+def chaos_row(run: dict) -> dict:
+    """The fields of one chaos run that phase 17 checks and prints."""
+    steady = run["steady_decision_latency_ms"]
+    return {
+        "fault": run["fault"], "device": run["device"], "plan_sha256": run["plan_sha256"],
+        "plans_emitted": run["plans_emitted"], "pods_decided": run["pods_decided"],
+        "pods_injected": run["pods_injected"], "pod_errors": run["pod_errors"], "fault_steps": run["fault_steps"],
+        "held_ticks": run["held_ticks"], "stale_plans_emitted": run["stale_plans_emitted"],
+        "single_writer_ok": run["single_writer_ok"], "monotonic_decision_order": run["monotonic_decision_order"],
+        "steady_p50_ms": steady.get("p50"), "steady_p99_ms": steady.get("p99"), "slo_burn": run["slo_burn"],
+        "wall_s": run["wall_s"], "serving_log_faults": run["serving_log_faults"],
+    }
+
+
+def check_chaos_run(label: str, run: dict, clean_sha: str) -> None:
+    """Fail unless one chaos run kept config 15's gates: its plan stream
+    equal to the clean twin's, every pod decided without error, no plan
+    emitted while a guard held, no NodeClaim written while deposed,
+    decisions in tick order, the fault scheduled and, for a holding
+    fault, a tick held; and no fault of the serving logger."""
+    fault = run["fault"]
+    if run["plan_sha256"] != clean_sha:
+        fail(f"{label} {fault}: the plan stream differs from the clean twin's")
+    if run["pods_decided"] != run["pods_injected"] or run["pod_errors"]:
+        fail(f"{label} {fault}: {run['pods_decided']} of {run['pods_injected']} pods decided, "
+             f"{run['pod_errors']} errors")
+    if run["stale_plans_emitted"] != 0:
+        fail(f"{label} {fault}: {run['stale_plans_emitted']} plans emitted while a guard held")
+    if not run["single_writer_ok"]:
+        fail(f"{label} {fault}: a NodeClaim was written while deposed")
+    if not run["monotonic_decision_order"]:
+        fail(f"{label} {fault}: decisions out of tick order")
+    if fault != "none" and not run["fault_steps"]:
+        fail(f"{label} {fault}: no step ran inside the fault window")
+    counter = CONFIG15_HOLDING.get(fault)
+    if counter is not None and run["held_ticks"].get(counter, 0) < 1:
+        fail(f"{label} {fault}: no tick held ({run['held_ticks']})")
+    if run["serving_log_faults"]:
+        fail(f"{label} {fault}: the serving logger reported {run['serving_log_faults'][:5]}")
+
+
+def run_config15_phase(device: str = "cuda", scale: int = CONFIG15_SCALE, seed: int = CONFIG15_SEED,
+                       faults=CONFIG15_FAULTS, workers: int = 4) -> dict:
+    """17a, bench config 15 whole (``bench.py:2460-2530``): ``rollout`` at
+    ``scale``, ``seed``, in lockstep through the pipeline on ``device``
+    under each fault and clean (``--chaos none``), and (on the card) clean
+    on the CPU, each its own ``trafficgen`` process, ``workers`` at a time
+    (plan identity does not depend on timing). Fails unless every run
+    keeps ``check_chaos_run``'s gates against the clean twin and the card's
+    clean twin equals the CPU's. → the runs' rows and the wall seconds."""
+    t0 = time.perf_counter()
+    base = ["--scenario", CONFIG15_SCENARIO, "--scale", scale, "--seed", seed]
+    jobs = {fault: base + ["--chaos", fault, "--device", device] for fault in ("none", *faults)}
+    if device != "cpu":
+        jobs["cpu"] = base + ["--chaos", "none", "--device", "cpu"]
+    runs = trafficgen_all(jobs, workers, phase="17a")
+    clean = runs["none"]["plan_sha256"]
+    rows = {}
+    for key, run in runs.items():
+        check_chaos_run("17a", run, clean)
+        rows[key] = {**chaos_row(run), "process_s": run["process_s"]}
+    return {"runs": rows, "clean_sha256": clean, "card_equals_cpu": device != "cpu",
+            "wall_s": time.perf_counter() - t0}
+
+
+class labeled_harness:
+    """Inside the block, every ``TrafficHarness`` registers its joined
+    nodes with the labels their NodeClaims pin (``label_joined_nodes``),
+    so later ticks place pods on existing nodes (the first-fit); the
+    harness alone labels none the pods select."""
+
+    def __enter__(self):
+        from karpenter_core_tpu_torch.serving import trafficgen as tg
+
+        self.real = real = tg.TrafficHarness
+
+        def harness(*args, **kwargs):
+            h = real(*args, **kwargs)
+            label_joined_nodes(h)
+            return h
+
+        tg.TrafficHarness = harness
+        return self
+
+    def __exit__(self, *exc):
+        from karpenter_core_tpu_torch.serving import trafficgen as tg
+
+        tg.TrafficHarness = self.real
+
+
+def chaos_kernel_run(device: str, fault: str, scale: int, seed: int, labeled: bool) -> dict:
+    """One in-process ``run_chaos`` of config 15 on ``device`` (the
+    joined nodes labeled where ``labeled``, identities restarted) → its
+    row, each kernel's launches by role and the serving logger's
+    faults."""
+    from karpenter_core_tpu_torch.serving import trafficgen as tg
+
+    with same_identities(), labeled_harness() if labeled else contextlib.nullcontext(), \
+            tg._ServingFaults() as faults, launch_roles(all_kernels()) as roles:
+        run = tg.run_chaos(CONFIG15_SCENARIO, fault, scale=scale, seed=seed, device=device)
+        _sync(device)
+    run["serving_log_faults"] = faults.faults
+    return {**chaos_row(run), "launches": roles.counts}
+
+
+def run_chaos_kernels_phase(device: str = "cuda", scale: int = CONFIG15_SCALE, seed: int = CONFIG15_SEED,
+                            clean_sha: Optional[str] = None, faults=CHAOS_IN_PROCESS) -> dict:
+    """17b, the kernels under chaos, ``KARPENTER_TORCH_NATIVE=0`` (the
+    device scans): ``run_chaos`` in this process on ``device`` for each
+    of ``faults``, in config 15's world and in the same world with its
+    joined nodes labeled (``labeled_harness``: config 15's pods select a
+    team label the harness's nodes lack, so only then does a tick reach
+    the existing-node first-fit), and the labeled world clean on the CPU.
+    Fails unless every run keeps ``check_chaos_run``'s gates: config 15's
+    world against ``clean_sha`` (17a's clean twin; None: this phase's
+    own clean run), the labeled world against its own clean run. On the
+    card every compat, FFD and first-fit call is captured and held
+    against its plain version bit for bit, each distinct shape timed, and
+    under the faults compat, the FFD scan and the first-fit must each
+    have launched. → the phase's row."""
+    from karpenter_core_tpu_torch.solver import pack
+    from karpenter_core_tpu_torch.solver import solver as solver_mod
+
+    t0 = time.perf_counter()
+    runs = {}
+    with knobs(KARPENTER_TORCH_NATIVE=0):
+        with capture(solver_mod, "allowed_via_kernel") as compat_cap, \
+                capture(pack, "ffd_pack_batched") as ffd_cap, capture(pack, "pack_existing") as ex_cap:
+            for world, labeled in (("config15", False), ("labeled", True)):
+                for fault in faults:
+                    runs[(world, fault)] = chaos_kernel_run(device, fault, scale, seed, labeled)
+        if device != "cpu":
+            runs[("labeled", "cpu")] = chaos_kernel_run("cpu", "none", scale, seed, True)
+    clean = {"config15": clean_sha or runs[("config15", "none")]["plan_sha256"],
+             "labeled": runs[("labeled", "none")]["plan_sha256"]}
+    for (world, fault), run in runs.items():
+        check_chaos_run(f"17b {world}", run, clean[world])
+    calls = {"compat_allowed": compat_cap.calls, "ffd_pack": ffd_cap.calls, "pack_existing": ex_cap.calls}
+    if not all(calls.values()):
+        fail(f"17b: a kernel of the path was never called: {({k: len(v) for k, v in calls.items()})}")
+    launches = {f"{world}-{fault}": {name: n["tick"] + n["prewarm"] for name, n in run["launches"].items()}
+                for (world, fault), run in runs.items()}
+    cases = {}
+    if device == "cuda":
+        faulted = {name: sum(launches[f"{world}-{fault}"][name] for world in ("config15", "labeled")
+                             for fault in faults if fault != "none")
+                   for name in ("compat_allowed", "ffd_pack", "pack_existing")}
+        missing = [name for name, n in faulted.items() if not n]
+        if missing:
+            fail(f"17b: {missing} never launched under {[f for f in faults if f != 'none']} ({launches})")
+        for kind, kind_calls in calls.items():
+            for call in kind_calls:
+                hold_serving_call(kind, call, "17b")
+        cases["compat_allowed"] = [compat_call_case(c) for c in distinct_compat_calls(calls["compat_allowed"])]
+        cases["ffd_pack"] = [ffd_kernel_case(c) for c in distinct_shapes(calls["ffd_pack"])]
+        cases["pack_existing"] = [existing_kernel_case(c) for c in distinct_shapes(calls["pack_existing"])]
+    return {"runs": {f"{world}-{fault}": {k: v for k, v in run.items() if k != "launches"}
+                     for (world, fault), run in runs.items()},
+            "clean_sha256": clean, "launches": launches, "roles": {f"{world}-{fault}": run["launches"]
+                                                                    for (world, fault), run in runs.items()},
+            "captured_calls": {k: len(v) for k, v in calls.items()}, "cases": cases,
+            "wall_s": time.perf_counter() - t0}
+
+
+def run_chaos_phase(device: str = "cuda", scale: int = CONFIG15_SCALE, seed: int = CONFIG15_SEED,
+                    faults=CONFIG15_FAULTS, workers: int = 4) -> dict:
+    """Phase 17 on ``device``: 17a bench config 15 in ``trafficgen``
+    processes, then 17b the kernels under chaos in this process, held to
+    17a's clean twin. Never cut short. → the phase's row."""
+    t0 = time.perf_counter()
+    config15 = run_config15_phase(device, scale, seed, faults, workers)
+    kernels = run_chaos_kernels_phase(device, scale, seed, config15["clean_sha256"])
+    return {"config15": config15, "kernels": kernels, "wall_s": time.perf_counter() - t0}
+
+
+def report_chaos_phase(chaos: dict, card: str) -> None:
+    """Print phase 17's lines: one per 17a run and per 17b run, 17b's
+    kernel cases, and the phase's summary, each with the card."""
+    for key, row in chaos["config15"]["runs"].items():
+        emit({"phase17_config15": key, **row, "card": card})
+    ck17 = chaos["kernels"]
+    for key, row in ck17["runs"].items():
+        emit({"phase17_kernels": key, **row, "launches_by_role": ck17["roles"][key], "card": card})
+    for name, rows in ck17["cases"].items():
+        for r in rows:
+            emit({"phase17_kernel_case": name, **r, "card": card})
+    emit({"phase17": "chaos-config15", "clean_sha256": chaos["config15"]["clean_sha256"],
+          "card_equals_cpu": chaos["config15"]["card_equals_cpu"], "config15_s": chaos["config15"]["wall_s"],
+          "kernels_s": ck17["wall_s"], "captured_calls": ck17["captured_calls"], "launches": ck17["launches"],
+          "wall_s": chaos["wall_s"], "card": card})
+
+
+def probe_card() -> tuple:
+    """Step 1: the card, or fail. Prints the card's name and power limit
+    as nvidia-smi gives them and the device line. → (torch's device name,
+    the nvidia-smi line, the maximum SM clock in MHz)."""
     import torch
 
-    t_start = time.perf_counter()
-    # 1. device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
     try:
-        from karpenter_core_tpu_torch import native
-        from karpenter_core_tpu_torch.disruption import screen_kernels as sk
-        from karpenter_core_tpu_torch.solver import compat_kernels as ck
-        from karpenter_core_tpu_torch.solver.solver import TorchScheduler
+        import karpenter_core_tpu_torch.disruption.screen_kernels  # noqa: F401
+        import karpenter_core_tpu_torch.solver.solver  # noqa: F401
     except ImportError as e:
         fail(f"run from the repository root: the port does not import ({e})")
     smi = subprocess.run(
@@ -5885,8 +6110,17 @@ def main() -> None:
         fail(f"nvidia-smi gave no maximum SM clock: {clock.stdout!r} {clock.stderr!r}")
     kind = torch.cuda.get_device_name(0)
     emit({"device": kind, "nvidia_smi": card, "max_sm_mhz": sm_mhz, "torch": torch.__version__, "cuda": torch.version.cuda})
+    return kind, card, sm_mhz
 
-    # 2. build, one compiler per source, started together
+
+def build_kernels() -> dict:
+    """Step 2: build every kernel library from the checkout's sources,
+    one compiler per source, started together, and print the build and
+    ptxas lines. → the compat kernel's ptxas usage."""
+    from karpenter_core_tpu_torch import native
+    from karpenter_core_tpu_torch.disruption import screen_kernels as sk
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=6) as pool:
         kernel_build = pool.submit(ck.COMPAT_ALLOWED.build)
@@ -5911,6 +6145,101 @@ def main() -> None:
             line.strip() for line in log.splitlines()
             if "entry function" in line or "registers" in line or "spill" in line
         ]})
+    return usage
+
+
+def report_config7_phase(config7: dict, card: str) -> None:
+    """Print phase 14's lines, each with the card."""
+    emit({"phase14": "config7-ticks", **{k: v for k, v in config7.items() if k not in ("native_off", "kernel_cases")},
+          "card": card})
+    for r in config7["native_off"]:
+        emit({"phase14_native_off_tick": r["tick"], **r, "card": card})
+    for r in config7["kernel_cases"]["compat_allowed"]:
+        emit({"compat_case": "config7-captured", **r, "card": card})
+    for r in config7["kernel_cases"]["ffd_pack"]:
+        emit({"pack_kernel_case": "ffd_pack", "captured": "config7-native-off", **r, "card": card})
+
+
+def report_disruption_phase(disrupt: dict, card: str) -> None:
+    """Print phase 15's lines, each with the card, and fail unless every
+    kernel a phase-15 path runs was launched on it."""
+    c4, c9 = disrupt["config4"], disrupt["config9"]
+    emit({"phase15": "config4-consolidation", **{k: v for k, v in c4.items() if k != "key"},
+          "native_off_kernel_launches": disrupt["config4_native_off"]["kernel_launches"], "card": card})
+    emit({"phase15": "config9-disruption", **{k: v for k, v in c9.items() if k not in ("keys", "steps")},
+          "identical_decisions": len(c9["keys"]), "card": card})
+    for row in c9["steps"]:
+        emit({"phase15_config9_step": row["step"], **row, "card": card})
+    emit({"phase15": "config9-native-off", **{k: v for k, v in disrupt["config9_native_off"].items()
+                                               if k not in ("keys", "steps")}, "card": card})
+    for row in disrupt["config9_native_off"]["steps"]:
+        emit({"phase15_config9_native_off_step": row["step"], **row, "card": card})
+    emit({"phase15": "controller-e2e", **{k: v for k, v in disrupt["controller"].items() if k != "store"},
+          "card": card})
+    for r in disrupt["screen_cases"]:
+        emit({"screen_case": r["entry"], **r, "card": card})
+    emit({"phase15_sections_s": disrupt["sections_s"]})
+    for path, want in (("config4", ("disrupt_screen.prefix", "disrupt_screen.subsets")),
+                       ("config4-native-off", ("disrupt_screen.subsets", "pack_existing")),
+                       ("config9", ("disrupt_screen.prefix", "disrupt_screen.subsets", "disrupt_screen.singles",
+                                    "compat_allowed")),
+                       ("config9-native-off", ("disrupt_screen.subsets", "pack_existing", "compat_allowed")),
+                       ("controller-e2e", ("disrupt_screen.prefix", "disrupt_screen.subsets",
+                                           "disrupt_screen.singles", "compat_allowed"))):
+        missing = [k for k in want if not disrupt["launches"][path][k]]
+        if missing:
+            fail(f"phase 15 {path}: {missing} never launched ({disrupt['launches'][path]})")
+
+
+def report_serving_phase(serving: dict, card: str) -> None:
+    """Print phase 16's lines, each with the card."""
+    sk16 = serving["kernels"]
+    emit({"phase16": "kernels-under-serving", **{k: v for k, v in sk16.items() if k != "cases"}, "card": card})
+    for name, rows in sk16["cases"].items():
+        for r in rows:
+            emit({"phase16_kernel_case": name, **r, "card": card})
+    for name, row in serving["config8"]["scenarios"].items():
+        emit({"phase16_config8": name, **row, "card": card})
+    emit({"phase16": "config8", **{k: v for k, v in serving["config8"].items() if k != "scenarios"},
+          "card": card})
+    for row in serving["config14"]:
+        emit({"phase16_config14_seed": row["seed"], **row, "card": card})
+    emit({"phase16": "config14", "seeds": serving["config14_seeds"], "wall_s": serving["wall_s"],
+          "kernels_s": serving["kernels_s"], "card": card})
+
+
+# the phases ``--phases`` can run alone, after the build: each runs on the
+# card and prints its lines
+SELECTABLE_PHASES = {
+    14: lambda card, sm_mhz: report_config7_phase(run_config7_phase("cuda"), card),
+    15: lambda card, sm_mhz: report_disruption_phase(run_disruption_phase("cuda", sm_mhz=sm_mhz), card),
+    16: lambda card, sm_mhz: report_serving_phase(run_serving_phase("cuda", sm_mhz=sm_mhz), card),
+    17: lambda card, sm_mhz: report_chaos_phase(run_chaos_phase("cuda"), card),
+}
+
+
+def run_phases(phases: list) -> None:
+    """``--phases``: the card and the build as ``main`` has them, then only
+    ``phases`` of ``SELECTABLE_PHASES``, in order. Prints no result line:
+    the contract's last line is ``main``'s."""
+    t_start = time.perf_counter()
+    _, card, sm_mhz = probe_card()
+    build_kernels()
+    for n in phases:
+        SELECTABLE_PHASES[n](card, sm_mhz)
+        emit({"elapsed_s": time.perf_counter() - t_start, "after": f"phase {n}"})
+
+
+def main() -> None:
+    import torch
+
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+    from karpenter_core_tpu_torch.solver.solver import TorchScheduler
+
+    t_start = time.perf_counter()
+    # 1. device; 2. build
+    kind, card, sm_mhz = probe_card()
+    usage = build_kernels()
 
     # 3. kernel vs plain versions on the card
     rng = np.random.RandomState(0)
@@ -6118,47 +6447,14 @@ def main() -> None:
 
     # 14. bench config 7's ticks: the cross-tick warm state on the card
     config7 = run_config7_phase("cuda")
-    emit({"phase14": "config7-ticks", **{k: v for k, v in config7.items() if k not in ("native_off", "kernel_cases")},
-          "card": card})
-    for r in config7["native_off"]:
-        emit({"phase14_native_off_tick": r["tick"], **r, "card": card})
-    for r in config7["kernel_cases"]["compat_allowed"]:
-        emit({"compat_case": "config7-captured", **r, "card": card})
-    for r in config7["kernel_cases"]["ffd_pack"]:
-        cases["ffd_pack"].append({"captured": "config7-native-off", **r})
-        emit({"pack_kernel_case": "ffd_pack", **cases["ffd_pack"][-1], "card": card})
+    report_config7_phase(config7, card)
+    cases["ffd_pack"] += [{"captured": "config7-native-off", **r} for r in config7["kernel_cases"]["ffd_pack"]]
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 14"})
 
     # 15. disruption on the card, the warm state on: bench config 4 and
     # config 9 whole, the controller end to end, every screen shape
     disrupt = run_disruption_phase("cuda", sm_mhz=sm_mhz)
-    c4, c9 = disrupt["config4"], disrupt["config9"]
-    emit({"phase15": "config4-consolidation", **{k: v for k, v in c4.items() if k != "key"},
-          "native_off_kernel_launches": disrupt["config4_native_off"]["kernel_launches"], "card": card})
-    emit({"phase15": "config9-disruption", **{k: v for k, v in c9.items() if k not in ("keys", "steps")},
-          "identical_decisions": len(c9["keys"]), "card": card})
-    for row in c9["steps"]:
-        emit({"phase15_config9_step": row["step"], **row, "card": card})
-    emit({"phase15": "config9-native-off", **{k: v for k, v in disrupt["config9_native_off"].items()
-                                               if k not in ("keys", "steps")}, "card": card})
-    for row in disrupt["config9_native_off"]["steps"]:
-        emit({"phase15_config9_native_off_step": row["step"], **row, "card": card})
-    emit({"phase15": "controller-e2e", **{k: v for k, v in disrupt["controller"].items() if k != "store"},
-          "card": card})
-    for r in disrupt["screen_cases"]:
-        emit({"screen_case": r["entry"], **r, "card": card})
-    emit({"phase15_sections_s": disrupt["sections_s"]})
-    # every kernel a phase-15 path runs was launched on it
-    for path, want in (("config4", ("disrupt_screen.prefix", "disrupt_screen.subsets")),
-                       ("config4-native-off", ("disrupt_screen.subsets", "pack_existing")),
-                       ("config9", ("disrupt_screen.prefix", "disrupt_screen.subsets", "disrupt_screen.singles",
-                                    "compat_allowed")),
-                       ("config9-native-off", ("disrupt_screen.subsets", "pack_existing", "compat_allowed")),
-                       ("controller-e2e", ("disrupt_screen.prefix", "disrupt_screen.subsets",
-                                           "disrupt_screen.singles", "compat_allowed"))):
-        missing = [k for k in want if not disrupt["launches"][path][k]]
-        if missing:
-            fail(f"phase 15 {path}: {missing} never launched ({disrupt['launches'][path]})")
+    report_disruption_phase(disrupt, card)
     for path, n in disrupt["launches"].items():
         pack["launches"][f"phase15-{path}"] = {name: n[name] for name in ("ffd_pack", "pack_existing", "dual_ascent")}
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 15"})
@@ -6166,21 +6462,11 @@ def main() -> None:
     # 16. the serving pipeline on the card: 16c the kernels under serving
     # (native off, a disruption stage), 16a bench config 8 whole, 16b
     # bench config 14 (each measurement its own process)
+    # (phase 17's reserve kept out of the budget: 16b drops a later seed first)
     serving = run_serving_phase("cuda", sm_mhz=sm_mhz, budget_s=min(
-        SERVING_BUDGET_S, SCRIPT_BUDGET_S - (time.perf_counter() - t_start)))
+        SERVING_BUDGET_S, SCRIPT_BUDGET_S - CHAOS_RESERVE_S - (time.perf_counter() - t_start)))
+    report_serving_phase(serving, card)
     sk16 = serving["kernels"]
-    emit({"phase16": "kernels-under-serving", **{k: v for k, v in sk16.items() if k != "cases"}, "card": card})
-    for name, rows in sk16["cases"].items():
-        for r in rows:
-            emit({"phase16_kernel_case": name, **r, "card": card})
-    for name, row in serving["config8"]["scenarios"].items():
-        emit({"phase16_config8": name, **row, "card": card})
-    emit({"phase16": "config8", **{k: v for k, v in serving["config8"].items() if k != "scenarios"},
-          "card": card})
-    for row in serving["config14"]:
-        emit({"phase16_config14_seed": row["seed"], **row, "card": card})
-    emit({"phase16": "config14", "seeds": serving["config14_seeds"], "wall_s": serving["wall_s"],
-          "kernels_s": serving["kernels_s"], "card": card})
     for mode, counts in sk16["launches"].items():
         pack["launches"][f"phase16-{mode}"] = {
             name: counts[name]["tick"] + counts[name]["prewarm"] for name in ("ffd_pack", "pack_existing", "dual_ascent")
@@ -6189,6 +6475,17 @@ def main() -> None:
     cases["pack_existing"] += [{"captured": "phase16", **r} for r in sk16["cases"]["pack_existing"]]
     disrupt["screen_cases"] += sk16["cases"]["disrupt_screen"]
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 16"})
+
+    # 17. the chaos pack on the card: 17a bench config 15 whole (each fault
+    # and the clean twin its own process), 17b the kernels under chaos
+    chaos = run_chaos_phase("cuda")
+    report_chaos_phase(chaos, card)
+    ck17 = chaos["kernels"]
+    for key, counts in ck17["launches"].items():
+        pack["launches"][f"phase17-{key}"] = {name: counts[name] for name in ("ffd_pack", "pack_existing", "dual_ascent")}
+    cases["ffd_pack"] += [{"captured": "phase17", **r} for r in ck17["cases"]["ffd_pack"]]
+    cases["pack_existing"] += [{"captured": "phase17", **r} for r in ck17["cases"]["pack_existing"]]
+    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 17"})
 
     # the kernels line, then the last line
     paths = {
@@ -6206,6 +6503,7 @@ def main() -> None:
         **{f"phase15-{path}": n["compat_allowed"] for path, n in disrupt["launches"].items()},
         **{f"phase16-{mode}-{role}": n["compat_allowed"][role] for mode, n in sk16["launches"].items()
            for role in ("tick", "prewarm")},
+        **{f"phase17-{key}": n["compat_allowed"] for key, n in ck17["launches"].items()},
     }
     for leg, n in config7["launches"].items():
         pack["launches"][f"config7-{leg}"] = {"ffd_pack": n["ffd"], "pack_existing": 0, "dual_ascent": 0}
@@ -6227,7 +6525,7 @@ def main() -> None:
                         [row["max_abs_err"] for row in [
                             slice_row, big_row, *spread_rows, *affinity_rows, *stateful_rows, *relax_rows,
                             *config7_rows, *config7["kernel_cases"]["compat_allowed"],
-                            *sk16["cases"]["compat_allowed"],
+                            *sk16["cases"]["compat_allowed"], *ck17["cases"]["compat_allowed"],
                         ]] + [prov["compat_err"]]
                     ),
                     "ms": slice_row["kernel_ms"],
@@ -6253,6 +6551,7 @@ def main() -> None:
                     "at_config7_paths": [{k: row[k] for k in path_keys} for row in config7_rows],
                     "config7_captured": config7["kernel_cases"]["compat_allowed"],
                     "serving_captured": sk16["cases"]["compat_allowed"],
+                    "chaos_captured": ck17["cases"]["compat_allowed"],
                     "compat_route": slice_row["compat_route"],
                     "ptxas": usage,
                 },
@@ -6270,9 +6569,25 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--log"] and len(sys.argv) == 3:
-        LOG_PATH = sys.argv[2]
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port's paths on one NVIDIA card and hold every kernel "
+                                             "against its plain version.")
+    ap.add_argument("--log", default=None, metavar="PATH", help="append every emitted line to PATH too")
+    ap.add_argument("--phases", default=None, metavar="N[,N...]",
+                    help=f"build the kernels, then run only these phases (of {sorted(SELECTABLE_PHASES)}); "
+                         "no result line")
+    cli = ap.parse_args()
+    if cli.log:
+        LOG_PATH = cli.log
         os.makedirs(os.path.dirname(os.path.abspath(LOG_PATH)), exist_ok=True)
-    elif sys.argv[1:]:
-        fail(f"usage: {sys.argv[0]} [--log PATH]")
-    main()
+    if cli.phases is None:
+        main()
+    else:
+        try:
+            selected = [int(n) for n in cli.phases.split(",")]
+        except ValueError:
+            selected = []
+        if not selected or any(n not in SELECTABLE_PHASES for n in selected):
+            fail(f"--phases takes a comma-separated list of {sorted(SELECTABLE_PHASES)}, not {cli.phases!r}")
+        run_phases(selected)

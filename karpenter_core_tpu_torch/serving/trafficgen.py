@@ -33,9 +33,12 @@ cpu`` for the plain versions). Two drive modes:
   free     — events paced on the wall clock, batches form by window:
              the decision-latency SLO measurement.
 
-The reference's chaos pack (``run_chaos``, ``--chaos``) and fleet
-streaming mode (``run_fleet_measurement``, ``--fleet``) are not ported
-yet: the CLI raises ``NotImplementedError`` for them.
+The chaos pack (``run_chaos``, ``--chaos FAULT``) drives a scenario in
+lockstep through the pipeline with one fault kind injected from a seeded
+schedule (``--chaos none``: the clean twin whose plan hash a faulted
+run's must equal). The reference's fleet streaming mode
+(``run_fleet_measurement``, ``--fleet``) is not ported yet: the CLI
+raises ``NotImplementedError`` for it.
 """
 
 from __future__ import annotations
@@ -1238,6 +1241,211 @@ def run_measurement(
     return out
 
 
+# ---------------------------------------------------------------------------
+# chaos pack: the same lockstep drive, with a deterministic seeded fault
+# schedule (kube/faults.py) applied at step boundaries over the in-memory
+# apiserver. Every fault has a clean twin (fault="none", same
+# scenario/seed) and the gate is plan identity between the two: a faulted
+# run may DELAY decisions (held ticks) and INFLATE latency, but must emit
+# the byte-identical plan stream. Degradation is hold + counter, never a
+# stale or divergent plan.
+
+
+CHAOS_FAULTS = ("watch_flap", "watch_hang", "latency_spike", "failover", "clock_skew")
+
+# kind-specific magnitudes for the harness runs: latency in ms per
+# NodeClaim admission, skew in seconds (one hour — an egregious NTP step)
+_CHAOS_MAGNITUDES = {"latency_spike": 25.0, "clock_skew": 3600.0}
+# the fault kinds whose degradation is a HELD tick, and which hold
+# counter proves it
+_HOLDING_FAULTS = {"watch_flap": "stale", "watch_hang": "stale", "failover": "leader"}
+
+
+def _chaos_config(fault: str) -> PipelineConfig:
+    cfg = PipelineConfig(
+        idle_seconds=0.02, max_seconds=1.0, solve_queue_cap=1, telemetry_queue_cap=1024
+    )
+    if fault == "watch_hang":
+        # the hang fault is detected by AGE, not by an explicit flag: no
+        # watch delivery for > max_staleness_s ⇒ the world is stale
+        cfg.max_staleness_s = 0.25
+    return cfg
+
+
+def run_chaos(
+    scenario_name: str,
+    fault: str = "none",
+    scale: int = 600,
+    seed: Optional[int] = None,
+    teams: Optional[int] = None,
+    quiesce_timeout: float = 120.0,
+    hold_timeout: float = 10.0,
+    device=None,
+) -> dict:
+    """One chaos measurement: drive ``scenario_name`` in lockstep
+    through the serving pipeline with ``fault`` windows injected from a
+    seeded FaultSchedule (``fault="none"`` = the clean twin). Returns
+    the plan hash plus the degradation evidence:
+
+    - ``held_ticks`` — ticks held by the stale-world guard / leader
+      gate (the bounded degradation);
+    - ``stale_plans_emitted`` — plans that appeared WHILE the guard
+      held (must be 0: the no-stale-plan invariant, observed, not
+      assumed);
+    - ``single_writer_ok`` — no NodeClaim landed while deposed
+      (failover windows);
+    - p99 decision latency and flight-recorder SLO burn, with the
+      fault window annotated on every record taken inside it.
+
+    ``device``: the solves' (None: the card).
+    """
+    import hashlib
+
+    from ..kube.faults import FaultSchedule
+    from ..tracing import flightrec
+    from .latency import percentiles_ms
+
+    if fault != "none" and fault not in CHAOS_FAULTS:
+        raise ValueError(f"unknown chaos fault {fault!r} (choices: {CHAOS_FAULTS})")
+    sc = build_scenario(scenario_name, scale=scale, seed=seed)
+    schedule = (
+        FaultSchedule.build(
+            f"chaos-{fault}", sc.seed, (fault,), len(sc.steps),
+            magnitudes=_CHAOS_MAGNITUDES,
+        )
+        if fault != "none"
+        else None
+    )
+    harness = TrafficHarness(teams=teams or sc.teams, device=device)
+    rec = _StreamRecorder(harness)
+    config = _chaos_config(fault)
+    pipe = ServingPipeline(
+        harness.provisioner, metrics=harness.metrics, config=config, on_decision=rec
+    )
+    harness.on_catalog_event = pipe.observe_catalog_event
+    led = {"leading": True}
+    pipe.attach_leader_gate(lambda: led["leading"])
+    harness.warmup()
+    pipe.attach_watch()
+    pipe.hold()
+    pipe.start()
+    held_seen = pipe.held_ticks()
+    stale_plans_emitted = 0
+    writes_while_deposed = 0
+    fault_steps: List[int] = []
+    spike_guard = None
+    skewed_clock = None
+    rr = RunResult(mode="pipeline", scenario=sc.name)
+    t0 = time.perf_counter()
+    try:
+        for i, step in enumerate(sc.steps):
+            ev = schedule.active(i)[0] if schedule and schedule.active(i) else None
+            if ev is not None:
+                fault_steps.append(i)
+                flightrec.set_fault_window(f"chaos_{fault}", fault, "active")
+                if fault == "clock_skew" and skewed_clock is None:
+                    # skew BEFORE injection so this window's object
+                    # stamps carry the jumped wall clock — the plans
+                    # must not care
+                    base = harness.kube.clock
+                    skewed_clock = base
+                    harness.kube.clock = lambda _b=base, _m=ev.magnitude: _b() + _m
+            elif skewed_clock is not None:
+                # window over: the NTP step back (stamps jump backwards)
+                harness.kube.clock = skewed_clock
+                skewed_clock = None
+            harness.inject_step(step, i)
+            plans_before = len(rec.stream)
+            claims_before = len(harness.kube.list("NodeClaim"))
+            if ev is not None:
+                if fault == "watch_flap":
+                    pipe.set_world_stale(True)
+                elif fault == "failover":
+                    led["leading"] = False
+                elif fault == "latency_spike" and spike_guard is None:
+                    delay_s = max(0.0, ev.magnitude) / 1000.0
+
+                    def _slow(obj, _d=delay_s):
+                        if obj.kind == "NodeClaim":
+                            time.sleep(_d)
+
+                    spike_guard = _slow
+                    harness.kube.admission.append(spike_guard)
+                elif fault == "watch_hang":
+                    # no watch delivery past the freshness bound: the
+                    # age check, not an explicit flag, must trip
+                    time.sleep(config.max_staleness_s * 1.6)
+            elif spike_guard is not None:
+                harness.kube.admission.remove(spike_guard)
+                spike_guard = None
+            pipe.release()
+            if ev is not None and fault in _HOLDING_FAULTS:
+                counter = _HOLDING_FAULTS[fault]
+                deadline = time.monotonic() + hold_timeout
+                while (
+                    time.monotonic() < deadline
+                    and pipe.held_ticks()[counter] <= held_seen[counter]
+                ):
+                    time.sleep(0.002)
+                held_now = pipe.held_ticks()
+                if held_now[counter] <= held_seen[counter]:
+                    raise TimeoutError(
+                        f"tick did not hold under {fault} at step {i} of {sc.name}"
+                    )
+                held_seen = held_now
+                # the no-stale-plan invariant, observed: nothing may
+                # have been emitted while the guard held
+                stale_plans_emitted += len(rec.stream) - plans_before
+                writes_while_deposed += (
+                    len(harness.kube.list("NodeClaim")) - claims_before
+                    if fault == "failover"
+                    else 0
+                )
+                flightrec.set_fault_window(f"chaos_{fault}", fault, "recovery")
+                if fault == "watch_flap":
+                    pipe.set_world_stale(False)
+                elif fault == "watch_hang":
+                    pipe.note_world_event()  # the liveness probe returns
+                elif fault == "failover":
+                    led["leading"] = True  # re-elected
+            if not pipe.quiesce(timeout=quiesce_timeout):
+                raise TimeoutError(f"failed to quiesce at step {i} of {sc.name}")
+            pipe.hold()
+            if ev is None:
+                flightrec.clear_fault_window()
+        latency = pipe.latency
+        rr.ticks = pipe.ticks()
+        rr.stage_stats = pipe.debug_state()
+    finally:
+        flightrec.clear_fault_window()
+        pipe.stop()
+    rr = _finalize_result(rr, harness, rec, latency, time.perf_counter() - t0)
+    harness.close()
+    dbg = rr.stage_stats
+    return {
+        "scenario": scenario_name,
+        "fault": fault,
+        "device": str(device or "cuda"),
+        "schedule": schedule.to_dict() if schedule is not None else None,
+        "fault_steps": fault_steps,
+        "steps": len(sc.steps),
+        "pods_injected": sc.total_creates,
+        "ticks": rr.ticks,
+        "pods_decided": rr.pods_decided,
+        "pod_errors": rr.errors,
+        "plans_emitted": len(rr.plan_stream),
+        "plan_sha256": hashlib.sha256(rr.plan_bytes()).hexdigest(),
+        "monotonic_decision_order": monotonic_decision_order(rr),
+        "held_ticks": dbg.get("chaos", {}).get("held_ticks", {}),
+        "stale_plans_emitted": stale_plans_emitted,
+        "single_writer_ok": writes_while_deposed == 0,
+        "decision_latency_ms": percentiles_ms(rr.samples_ms),
+        "steady_decision_latency_ms": percentiles_ms(rr.steady_samples_ms),
+        "slo_burn": dbg.get("flightrec", {}).get("burn_rate", {}),
+        "wall_s": rr.wall_s,
+    }
+
+
 class _ServingFaults(logging.Handler):
     """Collects the serving logger's faults while attached: records at
     ERROR and above (a failed tick, a failed boot prewarm) and the debug
@@ -1313,15 +1521,21 @@ def _cli(argv=None) -> int:
                     help="snapshot/handoff directory (with --restart-kill-at)")
     ap.add_argument("--n-types", type=int, default=480,
                     help="catalog size for the restart phases")
-    ap.add_argument("--chaos", default=None, metavar="FAULT",
-                    help="chaos mode (not ported: raises NotImplementedError)")
+    # chaos pack: one fault kind per run, "none" = clean twin
+    ap.add_argument("--chaos", default=None, choices=("none",) + CHAOS_FAULTS,
+                    help="chaos mode: lockstep-drive --scenario with this "
+                         "fault injected from a seeded schedule ('none' = "
+                         "the clean twin the faulted run's plan hash is "
+                         "gated against)")
     args = ap.parse_args(argv)
-    if args.chaos is not None:
-        raise NotImplementedError("the chaos pack (run_chaos, --chaos) is not ported yet")
-    if args.fleet:
+    if args.fleet and args.chaos is None:
         raise NotImplementedError("the fleet streaming mode (run_fleet_measurement, --fleet) is not ported yet")
     with _ServingFaults() as faults:
-        if args.restart_kill_at or args.restart_resume or args.restart_reference:
+        if args.chaos is not None:
+            out = run_chaos(
+                args.scenario, fault=args.chaos, scale=args.scale, seed=args.seed, device=args.device
+            )
+        elif args.restart_kill_at or args.restart_resume or args.restart_reference:
             if args.restart_resume:
                 out = run_restart_resume(
                     args.restart_resume, restore=not args.cold, device=args.device

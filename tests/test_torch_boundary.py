@@ -18,10 +18,13 @@ on its batched and its greedy path, and a disruption pass (the markers,
 queue), runs in a fresh interpreter under a
 meta-path hook that raises on importing either; so does the serving CLI
 (``python -m karpenter_core_tpu_torch.serving.trafficgen``: a free
-pipeline run, a kill and a warm resume with its boot prewarm). The JAX
-package's environment knobs of that stack, the serving pipeline's, the
-flight recorder's and the boot prewarm's included, are module constants
-of the port with the reference's defaults.
+pipeline run, a kill and a warm resume with its boot prewarm, and a
+chaos run under ``failover``). The JAX package's environment knobs of
+that stack, the serving pipeline's, the flight recorder's, the boot
+prewarm's and the REST adapter's watch backoff included, are module
+constants of the port with the reference's defaults. What the port has
+not taken raises ``NotImplementedError``: the CLI's ``--fleet`` and the
+operator's ``Operator``, ``Options`` and ``SingletonController``.
 """
 
 from __future__ import annotations
@@ -70,6 +73,8 @@ def test_sources_found():
         ("serving", "__init__.py"), ("serving", "queues.py"), ("serving", "latency.py"),
         ("serving", "pipeline.py"), ("serving", "trafficgen.py"), ("tracing", "flightrec.py"),
         ("solver", "stats.py"), ("solver", "prewarm.py"),
+        ("kube", "faults.py"), ("kube", "codec.py"), ("kube", "restclient.py"),
+        ("operator", "__init__.py"), ("operator", "leaderelection.py"),
     ):
         assert os.path.join(PORT_DIR, *module) in srcs
     assert os.path.exists(os.path.join(REPO, "chip_smoke.py"))
@@ -159,6 +164,10 @@ def test_reference_knobs_are_constants():
     assert flightrec.FLIGHTREC_KEEP == 256  # KARPENTER_TPU_FLIGHTREC_KEEP
     assert flightrec.SLO_BREACH_DUMP_MS is None  # KARPENTER_TPU_SLO_BREACH_DUMP_MS
     assert prewarm.PREWARM is True  # KARPENTER_TPU_PREWARM
+    from karpenter_core_tpu_torch.kube import restclient
+
+    assert restclient.WATCH_BACKOFF_BASE_MS == 200.0  # KARPENTER_TPU_WATCH_BACKOFF_BASE_MS
+    assert restclient.WATCH_BACKOFF_MAX_MS == 5000.0  # KARPENTER_TPU_WATCH_BACKOFF_MAX_MS
 
 
 _SCRIPT = r"""
@@ -402,7 +411,8 @@ print(leaked)
 def test_serving_cli_under_import_hook():
     """The serving CLI (harness, pipeline, flight recorder, stats, boot
     prewarm after a restore) in a fresh interpreter under the hook: a
-    free pipeline run, then a kill and a warm resume."""
+    free pipeline run, then a kill and a warm resume, then a chaos run
+    (fault schedule, leader gate, held tick)."""
     import tempfile
 
     base = [sys.executable, "-c", _CLI, "--device", "cpu", "--scale", "40", "--seed", "3"]
@@ -412,13 +422,27 @@ def test_serving_cli_under_import_hook():
             ["--scenario", "churn10x", "--mode", "pipeline", "--drive", "free", "--pace", "0.01"],
             ["--scenario", "restart_wave", "--n-types", "24", "--restart-kill-at", "3", "--workdir", d],
             ["--scenario", "restart_wave", "--restart-resume", os.path.join(d, "handoff.pkl")],
+            ["--scenario", "rollout", "--chaos", "failover", "--scale", "60"],
         ):
             proc = subprocess.run(base + extra, cwd=REPO, capture_output=True, text=True, timeout=300)
             assert proc.returncode == 0, proc.stderr[-3000:]
             lines = proc.stdout.strip().splitlines()
             assert lines[-1] == "[]", lines[-1]
             outs.append(json.loads(lines[-2]))
-    free, kill, warm = outs
+    free, kill, warm, chaos = outs
     assert free["pods_decided"] > 0 and free["orphan_spans"] == 0 and free["serving_log_faults"] == []
     assert kill["snapshot_path"] and warm["restored"] and warm["prewarm"]["status"] == "ok"
+    assert chaos["fault"] == "failover" and chaos["device"] == "cpu" and chaos["serving_log_faults"] == []
+    assert chaos["held_ticks"]["leader"] >= 1 and chaos["single_writer_ok"] and chaos["stale_plans_emitted"] == 0
+
+
+def test_unported_features_raise():
+    from karpenter_core_tpu_torch import operator
+    from karpenter_core_tpu_torch.serving import trafficgen
+
+    with pytest.raises(NotImplementedError, match="fleet"):
+        trafficgen._cli(["--scenario", "rollout", "--fleet", "2", "--device", "cpu"])
+    for name in ("Operator", "Options", "SingletonController"):
+        with pytest.raises(NotImplementedError, match=name):
+            getattr(operator, name)
 

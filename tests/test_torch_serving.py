@@ -239,11 +239,15 @@ def test_queue_caps_are_constants(monkeypatch):
     assert PipelineConfig().solve_queue_cap == 3
 
 
-def test_cli_refuses_the_slices_not_ported():
+def test_cli_refuses_the_slices_not_ported(capsys):
+    """``--fleet`` raises; ``--chaos`` is ported and runs."""
+    import json
+
     from karpenter_core_tpu_torch.serving import trafficgen as tg
 
-    with pytest.raises(NotImplementedError, match="chaos"):
-        tg._cli(["--scenario", "rollout", "--chaos", "watch_flap", "--device", "cpu"])
+    assert tg._cli(["--scenario", "rollout", "--chaos", "watch_flap", "--scale", "20", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["fault"] == "watch_flap" and out["held_ticks"]["stale"] >= 1 and out["serving_log_faults"] == []
     with pytest.raises(NotImplementedError, match="fleet"):
         tg._cli(["--scenario", "rollout", "--fleet", "2", "--device", "cpu"])
 
