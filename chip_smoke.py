@@ -263,17 +263,44 @@ Phases, in order; any failure exits non-zero:
    run); compat, the FFD scan and the first-fit launched under the
    fault, every captured call held to its plain version bit for bit,
    each distinct shape timed.
+18. The operator (``run_operator_phase``), never cut short. 18a, bench
+   config 2 whole (``bench.py:421-466``: 10,000 pods, 480 + 20 GPU
+   types) under one ``Operator`` through ``reconcile_all_once`` on a
+   stepped clock, admission on, a ``default`` pool and a tainted ``gpu``
+   pool with a startup taint, a PDB over a tenth of the pods, the
+   script's kubelet joining claims, removing startup taints, binding
+   nominated pods and recreating evicted ones (``OperatorWorld``):
+   provisioning, launch through the ``MetricsDecorator``, registration
+   and initialization; a drifted gpu pool (an instance type excluded)
+   and its replacement; a 60 % scale-down, consolidation (B8) and
+   drains through the ``EvictionQueue``; an instance dropped from the
+   provider and its claim collected; an orphaned node lease collected;
+   disruption frozen and the last pods bound. With
+   ``KARPENTER_TORCH_NATIVE=0`` on the card, then on the CPU (the plain
+   versions; the C++ packer's plans differ from the scans' at this
+   size): the store (claims, nodes, taints, bindings, leases, events,
+   the nodeclaims/nodes/pods/disruption metric samples) equal after
+   every pass, every pod bound once, no node over its allocatable, no
+   PDB breach, all 14 controllers reconciled every pass with no error,
+   ``/metrics`` well formed; every compat, FFD, first-fit and screen call
+   held to its plain version bit for bit, each distinct shape timed.
+   18b, ``Operator(...).start()`` with leader election, ephemeral ports
+   and the serving pipeline in bench config 8's ``rollout`` world at
+   scale 400 beside a follower on the same store: every route after the
+   first decision, ``/debug/device`` 501, the follower writes nothing, a
+   stop and a start that leads, decides and reconciles again, no
+   orphaned span.
 
 Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
 shapes of phases 8–11 too, the three pack kernels and the disruption
-screens; launches by path, phase 13's to 17's legs included),
+screens; launches by path, phase 13's to 18's legs included),
 and the last line ``{"ok": true, "device": {...}}``.
 The profiled warm solves of phases 4–11 report device times only from
 traces that hold every kernel launch of the solve (``profile_solve``).
 
 Run from the repository root: ``python3 chip_smoke.py`` (``--log PATH``
 appends every JSON line to PATH as well). ``--phases 16,17`` builds the
-kernels as step 2 does, then runs only the named phases (of 14–17) and
+kernels as step 2 does, then runs only the named phases (of 14–18) and
 prints no result line.
 """
 
@@ -6079,6 +6106,734 @@ def report_chaos_phase(chaos: dict, card: str) -> None:
           "wall_s": chaos["wall_s"], "card": card})
 
 
+# -- phase 18: the operator -------------------------------------------------------
+
+PORT_PACKAGE = "karpenter_core_tpu_torch"
+# the stepped clock of 18a starts at the wall clock's second and moves
+# this far each pass (and consolidation's validation wait, 15 s, when a
+# command is validated): past the nomination window (20 s) and the GC
+# grace (10 s). Objects and conditions are stamped with the wall clock
+# while the TTLs read the stepped one (ROADMAP C13), so the whole run
+# stays less than the registration TTL (15 min) ahead of the wall clock's
+# start: a claim is never collected as unregistered in the pass that
+# creates it. Each stage's cap bounds the run's steps
+OPERATOR_STEP_S = 21.0
+OPERATOR_PASS_CAP = 6  # a stage's passes: until one changes nothing in the store, at most this many
+OPERATOR_SCALE_DOWN = 0.6  # 18a's scale-down: this share of the pods deleted, seeded
+OPERATOR_GPU_TYPES = 20  # bench config 2's GPU types (fake-gpu-0 .. 19)
+OPERATOR_GPU_TAINT = ("nvidia.com/gpu", "true", "NoSchedule")  # the gpu pool's taint, which GPU pods tolerate
+OPERATOR_STARTUP_TAINT = ("example.com/gpu-driver", "installing", "NoSchedule")  # removed once registered
+OPERATOR_CONTROLLERS = 14
+OPERATOR_METRIC_PREFIXES = ("karpenter_nodeclaims_", "karpenter_nodes_", "karpenter_pods_", "karpenter_disruption_")
+OPERATOR_SERVED_SCALE = 400  # 18b: bench config 8's rollout at its scale
+# phase 18's share of SCRIPT_BUDGET_S, kept out of phase 16's budget (16b
+# drops a later config-14 seed first)
+OPERATOR_RESERVE_S = 150.0
+
+
+def port_module(name: str):
+    """``name`` of the port's package (``kube.client``, ...)."""
+    import importlib
+
+    return importlib.import_module(f"{PORT_PACKAGE}.{name}")
+
+
+class operator_identities(same_identities):
+    """``same_identities``, with uids whose first 16 hex digits differ too:
+    the fake provider names instances by ``uuid4().hex[:16]``, which the
+    plain counter leaves at zeros."""
+
+    def __enter__(self):
+        import itertools
+        import uuid
+
+        super().__enter__()
+        ids = itertools.count(1)
+        uuid.uuid4 = lambda: (lambda n: uuid.UUID(int=(n << 64) | n))(next(ids))
+        return self
+
+
+def operator_metric_samples(text: str, prefixes=OPERATOR_METRIC_PREFIXES) -> list:
+    """The samples of an exposition whose family starts with one of
+    ``prefixes``, as (name with labels, value); histograms by their
+    ``_count`` samples only (durations are the wall clock's)."""
+    histograms = {line.split()[2] for line in text.splitlines()
+                  if line.startswith("# TYPE ") and line.split()[3] == "histogram"}
+    out = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        sample, value = line.rsplit(" ", 1)
+        name = sample.split("{", 1)[0]
+        if not name.startswith(prefixes):
+            continue
+        family = next((h for h in histograms if name.startswith(h + "_")), None)
+        if family is not None and name != family + "_count":
+            continue
+        out.append((sample, float(value)))
+    return sorted(out)
+
+
+def store_state(kube, recorder, metrics_text: str) -> dict:
+    """A store by content: claims (conditions, labels, requirements,
+    taints, finalizers, provider ids), nodes (labels, taints, finalizers),
+    pod bindings, leases, the recorder's events in order and the metric
+    samples of ``OPERATOR_METRIC_PREFIXES`` in ``metrics_text``. Time
+    stamps are left out; the classes are read by field, so any package's
+    store reads alike."""
+
+    def meta(o):
+        return (o.metadata.name, sorted(o.metadata.labels.items()), sorted(o.metadata.finalizers),
+                o.metadata.deletion_timestamp is not None)
+
+    def taints(ts):
+        return sorted((t.key, t.value, t.effect) for t in ts)
+
+    return {
+        "claims": sorted(
+            (*meta(c), sorted((x.type, x.status, x.reason, x.message) for x in c.status.conditions),
+             c.status.provider_id, c.status.node_name,
+             sorted((r.key, r.operator, tuple(r.values)) for r in c.spec.requirements),
+             taints(list(c.spec.taints) + list(c.spec.startup_taints)))
+            for c in kube.list("NodeClaim")),
+        "nodes": sorted((*meta(n), n.spec.provider_id, taints(n.spec.taints)) for n in kube.list("Node")),
+        "pods": sorted((p.namespace, p.metadata.name, p.spec.node_name, p.status.phase,
+                        p.metadata.deletion_timestamp is not None) for p in kube.list("Pod")),
+        "leases": sorted((l.namespace, l.metadata.name) for l in kube.list("Lease")),
+        "events": [(e.type, e.reason, e.message, type(e.involved_object).__name__,
+                    getattr(e.involved_object, "name", "")) for e in recorder.events],
+        "metrics": operator_metric_samples(metrics_text),
+    }
+
+
+class OperatorKubelet:
+    """18a's kubelet and ReplicaSet, the script's own: after each pass it
+    joins a Ready node (and its node lease) for every launched claim that
+    has none, removes a claim's startup taints from its node once the node
+    is registered, binds each pending pod to the node of its latest
+    nomination (a claim's node once joined, Ready and free of taints the
+    pod does not tolerate, or an existing node that still stands), and
+    recreates every evicted pod, pending, under a new name."""
+
+    def __init__(self, world):
+        self.w = world
+        self.seen = 0  # events read so far (the recorder's ring never rolls over here)
+        self.nominated: dict = {}
+        self.recreated = 0
+        self.bound = 0
+
+    def sync(self) -> None:
+        w = self.w
+        kube, wk, ob = w.kube, w.wk, w.ob
+        claims = sorted(kube.list("NodeClaim"), key=lambda c: c.metadata.name)
+        nodes_by_pid = {n.spec.provider_id: n for n in kube.list("Node") if n.spec.provider_id}
+        for nc in claims:
+            pid = nc.status.provider_id
+            if nc.metadata.deletion_timestamp is not None or not pid or pid in nodes_by_pid:
+                continue
+            if not nc.status_condition_is_true(w.nc_mod.COND_LAUNCHED):
+                continue
+            node = ob.Node()
+            node.metadata.name = f"node-{nc.metadata.name}"
+            node.metadata.labels = {**nc.metadata.labels, wk.LABEL_HOSTNAME: node.metadata.name}
+            node.spec.provider_id = pid
+            node.spec.taints = [ob.Taint(key=t.key, value=t.value, effect=t.effect)
+                                for t in list(nc.spec.taints) + list(nc.spec.startup_taints)]
+            node.status.capacity = dict(nc.status.capacity)
+            node.status.allocatable = dict(nc.status.allocatable)
+            node.status.conditions = [ob.Condition(type="Ready", status="True")]
+            kube.create(node)
+            lease = ob.Lease()
+            lease.metadata.name = node.metadata.name
+            lease.metadata.namespace = "kube-node-lease"
+            lease.metadata.owner_references = [ob.OwnerReference(kind="Node", name=node.metadata.name)]
+            kube.create(lease)
+            nodes_by_pid[pid] = node
+        for nc in claims:
+            node = nodes_by_pid.get(nc.status.provider_id)
+            if node is None or not nc.spec.startup_taints:
+                continue
+            if node.metadata.labels.get(wk.NODE_REGISTERED_LABEL_KEY) != "true":
+                continue
+            keep = [t for t in node.spec.taints if not any(t.match(s) for s in nc.spec.startup_taints)]
+            if len(keep) != len(node.spec.taints):
+                node.spec.taints = keep
+                kube.apply(node)
+        events = w.op.recorder.events
+        evicted = []
+        for e in events[self.seen:]:
+            if e.reason == "Nominated":
+                self.nominated[(e.involved_object.namespace, e.involved_object.name)] = e.message.split(": ", 1)[1]
+            elif e.reason == "Evicted":
+                evicted.append(e.involved_object)
+        self.seen = len(events)
+        claim_nodes = {nc.metadata.name: nodes_by_pid.get(nc.status.provider_id) for nc in claims}
+        nodes = {n.metadata.name: n for n in kube.list("Node")}
+        taints_mod = w.imp("scheduling.taints")
+        for pod in sorted(kube.list("Pod"), key=lambda p: (p.namespace, p.name)):
+            if pod.spec.node_name or pod.metadata.deletion_timestamp is not None:
+                continue
+            target = self.nominated.get((pod.namespace, pod.name))
+            node = nodes.get(target) or claim_nodes.get(target)
+            if node is None or node.metadata.deletion_timestamp is not None:
+                continue
+            if not any(c.type == "Ready" and c.status == "True" for c in node.status.conditions):
+                continue
+            if taints_mod.Taints(node.spec.taints).tolerates(pod) is not None:
+                continue
+            pod.spec.node_name = node.metadata.name
+            pod.status.phase = "Running"
+            pod.status.conditions = []
+            kube.apply(pod)
+            self.bound += 1
+        for pod in evicted:
+            self.recreated += 1
+            stem = pod.metadata.name.split("-r", 1)[0]
+            w.create_pod(f"{stem}-r{self.recreated}", pod.spec, dict(pod.metadata.labels))
+
+
+class OperatorWorld:
+    """Bench config 2 whole (``bench.py:421-466``: ``instance_types(480)``
+    plus its 20 GPU types, ``n_pods`` pods of RandomState(``seed``) sizes,
+    one in ten asking one GPU) under one ``Operator`` on ``device``, its
+    clock stepped ``OPERATOR_STEP_S`` a pass from the wall clock's second
+    at the start, admission on, election off, the parity shadow off. Two
+    pools: ``default`` (WhenUnderutilized, no GPU type) and ``gpu`` (the
+    GPU types, weight 10, a taint the GPU pods tolerate and a startup
+    taint the kubelet removes); one PDB over every tenth pod (``maxUnavailable``:
+    a twentieth of them). ``imp`` resolves the package's modules and
+    ``make_operator(provider, kube, options, clock, validation_sleep)``
+    builds the operator (None: the port's on ``device``), so the same
+    world runs on another package."""
+
+    def __init__(self, device, n_pods: int = N_CONFIG2, n_types: int = 480, seed: int = CONFIG2_SEED,
+                 imp=port_module, make_operator=None, keep_states: bool = True):
+        self.imp = imp
+        self.keep_states = keep_states
+        wk, ob = imp("apis.labels"), imp("kube.objects")
+        self.wk, self.ob, self.nc_mod = wk, ob, imp("apis.nodeclaim")
+        q = imp("kube.quantity").parse_quantity
+        fake, npm, opm = imp("cloudprovider.fake"), imp("apis.nodepool"), imp("operator")
+        rng = np.random.RandomState(seed)
+        provider = self.provider = fake.FakeCloudProvider()
+        catalog = fake.instance_types(n_types)
+        gpu_names = [f"fake-gpu-{g}" for g in range(OPERATOR_GPU_TYPES)]
+        for g, name in enumerate(gpu_names):
+            catalog.append(fake.new_instance_type(name, {
+                "cpu": str(8 * (g + 1)), "memory": f"{16 * (g + 1)}Gi", "pods": "110",
+                "nvidia.com/gpu": str(min(8, g + 1))}))
+        provider.instance_types = catalog
+        provider.drifted = ""  # drift comes from the pools alone
+        self.start = float(int(time.time()))
+        self.now = [self.start]
+        clock = lambda: self.now[0]  # noqa: E731
+        self.kube = imp("kube.client").KubeClient(clock=clock)
+        options = opm.Options(enable_leader_election=False, metrics_port=0, health_probe_port=0,
+                              use_tpu_solver=True)
+        if make_operator is None:
+            self.op = opm.Operator(provider, kube_client=self.kube, options=options, clock=clock, device=device,
+                                   validation_sleep=self.advance)
+        else:
+            self.op = make_operator(provider, self.kube, options, clock, self.advance)
+        self.op.recorder.capacity = 1 << 40
+        self.op.provisioner.PARITY_SAMPLE_EVERY = 0
+        default = npm.NodePool()
+        default.metadata.name = "default"
+        default.spec.template.requirements = [ob.NodeSelectorRequirement(wk.LABEL_INSTANCE_TYPE, "NotIn", gpu_names)]
+        gpu = npm.NodePool()
+        gpu.metadata.name = "gpu"
+        gpu.spec.template.requirements = [ob.NodeSelectorRequirement(wk.LABEL_INSTANCE_TYPE, "In", gpu_names)]
+        gpu.spec.template.taints = [ob.Taint(*OPERATOR_GPU_TAINT)]
+        gpu.spec.template.startup_taints = [ob.Taint(*OPERATOR_STARTUP_TAINT)]
+        gpu.spec.weight = 10  # tried first: the pods that do not tolerate its taint go on to default
+        for pool in (default, gpu):
+            self.kube.create(pool)
+        self.guarded = 0
+        for i in range(n_pods):
+            cpu = ["100m", "250m", "500m", "1", "2", "4"][rng.randint(6)]
+            mem = ["128Mi", "512Mi", "1Gi", "2Gi", "4Gi"][rng.randint(5)]
+            spec = ob.PodSpec(containers=[ob.Container(name="main", resources=ob.ResourceRequirements(
+                requests={"cpu": q(cpu), "memory": q(mem)}))])
+            if rng.rand() < 0.1:
+                spec.containers[0].resources.requests["nvidia.com/gpu"] = q("1")
+                spec.tolerations = [ob.Toleration(key=OPERATOR_GPU_TAINT[0], operator="Exists")]
+            labels = {"app": "guarded" if i % 10 == 0 else "bench"}
+            self.guarded += i % 10 == 0
+            self.create_pod(f"bench-{i}", spec, labels)
+        self.pdb = ob.PodDisruptionBudget(selector=ob.LabelSelector(match_labels={"app": "guarded"}),
+                                          max_unavailable=max(1, self.guarded // 20))
+        self.pdb.metadata.name = "guarded"
+        self.pdb.metadata.namespace = "default"
+        self.kube.create(self.pdb)
+        self.kubelet = OperatorKubelet(self)
+        self.passes: list = []  # per pass: stage, wall ms, the store's digest (and state, if kept)
+        self.last_state: Optional[dict] = None
+        # the PDB's ledger: guarded pods seen, deleted by the scale-down,
+        # evicted (admitted, refused, admitted with no budget left)
+        self.guarded_seen = {p.metadata.name for p in self.kube.list("Pod")
+                             if p.metadata.labels.get("app") == "guarded"}
+        self.scaled_names: set = set()
+        self.pdb_ledger = {"admitted": 0, "refused": 0, "over_budget": 0, "unexplained": []}
+        self.evicted_names: set = set()
+        queue = self.op.eviction_queue
+        evict = queue.evict
+        allowed = imp("lifecycle.node_termination").pdb_disruptions_allowed
+
+        def guarded_evict(pod):
+            guarded = pod.metadata.labels.get("app") == "guarded"
+            before = allowed(self.kube, self.pdb) if guarded else None
+            admitted = evict(pod)
+            if guarded:
+                self.pdb_ledger["admitted" if admitted else "refused"] += 1
+                self.pdb_ledger["over_budget"] += admitted and before <= 0
+            if admitted:
+                self.evicted_names.add(pod.metadata.name)
+            return admitted
+
+        queue.evict = guarded_evict
+
+    def advance(self, seconds: float) -> None:
+        """Consolidation's validation wait: the clock moves, nothing sleeps."""
+        self.now[0] += seconds
+
+    def create_pod(self, name: str, spec, labels: dict) -> None:
+        ob = self.ob
+        pod = ob.Pod()
+        pod.metadata.name = name
+        pod.metadata.namespace = "default"
+        pod.metadata.labels = labels
+        pod.spec = copy.deepcopy(spec)
+        pod.spec.node_name = ""
+        pod.status.phase = "Pending"
+        pod.status.conditions = [ob.PodCondition(type="PodScheduled", status="False", reason="Unschedulable")]
+        self.kube.create(pod)
+
+    def state(self) -> dict:
+        return store_state(self.kube, self.op.recorder, self.op.metrics_text())
+
+    def check_pdb(self) -> None:
+        """The PDB's ledger after a pass: every guarded pod that went was
+        deleted by the scale-down or evicted through the queue, and no
+        eviction was admitted with no disruption left in the budget."""
+        now = {p.metadata.name for p in self.kube.list("Pod") if p.metadata.labels.get("app") == "guarded"}
+        gone = self.guarded_seen - now - self.scaled_names - self.evicted_names
+        self.pdb_ledger["unexplained"] += sorted(gone)
+        self.guarded_seen = now
+
+    def one_pass(self, stage: str) -> dict:
+        """``reconcile_all_once``, the kubelet, the clock's step → the
+        store's state after it (recorded with its wall ms)."""
+        t0 = time.perf_counter()
+        self.op.reconcile_all_once()
+        self.kubelet.sync()
+        wall_ms = (time.perf_counter() - t0) * 1000.0
+        self.now[0] += OPERATOR_STEP_S
+        self.check_pdb()
+        state = self.last_state = self.state()
+        self.passes.append({"stage": stage, "wall_ms": wall_ms, "digest": state_digest(state),
+                            "state": state if self.keep_states else None})
+        return state
+
+    def settle(self, stage: str, cap: int = OPERATOR_PASS_CAP, least: int = 1) -> int:
+        """Passes until one leaves claims, nodes and pods as they were (at
+        least ``least``, at most ``cap``) → the passes run."""
+        before = None
+        for k in range(cap):
+            state = self.one_pass(stage)
+            now = (state["claims"], state["nodes"], state["pods"])
+            if k + 1 >= least and now == before:
+                return k + 1
+            before = now
+        return cap
+
+    def drift_pool(self) -> str:
+        """Drift the ``gpu`` pool's template: exclude the GPU type that the
+        fewest of its live claims run (at least one), so those claims drift
+        on their requirements. → the excluded type."""
+        wk, ob = self.wk, self.ob
+        counts: dict = {}
+        for nc in self.kube.list("NodeClaim"):
+            if nc.metadata.labels.get(wk.NODEPOOL_LABEL_KEY) == "gpu" and nc.metadata.deletion_timestamp is None:
+                it = nc.metadata.labels.get(wk.LABEL_INSTANCE_TYPE)
+                if it:
+                    counts[it] = counts.get(it, 0) + 1
+        if not counts:
+            fail("18a: the gpu pool launched no claim to drift")
+        excluded = min(sorted(counts), key=lambda it: counts[it])
+        pool = self.kube.get("NodePool", "gpu")
+        pool.spec.template.requirements = list(pool.spec.template.requirements) + [
+            ob.NodeSelectorRequirement(wk.LABEL_INSTANCE_TYPE, "NotIn", [excluded])]
+        self.kube.update(pool)
+        return excluded
+
+    def scale_down(self, seed: int) -> int:
+        """Delete ``OPERATOR_SCALE_DOWN`` of the pods, chosen by
+        RandomState(``seed``) → how many."""
+        pods = sorted(self.kube.list("Pod"), key=lambda p: (p.namespace, p.metadata.name))
+        rng = np.random.RandomState(seed)
+        gone = rng.choice(len(pods), int(len(pods) * OPERATOR_SCALE_DOWN), replace=False)
+        for i in sorted(gone):
+            self.scaled_names.add(pods[i].metadata.name)
+            self.kube.delete(pods[i])
+        return len(gone)
+
+    def drop_instance(self) -> str:
+        """Drop the instance of the first initialized claim from the
+        provider behind the store's back → its provider id."""
+        for nc in sorted(self.kube.list("NodeClaim"), key=lambda c: c.metadata.name):
+            if nc.metadata.deletion_timestamp is None and nc.status_condition_is_true(self.nc_mod.COND_INITIALIZED):
+                del self.provider.created_node_claims[nc.status.provider_id]
+                return nc.status.provider_id
+        fail("18a: no initialized claim to drop")
+
+    def freeze_disruption(self) -> None:
+        """Every pool's disruption budget to zero nodes: what is in flight
+        finishes, nothing new is disrupted."""
+        budget = self.imp("apis.nodepool").Budget
+        for pool in sorted(self.kube.list("NodePool"), key=lambda p: p.metadata.name):
+            pool.spec.disruption.budgets = [budget(nodes="0")]
+            self.kube.update(pool)
+
+    def orphan_lease(self) -> None:
+        lease = self.ob.Lease()
+        lease.metadata.name = "orphaned-node-lease"
+        lease.metadata.namespace = "kube-node-lease"
+        self.kube.create(lease)
+
+
+def run_operator_world(device, n_pods: int = N_CONFIG2, n_types: int = 480, seed: int = CONFIG2_SEED,
+                       imp=port_module, make_operator=None, cap: int = OPERATOR_PASS_CAP,
+                       keep_states: bool = True) -> "OperatorWorld":
+    """18a's sequence on one world: provision (the compat kernel), launch
+    through the ``MetricsDecorator``, join, register and initialize; drift
+    the gpu pool (replacement); scale down by ``OPERATOR_SCALE_DOWN`` and
+    consolidate (B8's screens, replacements); terminate (taint, drain
+    through the ``EvictionQueue`` under the PDB, delete; evicted pods
+    pending again and placed on nodes that still stand); drop an instance
+    (garbage collection); consistency and lease GC; then every pool's
+    budget to zero and the last evicted pods placed. Each stage's passes
+    run until one changes nothing, at most ``cap``. → the world."""
+    with operator_identities():
+        w = OperatorWorld(device, n_pods, n_types, seed, imp, make_operator, keep_states)
+        stages = {}
+        stages["provision"] = w.settle("provision", cap, least=3)
+        launched = len(w.kube.list("NodeClaim"))
+        w.excluded = w.drift_pool()
+        stages["drift"] = w.settle("drift", cap, least=2)
+        w.scaled_down = w.scale_down(seed + 1)
+        stages["consolidate"] = w.settle("consolidate", cap + 2, least=2)
+        w.dropped = w.drop_instance()
+        stages["gc"] = w.settle("gc", cap - 2, least=2)
+        w.orphan_lease()
+        stages["lease_gc"] = w.settle("lease_gc", 2, least=1)
+        # the end: disruption frozen, the evicted pods placed and bound
+        w.freeze_disruption()
+        stages["settle"] = w.settle("settle", cap, least=2)
+        w.op.stop()
+    w.stages, w.launched_first = stages, launched
+    return w
+
+
+def state_digest(state: dict) -> dict:
+    """A digest of each part of a store's state."""
+    return {k: hashlib.sha256(repr(v).encode()).hexdigest()[:16] for k, v in state.items()}
+
+
+def operator_stream_digest(passes: list) -> list:
+    """Per pass: the stage and the digest of each part of the state."""
+    return [(p["stage"], p["digest"]) for p in passes]
+
+
+def check_operator_world(w, label: str) -> dict:
+    """18a's gates on one run: every pod bound exactly once to a node that
+    stands, no node over its allocatable, the PDB never breached, every
+    controller reconciled with no error, ``/metrics`` well formed, the
+    drift, consolidation, termination, GC and lease GC happened. → the
+    run's counts."""
+    resources = w.imp("scheduling.resources")
+    textcheck = w.imp("metrics").check_exposition
+    kube, wk = w.kube, w.wk
+    nodes = {n.metadata.name: n for n in kube.list("Node") if n.metadata.deletion_timestamp is None}
+    used: dict = {}
+    unbound = [p.metadata.name for p in kube.list("Pod") if p.spec.node_name not in nodes]
+    if unbound:
+        fail(f"18a {label}: {len(unbound)} pods end unbound or on a gone node, {unbound[:3]}, "
+             f"after stages {w.stages}")
+    for pod in kube.list("Pod"):
+        used[pod.spec.node_name] = resources.merge(used.get(pod.spec.node_name, {}),
+                                                   resources.requests_for_pods(pod))
+    for name, req in used.items():
+        if not resources.fits(req, nodes[name].status.allocatable):
+            fail(f"18a {label}: node {name} is over its allocatable")
+    if w.pdb_ledger["over_budget"] or w.pdb_ledger["unexplained"]:
+        fail(f"18a {label}: the PDB was breached: {w.pdb_ledger}")
+    ttl = w.imp("lifecycle.nodeclaim_lifecycle").REGISTRATION_TTL
+    if w.now[0] - w.start >= ttl:
+        fail(f"18a {label}: the stepped clock ran {w.now[0] - w.start} s ahead, past the registration TTL")
+    m = w.op.metrics
+    errors = {dict(k).get("controller"): v for k, v in m.reconcile_errors.values.items() if v}
+    if errors:
+        fail(f"18a {label}: reconcile errors {errors}")
+    per_controller = {dict(k)["controller"]: (m.reconcile_duration.totals[k], m.reconcile_duration.sums[k] * 1000.0)
+                      for k in m.reconcile_duration.totals}
+    if len(per_controller) != OPERATOR_CONTROLLERS or any(n != len(w.passes) for n, _ in per_controller.values()):
+        fail(f"18a {label}: not every controller reconciled every pass: "
+             f"{ {c: n for c, (n, _) in per_controller.items()} } over {len(w.passes)} passes")
+    problems = textcheck(w.op.metrics_text())
+    if problems:
+        fail(f"18a {label}: /metrics is malformed: {problems[:3]}")
+    reasons = [e.reason for e in w.op.recorder.events]
+    terminated = {dict(k).get("reason"): v for k, v in m.nodeclaims_terminated.values.items()}
+    counts = {
+        "passes": len(w.passes), "stages": w.stages, "clock_s": w.now[0] - w.start,
+        "pods_end": len(kube.list("Pod")),
+        "claims_launched": int(sum(m.nodeclaims_launched.values.values())),
+        "claims_after_provision": w.launched_first,
+        "drift_commands": int(sum(v for k, v in m.nodeclaims_disrupted.values.items()
+                                  if dict(k).get("method") == "drift")),
+        "consolidation_commands": int(sum(v for k, v in m.nodeclaims_disrupted.values.items()
+                                          if dict(k).get("method") == "consolidation")),
+        "claims_consolidated": int(sum(int(dict(k).get("count", 1)) * v for k, v in m.nodeclaims_disrupted.values.items()
+                                       if dict(k).get("method") == "consolidation")),
+        "claims_terminated": terminated, "nodes_terminated": int(sum(m.nodes_terminated.values.values())),
+        "pods_bound": w.kubelet.bound, "pods_evicted": reasons.count("Evicted"), "pods_recreated": w.kubelet.recreated,
+        "scaled_down": w.scaled_down, "excluded_type": w.excluded,
+        "pdb": {k: v for k, v in w.pdb_ledger.items() if k != "unexplained"},
+        "pdb_max_unavailable": w.pdb.max_unavailable,
+        "pass_wall_ms": [round(p["wall_ms"], 3) for p in w.passes],
+        "controller_ms": {c: round(ms, 3) for c, (_, ms) in sorted(per_controller.items())},
+    }
+    if not counts["drift_commands"]:
+        fail(f"18a {label}: no claim was replaced for drift ({counts})")
+    if not counts["consolidation_commands"]:
+        fail(f"18a {label}: no claim was consolidated ({counts})")
+    if not counts["pods_evicted"] or not counts["nodes_terminated"]:
+        fail(f"18a {label}: no drain evicted a pod or deleted a node ({counts})")
+    if not terminated.get("deleted"):
+        fail(f"18a {label}: no NodeClaim terminated ({counts})")
+    if any(name == "orphaned-node-lease" for _, name in w.last_state["leases"]):
+        fail(f"18a {label}: the orphaned node lease was not collected")
+    if any(nc.status.provider_id == w.dropped for nc in kube.list("NodeClaim")):
+        fail(f"18a {label}: the claim whose instance was dropped was not collected")
+    return counts
+
+
+def _http_get(port: int, path: str) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read().decode()
+
+
+def _until(predicate, timeout: float, step: float = 0.05) -> bool:
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        if predicate():
+            return True
+        time.sleep(step)
+    return predicate()
+
+
+OPERATOR_ROUTES = ("/debug/decisions", "/debug/decisions/last", "/debug/solve/stats", "/debug/traces/last",
+                   "/debug/serving")
+
+
+def run_operator_served(device: str = "cuda", scale: int = OPERATOR_SERVED_SCALE) -> dict:
+    """18b: ``Operator(...).start()`` on ``device`` with leader election,
+    ephemeral ports and the serving pipeline, in bench config 8's
+    ``rollout`` world at ``scale`` (its harness's store, catalog and pool);
+    a second operator on the same store. Gates: the first leads and the
+    second follows; after the first decision ``/healthz`` and ``/readyz``
+    give 200, ``/metrics`` passes ``check_exposition``, every route of
+    ``OPERATOR_ROUTES`` gives 200 with a payload and ``/debug/device``
+    501; the follower wrote no NodeClaim; stopped and started again, the
+    operator leads, serves and reconciles again and decides new pods; no
+    orphaned span. → the leg's row."""
+    from karpenter_core_tpu_torch.metrics import check_exposition
+    from karpenter_core_tpu_torch.operator import Operator, Options
+    from karpenter_core_tpu_torch.serving import trafficgen as tg
+    from karpenter_core_tpu_torch.tracing import RECORDER, tracer
+
+    t0 = time.perf_counter()
+    RECORDER.clear()
+    orphans0 = tracer.orphan_spans()
+    sc = tg.build_scenario("rollout", scale=scale)
+    h = tg.TrafficHarness(teams=sc.teams, device=device)
+    opts = dict(enable_leader_election=True, metrics_port=0, health_probe_port=0, use_serving_pipeline=True,
+                batch_idle_duration=0.05, batch_max_duration=1.0)
+    leader = Operator(h.provider, kube_client=h.kube, options=Options(**opts), device=device)
+    follower = Operator(h.provider, kube_client=h.kube, options=Options(**opts), device=device)
+    row: dict = {"scale": scale}
+    try:
+        leader.start()
+        follower.start()
+        if not (leader._leading() and not follower._leading()):
+            fail(f"18b: the first operator does not lead alone ({leader._leading()}, {follower._leading()})")
+        h.inject_step(sc.steps[0], 0)
+        if not _until(lambda: RECORDER.last() is not None and leader.kube_client.list("NodeClaim"), 60.0):
+            fail("18b: the served operator made no decision")
+        row["first_decision_s"] = time.perf_counter() - t0
+        port, probe = leader.http.metrics_port, leader.http.probe_port
+        if not _until(lambda: _http_get(probe, "/readyz")[0] == 200, 15.0):
+            fail(f"18b: /readyz never gave 200 ({_http_get(probe, '/readyz')})")
+        status, _ = _http_get(probe, "/healthz")
+        if status != 200:
+            fail(f"18b: /healthz gave {status}")
+        status, text = _http_get(port, "/metrics")
+        problems = check_exposition(text)
+        if status != 200 or problems:
+            fail(f"18b: /metrics gave {status}, {problems[:3]}")
+        routes = {}
+        for path in OPERATOR_ROUTES:
+            if not _until(lambda: _http_get(port, path)[0] == 200, 15.0):
+                fail(f"18b: {path} never gave 200 ({_http_get(port, path)[0]})")
+            status, body = _http_get(port, path)
+            payload = json.loads(body)
+            if not payload:
+                fail(f"18b: {path} gave an empty payload")
+            routes[path] = len(body)
+        status, body = _http_get(port, "/debug/device")
+        if status != 501 or "tracing.deviceplane" not in body:
+            fail(f"18b: /debug/device gave {status} {body!r}, not 501")
+        row["routes_bytes"] = routes
+        row["leader_claims_created"] = sum(leader.metrics.nodeclaims_created.values.values())
+        if not _until(lambda: follower.serving.held_ticks()["leader"] >= 1, 15.0):
+            fail("18b: the follower's pipeline never held a tick")
+        row["follower_claims_created"] = sum(follower.metrics.nodeclaims_created.values.values())
+        row["follower_held_ticks"] = follower.serving.held_ticks()["leader"]
+        row["follower_reconciles"] = sum(follower.metrics.reconcile_duration.totals.values())
+        if row["follower_claims_created"] or row["follower_reconciles"]:
+            fail(f"18b: the follower wrote or reconciled ({row})")
+        follower.stop()
+        # stop and start again: the operator leads, serves and reconciles anew
+        leader.stop()
+        before = sum(leader.metrics.reconcile_duration.totals.values())
+        decisions = len(RECORDER.debug_state(tail=1 << 20)["decisions"])
+        leader.start()
+        if not leader._leading():
+            fail("18b: the restarted operator does not lead")
+        h.inject_step(sc.steps[1], 1)
+        if not _until(lambda: len(RECORDER.debug_state(tail=1 << 20)["decisions"]) > decisions, 60.0):
+            fail("18b: the restarted operator made no decision")
+        if not _until(lambda: sum(leader.metrics.reconcile_duration.totals.values()) > before, 15.0):
+            fail("18b: the restarted operator's controllers never reconciled")
+        status, _ = _http_get(leader.http.probe_port, "/healthz")
+        if status != 200:
+            fail(f"18b: the restarted operator's /healthz gave {status}")
+        row["decisions"] = len(RECORDER.debug_state(tail=1 << 20)["decisions"])
+        row["leader_reconciles"] = sum(leader.metrics.reconcile_duration.totals.values())
+        row["reconcile_errors"] = sum(leader.metrics.reconcile_errors.values.values())
+        if row["reconcile_errors"]:
+            fail(f"18b: reconcile errors {dict(leader.metrics.reconcile_errors.values)}")
+    finally:
+        follower.stop()
+        leader.stop()
+        h.close()
+    _sync(device)
+    row["orphan_spans"] = tracer.orphan_spans() - orphans0
+    if row["orphan_spans"]:
+        fail(f"18b: {row['orphan_spans']} orphaned spans")
+    row["wall_s"] = time.perf_counter() - t0
+    return row
+
+
+def run_operator_phase(device: str = "cuda", sizes: Optional[dict] = None, sm_mhz: float = 0.0) -> dict:
+    """Phase 18 on ``device``, never cut short. 18a: ``run_operator_world``
+    on ``device`` with ``KARPENTER_TORCH_NATIVE=0`` (compat, the FFD scan,
+    the first-fit and B8's screens), every call of those four captured,
+    then on the CPU on the same engine (the plain versions);
+    ``check_operator_world`` on both, and the card's store equal to the
+    CPU's after every pass. On the card
+    every captured call is held to its plain version bit for bit, each
+    distinct shape timed, and each of the four kernels must have
+    launched. 18b: ``run_operator_served``. ``sizes``: {"world": (pods,
+    types), "served": scale} → the phase's row."""
+    from karpenter_core_tpu_torch.solver import pack
+    from karpenter_core_tpu_torch.solver import solver as solver_mod
+
+    sizes = {"world": (N_CONFIG2, 480), "served": OPERATOR_SERVED_SCALE, **(sizes or {})}
+    n_pods, n_types = sizes["world"]
+    t0 = time.perf_counter()
+    with knobs(KARPENTER_TORCH_NATIVE=0):
+        with capture(solver_mod, "allowed_via_kernel") as compat_cap, \
+                capture(pack, "ffd_pack_batched") as ffd_cap, capture(pack, "pack_existing") as ex_cap, \
+                capture_screens() as screens:
+            reset_disrupt_launches()
+            card = run_operator_world(device, n_pods, n_types, keep_states=False)
+            _sync(device)
+            launches = disrupt_launches()
+    card_s = time.perf_counter() - t0
+    card_counts = check_operator_world(card, device)
+    stream = operator_stream_digest(card.passes)
+    del card
+    gc.collect()
+    row = {"card_s": card_s, device: card_counts, "launches": launches}
+    if device != "cpu":
+        # the CPU twin on the same engine (the scans' plain versions): at
+        # 10,000 pods the C++ packer's plans differ from the scans' from
+        # the first pass, in both packages
+        t1 = time.perf_counter()
+        with knobs(KARPENTER_TORCH_NATIVE=0):
+            cpu = run_operator_world("cpu", n_pods, n_types, keep_states=False)
+        row["cpu_s"] = time.perf_counter() - t1
+        row["cpu"] = check_operator_world(cpu, "cpu")
+        cpu_stream = operator_stream_digest(cpu.passes)
+        del cpu
+        gc.collect()
+        if len(cpu_stream) != len(stream):
+            fail(f"18a: the card ran {len(stream)} passes, the CPU {len(cpu_stream)}")
+        for k, ((stage, a), (_, b)) in enumerate(zip(stream, cpu_stream)):
+            if a != b:
+                fail(f"18a: after pass {k} ({stage}) the card's store differs from the CPU's in "
+                     f"{[part for part in a if a[part] != b[part]]}")
+    row["passes_equal"] = len(stream)
+    calls = {"compat_allowed": compat_cap.calls, "ffd_pack": ffd_cap.calls, "pack_existing": ex_cap.calls,
+             **{f"disrupt_screen.{k}": v for k, v in screens.calls().items()}}
+    row["captured_calls"] = {k: len(v) for k, v in calls.items()}
+    if not all(calls[k] for k in ("compat_allowed", "ffd_pack", "pack_existing")) or not any(
+            calls[k] for k in calls if k.startswith("disrupt_screen")):
+        fail(f"18a: a kernel of the path was never called: {row['captured_calls']}")
+    cases: dict = {}
+    if device == "cuda":
+        missing = [k for k in ("compat_allowed", "ffd_pack", "pack_existing") if not launches[k]]
+        if missing or not any(n for k, n in launches.items() if k.startswith("disrupt_screen")):
+            fail(f"18a: {missing or 'no screen'} never launched on the operator's path ({launches})")
+        if sm_mhz <= 0:
+            fail("18a needs the card's maximum SM clock to price the screens' chains")
+        for kind, kind_calls in calls.items():
+            for call in kind_calls:
+                hold_serving_call(kind, call, phase="18a")
+        cases["compat_allowed"] = [compat_call_case(c) for c in distinct_compat_calls(calls["compat_allowed"])]
+        cases["ffd_pack"] = [ffd_kernel_case(c) for c in distinct_shapes(calls["ffd_pack"])]
+        cases["pack_existing"] = [existing_kernel_case(c) for c in distinct_shapes(calls["pack_existing"])]
+        cases["disrupt_screen"] = [
+            screen_kernel_case(k.split(".")[1], c, "phase18", sm_mhz)
+            for k in calls if k.startswith("disrupt_screen") for c in distinct_shapes(calls[k])
+        ]
+    del calls
+    row["cases"] = cases
+    row["served"] = run_operator_served(device, sizes["served"])
+    row["wall_s"] = time.perf_counter() - t0
+    return row
+
+
+def report_operator_phase(op: dict, card: str) -> None:
+    """Print phase 18's lines, each with the card."""
+    for leg in [k for k in op if k in ("cuda", "cpu")]:
+        emit({"phase18a": leg, **op[leg], "card": card})
+    for name, rows in op["cases"].items():
+        for r in rows:
+            emit({"phase18_kernel_case": name, **r, "card": card})
+    emit({"phase18b": "served", **op["served"], "card": card})
+    emit({"phase18": "operator", "passes_equal": op["passes_equal"], "launches": op["launches"],
+          "captured_calls": op["captured_calls"], "card_s": op["card_s"], "cpu_s": op.get("cpu_s"),
+          "served_s": op["served"]["wall_s"], "wall_s": op["wall_s"], "card": card})
+
+
 def probe_card() -> tuple:
     """Step 1: the card, or fail. Prints the card's name and power limit
     as nvidia-smi gives them and the device line. → (torch's device name,
@@ -6215,6 +6970,7 @@ SELECTABLE_PHASES = {
     15: lambda card, sm_mhz: report_disruption_phase(run_disruption_phase("cuda", sm_mhz=sm_mhz), card),
     16: lambda card, sm_mhz: report_serving_phase(run_serving_phase("cuda", sm_mhz=sm_mhz), card),
     17: lambda card, sm_mhz: report_chaos_phase(run_chaos_phase("cuda"), card),
+    18: lambda card, sm_mhz: report_operator_phase(run_operator_phase("cuda", sm_mhz=sm_mhz), card),
 }
 
 
@@ -6462,9 +7218,10 @@ def main() -> None:
     # 16. the serving pipeline on the card: 16c the kernels under serving
     # (native off, a disruption stage), 16a bench config 8 whole, 16b
     # bench config 14 (each measurement its own process)
-    # (phase 17's reserve kept out of the budget: 16b drops a later seed first)
+    # (phases 17's and 18's reserves kept out of the budget: 16b drops a later seed first)
     serving = run_serving_phase("cuda", sm_mhz=sm_mhz, budget_s=min(
-        SERVING_BUDGET_S, SCRIPT_BUDGET_S - CHAOS_RESERVE_S - (time.perf_counter() - t_start)))
+        SERVING_BUDGET_S,
+        SCRIPT_BUDGET_S - CHAOS_RESERVE_S - OPERATOR_RESERVE_S - (time.perf_counter() - t_start)))
     report_serving_phase(serving, card)
     sk16 = serving["kernels"]
     for mode, counts in sk16["launches"].items():
@@ -6487,6 +7244,18 @@ def main() -> None:
     cases["pack_existing"] += [{"captured": "phase17", **r} for r in ck17["cases"]["pack_existing"]]
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 17"})
 
+    # 18. the operator on the card: 18a bench config 2 whole through one
+    # Operator's whole node lifecycle (native off), held pass by pass to a
+    # CPU run; 18b the operator served, with a follower
+    op18 = run_operator_phase("cuda", sm_mhz=sm_mhz)
+    report_operator_phase(op18, card)
+    op_launches = op18["launches"]
+    pack["launches"]["phase18-operator"] = {name: op_launches[name] for name in ("ffd_pack", "pack_existing", "dual_ascent")}
+    cases["ffd_pack"] += [{"captured": "phase18", **r} for r in op18["cases"]["ffd_pack"]]
+    cases["pack_existing"] += [{"captured": "phase18", **r} for r in op18["cases"]["pack_existing"]]
+    disrupt["screen_cases"] += op18["cases"]["disrupt_screen"]
+    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 18"})
+
     # the kernels line, then the last line
     paths = {
         "slice": slice_launches, "cluster": cluster["kernel_launches"],
@@ -6504,6 +7273,7 @@ def main() -> None:
         **{f"phase16-{mode}-{role}": n["compat_allowed"][role] for mode, n in sk16["launches"].items()
            for role in ("tick", "prewarm")},
         **{f"phase17-{key}": n["compat_allowed"] for key, n in ck17["launches"].items()},
+        "phase18-operator": op_launches["compat_allowed"],
     }
     for leg, n in config7["launches"].items():
         pack["launches"][f"config7-{leg}"] = {"ffd_pack": n["ffd"], "pack_existing": 0, "dual_ascent": 0}
@@ -6526,6 +7296,7 @@ def main() -> None:
                             slice_row, big_row, *spread_rows, *affinity_rows, *stateful_rows, *relax_rows,
                             *config7_rows, *config7["kernel_cases"]["compat_allowed"],
                             *sk16["cases"]["compat_allowed"], *ck17["cases"]["compat_allowed"],
+                            *op18["cases"]["compat_allowed"],
                         ]] + [prov["compat_err"]]
                     ),
                     "ms": slice_row["kernel_ms"],
@@ -6552,6 +7323,7 @@ def main() -> None:
                     "config7_captured": config7["kernel_cases"]["compat_allowed"],
                     "serving_captured": sk16["cases"]["compat_allowed"],
                     "chaos_captured": ck17["cases"]["compat_allowed"],
+                    "operator_captured": op18["cases"]["compat_allowed"],
                     "compat_route": slice_row["compat_route"],
                     "ptxas": usage,
                 },
@@ -6561,6 +7333,7 @@ def main() -> None:
                     **{f"phase15-{path}": n for path, n in disrupt["launches"].items()},
                     **{f"phase16-{mode}": {name: c["tick"] + c["prewarm"] for name, c in n.items()}
                        for mode, n in sk16["launches"].items()},
+                    "phase18-operator": op_launches,
                 }),
             ]
         }

@@ -1,25 +1,15 @@
-"""Lifecycle controllers, as far as disruption reads them.
+"""Lifecycle controllers: the port's copy of ``karpenter_core_tpu/lifecycle/``.
 
-Counterpart of ``karpenter_core_tpu/lifecycle/``: the NodePool hash and
-counter controllers and the PDB budget of node termination. The other
-controllers are not ported yet; their names raise ``NotImplementedError``.
+NodeClaim launch, registration, initialization and liveness; NodeClaim
+and Node termination (taint, drain through the eviction queue, provider
+delete); NodeClaim and node-lease garbage collection; the consistency
+checks; the NodePool hash and counter controllers.
 """
 
+from .nodeclaim_lifecycle import NodeClaimLifecycleController
+from .nodeclaim_termination import NodeClaimTerminationController
+from .nodeclaim_gc import NodeClaimGarbageCollectionController
+from .node_termination import NodeTerminationController, Terminator, EvictionQueue
+from .consistency import ConsistencyController
 from .nodepool_controllers import NodePoolCounterController, NodePoolHashController
-
-_NOT_PORTED = (
-    "NodeClaimLifecycleController",
-    "NodeClaimTerminationController",
-    "NodeClaimGarbageCollectionController",
-    "NodeTerminationController",
-    "Terminator",
-    "EvictionQueue",
-    "ConsistencyController",
-    "LeaseGarbageCollectionController",
-)
-
-
-def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"lifecycle.{name} is not ported to the PyTorch package yet")
-    raise AttributeError(name)
+from .lease_gc import LeaseGarbageCollectionController

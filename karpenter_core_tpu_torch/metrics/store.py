@@ -4,7 +4,7 @@ pkg/controllers/metrics/{node,nodepool,pod}): the port's copy of
 
 from __future__ import annotations
 
-from typing import Set
+from typing import Dict, Set
 
 from ..kube.quantity import NANO
 from ..scheduling import resources
@@ -79,19 +79,22 @@ class MetricsStore:
 
     def scrape_pods(self, kube_client) -> None:
         seen = set()
+        values = self.metrics.pod_state.values
+        # each pod's series, by (namespace, name), from one pass over the
+        # gauge: the reference scans the whole gauge once per pod, which is
+        # quadratic in the pods (minutes a scrape at tens of thousands)
+        series: Dict[tuple, list] = {}
+        for k in list(values):
+            labels = dict(k)
+            series.setdefault((labels.get("namespace"), labels.get("name")), []).append(k)
         for pod in kube_client.list("Pod"):
             key = (pod.namespace, pod.name)
             seen.add(key)
             # a pod is in exactly one phase: drop the series for any phase
             # it moved out of, or a Pending→Running pod reports both
-            for k in [
-                k
-                for k in self.metrics.pod_state.values
-                if ("name", pod.name) in k
-                and ("namespace", pod.namespace) in k
-                and ("phase", pod.status.phase) not in k
-            ]:
-                self.metrics.pod_state.values.pop(k, None)
+            for k in series.get(key, ()):
+                if ("phase", pod.status.phase) not in k:
+                    values.pop(k, None)
             self.metrics.pod_state.set(
                 1.0, name=pod.name, namespace=pod.namespace, phase=pod.status.phase
             )
@@ -107,12 +110,8 @@ class MetricsStore:
                     max(0.0, pod.status.start_time - pod.metadata.creation_timestamp)
                 )
         for stale in self._published_pods - seen:
-            for k in [
-                k
-                for k in self.metrics.pod_state.values
-                if ("name", stale[1]) in k and ("namespace", stale[0]) in k
-            ]:
-                self.metrics.pod_state.values.pop(k, None)
+            for k in series.get(stale, ()):
+                values.pop(k, None)
         self._published_pods = seen
         # prune so deleted pods don't leak, and a recreated same-name pod
         # gets its startup observed again

@@ -1,17 +1,12 @@
-"""The operator, as far as the chaos pack reads it.
+"""The operator: the port's copy of ``karpenter_core_tpu/operator/``.
 
-Counterpart of ``karpenter_core_tpu/operator/``: lease-based leader
-election (``LeaderElector``). The operator itself, its options and its
-singleton controllers are not ported yet; their names raise
-``NotImplementedError``.
+``Operator`` is the composition root (every controller of the
+reference's ``controllers.go``, on one device), with its ``Options``
+(the upstream operator's environment flags), its ``SingletonController``
+loops, the served operational surface and lease-based leader election.
 """
 
+from .options import Options
+from .operator import Operator
+from .controller import SingletonController
 from .leaderelection import LEASE_NAME, LeaderElector, default_holder_id
-
-_NOT_PORTED = ("Operator", "Options", "SingletonController")
-
-
-def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"operator.{name} is not ported to the PyTorch package yet")
-    raise AttributeError(name)

@@ -449,7 +449,7 @@ class ServingPipeline:
                 return (time.monotonic() - self._world_stamp) > bound
         return False
 
-    def attach_leader_gate(self, is_leader: Callable[[], bool]) -> None:
+    def attach_leader_gate(self, is_leader: Callable[[], bool], guard_writes: bool = True) -> None:
         """Single-writer enforcement under leader election: (a) the plan
         thread holds each tick while not leading, and (b) an admission
         guard on the kube client rejects NodeClaim writes the moment
@@ -460,7 +460,10 @@ class ServingPipeline:
 
         Attach/detach happen while the pipeline is held (or before
         start/after stop) — the admission-guard list itself is only
-        ever mutated with no tick in flight."""
+        ever mutated with no tick in flight. ``guard_writes=False``
+        attaches (a) alone: the guard sits on the client, so it would
+        refuse the leader's writes too where two operators share one
+        client in a process."""
 
         def _guard(obj) -> None:
             if obj.kind == "NodeClaim" and not is_leader():
@@ -469,8 +472,9 @@ class ServingPipeline:
         kc = self.kube_client
         with self._mu:
             self._is_leader = is_leader
-            self._leader_guard = _guard
-        kc.admission.append(_guard)
+            self._leader_guard = _guard if guard_writes else None
+        if guard_writes:
+            kc.admission.append(_guard)
 
     def detach_leader_gate(self) -> None:
         with self._mu:

@@ -897,6 +897,13 @@ class TorchScheduler:
                     **{f"{name}_ms": ms for name, ms in self._phase_ms.items()},
                 }
                 self.last_trace_id = tr.trace_id if tr is not None else None
+                if tr is not None:
+                    # the device rollup on the trace's device lane, anchored
+                    # at this solve's start (/debug/traces shows it)
+                    tr.add_synthetic(
+                        "device_total", time.perf_counter_ns() - int(total_ms * 1e6), int(device_ms * 1e6),
+                        note="sum of the solve's CUDA event pairs (0 on the CPU)",
+                    )
                 self.last_merge_stats = dict(self._merge_stats)
                 self.last_pack_stats = dict(self._pack_backend_stats)
                 self.last_cache_stats = self._cstats.to_dict()

@@ -4,10 +4,11 @@
                  cross-thread TraceContext capture/adopt + orphan counter
   flightrec.py — per-decision flight recorder: bounded ring of decision
                  records, SLO burn-rate windows
+  export.py    — Chrome trace-event JSON (catapult TraceEvent format)
 
-The reference's Chrome trace-event export (``export.py``), slow-solve
-capture (``capture.py``), device plane (``deviceplane.py``) and the
-flight recorder's breach dumps are not ported yet.
+The reference's slow-solve capture (``capture.py``), device plane
+(``deviceplane.py``) and the flight recorder's breach dumps are not
+ported yet.
 """
 
 from .tracer import (  # noqa: F401
@@ -27,4 +28,5 @@ from .tracer import (  # noqa: F401
     span,
     trace_root,
 )
+from .export import to_chrome_events, to_chrome_json  # noqa: F401,E402
 from .flightrec import RECORDER, DecisionRecord, FlightRecorder  # noqa: F401,E402

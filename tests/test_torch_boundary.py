@@ -2,9 +2,12 @@
 
 An AST scan of every module of ``karpenter_core_tpu_torch`` and of
 ``chip_smoke.py`` finds no such import, and no environment read but of
-the port's three knobs (``KNOBS``, never the JAX package's
-``KARPENTER_TPU_*``; its other defaults are module constants); only
-``chip_smoke.py`` sets knobs (for its phases).
+the port's knobs (``KNOBS``, never the JAX package's
+``KARPENTER_TPU_*``; its other defaults are module constants) and, in
+``operator/options.py`` alone, of the upstream operator's deployment
+flags (``OPERATOR_ENV``), each by its literal name; no other file of the
+port names those flags. Only ``chip_smoke.py`` sets knobs (for its
+phases).
 A port solve against a live cluster (existing node, daemonset, NodePool
 limit), whose batch also reaches the greedy fallback (soft pod
 anti-affinity) and a preference-relaxation round (an impossible
@@ -15,7 +18,8 @@ the device scans' plain versions) and the LP routing calibration, and a
 ``Informers`` into ``Cluster``, ``Recorder``, ``Metrics``, the tracer)
 on its batched and its greedy path, and a disruption pass (the markers,
 ``DisruptionController.reconcile`` under both engines, the orchestration
-queue), runs in a fresh interpreter under a
+queue), and an ``Operator`` started, stopped and driven through one
+``reconcile_all_once``, runs in a fresh interpreter under a
 meta-path hook that raises on importing either; so does the serving CLI
 (``python -m karpenter_core_tpu_torch.serving.trafficgen``: a free
 pipeline run, a kill and a warm resume with its boot prewarm, and a
@@ -23,8 +27,9 @@ chaos run under ``failover``). The JAX package's environment knobs of
 that stack, the serving pipeline's, the flight recorder's, the boot
 prewarm's and the REST adapter's watch backoff included, are module
 constants of the port with the reference's defaults. What the port has
-not taken raises ``NotImplementedError``: the CLI's ``--fleet`` and the
-operator's ``Operator``, ``Options`` and ``SingletonController``.
+not taken raises ``NotImplementedError``: the CLI's ``--fleet``. The
+operator's ``Operator``, ``Options`` and ``SingletonController`` are
+ported.
 """
 
 from __future__ import annotations
@@ -75,6 +80,12 @@ def test_sources_found():
         ("solver", "stats.py"), ("solver", "prewarm.py"),
         ("kube", "faults.py"), ("kube", "codec.py"), ("kube", "restclient.py"),
         ("operator", "__init__.py"), ("operator", "leaderelection.py"),
+        ("operator", "options.py"), ("operator", "logging.py"), ("operator", "controller.py"),
+        ("operator", "server.py"), ("operator", "operator.py"), ("lifecycle", "__init__.py"),
+        ("lifecycle", "nodeclaim_lifecycle.py"), ("lifecycle", "nodeclaim_termination.py"),
+        ("lifecycle", "nodeclaim_gc.py"), ("lifecycle", "node_termination.py"), ("lifecycle", "consistency.py"),
+        ("lifecycle", "lease_gc.py"), ("apis", "validation.py"), ("apis", "duration.py"),
+        ("cloudprovider", "metrics.py"), ("tracing", "export.py"), ("metrics", "textcheck.py"),
     ):
         assert os.path.join(PORT_DIR, *module) in srcs
     assert os.path.exists(os.path.join(REPO, "chip_smoke.py"))
@@ -88,6 +99,16 @@ KNOBS = (
     "KARPENTER_TORCH_PACK_BACKEND", "KARPENTER_TORCH_NATIVE", "KARPENTER_TORCH_LP_MIN_WORK",
     "KARPENTER_TORCH_INCREMENTAL", "KARPENTER_TORCH_DISRUPT_ENGINE",
 )
+
+# the upstream operator's deployment flags, read with the reference's names
+# and defaults by ``Options.from_env`` and by no other file of the port
+OPERATOR_ENV = (
+    "SYSTEM_NAME", "SYSTEM_NAMESPACE", "METRICS_PORT", "HEALTH_PROBE_PORT", "KUBE_CLIENT_QPS",
+    "KUBE_CLIENT_BURST", "ENABLE_PROFILING", "LEADER_ELECT", "LOG_LEVEL", "BATCH_MAX_DURATION",
+    "BATCH_IDLE_DURATION", "FEATURE_GATES", "DISABLE_WEBHOOK", "USE_TPU_SOLVER", "TPU_CONSOLIDATION_SCREEN",
+    "USE_SERVING_PIPELINE",
+)
+OPERATOR_ENV_FILE = os.path.join(PORT_DIR, "operator", "options.py")
 
 
 def _docstrings(tree) -> set:
@@ -109,10 +130,12 @@ def test_no_forbidden_import_or_env_read(path):
     """No forbidden import; every knob-like literal or keyword is one of
     ``KNOBS``, environment reads name one by a literal (chip_smoke.py's
     knob setter reads back the keywords it was given); only
-    chip_smoke.py writes the environment."""
+    chip_smoke.py writes the environment; the ``OPERATOR_ENV`` flags are
+    named, and read, in ``operator/options.py`` only."""
     tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
     docs = _docstrings(tree)
     script = os.path.basename(path) == "chip_smoke.py"
+    options = path == OPERATOR_ENV_FILE
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             bad = [a.name for a in node.names if _forbidden(a.name)]
@@ -122,6 +145,8 @@ def test_no_forbidden_import_or_env_read(path):
         elif isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs:
             if node.value.startswith("KARPENTER_") and node.value.replace("_", "").isalnum():
                 assert node.value in KNOBS, f"{path}:{node.lineno} names {node.value}"
+            if node.value in OPERATOR_ENV:
+                assert options, f"{path}:{node.lineno} names the operator flag {node.value}"
         elif isinstance(node, ast.keyword) and (node.arg or "").startswith("KARPENTER_"):
             assert node.arg in KNOBS, f"{path}:{node.lineno} sets {node.arg}"
         elif isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
@@ -132,7 +157,7 @@ def test_no_forbidden_import_or_env_read(path):
                     assert script, f"{path}:{node.lineno} writes the environment"
                 elif node.args and isinstance(node.args[0], ast.Constant):
                     key = node.args[0].value
-                    assert key in KNOBS, f"{path}:{node.lineno} reads {key}"
+                    assert key in KNOBS or (options and key in OPERATOR_ENV), f"{path}:{node.lineno} reads {key}"
                 else:
                     assert script, f"{path}:{node.lineno} reads the environment by a variable"
         elif isinstance(node, ast.Subscript) and _is_environ(node.value):
@@ -368,6 +393,28 @@ for engine in ("batched", "sequential"):
     else:
         assert len(kube.list("NodeClaim")) == 7 and ctrl.queue.commands  # waiting on the replacement
     informers.stop()
+# the operator: every controller's pass over a store, admission on, the
+# served surface on ephemeral ports
+from karpenter_core_tpu_torch.metrics import check_exposition
+from karpenter_core_tpu_torch.operator import Operator, Options
+
+opts = Options(metrics_port=0, health_probe_port=0, enable_leader_election=False)
+op = Operator(provider, options=opts, device="cpu")
+op_pool = NodePool()
+op_pool.metadata.name = "default"
+op.kube_client.create(op_pool)
+for p in pods[:12]:
+    q = Pod()
+    q.metadata.name = f"op-{p.name}"
+    q.spec = p.spec
+    q.status.phase = "Pending"
+    q.status.conditions = [PodCondition(type="PodScheduled", status="False", reason="Unschedulable")]
+    op.kube_client.create(q)
+op.start()
+op.stop()
+op.reconcile_all_once()
+assert op.kube_client.list("NodeClaim") and check_exposition(op.metrics_text()) == []
+op.stop()
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "karpenter_core_tpu"))
 print(json.dumps({"scheduled": res.pods_scheduled, "errors": len(res.pod_errors), "nodes": res.node_count, "leaked": leaked}))
 """
@@ -443,6 +490,40 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="fleet"):
         trafficgen._cli(["--scenario", "rollout", "--fleet", "2", "--device", "cpu"])
     for name in ("Operator", "Options", "SingletonController"):
-        with pytest.raises(NotImplementedError, match=name):
-            getattr(operator, name)
+        assert isinstance(getattr(operator, name), type), name
+
+
+def test_operator_env_read_by_literal_in_options_only():
+    """``Options.from_env`` reads each of the 16 ``OPERATOR_ENV`` flags by
+    its literal name, with the reference's defaults and parsing."""
+    tree = ast.parse(open(OPERATOR_ENV_FILE, encoding="utf-8").read())
+    read = [
+        node.args[0].value for node in ast.walk(tree)
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) and node.func.attr == "get"
+        and _is_environ(node.func.value) and node.args and isinstance(node.args[0], ast.Constant)
+    ]
+    assert sorted(read) == sorted(OPERATOR_ENV) and len(read) == 16
+    assert not any(isinstance(n, ast.Call) and getattr(n.func, "attr", "") == "get" and _is_environ(n.func.value)
+                   and not (n.args and isinstance(n.args[0], ast.Constant)) for n in ast.walk(tree))
+
+
+def test_operator_env_parses_as_the_reference(monkeypatch):
+    import dataclasses
+
+    from karpenter_core_tpu.operator.options import Options as RefOptions
+    from karpenter_core_tpu_torch.operator.options import Options
+
+    values = {"SYSTEM_NAME": "karp", "SYSTEM_NAMESPACE": "kube-system", "METRICS_PORT": "9000",
+              "HEALTH_PROBE_PORT": "9001", "KUBE_CLIENT_QPS": "50", "KUBE_CLIENT_BURST": "70",
+              "ENABLE_PROFILING": "true", "LEADER_ELECT": "0", "LOG_LEVEL": "debug", "BATCH_MAX_DURATION": "2.5",
+              "BATCH_IDLE_DURATION": "0.5", "FEATURE_GATES": "Drift=false", "DISABLE_WEBHOOK": "yes",
+              "USE_TPU_SOLVER": "false", "TPU_CONSOLIDATION_SCREEN": "1", "USE_SERVING_PIPELINE": "True"}
+    assert sorted(values) == sorted(OPERATOR_ENV)
+    for name in OPERATOR_ENV:
+        monkeypatch.delenv(name, raising=False)
+    assert dataclasses.asdict(Options.from_env()) == dataclasses.asdict(RefOptions.from_env())
+    for name, value in values.items():
+        monkeypatch.setenv(name, value)
+    port, ref = dataclasses.asdict(Options.from_env()), dataclasses.asdict(RefOptions.from_env())
+    assert port == ref and port != dataclasses.asdict(Options())
 

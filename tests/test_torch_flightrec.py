@@ -9,8 +9,12 @@ coverage by kind, the SLO burn windows and their gauge (the SLO target
 is the port's constant ``SLO_TARGET_MS``, set as a constant), and the
 latency histogram's trace exemplar. Left out: the two breach-dump tests,
 whose dump writes through the Chrome-trace export the port does not
-have yet (its threshold ``SLO_BREACH_DUMP_MS`` stays off), and
-``TestDebugRoutes``, which needs the operator's HTTP server.
+have yet (its threshold ``SLO_BREACH_DUMP_MS`` stays off).
+``TestDebugRoutes`` runs on the port's ``OperationalServer``:
+``/debug/decisions[/last]`` over the recorder's ring and
+``/debug/solve/stats`` over ``stats.route_payload`` after a solve of the
+port's ``TorchScheduler`` on the CPU (whose trace id is
+``last_trace_id``: the port keeps ``last_timings`` numeric).
 
 Beyond the mirror: a record assembled from the same decision by both
 packages' recorders has the same shape and numbers, and the fault-window
@@ -46,6 +50,29 @@ def test_mirror_covers_the_classes():
 @pytest.mark.parametrize("case", CASES, ids=[case_id(c) for c in CASES])
 def test_flightrec_case_holds_the_port(monkeypatch, case):
     run_mirrored(flightrec_mirror(), *case, extra={"monkeypatch": monkeypatch})
+
+
+ROUTE_CASES = mirror_cases(FILE, classes=("TestDebugRoutes",))
+
+
+def debug_routes_mirror():
+    from test_torch_disruption import cpu_scheduler
+
+    replace = (
+        ("        from {pkg}.solver import TPUScheduler\n", ""),
+        # the port keeps last_timings numeric: the trace id is last_trace_id
+        ('solver.last_timings["trace_id"]', "solver.last_trace_id"),
+    )
+    return mirror(FILE, PORT, replace=replace, inject={"TPUScheduler": cpu_scheduler})
+
+
+def test_debug_routes_mirror_covers_the_class():
+    assert len(ROUTE_CASES) == 4
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=[case_id(c) for c in ROUTE_CASES])
+def test_debug_routes_case_holds_the_port(monkeypatch, case):
+    run_mirrored(debug_routes_mirror(), *case, extra={"monkeypatch": monkeypatch})
 
 
 def _record(pkg: str):

@@ -7,11 +7,14 @@ copy of the JAX package's ``LeaderElector``, over the port's
 - ``TestLeaderElector`` of ``tests/test_leader_election.py`` runs from
   its own source on the port (``mirror``): acquire, renew, expiry and
   transition, release and hand-off, a superseded release, callbacks.
-  ``TestOperatorElection`` and ``TestOperationalServer`` wait for the
-  port's ``Operator`` (its name raises ``NotImplementedError``);
 - seeded sequences of election steps, releases and clock moves by three
   candidates on one store, in both packages: every step's outcome, each
   candidate's leadership, its callbacks and the stored lease are equal;
+- ``TestOperatorElection`` and ``TestOperationalServer`` run from their
+  own source on the port's ``Operator`` (on the CPU): only the leader's
+  controllers reconcile, a follower takes over after a release, a
+  stopped and restarted operator serves and reconciles again, and the
+  served surface answers ``/metrics``, the probes and the pprof pair;
 - the same over the port's REST adapter against the port's stub
   apiserver: the lease round-trips the codec and the outcomes equal the
   in-memory store's.
@@ -25,6 +28,7 @@ import random
 import pytest
 
 from test_torch_kube_client import PORT, REF, case_id, mirror, mirror_cases, run_mirrored
+from test_torch_operator import operator_mirror
 from test_torch_restclient import restclient_mirror
 
 FILE = "test_leader_election.py"
@@ -50,9 +54,43 @@ def test_operator_package_exports_the_elector():
 
     assert operator.LeaderElector is LeaderElector
     assert operator.LEASE_NAME == importlib.import_module(f"{REF}.operator.leaderelection").LEASE_NAME
+    ref = importlib.import_module(f"{REF}.operator")
     for name in ("Operator", "Options", "SingletonController"):
-        with pytest.raises(NotImplementedError, match=name):
-            getattr(operator, name)
+        assert getattr(operator, name).__name__ == getattr(ref, name).__name__
+    assert not hasattr(operator, "_NOT_PORTED")
+
+
+# -- the operator's election and served surface, on the port ----------------------
+
+OPERATOR_CLASSES = ("TestOperatorElection", "TestOperationalServer")
+OPERATOR_CASES = mirror_cases(FILE, OPERATOR_CLASSES)
+
+
+def operator_election_mirror():
+    return operator_mirror(FILE, replace=(('    @pytest.fixture(scope="class")\n', ""),))
+
+
+def test_operator_mirror_covers_the_classes():
+    assert len(OPERATOR_CASES) == 9
+    assert {c[0] for c in OPERATOR_CASES} == set(OPERATOR_CLASSES)
+
+
+@pytest.fixture(scope="module")
+def served_operator():
+    """``TestOperationalServer``'s class fixture on the port: one started
+    operator (ephemeral ports, profiling on) for the class's cases."""
+    mod = operator_election_mirror()
+    gen = mod.TestOperationalServer().op()
+    op = next(gen)
+    yield op
+    for _ in gen:
+        pass
+
+
+@pytest.mark.parametrize("case", OPERATOR_CASES, ids=[case_id(c) for c in OPERATOR_CASES])
+def test_operator_election_case_holds_the_port(request, case):
+    extra = {"op": request.getfixturevalue("served_operator")} if case[0] == "TestOperationalServer" else None
+    run_mirrored(operator_election_mirror(), *case, extra=extra)
 
 
 def election_steps(pkg: str, seed: int, kube=None) -> list:

@@ -8,9 +8,10 @@ reference two ways:
   ``TestRestClientWatch`` of ``tests/test_restclient.py`` run from their
   own source on the port (``mirror``), against the port's copy of the
   stub apiserver (the mirrored module's ``_StubApiServer``, speaking
-  the port's ``API_PATHS``); ``TestOperatorOverRest`` waits for the
-  port's ``operator/`` and ``test_real_cluster_smoke`` for a real
-  apiserver;
+  the port's ``API_PATHS``); ``TestOperatorOverRest`` drives the port's
+  ``Operator`` (on the CPU) through the adapter over real HTTP, and
+  ``test_real_cluster_smoke`` runs where ``KARPENTER_REAL_APISERVER``
+  names a real apiserver (it skips here, as the JAX package's does);
 - objects built from one numpy seed in both packages (pods with
   affinity, tolerations, spread, ports and volumes; nodes; NodePools
   with budgets and kubelet settings; NodeClaims; Leases) encode to
@@ -24,6 +25,7 @@ import copy
 import dataclasses
 import importlib
 import json
+import os
 
 import numpy as np
 import pytest
@@ -63,6 +65,37 @@ def test_mirror_stub_speaks_the_ports_paths():
     mod = restclient_mirror()
     assert mod.API_PATHS is codec.API_PATHS
     assert mod.RestKubeClient.__module__ == f"{PORT}.kube.restclient"
+
+
+# -- the operator over the adapter, and the live smoke ------------------------------
+
+OPERATOR_CASES = mirror_cases(FILE, ("TestOperatorOverRest",))
+SMOKE_CASES = [c for c in mirror_cases(FILE) if c[0] is None and c[1] == "test_real_cluster_smoke"]
+
+
+def operator_rest_mirror():
+    from test_torch_operator import operator_mirror
+
+    return operator_mirror(FILE, replace=(
+        ("@pytest.fixture()\n", ""),
+        ("        from {pkg}.operator import Operator, Options\n", "        from {pkg}.operator import Options\n"),
+    ))
+
+
+def test_operator_mirror_covers_the_cases():
+    assert len(OPERATOR_CASES) == 1 and len(SMOKE_CASES) == 1
+
+
+@pytest.mark.parametrize("case", OPERATOR_CASES, ids=[case_id(c) for c in OPERATOR_CASES])
+def test_operator_over_rest_holds_the_port(case):
+    run_mirrored(operator_rest_mirror(), *case)
+
+
+@pytest.mark.skipif(not os.environ.get("KARPENTER_REAL_APISERVER"),
+                    reason="set KARPENTER_REAL_APISERVER=http://127.0.0.1:8001 (kubectl proxy) for the live smoke")
+@pytest.mark.parametrize("case", SMOKE_CASES, ids=[case_id(c) for c in SMOKE_CASES])
+def test_real_cluster_smoke_holds_the_port(case):
+    run_mirrored(restclient_mirror(), *case)
 
 
 # -- seeded objects through both codecs ---------------------------------------

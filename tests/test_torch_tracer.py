@@ -15,6 +15,14 @@ small ring (``TRACE_BUFFER``). Then a ``Provisioner.reconcile`` of each
 package on the batched path: the same provisioner-level spans
 (``provisioner.reconcile`` → ``snapshot_nodes``, ``pending_pods``,
 ``solve``, ``create_node_claims``) in the buffered trace.
+
+``TestChromeExport`` and ``TestDebugTracesRoutes`` of
+``tests/test_tracing.py`` run from their own source on the port
+(``mirror``): the Chrome trace-event export (``tracing/export.py``) and
+``/debug/traces[/last]`` served by the port's ``OperationalServer`` after
+solves of its ``TorchScheduler`` on the CPU, and the single-flight guard
+of ``/debug/pprof/profile``. The same trace exports to the same events in
+both packages, but for the clock's numbers.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import threading
 
 import pytest
 
-from test_torch_kube_client import PORT, REF
+from test_torch_kube_client import PORT, REF, case_id, mirror, mirror_cases, run_mirrored
 
 
 def tracer_of(pkg: str):
@@ -229,3 +237,50 @@ def test_provisioner_trace_matches_reference(monkeypatch):
         ("provisioner.reconcile", 0),
     ]
     assert out[PORT] == out[REF]
+
+
+# -- the Chrome export and the /debug/traces routes, on the port --------------------
+
+ROUTE_FILE = "test_tracing.py"
+ROUTE_CLASSES = ("TestChromeExport", "TestDebugTracesRoutes")
+ROUTE_CASES = mirror_cases(ROUTE_FILE, classes=ROUTE_CLASSES)
+
+
+def tracing_mirror():
+    from test_torch_disruption import cpu_scheduler
+
+    return mirror(ROUTE_FILE, PORT, replace=(("from {pkg}.solver import TPUScheduler\n", ""),),
+                  inject={"TPUScheduler": cpu_scheduler})
+
+
+def test_routes_mirror_covers_the_classes():
+    assert {c[0] for c in ROUTE_CASES} == set(ROUTE_CLASSES)
+    assert len([c for c in ROUTE_CASES if c[0] == "TestDebugTracesRoutes"]) == 4
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=[case_id(c) for c in ROUTE_CASES])
+def test_trace_routes_case_holds_the_port(case):
+    run_mirrored(tracing_mirror(), *case)
+
+
+def _export_shape(pkg: str) -> list:
+    t = tracer_of(pkg)
+    export = importlib.import_module(f"{pkg}.tracing.export")
+    with t.trace_root("root") as tr:
+        with t.span("encode"):
+            pass
+        with t.span("pack", jobs=2):
+            pass
+    events = export.to_chrome_events(tr)
+    return [{k: v for k, v in e.items() if k not in ("ts", "dur", "pid")} for e in events]
+
+
+def test_chrome_export_equals_reference():
+    port, ref = _export_shape(PORT), _export_shape(REF)
+    for e in port + ref:
+        e.get("args", {}).pop("trace_id", None)
+        if e["name"] == "process_name":
+            e["args"].pop("name")
+        if e["name"] == "thread_name" and "host thread" in e["args"]["name"]:
+            e["args"].pop("name")
+    assert port == ref
