@@ -34,6 +34,9 @@ Phases, in order; any failure exits non-zero:
    ``TorchScheduler(device="cuda").solve``: one cold solve, the median
    of three warm ones, the kernel's launch count over those four, the
    identical plan stream from ``device="cpu"``, and the plan invariants.
+   In phases 4–12 a path whose cold solve takes over ``DEEP_SOLVE_MS``
+   (2 s) runs one warm solve instead of three, and one whose warm solve
+   does is not profiled.
 5. Cluster: the same 50,000 pods against a live cluster through
    ``solve(pods, state_nodes, daemonset_pods)``: 1,000 initialized
    existing nodes with about 10k bound pods, three daemonsets, and two
@@ -235,7 +238,7 @@ Phases, in order; any failure exits non-zero:
    8 whole (``bench.py:1035-1131``): the five scenarios at scale 400 and
    pace 0.2 s, each measurement its own ``python -m
    karpenter_core_tpu_torch.serving.trafficgen`` process (lockstep
-   sequential and pipeline on the card and sequential on the CPU, four
+   sequential and pipeline on the card and sequential on the CPU, eight
    at a time; then the free pipeline runs and churn10x's free sequential
    run one at a time): plan hashes equal, decisions monotonic, no
    orphaned span; steady latency, pods/s, queues, stage attribution and
@@ -245,7 +248,8 @@ Phases, in order; any failure exits non-zero:
    the warm and the cold resume, each a process on the card; both
    resumes' plan hashes equal the reference's. Seed 7 always; 17 and 27
    while the phase's projection stays within ``SERVING_BUDGET_S`` and the
-   script's within ``SCRIPT_BUDGET_S`` less phase 17's ``CHAOS_RESERVE_S``.
+   script's within ``SCRIPT_BUDGET_S`` less the reserves of phases 17–19
+   (``CHAOS_RESERVE_S``, ``OPERATOR_RESERVE_S``, ``FLEET_RESERVE_S``).
 17. The chaos pack (``run_chaos_phase``), never cut short. 17a, bench
    config 15 whole (``bench.py:2460-2530``): ``rollout`` at scale 240,
    seed 7, under each of the five faults (``watch_flap``,
@@ -290,17 +294,40 @@ Phases, in order; any failure exits non-zero:
    first decision, ``/debug/device`` 501, the follower writes nothing, a
    stop and a start that leads, decides and reconciles again, no
    orphaned span.
+19. The fleet (``run_fleet_phase``), never cut short. 19a, bench config
+   11 whole (``bench.py:1712-1948``) through the port's ``FleetRegistry``,
+   ``FleetEngine`` and the default (C++) packer: catalog archetypes of
+   64, 160 and 320 types with 12 GPU types each, 60 % of the tenants
+   content twins, a burst then churn rounds of 10 % fresh arrivals,
+   tenant 0's catalog bumped before round 1, the catalog cache at 2 ·
+   tenants + 16; the two warm-up runs, the curve ({8, 32, 128} tenants ×
+   {200, 1,000} pods, 3 rounds, solo and batched, every cell's plans
+   held batched against solo) and the identity runs (8 × 200): no tenant
+   error, no library built or loaded in a steady round; pods/s, round
+   ms, the dispatch stats and compat launches per engine reported. 19b,
+   the identity run batched on the CPU, every tenant's plans every round
+   equal the card's. 19c, ``KARPENTER_TORCH_NATIVE=0``: the identity
+   world batched and solo on the card and batched on the CPU, then one
+   round of it under ``KARPENTER_TORCH_PACK_BACKEND=lp`` the same three
+   ways; plans equal across each group's legs and the FFD legs' equal to
+   19a's; every captured compat, FFD
+   and dual-ascent call held to its plain version bit for bit, each
+   distinct shape timed; the FFD scan's launches per flush and jobs per
+   launch, and at least one launch carrying two tenants' jobs. 19d,
+   ``trafficgen --fleet 8 --scenario rollout --scale 200`` batched and
+   solo on the card and batched on the CPU, each its own process: plan
+   hashes equal, decisions monotonic, no orphaned span.
 
 Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
 shapes of phases 8–11 too, the three pack kernels and the disruption
-screens; launches by path, phase 13's to 18's legs included),
+screens; launches by path, phase 13's to 19's legs included),
 and the last line ``{"ok": true, "device": {...}}``.
 The profiled warm solves of phases 4–11 report device times only from
 traces that hold every kernel launch of the solve (``profile_solve``).
 
 Run from the repository root: ``python3 chip_smoke.py`` (``--log PATH``
 appends every JSON line to PATH as well). ``--phases 16,17`` builds the
-kernels as step 2 does, then runs only the named phases (of 14–18) and
+kernels as step 2 does, then runs only the named phases (of 14–19) and
 prints no result line.
 """
 
@@ -336,6 +363,10 @@ DEVICE_SLEEP_CYCLES = 20_000_000  # ~10 ms at 2 GHz: launches queue up behind it
 FADD_CYCLES = 4
 N_PODS = 50_000
 N_TYPES = 2_000
+# a path whose cold solve takes longer than this runs one warm solve, not
+# three, and one whose warm solve does is not profiled: the script's time
+# for phase 19
+DEEP_SOLVE_MS = 2_000.0
 SEED = 11  # bench.py config 3's RandomState
 N_NODES = 1_000  # existing nodes of the cluster phase
 NODE_SEED = 12
@@ -899,7 +930,12 @@ def profile_solve(solver, pods, attempts: int = 3, **solve_kw) -> dict:
     to ``attempts`` times. If none is complete the numbers are "not
     measured", and a ``profiler_gap`` line before the phase's line says
     what each attempt recorded: a run prints no device time the profiler
-    did not record in full."""
+    did not record in full. After a warm solve past ``DEEP_SOLVE_MS`` none
+    is made (such paths are host-bound: every one profiled before read an
+    idle share of 0.9999 or more)."""
+    if (solver.last_timings or {}).get("total_ms", 0.0) > DEEP_SOLVE_MS:
+        return {key: "not measured" for key in (
+            "profiled_wall_ms", "device_busy_ms", "device_idle_share", "kernel_device_ms_per_launch")}
     tries = []
     for attempt in range(attempts):
         got = _profile_once(solver, pods, after_session=attempt % 2 == 1, **solve_kw)
@@ -931,11 +967,17 @@ def profile_solve(solver, pods, attempts: int = 3, **solve_kw) -> dict:
     }
 
 
+def warm_depth(ms: float) -> int:
+    """Warm solves a path gets after a cold solve of ``ms``: three, or one
+    past ``DEEP_SOLVE_MS``."""
+    return 3 if ms <= DEEP_SOLVE_MS else 1
+
+
 def solve_runs(solver, pods, **solve_kw):
-    """One cold and three warm solves with the kernel's launches counted
-    from 0 just before and read just after → (cold result, cold ms,
-    [(warm ms, last_timings)], launches). Fails if a warm solve changes
-    the plans."""
+    """One cold solve and ``warm_depth(cold ms)`` warm ones, with the
+    kernel's launches counted from 0 just before and read just after →
+    (cold result, cold ms, [(warm ms, last_timings)], launches). Fails if a
+    warm solve changes the plans."""
     from karpenter_core_tpu_torch.solver import compat_kernels as ck
 
     ck.COMPAT_ALLOWED.launches = 0
@@ -943,7 +985,7 @@ def solve_runs(solver, pods, **solve_kw):
     cold = solver.solve(pods, **solve_kw)
     cold_ms = (time.perf_counter() - t0) * 1000.0
     warm_runs = []
-    for _ in range(3):
+    for _ in range(warm_depth(cold_ms)):
         t0 = time.perf_counter()
         warm = solver.solve(pods, **solve_kw)
         warm_runs.append(((time.perf_counter() - t0) * 1000.0, dict(solver.last_timings)))
@@ -971,7 +1013,7 @@ def timing_row(cold, cold_ms, warm_runs, launches) -> dict:
         "pod_error_kinds": sorted({e.split(":")[0] for e in cold.pod_errors.values()}),
         "nodes": cold.node_count,
         "total_price": cold.total_price,
-        "solves": 4,
+        "solves": 1 + len(warm_runs),
         "kernel_launches": launches,
     }
 
@@ -1477,8 +1519,8 @@ def run_config3_phase(device: str = "cuda", n_pods: int = N_PODS, n_types: int =
     pools, provider, pods = config3_world(n_pods, n_types)
     solver = TorchScheduler(pools, provider, device=device)
     cold, cold_ms, warm_runs, launches = solve_runs(solver, pods)
-    if device == "cuda" and launches < 4:
-        fail(f"config 3 launched the compat kernel {launches} times in 4 solves")
+    if device == "cuda" and launches < 1 + len(warm_runs):
+        fail(f"config 3 launched the compat kernel {launches} times in {1 + len(warm_runs)} solves")
     same_as_cpu(cold, TorchScheduler(pools, provider, device="cpu").solve(pods), "config 3")
     check_invariants(cold, pods)
     spread = check_spread(cold, pods, [], provider)
@@ -1509,8 +1551,8 @@ def run_cluster_spread_phase(
     kw = dict(state_nodes=nodes, daemonset_pods=daemons)
     solver = TorchScheduler(pools, provider, device=device, kube_client=kube)
     cold, cold_ms, warm_runs, launches = solve_runs(solver, pods, **kw)
-    if device == "cuda" and launches < 4:
-        fail(f"the cluster spread solve launched the compat kernel {launches} times in 4 solves")
+    if device == "cuda" and launches < 1 + len(warm_runs):
+        fail(f"the cluster spread solve launched the compat kernel {launches} times in {1 + len(warm_runs)} solves")
     cpu = TorchScheduler(pools, provider, device="cpu", kube_client=kube).solve(pods, **kw)
     same_as_cpu(cold, cpu, "cluster spread")
     summary = check_cluster(cold, pods, nodes, daemons, missing)
@@ -1935,8 +1977,8 @@ def run_config6_phase(device: str = "cuda", n_pods: int = N_CONFIG6, n_types: in
     pools, provider, pods = config6_world(n_pods, n_types)
     solver = TorchScheduler(pools, provider, device=device)
     cold, cold_ms, warm_runs, launches = solve_runs(solver, pods)
-    if device == "cuda" and launches < 4:
-        fail(f"config 6 launched the compat kernel {launches} times in 4 solves")
+    if device == "cuda" and launches < 1 + len(warm_runs):
+        fail(f"config 6 launched the compat kernel {launches} times in {1 + len(warm_runs)} solves")
     same_as_cpu(cold, TorchScheduler(pools, provider, device="cpu").solve(pods), "config 6")
     check_invariants(cold, pods)
     row = {
@@ -1968,8 +2010,8 @@ def run_anti_phase(device: str = "cuda", n_pods: int = N_ANTI, n_nodes: int = N_
         kw = dict(state_nodes=nodes, daemonset_pods=daemons)
         solver = TorchScheduler(pools, provider, device=device, kube_client=kube)
         cold, cold_ms, warm_runs, launches = solve_runs(solver, pods, **kw)
-        if device == "cuda" and launches < 4 * len(pools):
-            fail(f"{name} launched the compat kernel {launches} times in 4 solves")
+        if device == "cuda" and launches < (1 + len(warm_runs)) * len(pools):
+            fail(f"{name} launched the compat kernel {launches} times in {1 + len(warm_runs)} solves")
         cpu = TorchScheduler(pools, provider, device="cpu", kube_client=kube).solve(pods, **kw)
         same_as_cpu(cold, cpu, name)
         if not nodes:
@@ -2377,8 +2419,8 @@ def run_stateful_phase(device: str = "cuda", n_pods: int = N_STATEFUL, n_nodes: 
         kw = dict(state_nodes=nodes, daemonset_pods=daemons)
         solver = TorchScheduler(pools, provider, device=device, kube_client=kube)
         cold, cold_ms, warm_runs, launches = solve_runs(solver, pods, **kw)
-        if device == "cuda" and launches < 4 * len(pools):
-            fail(f"{name} launched the compat kernel {launches} times in 4 solves")
+        if device == "cuda" and launches < (1 + len(warm_runs)) * len(pools):
+            fail(f"{name} launched the compat kernel {launches} times in {1 + len(warm_runs)} solves")
         cpu_solver = TorchScheduler(pools, provider, device="cpu", kube_client=kube)
         cpu, calls = capture_pack_existing(lambda: cpu_solver.solve(cpu_pods, **kw), calls=None)
         same_as_cpu(cold, cpu, name)
@@ -2699,8 +2741,8 @@ def run_oracle_phase(device: str = "cuda", n_pods: int = N_CONFIG6, n_nodes: int
         kw = dict(state_nodes=nodes, daemonset_pods=daemons)
         solver = TorchScheduler(pools, provider, device=device, kube_client=kube)
         cold, cold_ms, warm_runs, launches = solve_runs(solver, pods, **kw)
-        if device == "cuda" and launches < 4 * len(pools):
-            fail(f"{name} launched the compat kernel {launches} times in 4 solves")
+        if device == "cuda" and launches < (1 + len(warm_runs)) * len(pools):
+            fail(f"{name} launched the compat kernel {launches} times in {1 + len(warm_runs)} solves")
         route = dict(solver.last_route_stats)
         cpu = TorchScheduler(pools, provider, device="cpu", kube_client=kube).solve(cpu_pods, **kw)
         same_as_cpu(cold, cpu, name)
@@ -2743,8 +2785,8 @@ def run_relax_phase(device: str = "cuda", n_pods: int = N_PODS, n_types: int = N
         fail(f"relax-cluster sent {solver.last_route_stats['oracle']} pods to the greedy fallback")
     if relax["rounds"] == 0 or relax["pods_placed"] == 0:
         fail(f"relax-cluster: the relaxation placed no pod ({relax})")
-    if device == "cuda" and launches < 4 * len(pools) * 2:
-        fail(f"relax-cluster launched the compat kernel {launches} times in 4 solves")
+    if device == "cuda" and launches < (1 + len(warm_runs)) * len(pools) * 2:
+        fail(f"relax-cluster launched the compat kernel {launches} times in {1 + len(warm_runs)} solves")
     if cold.pod_errors:
         fail(f"relax-cluster: {len(cold.pod_errors)} pods failed")
     if any(p.zone == DROUGHT_ZONE for p in cold.node_plans):
@@ -2767,7 +2809,7 @@ def run_relax_phase(device: str = "cuda", n_pods: int = N_PODS, n_types: int = N
         "preferring_pods_in_drought_zone": sum(
             1 for i in range(0, len(pods), 5) if where[i][0] == DROUGHT_ZONE
         ),
-        "launches_per_solve": launches / 4,
+        "launches_per_solve": launches / (1 + len(warm_runs)),
         **(profile_solve(solver, pods, **kw) if device == "cuda" else {}),
     }
     emit(row)
@@ -3406,8 +3448,8 @@ def relax_split(call: dict, reps: int = 10) -> dict:
 
 
 def device_engine_path(label: str, device: str, world, solve_kw: dict, cpu_world=None) -> tuple:
-    """One device-engine path (KARPENTER_TORCH_NATIVE=0): cold and three
-    warm solves on ``device`` with the pack kernels' launches counted from
+    """One device-engine path (KARPENTER_TORCH_NATIVE=0): ``solve_runs``'s
+    cold and warm solves on ``device`` with the pack kernels' launches counted from
     0, the kernels' captured inputs, the same world solved on the CPU
     through the plain scans (``cpu_world``: a smaller world when the
     plain scans would take too long) → (row, ffd calls, existing calls)."""
@@ -3423,7 +3465,7 @@ def device_engine_path(label: str, device: str, world, solve_kw: dict, cpu_world
             kernels = pack_launches()
         # batch_pack syncs on its results: its wall time holds the scans
         row = {"path": label, **timing_row(cold, cold_ms, warm_runs, launches), "pack_kernel_launches": kernels,
-               "batch_pack_ms_per_solve": scan.ms / 4}
+               "batch_pack_ms_per_solve": scan.ms / (1 + len(warm_runs))}
         if device == "cuda":
             if kernels["ffd_pack"] == 0 or (solve_kw.get("state_nodes") and kernels["pack_existing"] == 0):
                 fail(f"{label}: the device engine's solves launched {kernels}")
@@ -4381,6 +4423,20 @@ class nogc:
             gc.enable()
 
 
+class frozen_heap:
+    """The heap's survivors frozen out of every collection for the block,
+    as phase 14 does: each ``nogc`` collection inside it then walks only
+    what the block made, not the earlier phases' worlds."""
+
+    def __enter__(self):
+        gc.collect()
+        gc.freeze()
+        return self
+
+    def __exit__(self, *exc):
+        gc.unfreeze()
+
+
 def config7_canon(res, pods) -> tuple:
     """A tick's plans by pod position (the cold leg solves clones, so
     uids differ; the batch order is shared)."""
@@ -5325,7 +5381,7 @@ def run_disruption_phase(device: str = "cuda", sizes: Optional[dict] = None, sm_
         t_section = now
 
     n9, ppn = sizes["config9"]
-    with capture_screens() as screens:
+    with frozen_heap(), capture_screens() as screens:
         config4 = run_config4(device, sizes["config4"])
         with knobs(KARPENTER_TORCH_NATIVE=0):
             config4_native_off = run_config4(device, sizes["config4"])
@@ -5471,7 +5527,7 @@ def trafficgen_all(jobs: dict, workers: int, phase: str = "phase 16") -> dict:
 
 
 def run_config8_phase(device: str = "cuda", scale: int = CONFIG8_SCALE, pace: float = CONFIG8_PACE,
-                      scenarios=CONFIG8_SCENARIOS, workers: int = 4) -> dict:
+                      scenarios=CONFIG8_SCENARIOS, workers: int = 8) -> dict:
     """16a, bench config 8 (``bench.py:1035-1131``): each scenario in
     lockstep through the sequential loop and the pipeline on ``device``,
     and (on the card) through the sequential loop on the CPU, ``workers``
@@ -5794,6 +5850,32 @@ def hold_serving_call(kind: str, call, phase: str = "16c") -> None:
         fail(f"{phase}: a captured {kind} call differs from its plain version")
 
 
+def hold_and_time(calls: dict, phase: str, screen_path: str = "", sm_mhz: float = 0.0) -> dict:
+    """Every captured call of ``calls`` (kind → calls) held to its plain
+    version on the card bit for bit, once: the first call of each distinct
+    shape through its case function, which holds and times it, the others
+    through ``hold_serving_call`` (``hold_dual_call`` for B7). → the cases
+    by kernel (B8's entries together under ``disrupt_screen``)."""
+    case_fn = {"compat_allowed": compat_call_case, "ffd_pack": ffd_kernel_case,
+               "pack_existing": existing_kernel_case, "dual_ascent": dual_kernel_case}
+    cases: dict = {}
+    for kind, kind_calls in calls.items():
+        distinct = (distinct_compat_calls if kind == "compat_allowed" else distinct_shapes)(kind_calls)
+        firsts = {id(c) for c in distinct}
+        for call in kind_calls:
+            if id(call) not in firsts:
+                if kind == "dual_ascent":
+                    hold_dual_call(call)
+                else:
+                    hold_serving_call(kind, call, phase)
+        if kind.startswith("disrupt_screen"):
+            cases.setdefault("disrupt_screen", []).extend(
+                screen_kernel_case(kind.split(".")[1], c, screen_path, sm_mhz) for c in distinct)
+        else:
+            cases[kind] = [case_fn[kind](c) for c in distinct]
+    return cases
+
+
 def run_serving_kernels_phase(device: str = "cuda", scale: int = SERVING_SCALE, sm_mhz: float = 0.0,
                               scenarios=SERVING_SCENARIOS) -> dict:
     """16c, the kernels under serving, ``KARPENTER_TORCH_NATIVE=0`` (the
@@ -5860,16 +5942,7 @@ def run_serving_kernels_phase(device: str = "cuda", scale: int = SERVING_SCALE, 
                 fail(f"16c: {name} never launched on the serving legs ({totals})")
         if not sum(n for name, n in totals.items() if name.startswith("disrupt_screen")):
             fail(f"16c: no disruption screen launched on the serving legs ({totals})")
-        for kind, kind_calls in calls.items():
-            for call in kind_calls:
-                hold_serving_call(kind, call)
-        cases["compat_allowed"] = [compat_call_case(c) for c in distinct_compat_calls(calls["compat_allowed"])]
-        cases["ffd_pack"] = [ffd_kernel_case(c) for c in distinct_shapes(calls["ffd_pack"])]
-        cases["pack_existing"] = [existing_kernel_case(c) for c in distinct_shapes(calls["pack_existing"])]
-        cases["disrupt_screen"] = [
-            screen_kernel_case(k.split(".")[1], c, "phase16", sm_mhz)
-            for k in calls if k.startswith("disrupt_screen") for c in distinct_shapes(calls[k])
-        ]
+        cases = hold_and_time(calls, "16c", "phase16", sm_mhz)
     return {"scenarios": rows, "captured_calls": {k: len(v) for k, v in calls.items()}, "launches": launches,
             "cases": cases}
 
@@ -6064,12 +6137,7 @@ def run_chaos_kernels_phase(device: str = "cuda", scale: int = CONFIG15_SCALE, s
         missing = [name for name, n in faulted.items() if not n]
         if missing:
             fail(f"17b: {missing} never launched under {[f for f in faults if f != 'none']} ({launches})")
-        for kind, kind_calls in calls.items():
-            for call in kind_calls:
-                hold_serving_call(kind, call, "17b")
-        cases["compat_allowed"] = [compat_call_case(c) for c in distinct_compat_calls(calls["compat_allowed"])]
-        cases["ffd_pack"] = [ffd_kernel_case(c) for c in distinct_shapes(calls["ffd_pack"])]
-        cases["pack_existing"] = [existing_kernel_case(c) for c in distinct_shapes(calls["pack_existing"])]
+        cases = hold_and_time(calls, "17b")
     return {"runs": {f"{world}-{fault}": {k: v for k, v in run.items() if k != "launches"}
                      for (world, fault), run in runs.items()},
             "clean_sha256": clean, "launches": launches, "roles": {f"{world}-{fault}": run["launches"]
@@ -6804,16 +6872,7 @@ def run_operator_phase(device: str = "cuda", sizes: Optional[dict] = None, sm_mh
             fail(f"18a: {missing or 'no screen'} never launched on the operator's path ({launches})")
         if sm_mhz <= 0:
             fail("18a needs the card's maximum SM clock to price the screens' chains")
-        for kind, kind_calls in calls.items():
-            for call in kind_calls:
-                hold_serving_call(kind, call, phase="18a")
-        cases["compat_allowed"] = [compat_call_case(c) for c in distinct_compat_calls(calls["compat_allowed"])]
-        cases["ffd_pack"] = [ffd_kernel_case(c) for c in distinct_shapes(calls["ffd_pack"])]
-        cases["pack_existing"] = [existing_kernel_case(c) for c in distinct_shapes(calls["pack_existing"])]
-        cases["disrupt_screen"] = [
-            screen_kernel_case(k.split(".")[1], c, "phase18", sm_mhz)
-            for k in calls if k.startswith("disrupt_screen") for c in distinct_shapes(calls[k])
-        ]
+        cases = hold_and_time(calls, "18a", "phase18", sm_mhz)
     del calls
     row["cases"] = cases
     row["served"] = run_operator_served(device, sizes["served"])
@@ -6832,6 +6891,475 @@ def report_operator_phase(op: dict, card: str) -> None:
     emit({"phase18": "operator", "passes_equal": op["passes_equal"], "launches": op["launches"],
           "captured_calls": op["captured_calls"], "card_s": op["card_s"], "cpu_s": op.get("cpu_s"),
           "served_s": op["served"]["wall_s"], "wall_s": op["wall_s"], "card": card})
+
+
+# -- phase 19: the fleet -------------------------------------------------------------
+
+# bench config 11 (bench.py:1712-1948): catalog archetypes of 64, 160 and 320
+# types (12 of them GPU types each); the curve's tenants and pods a tenant;
+# the rounds of each run (a burst, then churn rounds of 10 % fresh arrivals,
+# tenant 0's catalog bumped before round 1); the identity runs' cell
+FLEET_ARCHETYPE_SIZES = (64, 160, 320)
+FLEET_GPU_TYPES = 12
+FLEET_TENANTS = (8, 32, 128)
+FLEET_PODS = (200, 1000)
+FLEET_ROUNDS = 3
+FLEET_IDENTITY = (8, 200)
+FLEET_SEED = 11
+FLEET_ENGINES = ("solo", "batched")
+# 19d: trafficgen --fleet at bench config 8's rollout, 8 tenants, scale 200
+FLEET_TG_TENANTS = 8
+FLEET_TG_SCALE = 200
+# phase 19's share of SCRIPT_BUDGET_S, kept out of phase 16's budget beside
+# phases 17's and 18's (16b's later seeds give way first)
+FLEET_RESERVE_S = 150.0
+
+
+def fleet_catalog(archetype: int, bump: int = 0) -> list:
+    """One archetype's menu as ``bench.py::fleet_catalog`` builds it (a GPU
+    tail for a second resource axis); ``bump`` gives a content-distinct
+    revision."""
+    from karpenter_core_tpu_torch.cloudprovider.fake import instance_types, new_instance_type
+
+    size = FLEET_ARCHETYPE_SIZES[archetype % len(FLEET_ARCHETYPE_SIZES)]
+    cat = instance_types(size - FLEET_GPU_TYPES + bump)
+    for g in range(FLEET_GPU_TYPES):
+        cat.append(new_instance_type(
+            f"fleet-gpu-{archetype}-{g}",
+            {"cpu": str(8 * (g + 1)), "memory": f"{16 * (g + 1)}Gi", "pods": "110", "nvidia.com/gpu": str(min(8, g + 1))},
+        ))
+    return cat
+
+
+def fleet_env(n_tenants: int, device: str, seed: int = FLEET_SEED):
+    """A registry and engine on ``device`` as ``bench.py::fleet_env`` builds
+    them: tenants cycle the archetypes (each its own provider with fresh,
+    content-identical objects), 60 % of them content twins (``t % 5 < 3``)
+    running their archetype's standard workload."""
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_core_tpu_torch.fleet import FleetEngine, FleetRegistry
+
+    registry = FleetRegistry(device=device)
+    engine = FleetEngine(registry)
+    tenants = []
+    for t in range(n_tenants):
+        archetype = t % len(FLEET_ARCHETYPE_SIZES)
+        tid = f"fleet-{t:03d}"
+        provider = FakeCloudProvider()
+        provider.instance_types = fleet_catalog(archetype)
+        provider.bump_catalog_generation()
+        nodepool = NodePool()
+        nodepool.metadata.name = "default"
+        registry.add_tenant(tid, [nodepool], provider)
+        tenants.append({"tid": tid, "idx": t, "archetype": archetype, "twin": (t % 5) < 3, "seed": seed})
+    return registry, engine, tenants
+
+
+def fleet_pod(name: str, cpu: str, mem: str, gpu: Optional[str]):
+    """A pending pod as ``bench.py::_mk_pod`` builds it, with a GPU request."""
+    from karpenter_core_tpu_torch.kube.quantity import parse_quantity
+
+    pod = pending_pod(f"bench-{name}", cpu, mem)
+    if gpu:
+        pod.spec.containers[0].resources.requests["nvidia.com/gpu"] = parse_quantity(gpu)
+    return pod
+
+
+def fleet_work(tenants: list, pods_each: int, round_idx: int) -> dict:
+    """One round's pending pods a tenant, as ``bench.py::fleet_work``: round
+    0 the burst, churn rounds 10 % fresh arrivals; twins of an archetype
+    draw the same request content."""
+    work = {}
+    for t in tenants:
+        n = pods_each if round_idx == 0 else max(1, int(pods_each * 0.1))
+        content_seed = t["seed"] + 7919 * round_idx + (t["archetype"] if t["twin"] else 104_729 + t["idx"])
+        rng = np.random.RandomState(content_seed)
+        pods = []
+        for i in range(n):
+            cpu = ["100m", "250m", "500m", "1", "2", "4"][rng.randint(6)]
+            mem = ["128Mi", "512Mi", "1Gi", "2Gi", "4Gi"][rng.randint(5)]
+            gpu = "1" if rng.rand() < 0.1 else None
+            pods.append(fleet_pod(f"{t['tid']}-r{round_idx}-{i}", cpu, mem, gpu))
+        work[t["tid"]] = pods
+    return work
+
+
+def fleet_plan_identity(plan) -> tuple:
+    """``bench.py::_fleet_plan_identity``: a plan's content, the engines'
+    parity projection."""
+    return (plan.nodepool_name, plan.instance_type.name, plan.zone, plan.capacity_type, round(plan.price, 9),
+            tuple(plan.pod_indices), plan.max_pods_per_node)
+
+
+class count_builds:
+    """Count the kernel and packer libraries built or loaded
+    (``buildlib.build_shared`` calls) while ``on`` is set."""
+
+    def __init__(self):
+        self.n, self.on = 0, False
+
+    def __enter__(self):
+        from karpenter_core_tpu_torch import buildlib
+
+        self.module, real = buildlib, buildlib.build_shared
+        self.real = real
+
+        def spy(*args, **kw):
+            if self.on:
+                self.n += 1
+            return real(*args, **kw)
+
+        buildlib.build_shared = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.build_shared = self.real
+
+
+class record_flushes:
+    """Record each mega-dispatch flush's lanes: per lane (one tenant's pack
+    call) the (pad class, width) of each of its jobs."""
+
+    def __init__(self):
+        self.flushes: list = []
+
+    def __enter__(self):
+        from karpenter_core_tpu_torch.fleet import megasolve
+        from karpenter_core_tpu_torch.solver.pack import _pad_class
+
+        self.cls, real = megasolve._MegaDispatcher, megasolve._MegaDispatcher._run_batch
+        self.real = real
+
+        def spy(dispatcher, batch):
+            self.flushes.append([[(_pad_class(int(j[0].shape[0])), int(j[0].shape[1])) for j in w.jobs] for w in batch])
+            return real(dispatcher, batch)
+
+        self.cls._run_batch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._run_batch = self.real
+
+    def scan_launches(self) -> dict:
+        """The FFD scan's launches these flushes make with the C++ packer
+        off: ``pack.batch_pack`` launches once per (pad class, width) class
+        of a flush. → launches, jobs a launch, launches a flush and the
+        launches that carry jobs of two or more tenants."""
+        per_flush, jobs_per_launch, mixed = [], [], 0
+        for lanes in self.flushes:
+            classes: dict = {}
+            for lane, shapes in enumerate(lanes):
+                for shape in shapes:
+                    classes.setdefault(shape, []).append(lane)
+            per_flush.append(len(classes))
+            for members in classes.values():
+                jobs_per_launch.append(len(members))
+                mixed += len(set(members)) >= 2
+        return {
+            "flushes": len(self.flushes), "launches": sum(per_flush),
+            "launches_per_flush": round(sum(per_flush) / len(per_flush), 3) if per_flush else 0.0,
+            "max_launches_per_flush": max(per_flush, default=0),
+            "jobs_per_launch": round(sum(jobs_per_launch) / len(jobs_per_launch), 3) if jobs_per_launch else 0.0,
+            "max_jobs_per_launch": max(jobs_per_launch, default=0), "multi_tenant_launches": mixed,
+        }
+
+
+def fleet_run(n_tenants: int, pods_each: int, engine_name: str, device: str, rounds: int = FLEET_ROUNDS,
+              collect_plans: bool = False) -> dict:
+    """One engine's fleet measurement, ``bench.py::fleet_run`` on the port:
+    a burst, then churn rounds, tenant 0's catalog bumped before round 1.
+    The wall covers the solve rounds only; the catalog cache holds 2 ·
+    tenants + 16 entries. ``steady_round_builds``: libraries built or
+    loaded during rounds ≥ 1 (the reference's steady-round recompiles;
+    must be 0). Fails on any tenant's error."""
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+
+    with knobs(KARPENTER_TORCH_FLEET_ENGINE=engine_name, KARPENTER_TORCH_CATALOG_CACHE_MAX=2 * n_tenants + 16), \
+            count_builds() as builds:
+        registry, engine, tenants = fleet_env(n_tenants, device)
+        works = [fleet_work(tenants, pods_each, r) for r in range(rounds)]
+        # everything alive frozen (no full collection of the script's heap):
+        # each round's collection before its timer (nogc) then walks only
+        # what the earlier rounds made
+        gc.freeze()
+        plans: dict = {}
+        decided = 0
+        dispatch = {"flushes": 0, "pack_calls": 0, "jobs": 0, "max_occupancy": 0, "padding_waste": []}
+        wall = 0.0
+        per_round_ms = []
+        ck.COMPAT_ALLOWED.launches = 0  # counted from 0 just before the run, read just after
+        for r, work in enumerate(works):
+            if r == 1:
+                registry.get(tenants[0]["tid"]).provider.set_instance_types(fleet_catalog(tenants[0]["archetype"], bump=1))
+            builds.on = r >= 1
+            with nogc():
+                t0 = time.perf_counter()
+                outcomes = engine.solve_round(work)
+                dt = time.perf_counter() - t0
+            builds.on = False
+            wall += dt
+            per_round_ms.append(dt * 1000.0)
+            d = engine.last_round.get("dispatch") or {}
+            for k in ("flushes", "pack_calls", "jobs"):
+                dispatch[k] += d.get(k, 0)
+            dispatch["max_occupancy"] = max(dispatch["max_occupancy"], d.get("max_occupancy", 0))
+            if d:
+                dispatch["padding_waste"].append(d.get("padding_waste", 0.0))
+            for tid in sorted(outcomes):
+                o = outcomes[tid]
+                if o.error is not None:
+                    fail(f"phase 19: the fleet solve of {tid} failed ({engine_name}, {n_tenants} x {pods_each}, "
+                         f"round {r}, {device}): {o.error}")
+                decided += o.pods
+                if collect_plans:
+                    plans[(r, tid)] = tuple(sorted(fleet_plan_identity(p) for p in o.result.node_plans))
+        compat = ck.COMPAT_ALLOWED.launches
+        canon = registry.plane.debug_state()["canonical_catalogs"]
+        gc.unfreeze()
+        del registry, engine, works
+    return {
+        "engine": engine_name, "device": device, "tenants": n_tenants, "pods_each": pods_each, "rounds": rounds,
+        "pods_decided": decided, "wall_ms": wall * 1000.0, "round_ms": per_round_ms,
+        "pods_per_sec": decided / wall if wall else 0.0, "dispatch": dispatch, "plans": plans,
+        "steady_round_builds": builds.n, "compat_launches": compat, "canonical_catalogs": canon,
+    }
+
+
+def identical_cells(a: dict, b: dict) -> tuple:
+    """(cells whose plans are equal, cells) over two runs' plan maps."""
+    cells = set(a) | set(b)
+    return sum(1 for c in cells if a.get(c) == b.get(c)), len(cells)
+
+
+def check_identity(label: str, a: dict, b: dict) -> str:
+    same, n = identical_cells(a, b)
+    if same != n or not n:
+        first = sorted(c for c in set(a) | set(b) if a.get(c) != b.get(c))[:3]
+        fail(f"phase 19: {label}: {same}/{n} cells identical; first differing (round, tenant): {first}")
+    return f"{same}/{n}"
+
+
+def fleet_row(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k != "plans"}
+
+
+def run_fleet_config11(device: str, tenants=FLEET_TENANTS, pods=FLEET_PODS, rounds: int = FLEET_ROUNDS,
+                       identity=FLEET_IDENTITY) -> dict:
+    """19a, bench config 11 whole on ``device``: the two warm-up runs, the
+    curve (every cell solo and batched, plans held cell by cell) and the
+    identity runs; no tenant error and no library built in a steady
+    round."""
+    for engine in FLEET_ENGINES:
+        fleet_run(2, 40, engine, device, rounds=1)
+    curve = []
+    for n_tenants in tenants:
+        for pods_each in pods:
+            runs = {engine: fleet_run(n_tenants, pods_each, engine, device, rounds, collect_plans=True)
+                    for engine in FLEET_ENGINES}
+            solo, batched = runs["solo"], runs["batched"]
+            identity_cells = check_identity(f"19a {n_tenants} x {pods_each} batched against solo",
+                                            batched["plans"], solo["plans"])
+            curve.append({
+                "tenants": n_tenants, "pods_each": pods_each,
+                "solo_pods_per_sec": solo["pods_per_sec"], "batched_pods_per_sec": batched["pods_per_sec"],
+                "throughput_ratio": batched["pods_per_sec"] / solo["pods_per_sec"] if solo["pods_per_sec"] else 0.0,
+                "solo_round_ms": solo["round_ms"], "batched_round_ms": batched["round_ms"],
+                "dispatch": batched["dispatch"], "identical": identity_cells,
+                "compat_launches": {e: r["compat_launches"] for e, r in runs.items()},
+                "canonical_catalogs": batched["canonical_catalogs"],
+                "steady_round_builds": solo["steady_round_builds"] + batched["steady_round_builds"],
+            })
+            del runs, solo, batched
+    ident = {engine: fleet_run(*identity, engine, device, rounds, collect_plans=True) for engine in FLEET_ENGINES}
+    identical = check_identity("19a identity batched against solo", ident["batched"]["plans"], ident["solo"]["plans"])
+    builds = sum(c["steady_round_builds"] for c in curve) + sum(r["steady_round_builds"] for r in ident.values())
+    if builds:
+        fail(f"phase 19a: {builds} libraries built or loaded in steady rounds")
+    small = [c for c in curve if c["tenants"] == max(tenants) and c["pods_each"] == min(pods)]
+    return {
+        "curve": curve, "identity": {e: fleet_row(r) for e, r in ident.items()}, "plan_identity": identical,
+        "plans": ident["batched"]["plans"], "steady_round_builds": builds,
+        "throughput_ratio_at_largest_small": small[0]["throughput_ratio"] if small else None,
+    }
+
+
+def fleet_kernel_leg(identity, engine: str, device: str, rounds: int):
+    """One 19c leg: the identity world's run on ``device`` from fresh pack
+    backends (an earlier leg's relaxations would serve this one's from the
+    ``lprelax`` memo), the counts set to 0 just before it and read just
+    after, its flushes recorded."""
+    from karpenter_core_tpu_torch.solver import backends
+
+    backends.reset_for_tests()
+    reset_pack_launches()  # fleet_run sets compat's to 0 itself
+    with record_flushes() as rec:
+        run = fleet_run(*identity, engine, device, rounds, collect_plans=True)
+        _sync(device)
+    launches = {"compat_allowed": run["compat_launches"], **pack_launches()}
+    return run, launches, rec
+
+
+def hold_dual_call(call) -> None:
+    """One captured dual-ascent call against its plain version on the card,
+    bit for bit (weights, routes and fits)."""
+    import torch
+
+    from karpenter_core_tpu_torch.solver.backends import lp
+
+    args = tuple(a.cuda() if hasattr(a, "cuda") else a for a in call)
+    got, want = lp.dual_ascent(*args), lp.dual_ascent_reference(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("19c: a captured dual_ascent call differs from its plain version")
+
+
+def run_fleet_kernels(device: str, identity=FLEET_IDENTITY, rounds: int = FLEET_ROUNDS, plans_19a=None) -> dict:
+    """19c, ``KARPENTER_TORCH_NATIVE=0``: the identity world batched and solo
+    on ``device`` and (on the card) batched on the CPU, then one round
+    under ``KARPENTER_TORCH_PACK_BACKEND=lp`` the same three ways. Plans
+    equal across each group's legs, the FFD legs' equal to 19a's (the C++
+    packer's). On the card every captured compat, FFD and
+    dual-ascent call is held to its plain version bit for bit and each
+    distinct shape timed, and a B5 launch must carry two tenants' jobs."""
+    from karpenter_core_tpu_torch.solver import pack
+    from karpenter_core_tpu_torch.solver import solver as solver_mod
+    from karpenter_core_tpu_torch.solver.backends import lp
+
+    out: dict = {"legs": {}, "launches": {}, "scan": {}}
+    calls: dict = {"compat_allowed": [], "ffd_pack": [], "dual_ascent": []}
+    for backend, leg_rounds in (("ffd", rounds), ("lp", 1)):
+        plans = {}
+        legs = [("batched", device), ("solo", device)] + ([("batched", "cpu")] if device != "cpu" else [])
+        for engine, dev in legs:
+            key = f"{backend}-{engine}-{dev}"
+            with knobs(KARPENTER_TORCH_NATIVE=0, KARPENTER_TORCH_PACK_BACKEND=backend), \
+                    capture(solver_mod, "allowed_via_kernel") as compat_cap, \
+                    capture(pack, "ffd_pack_batched") as ffd_cap, capture(lp, "dual_ascent") as dual_cap:
+                run, launches, rec = fleet_kernel_leg(identity, engine, dev, leg_rounds)
+            plans[key] = run.pop("plans")
+            out["legs"][key] = fleet_row(run)
+            if dev != "cpu":
+                out["launches"][key] = launches
+                calls["compat_allowed"] += compat_cap.calls
+                calls["ffd_pack"] += ffd_cap.calls
+                calls["dual_ascent"] += dual_cap.calls
+            if engine == "batched":
+                out["scan"][key] = rec.scan_launches()
+            del run
+        first = next(iter(plans))
+        for key in plans:
+            check_identity(f"19c {key} against {first}", plans[key], plans[first])
+        if backend == "ffd" and plans_19a is not None:
+            # the scans' plans against the C++ packer's (19a): equal at
+            # these sizes
+            out["ffd_equal_to_19a"] = check_identity(f"19c {first} against 19a", plans[first], plans_19a)
+    multi = [s["multi_tenant_launches"] for k, s in out["scan"].items() if k.startswith("ffd-batched")]
+    if not any(multi):
+        fail(f"phase 19c: no FFD scan launch carried two tenants' jobs: {out['scan']}")
+    out["captured_calls"] = {k: len(v) for k, v in calls.items()}
+    cases: dict = {}
+    if device == "cuda":
+        for kind in ("compat_allowed", "ffd_pack", "dual_ascent"):
+            if not calls[kind]:
+                fail(f"phase 19c: no {kind} call was captured under the fleet")
+        for key, n in out["launches"].items():
+            backend, engine = key.split("-")[:2]
+            need = ("compat_allowed", "ffd_pack") + (("dual_ascent",) if backend == "lp" else ())
+            missing = [k for k in need if not n[k]]
+            if missing:
+                fail(f"phase 19c: {missing} never launched on the {key} leg ({n})")
+            if backend == "ffd" and engine == "batched" and n["ffd_pack"] < out["scan"][key]["launches"]:
+                fail(f"phase 19c: {n['ffd_pack']} FFD launches on {key}, its flushes' classes need "
+                     f"{out['scan'][key]['launches']}")
+        cases = hold_and_time(calls, "19c")
+    out["cases"] = cases
+    return out
+
+
+def run_fleet_trafficgen(device: str, n_tenants: int = FLEET_TG_TENANTS, scale: int = FLEET_TG_SCALE) -> dict:
+    """19d, ``trafficgen --fleet N --scenario rollout --scale S``: batched
+    and solo on ``device`` and (on the card) batched on the CPU, each its
+    own process, three at a time: plan hashes equal, decisions monotonic,
+    no orphaned span, no decision error."""
+    base = ["--scenario", "rollout", "--fleet", n_tenants, "--scale", scale]
+    jobs = {f"{engine}-{device}": base + ["--engine", engine, "--device", device] for engine in FLEET_ENGINES}
+    if device != "cpu":
+        jobs["batched-cpu"] = base + ["--engine", "batched", "--device", "cpu"]
+    with knobs(KARPENTER_TORCH_CATALOG_CACHE_MAX=2 * n_tenants + 16):
+        runs = trafficgen_all(jobs, workers=3, phase="phase 19d")
+    hashes = {k: r["plan_sha256"] for k, r in runs.items()}
+    if len(set(hashes.values())) != 1:
+        fail(f"phase 19d: the --fleet plan hashes differ: {hashes}")
+    for k, r in runs.items():
+        if not r["decisions_monotonic"] or r["orphan_spans"] or r["decision_errors"] or r["pods_decided"] != r["pods_injected"]:
+            fail(f"phase 19d: {k}: monotonic {r['decisions_monotonic']}, orphan spans {r['orphan_spans']}, "
+                 f"errors {r['decision_errors']}, decided {r['pods_decided']} of {r['pods_injected']}")
+    return {"plan_sha256": next(iter(hashes.values())), "runs": {k: {
+        key: r[key] for key in ("engine", "device", "rounds", "pods_decided", "wall_s", "pods_per_sec",
+                                "decision_latency_ms", "dispatch", "scheduler", "process_s")
+    } for k, r in runs.items()}}
+
+
+def run_fleet_phase(device: str = "cuda", tenants=FLEET_TENANTS, pods=FLEET_PODS, rounds: int = FLEET_ROUNDS,
+                    identity=FLEET_IDENTITY, tg=(FLEET_TG_TENANTS, FLEET_TG_SCALE), card: Optional[str] = None) -> dict:
+    """Phase 19 on ``device``, never cut short: 19a bench config 11 whole,
+    19b the identity runs batched on the CPU against the card's, 19c the
+    kernels under the fleet (native off, then ``lp``), 19d three
+    ``trafficgen --fleet`` processes. With ``card`` each part prints its
+    lines as it ends. → the phase's row, ``sections_s`` per part."""
+    t0 = time.perf_counter()
+    sections = {}
+    row = {"config11": run_fleet_config11(device, tenants, pods, rounds, identity)}
+    plans = row["config11"].pop("plans")
+    sections["19a"] = time.perf_counter() - t0
+    if card is not None:
+        report_fleet_part(row, "19a", card)
+    if device != "cpu":
+        t1 = time.perf_counter()
+        cpu = fleet_run(*identity, "batched", "cpu", rounds, collect_plans=True)
+        row["cpu_identity"] = check_identity("19b the CPU's batched identity run against the card's", cpu.pop("plans"),
+                                             plans)
+        row["cpu_run"] = cpu
+        sections["19b"] = time.perf_counter() - t1
+        if card is not None:
+            report_fleet_part(row, "19b", card)
+    t1 = time.perf_counter()
+    row["kernels"] = run_fleet_kernels(device, identity, rounds, plans_19a=plans)
+    sections["19c"] = time.perf_counter() - t1
+    if card is not None:
+        report_fleet_part(row, "19c", card)
+    t1 = time.perf_counter()
+    row["trafficgen"] = run_fleet_trafficgen(device, *tg)
+    sections["19d"] = time.perf_counter() - t1
+    row["sections_s"] = sections
+    row["wall_s"] = time.perf_counter() - t0
+    if card is not None:
+        report_fleet_part(row, "19d", card)
+    return row
+
+
+def report_fleet_part(fleet: dict, part: str, card: str) -> None:
+    """Print one part of phase 19's lines, each with the card (19d's with
+    the phase's summary)."""
+    if part == "19a":
+        c11 = fleet["config11"]
+        for cell in c11["curve"]:
+            emit({"phase19a_cell": f"{cell['tenants']}x{cell['pods_each']}", **cell, "card": card})
+        emit({"phase19a": "config11", "plan_identity": c11["plan_identity"], "identity": c11["identity"],
+              "steady_round_builds": c11["steady_round_builds"],
+              "throughput_ratio_at_largest_small": c11["throughput_ratio_at_largest_small"], "card": card})
+    elif part == "19b":
+        emit({"phase19b": "card=cpu", "identical": fleet["cpu_identity"], "cpu_run": fleet["cpu_run"], "card": card})
+    elif part == "19c":
+        k = fleet["kernels"]
+        for name, rows in k["cases"].items():
+            for r in rows:
+                emit({"phase19_kernel_case": name, **r, "card": card})
+        emit({"phase19c": "kernels", "legs": k["legs"], "launches": k["launches"], "scan": k["scan"],
+              "captured_calls": k["captured_calls"], "ffd_equal_to_19a": k.get("ffd_equal_to_19a"), "card": card})
+    else:
+        emit({"phase19d": "trafficgen --fleet", **fleet["trafficgen"], "card": card})
+        emit({"phase19": "fleet", "sections_s": fleet["sections_s"], "wall_s": fleet["wall_s"], "card": card})
 
 
 def probe_card() -> tuple:
@@ -6971,6 +7499,7 @@ SELECTABLE_PHASES = {
     16: lambda card, sm_mhz: report_serving_phase(run_serving_phase("cuda", sm_mhz=sm_mhz), card),
     17: lambda card, sm_mhz: report_chaos_phase(run_chaos_phase("cuda"), card),
     18: lambda card, sm_mhz: report_operator_phase(run_operator_phase("cuda", sm_mhz=sm_mhz), card),
+    19: lambda card, sm_mhz: run_fleet_phase("cuda", card=card),
 }
 
 
@@ -7218,10 +7747,10 @@ def main() -> None:
     # 16. the serving pipeline on the card: 16c the kernels under serving
     # (native off, a disruption stage), 16a bench config 8 whole, 16b
     # bench config 14 (each measurement its own process)
-    # (phases 17's and 18's reserves kept out of the budget: 16b drops a later seed first)
+    # (phases 17's, 18's and 19's reserves kept out of the budget: 16b drops a later seed first)
     serving = run_serving_phase("cuda", sm_mhz=sm_mhz, budget_s=min(
         SERVING_BUDGET_S,
-        SCRIPT_BUDGET_S - CHAOS_RESERVE_S - OPERATOR_RESERVE_S - (time.perf_counter() - t_start)))
+        SCRIPT_BUDGET_S - CHAOS_RESERVE_S - OPERATOR_RESERVE_S - FLEET_RESERVE_S - (time.perf_counter() - t_start)))
     report_serving_phase(serving, card)
     sk16 = serving["kernels"]
     for mode, counts in sk16["launches"].items():
@@ -7256,6 +7785,23 @@ def main() -> None:
     disrupt["screen_cases"] += op18["cases"]["disrupt_screen"]
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 18"})
 
+    # 19. the fleet on the card: 19a bench config 11 whole (solo and
+    # batched), 19b its identity runs on the CPU, 19c the kernels under the
+    # fleet (native off, then lp), 19d three trafficgen --fleet processes
+    fleet19 = run_fleet_phase("cuda", card=card)
+    fk = fleet19["kernels"]
+    for key, counts in fk["launches"].items():
+        pack["launches"][f"phase19-{key}"] = {name: counts[name] for name in ("ffd_pack", "pack_existing", "dual_ascent")}
+    cases["ffd_pack"] += [{"captured": "phase19", **r} for r in fk["cases"]["ffd_pack"]]
+    cases["dual_ascent"] += [{"captured": "phase19", **r} for r in fk["cases"]["dual_ascent"]]
+    fleet_compat = {f"phase19-{key}": n["compat_allowed"] for key, n in fk["launches"].items()}
+    for cell in fleet19["config11"]["curve"]:
+        for engine, n in cell["compat_launches"].items():
+            fleet_compat[f"phase19a-{cell['tenants']}x{cell['pods_each']}-{engine}"] = n
+    for engine, run in fleet19["config11"]["identity"].items():
+        fleet_compat[f"phase19a-identity-{engine}"] = run["compat_launches"]
+    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 19"})
+
     # the kernels line, then the last line
     paths = {
         "slice": slice_launches, "cluster": cluster["kernel_launches"],
@@ -7274,6 +7820,7 @@ def main() -> None:
            for role in ("tick", "prewarm")},
         **{f"phase17-{key}": n["compat_allowed"] for key, n in ck17["launches"].items()},
         "phase18-operator": op_launches["compat_allowed"],
+        **fleet_compat,
     }
     for leg, n in config7["launches"].items():
         pack["launches"][f"config7-{leg}"] = {"ffd_pack": n["ffd"], "pack_existing": 0, "dual_ascent": 0}
@@ -7296,7 +7843,7 @@ def main() -> None:
                             slice_row, big_row, *spread_rows, *affinity_rows, *stateful_rows, *relax_rows,
                             *config7_rows, *config7["kernel_cases"]["compat_allowed"],
                             *sk16["cases"]["compat_allowed"], *ck17["cases"]["compat_allowed"],
-                            *op18["cases"]["compat_allowed"],
+                            *op18["cases"]["compat_allowed"], *fk["cases"]["compat_allowed"],
                         ]] + [prov["compat_err"]]
                     ),
                     "ms": slice_row["kernel_ms"],
@@ -7324,6 +7871,7 @@ def main() -> None:
                     "serving_captured": sk16["cases"]["compat_allowed"],
                     "chaos_captured": ck17["cases"]["compat_allowed"],
                     "operator_captured": op18["cases"]["compat_allowed"],
+                    "fleet_captured": fk["cases"]["compat_allowed"],
                     "compat_route": slice_row["compat_route"],
                     "ptxas": usage,
                 },

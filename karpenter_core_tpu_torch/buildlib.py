@@ -115,11 +115,14 @@ class CudaKernel:
         return self._lib
 
     def launch(self, *args) -> None:
-        """Call the launch function; raise on a nonzero cudaError."""
+        """Call the launch function; raise on a nonzero cudaError. The
+        count is taken under the kernel's lock: several threads launch at
+        once (the fleet's tenant workers), and ``+=`` alone loses updates."""
         err = getattr(self.lib(), self.symbol)(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol} failed: cudaError {err}")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
 
 
 def check_tensor(name: str, t, dtype, shape: tuple, device) -> None:

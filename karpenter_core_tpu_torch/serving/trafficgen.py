@@ -36,9 +36,10 @@ cpu`` for the plain versions). Two drive modes:
 The chaos pack (``run_chaos``, ``--chaos FAULT``) drives a scenario in
 lockstep through the pipeline with one fault kind injected from a seeded
 schedule (``--chaos none``: the clean twin whose plan hash a faulted
-run's must equal). The reference's fleet streaming mode
-(``run_fleet_measurement``, ``--fleet``) is not ported yet: the CLI
-raises ``NotImplementedError`` for it.
+run's must equal). The fleet mode (``run_fleet_measurement``, ``--fleet
+N --engine batched|solo``) drives N independent tenant streams of one
+scenario through a ``FleetScheduler`` on one device; its plan hash is
+equal across engines and devices.
 """
 
 from __future__ import annotations
@@ -1480,6 +1481,140 @@ class _ServingFaults(logging.Handler):
 # libraries): whichever mode runs second must not inherit the first's.
 
 
+# -- the fleet mode: N independent scenario streams against one device ------------
+
+
+def _fleet_plan_key(plan) -> tuple:
+    """Content identity of one NodePlan, the engines' parity projection
+    (object identities differ by design: the batched engine emits from
+    canonical catalog copies)."""
+    return (
+        plan.nodepool_name,
+        plan.instance_type.name,
+        plan.zone,
+        plan.capacity_type,
+        round(plan.price, 9),
+        tuple(plan.pod_indices),
+        plan.max_pods_per_node,
+    )
+
+
+def run_fleet_measurement(
+    n_tenants: int = 8,
+    scenario: str = "rollout",
+    scale: int = 200,
+    engine: str = "batched",
+    seed: int = 7,
+    catalog_sizes: Tuple[int, ...] = (16, 48, 96),
+    quantum: Optional[int] = None,
+    device="cuda",
+) -> dict:
+    """One fleet drive: ``n_tenants`` independent ``scenario`` streams
+    (per-tenant seeds and catalog archetypes) through one
+    ``FleetScheduler`` on ``engine`` and ``device`` → a plain-JSON
+    summary: throughput, per-tenant decision latency, the mega-dispatch
+    stats, the scheduler's state and a hash of every tenant's plan stream
+    (equal across engines and devices ⇔ plan identity). The catalog
+    cache holds ``KARPENTER_TORCH_CATALOG_CACHE_MAX`` entries: the caller
+    sets it for a large fleet (the JAX package sets 2·tenants + 16)."""
+    import hashlib
+
+    from ..fleet import FleetEngine, FleetRegistry, FleetScheduler
+    from ..tracing import tracer
+    from .latency import percentiles_ms
+
+    tracer.reset_orphans()
+    registry = FleetRegistry(device=device)
+    fleet = FleetEngine(registry, engine=engine)
+    sched = FleetScheduler(fleet, quantum=quantum)
+
+    scenarios = []
+    for t in range(n_tenants):
+        tid = f"tenant-{t:03d}"
+        sc = build_scenario(scenario, scale=scale, seed=seed + 17 * t)
+        provider = FakeCloudProvider()
+        provider.instance_types = _catalog(catalog_sizes[t % len(catalog_sizes)])
+        provider.bump_catalog_generation()
+        nodepool = NodePool()
+        nodepool.metadata.name = "default"
+        nodepool.spec.template.requirements = [
+            NodeSelectorRequirement("team", "In", [f"t{k}" for k in range(sc.teams)])
+        ]
+        registry.add_tenant(tid, [nodepool], provider)
+        scenarios.append((tid, sc, provider, nodepool))
+
+    plan_log: List[tuple] = []
+    round_dispatch = {"flushes": 0, "pack_calls": 0, "jobs": 0, "max_occupancy": 0}
+    injected = 0
+    rounds = 0
+    t0 = time.perf_counter()
+    n_steps = max(len(sc.steps) for _, sc, _, _ in scenarios)
+    for si in range(n_steps):
+        for tid, sc, provider, nodepool in scenarios:
+            if si >= len(sc.steps):
+                continue
+            step = sc.steps[si]
+            if step.mutate_catalog:
+                its = provider.get_instance_types(nodepool)
+                for it in its[:: max(1, len(its) // 16)]:
+                    for o in it.offerings:
+                        o.price *= 1.01
+                provider.bump_catalog_generation()
+            if step.creates:
+                pods = [materialize_spec(s) for s in step.creates]
+                injected += len(pods)
+                sched.submit(tid, pods)
+        while sched.queued():
+            outcomes = sched.run_round()
+            rounds += 1
+            d = fleet.last_round.get("dispatch") or {}
+            for k in ("flushes", "pack_calls", "jobs"):
+                round_dispatch[k] += d.get(k, 0)
+            round_dispatch["max_occupancy"] = max(round_dispatch["max_occupancy"], d.get("max_occupancy", 0))
+            for tid in sorted(outcomes):
+                o = outcomes[tid]
+                if o.error is None:
+                    plan_log.append((rounds, tid, tuple(sorted(_fleet_plan_key(p) for p in o.result.node_plans))))
+                else:
+                    plan_log.append((rounds, tid, ("error", o.error)))
+    wall = time.perf_counter() - t0
+
+    samples: List[float] = []
+    decided = errors = 0
+    per_tenant = {}
+    monotonic = True
+    for tid, _sc, _p, _np in scenarios:
+        tracker = registry.get(tid).latency
+        ms = tracker.samples_ms()
+        samples.extend(ms)
+        decided += tracker.decided_count()
+        errors += sum(1 for s in tracker.decisions() if s[4])
+        ticks = [tick for tick, _ in tracker.decision_log()]
+        monotonic = monotonic and ticks == sorted(ticks)
+        if len(per_tenant) < 4:
+            per_tenant[tid] = percentiles_ms(ms)
+    return {
+        "engine": engine,
+        "scenario": scenario,
+        "tenants": n_tenants,
+        "scale": scale,
+        "device": str(registry.device),
+        "rounds": rounds,
+        "pods_injected": injected,
+        "pods_decided": decided,
+        "decision_errors": errors,
+        "decisions_monotonic": monotonic,
+        "orphan_spans": tracer.orphan_spans(),
+        "wall_s": round(wall, 4),
+        "pods_per_sec": round(decided / wall, 1) if wall else 0.0,
+        "decision_latency_ms": percentiles_ms(samples),
+        "per_tenant_latency_ms": per_tenant,
+        "dispatch": round_dispatch,
+        "plan_sha256": hashlib.sha256(repr(plan_log).encode()).hexdigest(),
+        "scheduler": sched.debug_state(),
+    }
+
+
 def _cli(argv=None) -> int:
     import argparse
     import json
@@ -1499,7 +1634,8 @@ def _cli(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="the solves' device (default: the card)")
     ap.add_argument("--fleet", type=int, default=0, metavar="N",
-                    help="fleet mode (not ported: raises NotImplementedError)")
+                    help="fleet mode: drive N independent tenant streams of "
+                         "--scenario through the fleet scheduler")
     ap.add_argument("--engine", default="batched", choices=("batched", "solo"),
                     help="fleet engine (with --fleet)")
     # kill-the-process-mid-stream: each phase is one process
@@ -1528,8 +1664,6 @@ def _cli(argv=None) -> int:
                          "the clean twin the faulted run's plan hash is "
                          "gated against)")
     args = ap.parse_args(argv)
-    if args.fleet and args.chaos is None:
-        raise NotImplementedError("the fleet streaming mode (run_fleet_measurement, --fleet) is not ported yet")
     with _ServingFaults() as faults:
         if args.chaos is not None:
             out = run_chaos(
@@ -1552,6 +1686,11 @@ def _cli(argv=None) -> int:
                     args.scenario, args.restart_kill_at, args.workdir,
                     scale=args.scale, seed=args.seed, n_types=args.n_types, device=args.device,
                 )
+        elif args.fleet:
+            out = run_fleet_measurement(
+                n_tenants=args.fleet, scenario=args.scenario, scale=args.scale, engine=args.engine,
+                seed=args.seed if args.seed is not None else 7, device=args.device,
+            )
         else:
             out = run_measurement(
                 args.scenario,

@@ -79,6 +79,13 @@ _CAPS = {
     # (KARPENTER_TPU_DISRUPT_{BOUNDS,VERIFY}_CACHE_MAX)
     "disruptbounds": 64,
     "disruptverify": 4096,
+    # the fleet's memos (fleet/megasolve.py): per-tenant catalog content
+    # fingerprints keyed by trusted generation, canonical catalog
+    # snapshots keyed by content, and the fleet-wide plane of job
+    # skeletons (KARPENTER_TPU_FLEET_{ENV,CANON,JOB}_CACHE_MAX)
+    "fleetenv": 1024,
+    "fleetcanon": 64,
+    "fleetjob": 2048,
 }
 _INTERSECTS_MAX = 4096  # content-addressed; clearing only costs re-derivation
 
@@ -386,12 +393,17 @@ def state_key(solver) -> tuple:
 
 def warm_state_for(solver) -> Optional[WarmState]:
     """The WarmState of this solver's (provider, tenant, device), or None
-    when the incremental path is off or there is no provider."""
+    when the incremental path is off or there is no provider. A fleet
+    registry pins one WarmState per tenant solver (``warm_state_pin``):
+    it skips the registry, so a large fleet cannot thrash its bound."""
     if not enabled():
         return None
     provider = solver.cloud_provider
     if provider is None:
         return None
+    pin = getattr(solver, "warm_state_pin", None)
+    if pin is not None and pin.provider is provider:
+        return pin
     key = state_key(solver)
     with _STATES_LOCK:
         st = _STATES.get(key)

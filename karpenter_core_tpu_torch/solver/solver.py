@@ -79,15 +79,17 @@ fallback walks the cluster's bound anti-affinity pods, nominates its
 existing nodes and publishes its events; each solve runs under a
 ``trace_root("solve")`` (joining the provisioner's trace), its phases
 are spans, and its duration, device time, route split, cache and LP
-counters feed the metrics. Three
-pack knobs are read as the JAX package reads their ``KARPENTER_TPU_*``
+counters feed the metrics. Five
+knobs are read as the JAX package reads their ``KARPENTER_TPU_*``
 twins (``KARPENTER_TORCH_PACK_BACKEND``, ``_NATIVE``, ``_LP_MIN_WORK``,
-``_INCREMENTAL``); its other defaults the port depends on are module
-constants (pack.NATIVE_K_OPEN, compat_kernels.COMPAT_TILE_BYTES,
-lp.LP_ITERS, lp.LP_REFINE_ROUNDS, lp.LP_BRANCH_K, plancost.COST_WEIGHTS,
-the cache caps in incremental, CATALOG_CACHE_MAX, the warm store's
-directory and size cap, the vector merge engine, the tensor constraint
-engine).
+``_INCREMENTAL``, ``_CATALOG_CACHE_MAX``); its other defaults the port
+depends on are module constants (pack.NATIVE_K_OPEN,
+compat_kernels.COMPAT_TILE_BYTES, lp.LP_ITERS, lp.LP_REFINE_ROUNDS,
+lp.LP_BRANCH_K, plancost.COST_WEIGHTS, the cache caps in incremental,
+the warm store's directory and size cap, the vector merge engine, the
+tensor constraint engine). A fleet tenant's solver carries a tenant
+scope (``tenant=``) in every memo key, and the batched fleet engine's
+content plane (``fleet_plane``) shares job skeletons across tenants.
 """
 
 from __future__ import annotations
@@ -95,6 +97,7 @@ from __future__ import annotations
 import copy
 import hashlib
 import logging
+import os
 import threading
 import time
 import weakref
@@ -177,9 +180,17 @@ from .vocab import Vocab
 
 log = logging.getLogger("karpenter.torch.solver")
 
-# cached catalog encodings, process-wide — the JAX package's
-# KARPENTER_TPU_CATALOG_CACHE_MAX default
-CATALOG_CACHE_MAX = 8
+
+def catalog_cache_max() -> int:
+    """Cached catalog encodings kept process-wide, read at each insert as
+    the JAX package reads ``KARPENTER_TPU_CATALOG_CACHE_MAX`` (default 8;
+    a fleet raises it to hold every tenant's catalog)."""
+    try:
+        return max(1, int(os.environ.get("KARPENTER_TORCH_CATALOG_CACHE_MAX", "8")))
+    except ValueError:
+        return 8
+
+
 # bounded per-encoding derived-tensor cache (frontiers, ranks, prices)
 _RUNTIME_CACHE_MAX = 256
 
@@ -257,11 +268,12 @@ def _release_orphans() -> None:
 def _cache_insert(key: tuple, entry: _CatalogEntry, stats=None) -> None:
     """Insert ``entry`` into ``_CATALOG_CACHE`` (callers hold
     _CATALOG_LOCK): orphaned entries are released first, then the least
-    recently used beyond CATALOG_CACHE_MAX (counted as evictions)."""
+    recently used beyond ``catalog_cache_max()`` (counted as evictions)."""
     _release_orphans()
     _CATALOG_CACHE[key] = entry
     _CATALOG_CACHE.move_to_end(key)
-    while len(_CATALOG_CACHE) > CATALOG_CACHE_MAX:
+    cap = catalog_cache_max()
+    while len(_CATALOG_CACHE) > cap:
         _CATALOG_CACHE.popitem(last=False)
         if stats is not None:
             stats.evict("catalog")
@@ -290,7 +302,7 @@ def _catalog_entry(
     catalog: List[InstanceType], generation: Optional[int] = None, stats=None, owner=None
 ) -> _CatalogEntry:
     """``catalog``'s encoding from the process-wide cache, encoded and
-    inserted on a miss; the cache keeps the CATALOG_CACHE_MAX most
+    inserted on a miss; the cache keeps the ``catalog_cache_max()`` most
     recently used, and releases at each lookup the entries whose owners
     (the cloud providers that asked for them) are all gone. An unchanged
     provider generation skips the content fingerprint; otherwise the
@@ -749,6 +761,7 @@ class TorchScheduler:
         cluster=None,
         recorder=None,
         metrics=None,
+        tenant=None,
     ):
         """``kube_client`` (``kube.client.KubeClient``, as the JAX
         package's ``kube_client``) is read for the bound pods that seed
@@ -756,7 +769,9 @@ class TorchScheduler:
         of the pods; with None the seeds are empty. ``cluster``
         (``state.cluster.Cluster``) and ``recorder``
         (``events.Recorder``) go to the greedy fallback; ``metrics``
-        (``metrics.registry.Metrics``) takes each solve's samples."""
+        (``metrics.registry.Metrics``) takes each solve's samples.
+        ``tenant``: the fleet tenant this solver serves (fleet/registry.py),
+        whose scope rides every memo key the solver writes."""
         self.device = resolve_device(device)
         self.nodepools = order_by_weight(
             [np_ for np_ in nodepools if np_.metadata.deletion_timestamp is None]
@@ -807,9 +822,16 @@ class TorchScheduler:
         # the drained-node delta of a disruption simulation (None: a live
         # solve), carried into every memo key it could shift
         self._sim_drained: Optional[tuple] = None
-        # the JAX package's tenant scope: the port has no fleet, so every
-        # solver is scope-free
-        self._tenant_scope: tuple = ()
+        # fleet tenancy (fleet/registry.py): a non-empty scope isolates
+        # every identity- or generation-scoped memo this solver touches
+        # (the warm state it resolves to, the topology seed keys, the job
+        # memo keys): generation counters are per object, so two tenants'
+        # counters at equal values must never alias their results
+        self._tenant_scope: tuple = ("tenant", str(tenant)) if tenant is not None else ()
+        # the fleet's content plane (fleet/megasolve.py::SkeletonPlane):
+        # installed by the batched fleet engine, it shares job skeletons
+        # across tenants under the tenant-free prefix of the job key
+        self.fleet_plane = None
         # the most recent snapshot/restore outcome (solver/warmstore.py),
         # and the cache traffic of the last encode_prewarm
         self.last_warmstore_stats: Optional[dict] = None
@@ -1533,7 +1555,7 @@ class TorchScheduler:
         dropped and counted. → the outcome, also ``last_warmstore_stats``."""
         from . import warmstore
 
-        return warmstore.restore(self, path, metrics=self.metrics)
+        return warmstore.restore(self, path, metrics=self.metrics, fleet_plane=self.fleet_plane)
 
     def _solve_tensor(
         self,
@@ -3965,6 +3987,7 @@ class TorchScheduler:
         record streams."""
         backend = backends.active_backend()
         ws = self._warm
+        plane = self.fleet_plane
         keys: List[Optional[tuple]] = [None] * len(jobs)
         skels: List[Optional[JobSkeleton]] = [None] * len(jobs)
         if ws is not None and jobs:
@@ -3973,6 +3996,12 @@ class TorchScheduler:
                     keys[i] = key = self._job_key(job, meta, backend)
                     if key is not None:
                         skels[i] = ws.jobs.get(key, self._cstats)
+                        if skels[i] is None and plane is not None:
+                            # the key less its trailing tenant scope is pure
+                            # content (the device among it): a skeleton
+                            # another tenant computed for the same content
+                            # is this job's skeleton
+                            skels[i] = plane.skeleton_get(key[:-1], self._cstats)
         miss = [i for i in range(len(jobs)) if skels[i] is None]
         with self._phase("pack"):
             # backend.lock spans the call and the reads of its per-call
@@ -4016,6 +4045,8 @@ class TorchScheduler:
                     mi += 1
                     if keys[i] is not None:
                         ws.jobs.put(keys[i], skel, self._cstats)
+                        if plane is not None:
+                            plane.skeleton_put(keys[i][:-1], skel, self._cstats)
                 self._emit_skeleton(meta, skel, keys[i], pods, result, records, merge_all)
 
     def _observe_pack_backend(self, backend, dispatched: bool) -> None:
@@ -4068,7 +4099,9 @@ class TorchScheduler:
         it because two port universes can give byte-identical request
         matrices (TCP:80 and TCP:81 wildcard columns); the backend token
         because two backends may partition equal inputs differently; the
-        tenant scope last, by the JAX package's contract."""
+        device because the entry is shared by every device's solvers, and
+        the fleet's content plane is keyed by everything but the tenant
+        scope, which comes last, by the JAX package's contract."""
         enc_key = self._enc_keys.get(id(meta["enc"]))
         if enc_key is None or self._warm is None:
             return None
@@ -4097,6 +4130,7 @@ class TorchScheduler:
             tuple(meta["port_features"] or ()),
             incremental.pack_engine_token(),
             backend.job_token(self.device) if backend is not None else ("ffd",),
+            str(self.device),
             self._tenant_scope,
         )
 

@@ -35,8 +35,13 @@ What persists, per plane:
 The device-computed planes (compat rows, job, merge, emit, mergerow,
 lprelax) restore only into a solver on the writer's device; on another
 device they are dropped and counted. The JAX package's ``jitsig`` and
-``compilecache`` planes inventory JAX executables and its ``fleetjob``
-plane belongs to the fleet: the port writes none of them.
+``compilecache`` planes inventory JAX executables: the port writes
+neither. The fleet's planes (fleet/megasolve.py) ride the same store: a
+tenant's restore publishes each restored job skeleton into the fleet's
+``fleetjob`` content plane (``restore(..., fleet_plane=)``), and the
+canonical-catalog plane persists by content fingerprint
+(``snapshot_fleet_plane`` / ``restore_fleet_plane``); the ``fleetenv``
+memo is keyed by live generation counters and never written.
 
 Soundness: a restored entry must witness the same read-set as a freshly
 computed one. An entry whose witness does not match the live world is
@@ -85,7 +90,7 @@ _KEY_CONTRACT = (
     ("catalog", "content fp -> (vocab, axis, numpy enc); sig_rows[(pool_fp, sig_tuple, device)]"),
     ("compat", "(pool_fp, sig_tuple, device) -> SigRow (host numpy rows) on the owning catalog entry"),
     ("route", "(sig_tuple..., ('ce', 'tensor')) -> (tensor_idx, parked_idx, oracle_idx)"),
-    ("job", "(('encfp', fp), pool_fp, zone, reqs digest, masks..., port features, engine+backend tokens) + tenant scope -> JobSkeleton"),
+    ("job", "(('encfp', fp), pool_fp, zone, reqs digest, masks..., port features, engine+backend tokens, device) + tenant scope -> JobSkeleton"),
     ("merge", "('vector', scan_cap, rkey stream) -> MergeSkeleton; rkey = (job key, node ordinal)"),
     ("emit", "absorption trail (rkey...) -> emitted offering choice"),
     ("mergerow", "rkey -> packed screen row"),
@@ -589,22 +594,25 @@ def _restore_lprelax(solver, payload: dict, out: _Outcome) -> None:
             out.drop("lprelax")
 
 
-def restore(solver, path: str, metrics=None) -> dict:
+def restore(solver, path: str, metrics=None, fleet_plane=None) -> dict:
     """Restore a snapshot into ``solver``'s warm world. Every plane
     re-anchors against the live world; what fails its witness is dropped
-    and counted. → the outcome (also ``solver.last_warmstore_stats`` and
-    the warm-store counters of ``metrics``)."""
+    and counted. ``fleet_plane`` (the fleet's ``SkeletonPlane``) also
+    takes each restored job skeleton under the key's tenant-free prefix,
+    as a live solve publishes it. → the outcome (also
+    ``solver.last_warmstore_stats`` and the warm-store counters of
+    ``metrics``)."""
     out = _Outcome(path)
     try:
         with tracer.trace_root("warmstore.restore", buffer_if="never"):
-            _restore_under_root(solver, path, out)
+            _restore_under_root(solver, path, out, fleet_plane)
     except Exception:  # noqa: BLE001 — a corrupt plane degrades to cold, never crashes the caller
         log.exception("warm-store restore failed; remaining planes dropped")
         out.reason = "restore error (see logs)"
     return _publish(solver, out.to_dict(), metrics)
 
 
-def _restore_under_root(solver, path: str, out: _Outcome) -> None:
+def _restore_under_root(solver, path: str, out: _Outcome, fleet_plane=None) -> None:
     payload, reason = read_snapshot(path)
     if payload is None:
         out.drop_all(None, reason or "unreadable")
@@ -634,6 +642,8 @@ def _restore_under_root(solver, path: str, out: _Outcome) -> None:
                 out.drop("job")
                 continue
             ws.jobs.put(key, skel)
+            if fleet_plane is not None:
+                fleet_plane.skeleton_put(key[:-1], skel)
             out.ok("job")
 
         for (engine, cap, srkeys), clusters, applied in payload.get("merges", ()):
@@ -691,6 +701,34 @@ def _publish(solver, result: dict, metrics) -> dict:
         for plane, n in result.get("dropped", {}).items():
             metrics.warmstore_dropped.inc(n, plane=plane)
     return result
+
+
+# -- the fleet's canonical-catalog plane -------------------------------------------
+
+
+def snapshot_fleet_plane(plane, directory: Optional[str] = None) -> Optional[str]:
+    """Snapshot a ``CatalogPlane``'s canonical catalogs (content-addressed
+    by fingerprint) → path, or None when persistence is off or failed."""
+    directory = directory or WARMSTORE_DIR
+    if directory is None:
+        return None
+    try:
+        payload = {"schema": SCHEMA, "contract": CONTRACT, "tenant": (), "fleet_canon": plane.export_canon()}
+        return write_snapshot(payload, directory)
+    except Exception:  # noqa: BLE001 — persistence never fails the fleet
+        log.exception("fleet-plane snapshot failed")
+        return None
+
+
+def restore_fleet_plane(plane, path: str) -> dict:
+    """Install a snapshot's canonical catalogs into ``plane``: the
+    fingerprints are their own witness, the plane generations are minted
+    afresh. → the outcome."""
+    payload, reason = read_snapshot(path)
+    if payload is None:
+        return {"path": path, "restored": {}, "dropped": {"fleetcanon": 1}, "reason": reason}
+    n = plane.import_canon(payload.get("fleet_canon", ()))
+    return {"path": path, "restored": {"fleetcanon": n}, "dropped": {}}
 
 
 # -- restart simulation: every in-memory plane dropped as a process exit would --

@@ -23,11 +23,14 @@ queue), and an ``Operator`` started, stopped and driven through one
 meta-path hook that raises on importing either; so does the serving CLI
 (``python -m karpenter_core_tpu_torch.serving.trafficgen``: a free
 pipeline run, a kill and a warm resume with its boot prewarm, and a
-chaos run under ``failover``). The JAX package's environment knobs of
+chaos run under ``failover``), and a batched fleet round (``fleet/``:
+registry, mega-solve engine, scheduler) runs in the hooked solve's
+interpreter. The JAX package's environment knobs of
 that stack, the serving pipeline's, the flight recorder's, the boot
-prewarm's and the REST adapter's watch backoff included, are module
-constants of the port with the reference's defaults. What the port has
-not taken raises ``NotImplementedError``: the CLI's ``--fleet``. The
+prewarm's, the REST adapter's watch backoff and the fleet's included,
+are module constants of the port with the reference's defaults, but the
+fleet engine switch and the catalog cache cap, which are knobs. No
+``NotImplementedError`` names the fleet: the CLI's ``--fleet`` runs. The
 operator's ``Operator``, ``Options`` and ``SingletonController`` are
 ported.
 """
@@ -86,6 +89,7 @@ def test_sources_found():
         ("lifecycle", "nodeclaim_gc.py"), ("lifecycle", "node_termination.py"), ("lifecycle", "consistency.py"),
         ("lifecycle", "lease_gc.py"), ("apis", "validation.py"), ("apis", "duration.py"),
         ("cloudprovider", "metrics.py"), ("tracing", "export.py"), ("metrics", "textcheck.py"),
+        ("fleet", "__init__.py"), ("fleet", "registry.py"), ("fleet", "megasolve.py"), ("fleet", "scheduler.py"),
     ):
         assert os.path.join(PORT_DIR, *module) in srcs
     assert os.path.exists(os.path.join(REPO, "chip_smoke.py"))
@@ -93,11 +97,12 @@ def test_sources_found():
 
 
 # the port's environment knobs: the pack backend, the native packer's
-# switch, the auto backend's threshold override and the warm state's
-# kill switch
+# switch, the auto backend's threshold override, the warm state's kill
+# switch, the disruption engine, the fleet engine and the catalog cache cap
 KNOBS = (
     "KARPENTER_TORCH_PACK_BACKEND", "KARPENTER_TORCH_NATIVE", "KARPENTER_TORCH_LP_MIN_WORK",
-    "KARPENTER_TORCH_INCREMENTAL", "KARPENTER_TORCH_DISRUPT_ENGINE",
+    "KARPENTER_TORCH_INCREMENTAL", "KARPENTER_TORCH_DISRUPT_ENGINE", "KARPENTER_TORCH_FLEET_ENGINE",
+    "KARPENTER_TORCH_CATALOG_CACHE_MAX",
 )
 
 # the upstream operator's deployment flags, read with the reference's names
@@ -193,6 +198,14 @@ def test_reference_knobs_are_constants():
 
     assert restclient.WATCH_BACKOFF_BASE_MS == 200.0  # KARPENTER_TPU_WATCH_BACKOFF_BASE_MS
     assert restclient.WATCH_BACKOFF_MAX_MS == 5000.0  # KARPENTER_TPU_WATCH_BACKOFF_MAX_MS
+    from karpenter_core_tpu_torch.fleet import megasolve, scheduler
+
+    assert megasolve.FLEET_WORKERS == 4  # KARPENTER_TPU_FLEET_WORKERS
+    assert megasolve.FLEET_JOIN_TIMEOUT_S == 300  # KARPENTER_TPU_FLEET_JOIN_TIMEOUT_S
+    assert megasolve.FLEET_TENANT_LABELS == 64  # KARPENTER_TPU_FLEET_TENANT_LABELS
+    assert scheduler.FLEET_QUANTUM == 1000  # KARPENTER_TPU_FLEET_QUANTUM
+    assert scheduler.FLEET_WINDOW_MS == 2.0  # KARPENTER_TPU_FLEET_WINDOW_MS
+    assert scheduler.FLEET_ADMIT_CAP == 10_000  # KARPENTER_TPU_FLEET_ADMIT_CAP
 
 
 _SCRIPT = r"""
@@ -415,6 +428,26 @@ op.stop()
 op.reconcile_all_once()
 assert op.kube_client.list("NodeClaim") and check_exposition(op.metrics_text()) == []
 op.stop()
+# the fleet: one batched round of two tenants (one a content twin of the
+# other) through the scheduler, the mega-dispatch coalescing their packs
+from karpenter_core_tpu_torch.fleet import FleetEngine, FleetRegistry, FleetScheduler
+
+os.environ["KARPENTER_TORCH_FLEET_ENGINE"] = "batched"
+registry = FleetRegistry(device="cpu")
+fleet = FleetEngine(registry)
+sched = FleetScheduler(fleet)
+for t in range(2):
+    tenant_provider = FakeCloudProvider()
+    tenant_provider.instance_types = instance_types(24)
+    tenant_provider.bump_catalog_generation()
+    tenant_pool = NodePool()
+    tenant_pool.metadata.name = "default"
+    registry.add_tenant(f"tenant-{t}", [tenant_pool], tenant_provider)
+    sched.submit(f"tenant-{t}", [copy.deepcopy(p) for p in pods[20:60]])
+outcomes = sched.run_round()
+assert sorted(outcomes) == ["tenant-0", "tenant-1"] and all(o.error is None for o in outcomes.values())
+assert fleet.last_round["dispatch"]["pack_calls"] >= 2 and fleet.last_round["engine"] == "batched"
+assert registry.plane.debug_state()["canonical_catalogs"] == 1
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "karpenter_core_tpu"))
 print(json.dumps({"scheduled": res.pods_scheduled, "errors": len(res.pod_errors), "nodes": res.node_count, "leaked": leaked}))
 """
@@ -484,11 +517,16 @@ def test_serving_cli_under_import_hook():
 
 
 def test_unported_features_raise():
+    """No ``NotImplementedError`` of the port or of ``chip_smoke.py`` names
+    the fleet (the CLI's ``--fleet`` runs); the operator is ported."""
     from karpenter_core_tpu_torch import operator
-    from karpenter_core_tpu_torch.serving import trafficgen
 
-    with pytest.raises(NotImplementedError, match="fleet"):
-        trafficgen._cli(["--scenario", "rollout", "--fleet", "2", "--device", "cpu"])
+    for path in _sources():
+        tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Raise) and node.exc is not None and "NotImplementedError" in ast.dump(node.exc):
+                words = [n.value for n in ast.walk(node.exc) if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+                assert not any("fleet" in w.lower() for w in words), f"{path}:{node.lineno} {words}"
     for name in ("Operator", "Options", "SingletonController"):
         assert isinstance(getattr(operator, name), type), name
 

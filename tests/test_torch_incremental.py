@@ -55,15 +55,13 @@ def cpu_scheduler(*args, **kwargs):
 def incremental_mirror():
     """test_incremental.py on the port: its autouse fixture a plain
     generator (run around each case), the scheduler the port's on the
-    CPU, the cap knobs the port's constants."""
+    CPU, the job cap the port's constant, the catalog cap the port's
+    knob."""
     replace = (
         ("from {pkg}.solver import TPUScheduler, incremental", "from {pkg}.solver import incremental"),
         ("@pytest.fixture(autouse=True)\n", ""),
         ('monkeypatch.setenv("KARPENTER_TPU_JOB_CACHE_MAX", "2")', 'monkeypatch.setitem(incremental._CAPS, "job", 2)'),
-        (
-            'monkeypatch.setenv("KARPENTER_TPU_CATALOG_CACHE_MAX", "1")',
-            'monkeypatch.setattr(solver_mod, "CATALOG_CACHE_MAX", 1)',
-        ),
+        ("KARPENTER_TPU_CATALOG_CACHE_MAX", "KARPENTER_TORCH_CATALOG_CACHE_MAX"),
         ("KARPENTER_TPU_INCREMENTAL", "KARPENTER_TORCH_INCREMENTAL"),
         # the port keeps last_timings numeric: the trace id is its own field
         ('warm.last_timings["trace_id"]', "warm.last_trace_id"),

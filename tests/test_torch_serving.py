@@ -239,17 +239,29 @@ def test_queue_caps_are_constants(monkeypatch):
     assert PipelineConfig().solve_queue_cap == 3
 
 
-def test_cli_refuses_the_slices_not_ported(capsys):
-    """``--fleet`` raises; ``--chaos`` is ported and runs."""
+def test_cli_refuses_the_slices_not_ported(capsys, monkeypatch):
+    """``--chaos`` and ``--fleet`` are ported and run; ``--fleet 2 --scale
+    60`` plans as the JAX package's ``run_fleet_measurement(2, "rollout",
+    60)`` (plan hash equal)."""
     import json
 
+    from karpenter_core_tpu.serving import trafficgen as ref_tg
     from karpenter_core_tpu_torch.serving import trafficgen as tg
+    from test_torch_native import reference_native
 
     assert tg._cli(["--scenario", "rollout", "--chaos", "watch_flap", "--scale", "20", "--device", "cpu"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["fault"] == "watch_flap" and out["held_ticks"]["stale"] >= 1 and out["serving_log_faults"] == []
-    with pytest.raises(NotImplementedError, match="fleet"):
-        tg._cli(["--scenario", "rollout", "--fleet", "2", "--device", "cpu"])
+    monkeypatch.delenv("KARPENTER_TORCH_NATIVE", raising=False)
+    assert tg._cli(["--scenario", "rollout", "--fleet", "2", "--scale", "60", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["engine"] == "batched" and out["device"] == "cpu" and out["serving_log_faults"] == []
+    assert out["pods_decided"] == out["pods_injected"] > 0 and out["decisions_monotonic"] and out["orphan_spans"] == 0
+    reference_native(monkeypatch)
+    # the reference's run writes both: restored after the test
+    monkeypatch.setenv("KARPENTER_TPU_FLEET_ENGINE", "batched")
+    monkeypatch.setenv("KARPENTER_TPU_CATALOG_CACHE_MAX", "20")
+    assert ref_tg.run_fleet_measurement(2, "rollout", 60)["plan_sha256"] == out["plan_sha256"]
 
 
 def _labeled_world(pkg: str, device_kw: dict):

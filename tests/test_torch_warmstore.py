@@ -12,6 +12,13 @@ the JAX package's warm store over the planes the port keeps. Held to it:
   constants set as constants), the consolidated stats schema
   (``solver/stats.py``) included, but ``test_restore_is_faster_than_cold``,
   a wall-clock comparison that says nothing of the port on the CPU;
+- the tests of ``TestTenantMigration`` (a fleet tenant's snapshot
+  restored into a second registry plans as the first did, warm on its
+  first round; eviction and re-admission; the canonical-catalog plane's
+  round trip) run on the port with ``FleetRegistry(device="cpu")``, and
+  the registry's two cases without a store: no directory (eviction takes
+  no snapshot) and the warm state's kill switch off (the restore at
+  admission is dropped whole, the first round still plans the same);
 - a port snapshot restored into a fresh port scheduler after a simulated
   process death plans as the JAX package's un-killed warm solver does;
 - a snapshot the JAX package wrote is dropped whole by the port, and
@@ -36,6 +43,7 @@ CLASSES = ("TestSnapshotRoundTrip", "TestInvalidationMatrix", "TestCorruptSnapsh
            "TestWarmstoreDisabled")
 LEFT_OUT = ("test_restore_is_faster_than_cold",)
 CASES = [c for c in mirror_cases(FILE, classes=CLASSES) if c[1] not in LEFT_OUT]
+MIGRATION_CASES = mirror_cases(FILE, classes=("TestTenantMigration",))
 
 
 def warmstore_mirror():
@@ -49,6 +57,7 @@ def warmstore_mirror():
         ('monkeypatch.delenv("KARPENTER_TPU_WARMSTORE_DIR", raising=False)',
          'monkeypatch.setattr(warmstore, "WARMSTORE_DIR", None)'),
         ("tg.TrafficHarness(", 'tg.TrafficHarness(device="cpu", '),
+        ("FleetRegistry(warmstore_dir=str(tmp_path))", 'FleetRegistry(warmstore_dir=str(tmp_path), device="cpu")'),
     )
     return mirror(FILE, PORT, replace=replace, inject={"TPUScheduler": cpu_scheduler})
 
@@ -69,6 +78,76 @@ def test_warmstore_case_holds_the_port(monkeypatch, tmp_path, case):
     finally:
         for _ in fresh:
             pass
+
+
+def test_migration_mirror_covers_the_class():
+    assert len(MIGRATION_CASES) == 3
+
+
+@pytest.mark.parametrize("case", MIGRATION_CASES, ids=[case_id(c) for c in MIGRATION_CASES])
+def test_tenant_migration_case_holds_the_port(monkeypatch, tmp_path, case):
+    for env in ("KARPENTER_TORCH_INCREMENTAL", "KARPENTER_TORCH_FLEET_ENGINE"):
+        monkeypatch.delenv(env, raising=False)
+    test_warmstore_case_holds_the_port(monkeypatch, tmp_path, case)
+
+
+def _fleet_tenant(mod, registry, tid: str, seed: int):
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider
+
+    provider = FakeCloudProvider()
+    provider.instance_types = mod._catalog()
+    provider.bump_catalog_generation()
+    pool = NodePool()
+    pool.metadata.name = "default"
+    registry.add_tenant(tid, [pool], provider)
+    return mod.TestTenantMigration()._tenant_pods(seed=seed)
+
+
+def test_registry_without_a_directory_evicts_without_a_snapshot(monkeypatch):
+    from karpenter_core_tpu_torch.fleet import FleetEngine, FleetRegistry
+
+    monkeypatch.delenv("KARPENTER_TORCH_INCREMENTAL", raising=False)
+    mod = warmstore_mirror()
+    registry = FleetRegistry(device="cpu")
+    engine = FleetEngine(registry)
+    assert registry.warmstore_dir is None
+    pods = _fleet_tenant(mod, registry, "tenant-c", 19)
+    assert engine.solve_round({"tenant-c": pods})["tenant-c"].error is None
+    assert registry.snapshot_tenant("tenant-c") is None and registry.snapshot_plane() is None
+    assert registry.remove_tenant("tenant-c") and registry.evicted_snapshots == {}
+    _fleet_tenant(mod, registry, "tenant-c", 19)
+    assert registry.get("tenant-c").prewarm_replay is None  # admitted cold
+
+
+def test_registry_restore_with_the_kill_switch_off(monkeypatch, tmp_path):
+    """A snapshot restored at admission while ``KARPENTER_TORCH_INCREMENTAL=0``
+    is dropped whole; the tenant's first round plans as the writer's did."""
+    from karpenter_core_tpu_torch.fleet import FleetEngine, FleetRegistry
+
+    monkeypatch.delenv("KARPENTER_TORCH_INCREMENTAL", raising=False)
+    mod = warmstore_mirror()
+    migration = mod.TestTenantMigration()
+    registry = FleetRegistry(warmstore_dir=str(tmp_path), device="cpu")
+    engine = FleetEngine(registry)
+    ref = engine.solve_round({"tenant-d": _fleet_tenant(mod, registry, "tenant-d", 23)})["tenant-d"]
+    path = registry.snapshot_tenant("tenant-d")
+    assert path is not None
+    importlib.import_module(f"{PORT}.solver.warmstore").simulate_process_death()
+    monkeypatch.setenv("KARPENTER_TORCH_INCREMENTAL", "0")
+    registry2 = FleetRegistry(warmstore_dir=str(tmp_path), device="cpu")
+    engine2 = FleetEngine(registry2)
+    provider = importlib.import_module(f"{PORT}.cloudprovider.fake").FakeCloudProvider()
+    provider.instance_types = mod._catalog()
+    provider.bump_catalog_generation()
+    pool = importlib.import_module(f"{PORT}.apis.nodepool").NodePool()
+    pool.metadata.name = "default"
+    handle = registry2.add_tenant("tenant-d", [pool], provider, restore_from=path)
+    outcome = handle.solver.last_warmstore_stats
+    assert outcome["reason"] == "incremental path disabled" and not outcome["restored"]
+    assert handle.prewarm_replay["status"] == "ok" and handle.prewarm_replay["device"] == "cpu"
+    out = engine2.solve_round({"tenant-d": migration._tenant_pods(seed=23)})["tenant-d"]
+    assert migration._plan_keys(out) == migration._plan_keys(ref)
 
 
 # -- across packages ---------------------------------------------------------------
