@@ -175,7 +175,8 @@ Phases, in order; any failure exits non-zero:
 
 14. Config 7 ticks: bench config 7 (``bench.py:763-960``) on the card
    (``run_config7_phase``): 10,000 pods of RandomState(23), 480 + 20 GPU
-   types, 40 teams, 30 ticks at 5 % churn on four teams, every tenth a
+   types, 40 teams, 20 ticks (bench config 7's 30, cut for the script's
+   time) at 5 % churn on four teams, every tenth a
    1 % price rise on every 16th type, a catalog generation bump and a
    pool weight change. Each tick a restart-shaped cold leg (fresh pods,
    catalog, pool and TorchScheduler, ``KARPENTER_TORCH_INCREMENTAL=0``)
@@ -291,17 +292,18 @@ Phases, in order; any failure exits non-zero:
    18b, ``Operator(...).start()`` with leader election, ephemeral ports
    and the serving pipeline in bench config 8's ``rollout`` world at
    scale 400 beside a follower on the same store: every route after the
-   first decision, ``/debug/device`` 501, the follower writes nothing, a
+   first decision, ``/debug/device`` 200, the follower writes nothing, a
    stop and a start that leads, decides and reconciles again, no
    orphaned span.
 19. The fleet (``run_fleet_phase``), never cut short. 19a, bench config
-   11 whole (``bench.py:1712-1948``) through the port's ``FleetRegistry``,
+   11 (``bench.py:1712-1948``) through the port's ``FleetRegistry``,
    ``FleetEngine`` and the default (C++) packer: catalog archetypes of
    64, 160 and 320 types with 12 GPU types each, 60 % of the tenants
    content twins, a burst then churn rounds of 10 % fresh arrivals,
    tenant 0's catalog bumped before round 1, the catalog cache at 2 ·
    tenants + 16; the two warm-up runs, the curve ({8, 32, 128} tenants ×
-   {200, 1,000} pods, 3 rounds, solo and batched, every cell's plans
+   200 pods and 8 × 1,000, 3 rounds; the 1,000-pod bursts at 32 and 128
+   tenants are left out for the script's time), solo and batched, every cell's plans
    held batched against solo) and the identity runs (8 × 200): no tenant
    error, no library built or loaded in a steady round; pods/s, round
    ms, the dispatch stats and compat launches per engine reported. 19b,
@@ -317,6 +319,31 @@ Phases, in order; any failure exits non-zero:
    ``trafficgen --fleet 8 --scenario rollout --scale 200`` batched and
    solo on the card and batched on the CPU, each its own process: plan
    hashes equal, decisions monotonic, no orphaned span.
+20. The device plane (``run_deviceplane_phase``; shape contracts are on
+   for the whole run, and a breach fails the phase it fires in). 20a
+   phase 5's cluster with ``KARPENTER_TORCH_NATIVE=0`` (compat, the FFD
+   scan, the first-fit), a cold solve and a steady one; 20b bench config
+   10 under lp, every shape cold and warm, its $/hr the JAX package's;
+   20c bench config 4's decision at 1,000 nodes (phase 15 runs its
+   5,000) in a device-time scope (the screens);
+   20d the config 10 restart shape's warm solver snapshotted, restored in
+   a fresh process, the boot prewarm, the first solve, then a first
+   consolidation decision (config 4 at 300 nodes); 20e the slow-solve
+   capture and a breach dump written to a temporary directory and read
+   back; 20f one warm solve with the plane on against off, in turns.
+   Checks: each kernel's launches as the plane reads them (the kernel's
+   own counter) equal torch.profiler's count of its device function over
+   a cluster solve, a fresh lp solve and a fresh decision (more in the
+   trace fails, as does a kernel its run never launched; a trace that
+   dropped events is retried, then reported "not measured"); compile events (library loads) equal the libraries loaded
+   and the steady pass raises none; bytes moved at every boundary with
+   device time (compat, pack, existing, lp, screen); the high-water mark
+   between the largest footprint and the card's memory; a device block on
+   every solve; the restored first solve and first decision load nothing
+   (the screens' library comes into the boot prewarm only through the
+   restored manifest) and the solve plans as the unkilled one; the files
+   load back; on ≤ off × 1.25 + 2 ms. Then over the whole run's process:
+   one load and one compile event per library, bytes at every boundary.
 
 Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
 shapes of phases 8–11 too, the three pack kernels and the disruption
@@ -327,7 +354,7 @@ traces that hold every kernel launch of the solve (``profile_solve``).
 
 Run from the repository root: ``python3 chip_smoke.py`` (``--log PATH``
 appends every JSON line to PATH as well). ``--phases 16,17`` builds the
-kernels as step 2 does, then runs only the named phases (of 14–19) and
+kernels as step 2 does, then runs only the named phases (of 14–20) and
 prints no result line.
 """
 
@@ -4272,7 +4299,7 @@ N_CONFIG7 = 10_000  # bench.py config 7 (bench.py:763-960): pods, RandomState(23
 CONFIG7_SEED = 23
 CONFIG7_TEAMS = 40
 CONFIG7_TYPES = 480  # plus 20 GPU types
-CONFIG7_TICKS = 30
+CONFIG7_TICKS = 20  # bench config 7 runs 30: cut for the script's time
 CONFIG7_CHURN = 0.05
 CONFIG7_MUTATE_EVERY = 10
 CONFIG7_NATIVE_OFF_TICKS = 10  # the second warm pass, on the FFD scan kernel
@@ -6718,7 +6745,7 @@ def run_operator_served(device: str = "cuda", scale: int = OPERATOR_SERVED_SCALE
     second follows; after the first decision ``/healthz`` and ``/readyz``
     give 200, ``/metrics`` passes ``check_exposition``, every route of
     ``OPERATOR_ROUTES`` gives 200 with a payload and ``/debug/device``
-    501; the follower wrote no NodeClaim; stopped and started again, the
+    200 with the device plane's registry; the follower wrote no NodeClaim; stopped and started again, the
     operator leads, serves and reconciles again and decides new pods; no
     orphaned span. → the leg's row."""
     from karpenter_core_tpu_torch.metrics import check_exposition
@@ -6765,8 +6792,8 @@ def run_operator_served(device: str = "cuda", scale: int = OPERATOR_SERVED_SCALE
                 fail(f"18b: {path} gave an empty payload")
             routes[path] = len(body)
         status, body = _http_get(port, "/debug/device")
-        if status != 501 or "tracing.deviceplane" not in body:
-            fail(f"18b: /debug/device gave {status} {body!r}, not 501")
+        if status != 200 or not json.loads(body).get("registry"):
+            fail(f"18b: /debug/device gave {status} {body[:200]!r}, not 200 with the device plane's registry")
         row["routes_bytes"] = routes
         row["leader_claims_created"] = sum(leader.metrics.nodeclaims_created.values.values())
         if not _until(lambda: follower.serving.held_ticks()["leader"] >= 1, 15.0):
@@ -6809,13 +6836,42 @@ def run_operator_served(device: str = "cuda", scale: int = OPERATOR_SERVED_SCALE
     return row
 
 
+def operator_twin_start(n_pods: int, n_types: int) -> subprocess.Popen:
+    """18a's CPU twin started in a process of its own: ``run_operator_world``
+    on the CPU with ``KARPENTER_TORCH_NATIVE=0`` and contracts on, its
+    checks, its stream of pass digests and its seconds as one JSON line."""
+    script = f"""
+import json, time
+import chip_smoke as cs
+from karpenter_core_tpu_torch.solver import contracts
+contracts.enable()
+t0 = time.perf_counter()
+cpu = cs.run_operator_world("cpu", {n_pods}, {n_types}, keep_states=False)
+cpu_s = time.perf_counter() - t0
+print(json.dumps({{"cpu_s": cpu_s, "counts": cs.check_operator_world(cpu, "cpu"),
+                  "stream": cs.operator_stream_digest(cpu.passes)}}))
+"""
+    env = dict(os.environ, KARPENTER_TORCH_NATIVE="0")
+    return subprocess.Popen([sys.executable, "-c", script], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def operator_twin_result(proc: subprocess.Popen, timeout: float = 600.0) -> dict:
+    """Wait for 18a's CPU twin → its line, or fail with its errors."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"18a: the CPU twin failed ({proc.returncode}): {err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
 def run_operator_phase(device: str = "cuda", sizes: Optional[dict] = None, sm_mhz: float = 0.0) -> dict:
     """Phase 18 on ``device``, never cut short. 18a: ``run_operator_world``
     on ``device`` with ``KARPENTER_TORCH_NATIVE=0`` (compat, the FFD scan,
     the first-fit and B8's screens), every call of those four captured,
     then on the CPU on the same engine (the plain versions);
     ``check_operator_world`` on both, and the card's store equal to the
-    CPU's after every pass. On the card
+    CPU's after every pass; on the card the CPU twin runs in a process of
+    its own beside the card's run (``operator_twin_start``). On the card
     every captured call is held to its plain version bit for bit, each
     distinct shape timed, and each of the four kernels must have
     launched. 18b: ``run_operator_served``. ``sizes``: {"world": (pods,
@@ -6826,32 +6882,36 @@ def run_operator_phase(device: str = "cuda", sizes: Optional[dict] = None, sm_mh
     sizes = {"world": (N_CONFIG2, 480), "served": OPERATOR_SERVED_SCALE, **(sizes or {})}
     n_pods, n_types = sizes["world"]
     t0 = time.perf_counter()
-    with knobs(KARPENTER_TORCH_NATIVE=0):
-        with capture(solver_mod, "allowed_via_kernel") as compat_cap, \
-                capture(pack, "ffd_pack_batched") as ffd_cap, capture(pack, "pack_existing") as ex_cap, \
-                capture_screens() as screens:
-            reset_disrupt_launches()
-            card = run_operator_world(device, n_pods, n_types, keep_states=False)
-            _sync(device)
-            launches = disrupt_launches()
-    card_s = time.perf_counter() - t0
-    card_counts = check_operator_world(card, device)
-    stream = operator_stream_digest(card.passes)
-    del card
-    gc.collect()
-    row = {"card_s": card_s, device: card_counts, "launches": launches}
-    if device != "cpu":
-        # the CPU twin on the same engine (the scans' plain versions): at
-        # 10,000 pods the C++ packer's plans differ from the scans' from
-        # the first pass, in both packages
-        t1 = time.perf_counter()
+    # the CPU twin on the same engine (the scans' plain versions), in a
+    # process of its own beside the card's run: at 10,000 pods the C++
+    # packer's plans differ from the scans' from the first pass, in both
+    # packages
+    twin = operator_twin_start(n_pods, n_types) if device != "cpu" else None
+    try:
         with knobs(KARPENTER_TORCH_NATIVE=0):
-            cpu = run_operator_world("cpu", n_pods, n_types, keep_states=False)
-        row["cpu_s"] = time.perf_counter() - t1
-        row["cpu"] = check_operator_world(cpu, "cpu")
-        cpu_stream = operator_stream_digest(cpu.passes)
-        del cpu
+            with capture(solver_mod, "allowed_via_kernel") as compat_cap, \
+                    capture(pack, "ffd_pack_batched") as ffd_cap, capture(pack, "pack_existing") as ex_cap, \
+                    capture_screens() as screens:
+                reset_disrupt_launches()
+                card = run_operator_world(device, n_pods, n_types, keep_states=False)
+                _sync(device)
+                launches = disrupt_launches()
+        card_s = time.perf_counter() - t0
+        card_counts = check_operator_world(card, device)
+        stream = json.loads(json.dumps(operator_stream_digest(card.passes)))
+        del card
         gc.collect()
+        row = {"card_s": card_s, device: card_counts, "launches": launches}
+        if twin is not None:
+            t1 = time.perf_counter()
+            cpu = operator_twin_result(twin)
+            row["cpu_wait_s"] = time.perf_counter() - t1
+    finally:
+        if twin is not None and twin.poll() is None:
+            twin.kill()
+            twin.wait()
+    if twin is not None:
+        row["cpu_s"], row["cpu"], cpu_stream = cpu["cpu_s"], cpu["counts"], cpu["stream"]
         if len(cpu_stream) != len(stream):
             fail(f"18a: the card ran {len(stream)} passes, the CPU {len(cpu_stream)}")
         for k, ((stage, a), (_, b)) in enumerate(zip(stream, cpu_stream)):
@@ -6903,6 +6963,9 @@ FLEET_ARCHETYPE_SIZES = (64, 160, 320)
 FLEET_GPU_TYPES = 12
 FLEET_TENANTS = (8, 32, 128)
 FLEET_PODS = (200, 1000)
+# the curve's cells this script leaves out, for its time: the 1,000-pod
+# bursts past 8 tenants (the benchmark runs config 11 whole)
+FLEET_CUT_CELLS = ((32, 1000), (128, 1000))
 FLEET_ROUNDS = 3
 FLEET_IDENTITY = (8, 200)
 FLEET_SEED = 11
@@ -7146,15 +7209,17 @@ def fleet_row(run: dict) -> dict:
 
 def run_fleet_config11(device: str, tenants=FLEET_TENANTS, pods=FLEET_PODS, rounds: int = FLEET_ROUNDS,
                        identity=FLEET_IDENTITY) -> dict:
-    """19a, bench config 11 whole on ``device``: the two warm-up runs, the
-    curve (every cell solo and batched, plans held cell by cell) and the
-    identity runs; no tenant error and no library built in a steady
-    round."""
+    """19a, bench config 11 on ``device``: the two warm-up runs, the curve
+    (every cell but ``FLEET_CUT_CELLS`` solo and batched, plans held cell
+    by cell) and the identity runs; no tenant error and no library built
+    in a steady round."""
     for engine in FLEET_ENGINES:
         fleet_run(2, 40, engine, device, rounds=1)
     curve = []
     for n_tenants in tenants:
         for pods_each in pods:
+            if (n_tenants, pods_each) in FLEET_CUT_CELLS:
+                continue
             runs = {engine: fleet_run(n_tenants, pods_each, engine, device, rounds, collect_plans=True)
                     for engine in FLEET_ENGINES}
             solo, batched = runs["solo"], runs["batched"]
@@ -7302,7 +7367,7 @@ def run_fleet_trafficgen(device: str, n_tenants: int = FLEET_TG_TENANTS, scale: 
 
 def run_fleet_phase(device: str = "cuda", tenants=FLEET_TENANTS, pods=FLEET_PODS, rounds: int = FLEET_ROUNDS,
                     identity=FLEET_IDENTITY, tg=(FLEET_TG_TENANTS, FLEET_TG_SCALE), card: Optional[str] = None) -> dict:
-    """Phase 19 on ``device``, never cut short: 19a bench config 11 whole,
+    """Phase 19 on ``device``, never cut short: 19a bench config 11 (but ``FLEET_CUT_CELLS``),
     19b the identity runs batched on the CPU against the card's, 19c the
     kernels under the fleet (native off, then ``lp``), 19d three
     ``trafficgen --fleet`` processes. With ``card`` each part prints its
@@ -7360,6 +7425,528 @@ def report_fleet_part(fleet: dict, part: str, card: str) -> None:
     else:
         emit({"phase19d": "trafficgen --fleet", **fleet["trafficgen"], "card": card})
         emit({"phase19": "fleet", "sections_s": fleet["sections_s"], "wall_s": fleet["wall_s"], "card": card})
+
+
+# -- phase 20: the device plane ---------------------------------------------------
+
+# phase 20's share of SCRIPT_BUDGET_S, kept out of phase 16's budget beside
+# the later phases' reserves
+DEVICEPLANE_RESERVE_S = 60.0
+# the kernels by their device-plane names (the reference's jit names)
+PLANE_KERNELS = ("kernels.allowed_kernel", "pack.ffd_pack_batched", "pack.pack_existing", "lp.dual_ascent",
+                 "disrupt.prefix_screen", "disrupt.subset_screen", "disrupt.single_screen")
+# the boundaries a card run moves bytes across (the compat one only on the card)
+PLANE_PHASES = ("compat", "pack", "existing", "lp", "screen")
+DEVICEPLANE_RESTART_SHAPE = "hetero-split"  # 20d's world: bench config 10's shape, under lp
+DEVICEPLANE_CONFIG4_NODES = 1_000  # 20c's cut of config 4 (phase 15 runs its 5,000 whole)
+DEVICEPLANE_RESTART_DECISION_NODES = 300  # 20d: the restored process's first decision, config 4 cut
+DEVICEPLANE_TURNS = 4  # 20f: on, off, off, on, this many times
+
+
+def plane_kernels() -> dict:
+    """The device plane's kernels by name (each module imported, so each
+    is bound)."""
+    import karpenter_core_tpu_torch.disruption.screen_kernels  # noqa: F401
+    import karpenter_core_tpu_torch.solver.backends.lp  # noqa: F401
+    import karpenter_core_tpu_torch.solver.solver  # noqa: F401
+    from karpenter_core_tpu_torch import buildlib
+
+    return {name: buildlib.KERNELS[name] for name in PLANE_KERNELS}
+
+
+# each kernel's device function, as torch.profiler names it: one launch
+# function launches one of these once
+PLANE_DEVICE_NAMES = {
+    "kernels.allowed_kernel": ("compat_allowed_large_kernel", "compat_allowed_small_kernel"),
+    "pack.ffd_pack_batched": ("ffd_pack_kernel",), "pack.pack_existing": ("pack_existing_kernel",),
+    "lp.dual_ascent": ("dual_ascent_kernel",), "disrupt.prefix_screen": ("prefix_kernel",),
+    "disrupt.subset_screen": ("subset_kernel",), "disrupt.single_screen": ("single_kernel",),
+}
+
+
+def traced_launches(run, names, attempts: int = 3) -> dict:
+    """Check (a) against the card's own record: ``run()`` under
+    torch.profiler, each kernel of ``names`` counted in the trace beside
+    its counter's launches over the same run (the count the device plane
+    reads). A trace count above the counter fails (the counter missed a
+    launch); equal counts of a kernel that launched verify it; fewer (a
+    trace that dropped events, as this profiler sometimes does) retry, up
+    to ``attempts`` runs. → name → {"trace", "counted"}, else "not
+    measured" (with a ``profiler_gap`` line) or "not launched" (no run
+    launched it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from karpenter_core_tpu_torch import buildlib
+
+    tries = []
+    verified: dict = {}
+    for _ in range(attempts):
+        # a short session of its own first: after a long stretch with no
+        # profiling, sessions have recorded no device activity
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        before = {name: buildlib.KERNELS[name].total_launches for name in names}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        counted = {name: buildlib.KERNELS[name].total_launches - before[name] for name in names}
+        trace = dict.fromkeys(names, 0)
+        for evt in prof.key_averages():
+            for name in names:
+                if any(fn in evt.key for fn in PLANE_DEVICE_NAMES[name]):
+                    trace[name] += int(evt.count)
+        tries.append({"trace": trace, "counted": counted})
+        over = {name: (trace[name], counted[name]) for name in names if trace[name] > counted[name]}
+        if over:
+            fail(f"phase 20 (a): the trace holds more launches than the counters count: {over}")
+        for name in names:
+            if counted[name] and trace[name] == counted[name] and name not in verified:
+                verified[name] = {"trace": trace[name], "counted": counted[name]}
+        if len(verified) == len(names):
+            break
+    launched = {name for t in tries for name in names if t["counted"][name]}
+    gaps = [name for name in launched if name not in verified]
+    if gaps:
+        emit({"profiler_gap": f"no trace held every launch of {gaps} that the counters counted; "
+                              "check (a) for them is not measured", "attempts": tries})
+    return {name: verified.get(name, "not measured" if name in launched else "not launched") for name in names}
+
+
+def plane_solve(solver, label: str, *args, **kw) -> dict:
+    """One solve and what the device plane says of it: its block, its
+    device time per boundary, the plan's digest."""
+    from karpenter_core_tpu_torch.solver import stats as solver_stats
+
+    t0 = time.perf_counter()
+    res = solver.solve(*args, **kw)
+    wall_ms = (time.perf_counter() - t0) * 1000.0
+    block = solver.last_device_stats
+    if block is None or solver_stats.solve_stats(solver)["device"] is None:
+        fail(f"phase 20 {label}: the solve has no device block")
+    return {"label": label, "res": res, "wall_ms": wall_ms, "block": block,
+            "phase_ms": dict(solver.last_device_phase_ms), "device_ms": solver.last_timings["device_ms"]}
+
+
+def restart_child(path: str, device: str, decision_nodes: int = DEVICEPLANE_RESTART_DECISION_NODES) -> dict:
+    """20d's fresh process: config 10's restart shape, the snapshot at
+    ``path`` restored, the boot prewarm, then the first solve under lp,
+    then a first consolidation decision (bench config 4 at
+    ``decision_nodes`` nodes: the screens, whose library only the
+    restored manifest names to the prewarm) → the solve's compile
+    events, plan digest and cache hits, and the decision's compile events
+    (the process's solve-attributed count across it) and screen
+    launches."""
+    script = f"""
+import json, os
+import chip_smoke as cs
+from karpenter_core_tpu_torch.apis.nodepool import NodePool
+from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider
+from karpenter_core_tpu_torch.disruption import screen_kernels
+from karpenter_core_tpu_torch.solver import TorchScheduler, contracts, prewarm
+from karpenter_core_tpu_torch.tracing import deviceplane
+contracts.enable()
+cs.plane_kernels()  # every entry point bound, as in an operator's process
+catalog, pods = next((c, p) for name, c, p in cs.config10_shapes() if name == {DEVICEPLANE_RESTART_SHAPE!r})
+provider = FakeCloudProvider()
+provider.instance_types = list(catalog)
+pool = NodePool()
+pool.metadata.name = "default"
+solver = TorchScheduler([pool], provider, device={device!r})
+outcome = solver.restore({path!r})
+boot = prewarm.warmup_compile_only(solver)
+res = solver.solve(pods)
+solve_stats = solver.last_device_stats
+with cs.same_identities():
+    w = cs.config4_world({device!r}, {decision_nodes})
+    try:
+        before = deviceplane.compile_count()
+        cmd = cs.disrupt_decide(w, "batched", {device!r})[0]
+        decision_compiles = deviceplane.compile_count() - before
+    finally:
+        w.stop()
+print(json.dumps({{"outcome": outcome, "boot": {{k: v for k, v in boot.items() if k != "calibration"}},
+                  "compiles": solve_stats["compiles"], "events": solve_stats["compile_events"],
+                  "sha": cs.plan_sha256(res), "hits": solver.last_cache_stats["hits"],
+                  "decision_action": cmd.action(), "decision_compiles": decision_compiles,
+                  "decision_screens": screen_kernels.launches(),
+                  "recent_compiles": deviceplane.recent_compiles(8)}}))
+"""
+    env = dict(os.environ, KARPENTER_TORCH_PACK_BACKEND="lp")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"phase 20d: the restored process failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def wrapper_turns(pool, provider, pods, device: str, turns: int, reps: int = 50) -> dict:
+    """20f's second part: one ``allowed_via_kernel`` call on the world's
+    compat inputs, the device plane and the shape contracts both on
+    against both off, in turns (on, off, off, on): the median ms of
+    ``reps`` calls each (``median_ms``'s events on the card, the host
+    clock off it) → {"on": [...], "off": [...], "on_ms", "off_ms"}. The
+    layers' host cost is what the calls differ by."""
+    import torch
+
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+    from karpenter_core_tpu_torch.solver import contracts
+    from karpenter_core_tpu_torch.tracing import deviceplane
+
+    sp = slice_planes([pool], provider, pods)
+    catalog = ck.catalog_to_device(sp["tm"], sp["th"], sp["tn"], sp["keys"], sp["avail"], torch.device(device))
+    side = ck.signature_side(sp["sig"], sp["zone_ok"], sp["ct_ok"], catalog)
+
+    def call():
+        ck.allowed_via_kernel(side, catalog)
+
+    def host_ms():
+        call()
+        samples = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            call()
+            samples.append((time.perf_counter() - t0) * 1000.0)
+        return statistics.median(samples)
+
+    got: dict = {"on": [], "off": []}
+    was = contracts.enabled()
+    try:
+        for _ in range(turns):
+            for on in (True, False, False, True):
+                deviceplane.DEVICEPLANE = on
+                contracts.enable(on)
+                got["on" if on else "off"].append(median_ms(call, reps) if device == "cuda" else host_ms())
+    finally:
+        deviceplane.DEVICEPLANE = True
+        contracts.enable(was)
+    return {**got, "on_ms": statistics.median(got["on"]), "off_ms": statistics.median(got["off"])}
+
+
+def run_deviceplane_phase(device: str = "cuda", n_pods: int = N_PODS, n_types: int = N_TYPES,
+                          n_nodes: int = N_NODES, config4_nodes: int = DEVICEPLANE_CONFIG4_NODES,
+                          decision_nodes: int = DEVICEPLANE_RESTART_DECISION_NODES,
+                          turns: int = DEVICEPLANE_TURNS, workdir: Optional[str] = None) -> dict:
+    """Phase 20: the device plane over solves of its own, each kernel's
+    counter beside the plane's. 20a phase 5's cluster (``n_pods`` pods,
+    ``n_types`` types, ``n_nodes`` nodes) with the native packer off:
+    compat, the FFD scan and the first-fit, a cold solve then a steady
+    one. 20b bench config 10 under lp: every shape cold (the dual ascent)
+    and warm, its $/hr the JAX package's. 20c bench config 4's decision
+    (``config4_nodes`` nodes; the screens), in a device-time scope. 20d a
+    restart: the config 10 shape's warm solver snapshotted, restored in a
+    fresh process, its boot prewarm, then its first solve and a first
+    decision (config 4 at ``decision_nodes`` nodes). 20e the
+    slow-solve capture and a breach dump into a temporary directory, read
+    back. 20f one warm solve (one pod's version bumped each time, so the
+    solve runs its path) with the plane on against off, in turns.
+    Checks: (a) on the card, each kernel's launches in the plane (its
+    counter) equal the profiler trace's over a cluster solve, a fresh lp
+    solve and a fresh decision (``traced_launches``: more in the trace
+    fails, as does a kernel its run never launched; a trace that dropped
+    events is retried, then "not measured");
+    (b) compile events equal the libraries loaded in the phase, and the
+    steady pass raises none; (c) every boundary with device time moved
+    bytes; (d) the card's high-water mark lies between the largest
+    footprint and the card's memory; (e) every solve has its device
+    block and its device time per boundary (the screens' in 20c's scope);
+    (f) the restored first solve raises no compile event and plans as
+    the unkilled one, and the restored process's first decision (its
+    screens, whose library only the restored manifest brings into the
+    boot prewarm) raises none either; (g) the files load back; (h) on ≤ off × 1.25 + 2
+    ms, the reference's bound. 20d's snapshot and 20e's files go under
+    ``workdir`` (None: a temporary directory, removed after). → the
+    phase's numbers."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from karpenter_core_tpu_torch import buildlib
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_core_tpu_torch.metrics import Metrics
+    from karpenter_core_tpu_torch.solver import TorchScheduler, backends, devicetime
+    from karpenter_core_tpu_torch.tracing import RING, capture, deviceplane, flightrec
+
+    t_phase = time.perf_counter()
+    sections = {}
+    card = device == "cuda"
+    kernels = plane_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    libs_before = {row["library"] for row in buildlib.loaded_libraries()}
+    events_before = deviceplane.compile_count() + deviceplane.prewarm_compile_count()
+    totals_before = deviceplane.totals()["transfer_bytes"]
+    metrics = Metrics()
+    solves = []
+
+    # 20a: phase 5's cluster, native off: compat, B5, B6; cold then steady
+    t0 = time.perf_counter()
+    pools, provider, pods, nodes, daemons, _missing, _kube = _cluster_world(n_pods, n_types, n_nodes)
+    with knobs(KARPENTER_TORCH_NATIVE=0):
+        solver = TorchScheduler(pools, provider, device=device, metrics=metrics)
+        cold = plane_solve(solver, "20a-cold", pods, state_nodes=nodes, daemonset_pods=daemons)
+        steady = [plane_solve(solver, "20a-steady", pods, state_nodes=nodes, daemonset_pods=daemons)]
+    solves += [cold, *steady]
+    sections["20a"] = time.perf_counter() - t0
+
+    # 20b: bench config 10 under lp, every shape cold and warm
+    t0 = time.perf_counter()
+    shapes = {}
+    restart_solver = restart_pods = None
+    with knobs(KARPENTER_TORCH_PACK_BACKEND="lp"):
+        for name, catalog, shape_pods in config10_shapes():
+            backends.reset_for_tests()
+            shape_provider = FakeCloudProvider()
+            shape_provider.instance_types = list(catalog)
+            pool = NodePool()
+            pool.metadata.name = "default"
+            shape_solver = TorchScheduler([pool], shape_provider, device=device, metrics=metrics)
+            first = plane_solve(shape_solver, f"20b-{name}", shape_pods)
+            price = round(first["res"].total_price, 4)
+            if price != CONFIG10_REFERENCE[name][1]:
+                fail(f"phase 20b {name}: lp $/hr {price}, the JAX package's is {CONFIG10_REFERENCE[name][1]}")
+            warm = plane_solve(shape_solver, f"20b-{name}-steady", shape_pods)
+            solves.append(first)
+            steady.append(warm)
+            shapes[name] = {"price": price, "device_ms": first["device_ms"], "phase_ms": first["phase_ms"],
+                            "sha": plan_sha256(warm["res"])}
+            if name == DEVICEPLANE_RESTART_SHAPE:
+                restart_solver, restart_pods, restart_provider = shape_solver, shape_pods, shape_provider
+    solves += steady[1:]
+    sections["20b"] = time.perf_counter() - t0
+
+    # 20c: bench config 4's decision, the screens in a device-time scope
+    t0 = time.perf_counter()
+    screen_before = deviceplane.totals()["transfer_bytes"]
+    traced = {}
+    with same_identities():
+        w = config4_world(device, config4_nodes)
+        try:
+            with devicetime.scope(device) as decision_clock:
+                cmd, decision_ms, _stats, n_candidates = disrupt_decide(w, "batched", device)
+            screen_after = deviceplane.totals()["transfer_bytes"]
+            # the phase's launches, read before (a)'s traced runs add theirs
+            launched = {name: k.launches for name, k in kernels.items()}
+            if card:
+                # (a) against the card's trace: a steady cluster solve that
+                # runs its path (one pod's new version: B5, B6), a config
+                # 10 shape's lp solve on a fresh pool and fresh relaxations
+                # (compat, B7), a first decision on a fresh config 4 world
+                # (the screens 20c launched)
+                bumped = iter(pods)
+
+                def cluster_solve():
+                    p = next(bumped)
+                    p.metadata.resource_version = str(int(p.metadata.resource_version or 0) + 1)
+                    with knobs(KARPENTER_TORCH_NATIVE=0):
+                        solver.solve(pods, state_nodes=nodes, daemonset_pods=daemons)
+
+                fresh_pools = iter(range(10))
+
+                def lp_solve():
+                    # a pool of a new name: the signature rows cached for
+                    # the shape's pool do not serve it, so compat launches
+                    backends.reset_for_tests()
+                    pool = NodePool()
+                    pool.metadata.name = f"traced-{next(fresh_pools)}"
+                    with knobs(KARPENTER_TORCH_PACK_BACKEND="lp"):
+                        TorchScheduler([pool], restart_provider, device=device).solve(restart_pods)
+
+                def fresh_decision():
+                    with same_identities():
+                        w2 = config4_world(device, decision_nodes)
+                        try:
+                            disrupt_decide(w2, "batched", device)
+                        finally:
+                            w2.stop()
+
+                traced.update(traced_launches(cluster_solve, ("pack.ffd_pack_batched", "pack.pack_existing")))
+                traced.update(traced_launches(lp_solve, ("kernels.allowed_kernel", "lp.dual_ascent")))
+                traced.update(traced_launches(fresh_decision, [n for n in PLANE_KERNELS[4:] if launched[n]]))
+        finally:
+            w.stop()
+    decision = {"action": cmd.action(), "candidates": n_candidates, "decision_ms": decision_ms,
+                "phase_ms": decision_clock.phase_ms(),
+                "screen_bytes": {d: screen_after.get(f"{d}.screen", 0) - screen_before.get(f"{d}.screen", 0)
+                                 for d in ("h2d", "d2h")}}
+    if cmd.action() == "no-op":
+        fail("phase 20c: config 4 and no consolidation")
+    sections["20c"] = time.perf_counter() - t0
+
+    # the phase's own checks: (a) above (a kernel its run never launched
+    # fails it), (b), (c), (d), (e)
+    unlaunched = [name for name, got in traced.items() if got == "not launched"]
+    if unlaunched:
+        fail(f"phase 20 (a): {unlaunched} never launched in their traced runs")
+    new_libs = [row for row in buildlib.loaded_libraries() if row["library"] not in libs_before]
+    events = deviceplane.compile_count() + deviceplane.prewarm_compile_count() - events_before
+    if events != len(new_libs):
+        fail(f"phase 20 (b): {events} compile events, {len(new_libs)} libraries loaded")
+    if any(s["block"]["compiles"] for s in steady):
+        fail(f"phase 20 (b): the steady pass raised compile events: {[s['block']['compile_events'] for s in steady]}")
+    ran = set(decision["phase_ms"])
+    moved = {"screen"} if any(decision["screen_bytes"].values()) else set()
+    largest = 0
+    for s in solves:
+        ran |= {p for p, ms in s["phase_ms"].items() if ms > 0}
+        moved |= {p for p, dirs in s["block"]["transfer_by_phase"].items() if sum(dirs.values()) > 0}
+        largest = max(largest, s["block"]["footprint_bytes"])
+        if abs(s["device_ms"] - sum(s["phase_ms"].values())) > 1e-6:
+            fail(f"phase 20 (e) {s['label']}: device_ms {s['device_ms']} is not its pairs' sum {s['phase_ms']}")
+    if card:
+        for name in PLANE_KERNELS[:5]:
+            if not launched[name]:
+                fail(f"phase 20 (a): {name} never launched")
+        if ran != set(PLANE_PHASES):
+            fail(f"phase 20 (e): device time at {sorted(ran)}, not at every boundary {PLANE_PHASES}")
+        if not ran <= moved:
+            fail(f"phase 20 (c): no bytes moved at {sorted(ran - moved)}")
+        high = metrics.hbm_high_water.get()
+        total = torch.cuda.mem_get_info()[1]
+        if high is None or not largest <= high <= total:
+            fail(f"phase 20 (d): high-water mark {high} outside [{largest}, {total}]")
+    else:
+        high, total = None, None
+        if ran:
+            fail(f"phase 20 (e): device time off the card: {ran}")
+
+    # 20d: the restart, in a fresh process
+    t0 = time.perf_counter()
+    tmp = workdir or tempfile.mkdtemp(prefix="phase20-")
+    try:
+        path = restart_solver.snapshot(directory=os.path.join(tmp, "warmstore"))
+        if path is None:
+            fail("phase 20d: the snapshot was not written")
+        child = restart_child(path, device, decision_nodes)
+        unkilled = shapes[DEVICEPLANE_RESTART_SHAPE]["sha"]
+        if child["compiles"] != 0 or child["sha"] != unkilled:
+            fail(f"phase 20 (f): the restored first solve raised {child['events']} and planned "
+                 f"{child['sha'][:12]}, the unkilled {unkilled[:12]}")
+        if child["outcome"]["dropped"] or (card and not child["outcome"]["restored"].get("compilecache")):
+            fail(f"phase 20 (f): the restore gave {child['outcome']}")
+        if child["decision_action"] == "no-op" or child["decision_compiles"] != 0:
+            fail(f"phase 20 (f): the restored process's first decision gave {child['decision_action']} and raised "
+                 f"{child['decision_compiles']} compile events ({child['recent_compiles']})")
+        if card:
+            # the screens' library is not on the solve path: only the
+            # restored manifest brings it into the boot prewarm (through
+            # the screens the snapshot's process had bound)
+            if not child["decision_screens"] or not any(
+                    name.startswith("disrupt.") for name in child["boot"]["libraries"]):
+                fail(f"phase 20 (f): the decision launched {child['decision_screens']} screens; the boot "
+                     f"prewarm loaded {child['boot']['libraries']}")
+        sections["20d"] = time.perf_counter() - t0
+
+        # 20e: the slow-solve capture and a breach dump, read back
+        t0 = time.perf_counter()
+        saved = (capture.SLOW_MS, capture.DIR, flightrec.SLO_BREACH_DUMP_MS)
+        capture.SLOW_MS, capture.DIR, flightrec.SLO_BREACH_DUMP_MS = 0.0, os.path.join(tmp, "traces"), 0.0
+        try:
+            restart_solver.solve(restart_pods)
+            trace = RING.last()
+            rec = flightrec.FlightRecorder(capacity=4).record("phase20", 1, trace=trace, latency_ms=[1.0],
+                                                               pods_decided=len(restart_pods))
+        finally:
+            capture.SLOW_MS, capture.DIR, flightrec.SLO_BREACH_DUMP_MS = saved
+        files = sorted(os.listdir(os.path.join(tmp, "traces")))
+        traces = [f for f in files if f.endswith(".trace.json")]
+        breaches = [f for f in files if f.endswith(".breach.json")]
+        with open(os.path.join(tmp, "traces", traces[-1])) as f:
+            chrome = json.load(f)
+        with open(os.path.join(tmp, "traces", breaches[-1])) as f:
+            dump = json.load(f)
+        if not chrome.get("traceEvents") or dump["record"]["decision_id"] != rec.decision_id or not any(
+                e.get("name") == "solve" for e in dump["trace_events"]):
+            fail("phase 20 (g): the capture or the breach dump does not load back")
+        sections["20e"] = time.perf_counter() - t0
+    finally:
+        if workdir is None:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    # 20f: one warm solve, the plane on against off, in turns
+    t0 = time.perf_counter()
+    catalog, turn_pods = next((c, p) for n, c, p in config10_shapes() if n == "linear-control")
+    turn_provider = FakeCloudProvider()
+    turn_provider.instance_types = list(catalog)
+    pool = NodePool()
+    pool.metadata.name = "default"
+    turn_solver = TorchScheduler([pool], turn_provider, device=device)
+    turn_solver.solve(turn_pods)
+    times = {True: [], False: []}
+    try:
+        for turn in range(turns):
+            for k, on in enumerate((True, False, False, True)):
+                # one pod's new version: the solve runs its path, not a replay
+                p = turn_pods[(4 * turn + k) % len(turn_pods)]
+                p.metadata.resource_version = str(int(p.metadata.resource_version or 0) + 1)
+                deviceplane.DEVICEPLANE = on
+                t1 = time.perf_counter()
+                turn_solver.solve(turn_pods)
+                times[on].append((time.perf_counter() - t1) * 1000.0)
+    finally:
+        deviceplane.DEVICEPLANE = True
+    on_ms, off_ms = statistics.median(times[True]), statistics.median(times[False])
+    if on_ms > off_ms * 1.25 + 2.0:
+        fail(f"phase 20 (h): the plane on {on_ms:.3f} ms against off {off_ms:.3f} ms")
+    wrapper = wrapper_turns(pool, turn_provider, turn_pods, device, turns)
+    sections["20f"] = time.perf_counter() - t0
+
+    out = {
+        "cold": {k: cold[k] for k in ("wall_ms", "device_ms", "phase_ms")} | {
+            "compile_events": [(e["fn"], e["library"], e["built"]) for e in cold["block"]["compile_events"]],
+            "transfer_by_phase": cold["block"]["transfer_by_phase"], "footprint_bytes": cold["block"]["footprint_bytes"],
+            "hbm": cold["block"]["hbm"]},
+        "steady": {k: steady[0][k] for k in ("wall_ms", "device_ms", "phase_ms")},
+        "config10_lp": {name: {k: v for k, v in s.items() if k != "sha"} for name, s in shapes.items()},
+        "decision": decision, "launches": launched, "traced_launches": traced,
+        "libraries_loaded": [r["library"] for r in new_libs],
+        "compile_events": events, "hbm_high_water": high, "card_memory": total, "largest_footprint": largest,
+        "restart": {"compiles": child["compiles"], "boot": child["boot"], "restored": child["outcome"]["restored"],
+                    "hits": child["hits"], "decision_action": child["decision_action"],
+                    "decision_compiles": child["decision_compiles"], "decision_screens": child["decision_screens"]},
+        "capture_files": len(traces), "breach_files": len(breaches),
+        "plane_on_ms": on_ms, "plane_off_ms": off_ms, "turn_ms": times, "compat_wrapper_ms": wrapper,
+        "transfers": {k: v - totals_before.get(k, 0) for k, v in deviceplane.totals()["transfer_bytes"].items()
+                      if v - totals_before.get(k, 0)},
+        "sections_s": sections, "wall_s": time.perf_counter() - t_phase,
+    }
+    return out
+
+
+def check_process_plane() -> dict:
+    """Phase 20 over the whole script's process: (b) every library the
+    process loaded raised its compile event, one load per library; (c)
+    bytes moved at every boundary. → the totals, with each kernel's
+    launches (its own counter, which the device plane reads)."""
+    from karpenter_core_tpu_torch import buildlib
+    from karpenter_core_tpu_torch.tracing import deviceplane
+
+    libs = buildlib.loaded_libraries()
+    sources = [row["source"] for row in libs]
+    if len(set(sources)) != len(sources) or not all(row["compile_event"] for row in libs):
+        fail(f"phase 20 (b), the process: libraries and their events {libs}")
+    moved = deviceplane.totals()["transfer_bytes"]
+    missing = [p for p in PLANE_PHASES if not moved.get(f"h2d.{p}") or not moved.get(f"d2h.{p}")]
+    if missing:
+        fail(f"phase 20 (c), the process: no bytes moved at {missing}")
+    return {"launches": deviceplane.launch_counts(), "libraries": [(r["library"], r["built"], r["ms"]) for r in libs],
+            "transfer_bytes": moved}
+
+
+def report_deviceplane_phase(dp: dict, card: str) -> None:
+    """Print phase 20's lines, each with the card."""
+    emit({"phase20": "20a-cluster-native-off", **{k: dp[k] for k in ("cold", "steady")}, "card": card})
+    emit({"phase20": "20b-config10-lp", "shapes": dp["config10_lp"], "card": card})
+    emit({"phase20": "20c-config4-decision", **dp["decision"], "card": card})
+    emit({"phase20": "20d-restart", **dp["restart"], "card": card})
+    emit({"phase20": "device-plane", **{k: dp[k] for k in (
+        "launches", "traced_launches", "libraries_loaded", "compile_events", "hbm_high_water", "card_memory", "largest_footprint",
+        "capture_files", "breach_files", "plane_on_ms", "plane_off_ms", "turn_ms", "compat_wrapper_ms", "transfers",
+        "sections_s",
+        "wall_s")}, "card": card})
 
 
 def probe_card() -> tuple:
@@ -7500,6 +8087,7 @@ SELECTABLE_PHASES = {
     17: lambda card, sm_mhz: report_chaos_phase(run_chaos_phase("cuda"), card),
     18: lambda card, sm_mhz: report_operator_phase(run_operator_phase("cuda", sm_mhz=sm_mhz), card),
     19: lambda card, sm_mhz: run_fleet_phase("cuda", card=card),
+    20: lambda card, sm_mhz: report_deviceplane_phase(run_deviceplane_phase("cuda"), card),
 }
 
 
@@ -7507,8 +8095,11 @@ def run_phases(phases: list) -> None:
     """``--phases``: the card and the build as ``main`` has them, then only
     ``phases`` of ``SELECTABLE_PHASES``, in order. Prints no result line:
     the contract's last line is ``main``'s."""
+    from karpenter_core_tpu_torch.solver import contracts
+
     t_start = time.perf_counter()
     _, card, sm_mhz = probe_card()
+    contracts.enable()  # a shape contract's breach fails the phase it fires in
     build_kernels()
     for n in phases:
         SELECTABLE_PHASES[n](card, sm_mhz)
@@ -7519,11 +8110,13 @@ def main() -> None:
     import torch
 
     from karpenter_core_tpu_torch.solver import compat_kernels as ck
+    from karpenter_core_tpu_torch.solver import contracts
     from karpenter_core_tpu_torch.solver.solver import TorchScheduler
 
     t_start = time.perf_counter()
     # 1. device; 2. build
     kind, card, sm_mhz = probe_card()
+    contracts.enable()  # for the whole run: a breach fails the phase it fires in
     usage = build_kernels()
 
     # 3. kernel vs plain versions on the card
@@ -7747,10 +8340,11 @@ def main() -> None:
     # 16. the serving pipeline on the card: 16c the kernels under serving
     # (native off, a disruption stage), 16a bench config 8 whole, 16b
     # bench config 14 (each measurement its own process)
-    # (phases 17's, 18's and 19's reserves kept out of the budget: 16b drops a later seed first)
+    # (phases 17's to 20's reserves kept out of the budget: 16b drops a later seed first)
     serving = run_serving_phase("cuda", sm_mhz=sm_mhz, budget_s=min(
         SERVING_BUDGET_S,
-        SCRIPT_BUDGET_S - CHAOS_RESERVE_S - OPERATOR_RESERVE_S - FLEET_RESERVE_S - (time.perf_counter() - t_start)))
+        SCRIPT_BUDGET_S - CHAOS_RESERVE_S - OPERATOR_RESERVE_S - FLEET_RESERVE_S - DEVICEPLANE_RESERVE_S
+        - (time.perf_counter() - t_start)))
     report_serving_phase(serving, card)
     sk16 = serving["kernels"]
     for mode, counts in sk16["launches"].items():
@@ -7785,7 +8379,7 @@ def main() -> None:
     disrupt["screen_cases"] += op18["cases"]["disrupt_screen"]
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 18"})
 
-    # 19. the fleet on the card: 19a bench config 11 whole (solo and
+    # 19. the fleet on the card: 19a bench config 11 (solo and
     # batched), 19b its identity runs on the CPU, 19c the kernels under the
     # fleet (native off, then lp), 19d three trafficgen --fleet processes
     fleet19 = run_fleet_phase("cuda", card=card)
@@ -7801,6 +8395,18 @@ def main() -> None:
     for engine, run in fleet19["config11"]["identity"].items():
         fleet_compat[f"phase19a-identity-{engine}"] = run["compat_launches"]
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 19"})
+
+    # 20. the device plane: its own solves (phase 5's cluster native off,
+    # config 10 under lp, config 4's decision), a restart in a fresh
+    # process, the capture and a breach dump, the plane on against off;
+    # then its checks over the whole run's process
+    dp20 = run_deviceplane_phase("cuda")
+    report_deviceplane_phase(dp20, card)
+    emit({"phase20": "process", **check_process_plane(), "card": card})
+    dp_launches = dp20["launches"]
+    pack["launches"]["phase20"] = {name: dp_launches[plane] for name, plane in (
+        ("ffd_pack", "pack.ffd_pack_batched"), ("pack_existing", "pack.pack_existing"), ("dual_ascent", "lp.dual_ascent"))}
+    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 20"})
 
     # the kernels line, then the last line
     paths = {
@@ -7821,6 +8427,7 @@ def main() -> None:
         **{f"phase17-{key}": n["compat_allowed"] for key, n in ck17["launches"].items()},
         "phase18-operator": op_launches["compat_allowed"],
         **fleet_compat,
+        "phase20": dp_launches["kernels.allowed_kernel"],
     }
     for leg, n in config7["launches"].items():
         pack["launches"][f"config7-{leg}"] = {"ffd_pack": n["ffd"], "pack_existing": 0, "dual_ascent": 0}
@@ -7882,6 +8489,9 @@ def main() -> None:
                     **{f"phase16-{mode}": {name: c["tick"] + c["prewarm"] for name, c in n.items()}
                        for mode, n in sk16["launches"].items()},
                     "phase18-operator": op_launches,
+                    "phase20": {f"disrupt_screen.{kind}": dp_launches[plane] for kind, plane in (
+                        ("prefix", "disrupt.prefix_screen"), ("subsets", "disrupt.subset_screen"),
+                        ("singles", "disrupt.single_screen"))},
                 }),
             ]
         }

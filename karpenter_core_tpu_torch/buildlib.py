@@ -7,6 +7,13 @@ of the source and the command, so a binary is reused only when it
 provably matches both. The build writes to a temporary name and renames
 it into place, so concurrent processes never load a half-written file.
 A failed build raises with the compiler's output: there is no fallback.
+
+Each ``CudaKernel`` registers with the device plane
+(tracing/deviceplane.py) under its name, the reference's name of the
+jitted function it replaces. Kernels of one source share one loaded
+library: its load, the build first where ``_build/`` lacks it, is the
+plane's compile event, and ``loaded_libraries()`` lists what the process
+loaded, the warm store's library manifest.
 """
 
 from __future__ import annotations
@@ -17,7 +24,10 @@ import os
 import subprocess
 import tempfile
 import threading
-from typing import List, Optional, Sequence, Tuple
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from .tracing import deviceplane
 
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
@@ -79,32 +89,86 @@ def build_shared(src: str, cmd: List[str], timeout: float = 600.0) -> Tuple[str,
     return path, log
 
 
+# the kernels by device-plane name, and the libraries the process loaded
+# (path → the loaded library, and its manifest row)
+KERNELS: Dict[str, "CudaKernel"] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOADED: Dict[str, dict] = {}
+_LIBS_LOCK = threading.Lock()
+
+
+def kernel_library_path(source: str) -> str:
+    """Where the live tree's ``csrc/<source>`` builds for the card."""
+    return library_path(os.path.join(CSRC, source), [NVCC] + NVCC_FLAGS)
+
+
+def loaded_libraries() -> List[dict]:
+    """The kernel libraries this process loaded: source, library file
+    (named by the hash of the source and the command), the kernels bound
+    from it, whether the load built it first, the load's ms and whether it
+    raised the device plane's compile event (it does unless the plane was
+    off)."""
+    with _LIBS_LOCK:
+        return [dict(row, library=os.path.basename(path), kernels=list(row["kernels"])) for path, row in _LOADED.items()]
+
+
 class CudaKernel:
     """A ``csrc/*.cu`` source built by nvcc into a plain-C library, its
     launch function bound through ctypes. ``launches`` counts every
-    launch made through ``launch`` and nowhere else. ``helpers``: the
-    library's other functions, name → (restype, argtypes), bound once
-    when the library loads."""
+    launch made through ``launch`` and nowhere else (callers reset it);
+    ``total_launches`` counts them for the process, the count the device
+    plane reads. ``name``: the device plane's name of the kernel. ``helpers``: the library's other
+    functions, name → (restype, argtypes), bound once when the library
+    loads."""
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence, helpers: Optional[dict] = None) -> None:
+    def __init__(self, source: str, symbol: str, argtypes: Sequence, helpers: Optional[dict] = None,
+                 name: Optional[str] = None) -> None:
         self.src = os.path.join(CSRC, source)
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.helpers = dict(helpers or {})
+        self.name = name or symbol
         self.launches = 0
+        self.total_launches = 0
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
+        KERNELS[self.name] = self
+        deviceplane.register(self.name).source = source
+
+    def library(self) -> str:
+        """Where the source builds: named by the source's and the
+        command's hash."""
+        return library_path(self.src, [NVCC] + NVCC_FLAGS)
 
     def build(self) -> Tuple[str, str]:
         """Compile the source if needed → (library path, nvcc output)."""
         return build_shared(self.src, [NVCC] + NVCC_FLAGS, timeout=600.0)
+
+    def _load(self) -> ctypes.CDLL:
+        """The source's library: loaded by the first kernel that asks (a
+        device-plane compile event), shared by the others."""
+        with _LIBS_LOCK:
+            path = self.library()
+            lib = _LIBS.get(path)
+            if lib is not None:
+                _LOADED[path]["kernels"].append(self.name)
+                return lib
+            t0 = time.perf_counter()
+            built = not os.path.exists(path)
+            lib = ctypes.CDLL(self.build()[0])
+            ms = (time.perf_counter() - t0) * 1000.0
+            event = deviceplane.record_library(self.name, path, ms, built)
+            _LIBS[path] = lib
+            _LOADED[path] = {"source": os.path.basename(self.src), "kernels": [self.name], "built": built,
+                             "ms": round(ms, 3), "compile_event": event is not None}
+        return lib
 
     def lib(self) -> ctypes.CDLL:
         """The built library, loaded once."""
         if self._lib is None:
             with self._lock:
                 if self._lib is None:
-                    lib = ctypes.CDLL(self.build()[0])
+                    lib = self._load()
                     fn = getattr(lib, self.symbol)
                     fn.restype = ctypes.c_int
                     fn.argtypes = self.argtypes
@@ -123,6 +187,7 @@ class CudaKernel:
             raise RuntimeError(f"{self.symbol} failed: cudaError {err}")
         with self._lock:
             self.launches += 1
+            self.total_launches += 1
 
 
 def check_tensor(name: str, t, dtype, shape: tuple, device) -> None:

@@ -27,14 +27,15 @@ import ctypes
 import torch
 
 from .. import buildlib
+from ..tracing import deviceplane
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 2
-SCREEN_PREFIX = buildlib.CudaKernel("disrupt_screen.cu", "disrupt_prefix_launch", _ARGS)
+SCREEN_PREFIX = buildlib.CudaKernel("disrupt_screen.cu", "disrupt_prefix_launch", _ARGS, name="disrupt.prefix_screen")
 SCREEN_SUBSETS = buildlib.CudaKernel(
     "disrupt_screen.cu", "disrupt_subsets_launch",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 2,
+    [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 2, name="disrupt.subset_screen",
 )
-SCREEN_SINGLES = buildlib.CudaKernel("disrupt_screen.cu", "disrupt_singles_launch", _ARGS)
+SCREEN_SINGLES = buildlib.CudaKernel("disrupt_screen.cu", "disrupt_singles_launch", _ARGS, name="disrupt.single_screen")
 KERNELS = {"prefix": SCREEN_PREFIX, "subsets": SCREEN_SUBSETS, "singles": SCREEN_SINGLES}
 
 
@@ -120,6 +121,7 @@ def _on_card(dev: torch.device) -> bool:
     return True
 
 
+@deviceplane.observe("disrupt.prefix_screen")
 def screen_prefix(loads, free, fleet, cap) -> torch.Tensor:
     """(N,) bool: the prefix of size k + 1 is capacity-feasible."""
     dev = loads.device
@@ -136,6 +138,7 @@ def screen_prefix(loads, free, fleet, cap) -> torch.Tensor:
     return out
 
 
+@deviceplane.observe("disrupt.subset_screen")
 def screen_subsets(masks, loads, free, fleet, cap) -> torch.Tensor:
     """(S,) bool: removing exactly the candidates of ``masks[s]`` is
     capacity-feasible."""
@@ -155,6 +158,7 @@ def screen_subsets(masks, loads, free, fleet, cap) -> torch.Tensor:
     return out
 
 
+@deviceplane.observe("disrupt.single_screen")
 def screen_singles(loads, free, fleet, cap) -> torch.Tensor:
     """(N,) bool: removing candidate i alone is capacity-feasible."""
     dev = loads.device

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..scheduling import resources
+from ..solver import devicetime
 from ..solver.backend import resolve_device
 from ..solver.encode import build_resource_axis, extend_axis, quantize_capacity, quantize_requests
 from . import screen_kernels
@@ -49,11 +50,15 @@ def screen_device(ctx) -> torch.device:
 def _run_screen(fn, ctx, *arrays) -> np.ndarray:
     """One screen launch on the ctx's device → host bool array."""
     dev = screen_device(ctx)
-    tensors = [
-        torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8 if a.dtype == np.uint8 else np.int32)).to(dev)
-        for a in arrays
-    ]
-    return fn(*tensors).cpu().numpy()
+    with devicetime.track(phase="screen"):
+        tensors = [
+            torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8 if a.dtype == np.uint8 else np.int32)).to(dev)
+            for a in arrays
+        ]
+        devicetime.transfer("h2d", *tensors, phase="screen")
+        out = fn(*tensors).cpu().numpy()
+    devicetime.transfer("d2h", out, phase="screen")
+    return out
 
 
 def _encode_candidates(candidates: List[Candidate]):

@@ -7,9 +7,13 @@ text of the same observations is byte-equal to the reference's.
 The port's solve feeds ``solver_duration``, ``solver_device_duration``,
 ``solver_phase_duration``, the cache counters, ``solver_route_pods``,
 ``solver_lp_jobs`` and ``solver_lp_branches``; the provisioner feeds
-``nodeclaims_created`` and ``solver_parity``. The shard-padding,
-XLA-compile, transfer-byte and HBM families belong to a device plane
-the port does not have yet, and stay unobserved."""
+``nodeclaims_created`` and ``solver_parity``; the device plane
+(tracing/deviceplane.py) feeds ``xla_compiles`` (kernel library loads,
+by kernel and cause), ``transfer_bytes`` and ``hbm_high_water`` (the
+card's allocator peak; absent off the card). ``shard_padding_waste``
+belongs to the sharded solve (the reference's ``solver/sharding.py``),
+which the port does not have yet: it stays unobserved, and its
+exposition carries no sample."""
 
 from __future__ import annotations
 
@@ -381,7 +385,8 @@ class Metrics:
             "Warm-state snapshot entries dropped per cache plane (version/contract/fingerprint witness mismatch — never trusted)",
             ["plane"],
         )
-        # device-plane observatory (the reference's tracing/deviceplane.py):
+        # device plane (tracing/deviceplane.py; in the port a "compile" is
+        # a kernel library's load, built first where _build/ lacks it):
         # XLA compile events attributed per jit entry point and cause
         # (first | new_shape | new_config — trace_id exemplars ride
         # /debug/device and the stats device block, never the classic

@@ -10,9 +10,8 @@ all-thread stack dump, and a sampling profiler over
 the closest Python analogue of ``/debug/pprof/profile``.
 
 The port's copy of ``karpenter_core_tpu/operator/server.py``, with every
-route of the reference's. ``/debug/device`` reads the reference's device
-plane (``tracing.deviceplane``), which the port has not taken yet: it
-answers 501 and says so.
+route of the reference's. ``/debug/device`` serves the port's device
+plane (``tracing.deviceplane``).
 """
 
 from __future__ import annotations
@@ -107,12 +106,25 @@ def _traces_last(_query) -> Tuple[int, str, str]:
     return 200, "application/json", to_chrome_json([tr])
 
 
-def _device(_query) -> Tuple[int, str, str]:
-    """The device-plane observatory. The reference serves its jit-signature
-    registry, compile totals and compile-cache status from
-    ``tracing.deviceplane``; the port has no device plane yet, so the
-    route answers 501 Not Implemented, naming what is missing."""
-    return 501, "text/plain", "tracing.deviceplane is not ported yet: no device plane to serve\n"
+def _device(query) -> Tuple[int, str, str]:
+    """The device plane (tracing/deviceplane.py): the signature registry
+    with each kernel's launches, the process's compile (library load) and
+    transfer totals, and the recent compile events with their trace ids,
+    plus the kernel libraries' status and the boot prewarm's outcome.
+    ``?tail=N`` bounds the event list (default 32)."""
+    import json
+
+    from ..solver import backend, prewarm
+    from ..tracing import deviceplane
+
+    try:
+        tail = int(query.get("tail", ["32"])[0])
+    except ValueError:
+        return 400, "text/plain", "bad tail parameter\n"
+    state = deviceplane.debug_state(tail=tail)
+    state["compile_cache"] = backend.compile_cache_status()
+    state["prewarm"] = prewarm.last_result()
+    return 200, "application/json", json.dumps(state, default=str)
 
 
 def _decisions(query) -> Tuple[int, str, str]:
@@ -295,7 +307,7 @@ class OperationalServer:
             # trace ring: the routes only read the bounded ring
             "/debug/decisions": _decisions,
             "/debug/decisions/last": _decisions_last,
-            # the device plane: 501 until the port has one
+            # the device plane's registry and totals: reads only
             "/debug/device": _device,
         }
         if self.serving_state is not None:

@@ -221,8 +221,8 @@ class _DecisionStep:
             "decision_trace_id": tr.trace_id if tr is not None else None,
             "solve_host_ms": round((timings or {}).get("host_ms", 0.0), 3),
             "solve_device_ms": round((timings or {}).get("device_ms", 0.0), 3),
-            # the reference's device-plane compile events of this tick's
-            # solve; None: the port has no device plane yet
+            # the device plane's compile events (library loads) of this
+            # tick's solve; None with the plane off
             "solve_compiles": (
                 (getattr(solver, "last_device_stats", None) or {}).get("compiles")
                 if solver is not None

@@ -962,6 +962,7 @@ def _drive_steps(pipe, harness, steps, first_index, quiesce_timeout):
                         "step_ms": tick_rec.get("step_ms", 0.0),
                         "solve_host_ms": tick_rec.get("solve_host_ms", 0.0),
                         "solve_device_ms": tick_rec.get("solve_device_ms", 0.0),
+                        "solve_compiles": tick_rec.get("solve_compiles"),
                     }
                 )
     return solve_ticks, out
@@ -1053,9 +1054,9 @@ def run_restart_resume(
     report the full-stream plan hash plus the post-restart warm-up
     trajectory. A snapshot restored on another device than the one
     that wrote it (the handoff's ``device``) keeps its host planes and
-    drops its device-computed ones, counted in ``warmstore``. The
-    reference's ``first_solve_compiles`` (device-plane compile events of
-    the first solve) is absent: the port has no device plane yet."""
+    drops its device-computed ones, counted in ``warmstore``.
+    ``first_solve_compiles``: the device plane's compile events (library
+    loads) of the first authoritative solve."""
     import hashlib
     import pickle
 
@@ -1121,7 +1122,10 @@ def run_restart_resume(
         "first_solve_ms": solve_ticks[0]["step_ms"] if solve_ticks else 0.0,
         "first_solve_host_ms": solve_ticks[0]["solve_host_ms"] if solve_ticks else 0.0,
         "first_solve_device_ms": solve_ticks[0]["solve_device_ms"] if solve_ticks else 0.0,
-        # the boot prewarm's outcome (libraries, calibration, ms)
+        # the device plane's compile events (library loads) of the first
+        # authoritative solve: 0 once the boot prewarm loaded them
+        "first_solve_compiles": solve_ticks[0].get("solve_compiles") if solve_ticks else None,
+        # the boot prewarm's outcome (libraries, compile events, calibration, ms)
         "prewarm_ms": (boot_replay or {}).get("prewarm_ms", 0.0),
         "prewarm": boot_replay,
         "post_restart_step_ms": [round(t["step_ms"], 3) for t in solve_ticks],

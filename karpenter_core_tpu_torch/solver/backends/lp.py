@@ -66,7 +66,8 @@ import numpy as np
 import torch
 
 from ... import buildlib
-from .. import incremental
+from ...tracing import deviceplane
+from .. import devicetime, incremental
 from ..backend import resolve_device
 from . import PackBackend, job_prices
 
@@ -91,6 +92,7 @@ DUAL_ASCENT = buildlib.CudaKernel(
     "dual_ascent.cu", "dual_ascent_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 5,
     helpers={"dual_ascent_plan": (ctypes.c_int, [ctypes.c_int64] * 3 + [ctypes.c_void_p])},
+    name="lp.dual_ascent",
 )
 PLAN_FIELDS = ("threads", "owners", "groups", "types", "regs", "global", "bytes")
 
@@ -173,6 +175,7 @@ def step_lr(k: int) -> float:
     return float(np.float32(0.5) * np.float32(1.0 / math.sqrt(k + 1.0)))
 
 
+@deviceplane.observe("lp.dual_ascent", static_names=("iters",))
 def dual_ascent(
     reqs: torch.Tensor,
     counts: torch.Tensor,
@@ -290,13 +293,17 @@ def relax(
     if w0 is not None:
         w0_p[:T] = np.maximum(np.asarray(w0, dtype=np.float32), 1e-12)
     clock.lap("pad")
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    inputs = (t(reqs_p), t(counts_p), t(alloc_p), t(prices_p), t(valid_p), t(w0_p))
-    clock.lap("upload")
-    w, t_star, has_fit = dual_ascent(*inputs, int(iters))
-    clock.lap("kernel")
-    # the one sync of the relax call
-    w, t_star, has_fit = w.cpu().numpy(), t_star.cpu().numpy()[:S], has_fit.cpu().numpy()[:S]
+    deviceplane.record_footprint(deviceplane.nbytes_of(reqs_p, counts_p, alloc_p, prices_p, valid_p, w0_p))
+    with devicetime.track(phase="lp"):
+        devicetime.transfer("h2d", reqs_p, counts_p, alloc_p, prices_p, valid_p, w0_p, phase="lp")
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        inputs = (t(reqs_p), t(counts_p), t(alloc_p), t(prices_p), t(valid_p), t(w0_p))
+        clock.lap("upload")
+        w, t_star, has_fit = dual_ascent(*inputs, int(iters))
+        clock.lap("kernel")
+        # the one sync of the relax call
+        w, t_star, has_fit = w.cpu().numpy(), t_star.cpu().numpy()[:S], has_fit.cpu().numpy()[:S]
+    devicetime.transfer("d2h", w, t_star, has_fit, phase="lp")
     clock.lap("download")
     real = valid_p[:T]
     bound = _host_bound(

@@ -36,6 +36,8 @@ import numpy as np
 import torch
 
 from .. import buildlib
+from ..tracing import deviceplane
+from .contracts import contract
 
 WORD_BITS = 32
 # flag bits after each requirement key's value bits: U_s, U_t, N
@@ -185,6 +187,10 @@ class DeviceCatalog:
     def n_types(self) -> int:
         return int(self.planes.shape[1])
 
+    def __deviceplane__(self):
+        """What the device plane's signature registry records of it."""
+        return (self.planes, self.key_off)
+
 
 def to_planes(words: np.ndarray, device) -> torch.Tensor:
     """(N, W) words → the word-major (W, N) int32 plane on ``device``: a
@@ -331,6 +337,7 @@ class _CompatAllowedKernel(buildlib.CudaKernel):
         super().__init__(
             "compat_allowed.cu", "compat_allowed_launch",
             [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+            name="kernels.allowed_kernel",
         )
 
     def launch(
@@ -377,6 +384,8 @@ COMPAT_ALLOWED = _CompatAllowedKernel()
 SRC = COMPAT_ALLOWED.src
 
 
+@deviceplane.observe("kernels.allowed_kernel", static_names=("budget_bytes",))
+@contract("W S", None, out="S T")
 def allowed_via_kernel(
     sig_planes: torch.Tensor,
     catalog: DeviceCatalog,
@@ -403,6 +412,8 @@ def allowed_via_kernel(
     return out.view(torch.bool)
 
 
+@deviceplane.observe("kernels.compat_kernel", static_names=("keys", "budget_bytes"))
+@contract(None, None, None, None, None, None, out="S T")
 def compat_via_kernel(
     sig_arrays: Dict[str, np.ndarray],
     type_masks: Dict[str, np.ndarray],

@@ -24,6 +24,7 @@ import torch
 
 from ..apis import labels as wk
 from .backend import resolve_device
+from .contracts import contract
 from .encode import EncodedInstanceTypes, SignaturePoolCompat
 
 
@@ -74,6 +75,7 @@ def zone_ct_masks(compats, enc: EncodedInstanceTypes) -> Tuple[np.ndarray, np.nd
     return zone_ok, ct_ok
 
 
+@contract(None, None, None, None, out="S T")
 def compat_reference(
     sig_arrays: Dict[str, torch.Tensor],
     type_masks: Dict[str, torch.Tensor],
@@ -96,6 +98,7 @@ def compat_reference(
     return ok
 
 
+@contract("S Z", "S C", "T Z C", out="S T")
 def offering_reference(
     zone_ok: torch.Tensor,  # (S, Z) bool
     ct_ok: torch.Tensor,  # (S, C) bool
@@ -108,6 +111,7 @@ def offering_reference(
     return (pair_ok.float() @ avail.reshape(avail.shape[0], -1).float().T) > 0
 
 
+@contract(None, None, None, None, "S Z", "S C", "T Z C", out="S T")
 def allowed_reference(
     sig_arrays: Dict[str, torch.Tensor],
     type_masks: Dict[str, torch.Tensor],
@@ -127,6 +131,7 @@ def to_tensors(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()}
 
 
+@contract(None, None, None, None, "S Z", "S C", "T Z C", out="S T")
 def allowed(
     sig_arrays: Dict[str, np.ndarray],
     type_masks: Dict[str, np.ndarray],

@@ -53,6 +53,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .contracts import contract
+
 
 # bucket-local fits precompute walks records in blocks so the
 # (block, T, R) broadcast stays small
@@ -342,6 +344,10 @@ class _Bucket:
         self.cl_fp[k] = self._intern(merged.fingerprint(), merged)
 
 
+@contract(
+    "K", "K", "K Z", "K C", "K B", "K R", "K R", "()", "Z", "C", "B", "R", "R",
+    out="K",
+)
 def screen_candidates(
     cl_zid: np.ndarray,
     cl_fp: np.ndarray,

@@ -30,7 +30,10 @@ import numpy as np
 import torch
 
 from .. import buildlib, native
+from ..tracing import deviceplane
+from . import devicetime
 from .backend import resolve_device
+from .contracts import contract
 
 INT_INF = np.int32(2**31 - 1)
 # open slots of the device scan: the JAX package's ffd_pack default
@@ -42,6 +45,7 @@ K_OPEN = 16
 NATIVE_K_OPEN = 1024
 
 
+@contract("T R", out="F R")
 def pareto_frontier(allocatable: np.ndarray) -> np.ndarray:
     """Maximal points of the viable types' allocatable vectors (F, R).
     A usage vector fits some type iff it fits some frontier point."""
@@ -84,6 +88,7 @@ def pad_for_pack(requests: np.ndarray, frontier: np.ndarray) -> Tuple[np.ndarray
     return requests, frontier, P
 
 
+@contract("P R", "P", "()", out="N R")
 def node_usage_from_assignment(
     requests: np.ndarray, node_ids: np.ndarray, node_count: int
 ) -> np.ndarray:
@@ -94,6 +99,7 @@ def node_usage_from_assignment(
     return usage.astype(np.int32)
 
 
+@contract("N R", "T R", "T", out="N")
 def assign_cheapest_types(
     node_usage: np.ndarray,  # (N, R) int32 summed requests per node
     allocatable: np.ndarray,  # (T, R) int32 (viable types only)
@@ -127,6 +133,7 @@ def assign_cheapest_types(
 FFD_PACK = buildlib.CudaKernel(
     "ffd_pack.cu", "ffd_pack_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [ctypes.c_void_p] * 4,
     helpers={"ffd_pack_scratch_ints": (ctypes.c_int64, [ctypes.c_int64] * 3)},
+    name="pack.ffd_pack_batched",
 )
 
 
@@ -186,6 +193,8 @@ def ffd_pack_reference(
     return out, next_id
 
 
+@deviceplane.observe("pack.ffd_pack_batched", static_names=("k_open",))
+@contract("G P R", "G F R", "G", out=("G P", "G"))
 def ffd_pack_batched(
     requests: torch.Tensor,  # (G, P, R) int32
     frontiers: torch.Tensor,  # (G, F, R) int32
@@ -228,6 +237,7 @@ def ffd_pack_batched(
     return node_ids, counts
 
 
+@contract("P R", "F R", "()", out=("P", "()"))
 def ffd_pack(
     requests: torch.Tensor,  # (P, R) int32, sorted descending by primary
     frontier: torch.Tensor,  # (F, R) int32
@@ -292,11 +302,15 @@ def batch_pack(jobs: List[tuple], engine: str = "auto", device=None) -> List[Tup
             frontiers[slot, : len(frontier)] = frontier
             caps[slot] = min(int(cap), int(INT_INF))
             n_pods[slot] = reqs.shape[0]
-        node_ids, counts = ffd_pack_batched(
-            torch.from_numpy(requests).to(dev), torch.from_numpy(frontiers).to(dev),
-            torch.from_numpy(caps).to(dev), K_OPEN, torch.from_numpy(n_pods).to(dev),
-        )
-        node_ids, counts = node_ids.cpu().numpy(), counts.cpu().numpy()  # one sync per class
+        deviceplane.record_footprint(deviceplane.nbytes_of(requests, frontiers, caps, n_pods))
+        with devicetime.track(phase="pack"):
+            devicetime.transfer("h2d", requests, frontiers, caps, n_pods, phase="pack")
+            node_ids, counts = ffd_pack_batched(
+                torch.from_numpy(requests).to(dev), torch.from_numpy(frontiers).to(dev),
+                torch.from_numpy(caps).to(dev), K_OPEN, torch.from_numpy(n_pods).to(dev),
+            )
+            node_ids, counts = node_ids.cpu().numpy(), counts.cpu().numpy()  # one sync per class
+        devicetime.transfer("d2h", node_ids, counts, phase="pack")
         for slot, g in enumerate(members):
             results[g] = (node_ids[slot, : jobs[g][0].shape[0]], int(counts[slot]))
     return results
@@ -307,6 +321,7 @@ def batch_pack(jobs: List[tuple], engine: str = "auto", device=None) -> List[Tup
 PACK_EXISTING = buildlib.CudaKernel(
     "pack_existing.cu", "pack_existing_launch",
     [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 3,
+    name="pack.pack_existing",
 )
 
 
@@ -338,6 +353,8 @@ def pack_existing_reference(
     return assign, free
 
 
+@deviceplane.observe("pack.pack_existing")
+@contract("P R", "P", "S M", "M R", out=("P", "M R"))
 def pack_existing(
     requests: torch.Tensor,  # (P, R) int32, sorted descending by primary
     sig_ids: torch.Tensor,  # (P,) int32
@@ -401,10 +418,13 @@ def run_pack_existing(
     sig_ids = np.ascontiguousarray(sig_ids, dtype=np.int32)
     if sig_ids.size and (sig_ids.min() < 0 or sig_ids.max() >= S):
         raise ValueError(f"sig_ids out of range for {S} signatures")
-    assign, free_out = pack_existing(
-        torch.from_numpy(np.ascontiguousarray(requests, dtype=np.int32)).to(dev),
-        torch.from_numpy(sig_ids).to(dev),
-        torch.from_numpy(np.ascontiguousarray(compat, dtype=np.uint8)).to(dev),
-        torch.from_numpy(np.ascontiguousarray(free, dtype=np.int32)).to(dev),
+    inputs = (
+        np.ascontiguousarray(requests, dtype=np.int32), sig_ids,
+        np.ascontiguousarray(compat, dtype=np.uint8), np.ascontiguousarray(free, dtype=np.int32),
     )
-    return assign.cpu().numpy(), free_out.cpu().numpy()
+    with devicetime.track(phase="existing"):
+        devicetime.transfer("h2d", *inputs, phase="existing")
+        assign, free_out = pack_existing(*(torch.from_numpy(a).to(dev) for a in inputs))
+        assign, free_out = assign.cpu().numpy(), free_out.cpu().numpy()
+    devicetime.transfer("d2h", assign, free_out, phase="existing")
+    return assign, free_out

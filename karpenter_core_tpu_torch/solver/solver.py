@@ -125,8 +125,8 @@ from ..scheduling.requirements import (
     pod_requirements,
 )
 from ..scheduling.volumes import Volumes
-from ..tracing import tracer
-from . import backends, plancost, podcache
+from ..tracing import deviceplane, tracer
+from . import backends, devicetime, plancost, podcache
 from .backend import resolve_device
 from .compat_kernels import DeviceCatalog, allowed_via_kernel, catalog_to_device, signature_side
 from .constraint_tensors import (
@@ -603,35 +603,6 @@ class SolverResult:
         return n
 
 
-class _DeviceClock:
-    """Device time of a solve from CUDA event pairs (no-op on the CPU)."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.pairs: list = []
-
-    @contextmanager
-    def track(self):
-        if not self.cuda:
-            yield
-            return
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        try:
-            yield
-        finally:
-            end.record()
-            self.pairs.append((start, end))
-
-    def ms(self) -> float:
-        total = 0.0
-        for start, end in self.pairs:
-            end.synchronize()
-            total += start.elapsed_time(end)
-        return total
-
-
 def _exclude(pool: List[SignatureGroup], subset: List[SignatureGroup]) -> List[SignatureGroup]:
     """``pool`` minus ``subset``, by identity (dataclass __eq__ is deep)."""
     ids = {id(g) for g in subset}
@@ -790,9 +761,11 @@ class TorchScheduler:
         # authoritative encode hands off to pack; the pipeline's prewarm
         # stage encodes the next batch while this pack runs
         self.encode_done_listener: Optional[Callable[[], None]] = None
-        # the reference's per-solve device-plane stats (compiles,
-        # transfers, footprint): the port has no device plane yet
+        # the device plane's block of the most recent solve (library
+        # loads, transfers per boundary, footprint, the card's memory;
+        # tracing/deviceplane.py), and its device time per boundary
         self.last_device_stats: Optional[dict] = None
+        self.last_device_phase_ms: Dict[str, float] = {}
         # pods per route of the most recent solve (tensor, parked, oracle)
         # and the oracle's share, as the JAX package's last_route_stats
         self.last_route_stats: Optional[Dict[str, object]] = None
@@ -815,7 +788,6 @@ class TorchScheduler:
         # reseed guard on (_affinity_postpass)
         self.last_reseed_redo = False
         self._merge_stats: Dict[str, object] = {}
-        self._clock = _DeviceClock(self.device)
         # cross-tick warm state (incremental.warm_state_for, resolved per
         # solve; None with KARPENTER_TORCH_INCREMENTAL=0)
         self._warm: Optional[incremental.WarmState] = None
@@ -895,13 +867,13 @@ class TorchScheduler:
         content caches (route, compat rows, job, merge, intersects) stay
         shared: they are keyed by the exact inputs of their computation."""
         t0 = time.perf_counter()
-        self._clock = _DeviceClock(self.device)
         self._phase_ms = dict.fromkeys(PHASES, 0.0)
         self._phase_inner = [0.0]  # ms of phases nested in the open one
         self.last_reseed_redo = False
         self._solve_entries = {}
         sink = self.metrics.solver_phase_duration if self.metrics is not None else None
-        with tracer.trace_root(
+        deviceplane.reset_solve()
+        with devicetime.scope(self.device) as clock, tracer.trace_root(
             "solve", metrics_sink=sink, buffer_if="solve", is_solve=True, pods=len(pods)
         ) as tr:
             try:
@@ -911,7 +883,8 @@ class TorchScheduler:
             finally:
                 self._solve_entries = {}
                 total_ms = (time.perf_counter() - t0) * 1000.0
-                device_ms = self._clock.ms()
+                self.last_device_phase_ms = clock.phase_ms()
+                device_ms = sum(self.last_device_phase_ms.values())
                 self.last_timings = {
                     "total_ms": total_ms,
                     "device_ms": device_ms,
@@ -932,6 +905,11 @@ class TorchScheduler:
                 if tr is not None and (self._cstats.hits or self._cstats.misses):
                     # the hit rates ride on the solve's trace
                     tr.args["cache"] = self.last_cache_stats
+                self.last_device_stats = deviceplane.consume_solve(
+                    memory=devicetime.device_memory_stats(self.device)
+                )
+                if tr is not None and self.last_device_stats:
+                    tr.args["device"] = {k: v for k, v in self.last_device_stats.items() if k != "compile_events"}
                 if self.metrics is not None:
                     self._observe_solve(total_ms / 1000.0, device_ms / 1000.0)
 
@@ -947,6 +925,18 @@ class TorchScheduler:
             m.solver_cache_misses.inc(n, cache=cache)
         for cache, n in self._cstats.evictions.items():
             m.solver_cache_evictions.inc(n, cache=cache)
+        ds = self.last_device_stats
+        if ds:
+            # library loads, transfers and the card's high-water mark:
+            # never silent
+            for ev in ds["compile_events"]:
+                m.xla_compiles.inc(1, fn=ev["fn"], cause=ev["cause"])
+            for phase, dirs in ds["transfer_by_phase"].items():
+                for direction, nbytes in dirs.items():
+                    m.transfer_bytes.inc(nbytes, direction=direction, phase=phase)
+            hbm = ds["hbm"]
+            if hbm:
+                m.hbm_high_water.set(float(hbm["peak_bytes_in_use"]))
 
     @contextmanager
     def _phase(self, name: str):
@@ -1447,10 +1437,12 @@ class TorchScheduler:
         snapshot = (tuple((k, entry.vocab.key_vocab(k).size) for k in keys), str(self.device))
         if entry.device_catalog is not None and entry.device_catalog[0] == snapshot:
             return entry.device_catalog[1]
-        with self._clock.track():  # the catalog upload is device work
+        with devicetime.track(phase="compat"):  # the catalog upload is device work
             catalog = catalog_to_device(
                 enc.key_masks, enc.key_has, enc.key_neg, keys, enc.offering_avail, self.device
             )
+        if self.device.type == "cuda":
+            devicetime.transfer("h2d", catalog.planes, catalog.key_off, phase="compat")
         entry.device_catalog = (snapshot, catalog)
         return catalog
 
@@ -1493,7 +1485,6 @@ class TorchScheduler:
         self._cstats = CacheStats()
         self._warm = ws = incremental.warm_state_for(self)
         self._solve_entries = {}
-        self._clock = _DeviceClock(self.device)
         with tracer.trace_root("encode_prewarm", buffer_if="never", pods=len(pods)):
             memos, _rvs = podcache.get_memos_rvs(pods)
             self._bind_requests(memos)
@@ -1925,9 +1916,14 @@ class TorchScheduler:
                 sig_arrays = build_compat_inputs(sub, e.enc, e.vocab)
                 zone_ok, ct_ok = zone_ct_masks(sub, e.enc)
                 catalog = self._device_catalog(e)
-                with self._clock.track():
+                with devicetime.track(phase="compat"):
                     sig = signature_side(sig_arrays, zone_ok, ct_ok, catalog)
                     allowed = allowed_via_kernel(sig, catalog)
+                if self.device.type == "cuda":
+                    # the compat boundary's bytes really cross to the card
+                    # only there (the reference accounts none at compat)
+                    devicetime.transfer("h2d", sig, phase="compat")
+                    deviceplane.record_footprint(deviceplane.nbytes_of(allowed))
                 pending.append((allowed, zone_ok, ct_ok, missing))
 
         # per unique catalog: extended axis + quantized request matrix
@@ -1964,8 +1960,10 @@ class TorchScheduler:
             e = pool_entries[pi]
             if item is not None:
                 allowed_dev, sub_zone, sub_ct, missing = item
-                with self._clock.track():
+                with devicetime.track(phase="compat"):
                     sub_allowed = allowed_dev.cpu().numpy()
+                if self.device.type == "cuda":
+                    devicetime.transfer("d2h", sub_allowed, phase="compat")
                 if ws is not None:
                     self._cache_compat_rows(
                         e, pool_fps[pi], groups, missing, sig_compats[pi], sub_allowed, sub_zone, sub_ct

@@ -17,9 +17,11 @@ dict / None when the layer didn't run), and additions bump ``SCHEMA``.
 The port's copy of ``karpenter_core_tpu/solver/stats.py``, at the same
 schema. The port keeps its solve's trace id as ``last_trace_id`` (its
 ``last_timings`` stays numeric); the ``shard`` block is None (no
-sharded path); the ``device`` block is None until the port has a device
-plane (its solver's ``last_device_stats`` stays None), and then carries
-the boot prewarm's outcome (``prewarm.last_result()``) beside it.
+sharded path); the ``device`` block is the device plane's
+(``solver.last_device_stats``, tracing/deviceplane.py), with the kernel
+libraries' status (``backend.compile_cache_status()``) and the boot
+prewarm's outcome (``prewarm.last_result()``) beside it, as the
+reference carries its compile cache's.
 """
 
 from __future__ import annotations
@@ -83,14 +85,16 @@ def solve_stats(solver, disruption=None) -> dict:
 
 
 def _device_block(solver) -> Optional[dict]:
-    """The per-solve device block and the boot prewarm's outcome: None
-    while the solver records no device stats."""
+    """The per-solve device block, the kernel libraries' status and the
+    boot prewarm's outcome: None while the solver records no device
+    stats (the plane off)."""
     ds = getattr(solver, "last_device_stats", None)
     if not ds:
         return None
-    from . import prewarm
+    from . import backend, prewarm
 
     out = dict(ds)
+    out["compile_cache"] = backend.compile_cache_status()
     out["prewarm"] = prewarm.last_result()
     return out
 

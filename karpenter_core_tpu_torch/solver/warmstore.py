@@ -32,11 +32,19 @@ What persists, per plane:
 - **lprelax**: the solver device's LP relaxation memo
   (``backends/lp.py::export_relax_plane``), content-keyed.
 
+- **jitsig**: the device plane's signature inventory
+  (``deviceplane.export_signatures``), restored only onto entry points
+  this process registered with the same static-argument names.
+- **compilecache**: the manifest of the kernel libraries the writer
+  loaded (``buildlib.loaded_libraries``), each named by the hash of its
+  source and nvcc command. A row the live tree would build to another
+  library is dropped and counted; the boot prewarm
+  (``prewarm.warmup_compile_only``) loads the kept rows' kernels, so a
+  restored process's first solve loads none.
+
 The device-computed planes (compat rows, job, merge, emit, mergerow,
 lprelax) restore only into a solver on the writer's device; on another
-device they are dropped and counted. The JAX package's ``jitsig`` and
-``compilecache`` planes inventory JAX executables: the port writes
-neither. The fleet's planes (fleet/megasolve.py) ride the same store: a
+device they are dropped and counted. The fleet's planes (fleet/megasolve.py) ride the same store: a
 tenant's restore publishes each restored job skeleton into the fleet's
 ``fleetjob`` content plane (``restore(..., fleet_plane=)``), and the
 canonical-catalog plane persists by content fingerprint
@@ -70,8 +78,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..tracing import tracer
-from . import incremental, podcache
+from .. import buildlib
+from ..tracing import deviceplane, tracer
+from . import backend, incremental, podcache
 from .stablehash import stable_hash
 
 log = logging.getLogger("karpenter.torch.warmstore")
@@ -97,6 +106,8 @@ _KEY_CONTRACT = (
     ("seeds", "(constraint key..., exclusion uids, sim_drained, tenant scope) -> domain counts; plane guard = cluster witness"),
     ("intersects", "(reqs fp, reqs fp) -> bool"),
     ("lprelax", "(reqs digest, capacity bytes, price-table float64 bytes, iteration budget int, refine-stage tag...) -> (t_star, has_fit, float64 bound, dual weights)"),
+    ("jitsig", "(fn name, static-argname tuple) -> signature keys (deviceplane inventory; static reprs bounded at 512)"),
+    ("compilecache", "[{source, library (lib<stem>-<sha256(source, nvcc command)[:12]>.so), kernels}] the writer loaded"),
     ("device", "compat, job, merge, emit, mergerow and lprelax restore only into a solver on the writer's device"),
 )
 CONTRACT = stable_hash(_KEY_CONTRACT).hex()
@@ -105,7 +116,7 @@ _MAGIC = b"KTORCH-WARMSTORE\n"
 
 # payload planes in trim order: over MAX_MB the cheapest to recompute
 # drop first (catalogs last: they are the largest cold-solve cost)
-_TRIM_ORDER = ("lprelax", "screen_rows", "emits", "merges", "intersects", "jobs", "routes", "seeds", "catalogs")
+_TRIM_ORDER = ("jitsigs", "lprelax", "screen_rows", "emits", "merges", "intersects", "jobs", "routes", "seeds", "catalogs")
 
 # the device-computed planes (see the module docstring)
 _DEVICE_PLANES = ("compat", "job", "merge", "emit", "mergerow", "lprelax")
@@ -275,6 +286,10 @@ def build_payload(solver) -> dict:
         # the LP relaxation memo of the solver's device: keys are
         # digests, bytes and ints, values numpy (nothing process-private)
         "lprelax": lp_backend.export_relax_plane(solver.device),
+        # the device plane's signature inventory and the kernel libraries'
+        # manifest: keys and names only
+        "jitsigs": deviceplane.export_signatures(),
+        "compilecache": buildlib.loaded_libraries(),
     }
     if ws is None:
         return payload
@@ -340,6 +355,8 @@ def _plane_counts(payload: dict) -> dict:
         "seeds": len((payload.get("seeds") or {}).get("entries", ())),
         "intersects": len(payload.get("intersects", ())),
         "lprelax": len(payload.get("lprelax", ())),
+        "jitsig": sum(len(r[2]) for r in payload.get("jitsigs", ()) if len(r) == 3),
+        "compilecache": len(payload.get("compilecache", ())),
     }
 
 
@@ -691,6 +708,13 @@ def _restore_under_root(solver, path: str, out: _Outcome, fleet_plane=None) -> N
             n_inter += 1
     out.ok("intersects", n_inter)
 
+    n_ok, n_drop = deviceplane.import_signatures(payload.get("jitsigs", ()))
+    out.ok("jitsig", n_ok)
+    out.drop("jitsig", n_drop)
+    kept, n_drop = backend.restore_library_manifest(payload.get("compilecache", ()))
+    out.ok("compilecache", len(kept))
+    out.drop("compilecache", n_drop)
+
 
 def _publish(solver, result: dict, metrics) -> dict:
     _set_last("restore", result)
@@ -738,8 +762,11 @@ def simulate_process_death() -> None:
     """Wipe every cross-solve in-memory plane: the catalog cache, every
     WarmState, the LP relaxation memos and backend singletons, and the
     pod intern maps with their counters (a fresh interpreter restarts ids
-    at zero). Callers must also drop pod objects carrying ``_karp_memo``
-    from the old world: a restarted process reads its pods afresh."""
+    at zero), the device plane's signature roster and compile history,
+    and the restored library manifest. Callers must also drop pod objects
+    carrying ``_karp_memo`` from the old world: a restarted process reads
+    its pods afresh. The kernel libraries stay loaded: only a fresh
+    process loads them again."""
     from . import backends
     from .solver import _CATALOG_CACHE, _CATALOG_LOCK
 
@@ -748,6 +775,8 @@ def simulate_process_death() -> None:
     incremental.reset()
     podcache.reset_process()
     backends.reset_for_tests()
+    deviceplane.reset()
+    backend.reset_manifest()
     with _LAST_LOCK:
         _LAST["snapshot"] = None
         _LAST["restore"] = None

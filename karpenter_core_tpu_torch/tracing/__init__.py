@@ -5,10 +5,9 @@
   flightrec.py — per-decision flight recorder: bounded ring of decision
                  records, SLO burn-rate windows
   export.py    — Chrome trace-event JSON (catapult TraceEvent format)
-
-The reference's slow-solve capture (``capture.py``), device plane
-(``deviceplane.py``) and the flight recorder's breach dumps are not
-ported yet.
+  capture.py   — slow-solve persistence behind module constants
+  deviceplane.py — library loads, launches, transfers and device memory
+                 attributed per solve (``/debug/device``)
 """
 
 from .tracer import (  # noqa: F401
@@ -30,3 +29,4 @@ from .tracer import (  # noqa: F401
 )
 from .export import to_chrome_events, to_chrome_json  # noqa: F401,E402
 from .flightrec import RECORDER, DecisionRecord, FlightRecorder  # noqa: F401,E402
+from .capture import maybe_capture  # noqa: F401,E402

@@ -22,8 +22,10 @@ Operational surface:
   budget) in the trailing 1 m / 10 m windows, pushed to the metrics
   gauge the pipeline attaches;
 - breach dumps: when a decision exceeds
-  ``KARPENTER_TPU_SLO_BREACH_DUMP_MS``, the reference persists the
-  record with its Chrome trace.
+  ``KARPENTER_TPU_SLO_BREACH_DUMP_MS``, the record (with its full
+  Chrome trace) is persisted under the slow-solve capture's directory
+  (capture.py ``DIR``) exactly like the slow-solve capture, newest
+  ``KEEP`` kept.
 
 The ring is process-global (``RECORDER``) like the trace ring; tests
 construct private instances.
@@ -33,14 +35,14 @@ reference's environment knobs are module constants named for their
 twin, which tests monkeypatch: ``SLO_TARGET_MS``
 (``KARPENTER_TPU_SLO_TARGET_MS``), ``FLIGHTREC_KEEP``
 (``KARPENTER_TPU_FLIGHTREC_KEEP``) and ``SLO_BREACH_DUMP_MS``
-(``KARPENTER_TPU_SLO_BREACH_DUMP_MS``, None: off). The breach dump
-itself writes through the Chrome-trace export, which the port does not
-have yet, so the port's threshold stays off and no dump is written.
+(``KARPENTER_TPU_SLO_BREACH_DUMP_MS``, None: off).
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -204,9 +206,32 @@ class FlightRecorder:
         if gauge is not None:
             for _, label in BURN_WINDOWS:
                 gauge.set(burn[label], window=label)
-        if SLO_BREACH_DUMP_MS is not None:
-            log.warning("SLO breach dumps are not ported; SLO_BREACH_DUMP_MS=%s ignored", SLO_BREACH_DUMP_MS)
+        self._maybe_dump(rec, trace)
         return rec
+
+    @staticmethod
+    def _maybe_dump(rec: DecisionRecord, trace: Optional[Trace]) -> None:
+        """Persist ``rec`` with its Chrome trace events when its SLO clock
+        passed ``SLO_BREACH_DUMP_MS``. Never fails the decision."""
+        threshold = SLO_BREACH_DUMP_MS
+        if threshold is None or rec["slo_ms"] is None or rec["slo_ms"] <= float(threshold):
+            return
+        from . import capture
+
+        out_dir = capture.DIR
+        try:
+            payload = {"record": rec}
+            if trace is not None:
+                from .export import to_chrome_events
+
+                payload["trace_events"] = to_chrome_events(trace)
+            os.makedirs(out_dir, exist_ok=True)
+            path = os.path.join(out_dir, f"decision-{rec['wall_clock']:.3f}-{rec.decision_id}.breach.json")
+            with open(path, "w") as f:
+                json.dump(payload, f, default=str)
+            capture._prune(out_dir)
+        except (OSError, TypeError, ValueError):
+            log.debug("SLO breach dump failed", exc_info=True)
 
     @staticmethod
     def _timeline(trace: Optional[Trace], queue_wait_ms: Optional[float]) -> dict:

@@ -490,3 +490,6 @@ def trace_root(
             buffer_if == "always" or (buffer_if == "solve" and tr.contains_solve)
         ):
             RING.push(tr)
+            from .capture import maybe_capture
+
+            maybe_capture(tr)

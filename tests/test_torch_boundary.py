@@ -443,7 +443,7 @@ for t in range(2):
     tenant_pool = NodePool()
     tenant_pool.metadata.name = "default"
     registry.add_tenant(f"tenant-{t}", [tenant_pool], tenant_provider)
-    sched.submit(f"tenant-{t}", [copy.deepcopy(p) for p in pods[20:60]])
+    sched.submit(f"tenant-{t}", [copy.deepcopy(p) for p in pods[20 + 20 * t:40 + 20 * t]])
 outcomes = sched.run_round()
 assert sorted(outcomes) == ["tenant-0", "tenant-1"] and all(o.error is None for o in outcomes.values())
 assert fleet.last_round["dispatch"]["pack_calls"] >= 2 and fleet.last_round["engine"] == "batched"

@@ -7,9 +7,10 @@ the JAX package's per-decision flight recorder. The tests of
 timeline reconstruction, the concurrent-lane split, the bounded ring,
 coverage by kind, the SLO burn windows and their gauge (the SLO target
 is the port's constant ``SLO_TARGET_MS``, set as a constant), and the
-latency histogram's trace exemplar. Left out: the two breach-dump tests,
-whose dump writes through the Chrome-trace export the port does not
-have yet (its threshold ``SLO_BREACH_DUMP_MS`` stays off).
+latency histogram's trace exemplar, and the two breach-dump tests (a
+dump of the record with its trace events over the threshold, none
+below it: the threshold is the constant ``SLO_BREACH_DUMP_MS``, the
+directory the capture's ``DIR``, both set as constants).
 ``TestDebugRoutes`` runs on the port's ``OperationalServer``:
 ``/debug/decisions[/last]`` over the recorder's ring and
 ``/debug/solve/stats`` over ``stats.route_payload`` after a solve of the
@@ -29,27 +30,34 @@ from test_torch_kube_client import PORT, case_id, mirror, mirror_cases, run_mirr
 
 FILE = "test_flightrec.py"
 CLASSES = ("TestRecordAssembly", "TestSloAccounting", "TestExemplars")
-LEFT_OUT = ("test_breach_dump_writes_record_with_trace", "test_no_dump_below_threshold")
-CASES = [c for c in mirror_cases(FILE, classes=CLASSES) if c[1] not in LEFT_OUT]
+CASES = mirror_cases(FILE, classes=CLASSES)
 
 
 def flightrec_mirror():
+    from karpenter_core_tpu_torch.tracing import capture
+
     replace = (
         ("from {pkg}.operator.server import OperationalServer\n", ""),
         ('monkeypatch.setenv("KARPENTER_TPU_SLO_TARGET_MS", "10")',
          'monkeypatch.setattr(flightrec, "SLO_TARGET_MS", 10.0)'),
+        ('monkeypatch.setenv("KARPENTER_TPU_SLO_BREACH_DUMP_MS", "1")',
+         'monkeypatch.setattr(flightrec, "SLO_BREACH_DUMP_MS", 1.0)'),
+        ('monkeypatch.setenv("KARPENTER_TPU_SLO_BREACH_DUMP_MS", "10000")',
+         'monkeypatch.setattr(flightrec, "SLO_BREACH_DUMP_MS", 10000.0)'),
+        ('monkeypatch.setenv("KARPENTER_TPU_TRACE_DIR", str(tmp_path))',
+         'monkeypatch.setattr(capture, "DIR", str(tmp_path))'),
     )
-    return mirror(FILE, PORT, replace=replace)
+    return mirror(FILE, PORT, replace=replace, inject={"capture": capture})
 
 
 def test_mirror_covers_the_classes():
-    assert len(CASES) == 7
+    assert len(CASES) == 9
     assert {c[0] for c in CASES} == set(CLASSES)
 
 
 @pytest.mark.parametrize("case", CASES, ids=[case_id(c) for c in CASES])
-def test_flightrec_case_holds_the_port(monkeypatch, case):
-    run_mirrored(flightrec_mirror(), *case, extra={"monkeypatch": monkeypatch})
+def test_flightrec_case_holds_the_port(monkeypatch, tmp_path, case):
+    run_mirrored(flightrec_mirror(), *case, extra={"monkeypatch": monkeypatch, "tmp_path": tmp_path})
 
 
 ROUTE_CASES = mirror_cases(FILE, classes=("TestDebugRoutes",))

@@ -9,7 +9,8 @@ reference's ``controllers.go`` on one device), ``Options``,
   (``mirror``, its operators on the CPU: ``CpuOperator``, its kubelet
   the port's copy of ``tests/kubelet_sim.py``);
 - the boundaries: ``Operator()`` with no device on a machine without a
-  card raises; ``/debug/device`` answers 501, naming the device plane;
+  card raises; ``/debug/device`` answers 200 with the device plane's
+  state, its keys the reference's;
   the ``MetricsDecorator`` is the one provider identity the solver's
   catalog cache and warm memos see, so a second reconcile is served warm
   and the catalog entry goes once the operator is dropped;
@@ -142,13 +143,19 @@ def test_debug_device_answers_501_naming_the_device_plane():
     from karpenter_core_tpu_torch.metrics import Registry
     from karpenter_core_tpu_torch.operator.server import OperationalServer
 
+    import json
+
+    from karpenter_core_tpu.operator.server import _device as reference_device
+
     srv = OperationalServer(Registry(), ready_check=lambda: True, metrics_port=0, probe_port=0)
     srv.start()
     try:
-        with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(f"http://127.0.0.1:{srv.metrics_port}/debug/device", timeout=5)
-        assert err.value.code == 501
-        assert "tracing.deviceplane" in err.value.read().decode()
+        # the route serves the device plane now: 200, the reference's keys
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.metrics_port}/debug/device", timeout=5) as resp:
+            assert resp.status == 200
+            payload = json.loads(resp.read().decode())
+        assert set(payload) == set(json.loads(reference_device({})[2]))
+        assert payload["enabled"] is True
         # the fleet route exists only with a fleet
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(f"http://127.0.0.1:{srv.metrics_port}/debug/fleet", timeout=5)
@@ -285,7 +292,7 @@ def test_operator_equals_reference_after_every_pass(chip_smoke, monkeypatch, nat
 
 def test_served_operator_phase_cut_down(chip_smoke):
     """Phase 18b on the CPU at scale 60: the leader serves every route
-    after its first decision, ``/debug/device`` answers 501, the follower
+    after its first decision, ``/debug/device`` answers 200, the follower
     holds its serving ticks and writes nothing, the restarted operator
     leads, decides and reconciles again, no span is orphaned."""
     row = chip_smoke.run_operator_served("cpu", 60)

@@ -113,7 +113,8 @@ def test_encode_done_listener_reaches_the_solver_through_the_provisioner():
         harness.provisioner.reconcile()
         assert fired == [True]
         assert harness.provisioner._tpu_solver[1].encode_done_listener is not None
-        assert harness.provisioner._tpu_solver[1].last_device_stats is None
+        # the device plane's block: no library loaded on the CPU
+        assert harness.provisioner._tpu_solver[1].last_device_stats["compiles"] == 0
     finally:
         harness.close()
 
@@ -182,7 +183,9 @@ def test_solve_stats_of_a_port_solve():
     }
     assert doc["trace_id"] == solver.last_trace_id and doc["trace_id"]
     assert doc["route"]["tensor"] == 8 and doc["route"]["oracle_share"] == 0.0
-    assert doc["device"] is None and doc["shard"] is None
+    # the device plane's block (its keys held to the reference's in
+    # test_torch_deviceplane.py): nothing loaded, no card memory on the CPU
+    assert doc["device"]["compiles"] == 0 and doc["device"]["hbm"] is None and doc["shard"] is None
     assert doc["timings"]["total_ms"] > 0
     assert {"device_ms", "host_ms", "merge_ms"} <= set(solver_stats.bench_fields(doc))
 

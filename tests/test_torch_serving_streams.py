@@ -117,7 +117,7 @@ def test_kill_and_resumes_equal_unkilled_reference(monkeypatch, tmp_path):
         assert out["mode"] == mode and out["device"] == out["snapshot_device"] == "cpu"
         assert out["plan_sha256"] == ref_port["plan_sha256"], mode
         assert out["plans_emitted"] == ref_port["plans_emitted"]
-        assert "first_solve_compiles" not in out
+        assert out["first_solve_compiles"] == 0  # the device plane's: no library loaded on the CPU
     warm, cold = resumes["warm"], resumes["cold"]
     assert warm["restored"] and warm["warmstore"]["restored"].get("catalog") == 1
     assert warm["prewarm"]["status"] == "ok" and warm["prewarm"]["device"] == "cpu"

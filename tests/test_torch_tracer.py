@@ -28,6 +28,7 @@ both packages, but for the clock's numbers.
 from __future__ import annotations
 
 import importlib
+import os
 import threading
 
 import pytest
@@ -261,6 +262,52 @@ def test_routes_mirror_covers_the_classes():
 @pytest.mark.parametrize("case", ROUTE_CASES, ids=[case_id(c) for c in ROUTE_CASES])
 def test_trace_routes_case_holds_the_port(case):
     run_mirrored(tracing_mirror(), *case)
+
+
+# the slow-solve capture (tracing/capture.py): its knobs are constants
+CAPTURE_CASES = [c for c in mirror_cases(ROUTE_FILE, classes=("TestSolveTracing",))
+                 if c[1] == "test_slow_solve_capture_writes_file"]
+
+
+def capture_mirror():
+    from test_torch_disruption import cpu_scheduler
+
+    from karpenter_core_tpu_torch.tracing import capture
+
+    replace = (
+        ("from {pkg}.solver import TPUScheduler\n", ""),
+        ('monkeypatch.setenv("KARPENTER_TPU_TRACE_SLOW_MS", "0")', 'monkeypatch.setattr(capture, "SLOW_MS", 0.0)'),
+        ('monkeypatch.setenv("KARPENTER_TPU_TRACE_DIR", str(tmp_path))',
+         'monkeypatch.setattr(capture, "DIR", str(tmp_path))'),
+    )
+    return mirror(ROUTE_FILE, PORT, replace=replace, inject={"TPUScheduler": cpu_scheduler, "capture": capture})
+
+
+@pytest.mark.parametrize("case", CAPTURE_CASES, ids=[case_id(c) for c in CAPTURE_CASES])
+def test_capture_case_holds_the_port(monkeypatch, tmp_path, case):
+    run_mirrored(capture_mirror(), *case, extra={"monkeypatch": monkeypatch, "tmp_path": tmp_path})
+
+
+def test_capture_is_off_by_default_and_keeps_its_own_directory(monkeypatch, tmp_path):
+    """``SLOW_MS`` None writes nothing; the default directory is not the
+    reference's, whose pruning would delete the other package's files;
+    ``KEEP`` prunes the oldest captures."""
+    from karpenter_core_tpu.tracing import capture as ref_capture
+    from karpenter_core_tpu_torch.tracing import capture
+
+    assert capture.SLOW_MS is None and capture.KEEP == ref_capture.DEFAULT_KEEP
+    assert os.path.abspath(capture.DIR) != os.path.abspath(ref_capture.DEFAULT_DIR)
+    monkeypatch.setattr(capture, "DIR", str(tmp_path))
+    t = tracer_of(PORT)
+    with t.trace_root("solve", buffer_if="always", is_solve=True):
+        pass
+    assert not list(tmp_path.iterdir())
+    monkeypatch.setattr(capture, "SLOW_MS", 0.0)
+    monkeypatch.setattr(capture, "KEEP", 2)
+    for _ in range(3):
+        with t.trace_root("solve", buffer_if="always", is_solve=True):
+            pass
+    assert len(list(tmp_path.glob("*.trace.json"))) == 2
 
 
 def _export_shape(pkg: str) -> list:

@@ -250,3 +250,135 @@ def test_snapshot_on_another_device_keeps_host_planes_only(monkeypatch, tmp_path
     for plane in ("compat", "job", "merge", "emit", "mergerow"):
         assert plane not in outcome["restored"]
     assert len(incremental.warm_state_for(solver).jobs) == 0
+
+
+# -- the kernel planes: the signature inventory and the library manifest ----------
+
+# one world's source, run in this process and in a fresh one: a seeded
+# batch over sixteen types, every object built anew
+WORLD = '''
+import numpy as np
+from chip_smoke import pending_pod
+from karpenter_core_tpu_torch.apis.nodepool import NodePool
+from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+
+
+def fresh_world(seed, n=120):
+    provider = FakeCloudProvider()
+    provider.instance_types = instance_types(16)
+    pool = NodePool()
+    pool.metadata.name = "default"
+    rng = np.random.RandomState(seed)
+    pods = [pending_pod(f"ws-{i}", ["100m", "500m", "1"][rng.randint(3)], ["256Mi", "1Gi"][rng.randint(2)])
+            for i in range(n)]
+    return provider, pool, pods
+
+
+def canon(res):
+    return sorted([p.instance_type.name, p.zone, p.capacity_type, round(p.price, 9), sorted(p.pod_indices)]
+                  for p in res.node_plans)
+'''
+
+
+def _world_module():
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    ns: dict = {}
+    exec(WORLD, ns)
+    return ns
+
+
+def _live_row(source: str, kernels: list) -> dict:
+    import os
+
+    from karpenter_core_tpu_torch import buildlib
+
+    return {"source": source, "library": os.path.basename(buildlib.kernel_library_path(source)), "kernels": kernels}
+
+
+def test_library_manifest_drops_what_the_live_tree_builds_differently(monkeypatch):
+    """A manifest row whose library the live tree would build to another
+    file (another source or command hash), names a missing source or a
+    kernel this process does not bind, is dropped and counted; the kept
+    rows are what the boot prewarm loads, until a process death."""
+    import karpenter_core_tpu_torch.disruption.screen_kernels  # noqa: F401 — binds the screens
+    from karpenter_core_tpu_torch.solver import backend, prewarm
+
+    monkeypatch.setattr(backend, "_RESTORED", None)
+    monkeypatch.setattr(prewarm, "_LAST", None)
+    screens = _live_row("disrupt_screen.cu", ["disrupt.prefix_screen", "disrupt.subset_screen"])
+    stale = dict(_live_row("ffd_pack.cu", ["pack.ffd_pack_batched"]), library="libffd_pack-000000000000.so")
+    kept, dropped = backend.restore_library_manifest([
+        screens, stale,
+        {"source": "gone.cu", "library": "libgone-000000000000.so", "kernels": []},
+        dict(screens, kernels=["t.unbound"]),
+        {"source": "ffd_pack.cu"},
+    ])
+    assert kept == [screens] and dropped == 4
+    assert backend.compile_cache_status()["status"] == "restored"
+    # on the CPU the prewarm loads nothing of the card, whatever the manifest names
+    out = prewarm.warmup_compile_only(cpu_scheduler([], None))
+    assert out["compile_events"] == 0 and all(name == "native_pack" for name in out["libraries"])
+    importlib.import_module(f"{PORT}.solver.warmstore").simulate_process_death()
+    assert backend.restored_manifest() == [] and backend.compile_cache_status()["status"] == "live"
+
+
+def test_restore_in_a_fresh_process_first_solve_loads_nothing(monkeypatch, tmp_path):
+    """Snapshot a warm solver here; in a fresh interpreter restore it,
+    run the boot prewarm, then the first solve: its device block counts 0
+    compile events, its plan is the unkilled one's, its compat rows and
+    jobs come from the snapshot, and both kernel planes restored (the
+    manifest's stale row dropped and counted). A crash of the child fails
+    this test only."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from karpenter_core_tpu_torch import buildlib
+
+    reset_both()
+    monkeypatch.delenv("KARPENTER_TORCH_INCREMENTAL", raising=False)
+    rows = [
+        _live_row("disrupt_screen.cu", ["disrupt.single_screen"]),
+        dict(_live_row("ffd_pack.cu", ["pack.ffd_pack_batched"]), library="libffd_pack-000000000000.so"),
+    ]
+    monkeypatch.setattr(buildlib, "loaded_libraries", lambda: [dict(r) for r in rows])
+    w = _world_module()
+    provider, pool, pods = w["fresh_world"](11)
+    solver = cpu_scheduler([pool], provider)
+    for _ in range(2):
+        res = solver.solve(pods)
+    unkilled = w["canon"](res)
+    path = solver.snapshot(directory=str(tmp_path))
+    assert path is not None
+    child = WORLD + f'''
+import json
+import karpenter_core_tpu_torch.disruption.screen_kernels
+from karpenter_core_tpu_torch.solver import TorchScheduler, prewarm
+
+provider, pool, pods = fresh_world(11)
+solver = TorchScheduler([pool], provider, device="cpu")
+outcome = solver.restore({path!r})
+boot = prewarm.warmup_compile_only(solver)
+res = solver.solve(pods)
+print(json.dumps({{"outcome": outcome, "boot": boot, "compiles": solver.last_device_stats["compiles"],
+                  "hits": solver.last_cache_stats["hits"], "canon": canon(res)}}))
+'''
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "KARPENTER_TORCH_INCREMENTAL"}
+    proc = subprocess.run([sys.executable, "-c", child], cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    outcome = got["outcome"]
+    assert outcome["restored"].get("jitsig", 0) > 0 and outcome["restored"].get("compilecache") == 1, outcome
+    assert outcome["dropped"] == {"compilecache": 1}, outcome
+    assert got["boot"]["status"] == "ok" and got["boot"]["compile_events"] == 0
+    assert got["compiles"] == 0
+    assert got["canon"] == json.loads(json.dumps(unkilled))
+    assert got["hits"].get("compat", 0) >= 1 and got["hits"].get("job", 0) >= 1
