@@ -345,6 +345,32 @@ Phases, in order; any failure exits non-zero:
    load back; on ≤ off × 1.25 + 2 ms. Then over the whole run's process:
    one load and one compile event per library, bytes at every boundary.
 
+21. Bench config 12, the sharded mega-solve (``run_shard_phase``; a mesh
+   is D shards of the one card, ``solver/sharding.py``). 21a
+   ``shardbench.py``'s curve: 500,000 pods × 10,000 types at D ∈ {1, 2,
+   4, 8}, 125,000, 250,000 and 1,000,000 pods at D = 8 and 500,000 ×
+   2,000 at D = 8, each warm once then three measured runs (median wall,
+   the four stage times, nodes, frontier rows, pods/s, the shard stats,
+   B5's time from CUDA events around its launch, the shard boundary's
+   device ms and bytes); every pod scheduled, every node within its
+   type, one B5 launch a mega-solve. 21b the unchunked node ratio at
+   20,000 pods × 10,000 types, three seeds, D = 8 (the two engines are
+   one launch on one card; the CPU tests hold each to the JAX package);
+   the 1,000,000-pod chunked launch against eight solo launches;
+   ``TorchScheduler.solve`` on an 8-shard mesh, chunk threshold 64, on
+   the card and the CPU: equal plans, ``last_shard_stats`` and the
+   padding gauge set. 21d ``__graft_entry__.dryrun_multichip``'s sequence
+   on an 8-shard mesh. 21c B5 through ``sharded_pod_pack`` (D = 1 and 8,
+   4,096 pods), on the 125,000-pod cell's own first launch (8 × 15,625
+   pods; its renumbered plain ids equal that run's node ids, every one)
+   and through ``sharded_batch_pack``, B1 through ``allowed_sharded``
+   (10,003 types padded to 8 shards) and B8's prefix screen through
+   ``sharded_prefix_screen``, each against its plain version bit for bit
+   and the CPU's result. Its reserve is what ``SCRIPT_BUDGET_S`` has
+   left, at most 100 s; with less than 100 s left, or past 60 % of it, a
+   cell other than the anchor and the 1,000,000-pod one runs once,
+   without its warm run.
+
 Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
 shapes of phases 8–11 too, the three pack kernels and the disruption
 screens; launches by path, phase 13's to 19's legs included),
@@ -354,7 +380,7 @@ traces that hold every kernel launch of the solve (``profile_solve``).
 
 Run from the repository root: ``python3 chip_smoke.py`` (``--log PATH``
 appends every JSON line to PATH as well). ``--phases 16,17`` builds the
-kernels as step 2 does, then runs only the named phases (of 14–20) and
+kernels as step 2 does, then runs only the named phases (of 14–21) and
 prints no result line.
 """
 
@@ -3258,14 +3284,16 @@ def bound_row(bytes_moved: float, ops: float) -> dict:
     return {"bound_ms": max(b, o), "bound_by": "bytes" if b >= o else "operations", "bytes": bytes_moved, "ops": ops}
 
 
-def ffd_kernel_case(call, reps: int = 3) -> dict:
+def ffd_kernel_case(call, reps: int = 3, check=None) -> dict:
     """The FFD scan kernel against its plain version on the card, on one
     captured call (requests, frontiers, caps, k_open, n_pods), bit for
     bit, with both times and the bound: each real pod's requests read
     once, the frontiers once, ids and counts written once; the fit tests
     the pods need, (K + 1) x F x R int32 compares each at most.
     ``step_us``: the kernel's time over the longest job's pods (the
-    jobs run side by side)."""
+    jobs run side by side). ``check(plain_ids, plain_counts)``, when
+    given, holds the plain result to what the captured call's caller
+    made of the kernel's."""
     import torch
 
     from karpenter_core_tpu_torch.solver import pack
@@ -3282,6 +3310,8 @@ def ffd_kernel_case(call, reps: int = 3) -> dict:
     plain_ids = torch.nn.functional.pad(plain_ids, (0, P - m), value=-1)
     if not (torch.equal(ids, plain_ids) and torch.equal(counts, plain_counts)):
         fail(f"ffd_pack kernel differs from its plain version at G={G} P={P} F={F} R={R}")
+    if check is not None:
+        check(plain_ids, plain_counts)
     pods = int(n.sum())
     kernel_ms = events_ms(lambda: pack.ffd_pack_batched(req, front, caps, k_open, n), reps)
     return {
@@ -3665,12 +3695,14 @@ PACK_SOURCES = {
 }
 
 
-def pack_kernel_entry(name: str, rows: list, launches: dict, relax_rows: Optional[dict] = None) -> dict:
+def pack_kernel_entry(name: str, rows: list, launches: dict, relax_rows: Optional[dict] = None,
+                      config12: Optional[list] = None) -> dict:
     """One pack kernel's entry of the kernels line: its launches on the
     phase-12 paths, and the numbers of its largest case (by kernel
     time), the other cases beside them; for B7 the ``lp.relax`` call
     around it (``wrapper_ms``: config 5's whole relax call, and each
-    split)."""
+    split); for B5 ``config12``, phase 21a's curve (its launch's time in
+    each cell)."""
     main = max((r for r in rows if "synthetic" not in r), key=lambda r: r["kernel_ms"])
     by_path = {path: counts[name] for path, counts in launches.items()}
     source, replaces = PACK_SOURCES[name]
@@ -3685,6 +3717,8 @@ def pack_kernel_entry(name: str, rows: list, launches: dict, relax_rows: Optiona
         **({"step_us": main["step_us"]} if "step_us" in main else {}),
         **({"iter_us": main["iter_us"], "plan": main["plan"]} if "iter_us" in main else {}),
         **({"wrapper_ms": relax_rows["config5"]["relax_ms"], "relax_split": relax_rows} if relax_rows else {}),
+        **({"at_config12": [{k: r[k] for k in ("pods", "types", "n_devices", "b5_ms", "wall_ms")} for r in config12]}
+           if config12 else {}),
         "cases": rows,
     }
 
@@ -7949,6 +7983,588 @@ def report_deviceplane_phase(dp: dict, card: str) -> None:
         "wall_s")}, "card": card})
 
 
+# -- phase 21: the sharded mega-solve (bench config 12) --------------------------
+
+# phase 21's share of SCRIPT_BUDGET_S, kept out of phase 16's budget beside
+# the later phases' reserves
+SHARD_RESERVE_S = 100.0
+# shardbench.py's cells (:205-222): the device sweep at the anchor (500,000
+# pods x 10,000 types), the pod sweep and the type sweep at D = 8
+SHARD_CELLS = (
+    (500_000, 10_000, 1), (500_000, 10_000, 2), (500_000, 10_000, 4), (500_000, 10_000, 8),
+    (125_000, 10_000, 8), (250_000, 10_000, 8), (1_000_000, 10_000, 8), (500_000, 2_000, 8),
+)
+# never cut: the anchor and the 1,000,000-pod cell (whose chunks 21b
+# holds against solo launches)
+SHARD_KEEP = ((500_000, 10_000, 8), (1_000_000, 10_000, 8))
+SHARD_REPS = 3  # measured runs a cell, after one warm run
+SHARD_SEED = 12  # shardbench.run_cell: catalog seed, pods seed + 1, masks seed + 2
+SHARD_RATIO = (20_000, 10_000, 3, 8)  # shardbench's parity worlds: pods, types, seeds, shards
+SHARD_SOLVE = (10_000, 400, 64)  # 21b's TorchScheduler solve: pods, types, the chunk threshold
+SHARD_PLAIN_PODS = 4_096  # 21c: B5 against its plain version (a per-step loop) at D = 1 and 8
+# 21c: the curve cell whose own B5 launch is held against the plain version
+# (8 chunks of 15,625 pods: the plain loop's 15,625 steps)
+SHARD_PLAIN_CELL = (125_000, 10_000, 8)
+SHARD_SCREEN = (8, 1_000, 4)  # 21c's prefix screen: shards, candidates a shard, columns
+# nodes and frontier rows of the reference's plan in each cell (BENCH_r08.json's
+# config 12 curve, the JAX package on CPU host devices): plan contents the
+# port's chunked pack must reproduce
+CONFIG12_REFERENCE = {
+    (500_000, 10_000, 1): (8923, 22), (500_000, 10_000, 2): (8925, 22), (500_000, 10_000, 4): (8925, 22),
+    (500_000, 10_000, 8): (8923, 22), (125_000, 10_000, 8): (2210, 22), (250_000, 10_000, 8): (4449, 22),
+    (1_000_000, 10_000, 8): (17893, 22), (500_000, 2_000, 8): (8730, 24),
+}
+
+
+def shard_catalog(n_types: int, n_res: int, seed: int):
+    """shardbench.build_catalog: ``n_types`` types from 40 proportionally
+    scaled families, size-correlated prices with ±20 % jitter."""
+    rng = np.random.RandomState(seed)
+    fam = rng.randint(0, 40, n_types)
+    base = rng.randint(4, 64, (40, n_res))
+    size = (1 + rng.randint(0, 250, n_types))[:, None]
+    alloc = (base[fam] * size).clip(1, 2**20).astype(np.int32)
+    prices = np.round((alloc.sum(axis=1, dtype=np.int64) / 100.0) * (0.8 + 0.4 * rng.rand(n_types)), 4)
+    return alloc, prices
+
+
+def shard_pods(n_pods: int, n_res: int, seed: int) -> np.ndarray:
+    """shardbench.build_pods."""
+    return np.random.RandomState(seed).randint(1, 300, (n_pods, n_res)).astype(np.int32)
+
+
+def shard_masks(n_sigs: int, n_types: int, seed: int, width: int = 64):
+    """shardbench.build_masks."""
+    rng = np.random.RandomState(seed)
+    sig = (rng.rand(n_sigs, width) < 0.7).astype(np.float32)
+    typ = (rng.rand(n_types, width) < 0.7).astype(np.float32)
+    return sig, typ
+
+
+def shard_world(pods: int, types: int, seed: int = SHARD_SEED) -> tuple:
+    """One config-12 cell's inputs, as shardbench.run_cell makes them."""
+    alloc, prices = shard_catalog(types, 4, seed)
+    sig, typ = shard_masks(8, types, seed + 2)
+    return shard_pods(pods, 4, seed + 1), alloc, prices, sig, typ
+
+
+class b5_events:
+    """CUDA events around every launch of B5's wrapper
+    (``pack.ffd_pack_batched``, as ``sharding`` calls it) inside the block
+    → ``ms()``, one time a launch (none off the card)."""
+
+    def __enter__(self):
+        import torch
+
+        from karpenter_core_tpu_torch.solver import pack
+
+        self.pack, self.real, self.pairs = pack, pack.ffd_pack_batched, []
+
+        def spy(*args, **kw):
+            if args[0].device.type != "cuda":
+                return self.real(*args, **kw)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(*args, **kw)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        pack.ffd_pack_batched = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.pack.ffd_pack_batched = self.real
+
+    def ms(self) -> list:
+        out = []
+        for start, end in self.pairs:
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return out
+
+
+def shard_launches() -> dict:
+    """The launch counts of the kernels phase 21's paths run."""
+    from karpenter_core_tpu_torch.disruption import screen_kernels as sk
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+    from karpenter_core_tpu_torch.solver import pack
+
+    return {"ffd_pack": pack.FFD_PACK.launches, "compat_allowed": ck.COMPAT_ALLOWED.launches,
+            "disrupt_screen.prefix": sk.SCREEN_PREFIX.launches}
+
+
+def launch_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in shard_launches().items()}
+
+
+def check_mega(label: str, out: dict, reqs: np.ndarray, alloc: np.ndarray) -> None:
+    """Every pod scheduled, every node's usage within its chosen type."""
+    from karpenter_core_tpu_torch.solver import pack
+
+    if out.get("error") or out["scheduled"] != len(reqs):
+        fail(f"phase 21 {label}: {out.get('error')}, {out['scheduled']} of {len(reqs)} pods scheduled")
+    usage = pack.node_usage_from_assignment(np.ascontiguousarray(reqs[out["node_order"]]), out["node_ids"],
+                                            out["nodes"])
+    if len(out["chosen_types"]) != out["nodes"] or not np.all(usage <= alloc[out["chosen_types"]]):
+        fail(f"phase 21 {label}: a node's usage exceeds its chosen type")
+
+
+def shard_cell(device: str, pods: int, types: int, D: int, reps: int, warm: bool = True,
+               hold: bool = False) -> tuple:
+    """One config-12 cell: a warm run (unless ``warm`` is False), then ``reps`` measured ones, each
+    in a device-time scope and a device-plane accumulator of its own (a
+    mega-solve runs outside any solve), B5 timed by events around its
+    launch. With ``hold``, the first run's B5 arguments and node ids are
+    kept for 21c. → (the row: the median run's wall and stages, nodes,
+    pods/s, the shard stats, B5 ms, the shard boundary's device ms and
+    bytes; the last result and its inputs; the held launch or None)."""
+    from karpenter_core_tpu_torch.solver import devicetime, pack, sharding
+    from karpenter_core_tpu_torch.tracing import deviceplane
+
+    reqs, alloc, prices, sig, typ = shard_world(pods, types)
+    mesh = sharding.make_mesh(D, device=device)
+    held = None
+
+    def solve():
+        nonlocal held
+        if not hold or held is not None:
+            return sharding.sharded_mega_solve(mesh, reqs, alloc, prices, sig, typ)
+        with capture(pack, "ffd_pack_batched") as seen:
+            out = sharding.sharded_mega_solve(mesh, reqs, alloc, prices, sig, typ)
+        held = (seen.calls[0], out["node_ids"], out["nodes"])
+        return out
+
+    if warm:
+        solve()
+    runs = []
+    label = f"{pods}x{types} D={D}"
+    for _ in range(reps):
+        deviceplane.reset_solve()
+        with b5_events() as ev, devicetime.scope(device) as clock:
+            out = solve()
+        plane = deviceplane.consume_solve()
+        moved = plane["transfer_by_phase"].get("shard", {}) if plane else {}
+        runs.append((out, ev.ms(), clock.phase_ms().get("shard", 0.0), moved))
+        check_mega(label, out, reqs, alloc)
+        if not moved.get("h2d") or not moved.get("d2h"):
+            fail(f"phase 21 {label}: the shard boundary moved no bytes ({moved})")
+        if device == "cuda" and (len(runs[-1][1]) != 1 or runs[-1][2] <= 0.0):
+            fail(f"phase 21 {label}: B5 launched {len(runs[-1][1])} times, shard device ms {runs[-1][2]}")
+    out, b5_ms, shard_ms, moved = sorted(runs, key=lambda r: r[0]["wall_ms"])[len(runs) // 2]
+    want = CONFIG12_REFERENCE.get((pods, types, D))
+    if want is not None and (out["nodes"], out["frontier_rows"]) != want:
+        fail(f"phase 21 {label}: {out['nodes']} nodes, {out['frontier_rows']} frontier rows; the reference's plan "
+             f"has {want}")
+    row = {
+        "pods": pods, "types": types, "n_devices": D, "reps": reps, "warm": warm, "wall_ms": out["wall_ms"],
+        **{k: out[k] for k in ("compat_ms", "prep_ms", "pack_ms", "assign_ms", "nodes", "scheduled",
+                               "frontier_rows", "viable_types", "total_price", "shard")},
+        "pods_per_s": round(pods / (out["wall_ms"] / 1000.0), 1) if out["wall_ms"] else 0.0,
+        "b5_ms": b5_ms[0] if b5_ms else None, "b5_ms_runs": [r[1][0] if r[1] else None for r in runs],
+        "shard_device_ms": shard_ms if device == "cuda" else None, "shard_bytes": moved,
+        "wall_ms_runs": [r[0]["wall_ms"] for r in runs],
+    }
+    return row, (reqs, alloc, sig, typ, runs[-1][0]), held
+
+
+def shard_unchunked_ratio(device: str, pods: int, types: int, seeds: int, D: int) -> dict:
+    """shardbench.run_parity's ratio on the card: on its worlds, one FFD
+    scan of all pods over the whole catalog's frontier against the
+    chunked plan's nodes at D shards. (Its engine parity is one launch on
+    one card, held against the JAX package by the CPU tests.)"""
+    import torch
+
+    from karpenter_core_tpu_torch.solver import pack, sharding
+    from karpenter_core_tpu_torch.solver.backend import resolve_device
+
+    dev = resolve_device(device)
+    mesh = sharding.make_mesh(D, device=device)
+    ratios = []
+    for seed in range(seeds):
+        alloc, prices = shard_catalog(types, 4, 100 + seed)
+        reqs = shard_pods(pods, 4, 200 + seed)
+        sig, typ = shard_masks(8, types, 300 + seed)
+        a = sharding.sharded_mega_solve(mesh, reqs, alloc, prices, sig, typ)
+        check_mega(f"ratio D={D} seed {seed}", a, reqs, alloc)
+        order = np.lexsort((-reqs[:, 1], -reqs[:, 0]))
+        frontier = pack.pareto_frontier(alloc.astype(np.int32))
+        _, n_ref = pack.ffd_pack(torch.from_numpy(np.ascontiguousarray(reqs[order])).to(dev),
+                                 torch.from_numpy(frontier).to(dev), int(pack.INT_INF))
+        ratios.append(int(n_ref) / a["nodes"])
+    return {"pods": pods, "types": types, "n_devices": D, "seeds": seeds,
+            "unchunked_node_ratio_min": round(min(ratios), 4)}
+
+
+def chunk_identity(device: str, reqs, alloc, sig, typ, out: dict, D: int) -> dict:
+    """21b at full size: the chunked launch's ids equal D solo ``ffd_pack``
+    launches, one on each chunk, renumbered, and the mega-solve's own."""
+    import torch
+
+    from karpenter_core_tpu_torch.solver import pack, sharding
+
+    viable = ((sig @ typ.T) > 0.0).all(axis=0)
+    frontier = pack.pareto_frontier(np.ascontiguousarray(alloc[np.flatnonzero(viable)], dtype=np.int32))
+    s = np.ascontiguousarray(reqs[np.lexsort((-reqs[:, 1], -reqs[:, 0]))], dtype=np.int32)
+    mesh = sharding.make_mesh(D, device=device)
+    gids, n = sharding.sharded_pod_pack(mesh, s, frontier, pack.INT_INF)
+    sharding.reset_shard_stats()
+    Pc = -(-len(s) // D)
+    front = torch.from_numpy(frontier).to(mesh.device)
+    solo, offset = [], 0
+    for d in range(D):
+        ids, cnt = pack.ffd_pack(torch.from_numpy(s[d * Pc:(d + 1) * Pc]).to(mesh.device), front, int(pack.INT_INF))
+        ids = ids.cpu().numpy()
+        solo.append(np.where(ids >= 0, ids + offset, -1))
+        offset += int(cnt)
+    solo_ids = np.concatenate(solo).astype(np.int32)
+    if not (np.array_equal(solo_ids, gids) and offset == n and np.array_equal(gids, out["node_ids"])):
+        fail(f"phase 21b: the chunked launch at {len(s)} pods, D={D}, differs from {D} solo launches")
+    return {"pods": len(s), "n_devices": D, "chunk_len": Pc, "nodes": n, "solo_launches": D, "identical": True}
+
+
+def shard_solve_world(n_pods: int, n_types: int, seed: int = SHARD_SEED):
+    """21b's solve: one pool over ``instance_types(n_types)`` and pods of
+    tests/test_sharding.py::TestIntegratedMegaShardSolve's request mix."""
+    from karpenter_core_tpu_torch.apis.nodepool import NodePool
+    from karpenter_core_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_core_tpu_torch.kube import objects as ob
+    from karpenter_core_tpu_torch.kube.quantity import parse_quantity as pq
+
+    provider = FakeCloudProvider()
+    provider.instance_types = instance_types(n_types)
+    pool = NodePool()
+    pool.metadata.name = "default"
+    rng = np.random.RandomState(seed)
+    pods = []
+    for i in range(n_pods):
+        pod = ob.Pod()
+        pod.metadata.name = f"mega-{i}"
+        requests = {"cpu": pq(["250m", "500m", "1", "2"][rng.randint(4)]),
+                    "memory": pq(["512Mi", "1Gi", "2Gi"][rng.randint(3)])}
+        pod.spec = ob.PodSpec(containers=[ob.Container(name="main", resources=ob.ResourceRequirements(requests=requests))])
+        pods.append(pod)
+    return [pool], provider, pods
+
+
+@contextlib.contextmanager
+def shard_mesh(D: int, device: str, engine: str, min_pods: int):
+    """The sharding seam for a block: a D-shard mesh on ``device``
+    installed, the chunk engine and threshold set, all restored after."""
+    from karpenter_core_tpu_torch.solver import sharding
+
+    saved = (sharding.SHARD_ENGINE, sharding.SHARD_MIN_PODS)
+    prev = sharding.install_mesh(sharding.make_mesh(D, device=device))
+    sharding.SHARD_ENGINE, sharding.SHARD_MIN_PODS = engine, min_pods
+    try:
+        yield
+    finally:
+        sharding.install_mesh(prev)
+        sharding.SHARD_ENGINE, sharding.SHARD_MIN_PODS = saved
+
+
+def shard_solve(device: str, n_pods: int, n_types: int, min_pods: int) -> dict:
+    """21b: ``TorchScheduler.solve`` on an 8-shard mesh with the chunk
+    threshold at ``min_pods`` (C++ packer off, cold pipeline) reaches the
+    mega branch; its plan equals the CPU's on an 8-shard CPU mesh, and
+    ``last_shard_stats`` and the padding gauge are set."""
+    from karpenter_core_tpu_torch.metrics import Metrics
+    from karpenter_core_tpu_torch.solver import TorchScheduler, sharding
+
+    rows, streams = {}, {}
+    with knobs(KARPENTER_TORCH_NATIVE=0, KARPENTER_TORCH_INCREMENTAL=0):
+        legs = [(device, "sharded")] + ([("cpu", "sharded")] if device != "cpu" else [])
+        for dev, engine in legs:
+            pools, provider, pods = shard_solve_world(n_pods, n_types)
+            metrics = Metrics()
+            with shard_mesh(8, dev, engine, min_pods), timed(sharding, "sharded_pod_pack") as mega:
+                solver = TorchScheduler(pools, provider, device=dev, metrics=metrics)
+                t0 = time.perf_counter()
+                res = solver.solve(pods)
+                ms = (time.perf_counter() - t0) * 1000.0
+            label = f"{dev}-{engine}"
+            stats = solver.last_shard_stats
+            gauge = {axis: metrics.shard_padding_waste.get(axis=axis) for axis in ("pods", "types")}
+            if mega.n == 0 or not stats or stats.get("engine") != engine or None in gauge.values():
+                fail(f"phase 21b solve {label}: mega packs {mega.n}, stats {stats}, gauge {gauge}")
+            if res.pods_scheduled != n_pods:
+                fail(f"phase 21b solve {label}: {res.pods_scheduled} of {n_pods} pods scheduled")
+            streams[label] = plan_stream(res)
+            rows[label] = {"solve_ms": ms, "mega_packs": mega.n, "nodes": res.node_count,
+                           "total_price": round(res.total_price, 4), "shard": stats, "gauge": gauge,
+                           "device_phase_ms": solver.last_device_phase_ms}
+    first = streams[f"{device}-sharded"]
+    if any(s != first for s in streams.values()):
+        fail(f"phase 21b solve: plans differ across {sorted(streams)}")
+    return {"pods": n_pods, "types": n_types, "min_pods": min_pods, "legs": rows, "plans_equal": sorted(streams)}
+
+
+def shard_dryrun(device: str, D: int = 8) -> dict:
+    """21d: ``__graft_entry__.dryrun_multichip``'s sequence on a D-shard
+    mesh of one card: the group-sharded pack and its fleet total, the
+    type-sharded overlap product, the sharded prefix screen."""
+    import torch
+
+    from karpenter_core_tpu_torch.solver import sharding
+
+    mesh = sharding.make_mesh(D, device=device)
+    rng = np.random.RandomState(0)
+    G, P, R, F = 2 * D, 64, 4, 4
+    requests = rng.randint(1, 1000, size=(G, P, R)).astype(np.int32)
+    requests[..., 2] = 1
+    frontiers = np.broadcast_to(np.array([[4000, 4000, 16, 4000]] * F, dtype=np.int32), (G, F, R)).copy()
+    caps = np.full(G, 1 << 30, dtype=np.int32)
+    ids, counts, fleet_total = sharding.sharded_batch_pack(mesh, *(torch.from_numpy(a) for a in (requests, frontiers, caps)))
+    if int(fleet_total) != int(counts.sum()) or tuple(ids.shape) != (G, P):
+        fail(f"phase 21d: fleet total {int(fleet_total)} against counts {counts.tolist()}")
+    S, T, W = 16, 64, 128
+    sig = (rng.rand(S, W) > 0.5).astype(np.float32)
+    typ = (rng.rand(T, W) > 0.5).astype(np.float32)
+    overlap = sharding.sharded_compat(mesh, sig, typ)
+    if not np.array_equal(overlap.cpu().numpy(), sig @ typ.T):
+        fail("phase 21d: the sharded overlap product differs from the host matmul")
+    N = D * 8
+    loads = rng.randint(1, 50, size=(N, R)).astype(np.int32)
+    free = rng.randint(0, 40, size=(N, R)).astype(np.int32)
+    fleet_local = rng.randint(0, 100, size=(D, R)).astype(np.int32)
+    cap = np.array([200, 200, 16, 200], dtype=np.int32)
+    feasible = sharding.sharded_prefix_screen(mesh, loads, free, fleet_local, cap)
+    if tuple(feasible.shape) != (N,):
+        fail(f"phase 21d: the prefix screen gave {tuple(feasible.shape)}")
+    return {"groups": G, "fleet_total": int(fleet_total), "overlap": [S, T], "screen_candidates": N,
+            "feasible": int(feasible.sum())}
+
+
+def shard_screen_inputs(D: int, per: int, R: int, seed: int = 21):
+    """A fleet's prefix screen over D candidate shards, every partial sum
+    below 2^24."""
+    rng = np.random.RandomState(seed)
+    N = D * per
+    loads = rng.randint(1, 50, (N, R)).astype(np.int32)
+    free = rng.randint(0, 40, (N, R)).astype(np.int32)
+    fleet_local = rng.randint(0, 40 * per, (D, R)).astype(np.int32)
+    cap = rng.randint(50, 200, R).astype(np.int32)
+    return loads, free, fleet_local, cap
+
+
+def shard_plain_cases(device: str, sm_mhz: float, held=None) -> dict:
+    """21c, against the plain versions on the card (these launches are not
+    the path's): B5 as ``sharded_pod_pack`` at D ∈ {1, 8} on
+    ``SHARD_PLAIN_PODS`` pods of config 12's world, on ``held`` (the
+    arguments of one of 21a's own launches, whose renumbered plain ids
+    must equal that run's node ids, all of them) and as the dryrun's
+    ``sharded_batch_pack``; B1 as ``allowed_sharded`` over a catalog of
+    10,003 types padded to 8 shards; B8's prefix screen as
+    ``sharded_prefix_screen``; ``sharded_compat`` (a ``torch.matmul``) at
+    config 12's masks. Each bit-equal, and the port on the CPU gives the
+    same ids and rows."""
+    import torch
+
+    from karpenter_core_tpu_torch.disruption import screen_kernels as sk
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+    from karpenter_core_tpu_torch.solver import pack, sharding
+
+    cases = {"sharded_pod_pack": [], "sharded_batch_pack": [], "allowed_sharded": [], "sharded_prefix_screen": [],
+             "sharded_compat": []}
+    reqs, alloc, prices, sig, typ = shard_world(SHARD_PLAIN_PODS, 10_000)
+    for D in (1, 8):
+        with capture(pack, "ffd_pack_batched") as cap_calls:
+            card = sharding.sharded_mega_solve(sharding.make_mesh(D, device=device), reqs, alloc, prices, sig, typ)
+        cpu = sharding.sharded_mega_solve(sharding.make_mesh(D, device="cpu"), reqs, alloc, prices, sig, typ)
+        if not np.array_equal(card["node_ids"], cpu["node_ids"]):
+            fail(f"phase 21c: sharded_pod_pack at {SHARD_PLAIN_PODS} pods, D={D}: card ids differ from the CPU's")
+        cases["sharded_pod_pack"].append({"n_devices": D, "cpu_equal": True, **ffd_kernel_case(cap_calls.calls[0])})
+    if held is not None:
+        call, gids, nodes = held
+
+        def same_ids(plain_ids, plain_counts):
+            counts = plain_counts.cpu().numpy().astype(np.int64)
+            offsets = np.concatenate([[0], np.cumsum(counts[:-1])])
+            ids = plain_ids.cpu().numpy()
+            mine = np.where(ids >= 0, ids + offsets[:, None], -1).reshape(-1)[: len(gids)]
+            if not (np.array_equal(mine, gids) and int(counts.sum()) == nodes):
+                fail(f"phase 21c: the plain B5 on 21a's launch at {len(gids)} pods gives other node ids")
+
+        t0 = time.perf_counter()
+        row = ffd_kernel_case(call, check=same_ids)
+        cases["sharded_pod_pack"].append({"n_devices": call[0].shape[0], "main_path": True, "ids_equal": True,
+                                          "case_s": time.perf_counter() - t0, **row})
+    with capture(pack, "ffd_pack_batched") as cap_calls:
+        shard_dryrun(device)
+    req, front, caps, k_open, n = cap_calls.calls[0]
+    if n is None:  # sharded_batch_pack's groups carry no padding: every pod is real
+        n = torch.full((req.shape[0],), req.shape[1], dtype=torch.int32)
+    cases["sharded_batch_pack"].append({"n_devices": 8, **ffd_kernel_case((req, front, caps, k_open, n))})
+
+    # B1 over the padded catalog
+    rng = np.random.RandomState(22)
+    T, S, keys = 10_003, 8, ("a", "b", "c")
+    widths = {"a": 30, "b": 12, "c": 5}
+    tm = {k: rng.rand(T, w) < 0.3 for k, w in widths.items()}
+    th = {k: rng.rand(T) < 0.8 for k in keys}
+    tn = {k: rng.rand(T) < 0.1 for k in keys}
+    avail = rng.rand(T, 3, 2) < 0.6
+    sig_arrays = {"valid": rng.rand(S) < 0.9}
+    for k, w in widths.items():
+        sig_arrays[f"mask:{k}"] = rng.rand(S, w) < 0.4
+        sig_arrays[f"has:{k}"] = rng.rand(S) < 0.7
+        sig_arrays[f"neg:{k}"] = rng.rand(S) < 0.1
+    zone_ok, ct_ok = rng.rand(S, 3) < 0.7, rng.rand(S, 2) < 0.8
+    out = {}
+    for dev in (device, "cpu"):
+        prepared = sharding.prepare_sharded_catalog(sharding.make_mesh(8, device=dev), tm, th, tn, avail)
+        out[dev] = (prepared, sharding.allowed_sharded(prepared, sig_arrays, zone_ok, ct_ok, keys))
+    sharding.reset_shard_stats()
+    (catalog, _), got = out[device]
+    planes = ck.signature_side(sig_arrays, zone_ok, ct_ok, catalog, keys=keys)
+    t0 = time.perf_counter()
+    want = ck.allowed_packed_reference(planes, catalog.planes, catalog.layout)[:, :T]
+    _sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1000.0
+    if not (torch.equal(got, want) and np.array_equal(got.cpu().numpy(), out["cpu"][1].numpy())):
+        fail("phase 21c: allowed_sharded differs from its plain version or the CPU's")
+    Wd, Tp = catalog.planes.shape
+    cases["allowed_sharded"].append({
+        "S": S, "T": T, "T_padded": Tp, "W": Wd, "max_abs_err": 0, "cpu_equal": True, "plain_ms": plain_ms,
+        "kernel_ms": events_ms(lambda: ck.allowed_via_kernel(planes, catalog), 20) if device == "cuda" else None,
+        "wrapper_ms": events_ms(lambda: sharding.allowed_sharded(out[device][0], sig_arrays, zone_ok, ct_ok, keys), 20)
+        if device == "cuda" else None,
+        "library_ms": None, **bound_row(Wd * (S + Tp) * 4 + S * T, 2 * S * Tp * Wd),
+    })
+
+    # B8's prefix screen over 8 candidate shards
+    D, per, R = SHARD_SCREEN
+    loads, free, fleet_local, capv = shard_screen_inputs(D, per, R)
+    mesh = sharding.make_mesh(D, device=device)
+    on_card = tuple(torch.from_numpy(a).to(mesh.device) for a in (loads, free, fleet_local, capv))
+    got = sharding.sharded_prefix_screen(mesh, *on_card)
+    args = tuple(torch.from_numpy(a).to(mesh.device) for a in (loads, free, fleet_local.sum(axis=0).astype(np.int32), capv))
+    t0 = time.perf_counter()
+    want = sk.prefix_screen_reference(*args)
+    _sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1000.0
+    cpu = sharding.sharded_prefix_screen(sharding.make_mesh(D, device="cpu"), loads, free, fleet_local, capv)
+    if not (torch.equal(got, want) and torch.equal(got.cpu(), cpu)):
+        fail("phase 21c: sharded_prefix_screen differs from its plain version or the CPU's")
+    N = D * per
+    max_sum = float(max(loads.astype(np.float64).sum(0).max(), free.astype(np.float64).sum(0).max()))
+    cases["sharded_prefix_screen"].append({
+        "n_devices": D, "N": N, "R": R, "max_abs_err": 0, "cpu_equal": True, "true_rows": int(got.sum()),
+        "max_partial_sum": max_sum, "above_2_24": max_sum >= 2.0**24, "plain_ms": plain_ms,
+        "kernel_ms": events_ms(lambda: sk.screen_prefix(*args), 20) if device == "cuda" else None,
+        "wrapper_ms": events_ms(lambda: sharding.sharded_prefix_screen(mesh, *on_card), 20) if device == "cuda" else None,
+        "library_ms": events_ms(lambda: _screen_formula_library("prefix", args), 20) if device == "cuda" else None,
+        "chain_ms": N * FADD_CYCLES / (sm_mhz * 1e3) if sm_mhz else None,
+        **bound_row(2 * N * R * 4 + D * R * 4 + R * 4 + N, 6 * N * R),
+    })
+
+    # the type-sharded overlap product at config 12's masks
+    Tc = 10_000
+    sig8, typ8 = shard_masks(8, Tc, SHARD_SEED + 2)
+    mesh = sharding.make_mesh(8, device=device)
+    q, m = (torch.from_numpy(a).to(mesh.device) for a in (sig8, typ8))
+    got = sharding.sharded_compat(mesh, q, m)
+    t0 = time.perf_counter()
+    host = sig8 @ typ8.T
+    host_ms = (time.perf_counter() - t0) * 1000.0
+    if not np.array_equal(got.cpu().numpy(), host):
+        fail("phase 21c: sharded_compat differs from the host matmul")
+    Sq, Wq = sig8.shape
+    cases["sharded_compat"].append({
+        "S": Sq, "T": Tc, "W": Wq, "max_abs_err": 0, "host_ms": host_ms,
+        "ms": events_ms(lambda: sharding.sharded_compat(mesh, q, m), 20) if device == "cuda" else None,
+        **bound_row((Sq * Wq + Tc * Wq + Sq * Tc) * 4, 2 * Sq * Tc * Wq),
+    })
+    return cases
+
+
+def run_shard_phase(device: str = "cuda", cells=SHARD_CELLS, keep=SHARD_KEEP, reps: int = SHARD_REPS,
+                    ratio=SHARD_RATIO, solve=SHARD_SOLVE, budget_s: float = SHARD_RESERVE_S,
+                    sm_mhz: float = 0.0, plain_cell=SHARD_PLAIN_CELL) -> dict:
+    """Phase 21, bench config 12 on ``device``: 21a the curve (each cell
+    warm once, then ``reps`` measured runs; with ``budget_s`` under
+    ``SHARD_RESERVE_S``, or past 60 % of it, a cell outside ``keep`` runs
+    once, unwarmed, and ``cuts`` says so); 21b the unchunked node ratio,
+    the full-size chunk identity at the largest cell, the integrated
+    solve on an 8-shard mesh; 21d the dryrun's sequence. The launches
+    from just before 21a to just after 21d are the path's; 21c holds each
+    kernel against its plain version afterwards (on the card only),
+    ``plain_cell``'s own first launch among them. → the phase's row."""
+    t0 = time.perf_counter()
+    sections = {}
+    before = shard_launches()
+    curve, cuts, big, held = [], [], None, None
+    for pods, types, D in cells:
+        late = budget_s < SHARD_RESERVE_S or time.perf_counter() - t0 >= 0.6 * budget_s
+        cut = (pods, types, D) not in keep and late
+        if cut:
+            cuts.append(f"{pods}x{types} D={D}: 1 measured run, no warm run")
+        hold = device == "cuda" and (pods, types, D) == plain_cell
+        row, inputs, kept = shard_cell(device, pods, types, D, 1 if cut else reps, warm=not cut, hold=hold)
+        held = kept or held
+        curve.append(row)
+        if D == max(c[2] for c in cells) and (big is None or pods > big[0]):
+            big = (pods, D, inputs)
+    curve_launches = launch_delta(before)
+    want = sum(int(r["warm"]) + r["reps"] for r in curve)
+    if curve_launches["ffd_pack"] != (want if device == "cuda" else 0):
+        fail(f"phase 21a: B5 launched {curve_launches['ffd_pack']} times over {want} mega-solves")
+    sections["21a"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    mark = shard_launches()
+    unchunked = shard_unchunked_ratio(device, *ratio)
+    ratio_launches = launch_delta(mark)
+    mark = shard_launches()
+    solved = shard_solve(device, *solve)
+    solve_launches = launch_delta(mark)
+    sections["21b"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    mark = shard_launches()
+    dry = shard_dryrun(device)
+    dry_launches = launch_delta(mark)
+    sections["21d"] = time.perf_counter() - t1
+    launches = {"phase21a": curve_launches, "phase21b-ratio": ratio_launches, "phase21b-solve": solve_launches,
+                "phase21d": dry_launches}
+    if device == "cuda":
+        for path, kernel in (("phase21a", "ffd_pack"), ("phase21b-ratio", "ffd_pack"), ("phase21b-solve", "ffd_pack"),
+                             ("phase21b-solve", "compat_allowed"), ("phase21d", "ffd_pack"),
+                             ("phase21d", "disrupt_screen.prefix")):
+            if not launches[path][kernel]:
+                fail(f"phase 21 {path}: {kernel} never launched ({launches[path]})")
+    elif any(n for counts in launches.values() for n in counts.values()):
+        fail(f"phase 21 on the CPU launched a kernel: {launches}")
+    t1 = time.perf_counter()
+    pods, D, (reqs, alloc, sig, typ, out) = big
+    identity = chunk_identity(device, reqs, alloc, sig, typ, out, D)
+    sections["21b-identity"] = time.perf_counter() - t1
+    cases = {}
+    if device == "cuda":
+        t1 = time.perf_counter()
+        if held is None:
+            fail(f"phase 21c: the curve ran no {plain_cell} cell to hold against the plain B5")
+        cases = shard_plain_cases(device, sm_mhz, held)
+        sections["21c"] = time.perf_counter() - t1
+    return {"curve": curve, "cuts": cuts, "unchunked": unchunked, "chunk_identity": identity, "solve": solved, "dryrun": dry,
+            "launches": launches, "cases": cases, "sections_s": sections, "wall_s": time.perf_counter() - t0}
+
+
+def report_shard_phase(sh: dict, card: str) -> None:
+    """Print phase 21's lines, each with the card."""
+    for row in sh["curve"]:
+        emit({"phase21a_cell": f"{row['pods']}x{row['types']} D={row['n_devices']}", **row, "card": card})
+    emit({"phase21b": "unchunked-ratio", **sh["unchunked"], "card": card})
+    emit({"phase21b": "chunk-identity", **sh["chunk_identity"], "card": card})
+    emit({"phase21b": "solve", **sh["solve"], "card": card})
+    emit({"phase21d": "dryrun", **sh["dryrun"], "card": card})
+    for name, rows in sh["cases"].items():
+        for r in rows:
+            emit({"phase21c_case": name, **r, "card": card})
+    anchor = next((r for r in sh["curve"] if (r["pods"], r["types"], r["n_devices"]) == SHARD_KEEP[0]), None)
+    emit({"phase21": "config12", "cuts": sh["cuts"], "launches": sh["launches"], "sections_s": sh["sections_s"],
+          "wall_s": sh["wall_s"], "anchor_wall_ms": anchor and anchor["wall_ms"],
+          "unchunked_node_ratio_min": sh["unchunked"]["unchunked_node_ratio_min"], "card": card})
+
+
 def probe_card() -> tuple:
     """Step 1: the card, or fail. Prints the card's name and power limit
     as nvidia-smi gives them and the device line. → (torch's device name,
@@ -8088,6 +8704,7 @@ SELECTABLE_PHASES = {
     18: lambda card, sm_mhz: report_operator_phase(run_operator_phase("cuda", sm_mhz=sm_mhz), card),
     19: lambda card, sm_mhz: run_fleet_phase("cuda", card=card),
     20: lambda card, sm_mhz: report_deviceplane_phase(run_deviceplane_phase("cuda"), card),
+    21: lambda card, sm_mhz: report_shard_phase(run_shard_phase("cuda", sm_mhz=sm_mhz), card),
 }
 
 
@@ -8340,11 +8957,11 @@ def main() -> None:
     # 16. the serving pipeline on the card: 16c the kernels under serving
     # (native off, a disruption stage), 16a bench config 8 whole, 16b
     # bench config 14 (each measurement its own process)
-    # (phases 17's to 20's reserves kept out of the budget: 16b drops a later seed first)
+    # (phases 17's to 21's reserves kept out of the budget: 16b drops a later seed first)
     serving = run_serving_phase("cuda", sm_mhz=sm_mhz, budget_s=min(
         SERVING_BUDGET_S,
         SCRIPT_BUDGET_S - CHAOS_RESERVE_S - OPERATOR_RESERVE_S - FLEET_RESERVE_S - DEVICEPLANE_RESERVE_S
-        - (time.perf_counter() - t_start)))
+        - SHARD_RESERVE_S - (time.perf_counter() - t_start)))
     report_serving_phase(serving, card)
     sk16 = serving["kernels"]
     for mode, counts in sk16["launches"].items():
@@ -8408,6 +9025,21 @@ def main() -> None:
         ("ffd_pack", "pack.ffd_pack_batched"), ("pack_existing", "pack.pack_existing"), ("dual_ascent", "lp.dual_ascent"))}
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 20"})
 
+    # 21. bench config 12 on the card: 21a the curve, 21b the unchunked
+    # node ratio, the chunk identity at 1,000,000 pods and the solve on an
+    # 8-shard mesh, 21d the dryrun's sequence, 21c the kernels against their
+    # plain versions, one of 21a's own launches at 125,000 pods among them
+    # (its reserve shrinks with what is left of SCRIPT_BUDGET_S on a slow host:
+    # then the cells but the anchor and 1,000,000 pods run once)
+    sh21 = run_shard_phase("cuda", sm_mhz=sm_mhz, budget_s=max(
+        0.0, min(SHARD_RESERVE_S, SCRIPT_BUDGET_S - (time.perf_counter() - t_start))))
+    report_shard_phase(sh21, card)
+    for path, n in sh21["launches"].items():
+        pack["launches"][path] = {"ffd_pack": n["ffd_pack"], "pack_existing": 0, "dual_ascent": 0}
+    cases["ffd_pack"] += [{"captured": f"phase21c-{name}", **r} for name in ("sharded_pod_pack", "sharded_batch_pack")
+                          for r in sh21["cases"][name]]
+    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 21"})
+
     # the kernels line, then the last line
     paths = {
         "slice": slice_launches, "cluster": cluster["kernel_launches"],
@@ -8428,6 +9060,7 @@ def main() -> None:
         "phase18-operator": op_launches["compat_allowed"],
         **fleet_compat,
         "phase20": dp_launches["kernels.allowed_kernel"],
+        **{path: n["compat_allowed"] for path, n in sh21["launches"].items()},
     }
     for leg, n in config7["launches"].items():
         pack["launches"][f"config7-{leg}"] = {"ffd_pack": n["ffd"], "pack_existing": 0, "dual_ascent": 0}
@@ -8483,7 +9116,8 @@ def main() -> None:
                     "ptxas": usage,
                 },
                 *[pack_kernel_entry(name, cases[name], pack["launches"],
-                                    relax_splits if name == "dual_ascent" else None) for name in cases],
+                                    relax_splits if name == "dual_ascent" else None,
+                                    config12=sh21["curve"] if name == "ffd_pack" else None) for name in cases],
                 screen_kernel_entry(disrupt["screen_cases"], {
                     **{f"phase15-{path}": n for path, n in disrupt["launches"].items()},
                     **{f"phase16-{mode}": {name: c["tick"] + c["prewarm"] for name, c in n.items()}
@@ -8492,6 +9126,8 @@ def main() -> None:
                     "phase20": {f"disrupt_screen.{kind}": dp_launches[plane] for kind, plane in (
                         ("prefix", "disrupt.prefix_screen"), ("subsets", "disrupt.subset_screen"),
                         ("singles", "disrupt.single_screen"))},
+                    **{path: {"disrupt_screen.prefix": n["disrupt_screen.prefix"], "disrupt_screen.subsets": 0,
+                              "disrupt_screen.singles": 0} for path, n in sh21["launches"].items()},
                 }),
             ]
         }

@@ -290,6 +290,14 @@ class _MegaDispatcher:
             self._active -= 1
             self._cv.notify_all()  # a departing worker can complete quiescence
 
+    def pack_alone(self, jobs: list, metas: list, device, mesh) -> Tuple[list, List[bool]]:
+        """One lane's jobs through the real backend on the calling thread,
+        outside any flush (the lane stays a busy worker meanwhile)."""
+        with self._backend.lock:
+            packed = self._backend.pack_jobs(jobs, metas, device=device, stats=self.stats, mesh=mesh)
+            flags = list(getattr(self._backend, "last_job_flags", ()) or ())
+        return packed, flags if len(flags) == len(jobs) else [False] * len(jobs)
+
     def submit(self, jobs: list, metas: list, device) -> Tuple[list, List[bool]]:
         w = _PackWait(jobs, metas, device)
         with self._cv:
@@ -397,8 +405,14 @@ class _CoalescingBackend(PackBackend):
     def job_token(self, device=None) -> tuple:
         return self._dispatcher.target_token(device)
 
-    def pack_jobs(self, jobs, metas, device=None, stats=None):
-        results, flags = self._dispatcher.submit(jobs, metas, device)
+    def pack_jobs(self, jobs, metas, device=None, stats=None, mesh=None):
+        if mesh is not None:
+            # under a mesh the lane packs on its own thread: the pod-axis
+            # padding a mega job records (solver/sharding.py) belongs to
+            # this tenant's solve, never to a flushing thread's
+            results, flags = self._dispatcher.pack_alone(jobs, metas, device, mesh)
+        else:
+            results, flags = self._dispatcher.submit(jobs, metas, device)
         self.last_job_flags = flags
         return results
 

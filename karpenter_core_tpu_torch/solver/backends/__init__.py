@@ -6,7 +6,7 @@ max_per_node)`` tuples plus their finalize metadata — into per-job node
 assignments, the contract ``TorchScheduler._pack_and_finalize``
 consumes:
 
-    pack_jobs(jobs, metas, device, stats) -> [(node_ids (P,) int32, node_count)]
+    pack_jobs(jobs, metas, device, stats, mesh) -> [(node_ids (P,) int32, node_count)]
 
 aligned with ``jobs``. ``node_ids`` indexes the job's size-sorted pod
 order (−1 ⇒ unschedulable) exactly like ``pack.batch_pack``; everything
@@ -72,10 +72,11 @@ class PackBackend:
     last_job_flags: List[bool] = []
 
     def pack_jobs(
-        self, jobs: List[tuple], metas: List[dict], device=None, stats=None
+        self, jobs: List[tuple], metas: List[dict], device=None, stats=None, mesh=None
     ) -> List[Tuple[np.ndarray, int]]:
         """→ [(node_ids, node_count)] aligned with ``jobs``; device work
-        runs on ``device`` (None: the card)."""
+        runs on ``device`` (None: the card), or on ``mesh``'s shards
+        (``solver/sharding.py``) when one is active."""
         raise NotImplementedError
 
 
@@ -88,12 +89,12 @@ class FFDBackend(PackBackend):
         return ("ffd",)
 
     def pack_jobs(
-        self, jobs: List[tuple], metas: List[dict], device=None, stats=None
+        self, jobs: List[tuple], metas: List[dict], device=None, stats=None, mesh=None
     ) -> List[Tuple[np.ndarray, int]]:
         from ..pack import batch_pack
 
         self.last_job_flags = [False] * len(jobs)
-        return batch_pack(jobs, device=device)
+        return batch_pack(jobs, device=device, mesh=mesh)
 
 
 class AutoBackend(PackBackend):
@@ -127,7 +128,7 @@ class AutoBackend(PackBackend):
         return ("auto", int(lp_min_job_work(device))) + self._lp.job_token()
 
     def pack_jobs(
-        self, jobs: List[tuple], metas: List[dict], device=None, stats=None
+        self, jobs: List[tuple], metas: List[dict], device=None, stats=None, mesh=None
     ) -> List[Tuple[np.ndarray, int]]:
         from ..calibrate import lp_min_job_work
 
@@ -141,7 +142,7 @@ class AutoBackend(PackBackend):
             if not idx:
                 continue
             packed = backend.pack_jobs(
-                [jobs[i] for i in idx], [metas[i] for i in idx], device, stats
+                [jobs[i] for i in idx], [metas[i] for i in idx], device, stats, mesh
             )
             sub_flags = backend.last_job_flags
             for slot, (i, r) in enumerate(zip(idx, packed)):

@@ -569,7 +569,7 @@ class LPBackend(PackBackend):
         return node_ids, offset
 
     def pack_jobs(
-        self, jobs: List[tuple], metas: List[dict], device=None, stats=None
+        self, jobs: List[tuple], metas: List[dict], device=None, stats=None, mesh=None
     ) -> List[Tuple[np.ndarray, int]]:
         from .. import plancost
         from ..pack import batch_pack
@@ -603,7 +603,7 @@ class LPBackend(PackBackend):
             return []
         # the FFD candidate for every job in one batched dispatch — the
         # cost guard needs it anyway, and it is the fallback partition
-        ffd_packed = batch_pack(jobs, device=device)
+        ffd_packed = batch_pack(jobs, device=device, mesh=mesh)
         t0 = time.perf_counter()
         routes: List[Optional[dict]] = []
         for job, meta in zip(jobs, metas):
@@ -652,7 +652,7 @@ class LPBackend(PackBackend):
             for (t, pos), rj in zip(groups, rjobs):
                 repair_meta.append((ji, t, pos))
                 repair_jobs.append(rj)
-        repaired = batch_pack(repair_jobs, device=device) if repair_jobs else []
+        repaired = batch_pack(repair_jobs, device=device, mesh=mesh) if repair_jobs else []
         lp_parts: List[list] = [[] for _ in range(n)]
         for (ji, t, pos), (ids, count) in zip(repair_meta, repaired):
             lp_parts[ji].append((t, pos, np.asarray(ids), int(count)))
@@ -746,7 +746,7 @@ class LPBackend(PackBackend):
                 for (t, pos), rj in zip(groups, rjobs):
                     round_meta.append((ji, t, pos))
                     round_jobs.append(rj)
-            round_repaired = batch_pack(round_jobs, device=device) if round_jobs else []
+            round_repaired = batch_pack(round_jobs, device=device, mesh=mesh) if round_jobs else []
             st["refine_rounds"] = r
             parts_r: List[list] = [[] for _ in range(n)]
             for (ji, t, pos), (ids, count) in zip(round_meta, round_repaired):
@@ -849,7 +849,7 @@ class LPBackend(PackBackend):
                     for (t, pos), rj in zip(groups, rjobs):
                         frontier_meta.append((bi, t, pos))
                         frontier_jobs.append(rj)
-            frontier_packed = batch_pack(frontier_jobs, device=device) if frontier_jobs else []
+            frontier_packed = batch_pack(frontier_jobs, device=device, mesh=mesh) if frontier_jobs else []
             branch_parts: dict = {}
             for (bi, t, pos), (ids, count) in zip(frontier_meta, frontier_packed):
                 branch_parts.setdefault(bi, []).append(

@@ -484,13 +484,20 @@ def job_digest(reqs: np.ndarray) -> bytes:
     return h.digest()
 
 
-def pack_engine_token() -> tuple:
+def pack_engine_token(mesh=None) -> tuple:
     """The pack-engine configuration a job result depends on, laid out as
     the JAX package's: the C++ packer's switch (``KARPENTER_TORCH_NATIVE``;
-    off, jobs pack through the FFD scan kernel at K = 16), a mesh size of
-    0 and ``NATIVE_K_OPEN``, then the pod-shard token, which on one
-    device is the reference's single-device ``()``."""
+    off, jobs pack through the FFD scan kernel at K = 16), the mesh's
+    shard count (0 without one) and ``NATIVE_K_OPEN``, then the pod-shard
+    token (``sharding.pod_shard_token``: the chunk engine, threshold and
+    shards under a mesh, ``()`` without one)."""
     from .. import native
     from .pack import NATIVE_K_OPEN
+    from .sharding import pod_shard_token
 
-    return (bool(native.available()), 0, int(NATIVE_K_OPEN), ())
+    return (
+        bool(native.available()),
+        int(mesh.size) if mesh is not None else 0,
+        int(NATIVE_K_OPEN),
+        pod_shard_token(mesh),
+    )

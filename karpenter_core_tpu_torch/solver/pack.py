@@ -258,7 +258,7 @@ def _pad_class(p: int) -> int:
     return -(-p // 4096) * 4096
 
 
-def batch_pack(jobs: List[tuple], engine: str = "auto", device=None) -> List[Tuple[np.ndarray, int]]:
+def batch_pack(jobs: List[tuple], engine: str = "auto", device=None, mesh=None) -> List[Tuple[np.ndarray, int]]:
     """Pack every (requests, frontier, max_per_node) job → [(node_ids,
     node_count)] aligned with ``jobs``.
 
@@ -268,9 +268,34 @@ def batch_pack(jobs: List[tuple], engine: str = "auto", device=None) -> List[Tup
     16 on ``device`` (None: the card), one launch per (size class, width)
     class: stateful jobs carry host-port columns, so one solve can hold
     jobs of several widths. Each job's padding pods exceed its own
-    frontier max, so they emit -1 without touching state."""
+    frontier max, so they emit -1 without touching state.
+
+    With a ``mesh`` (``sharding.active_mesh``: D shards of one card), a
+    job at or past ``sharding.shard_min_pods()`` pods chunks its pod axis
+    over the shards (``sharding.sharded_pod_pack``), whatever the engine,
+    so the partition depends only on the mesh, the threshold and the
+    shard engine (job-memo key material); the device scan of the other
+    jobs runs group-sharded on the mesh's card (``_scan_classes``)
+    where ``device`` is asked for or the C++ packer is off."""
     if not jobs:
         return []
+    if mesh is not None:
+        from . import sharding
+
+        min_pods = sharding.shard_min_pods()
+        mega = [g for g, j in enumerate(jobs) if j[0].shape[0] >= min_pods]
+        if mega:
+            results: list = [None] * len(jobs)
+            for g in mega:
+                reqs, frontier, cap = jobs[g]
+                results[g] = sharding.sharded_pod_pack(mesh, reqs, frontier, cap)
+            rest = [g for g in range(len(jobs)) if results[g] is None]
+            if rest:
+                for g, r in zip(rest, batch_pack([jobs[g] for g in rest], engine, device, mesh)):
+                    results[g] = r
+            return results
+        if engine == "device":
+            return _scan_classes(jobs, mesh.device, "shard", mesh)
     if engine in ("auto", "native"):
         if native.available():
             return [
@@ -283,15 +308,25 @@ def batch_pack(jobs: List[tuple], engine: str = "auto", device=None) -> List[Tup
             raise RuntimeError("native packer requested but KARPENTER_TORCH_NATIVE=0")
     elif engine != "device":
         raise ValueError(f"unknown pack engine {engine!r} (auto | native | device)")
-    dev = resolve_device(device)
+    if mesh is not None:
+        return _scan_classes(jobs, mesh.device, "shard", mesh)
+    return _scan_classes(jobs, resolve_device(device), "pack")
+
+
+def _scan_classes(jobs: List[tuple], dev: torch.device, phase: str, mesh=None) -> List[Tuple[np.ndarray, int]]:
+    """The device scan at K = 16 on ``dev``, one launch per (size class,
+    width) class, its transfers at the ``phase`` boundary. With ``mesh``
+    a class's group count is padded to a multiple of the shards (a
+    padding group has no pods and a zero frontier: count 0) and goes
+    through ``sharding.sharded_batch_pack``."""
     F_pad = 1 << max((max(len(j[1]) for j in jobs) - 1).bit_length(), 0)
     classes: dict = {}
     for g, job in enumerate(jobs):
         classes.setdefault((_pad_class(job[0].shape[0]), job[0].shape[1]), []).append(g)
     results: list = [None] * len(jobs)
     for (p_pad, R), members in classes.items():
-        G = len(members)
-        requests = np.zeros((G, p_pad, R), dtype=np.int32)
+        G = len(members) if mesh is None else -(-len(members) // mesh.size) * mesh.size
+        requests = np.ones((G, p_pad, R), dtype=np.int32)
         frontiers = np.zeros((G, F_pad, R), dtype=np.int32)
         caps = np.zeros(G, dtype=np.int32)
         n_pods = np.zeros(G, dtype=np.int32)
@@ -303,14 +338,17 @@ def batch_pack(jobs: List[tuple], engine: str = "auto", device=None) -> List[Tup
             caps[slot] = min(int(cap), int(INT_INF))
             n_pods[slot] = reqs.shape[0]
         deviceplane.record_footprint(deviceplane.nbytes_of(requests, frontiers, caps, n_pods))
-        with devicetime.track(phase="pack"):
-            devicetime.transfer("h2d", requests, frontiers, caps, n_pods, phase="pack")
-            node_ids, counts = ffd_pack_batched(
-                torch.from_numpy(requests).to(dev), torch.from_numpy(frontiers).to(dev),
-                torch.from_numpy(caps).to(dev), K_OPEN, torch.from_numpy(n_pods).to(dev),
-            )
+        with devicetime.track(phase=phase):
+            devicetime.transfer("h2d", requests, frontiers, caps, n_pods, phase=phase)
+            args = [torch.from_numpy(a).to(dev) for a in (requests, frontiers, caps, n_pods)]
+            if mesh is None:
+                node_ids, counts = ffd_pack_batched(args[0], args[1], args[2], K_OPEN, args[3])
+            else:
+                from . import sharding
+
+                node_ids, counts, _fleet = sharding.sharded_batch_pack(mesh, *args)
             node_ids, counts = node_ids.cpu().numpy(), counts.cpu().numpy()  # one sync per class
-        devicetime.transfer("d2h", node_ids, counts, phase="pack")
+        devicetime.transfer("d2h", node_ids, counts, phase=phase)
         for slot, g in enumerate(members):
             results[g] = (node_ids[slot, : jobs[g][0].shape[0]], int(counts[slot]))
     return results

@@ -126,7 +126,7 @@ from ..scheduling.requirements import (
 )
 from ..scheduling.volumes import Volumes
 from ..tracing import deviceplane, tracer
-from . import backends, devicetime, plancost, podcache
+from . import backends, devicetime, plancost, podcache, sharding
 from .backend import resolve_device
 from .compat_kernels import DeviceCatalog, allowed_via_kernel, catalog_to_device, signature_side
 from .constraint_tensors import (
@@ -242,6 +242,9 @@ class _CatalogEntry:
     # side, resident on one device, re-packed when the vocab grew or a
     # solver on another device asks
     device_catalog: Optional[Tuple[tuple, DeviceCatalog]] = None
+    # ((vocab-width snapshot, shards, device), (DeviceCatalog, T)): the
+    # type side padded to a mesh's shards (sharding.prepare_sharded_catalog)
+    sharded_catalog: Optional[Tuple[tuple, tuple]] = None
     # the cloud providers whose solvers resolved to this entry, held
     # weakly: once all are gone the entry is released at the next lookup
     # (it holds its catalog strongly, and a dropped world's catalog of
@@ -488,6 +491,26 @@ def _catalog_fingerprint(catalog: List[InstanceType]) -> bytes:
             up(b"T" if o.available else b"F")
             stable_feed(h, o.price)
     return h.digest()
+
+
+def _entry_sharded(entry: _CatalogEntry, mesh) -> tuple:
+    """The kernel's type side for ``entry`` padded to ``mesh``'s shards
+    and resident on its card; uploaded again only when the vocab grew or
+    the mesh changed (the reference's ``_entry_sharded``)."""
+    enc = entry.enc
+    keys = tuple(sorted(enc.key_masks.keys()))
+    key = (
+        tuple((k, entry.vocab.key_vocab(k).size) for k in keys),
+        int(mesh.size),
+        str(mesh.device),
+    )
+    if entry.sharded_catalog is not None and entry.sharded_catalog[0] == key:
+        return entry.sharded_catalog[1]
+    prepared = sharding.prepare_sharded_catalog(
+        mesh, enc.key_masks, enc.key_has, enc.key_neg, enc.offering_avail, keys
+    )
+    entry.sharded_catalog = (key, prepared)
+    return prepared
 
 
 def existing_node_compat(groups: List[SignatureGroup], nodes: list) -> np.ndarray:
@@ -782,6 +805,9 @@ class TorchScheduler:
         self.last_pack_stats: Optional[Dict[str, object]] = None
         self.last_cache_stats: Optional[dict] = None
         self.last_pareto: Optional[dict] = None
+        # the shard padding of the most recent solve (solver/sharding.py),
+        # None when it touched no mesh
+        self.last_shard_stats: Optional[dict] = None
         self._pack_backend_stats: Dict[str, object] = {}
         self._cstats = CacheStats()
         # whether the last solve's post-pass ran a second time with the
@@ -873,6 +899,7 @@ class TorchScheduler:
         self._solve_entries = {}
         sink = self.metrics.solver_phase_duration if self.metrics is not None else None
         deviceplane.reset_solve()
+        sharding.reset_shard_stats()
         with devicetime.scope(self.device) as clock, tracer.trace_root(
             "solve", metrics_sink=sink, buffer_if="solve", is_solve=True, pods=len(pods)
         ) as tr:
@@ -905,6 +932,18 @@ class TorchScheduler:
                 if tr is not None and (self._cstats.hits or self._cstats.misses):
                     # the hit rates ride on the solve's trace
                     tr.args["cache"] = self.last_cache_stats
+                # this solve's mesh padding: the stats, the trace and the
+                # gauge (never silent)
+                shard_stats = sharding.consume_shard_stats()
+                self.last_shard_stats = shard_stats or None
+                if shard_stats:
+                    if tr is not None:
+                        tr.args["shard"] = shard_stats
+                    if self.metrics is not None:
+                        for axis in ("pods", "types"):
+                            waste = shard_stats.get(f"{axis}_waste")
+                            if waste is not None:
+                                self.metrics.shard_padding_waste.set(float(waste), axis=axis)
                 self.last_device_stats = deviceplane.consume_solve(
                     memory=devicetime.device_memory_stats(self.device)
                 )
@@ -1121,7 +1160,11 @@ class TorchScheduler:
             return None
         with tracer.span("solve.replay_probe"):
             pools_fp: List[tuple] = [
-                ("pack", incremental.pack_engine_token(), backends.active_backend().job_token(self.device))
+                (
+                    "pack",
+                    incremental.pack_engine_token(sharding.active_mesh(self.device.type)),
+                    backends.active_backend().job_token(self.device),
+                )
             ]
             catalogs: List[list] = []
             keys: List[tuple] = []
@@ -1845,6 +1888,12 @@ class TorchScheduler:
         and daemonset overhead while the card works, then one sync."""
         ws = self._warm
         device = str(self.device)
+        # a mesh (solver/sharding.py: D shards of this solver's card) takes
+        # the compat launches onto its padded catalog and the packs onto
+        # its shards; None on one card, where nothing here changes
+        mesh = sharding.active_mesh(self.device.type)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the active mesh lives on {mesh.device}, this solver on {self.device}")
         cg = getattr(self.cloud_provider, "catalog_generation", None)
         # provider generation probes take the provider's own lock: taken
         # before _CATALOG_LOCK, so the catalog lock never nests it
@@ -1915,6 +1964,20 @@ class TorchScheduler:
                 sub = [compats[gi] for gi in missing]
                 sig_arrays = build_compat_inputs(sub, e.enc, e.vocab)
                 zone_ok, ct_ok = zone_ct_masks(sub, e.enc)
+                if mesh is not None:
+                    prepared = _entry_sharded(e, mesh)
+                    # the active catalog's type padding, recorded each
+                    # solve (the upload records it on a cache miss only)
+                    sharding.record_shard_padding(
+                        "types", int(prepared[1]), prepared[0].n_types, accumulate=False,
+                        n_devices=int(mesh.size),
+                    )
+                    with devicetime.track(phase="compat"):
+                        allowed = sharding.allowed_sharded(
+                            prepared, sig_arrays, zone_ok, ct_ok, tuple(sorted(e.enc.key_masks.keys()))
+                        )
+                    pending.append((allowed, zone_ok, ct_ok, missing))
+                    continue
                 catalog = self._device_catalog(e)
                 with devicetime.track(phase="compat"):
                     sig = signature_side(sig_arrays, zone_ok, ct_ok, catalog)
@@ -1995,6 +2058,7 @@ class TorchScheduler:
             matrices=matrices,
             pool_entries=pool_entries,
             daemon_requests=daemon_requests,
+            mesh=mesh,
         )
 
     def _cache_compat_rows(self, entry, pool_fp, groups, missing, compats, allowed, zone_ok, ct_ok) -> None:
@@ -2070,7 +2134,7 @@ class TorchScheduler:
                 )
             records: List[dict] = []
             plans_start = len(result.node_plans)
-            self._pack_and_finalize(jobs, metas, pods, result, records)
+            self._pack_and_finalize(jobs, metas, pods, result, records, mesh=ctx.get("mesh"))
             with self._phase("merge"):
                 self._merge_and_emit(records, pods, result)
             if not remaining:
@@ -3207,7 +3271,9 @@ class TorchScheduler:
                     )
                 if jobs:
                     records: List[dict] = []
-                    self._pack_and_finalize(jobs, metas, pods, result, records, merge_all=False)
+                    self._pack_and_finalize(
+                        jobs, metas, pods, result, records, merge_all=False, mesh=ctx.get("mesh")
+                    )
                     with self._phase("merge"):
                         self._merge_and_emit(records, pods, result)
                 if remaining:
@@ -3973,6 +4039,7 @@ class TorchScheduler:
         result: SolverResult,
         records: List[dict],
         merge_all: Optional[bool] = None,
+        mesh=None,
     ) -> None:
         """Pack and finalize one job batch through the cross-tick job memo:
         a job whose content-addressed key hits reuses its finalize
@@ -3982,7 +4049,9 @@ class TorchScheduler:
         | auto, ``KARPENTER_TORCH_PACK_BACKEND``) exactly as a cold solve
         sends them, and fill the memo. Emission follows the metas order
         either way, so warm and cold solves build identical plan and
-        record streams."""
+        record streams. ``mesh``: the encode phase's active mesh
+        (``sharding.active_mesh``), which the packs shard over and every
+        job key carries."""
         backend = backends.active_backend()
         ws = self._warm
         plane = self.fleet_plane
@@ -3991,7 +4060,7 @@ class TorchScheduler:
         if ws is not None and jobs:
             with tracer.span("pack.cache.lookup", jobs=len(jobs)):
                 for i, (job, meta) in enumerate(zip(jobs, metas)):
-                    keys[i] = key = self._job_key(job, meta, backend)
+                    keys[i] = key = self._job_key(job, meta, mesh, backend)
                     if key is not None:
                         skels[i] = ws.jobs.get(key, self._cstats)
                         if skels[i] is None and plane is not None:
@@ -4009,7 +4078,7 @@ class TorchScheduler:
                 packed = (
                     backend.pack_jobs(
                         [jobs[i] for i in miss], [metas[i] for i in miss], device=self.device,
-                        stats=self._cstats,
+                        stats=self._cstats, mesh=mesh,
                     )
                     if miss
                     else []
@@ -4089,14 +4158,15 @@ class TorchScheduler:
             if v:
                 self.metrics.solver_lp_branches.inc(v, outcome=outcome)
 
-    def _job_key(self, job: tuple, meta: dict, backend=None) -> Optional[tuple]:
+    def _job_key(self, job: tuple, meta: dict, mesh=None, backend=None) -> Optional[tuple]:
         """Content address of one pack job: every input the pack and the
         finalize read. Equal keys give identical skeletons (the
         computation is deterministic), which keeps warm solves
         plan-identical to cold ones. The host-port feature labels are in
         it because two port universes can give byte-identical request
-        matrices (TCP:80 and TCP:81 wildcard columns); the backend token
-        because two backends may partition equal inputs differently; the
+        matrices (TCP:80 and TCP:81 wildcard columns); the engine token
+        with ``mesh``'s chunk configuration and the backend token because
+        two engines or backends may partition equal inputs differently; the
         device because the entry is shared by every device's solvers, and
         the fleet's content plane is keyed by everything but the tenant
         scope, which comes last, by the JAX package's contract."""
@@ -4126,7 +4196,7 @@ class TorchScheduler:
             limits_key,
             bool(meta["no_merge"]),
             tuple(meta["port_features"] or ()),
-            incremental.pack_engine_token(),
+            incremental.pack_engine_token(mesh),
             backend.job_token(self.device) if backend is not None else ("ffd",),
             str(self.device),
             self._tenant_scope,

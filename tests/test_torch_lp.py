@@ -614,8 +614,8 @@ _MIRRORS: dict = {}
 def _mirror(file: str):
     """The JAX test file's module over the port: package and knob prefix
     swapped, ``TPUScheduler`` the port's scheduler on the CPU, helpers over
-    the port's classes, fixtures plain functions, ``mesh`` arguments of
-    the pack seam its ``device``."""
+    the port's classes, fixtures plain functions, the pack seam's
+    ``device`` beside its ``mesh`` arguments."""
     if file not in _MIRRORS:
         from test_torch_oracle import _port_helpers
 
@@ -629,7 +629,7 @@ def _mirror(file: str):
         src = src.replace("KARPENTER_TPU_", "KARPENTER_TORCH_")
         src = src.replace("from helpers import", "from _port_helpers import")
         src = src.replace(", warmstore\n", "\n")
-        src = src.replace("mesh=None", "device=None").replace("mesh=mesh", "device=device")
+        src = src.replace("mesh=None", "device=None, mesh=None").replace("mesh=mesh", "device=device, mesh=mesh")
         src = re.sub(r"\bTPUScheduler\b", "TorchScheduler", src)
         mod = types.ModuleType(f"_lp_mirror_{file[:-3]}")
         mod.__file__ = str(TESTS / file)
