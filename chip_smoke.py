@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (``karpenter_core_tpu_torch``) on one
 NVIDIA card and check it.
 
-Phases, in order; any failure exits non-zero:
+Phases 1-3 in order, then 4-22 in four lanes side by side (``LANES``);
+any failure exits non-zero:
 
 1. Device: require CUDA; print the card's name and power limit.
 2. Build: compile the Hopper compat∧offering kernel, the three pack
@@ -249,8 +250,8 @@ Phases, in order; any failure exits non-zero:
    the warm and the cold resume, each a process on the card; both
    resumes' plan hashes equal the reference's. Seed 7 always; 17 and 27
    while the phase's projection stays within ``SERVING_BUDGET_S`` and the
-   script's within ``SCRIPT_BUDGET_S`` less the reserves of phases 17–19
-   (``CHAOS_RESERVE_S``, ``OPERATOR_RESERVE_S``, ``FLEET_RESERVE_S``).
+   script's within ``SCRIPT_BUDGET_S`` less the reserves of the phases
+   after it in its lane (``PHASE_RESERVE_S``).
 17. The chaos pack (``run_chaos_phase``), never cut short. 17a, bench
    config 15 whole (``bench.py:2460-2530``): ``rollout`` at scale 240,
    seed 7, under each of the five faults (``watch_flap``,
@@ -367,21 +368,50 @@ Phases, in order; any failure exits non-zero:
    (10,003 types padded to 8 shards) and B8's prefix screen through
    ``sharded_prefix_screen``, each against its plain version bit for bit
    and the CPU's result. Its reserve is what ``SCRIPT_BUDGET_S`` has
-   left, at most 100 s; with less than 100 s left, or past 60 % of it, a
+   left past its lane's later reserves, at most 100 s; with less than 100 s left, or past 60 % of it, a
    cell other than the anchor and the 1,000,000-pod one runs once,
    without its warm run.
 
+22. The static-analysis plane (``run_analysis_phase``, within
+   ``ANALYSIS_RESERVE_S``, kept out of its lane's earlier budgets). 22a
+   ``python -m karpenter_core_tpu_torch.analysis --format json`` over the
+   checkout in a process of its own: exit 0, no finding, no stale
+   baseline entry, neither torch nor jax imported; files scanned,
+   findings by disposition and seconds. 22b ``python -m
+   karpenter_core_tpu_torch.witness --device cuda`` with the native
+   packer off: the lock and knob witnesses over the serving pipeline at
+   config 8's scale (prewarm, disruption stage), the batched fleet, an
+   ``Operator.start()`` and a warm-store restore; observed lock edges ⊆
+   the static order graph, observed knob reads ⊆ the static inventory,
+   every required lock acquired, the compat and pack kernels launched;
+   the edges, locks, knobs and launches per kernel.
+
+The lanes start once phase 3 is done, so that its timings have the card
+and the host to themselves: phases 4-11 in this process, and 12, 13, 20,
+22, 17; 15, 16; 18, 14, 19, 21 each in a process of its own
+(``--lane``), whose output this process relays once it ends; a lane that
+fails fails the run. Each lane's torch takes its share of the host's
+cores. The host's pace comes before phase 3: a fixed host-only probe
+(``pace_probe_once``) against ``PACE_PROBE_FAST_S``. ``depth_plan`` keeps
+full depth while the predicted script (``PHASE_FULL_S``: phases 1-3 and
+the longest lane, times the pace) fits ``SCRIPT_BUDGET_S``, and else
+cuts phases 4-16 to ``DEPTH_CUT``: fewer warm solves and profiles, kernel
+case reps, config 7 ticks and 16b seeds, never a check or a comparison
+with a plain version. A ``pace`` line before phase 3 prints the pace and
+each cut, a ``pace_summary`` line before the kernels line each phase's
+and each lane's seconds.
+
 Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
 shapes of phases 8–11 too, the three pack kernels and the disruption
-screens; launches by path, phase 13's to 19's legs included),
+screens; launches by path, phase 13's to 19's and 22's legs included),
 and the last line ``{"ok": true, "device": {...}}``.
 The profiled warm solves of phases 4–11 report device times only from
 traces that hold every kernel launch of the solve (``profile_solve``).
 
 Run from the repository root: ``python3 chip_smoke.py`` (``--log PATH``
 appends every JSON line to PATH as well). ``--phases 16,17`` builds the
-kernels as step 2 does, then runs only the named phases (of 14–21) and
-prints no result line.
+kernels as step 2 does, then runs only the named phases (of 14–22) in
+this process, at full depth, and prints no result line.
 """
 
 from __future__ import annotations
@@ -392,10 +422,13 @@ import gc
 import hashlib
 import json
 import os
+import pickle
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -469,10 +502,103 @@ def emit(obj: dict) -> None:
             f.write(line + "\n")
 
 
+# -- the host's pace and the lanes ------------------------------------------------
+#
+# Phases 4-22 run in ``LANES`` once phase 3 is done: the first lane in this
+# process, each other in a process of its own (``--lane``), all on the one
+# card, so that phase 3's timings have the card and the host to themselves
+# and the script's length is its longest lane's. A probe times a fixed
+# host-only workload (``pace_probe_once``) before phase 3; its least time
+# over ``PACE_PROBE_RUNS`` runs against ``PACE_PROBE_FAST_S`` is the host's
+# pace. ``depth_plan(pace)`` keeps ``DEPTH_FULL`` while the predicted script
+# (``predicted_s``) fits ``SCRIPT_BUDGET_S``, and else cuts phases 4-16 to
+# ``DEPTH_CUT``: fewer warm solves, profiles, kernel-case reps, config 7
+# ticks and 16b seeds. Every check and every comparison with a plain
+# version stays.
+PACE_PROBE_RUNS = 5
+# the probe's least time on the calibration host, the machine of an NVIDIA
+# H100 80GB HBM3, 700.00 W (chip_smoke.py's "pace" line, PERF.md §5): pace 1.0
+PACE_PROBE_FAST_S = 0.6118
+# phase 20 reads its own process's device plane after 12 and 13 moved
+# bytes at every boundary; 16, the longest phase, has a lane with 15 alone
+LANES = ((4, 5, 6, 7, 8, 9, 10, 11), (12, 13, 20, 22, 17), (15, 16), (18, 14, 19, 21))
+DEPTH_FULL = {"warm": 3, "profile_attempts": 3, "reps": 1.0, "config7_ticks": 20, "config7_native_off_ticks": 10,
+              "config14_seeds": 3}
+# config 7 keeps a mutating tick (every CONFIG7_MUTATE_EVERY = 10th) and its
+# device-engine pass three ticks; 16b keeps its first seed; a timing keeps
+# three reps
+DEPTH_CUT = {"warm": 1, "profile_attempts": 0, "reps": 0.1, "config7_ticks": 11, "config7_native_off_ticks": 3,
+             "config14_seeds": 1}
+DEPTH = dict(DEPTH_FULL)  # the depth the running phase repeats at
+DEPTH_PLAN: dict = {}  # the plan this run chose: its depth, pace and predicted seconds
+# each phase's seconds at full depth, the lanes running, over the pace (so
+# at pace 1.0), and a lane process's start before its first phase: the
+# "pace_summary" line of a whole run on an NVIDIA H100 80GB HBM3, 700.00 W
+# machine at pace 0.765 (PERF.md §5)
+PHASE_FULL_S = {
+    1: 0.7, 2: 13.1, 3: 77.1, 4: 1.8, 5: 30.2, 6: 15.0, 7: 30.8, 8: 11.5, 9: 115.6, 10: 42.4, 11: 99.6, 12: 176.7,
+    13: 52.3, 14: 70.4, 15: 103.5, 16: 272.8, 17: 33.2, 18: 88.2, 19: 82.7, 20: 27.3, 21: 75.9, 22: 34.4,
+}
+LANE_START_S = 12.3
+
+
+def pace_probe_once() -> float:
+    """Seconds of a fixed host-only workload: pure Python (dicts, a sort,
+    JSON, hashing) and single-threaded numpy, what the script's host
+    work is made of."""
+    t0 = time.perf_counter()
+    rows = [{"name": f"pod-{i}", "cpu": (i * 7919) % 4000, "zone": f"zone-{i % 3}"} for i in range(100_000)]
+    rows.sort(key=lambda r: (r["zone"], -r["cpu"], r["name"]))
+    back = json.loads(json.dumps(rows))
+    h = hashlib.sha256()
+    for r in back[::7]:
+        h.update(r["name"].encode())
+    a = np.random.RandomState(0).rand(2_000, 500)
+    for _ in range(5):
+        a = np.cumsum(np.sort(a, axis=0), axis=1) / 500.0
+    return time.perf_counter() - t0
+
+
+def host_pace() -> tuple:
+    """(the probe's least seconds over ``PACE_PROBE_RUNS`` runs, the
+    pace: that over ``PACE_PROBE_FAST_S``)."""
+    best = min(pace_probe_once() for _ in range(PACE_PROBE_RUNS))
+    return best, best / PACE_PROBE_FAST_S
+
+
+def predicted_s(pace: float) -> float:
+    """The script's predicted seconds at full depth and ``pace``: phases
+    1-3, then the longest lane (a lane process's start included), each
+    phase as the calibration host took it, times the pace."""
+    lanes = max(sum(PHASE_FULL_S[n] for n in lane) + (LANE_START_S if i else 0.0) for i, lane in enumerate(LANES))
+    return pace * (PHASE_FULL_S[1] + PHASE_FULL_S[2] + PHASE_FULL_S[3] + lanes)
+
+
+def depth_plan(pace: float, budget_s: Optional[float] = None) -> dict:
+    """Full depth while ``predicted_s(pace)`` fits ``budget_s``
+    (``SCRIPT_BUDGET_S``), else ``DEPTH_CUT`` → the depth, whether it cuts,
+    the pace and the prediction at full depth."""
+    budget_s = SCRIPT_BUDGET_S if budget_s is None else budget_s
+    t = predicted_s(pace)
+    return {**(DEPTH_CUT if t > budget_s else DEPTH_FULL), "cut": t > budget_s, "pace": pace, "predicted_s": t}
+
+
+def phase_depth(n: int) -> dict:
+    """Phase ``n``'s depth: the plan's for phases 4-16, else full."""
+    plan = DEPTH_PLAN if DEPTH_PLAN and 4 <= n <= 16 else DEPTH_FULL
+    return {k: plan[k] for k in DEPTH_FULL}
+
+
+def cut_reps(reps: int) -> int:
+    """``reps`` at the run's depth, never fewer than three."""
+    return max(3, int(round(reps * DEPTH["reps"])))
+
+
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn()``."""
     import torch
 
+    reps = cut_reps(reps)
     for _ in range(warmup):
         fn()
     times = []
@@ -563,6 +689,7 @@ def raw_kernel_ms(catalog, planes, tile: int, reps: int) -> float:
     sleep so the host's enqueue time is hidden → ms per launch."""
     import torch
 
+    reps = cut_reps(reps)
     from karpenter_core_tpu_torch.solver import compat_kernels as ck
 
     out = torch.empty((planes.shape[1], catalog.n_types), dtype=torch.uint8, device=planes.device)
@@ -588,6 +715,7 @@ def profiled_kernel_ms(catalog, planes, tile: int, reps: int):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    reps = cut_reps(reps)
     from karpenter_core_tpu_torch.solver import compat_kernels as ck
 
     out = torch.empty((planes.shape[1], catalog.n_types), dtype=torch.uint8, device=planes.device)
@@ -985,8 +1113,10 @@ def profile_solve(solver, pods, attempts: int = 3, **solve_kw) -> dict:
     what each attempt recorded: a run prints no device time the profiler
     did not record in full. After a warm solve past ``DEEP_SOLVE_MS`` none
     is made (such paths are host-bound: every one profiled before read an
-    idle share of 0.9999 or more)."""
-    if (solver.last_timings or {}).get("total_ms", 0.0) > DEEP_SOLVE_MS:
+    idle share of 0.9999 or more). The run's depth caps the attempts; at
+    none, no profile is made either."""
+    attempts = min(attempts, DEPTH["profile_attempts"])
+    if attempts == 0 or (solver.last_timings or {}).get("total_ms", 0.0) > DEEP_SOLVE_MS:
         return {key: "not measured" for key in (
             "profiled_wall_ms", "device_busy_ms", "device_idle_share", "kernel_device_ms_per_launch")}
     tries = []
@@ -1021,9 +1151,9 @@ def profile_solve(solver, pods, attempts: int = 3, **solve_kw) -> dict:
 
 
 def warm_depth(ms: float) -> int:
-    """Warm solves a path gets after a cold solve of ``ms``: three, or one
-    past ``DEEP_SOLVE_MS``."""
-    return 3 if ms <= DEEP_SOLVE_MS else 1
+    """Warm solves a path gets after a cold solve of ``ms``: the run's
+    depth (three on a fast host), or one past ``DEEP_SOLVE_MS``."""
+    return DEPTH["warm"] if ms <= DEEP_SOLVE_MS else 1
 
 
 def solve_runs(solver, pods, **solve_kw):
@@ -3264,6 +3394,7 @@ def events_ms(fn, reps: int) -> float:
     behind a device sleep (host enqueue hidden) → ms per call."""
     import torch
 
+    reps = cut_reps(reps)
     fn()
     torch.cuda.synchronize()
     sleep = getattr(torch.cuda, "_sleep", None)
@@ -5547,6 +5678,12 @@ SERVING_DISRUPT_EVERY = 2
 # and the seconds the whole script may have run by then (its limit is 1,200)
 SERVING_BUDGET_S = 240.0
 SCRIPT_BUDGET_S = 1000.0
+# main waits for its lanes until the script has run this long, then fails
+# (inside the 1,200 s a run of the script is allowed)
+LANE_DEADLINE_S = 1150.0
+# phase 22's reserve (the analyzer and the witnessed run), kept out of the
+# budgets of the phases before it in its lane
+ANALYSIS_RESERVE_S = 45.0
 
 
 def trafficgen(args: list, timeout: float = 600.0) -> dict:
@@ -6044,7 +6181,8 @@ CONFIG15_FAULTS = ("watch_flap", "watch_hang", "latency_spike", "failover", "clo
 # the faults whose degradation is a held tick, and the hold counter that shows it
 CONFIG15_HOLDING = {"watch_flap": "stale", "watch_hang": "stale", "failover": "leader"}
 CHAOS_IN_PROCESS = ("none", "failover")  # 17b's faults, native packing off
-# the seconds kept for phase 17 out of SCRIPT_BUDGET_S: phase 16 has the rest
+# the seconds kept for phase 17 out of SCRIPT_BUDGET_S: phase 16, before it
+# in its lane, has the rest
 CHAOS_RESERVE_S = 60.0
 
 
@@ -6255,8 +6393,8 @@ OPERATOR_STARTUP_TAINT = ("example.com/gpu-driver", "installing", "NoSchedule") 
 OPERATOR_CONTROLLERS = 14
 OPERATOR_METRIC_PREFIXES = ("karpenter_nodeclaims_", "karpenter_nodes_", "karpenter_pods_", "karpenter_disruption_")
 OPERATOR_SERVED_SCALE = 400  # 18b: bench config 8's rollout at its scale
-# phase 18's share of SCRIPT_BUDGET_S, kept out of phase 16's budget (16b
-# drops a later config-14 seed first)
+# phase 18's share of SCRIPT_BUDGET_S, kept out of the budgets of the phases
+# before it in its lane
 OPERATOR_RESERVE_S = 150.0
 
 
@@ -7007,8 +7145,8 @@ FLEET_ENGINES = ("solo", "batched")
 # 19d: trafficgen --fleet at bench config 8's rollout, 8 tenants, scale 200
 FLEET_TG_TENANTS = 8
 FLEET_TG_SCALE = 200
-# phase 19's share of SCRIPT_BUDGET_S, kept out of phase 16's budget beside
-# phases 17's and 18's (16b's later seeds give way first)
+# phase 19's share of SCRIPT_BUDGET_S, kept out of the budgets of the phases
+# before it in its lane
 FLEET_RESERVE_S = 150.0
 
 
@@ -7463,8 +7601,8 @@ def report_fleet_part(fleet: dict, part: str, card: str) -> None:
 
 # -- phase 20: the device plane ---------------------------------------------------
 
-# phase 20's share of SCRIPT_BUDGET_S, kept out of phase 16's budget beside
-# the later phases' reserves
+# phase 20's share of SCRIPT_BUDGET_S, kept out of the budgets of the phases
+# before it in its lane
 DEVICEPLANE_RESERVE_S = 60.0
 # the kernels by their device-plane names (the reference's jit names)
 PLANE_KERNELS = ("kernels.allowed_kernel", "pack.ffd_pack_batched", "pack.pack_existing", "lp.dual_ascent",
@@ -7985,8 +8123,8 @@ def report_deviceplane_phase(dp: dict, card: str) -> None:
 
 # -- phase 21: the sharded mega-solve (bench config 12) --------------------------
 
-# phase 21's share of SCRIPT_BUDGET_S, kept out of phase 16's budget beside
-# the later phases' reserves
+# phase 21's share of SCRIPT_BUDGET_S, kept out of the budgets of the phases
+# before it in its lane
 SHARD_RESERVE_S = 100.0
 # shardbench.py's cells (:205-222): the device sweep at the anchor (500,000
 # pods x 10,000 types), the pod sweep and the type sweep at D = 8
@@ -8565,6 +8703,105 @@ def report_shard_phase(sh: dict, card: str) -> None:
           "unchunked_node_ratio_min": sh["unchunked"]["unchunked_node_ratio_min"], "card": card})
 
 
+# -- phase 22: the static-analysis plane --------------------------------------------
+
+ANALYSIS_TIMEOUT_S = 300.0
+# the witness's device-plane names → the kernels line's
+WITNESS_KERNELS = {
+    "kernels.allowed_kernel": "compat_allowed", "pack.ffd_pack_batched": "ffd_pack",
+    "pack.pack_existing": "pack_existing", "lp.dual_ascent": "dual_ascent",
+    "disrupt.prefix_screen": "disrupt_screen.prefix", "disrupt.subset_screen": "disrupt_screen.subsets",
+    "disrupt.single_screen": "disrupt_screen.singles",
+}
+
+
+def run_analysis_cli() -> dict:
+    """22a: ``python -m karpenter_core_tpu_torch.analysis --format json``
+    over the checkout, in a process of its own → files scanned, findings
+    by disposition, seconds, and the top packages of that process's
+    ``sys.modules``. Fails unless it exits 0 with no finding and no stale
+    baseline entry, and neither torch nor jax was imported."""
+    code = (
+        "import json, runpy, sys\n"
+        "sys.argv = ['analysis', '--format', 'json']\n"
+        "rc = 0\n"
+        "try:\n"
+        "    runpy.run_module('karpenter_core_tpu_torch.analysis', run_name='__main__', alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "print(json.dumps({'rc': rc, 'heavy': sorted({m.split('.')[0] for m in sys.modules} & {'torch', 'jax', 'numpy'})}))\n"
+    )
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=ANALYSIS_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"22a: the analyzer's process failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    tail = json.loads(lines[-1])
+    report = json.loads("\n".join(lines[:-1]))
+    if tail["rc"] != 0 or not report["ok"] or report["findings"] or report["stale_baseline"] or report["parse_errors"]:
+        fail(f"22a: the analyzer is not clean: rc {tail['rc']}, findings {report['findings'][:5]}, "
+             f"stale {report['stale_baseline'][:5]}, parse errors {report['parse_errors'][:5]}")
+    if tail["heavy"]:
+        fail(f"22a: the analyzer's process imported {tail['heavy']}")
+    return {"files_scanned": report["files_scanned"], "findings": len(report["findings"]),
+            "suppressed": len(report["suppressed"]), "baselined": len(report["baselined"]),
+            "stale_baseline": len(report["stale_baseline"]), "analyzer_s": report["seconds"],
+            "process_s": wall_s, "imported": tail["heavy"]}
+
+
+def run_analysis_witness(device: str = "cuda") -> dict:
+    """22b: the witnessed run (``python -m karpenter_core_tpu_torch.witness``)
+    on ``device`` with the native packer off, so the kernels launch from
+    the plan, prewarm and dispatcher threads → its observation: lock
+    edges and locks, knob reads, each kernel's launches. Fails unless
+    observed ⊆ static for both witnesses, every required lock was
+    acquired, and on the card the pack scans and the compat kernel
+    launched."""
+    t0 = time.perf_counter()
+    with knobs(KARPENTER_TORCH_NATIVE=0):
+        proc = subprocess.run(
+            [sys.executable, "-m", "karpenter_core_tpu_torch.witness", "--device", device, "--json"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=ANALYSIS_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.strip().splitlines() if ln.startswith("{") and '"problems"' in ln]
+    if not lines:
+        fail(f"22b: the witnessed run printed no result ({proc.returncode}): {proc.stderr[-3000:]}")
+    got = json.loads(lines[-1])
+    if proc.returncode != 0 or not got["ok"]:
+        fail(f"22b: the witness gate failed ({proc.returncode}): {got['problems']}")
+    if not got.get("lock_edges") or not got.get("locks") or not got.get("knobs"):
+        fail(f"22b: an empty observation: {len(got.get('lock_edges', ()))} edges, {len(got.get('locks', ()))} locks, "
+             f"{len(got.get('knobs', ()))} knobs")
+    launches = {WITNESS_KERNELS[name]: n for name, n in got["workload"]["launches"].items() if name in WITNESS_KERNELS}
+    if device == "cuda" and not all(launches.get(k) for k in ("compat_allowed", "ffd_pack", "pack_existing")):
+        fail(f"22b: the witnessed workload did not launch the compat and pack kernels: {launches}")
+    return {"lock_edges": got["lock_edges"], "locks": got["locks"], "knobs": got["knobs"],
+            "instrumented": got["instrumented"], "launches": launches,
+            "workload": {k: v for k, v in got["workload"].items() if k != "launches"},
+            "witness_s": got["seconds"], "process_s": wall_s}
+
+
+def run_analysis_phase(device: str = "cuda") -> dict:
+    """Phase 22: 22a the analyzer over the checkout, 22b the witnessed run
+    on ``device``."""
+    t0 = time.perf_counter()
+    cli = run_analysis_cli()
+    witness = run_analysis_witness(device)
+    return {"cli": cli, "witness": witness, "wall_s": time.perf_counter() - t0}
+
+
+def report_analysis_phase(an: dict, card: str) -> None:
+    """Print phase 22's lines, each with the card."""
+    emit({"phase22a": "analyzer", **an["cli"], "card": card})
+    w = an["witness"]
+    emit({"phase22b": "witness", "edges": [" -> ".join(e) for e in w["lock_edges"]], "locks": w["locks"],
+          "knobs": w["knobs"], "instrumented": w["instrumented"], "launches": w["launches"],
+          "workload": w["workload"], "witness_s": w["witness_s"], "process_s": w["process_s"], "card": card})
+    emit({"phase22": "analysis", "wall_s": an["wall_s"], "reserve_s": ANALYSIS_RESERVE_S, "card": card})
+
+
 def probe_card() -> tuple:
     """Step 1: the card, or fail. Prints the card's name and power limit
     as nvidia-smi gives them and the device line. → (torch's device name,
@@ -8696,31 +8933,400 @@ def report_serving_phase(serving: dict, card: str) -> None:
 
 # the phases ``--phases`` can run alone, after the build: each runs on the
 # card and prints its lines
-SELECTABLE_PHASES = {
-    14: lambda card, sm_mhz: report_config7_phase(run_config7_phase("cuda"), card),
-    15: lambda card, sm_mhz: report_disruption_phase(run_disruption_phase("cuda", sm_mhz=sm_mhz), card),
-    16: lambda card, sm_mhz: report_serving_phase(run_serving_phase("cuda", sm_mhz=sm_mhz), card),
-    17: lambda card, sm_mhz: report_chaos_phase(run_chaos_phase("cuda"), card),
-    18: lambda card, sm_mhz: report_operator_phase(run_operator_phase("cuda", sm_mhz=sm_mhz), card),
-    19: lambda card, sm_mhz: run_fleet_phase("cuda", card=card),
-    20: lambda card, sm_mhz: report_deviceplane_phase(run_deviceplane_phase("cuda"), card),
-    21: lambda card, sm_mhz: report_shard_phase(run_shard_phase("cuda", sm_mhz=sm_mhz), card),
-}
+# -- phases 12-22, each a runner: run in a lane, in this process or another ------
+
+PACK_NAMES = ("ffd_pack", "pack_existing", "dual_ascent")
+# the seconds a phase keeps for itself: a phase before it in its lane keeps
+# them out of its own budget
+PHASE_RESERVE_S = {17: CHAOS_RESERVE_S, 18: OPERATOR_RESERVE_S, 19: FLEET_RESERVE_S, 20: DEVICEPLANE_RESERVE_S,
+                   21: SHARD_RESERVE_S, 22: ANALYSIS_RESERVE_S}
+
+
+def lane_elapsed_s(ctx: dict) -> float:
+    """Seconds since the script started (``ctx["t0"]``, the wall clock)."""
+    return time.time() - ctx["t0"]
+
+
+def later_reserve_s(ctx: dict, n: int) -> float:
+    """The reserves of the phases after ``n`` in its lane."""
+    lane = ctx["lane"]
+    return sum(PHASE_RESERVE_S.get(m, 0.0) for m in lane[lane.index(n) + 1:])
+
+
+def phase_12(ctx: dict) -> dict:
+    """12. The pack engines on the card: the device FFD scan and the
+    existing-node first-fit (native packer off) on config 3 whole and on
+    phase 5's cluster, the LP backend on bench config 10 whole and on
+    config 5 whole (one relaxation over 2,000 types); then each captured
+    scan against its plain version."""
+    card = ctx["card"]
+    with knobs(KARPENTER_TORCH_INCREMENTAL=0):
+        pack = run_pack_phase("cuda")
+    emit({"elapsed_s": lane_elapsed_s(ctx), "after": "phase 12 paths"})
+    for r in pack["paths"]:
+        emit({"phase12": r["path"], **{k: v for k, v in r.items() if k != "path"}, "card": card})
+    emit({"phase12": "config10", **{k: v for k, v in pack["config10"].items() if k != "rows"}, "card": card})
+    for r in pack["config10"]["rows"]:
+        emit({"phase12_config10_shape": r["shape"], **{k: v for k, v in r.items() if k != "shape"}})
+    emit({"phase12": "config10-device-scan", "rows": pack["config10_device"]})
+    cases = {"ffd_pack": [], "pack_existing": [], "dual_ascent": []}
+    for call in distinct_shapes(pack["ffd_calls"]):
+        cases["ffd_pack"].append(ffd_kernel_case(call))
+    for call in distinct_shapes(pack["existing_calls"]):
+        cases["pack_existing"].append(existing_kernel_case(call))
+    for call in distinct_shapes(pack["dual_calls"]):
+        cases["dual_ascent"].append(dual_kernel_case(call))
+    for name, rows in cases.items():
+        if not rows:
+            fail(f"no {name} call was captured on the main paths")
+    scan_case = {"ffd_pack": ffd_kernel_case, "pack_existing": existing_kernel_case}
+    for name, calls in synthetic_scan_calls().items():
+        cases[name] += [{"synthetic": label, **scan_case[name](call)} for label, call in calls]
+    cases["dual_ascent"] += [{"synthetic": label, **dual_kernel_case(call)} for label, call in synthetic_dual_calls()]
+    for name, rows in cases.items():
+        for row in rows:
+            emit({"pack_kernel_case": name, **row, "card": card})
+    # lp.relax around the kernel: uploads, kernel, downloads, host bound
+    relax_splits = {}
+    for label, calls in pack["relax_calls"].items():
+        if not calls:
+            fail(f"no lp.relax call was captured on the {label} path")
+        relax_splits[label] = relax_split(calls[0])
+        emit({"relax_split": label, **relax_splits[label], "card": card})
+    return {"pack_launches": pack["launches"], "pack_cases": cases, "relax_splits": relax_splits}
+
+
+def phase_13(ctx: dict) -> dict:
+    """13. The provisioner entry: Provisioner.reconcile over a live store
+    on bench config 2, phase 5's cluster (C++ packer and device scans) and
+    the anti-affinity / greedy-fallback world."""
+    with knobs(KARPENTER_TORCH_INCREMENTAL=0):
+        prov = run_provisioner_phase("cuda")
+    prov_rows = {"provisioner-config2": prov["config2"], **{
+        f"provisioner-{k}": v for k, v in prov["rows"].items()
+    }, "provisioner-anti-cluster-oracle": prov["guard"]}
+    existing = {"captured": "provisioner-cluster-device", **prov["existing_case"]}
+    emit({"pack_kernel_case": "pack_existing", **existing, "card": ctx["card"]})
+    emit({"phase13": {path: {k: row[k] for k in (
+        "reconcile_ms", "solve_ms", "span_snapshot_nodes_ms", "span_pending_pods_ms", "span_solve_ms",
+        "span_create_node_claims_ms", "claims", "nominated_pods", "kernel_launches",
+    )} for path, row in prov_rows.items()}, "card": ctx["card"]})
+    return {"pack_launches": {path: {name: row["kernel_launches"][name] for name in PACK_NAMES}
+                              for path, row in prov_rows.items()},
+            "pack_cases": {"pack_existing": [existing]},
+            "compat_paths": {path: row["kernel_launches"]["compat_allowed"] for path, row in prov_rows.items()},
+            "compat_err": [prov["compat_err"]]}
+
+
+def phase_14(ctx: dict) -> dict:
+    """14. Bench config 7's ticks: the cross-tick warm state on the card."""
+    config7 = run_config7_phase("cuda", ticks=DEPTH["config7_ticks"], native_off_ticks=DEPTH["config7_native_off_ticks"])
+    report_config7_phase(config7, ctx["card"])
+    return {"compat_paths": {f"config7-{leg}": n["compat"] for leg, n in config7["launches"].items()},
+            "pack_launches": {f"config7-{leg}": {"ffd_pack": n["ffd"], "pack_existing": 0, "dual_ascent": 0}
+                              for leg, n in config7["launches"].items()},
+            "pack_cases": {"ffd_pack": [{"captured": "config7-native-off", **r}
+                                        for r in config7["kernel_cases"]["ffd_pack"]]},
+            "compat_captured": {"config7_captured": config7["kernel_cases"]["compat_allowed"]}}
+
+
+def phase_15(ctx: dict) -> dict:
+    """15. Disruption on the card, the warm state on: bench config 4 and
+    config 9 whole, the controller end to end, every screen shape."""
+    disrupt = run_disruption_phase("cuda", sm_mhz=ctx["sm_mhz"])
+    report_disruption_phase(disrupt, ctx["card"])
+    paths = {f"phase15-{path}": n for path, n in disrupt["launches"].items()}
+    return {"pack_launches": {path: {name: n[name] for name in PACK_NAMES} for path, n in paths.items()},
+            "compat_paths": {path: n["compat_allowed"] for path, n in paths.items()},
+            "screen_launches": paths, "screen_cases": disrupt["screen_cases"]}
+
+
+def phase_16(ctx: dict) -> dict:
+    """16. The serving pipeline on the card: 16c the kernels under serving
+    (native off, a disruption stage), 16a bench config 8 whole, 16b bench
+    config 14 (each measurement its own process), the later phases of its
+    lane's reserves kept out of its budget (16b drops a later seed
+    first)."""
+    serving = run_serving_phase("cuda", sm_mhz=ctx["sm_mhz"], sizes={"config14": (
+        CONFIG14_SCALE, CONFIG14_TYPES, CONFIG14_KILL, CONFIG14_SEEDS[:DEPTH["config14_seeds"]])}, budget_s=min(
+        SERVING_BUDGET_S, SCRIPT_BUDGET_S - later_reserve_s(ctx, 16) - lane_elapsed_s(ctx)))
+    report_serving_phase(serving, ctx["card"])
+    sk16 = serving["kernels"]
+    return {"pack_launches": {f"phase16-{mode}": {name: counts[name]["tick"] + counts[name]["prewarm"]
+                                                  for name in PACK_NAMES} for mode, counts in sk16["launches"].items()},
+            "pack_cases": {name: [{"captured": "phase16", **r} for r in sk16["cases"][name]]
+                           for name in ("ffd_pack", "pack_existing")},
+            "compat_paths": {f"phase16-{mode}-{role}": n["compat_allowed"][role]
+                             for mode, n in sk16["launches"].items() for role in ("tick", "prewarm")},
+            "compat_captured": {"serving_captured": sk16["cases"]["compat_allowed"]},
+            "screen_launches": {f"phase16-{mode}": {name: c["tick"] + c["prewarm"] for name, c in n.items()}
+                                for mode, n in sk16["launches"].items()},
+            "screen_cases": sk16["cases"]["disrupt_screen"]}
+
+
+def phase_17(ctx: dict) -> dict:
+    """17. The chaos pack on the card: 17a bench config 15 whole (each
+    fault and the clean twin its own process), 17b the kernels under
+    chaos."""
+    chaos = run_chaos_phase("cuda")
+    report_chaos_phase(chaos, ctx["card"])
+    ck17 = chaos["kernels"]
+    return {"pack_launches": {f"phase17-{key}": {name: counts[name] for name in PACK_NAMES}
+                              for key, counts in ck17["launches"].items()},
+            "pack_cases": {name: [{"captured": "phase17", **r} for r in ck17["cases"][name]]
+                           for name in ("ffd_pack", "pack_existing")},
+            "compat_paths": {f"phase17-{key}": n["compat_allowed"] for key, n in ck17["launches"].items()},
+            "compat_captured": {"chaos_captured": ck17["cases"]["compat_allowed"]}}
+
+
+def phase_18(ctx: dict) -> dict:
+    """18. The operator on the card: 18a bench config 2 whole through one
+    Operator's whole node lifecycle (native off), held pass by pass to a
+    CPU run; 18b the operator served, with a follower."""
+    op18 = run_operator_phase("cuda", sm_mhz=ctx["sm_mhz"])
+    report_operator_phase(op18, ctx["card"])
+    launches = op18["launches"]
+    return {"pack_launches": {"phase18-operator": {name: launches[name] for name in PACK_NAMES}},
+            "pack_cases": {name: [{"captured": "phase18", **r} for r in op18["cases"][name]]
+                           for name in ("ffd_pack", "pack_existing")},
+            "compat_paths": {"phase18-operator": launches["compat_allowed"]},
+            "compat_captured": {"operator_captured": op18["cases"]["compat_allowed"]},
+            "screen_launches": {"phase18-operator": launches}, "screen_cases": op18["cases"]["disrupt_screen"]}
+
+
+def phase_19(ctx: dict) -> dict:
+    """19. The fleet on the card: 19a bench config 11 (solo and batched),
+    19b its identity runs on the CPU, 19c the kernels under the fleet
+    (native off, then lp), 19d three trafficgen --fleet processes."""
+    fleet19 = run_fleet_phase("cuda", card=ctx["card"])
+    fk = fleet19["kernels"]
+    compat = {f"phase19-{key}": n["compat_allowed"] for key, n in fk["launches"].items()}
+    for cell in fleet19["config11"]["curve"]:
+        for engine, n in cell["compat_launches"].items():
+            compat[f"phase19a-{cell['tenants']}x{cell['pods_each']}-{engine}"] = n
+    for engine, run in fleet19["config11"]["identity"].items():
+        compat[f"phase19a-identity-{engine}"] = run["compat_launches"]
+    return {"pack_launches": {f"phase19-{key}": {name: counts[name] for name in PACK_NAMES}
+                              for key, counts in fk["launches"].items()},
+            "pack_cases": {name: [{"captured": "phase19", **r} for r in fk["cases"][name]]
+                           for name in ("ffd_pack", "dual_ascent")},
+            "compat_paths": compat, "compat_captured": {"fleet_captured": fk["cases"]["compat_allowed"]}}
+
+
+def phase_20(ctx: dict) -> dict:
+    """20. The device plane: its own solves (phase 5's cluster native off,
+    config 10 under lp, config 4's decision), a restart in a fresh
+    process, the capture and a breach dump, the plane on against off; then
+    its checks over the whole of its process."""
+    dp20 = run_deviceplane_phase("cuda")
+    report_deviceplane_phase(dp20, ctx["card"])
+    emit({"phase20": "process", **check_process_plane(), "card": ctx["card"]})
+    launches = dp20["launches"]
+    return {"pack_launches": {"phase20": {name: launches[plane] for name, plane in (
+        ("ffd_pack", "pack.ffd_pack_batched"), ("pack_existing", "pack.pack_existing"),
+        ("dual_ascent", "lp.dual_ascent"))}},
+            "compat_paths": {"phase20": launches["kernels.allowed_kernel"]},
+            "screen_launches": {"phase20": {f"disrupt_screen.{kind}": launches[plane] for kind, plane in (
+                ("prefix", "disrupt.prefix_screen"), ("subsets", "disrupt.subset_screen"),
+                ("singles", "disrupt.single_screen"))}}}
+
+
+def phase_21(ctx: dict) -> dict:
+    """21. Bench config 12 on the card: 21a the curve, 21b the unchunked
+    node ratio, the chunk identity at 1,000,000 pods and the solve on an
+    8-shard mesh, 21d the dryrun's sequence, 21c the kernels against their
+    plain versions, one of 21a's own launches at 125,000 pods among them.
+    Its reserve shrinks with what is left of SCRIPT_BUDGET_S on a slow
+    host: then the cells but the anchor and 1,000,000 pods run once."""
+    sh21 = run_shard_phase("cuda", sm_mhz=ctx["sm_mhz"], budget_s=max(0.0, min(
+        SHARD_RESERVE_S, SCRIPT_BUDGET_S - later_reserve_s(ctx, 21) - lane_elapsed_s(ctx))))
+    report_shard_phase(sh21, ctx["card"])
+    return {"pack_launches": {path: {"ffd_pack": n["ffd_pack"], "pack_existing": 0, "dual_ascent": 0}
+                              for path, n in sh21["launches"].items()},
+            "compat_paths": {path: n["compat_allowed"] for path, n in sh21["launches"].items()},
+            "pack_cases": {"ffd_pack": [{"captured": f"phase21c-{name}", **r}
+                                        for name in ("sharded_pod_pack", "sharded_batch_pack")
+                                        for r in sh21["cases"][name]]},
+            "screen_launches": {path: {"disrupt_screen.prefix": n["disrupt_screen.prefix"],
+                                       "disrupt_screen.subsets": 0, "disrupt_screen.singles": 0}
+                                for path, n in sh21["launches"].items()},
+            "config12": sh21["curve"]}
+
+
+def phase_22(ctx: dict) -> dict:
+    """22. The static-analysis plane: 22a the port's analyzer over this
+    checkout, 22b the lock and knob witnesses over a threaded workload on
+    the card (native packer off: the kernels launch from its threads)."""
+    an22 = run_analysis_phase("cuda")
+    report_analysis_phase(an22, ctx["card"])
+    w22 = an22["witness"]["launches"]
+    return {"pack_launches": {"phase22": {name: w22.get(name, 0) for name in PACK_NAMES}},
+            "compat_paths": {"phase22": w22.get("compat_allowed", 0)},
+            "screen_launches": {"phase22": {kind: w22.get(kind, 0) for kind in (
+                "disrupt_screen.prefix", "disrupt_screen.subsets", "disrupt_screen.singles")}}}
+
+
+PHASE_RUNNERS = {12: phase_12, 13: phase_13, 14: phase_14, 15: phase_15, 16: phase_16, 17: phase_17, 18: phase_18,
+                 19: phase_19, 20: phase_20, 21: phase_21, 22: phase_22}
+SELECTABLE_PHASES = tuple(range(14, 23))
+
+
+PHASE_T: dict = {}
+LANE_PROCS: list = []  # the lane processes this run started, polled at every phase mark
+
+
+def phase_mark(n: int) -> None:
+    """Phase ``n`` starts: its seconds run from here to the next mark. A
+    lane process that has failed by then fails the run."""
+    for lane in LANE_PROCS:
+        rc = lane["proc"].poll()
+        if rc not in (None, 0):
+            lane_failed(lane, rc)
+    DEPTH.update(phase_depth(n))
+    PHASE_T[n] = time.perf_counter()
+
+
+def phase_seconds(t_end: float) -> dict:
+    marks = sorted(PHASE_T.items(), key=lambda mark: mark[1])
+    return {n: round((marks[i + 1][1] if i + 1 < len(marks) else t_end) - t, 3) for i, (n, t) in enumerate(marks)}
+
+
+def run_runners(ctx: dict, phases) -> dict:
+    """``phases`` of ``PHASE_RUNNERS`` in order in this process, each
+    after its mark → {phase: what it adds to the kernels line}."""
+    parts = {}
+    for n in phases:
+        phase_mark(n)
+        parts[n] = PHASE_RUNNERS[n](ctx)
+        emit({"elapsed_s": lane_elapsed_s(ctx), "after": f"phase {n}"})
+    return parts
+
+
+def share_host() -> None:
+    """Every lane gets its share of the host's cores for torch's CPU
+    threads, so that the lanes' CPU solves do not oversubscribe them."""
+    import torch
+
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // len(LANES)))
 
 
 def run_phases(phases: list) -> None:
     """``--phases``: the card and the build as ``main`` has them, then only
-    ``phases`` of ``SELECTABLE_PHASES``, in order. Prints no result line:
-    the contract's last line is ``main``'s."""
+    ``phases`` of ``SELECTABLE_PHASES``, in order, at full depth. Prints
+    no result line: the contract's last line is ``main``'s."""
     from karpenter_core_tpu_torch.solver import contracts
 
-    t_start = time.perf_counter()
+    t0 = time.time()
     _, card, sm_mhz = probe_card()
     contracts.enable()  # a shape contract's breach fails the phase it fires in
     build_kernels()
-    for n in phases:
-        SELECTABLE_PHASES[n](card, sm_mhz)
-        emit({"elapsed_s": time.perf_counter() - t_start, "after": f"phase {n}"})
+    run_runners({"card": card, "sm_mhz": sm_mhz, "t0": t0, "lane": tuple(phases)}, phases)
+
+
+def run_lane(phases: list, pace: float, t0: float, out_path: str) -> None:
+    """``--lane``: one lane of ``main``'s, in a process of its own: the
+    card and the build, the depth ``main``'s pace gives, then ``phases``;
+    what they add to the kernels line and their seconds are pickled to
+    ``out_path`` for ``main``."""
+    from karpenter_core_tpu_torch.solver import contracts
+
+    _, card, sm_mhz = probe_card()
+    contracts.enable()
+    build_kernels()
+    share_host()
+    DEPTH_PLAN.update(depth_plan(pace))
+    ctx = {"card": card, "sm_mhz": sm_mhz, "t0": t0, "lane": tuple(phases)}
+    first_s = lane_elapsed_s(ctx)
+    parts = run_runners(ctx, phases)
+    with open(out_path, "wb") as f:
+        pickle.dump({"parts": parts, "phase_s": phase_seconds(time.perf_counter()), "first_s": first_s}, f)
+
+
+def relay(path: str) -> None:
+    """A lane's output, line by line, as this process's own."""
+    try:
+        with open(path) as f:
+            text = f.read()
+    except OSError:
+        return
+    for line in text.splitlines():
+        print(line, flush=True)
+        if LOG_PATH and line.startswith("{"):
+            with open(LOG_PATH, "a") as f:
+                f.write(line + "\n")
+
+
+def start_lane(phases, pace: float, t0: float, tmp: str) -> dict:
+    """Start ``chip_smoke.py --lane`` for ``phases``, its output kept
+    under ``tmp`` until ``main`` relays it."""
+    stem = os.path.join(tmp, "lane-" + "-".join(map(str, phases)))
+    out, err = open(stem + ".out", "w"), open(stem + ".err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--lane", ",".join(map(str, phases)), "--pace", repr(pace),
+         "--t0", repr(t0), "--out", stem + ".pkl"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out, stderr=err, start_new_session=True)
+    out.close()
+    err.close()
+    return {"phases": tuple(phases), "proc": proc, "stem": stem}
+
+
+def lane_failed(lane: dict, rc) -> None:
+    relay(lane["stem"] + ".out")
+    try:
+        with open(lane["stem"] + ".err") as f:
+            err = f.read()[-3000:]
+    except OSError:
+        err = ""
+    fail(f"the lane of phases {list(lane['phases'])} exited {rc}: {err}")
+
+
+def finish_lane(lane: dict, deadline_s: float) -> dict:
+    """Wait for a lane (at most ``deadline_s``), relay its output → what it
+    pickled. Fails if it does not end 0 in time."""
+    try:
+        rc = lane["proc"].wait(timeout=max(1.0, deadline_s))
+    except subprocess.TimeoutExpired:
+        lane_failed(lane, f"nothing: still running after {deadline_s:.0f} s")
+    if rc != 0:
+        lane_failed(lane, rc)
+    relay(lane["stem"] + ".out")
+    with open(lane["stem"] + ".pkl", "rb") as f:
+        return pickle.load(f)
+
+
+@contextlib.contextmanager
+def lanes_running(pace: float, t0: float):
+    """``LANES[1:]`` started, each in a process of its own; on the way out
+    every one still running is killed with the processes it started."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lanes_") as tmp:
+        try:
+            LANE_PROCS.extend(start_lane(lane, pace, t0, tmp) for lane in LANES[1:])
+            yield LANE_PROCS
+        finally:
+            for lane in LANE_PROCS:
+                if lane["proc"].poll() is None:
+                    os.killpg(lane["proc"].pid, signal.SIGKILL)
+                    lane["proc"].wait()
+            LANE_PROCS.clear()
+
+
+def kernels_parts(parts: list) -> dict:
+    """The parts phases 12-22 add to the kernels line, merged in phase
+    order."""
+    k = {"compat_paths": {}, "compat_captured": {}, "compat_err": [], "pack_launches": {},
+         "pack_cases": {name: [] for name in PACK_NAMES}, "screen_launches": {}, "screen_cases": [],
+         "relax_splits": None, "config12": None}
+    for part in parts:
+        for key in ("compat_paths", "compat_captured", "pack_launches", "screen_launches"):
+            k[key].update(part.get(key, {}))
+        k["compat_err"] += part.get("compat_err", [])
+        k["screen_cases"] += part.get("screen_cases", [])
+        for name, rows in part.get("pack_cases", {}).items():
+            k["pack_cases"][name] += rows
+        for key in ("relax_splits", "config12"):
+            if key in part:
+                k[key] = part[key]
+    return k
 
 
 def main() -> None:
@@ -8730,13 +9336,22 @@ def main() -> None:
     from karpenter_core_tpu_torch.solver import contracts
     from karpenter_core_tpu_torch.solver.solver import TorchScheduler
 
-    t_start = time.perf_counter()
+    t_start, t0 = time.perf_counter(), time.time()
     # 1. device; 2. build
+    phase_mark(1)
     kind, card, sm_mhz = probe_card()
     contracts.enable()  # for the whole run: a breach fails the phase it fires in
+    phase_mark(2)
     usage = build_kernels()
+    # the host's pace, and the depth phases 4-16 run at
+    probe_s, pace = host_pace()
+    DEPTH_PLAN.update(depth_plan(pace))
+    emit({"pace": pace, "probe_s": probe_s, "probe_fast_s": PACE_PROBE_FAST_S, "plan": dict(DEPTH_PLAN),
+          "cuts": {k: (DEPTH_FULL[k], DEPTH_PLAN[k]) for k in DEPTH_FULL if DEPTH_PLAN[k] != DEPTH_FULL[k]},
+          "lanes": LANES, "card": card})
 
     # 3. kernel vs plain versions on the card
+    phase_mark(3)
     rng = np.random.RandomState(0)
     ragged = (1, 31, 32, 33, 200, 300)
     for n_keys in range(1, len(ragged) + 1):
@@ -8831,9 +9446,14 @@ def main() -> None:
     )
 
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 3"})
-    # phases 4-13 measure the cold pipeline: the warm state off, so their
-    # repeated solves of one batch stay pipeline solves (phase 14 runs it)
-    with knobs(KARPENTER_TORCH_INCREMENTAL=0):
+    # phases 4-22 in LANES: the first here, each other one in a process of
+    # its own, started now (the warm state on); phases 4-13 measure the
+    # cold pipeline: the warm state off, so their repeated solves of one
+    # batch stay pipeline solves (phase 14 runs it)
+    lanes_at_s = time.time() - t0
+    with lanes_running(pace, t0) as lanes, knobs(KARPENTER_TORCH_INCREMENTAL=0):
+        share_host()
+        phase_mark(4)
         # 4. the slice on the card: counts from 0 just before the main path
         solver = TorchScheduler(pools, provider, device="cuda")
         cold, cold_ms, warm_runs, slice_launches = solve_runs(solver, pods)
@@ -8849,21 +9469,27 @@ def main() -> None:
             }
         )
 
+        phase_mark(5)
         # 5. the cluster: existing nodes, daemonset overhead, NodePool limits
         cluster = run_cluster_phase("cuda")
 
         # 6. bench config 3 whole; 7. with the cluster, its kube store and an
         # HA front end
+        phase_mark(6)
         config3 = run_config3_phase("cuda")
+        phase_mark(7)
         cluster_spread = run_cluster_spread_phase("cuda")
 
         # 8. bench config 6 whole; 9. config 13's anti_dense and a zone
         # quorum against the cluster and its kube store
+        phase_mark(8)
         config6 = run_config6_phase("cuda")
+        phase_mark(9)
         anti_dense, anti_cluster = run_anti_phase("cuda")
 
         # 10. config 13's stateful_dense and spread_skew, and the stateful
         # cluster: host ports, CSI limits and zone-pinned claims
+        phase_mark(10)
         stateful_dense, spread_skew, stateful_cluster = run_stateful_phase("cuda")
 
         # 11. the greedy scheduler alone (bench config 1, host only), the
@@ -8871,6 +9497,7 @@ def main() -> None:
         # with the soft anti-affinity preset, as built and against the
         # cluster), preference relaxation against the cluster under a zone
         # drought, and packing parity against the greedy scheduler
+        phase_mark(11)
         config1 = run_config1_phase()
         oracle_mix, oracle_cluster = run_oracle_phase("cuda")
         relax_cluster = run_relax_phase("cuda")
@@ -8884,161 +9511,22 @@ def main() -> None:
             "card": card,
         }})
 
-        emit({"elapsed_s": time.perf_counter() - t_start, "before": "phase 12"})
-        # 12. the pack engines on the card: the device FFD scan and the
-        # existing-node first-fit (native packer off) on config 3 whole and on
-        # phase 5's cluster, the LP backend on bench config 10 whole and on
-        # config 5 whole (one relaxation over 2,000 types)
-        pack = run_pack_phase("cuda")
-        emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 12 paths"})
-        for r in pack["paths"]:
-            emit({"phase12": r["path"], **{k: v for k, v in r.items() if k != "path"}, "card": card})
-        emit({"phase12": "config10", **{k: v for k, v in pack["config10"].items() if k != "rows"}, "card": card})
-        for r in pack["config10"]["rows"]:
-            emit({"phase12_config10_shape": r["shape"], **{k: v for k, v in r.items() if k != "shape"}})
-        emit({"phase12": "config10-device-scan", "rows": pack["config10_device"]})
-        cases = {"ffd_pack": [], "pack_existing": [], "dual_ascent": []}
-        for call in distinct_shapes(pack["ffd_calls"]):
-            cases["ffd_pack"].append(ffd_kernel_case(call))
-        for call in distinct_shapes(pack["existing_calls"]):
-            cases["pack_existing"].append(existing_kernel_case(call))
-        for call in distinct_shapes(pack["dual_calls"]):
-            cases["dual_ascent"].append(dual_kernel_case(call))
-        for name, rows in cases.items():
-            if not rows:
-                fail(f"no {name} call was captured on the main paths")
-        scan_case = {"ffd_pack": ffd_kernel_case, "pack_existing": existing_kernel_case}
-        for name, calls in synthetic_scan_calls().items():
-            cases[name] += [{"synthetic": label, **scan_case[name](call)} for label, call in calls]
-        cases["dual_ascent"] += [{"synthetic": label, **dual_kernel_case(call)} for label, call in synthetic_dual_calls()]
-        for name, rows in cases.items():
-            for row in rows:
-                emit({"pack_kernel_case": name, **row, "card": card})
-        # lp.relax around the kernel: uploads, kernel, downloads, host bound
-        relax_splits = {}
-        for label, calls in pack["relax_calls"].items():
-            if not calls:
-                fail(f"no lp.relax call was captured on the {label} path")
-            relax_splits[label] = relax_split(calls[0])
-            emit({"relax_split": label, **relax_splits[label], "card": card})
-        emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 12"})
+        t_lane0 = time.perf_counter()
+        emit({"elapsed_s": t_lane0 - t_start, "after": "phase 11"})
+        lane_out = [finish_lane(lane, LANE_DEADLINE_S - (time.time() - t0)) for lane in lanes]
 
-        # 13. the provisioner entry: Provisioner.reconcile over a live store on
-        # bench config 2, phase 5's cluster (C++ packer and device scans) and
-        # the anti-affinity / greedy-fallback world
-        prov = run_provisioner_phase("cuda")
-        prov_rows = {"provisioner-config2": prov["config2"], **{
-            f"provisioner-{k}": v for k, v in prov["rows"].items()
-        }, "provisioner-anti-cluster-oracle": prov["guard"]}
-        for path, row in prov_rows.items():
-            pack["launches"][path] = {name: row["kernel_launches"][name] for name in cases}
-        cases["pack_existing"].append({"captured": "provisioner-cluster-device", **prov["existing_case"]})
-        emit({"pack_kernel_case": "pack_existing", **cases["pack_existing"][-1], "card": card})
-        emit({"phase13": {path: {k: row[k] for k in (
-            "reconcile_ms", "solve_ms", "span_snapshot_nodes_ms", "span_pending_pods_ms", "span_solve_ms",
-            "span_create_node_claims_ms", "claims", "nominated_pods", "kernel_launches",
-        )} for path, row in prov_rows.items()}, "card": card})
-        emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 13"})
-
-    # 14. bench config 7's ticks: the cross-tick warm state on the card
-    config7 = run_config7_phase("cuda")
-    report_config7_phase(config7, card)
-    cases["ffd_pack"] += [{"captured": "config7-native-off", **r} for r in config7["kernel_cases"]["ffd_pack"]]
-    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 14"})
-
-    # 15. disruption on the card, the warm state on: bench config 4 and
-    # config 9 whole, the controller end to end, every screen shape
-    disrupt = run_disruption_phase("cuda", sm_mhz=sm_mhz)
-    report_disruption_phase(disrupt, card)
-    for path, n in disrupt["launches"].items():
-        pack["launches"][f"phase15-{path}"] = {name: n[name] for name in ("ffd_pack", "pack_existing", "dual_ascent")}
-    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 15"})
-
-    # 16. the serving pipeline on the card: 16c the kernels under serving
-    # (native off, a disruption stage), 16a bench config 8 whole, 16b
-    # bench config 14 (each measurement its own process)
-    # (phases 17's to 21's reserves kept out of the budget: 16b drops a later seed first)
-    serving = run_serving_phase("cuda", sm_mhz=sm_mhz, budget_s=min(
-        SERVING_BUDGET_S,
-        SCRIPT_BUDGET_S - CHAOS_RESERVE_S - OPERATOR_RESERVE_S - FLEET_RESERVE_S - DEVICEPLANE_RESERVE_S
-        - SHARD_RESERVE_S - (time.perf_counter() - t_start)))
-    report_serving_phase(serving, card)
-    sk16 = serving["kernels"]
-    for mode, counts in sk16["launches"].items():
-        pack["launches"][f"phase16-{mode}"] = {
-            name: counts[name]["tick"] + counts[name]["prewarm"] for name in ("ffd_pack", "pack_existing", "dual_ascent")
-        }
-    cases["ffd_pack"] += [{"captured": "phase16", **r} for r in sk16["cases"]["ffd_pack"]]
-    cases["pack_existing"] += [{"captured": "phase16", **r} for r in sk16["cases"]["pack_existing"]]
-    disrupt["screen_cases"] += sk16["cases"]["disrupt_screen"]
-    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 16"})
-
-    # 17. the chaos pack on the card: 17a bench config 15 whole (each fault
-    # and the clean twin its own process), 17b the kernels under chaos
-    chaos = run_chaos_phase("cuda")
-    report_chaos_phase(chaos, card)
-    ck17 = chaos["kernels"]
-    for key, counts in ck17["launches"].items():
-        pack["launches"][f"phase17-{key}"] = {name: counts[name] for name in ("ffd_pack", "pack_existing", "dual_ascent")}
-    cases["ffd_pack"] += [{"captured": "phase17", **r} for r in ck17["cases"]["ffd_pack"]]
-    cases["pack_existing"] += [{"captured": "phase17", **r} for r in ck17["cases"]["pack_existing"]]
-    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 17"})
-
-    # 18. the operator on the card: 18a bench config 2 whole through one
-    # Operator's whole node lifecycle (native off), held pass by pass to a
-    # CPU run; 18b the operator served, with a follower
-    op18 = run_operator_phase("cuda", sm_mhz=sm_mhz)
-    report_operator_phase(op18, card)
-    op_launches = op18["launches"]
-    pack["launches"]["phase18-operator"] = {name: op_launches[name] for name in ("ffd_pack", "pack_existing", "dual_ascent")}
-    cases["ffd_pack"] += [{"captured": "phase18", **r} for r in op18["cases"]["ffd_pack"]]
-    cases["pack_existing"] += [{"captured": "phase18", **r} for r in op18["cases"]["pack_existing"]]
-    disrupt["screen_cases"] += op18["cases"]["disrupt_screen"]
-    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 18"})
-
-    # 19. the fleet on the card: 19a bench config 11 (solo and
-    # batched), 19b its identity runs on the CPU, 19c the kernels under the
-    # fleet (native off, then lp), 19d three trafficgen --fleet processes
-    fleet19 = run_fleet_phase("cuda", card=card)
-    fk = fleet19["kernels"]
-    for key, counts in fk["launches"].items():
-        pack["launches"][f"phase19-{key}"] = {name: counts[name] for name in ("ffd_pack", "pack_existing", "dual_ascent")}
-    cases["ffd_pack"] += [{"captured": "phase19", **r} for r in fk["cases"]["ffd_pack"]]
-    cases["dual_ascent"] += [{"captured": "phase19", **r} for r in fk["cases"]["dual_ascent"]]
-    fleet_compat = {f"phase19-{key}": n["compat_allowed"] for key, n in fk["launches"].items()}
-    for cell in fleet19["config11"]["curve"]:
-        for engine, n in cell["compat_launches"].items():
-            fleet_compat[f"phase19a-{cell['tenants']}x{cell['pods_each']}-{engine}"] = n
-    for engine, run in fleet19["config11"]["identity"].items():
-        fleet_compat[f"phase19a-identity-{engine}"] = run["compat_launches"]
-    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 19"})
-
-    # 20. the device plane: its own solves (phase 5's cluster native off,
-    # config 10 under lp, config 4's decision), a restart in a fresh
-    # process, the capture and a breach dump, the plane on against off;
-    # then its checks over the whole run's process
-    dp20 = run_deviceplane_phase("cuda")
-    report_deviceplane_phase(dp20, card)
-    emit({"phase20": "process", **check_process_plane(), "card": card})
-    dp_launches = dp20["launches"]
-    pack["launches"]["phase20"] = {name: dp_launches[plane] for name, plane in (
-        ("ffd_pack", "pack.ffd_pack_batched"), ("pack_existing", "pack.pack_existing"), ("dual_ascent", "lp.dual_ascent"))}
-    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 20"})
-
-    # 21. bench config 12 on the card: 21a the curve, 21b the unchunked
-    # node ratio, the chunk identity at 1,000,000 pods and the solve on an
-    # 8-shard mesh, 21d the dryrun's sequence, 21c the kernels against their
-    # plain versions, one of 21a's own launches at 125,000 pods among them
-    # (its reserve shrinks with what is left of SCRIPT_BUDGET_S on a slow host:
-    # then the cells but the anchor and 1,000,000 pods run once)
-    sh21 = run_shard_phase("cuda", sm_mhz=sm_mhz, budget_s=max(
-        0.0, min(SHARD_RESERVE_S, SCRIPT_BUDGET_S - (time.perf_counter() - t_start))))
-    report_shard_phase(sh21, card)
-    for path, n in sh21["launches"].items():
-        pack["launches"][path] = {"ffd_pack": n["ffd_pack"], "pack_existing": 0, "dual_ascent": 0}
-    cases["ffd_pack"] += [{"captured": f"phase21c-{name}", **r} for name in ("sharded_pod_pack", "sharded_batch_pack")
-                          for r in sh21["cases"][name]]
-    emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 21"})
+    t_end = time.perf_counter()
+    phase_s = phase_seconds(t_lane0)
+    for out in lane_out:
+        phase_s.update(out["phase_s"])
+    emit({"pace_summary": {"pace": pace, "cut": DEPTH_PLAN["cut"], "predicted_s": DEPTH_PLAN["predicted_s"],
+                           "script_s": t_end - t_start, "phase_s": dict(sorted(phase_s.items())),
+                           "lane_s": [round(sum(phase_s[n] for n in lane), 3) for lane in LANES],
+                           "lane_start_s": [round(out["first_s"] - lanes_at_s, 3) for out in lane_out],
+                           "lane0_wait_s": round(t_end - t_lane0, 3)},
+          "card": card})
+    parts = {n: part for out in lane_out for n, part in out["parts"].items()}
+    kp = kernels_parts([parts[n] for n in sorted(parts)])
 
     # the kernels line, then the last line
     paths = {
@@ -9051,19 +9539,8 @@ def main() -> None:
         "oracle-mix": oracle_mix["kernel_launches"], "oracle-cluster": oracle_cluster["kernel_launches"],
         "relax-cluster": relax_cluster["kernel_launches"],
         "parity-config6": parity6["kernel_launches"], "parity-config1": parity1["kernel_launches"],
-        **{path: row["kernel_launches"]["compat_allowed"] for path, row in prov_rows.items()},
-        **{f"config7-{leg}": n["compat"] for leg, n in config7["launches"].items()},
-        **{f"phase15-{path}": n["compat_allowed"] for path, n in disrupt["launches"].items()},
-        **{f"phase16-{mode}-{role}": n["compat_allowed"][role] for mode, n in sk16["launches"].items()
-           for role in ("tick", "prewarm")},
-        **{f"phase17-{key}": n["compat_allowed"] for key, n in ck17["launches"].items()},
-        "phase18-operator": op_launches["compat_allowed"],
-        **fleet_compat,
-        "phase20": dp_launches["kernels.allowed_kernel"],
-        **{path: n["compat_allowed"] for path, n in sh21["launches"].items()},
+        **kp["compat_paths"],
     }
-    for leg, n in config7["launches"].items():
-        pack["launches"][f"config7-{leg}"] = {"ffd_pack": n["ffd"], "pack_existing": 0, "dual_ascent": 0}
     path_keys = (
         "shape", "S", "T", "W", "kernel_ms", "profiled_kernel_ms", "wrapper_ms", "plain_ms",
         "library_ms", "bound_ms", "bound_by", "max_abs_err",
@@ -9081,10 +9558,8 @@ def main() -> None:
                     "max_abs_err": max(
                         [row["max_abs_err"] for row in [
                             slice_row, big_row, *spread_rows, *affinity_rows, *stateful_rows, *relax_rows,
-                            *config7_rows, *config7["kernel_cases"]["compat_allowed"],
-                            *sk16["cases"]["compat_allowed"], *ck17["cases"]["compat_allowed"],
-                            *op18["cases"]["compat_allowed"], *fk["cases"]["compat_allowed"],
-                        ]] + [prov["compat_err"]]
+                            *config7_rows, *[r for rows in kp["compat_captured"].values() for r in rows],
+                        ]] + kp["compat_err"]
                     ),
                     "ms": slice_row["kernel_ms"],
                     "kernel_ms": slice_row["kernel_ms"],
@@ -9107,28 +9582,14 @@ def main() -> None:
                     "at_stateful_paths": [{k: row[k] for k in path_keys} for row in stateful_rows],
                     "at_relax_paths": [{k: row[k] for k in path_keys} for row in relax_rows],
                     "at_config7_paths": [{k: row[k] for k in path_keys} for row in config7_rows],
-                    "config7_captured": config7["kernel_cases"]["compat_allowed"],
-                    "serving_captured": sk16["cases"]["compat_allowed"],
-                    "chaos_captured": ck17["cases"]["compat_allowed"],
-                    "operator_captured": op18["cases"]["compat_allowed"],
-                    "fleet_captured": fk["cases"]["compat_allowed"],
+                    **kp["compat_captured"],
                     "compat_route": slice_row["compat_route"],
                     "ptxas": usage,
                 },
-                *[pack_kernel_entry(name, cases[name], pack["launches"],
-                                    relax_splits if name == "dual_ascent" else None,
-                                    config12=sh21["curve"] if name == "ffd_pack" else None) for name in cases],
-                screen_kernel_entry(disrupt["screen_cases"], {
-                    **{f"phase15-{path}": n for path, n in disrupt["launches"].items()},
-                    **{f"phase16-{mode}": {name: c["tick"] + c["prewarm"] for name, c in n.items()}
-                       for mode, n in sk16["launches"].items()},
-                    "phase18-operator": op_launches,
-                    "phase20": {f"disrupt_screen.{kind}": dp_launches[plane] for kind, plane in (
-                        ("prefix", "disrupt.prefix_screen"), ("subsets", "disrupt.subset_screen"),
-                        ("singles", "disrupt.single_screen"))},
-                    **{path: {"disrupt_screen.prefix": n["disrupt_screen.prefix"], "disrupt_screen.subsets": 0,
-                              "disrupt_screen.singles": 0} for path, n in sh21["launches"].items()},
-                }),
+                *[pack_kernel_entry(name, kp["pack_cases"][name], kp["pack_launches"],
+                                    kp["relax_splits"] if name == "dual_ascent" else None,
+                                    config12=kp["config12"] if name == "ffd_pack" else None) for name in PACK_NAMES],
+                screen_kernel_entry(kp["screen_cases"], kp["screen_launches"]),
             ]
         }
     )
@@ -9142,13 +9603,20 @@ if __name__ == "__main__":
                                              "against its plain version.")
     ap.add_argument("--log", default=None, metavar="PATH", help="append every emitted line to PATH too")
     ap.add_argument("--phases", default=None, metavar="N[,N...]",
-                    help=f"build the kernels, then run only these phases (of {sorted(SELECTABLE_PHASES)}); "
+                    help=f"build the kernels, then run only these phases (of {list(SELECTABLE_PHASES)}); "
                          "no result line")
+    # one of main's lanes, in the process main starts for it
+    ap.add_argument("--lane", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--pace", type=float, default=1.0, help=argparse.SUPPRESS)
+    ap.add_argument("--t0", type=float, default=0.0, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     cli = ap.parse_args()
     if cli.log:
         LOG_PATH = cli.log
         os.makedirs(os.path.dirname(os.path.abspath(LOG_PATH)), exist_ok=True)
-    if cli.phases is None:
+    if cli.lane is not None:
+        run_lane([int(n) for n in cli.lane.split(",")], cli.pace, cli.t0, cli.out)
+    elif cli.phases is None:
         main()
     else:
         try:
@@ -9156,5 +9624,5 @@ if __name__ == "__main__":
         except ValueError:
             selected = []
         if not selected or any(n not in SELECTABLE_PHASES for n in selected):
-            fail(f"--phases takes a comma-separated list of {sorted(SELECTABLE_PHASES)}, not {cli.phases!r}")
+            fail(f"--phases takes a comma-separated list of {list(SELECTABLE_PHASES)}, not {cli.phases!r}")
         run_phases(selected)

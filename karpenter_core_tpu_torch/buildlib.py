@@ -95,6 +95,8 @@ KERNELS: Dict[str, "CudaKernel"] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOADED: Dict[str, dict] = {}
 _LIBS_LOCK = threading.Lock()
+# one lock per library path: its build and load run once, under it alone
+_BUILD_LOCKS: Dict[str, threading.Lock] = {}
 
 
 def kernel_library_path(source: str) -> str:
@@ -146,28 +148,35 @@ class CudaKernel:
 
     def _load(self) -> ctypes.CDLL:
         """The source's library: loaded by the first kernel that asks (a
-        device-plane compile event), shared by the others."""
+        device-plane compile event), shared by the others. ``_LIBS_LOCK``
+        guards only the tables: a build runs under its library's own lock,
+        so one source's nvcc never holds up another library's load."""
+        path = self.library()
         with _LIBS_LOCK:
-            path = self.library()
-            lib = _LIBS.get(path)
-            if lib is not None:
-                _LOADED[path]["kernels"].append(self.name)
-                return lib
+            build_lock = _BUILD_LOCKS.setdefault(path, threading.Lock())
+        with build_lock:
+            with _LIBS_LOCK:
+                lib = _LIBS.get(path)
+                if lib is not None:
+                    _LOADED[path]["kernels"].append(self.name)
+                    return lib
             t0 = time.perf_counter()
             built = not os.path.exists(path)
             lib = ctypes.CDLL(self.build()[0])
             ms = (time.perf_counter() - t0) * 1000.0
             event = deviceplane.record_library(self.name, path, ms, built)
-            _LIBS[path] = lib
-            _LOADED[path] = {"source": os.path.basename(self.src), "kernels": [self.name], "built": built,
-                             "ms": round(ms, 3), "compile_event": event is not None}
+            with _LIBS_LOCK:
+                _LIBS[path] = lib
+                _LOADED[path] = {"source": os.path.basename(self.src), "kernels": [self.name], "built": built,
+                                 "ms": round(ms, 3), "compile_event": event is not None}
         return lib
 
     def lib(self) -> ctypes.CDLL:
         """The built library, loaded once."""
-        if self._lib is None:
+        if self._lib is None:  # analysis: allow-lock-discipline — double-checked: a set _lib is final
             with self._lock:
                 if self._lib is None:
+                    # analysis: allow-wait-under-lock(subprocess — this kernel's one first load: the lock guards only _lib and the launch counts, and no launch can run before the library exists)
                     lib = self._load()
                     fn = getattr(lib, self.symbol)
                     fn.restype = ctypes.c_int
@@ -176,7 +185,7 @@ class CudaKernel:
                         helper = getattr(lib, name)
                         helper.restype, helper.argtypes = restype, list(argtypes)
                     self._lib = lib
-        return self._lib
+        return self._lib  # analysis: allow-lock-discipline — read after the double-checked load above
 
     def launch(self, *args) -> None:
         """Call the launch function; raise on a nonzero cudaError. The

@@ -133,6 +133,7 @@ class CatalogPlane:
             if canon is None:
                 self._next_gen += 1
                 canon = (_clone_catalog(its), ("fleet", self._next_gen))
+                # analysis: allow-cache-key(its) — fp is its content fingerprint (_catalog_fingerprint), so the canonical clone is a function of the key
                 self._canon.put(fp, canon, self.stats)
         return canon
 
@@ -294,6 +295,7 @@ class _MegaDispatcher:
         """One lane's jobs through the real backend on the calling thread,
         outside any flush (the lane stays a busy worker meanwhile)."""
         with self._backend.lock:
+            # analysis: allow-wait-under-lock(device — backend.lock exists to serialize this dispatch and its output reads; the lane holds no other lock here, so the edge cannot deadlock)
             packed = self._backend.pack_jobs(jobs, metas, device=device, stats=self.stats, mesh=mesh)
             flags = list(getattr(self._backend, "last_job_flags", ()) or ())
         return packed, flags if len(flags) == len(jobs) else [False] * len(jobs)
@@ -345,6 +347,7 @@ class _MegaDispatcher:
             with tracer.span("fleet.megadispatch", jobs=len(all_jobs), tenant_calls=len(batch), links=links):
                 # the real backend's lock spans the call and its per-call outputs
                 with self._backend.lock:
+                    # analysis: allow-wait-under-lock(device — backend.lock exists to serialize this dispatch and its output reads; the flusher holds nothing else, so the edge cannot deadlock)
                     packed = self._backend.pack_jobs(all_jobs, all_metas, device=device, stats=self.stats)
                     flags = list(getattr(self._backend, "last_job_flags", ()) or ())
                     bstats = dict(getattr(self._backend, "last_stats", {}) or {})

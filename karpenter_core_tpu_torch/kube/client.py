@@ -39,6 +39,7 @@ class KubeClient:
     controllers use so timestamp comparisons agree under simulated time.
     """
 
+    # analysis: allow-clock(object-stamps — creation/deletionTimestamp are persisted wall clock by k8s protocol)
     def __init__(self, clock: Callable[[], float] = time.time) -> None:
         self._objects: Dict[str, Dict[tuple, KubeObject]] = defaultdict(dict)
         self._watchers: Dict[str, List[Callable]] = defaultdict(list)
@@ -60,7 +61,7 @@ class KubeClient:
         # deliberately outside self._lock: watch callbacks reenter the
         # client (informers re-list, controllers read state) and would
         # deadlock or invert lock order if notified under it
-        for cb in list(self._watchers.get(obj.kind, ())):
+        for cb in list(self._watchers.get(obj.kind, ())):  # analysis: allow-lock-discipline — a copy, notified outside the lock (above)
             cb(event, obj)
 
     # -- CRUD --------------------------------------------------------------

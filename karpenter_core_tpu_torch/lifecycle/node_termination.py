@@ -92,7 +92,7 @@ class EvictionQueue:
 class Terminator:
     """terminator/terminator.go: Taint (:50), Drain (:81)."""
 
-    # wall clock by default: stuck-pod age is measured against persisted deletion stamps
+    # analysis: allow-clock(stuck-pod age vs persisted deletionTimestamp wall-clock stamps)
     def __init__(self, kube_client, eviction_queue: EvictionQueue, clock: Callable[[], float] = time.time):
         self.kube_client = kube_client
         self.eviction_queue = eviction_queue

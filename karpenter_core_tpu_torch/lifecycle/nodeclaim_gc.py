@@ -17,7 +17,7 @@ LAUNCH_GRACE = 10.0  # seconds a claim must have been launched before GC
 
 
 class NodeClaimGarbageCollectionController:
-    # wall clock by default: the grace is measured against persisted launch stamps
+    # analysis: allow-clock(GC grace vs persisted creation_timestamp wall-clock stamps)
     def __init__(self, kube_client, cloud_provider: CloudProvider, clock: Callable[[], float] = time.time):
         self.kube_client = kube_client
         self.cloud_provider = cloud_provider

@@ -36,7 +36,7 @@ class NodeClaimLifecycleController:
         kube_client,
         cloud_provider: CloudProvider,
         recorder=None,
-        # wall clock by default: the TTL is measured against persisted creation stamps
+        # analysis: allow-clock(registration TTL vs persisted claim creation wall-clock stamps)
         clock: Callable[[], float] = time.time,
         metrics=None,
     ):

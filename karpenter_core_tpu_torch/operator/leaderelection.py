@@ -45,7 +45,7 @@ class LeaderElector:
         lease_name: str = LEASE_NAME,
         lease_duration: float = 15.0,
         retry_period: float = 2.0,
-        # wall clock: the lease's renew time is read by other processes
+        # analysis: allow-clock(lease renew_time crosses processes — wall clock by leader-election protocol)
         clock: Callable[[], float] = time.time,
         on_started_leading: Optional[Callable[[], None]] = None,
         on_stopped_leading: Optional[Callable[[], None]] = None,

@@ -49,8 +49,7 @@ class Operator:
         cloud_provider,
         kube_client: Optional[KubeClient] = None,
         options: Optional[Options] = None,
-        # wall clock by default: the lease and the lifecycle compare
-        # persisted wall-clock stamps
+        # analysis: allow-clock(fans to lease/stamping controllers that compare persisted wall-clock stamps)
         clock: Callable[[], float] = time.time,
         device=None,
         validation_sleep: Optional[Callable[[float], None]] = None,

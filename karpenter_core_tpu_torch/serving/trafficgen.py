@@ -641,13 +641,10 @@ class TrafficHarness:
         unsnapshot restart pays them. → None."""
         from ..apis.nodepool import NodePool as _NodePool
         from ..solver import TorchScheduler, prewarm
-        from ..solver.backend import resolve_device
+        from ..solver.backend import init_cuda
 
         if not pay_compiles:
-            if resolve_device(self.device).type == "cuda":
-                import torch
-
-                torch.cuda.init()
+            init_cuda(self.device)
             return None
         provider = FakeCloudProvider()
         warm_cat = _catalog(len(self.provider.instance_types))

@@ -39,10 +39,43 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 # process loaded, each named by the hash of its source and its nvcc
 # command (``buildlib.library_path``). A restore keeps the rows the live
 # tree would build to the same library and drops the others, and the boot
-# prewarm (solver/prewarm.py) loads the kept rows' kernels.
+# prewarm (solver/prewarm.py) loads the kept rows' kernels. The manifest
+# rides the environment's fingerprint (``compile_cache_fingerprint``): a
+# library built by another torch or CUDA toolkit, or for another device,
+# is never trusted, whatever its name.
 
 _MANIFEST_LOCK = threading.Lock()
 _RESTORED: Optional[List[dict]] = None
+
+
+def init_cuda(device) -> None:
+    """Create ``device``'s CUDA context now (a card only), the cost a
+    first solve would otherwise pay."""
+    if resolve_device(device).type == "cuda":
+        torch.cuda.init()
+
+
+def compile_cache_fingerprint() -> dict:
+    """What the kernel libraries of this process were built for and
+    from: the torch and CUDA versions, the card's compute capability
+    (empty without a card) and the digest of each ``csrc/*.cu`` source.
+    The warm store records it beside the manifest, and a restore keeps
+    the manifest only where it equals the live one."""
+    import hashlib
+
+    from .. import buildlib
+
+    capability = ""
+    if torch.cuda.is_available():
+        major, minor = torch.cuda.get_device_capability()
+        capability = f"sm_{major}{minor}"
+    sources = {}
+    for name in sorted(os.listdir(buildlib.CSRC)):
+        if name.endswith(".cu"):
+            with open(os.path.join(buildlib.CSRC, name), "rb") as f:
+                sources[name] = hashlib.sha256(f.read()).hexdigest()[:16]
+    return {"torch": torch.__version__, "cuda": torch.version.cuda or "", "capability": capability,
+            "sources": sources}
 
 
 def restore_library_manifest(rows) -> Tuple[List[dict], int]:

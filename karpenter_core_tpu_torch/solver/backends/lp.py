@@ -540,6 +540,7 @@ class LPBackend(PackBackend):
         )
         self.last_ascent_iters += int(iters)
         value = (t_star_u[inv], has_fit_u[inv], bound, w)
+        # analysis: allow-cache-key(reqs) — reqs rides the key as its job_digest (the read-set rule cannot see through the digest helper)
         plane.put(key, value, stats)
         return value
 

@@ -388,6 +388,7 @@ def state_key(solver) -> tuple:
     """The registry key of ``solver``'s warm state: its cloud provider,
     tenant scope and device. The device keeps a CPU solve's memo from
     serving a card solve of the same provider."""
+    # analysis: allow-cache-determinism(id) — a registry key, never persisted: the state holds the provider strongly (no recycled id while registered)
     return (id(solver.cloud_provider), getattr(solver, "_tenant_scope", ()), str(solver.device))
 
 

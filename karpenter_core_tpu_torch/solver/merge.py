@@ -183,6 +183,7 @@ class _Bucket:
             for k, j in enumerate(missing):
                 self.screen8[j] = sub8[k]
                 if ws is not None and rkeys[j] is not None:
+                    # analysis: allow-cache-key(solver) — the row's content is fixed by its _rkey (job-key identity); the solver is only the receiver
                     ws.screen_rows.put(rkeys[j], sub8[k].copy(), stats)
 
         # requirement fingerprints interned per bucket; the intersects

@@ -128,7 +128,7 @@ from ..scheduling.volumes import Volumes
 from ..tracing import deviceplane, tracer
 from . import backends, devicetime, plancost, podcache, sharding
 from .backend import resolve_device
-from .compat_kernels import DeviceCatalog, allowed_via_kernel, catalog_to_device, signature_side
+from .compat_kernels import COMPAT_ALLOWED, DeviceCatalog, allowed_via_kernel, catalog_to_device, signature_side
 from .constraint_tensors import (
     GroupVolumes,
     PortFeatures,
@@ -310,6 +310,7 @@ def _catalog_entry(
     (the cloud providers that asked for them) are all gone. An unchanged
     provider generation skips the content fingerprint; otherwise the
     fingerprint revalidates the identity key."""
+    # analysis: allow-cache-determinism(id) — an identity key, never persisted: the entry holds its catalog strongly and every lookup revalidates it (generation, else the content fingerprint)
     key = tuple(map(id, catalog))
     if generation is not None:
         with _CATALOG_LOCK:
@@ -339,6 +340,7 @@ def _catalog_entry(
         enc = encode_instance_types(list(catalog), axis, vocab)
         entry = _CatalogEntry(list(catalog), fp, vocab, axis, enc, generation=generation)
         entry.own(owner)
+        # analysis: allow-cache-key(generation, owner) — generation is the guard each lookup revalidates (else the content fingerprint); owner only lists who holds the entry, for its release
         _cache_insert(key, entry, stats)
         return entry
 
@@ -1208,6 +1210,7 @@ class TorchScheduler:
         tensor_groups, parked, oracle_groups = route_groups(groups)
         if key is not None:
             pos = {id(g): i for i, g in enumerate(groups)}
+            # analysis: allow-config-provenance(constraint_engine — the port has one constraint engine, the tensor one; the key carries its name)
             ws.routes.put(
                 key,
                 (
@@ -1898,6 +1901,11 @@ class TorchScheduler:
         # provider generation probes take the provider's own lock: taken
         # before _CATALOG_LOCK, so the catalog lock never nests it
         gens = [cg(p.nodepool) if callable(cg) else None for p in pools]
+        if self.device.type == "cuda":
+            # the compat kernel's library is loaded (built first, where the
+            # checkout has none) before _CATALOG_LOCK: a first load under it
+            # would hold every other solver's encode behind one nvcc
+            COMPAT_ALLOWED.lib()
         # the lock covers every in-place mutation of the shared entries
         # (vocab interning, mask extension, the device-side upload, rows)
         with _CATALOG_LOCK:
@@ -1973,6 +1981,7 @@ class TorchScheduler:
                         n_devices=int(mesh.size),
                     )
                     with devicetime.track(phase="compat"):
+                        # analysis: allow-wait-under-lock(device — the launch reads the entry's device-resident type planes, which _CATALOG_LOCK guards, and only enqueues; the library was loaded before the lock)
                         allowed = sharding.allowed_sharded(
                             prepared, sig_arrays, zone_ok, ct_ok, tuple(sorted(e.enc.key_masks.keys()))
                         )
@@ -1981,6 +1990,7 @@ class TorchScheduler:
                 catalog = self._device_catalog(e)
                 with devicetime.track(phase="compat"):
                     sig = signature_side(sig_arrays, zone_ok, ct_ok, catalog)
+                    # analysis: allow-wait-under-lock(device — the launch reads the entry's device-resident type planes, which _CATALOG_LOCK guards, and only enqueues; the library was loaded before the lock)
                     allowed = allowed_via_kernel(sig, catalog)
                 if self.device.type == "cuda":
                     # the compat boundary's bytes really cross to the card
@@ -2028,8 +2038,10 @@ class TorchScheduler:
                 if self.device.type == "cuda":
                     devicetime.transfer("d2h", sub_allowed, phase="compat")
                 if ws is not None:
+                    # analysis: allow-cache-key(extra) — the shard padding telemetry of the dispatch region (record_shard_padding's extra kwargs) never flows into the cached rows
                     self._cache_compat_rows(
-                        e, pool_fps[pi], groups, missing, sig_compats[pi], sub_allowed, sub_zone, sub_ct
+                        e, pool_fps[pi], groups, missing, sig_compats[pi], sub_allowed, sub_zone, sub_ct,
+                        str(self.device),
                     )
                 if len(missing) == S:
                     # nothing was cached for this pool: the sub arrays are
@@ -2061,12 +2073,11 @@ class TorchScheduler:
             mesh=mesh,
         )
 
-    def _cache_compat_rows(self, entry, pool_fp, groups, missing, compats, allowed, zone_ok, ct_ok) -> None:
+    def _cache_compat_rows(self, entry, pool_fp, groups, missing, compats, allowed, zone_ok, ct_ok, device) -> None:
         """Keep freshly computed (signature, pool) compat rows on the
-        catalog entry, keyed by this solver's device. Rows are copied out
-        of the batch arrays, so the cache never pins a whole (S, T)
+        catalog entry, keyed by ``device`` (this solver's). Rows are copied
+        out of the batch arrays, so the cache never pins a whole (S, T)
         matrix."""
-        device = str(self.device)
         with _CATALOG_LOCK:
             for k, gi in enumerate(missing):
                 sid = groups[gi].sig_id
@@ -2521,6 +2532,7 @@ class TorchScheduler:
                 seeds = seed_counts_for_constraint(
                     self.kube_client, group.exemplar, constraint, self._batch_uids
                 )
+                # analysis: allow-cache-key(self.kube_client) — the seeds memo is scoped to the cluster generation (seeds_get/put); the client is read through that witness
                 self._seeds_memo_put(skey, seeds)
             self._seed_cache[key] = seeds
         return seeds
@@ -2710,6 +2722,7 @@ class TorchScheduler:
                     self.kube_client, group.exemplar, topology_key, term.label_selector,
                     self._batch_uids,
                 )
+                # analysis: allow-cache-key(self.kube_client) — the seeds memo is scoped to the cluster generation (seeds_get/put); the client is read through that witness
                 self._seeds_memo_put(skey, seeds)
             self._seed_cache[key] = seeds
         return seeds
@@ -4070,14 +4083,27 @@ class TorchScheduler:
                             # is this job's skeleton
                             skels[i] = plane.skeleton_get(key[:-1], self._cstats)
         miss = [i for i in range(len(jobs)) if skels[i] is None]
+        # what a pack backend reads of a job's meta, and nothing else
+        miss_metas = [
+            dict(
+                alloc=metas[i]["alloc"],
+                enc=metas[i]["enc"],
+                viable_idx=metas[i]["viable_idx"],
+                zone_ok=metas[i]["zone_ok"],
+                ct_ok=metas[i]["ct_ok"],
+                zone=metas[i]["zone"],
+            )
+            for i in miss
+        ]
         with self._phase("pack"):
             # backend.lock spans the call and the reads of its per-call
             # outputs: a concurrent solve on the shared singleton must not
             # overwrite last_stats/last_job_flags between them
             with backend.lock:
                 packed = (
+                    # analysis: allow-wait-under-lock(device — backend.lock exists to serialize this dispatch and its output reads; the solver holds no other lock here, so the edge cannot deadlock)
                     backend.pack_jobs(
-                        [jobs[i] for i in miss], [metas[i] for i in miss], device=self.device,
+                        [jobs[i] for i in miss], miss_metas, device=self.device,
                         stats=self._cstats, mesh=mesh,
                     )
                     if miss
@@ -4111,8 +4137,10 @@ class TorchScheduler:
                     skel = self._job_skeleton(meta, node_ids, int(node_count), cost_guard=flags[mi])
                     mi += 1
                     if keys[i] is not None:
+                        # analysis: allow-cache-key(metas.reqs, metas.alloc, self._pack_backend_stats, self.fleet_plane, self.metrics) — reqs rides the key as its job_digest and alloc is _alloc_full(enc, daemon)[viable], all keyed; the rest is telemetry and the content plane (keyed by this key less its tenant scope)
                         ws.jobs.put(keys[i], skel, self._cstats)
                         if plane is not None:
+                            # analysis: allow-cache-key(metas.reqs, metas.alloc, self._pack_backend_stats, self.fleet_plane, self.metrics) — as the put above: the tenant scope is not in the skeleton's read-set
                             plane.skeleton_put(keys[i][:-1], skel, self._cstats)
                 self._emit_skeleton(meta, skel, keys[i], pods, result, records, merge_all)
 
@@ -4170,6 +4198,7 @@ class TorchScheduler:
         device because the entry is shared by every device's solvers, and
         the fleet's content plane is keyed by everything but the tenant
         scope, which comes last, by the JAX package's contract."""
+        # analysis: allow-cache-determinism(id) — a per-solve map from the live encoding object to its content key; never persisted
         enc_key = self._enc_keys.get(id(meta["enc"]))
         if enc_key is None or self._warm is None:
             return None
@@ -4437,6 +4466,7 @@ class TorchScheduler:
                 else:
                     emitted = (-1, None, None, 0.0, True)
                 if trail is not None:
+                    # analysis: allow-cache-key(result) — emitted is read from the plan this record just appended; the trail keys the record
                     ws.emits.put(trail, emitted, self._cstats)
             if clusters is not None:
                 if trail is None:
@@ -4444,6 +4474,7 @@ class TorchScheduler:
                 else:
                     clusters.append((trail,) + emitted)
         if mkey is not None and clusters is not None:
+            # analysis: allow-cache-key(result) — the clusters are the emitted tuples of the keyed trails, not the result's other plans
             ws.merges.put(
                 mkey,
                 incremental.MergeSkeleton(clusters, st.get("merge_pairs_applied", 0) - applied_before),

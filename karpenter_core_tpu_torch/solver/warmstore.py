@@ -37,8 +37,12 @@ What persists, per plane:
   this process registered with the same static-argument names.
 - **compilecache**: the manifest of the kernel libraries the writer
   loaded (``buildlib.loaded_libraries``), each named by the hash of its
-  source and nvcc command. A row the live tree would build to another
-  library is dropped and counted; the boot prewarm
+  source and nvcc command, beside the writer's fingerprint
+  (``backend.compile_cache_fingerprint``: torch, CUDA, the card's
+  capability, the sources' digests). Under another torch, CUDA or card
+  the whole manifest is dropped and counted; so is a row whose source's
+  digest differs or that the live tree would build to another library.
+  The boot prewarm
   (``prewarm.warmup_compile_only``) loads the kept rows' kernels, so a
   restored process's first solve loads none.
 
@@ -107,7 +111,7 @@ _KEY_CONTRACT = (
     ("intersects", "(reqs fp, reqs fp) -> bool"),
     ("lprelax", "(reqs digest, capacity bytes, price-table float64 bytes, iteration budget int, refine-stage tag...) -> (t_star, has_fit, float64 bound, dual weights)"),
     ("jitsig", "(fn name, static-argname tuple) -> signature keys (deviceplane inventory; static reprs bounded at 512)"),
-    ("compilecache", "[{source, library (lib<stem>-<sha256(source, nvcc command)[:12]>.so), kernels}] the writer loaded"),
+    ("compilecache", "{torch, cuda, capability, sources {source: sha256[:16]}, libraries [{source, library (lib<stem>-<sha256(source, nvcc command)[:12]>.so), kernels}] the writer loaded}"),
     ("device", "compat, job, merge, emit, mergerow and lprelax restore only into a solver on the writer's device"),
 )
 CONTRACT = stable_hash(_KEY_CONTRACT).hex()
@@ -289,12 +293,13 @@ def build_payload(solver) -> dict:
         # the device plane's signature inventory and the kernel libraries'
         # manifest: keys and names only
         "jitsigs": deviceplane.export_signatures(),
-        "compilecache": buildlib.loaded_libraries(),
+        "compilecache": dict(backend.compile_cache_fingerprint(), libraries=buildlib.loaded_libraries()),
     }
     if ws is None:
         return payload
 
     for key, val in ws.routes.items():
+        # analysis: allow-process-boundary — the ordinals are translated here; only the signatures' content is stored
         sigs = [sig_names.get(part) for part in key[:-1]]
         if all(sig is not None for sig in sigs):
             payload["routes"].append((tuple(sigs), key[-1], val))
@@ -356,7 +361,7 @@ def _plane_counts(payload: dict) -> dict:
         "intersects": len(payload.get("intersects", ())),
         "lprelax": len(payload.get("lprelax", ())),
         "jitsig": sum(len(r[2]) for r in payload.get("jitsigs", ()) if len(r) == 3),
-        "compilecache": len(payload.get("compilecache", ())),
+        "compilecache": len((payload.get("compilecache") or {}).get("libraries", ())),
     }
 
 
@@ -711,9 +716,33 @@ def _restore_under_root(solver, path: str, out: _Outcome, fleet_plane=None) -> N
     n_ok, n_drop = deviceplane.import_signatures(payload.get("jitsigs", ()))
     out.ok("jitsig", n_ok)
     out.drop("jitsig", n_drop)
-    kept, n_drop = backend.restore_library_manifest(payload.get("compilecache", ()))
+    _restore_compile_cache(payload, out)
+
+
+def _restore_compile_cache(payload: dict, out: "_Outcome") -> None:
+    """Witness the snapshot's library manifest against the live process:
+    a library is code this process would load and launch, trustworthy
+    only when the torch and CUDA versions and the card's capability it
+    was built for equal the live ones, and its source's digest the live
+    source's. Any mismatch drops the rows counted (the boot prewarm then
+    loads nothing restored, and the first solve loads the libraries
+    itself)."""
+    stored = payload.get("compilecache") or {}
+    rows = list(stored.get("libraries") or ())
+    live = backend.compile_cache_fingerprint()
+    if (
+        stored.get("torch") != live["torch"]
+        or stored.get("cuda") != live["cuda"]
+        or stored.get("capability") != live["capability"]
+    ):
+        backend.restore_library_manifest(())
+        out.drop("compilecache", len(rows))
+        return
+    digests, live_digests = stored.get("sources") or {}, live["sources"]
+    same = [r for r in rows if isinstance(r, dict) and digests.get(r.get("source")) == live_digests.get(r.get("source"))]
+    kept, n_drop = backend.restore_library_manifest(same)
     out.ok("compilecache", len(kept))
-    out.drop("compilecache", n_drop)
+    out.drop("compilecache", n_drop + len(rows) - len(same))
 
 
 def _publish(solver, result: dict, metrics) -> dict:

@@ -23,6 +23,7 @@ from .statenode import StateNode
 
 
 class Cluster:
+    # analysis: allow-clock(nomination/consolidation stamps are exchanged with kube-object wall-clock stamps)
     def __init__(self, kube_client: KubeClient, cloud_provider=None, clock: Callable[[], float] = time.time):
         self.kube_client = kube_client
         self.cloud_provider = cloud_provider

@@ -47,12 +47,11 @@ from __future__ import annotations
 import contextlib
 import functools
 import os
+import sys
 import threading
 import time
 from collections import OrderedDict, deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
-
-import torch
 
 CAUSE_FIRST = "first"
 CAUSE_NEW_SHAPE = "new_shape"  # the reference's; a launch shape compiles nothing here
@@ -203,8 +202,11 @@ def _abstract(a: Any) -> tuple:
     tuple pytrees recurse; an object with a ``__deviceplane__`` method
     is abstracted through what it returns (the device-resident catalog:
     its planes); everything else is static config by bounded repr. A
-    tensor, the common argument, takes the first test and no repr."""
-    if isinstance(a, torch.Tensor):
+    tensor, the common argument, takes the first test and no repr. The
+    module never imports torch (tracing/ is host-only): a tensor exists
+    only where torch is imported already."""
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(a, torch.Tensor):
         return ("a", tuple(a.shape), _dtype_name(a.dtype))
     shape = getattr(a, "shape", None)
     dtype = getattr(a, "dtype", None)

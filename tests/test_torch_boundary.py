@@ -25,7 +25,9 @@ meta-path hook that raises on importing either; so does the serving CLI
 pipeline run, a kill and a warm resume with its boot prewarm, and a
 chaos run under ``failover``), and a batched fleet round (``fleet/``:
 registry, mega-solve engine, scheduler) runs in the hooked solve's
-interpreter. The JAX package's environment knobs of
+interpreter. The port's static analyzer (``analysis/``) imports the standard library
+only, and ``KNOBS`` is its static knob inventory, the two witness
+switches among them (read in ``witness.py`` alone). The JAX package's environment knobs of
 that stack, the serving pipeline's, the flight recorder's, the boot
 prewarm's, the REST adapter's watch backoff and the fleet's included,
 are module constants of the port with the reference's defaults, but the
@@ -98,12 +100,18 @@ def test_sources_found():
 
 # the port's environment knobs: the pack backend, the native packer's
 # switch, the auto backend's threshold override, the warm state's kill
-# switch, the disruption engine, the fleet engine and the catalog cache cap
+# switch, the disruption engine, the fleet engine and the catalog cache cap;
+# and the two witness switches, read by the witnessed run's entry point
+# (``witness.py``) where the JAX package reads their twins (its
+# ``tests/conftest.py``). The port's analyzer inventories the same names
+# (``test_knobs_are_the_analyzers_inventory``).
 KNOBS = (
     "KARPENTER_TORCH_PACK_BACKEND", "KARPENTER_TORCH_NATIVE", "KARPENTER_TORCH_LP_MIN_WORK",
     "KARPENTER_TORCH_INCREMENTAL", "KARPENTER_TORCH_DISRUPT_ENGINE", "KARPENTER_TORCH_FLEET_ENGINE",
-    "KARPENTER_TORCH_CATALOG_CACHE_MAX",
+    "KARPENTER_TORCH_CATALOG_CACHE_MAX", "KARPENTER_TORCH_LOCK_WITNESS", "KARPENTER_TORCH_KNOB_WITNESS",
 )
+WITNESS_SWITCHES = {"KARPENTER_TORCH_LOCK_WITNESS", "KARPENTER_TORCH_KNOB_WITNESS"}
+WITNESS_ENTRY = os.path.join(PORT_DIR, "witness.py")
 
 # the upstream operator's deployment flags, read with the reference's names
 # and defaults by ``Options.from_env`` and by no other file of the port
@@ -148,7 +156,9 @@ def test_no_forbidden_import_or_env_read(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             assert not _forbidden(node.module or ""), f"{path}:{node.lineno} imports {node.module}"
         elif isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs:
-            if node.value.startswith("KARPENTER_") and node.value.replace("_", "").isalnum():
+            # a literal ending in "_" is a knob prefix (the analyzer's), not a knob
+            if (node.value.startswith("KARPENTER_") and node.value.replace("_", "").isalnum()
+                    and not node.value.endswith("_")):
                 assert node.value in KNOBS, f"{path}:{node.lineno} names {node.value}"
             if node.value in OPERATOR_ENV:
                 assert options, f"{path}:{node.lineno} names the operator flag {node.value}"
@@ -163,6 +173,7 @@ def test_no_forbidden_import_or_env_read(path):
                 elif node.args and isinstance(node.args[0], ast.Constant):
                     key = node.args[0].value
                     assert key in KNOBS or (options and key in OPERATOR_ENV), f"{path}:{node.lineno} reads {key}"
+                    assert key not in WITNESS_SWITCHES or path == WITNESS_ENTRY, f"{path}:{node.lineno} reads {key}"
                 else:
                     assert script, f"{path}:{node.lineno} reads the environment by a variable"
         elif isinstance(node, ast.Subscript) and _is_environ(node.value):
@@ -565,3 +576,38 @@ def test_operator_env_parses_as_the_reference(monkeypatch):
     port, ref = dataclasses.asdict(Options.from_env()), dataclasses.asdict(RefOptions.from_env())
     assert port == ref and port != dataclasses.asdict(Options())
 
+
+
+def test_knobs_are_the_analyzers_inventory():
+    """One inventory: ``KNOBS`` is the port analyzer's static knob names,
+    the witness switches among them, each read in ``witness.py`` only."""
+    from karpenter_core_tpu_torch.analysis.configprov import repo_registry, static_knob_names
+
+    names, patterns = static_knob_names()
+    assert names == set(KNOBS) and not patterns
+    registry = repo_registry()
+    for switch in WITNESS_SWITCHES:
+        assert {s.module for s in registry[switch]} == {"karpenter_core_tpu_torch/witness.py"}
+
+
+def test_analysis_imports_the_standard_library_only():
+    """``karpenter_core_tpu_torch/analysis/`` imports the standard library
+    and its own modules: nothing of torch, jax, numpy or either package."""
+    root = os.path.join(PORT_DIR, "analysis")
+    files = sorted(f for f in os.listdir(root) if f.endswith(".py"))
+    assert {"engine.py", "concurrency.py", "cachesound.py", "configprov.py", "lockwitness.py",
+            "knobwitness.py"} <= set(files)
+    for fn in files:
+        tree = ast.parse(open(os.path.join(root, fn), encoding="utf-8").read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            elif isinstance(node, ast.ImportFrom):
+                assert node.level == 1, f"{fn}:{node.lineno} imports from outside analysis/"
+                continue
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] in sys.stdlib_module_names, f"{fn}:{node.lineno} imports {m}"
