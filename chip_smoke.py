@@ -384,7 +384,14 @@ any failure exits non-zero:
    ``Operator.start()`` and a warm-store restore; observed lock edges ⊆
    the static order graph, observed knob reads ⊆ the static inventory,
    every required lock acquired, the compat and pack kernels launched;
-   the edges, locks, knobs and launches per kernel.
+   the edges, locks, knobs and launches per kernel. 22c ``python -m
+   karpenter_core_tpu_torch.analysis --contracts --device cuda`` in a
+   process of its own: every ``@contract`` at prime sizes on the card,
+   the dispatching wrappers of B1 (``allowed``, ``allowed_via_kernel``,
+   ``compat_via_kernel``), B5 (``ffd_pack``, ``ffd_pack_batched``) and B6
+   (``pack_existing``) each launching its kernel and bit-equal to its
+   plain version on the CPU, the reference's six checked contracts
+   covered; each contract's sizes, verdict and launches.
 
 The lanes start once phase 3 is done, so that its timings have the card
 and the host to themselves: phases 4-11 in this process, and 12, 13, 20,
@@ -534,10 +541,10 @@ DEPTH_PLAN: dict = {}  # the plan this run chose: its depth, pace and predicted 
 # each phase's seconds at full depth, the lanes running, over the pace (so
 # at pace 1.0), and a lane process's start before its first phase: the
 # "pace_summary" line of a whole run on an NVIDIA H100 80GB HBM3, 700.00 W
-# machine at pace 0.765 (PERF.md §5)
+# machine at pace 0.765, phase 22 (with 22c) of one at pace 1.300 (PERF.md §5)
 PHASE_FULL_S = {
     1: 0.7, 2: 13.1, 3: 77.1, 4: 1.8, 5: 30.2, 6: 15.0, 7: 30.8, 8: 11.5, 9: 115.6, 10: 42.4, 11: 99.6, 12: 176.7,
-    13: 52.3, 14: 70.4, 15: 103.5, 16: 272.8, 17: 33.2, 18: 88.2, 19: 82.7, 20: 27.3, 21: 75.9, 22: 34.4,
+    13: 52.3, 14: 70.4, 15: 103.5, 16: 272.8, 17: 33.2, 18: 88.2, 19: 82.7, 20: 27.3, 21: 75.9, 22: 36.7,
 }
 LANE_START_S = 12.3
 
@@ -5681,9 +5688,9 @@ SCRIPT_BUDGET_S = 1000.0
 # main waits for its lanes until the script has run this long, then fails
 # (inside the 1,200 s a run of the script is allowed)
 LANE_DEADLINE_S = 1150.0
-# phase 22's reserve (the analyzer and the witnessed run), kept out of the
-# budgets of the phases before it in its lane
-ANALYSIS_RESERVE_S = 45.0
+# phase 22's reserve (the analyzer, the witnessed run and the contract
+# pass), kept out of the budgets of the phases before it in its lane
+ANALYSIS_RESERVE_S = 60.0
 
 
 def trafficgen(args: list, timeout: float = 600.0) -> dict:
@@ -8783,13 +8790,48 @@ def run_analysis_witness(device: str = "cuda") -> dict:
             "witness_s": got["seconds"], "process_s": wall_s}
 
 
+def run_contracts_pass(device: str = "cuda") -> dict:
+    """22c: ``python -m karpenter_core_tpu_torch.analysis --contracts
+    --device cuda --format json`` in a process of its own → each
+    contract's sizes, verdict, kernel, launches and bit-equality, and the
+    launches per kernel. Fails unless every contract holds (on the card a
+    wrapper holds when it launched its kernel and equalled its plain
+    version bit for bit), the reference's six are covered, and on the card
+    every dispatching wrapper (``ROUTES``) ran its kernel."""
+    from karpenter_core_tpu_torch.analysis.shape_contracts import ROUTES
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "karpenter_core_tpu_torch.analysis", "--contracts", "--device", device,
+         "--format", "json"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=ANALYSIS_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    try:
+        got = json.loads(proc.stdout)
+    except ValueError:
+        fail(f"22c: the contract pass printed no result ({proc.returncode}): {proc.stderr[-3000:]}")
+    bad = [f"{c['name']}: {c['detail']}" for c in got["contracts"] if not c["ok"]]
+    if proc.returncode != 0 or not got["ok"] or bad or not all(got["reference_covered"].values()):
+        fail(f"22c: the contract pass failed ({proc.returncode}): {bad}, covered {got['reference_covered']}")
+    routed = {c["name"] for c in got["contracts"] if c["kernel"]}
+    if device == "cuda" and routed != set(ROUTES):
+        fail(f"22c: the wrappers that ran a kernel are {sorted(routed)}, not {sorted(ROUTES)}")
+    launches = {WITNESS_KERNELS[name]: sum(c["launches"] for c in got["contracts"] if c["kernel"] == name)
+                for name in sorted(set(ROUTES.values()))}
+    return {"contracts": [{k: c[k] for k in ("name", "ok", "checked", "sizes", "kernel", "launches", "bit_equal", "ms")}
+                          for c in got["contracts"]],
+            "checked": sum(c["checked"] for c in got["contracts"]), "launches": launches,
+            "reference_covered": got["reference_covered"], "pass_s": got["seconds"], "process_s": wall_s}
+
+
 def run_analysis_phase(device: str = "cuda") -> dict:
     """Phase 22: 22a the analyzer over the checkout, 22b the witnessed run
-    on ``device``."""
+    on ``device``, 22c the shape-contract pass on ``device``."""
     t0 = time.perf_counter()
     cli = run_analysis_cli()
     witness = run_analysis_witness(device)
-    return {"cli": cli, "witness": witness, "wall_s": time.perf_counter() - t0}
+    contracts = run_contracts_pass(device)
+    return {"cli": cli, "witness": witness, "contracts": contracts, "wall_s": time.perf_counter() - t0}
 
 
 def report_analysis_phase(an: dict, card: str) -> None:
@@ -8799,6 +8841,10 @@ def report_analysis_phase(an: dict, card: str) -> None:
     emit({"phase22b": "witness", "edges": [" -> ".join(e) for e in w["lock_edges"]], "locks": w["locks"],
           "knobs": w["knobs"], "instrumented": w["instrumented"], "launches": w["launches"],
           "workload": w["workload"], "witness_s": w["witness_s"], "process_s": w["process_s"], "card": card})
+    c = an["contracts"]
+    emit({"phase22c": "contracts", "contracts": c["contracts"], "checked": c["checked"], "launches": c["launches"],
+          "reference_covered": c["reference_covered"], "pass_s": c["pass_s"], "process_s": c["process_s"],
+          "card": card})
     emit({"phase22": "analysis", "wall_s": an["wall_s"], "reserve_s": ANALYSIS_RESERVE_S, "card": card})
 
 
@@ -9156,12 +9202,14 @@ def phase_21(ctx: dict) -> dict:
 def phase_22(ctx: dict) -> dict:
     """22. The static-analysis plane: 22a the port's analyzer over this
     checkout, 22b the lock and knob witnesses over a threaded workload on
-    the card (native packer off: the kernels launch from its threads)."""
+    the card (native packer off: the kernels launch from its threads),
+    22c the shape-contract pass on the card."""
     an22 = run_analysis_phase("cuda")
     report_analysis_phase(an22, ctx["card"])
-    w22 = an22["witness"]["launches"]
-    return {"pack_launches": {"phase22": {name: w22.get(name, 0) for name in PACK_NAMES}},
-            "compat_paths": {"phase22": w22.get("compat_allowed", 0)},
+    w22, c22 = an22["witness"]["launches"], an22["contracts"]["launches"]
+    return {"pack_launches": {"phase22": {name: w22.get(name, 0) for name in PACK_NAMES},
+                              "phase22c": {name: c22.get(name, 0) for name in PACK_NAMES}},
+            "compat_paths": {"phase22": w22.get("compat_allowed", 0), "phase22c": c22.get("compat_allowed", 0)},
             "screen_launches": {"phase22": {kind: w22.get(kind, 0) for kind in (
                 "disrupt_screen.prefix", "disrupt_screen.subsets", "disrupt_screen.singles")}}}
 

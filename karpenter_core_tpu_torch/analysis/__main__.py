@@ -3,11 +3,14 @@
 Exit 0 when the repo is clean (every finding fixed, suppressed with a
 marker, or baselined — and no stale baseline entries); 1 otherwise.
 ``--format json`` emits machine-readable findings for CI tooling, like
-``profile_solve.py`` does for perf. ``--witness --device cpu|cuda``
-runs the lock and knob witnesses over the package's fixed threaded
-workload instead, in a fresh interpreter, so that both install before any
-module of the package is imported (``python -m
-karpenter_core_tpu_torch.witness``); its exit code is this one's.
+``profile_solve.py`` does for perf. ``--witness`` runs the lock and knob
+witnesses over the package's fixed threaded workload instead, in a fresh
+interpreter, so that both install before any module of the package is
+imported (``python -m karpenter_core_tpu_torch.witness``); its exit code
+is this one's. ``--contracts`` runs the shape-contract pass instead
+(``shape_contracts.py``): every ``@contract`` at prime sizes, exit 1 on
+any failure. Both run on ``--device`` (default ``cuda``, which fails
+without a card; ``cpu`` only when asked for).
 """
 
 from __future__ import annotations
@@ -66,12 +69,40 @@ def _changed_python_files(root):
     )
 
 
+def _contracts(device: str, fmt: str) -> int:
+    """``--contracts``: the pass over the port's registry on ``device`` →
+    0 when every contract holds."""
+    from .shape_contracts import covered, verify_contracts
+
+    t0 = time.perf_counter()
+    results = verify_contracts(device=device)
+    cover = covered(results)
+    ok = all(r.ok for r in results) and all(cover.values())
+    if fmt == "json":
+        json.dump({"ok": ok, "device": device, "contracts": [r.to_dict() for r in results],
+                   "reference_covered": cover, "seconds": round(time.perf_counter() - t0, 3)}, sys.stdout, indent=2)
+        print()
+    else:
+        for r in results:
+            status = "ok" if r.ok else "FAIL"
+            mode = "checked" if r.checked else "runtime-only"
+            card = f" {r.kernel} launches {r.launches}, bit-equal {r.bit_equal}" if r.kernel else ""
+            print(f"contract {r.name}: {status} [{mode}] {r.detail}{card}")
+        missing = sorted(ref for ref, hit in cover.items() if not hit)
+        if missing:
+            print(f"reference contracts not checked: {missing}")
+        print(f"{len(results)} contracts, {sum(r.checked for r in results)} checked on {device}; "
+              f"{sum(not r.ok for r in results)} failed; {time.perf_counter() - t0:.3f} s")
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog=f"python -m {PACKAGE}.analysis",
         description="Repo-native static analysis of the port's host Python: "
         "lock discipline and order, cache soundness, knob provenance, clocks, "
-        "determinism, pipeline safety, hygiene.",
+        "determinism, pipeline safety, hygiene, host syncs, kernel registry, "
+        "tensor branches; and the shape-contract pass.",
     )
     parser.add_argument(
         "paths",
@@ -112,7 +143,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--contracts",
         action="store_true",
-        help="verify @contract shape declarations (not in this package yet)",
+        help="run every @contract at prime sizes on --device instead (on cuda the "
+        "kernel wrappers against their plain versions on the CPU, bit for bit)",
     )
     parser.add_argument(
         "--witness",
@@ -121,19 +153,19 @@ def main(argv=None) -> int:
         "workload and check observed ⊆ static (a fresh interpreter: both "
         "witnesses install before any package import)",
     )
-    parser.add_argument("--device", choices=("cpu", "cuda"), default="cpu",
-                        help="the witnessed workload's device (--witness)")
+    parser.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                        help="the device of --witness and --contracts (cuda fails without a card)")
     args = parser.parse_args(argv)
 
     if args.contracts:
-        raise NotImplementedError(
-            "--contracts: the shape-contract pass against the plain versions "
-            "is not in this package yet"
-        )
+        return _contracts(args.device, args.format)
 
     if args.witness:
         import subprocess
 
+        from ..solver.backend import resolve_device
+
+        resolve_device(args.device)  # no card: fail here, not in the child
         cmd = [sys.executable, "-m", f"{PACKAGE}.witness", "--device", args.device]
         if args.format == "json":
             cmd.append("--json")

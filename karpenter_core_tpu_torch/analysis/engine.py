@@ -34,8 +34,45 @@ class AnalysisConfig:
 
     # the package a run reads: files under ``package/`` are held to the
     # module scopes below, files outside it (rule fixtures) opt in to
-    # every scoped rule
+    # every scoped project rule
     package: str = PACKAGE
+    # modules on the solve's device path, where a host<->device sync is a
+    # latency bug unless marked (host-sync) and a branch on a tensor's
+    # value is an implicit one (tensor-branch): the counterparts of the
+    # reference's list, ``compat_kernels.py`` for its ``pallas_kernels.py``
+    device_hot_modules: Tuple[str, ...] = _mods(
+        "solver/pack.py",
+        "solver/sharding.py",
+        "solver/backend.py",
+        "solver/kernels.py",
+        "solver/compat_kernels.py",
+        "solver/backends/lp.py",
+    )
+    # modules whose hand-kernel launches must register with the device
+    # plane (kernel-registry): the device-hot list, and the disruption
+    # screens' launches, which sit beside ``disruption/tpu_repack.py``'s
+    # counterpart
+    kernel_registry_modules: Tuple[str, ...] = _mods(
+        "solver/pack.py",
+        "solver/sharding.py",
+        "solver/backend.py",
+        "solver/kernels.py",
+        "solver/compat_kernels.py",
+        "solver/backends/lp.py",
+        "disruption/screen_kernels.py",
+    )
+    # the sync vocabulary: methods that exist only to bring a device
+    # value to the host, and calls that wait for the card, flagged
+    # wherever they stand in a device-hot module
+    sync_methods: Tuple[str, ...] = ("item", "tolist", "cpu", "numpy")
+    sync_calls: Tuple[str, ...] = ("torch.cuda.synchronize",)
+    # decorators whose bodies are device code (not scanned for syncs;
+    # their functions produce device values): none in the port, whose
+    # wrappers are eager host code around a launch
+    device_code_decorators: Tuple[str, ...] = ()
+    # decorators whose functions return device values in their own
+    # module: the device plane's entry points
+    producer_decorators: Tuple[str, ...] = ("deviceplane.observe",)
     # the environment-knob prefix the knob inventory and its witness read
     knob_prefix: str = "KARPENTER_TORCH_"
     # the module that the control-plane import rule forbids in the
@@ -70,10 +107,10 @@ class AnalysisConfig:
     )
     # cross-module functions that return a device tensor: the kernel
     # wrappers and the sharded launches (cache-determinism refuses their
-    # values in a memo key)
+    # values in a memo key; host-sync and tensor-branch track them).
+    # ``sharded_pod_pack`` is not one: it returns host arrays
     device_producers: Tuple[str, ...] = (
         "sharded_batch_pack",
-        "sharded_pod_pack",
         "sharded_prefix_screen",
         "sharded_compat",
         "allowed_sharded",
@@ -324,6 +361,9 @@ class FileContext:
             object.__setattr__(self, "_walk_cache", nodes)
         return nodes
 
+    def is_device_hot(self) -> bool:
+        return any(self.relpath.endswith(m) for m in self.config.device_hot_modules)
+
     def is_host_only(self) -> bool:
         return any(self.relpath.startswith(p) for p in self.config.host_only_prefixes)
 
@@ -433,9 +473,12 @@ def _load_rules() -> None:
             concurrency,
             configprov,
             determinism,
-            hygiene,
+            hygiene,  # before hostsync, as the reference registers them
+            hostsync,
+            jitregistry,
             locks,
             pipelinesafety,
+            tracersafety,
         )
 
         _LOADED = True
@@ -477,6 +520,22 @@ def dotted_name(node: ast.AST) -> str:
         parts.append(node.id)
         return ".".join(reversed(parts))
     return ""
+
+
+def decorator_named(fn: ast.AST, names: Sequence[str]) -> Optional[ast.expr]:
+    """The first decorator of ``fn`` that is one of ``names`` (dotted, as
+    written), bare, called, or as ``functools.partial(<name>, ...)``; else
+    None. Names are strings: the analyzer imports nothing it reads."""
+    if not names or not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+        return None
+    for dec in fn.decorator_list:
+        target = dec.func if isinstance(dec, ast.Call) else dec
+        name = dotted_name(target)
+        if name in names:
+            return dec
+        if name.endswith("partial") and isinstance(dec, ast.Call) and dec.args and dotted_name(dec.args[0]) in names:
+            return dec
+    return None
 
 
 # ---------------------------------------------------------------------------

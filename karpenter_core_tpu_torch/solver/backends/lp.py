@@ -301,7 +301,7 @@ def relax(
         clock.lap("upload")
         w, t_star, has_fit = dual_ascent(*inputs, int(iters))
         clock.lap("kernel")
-        # the one sync of the relax call
+        # analysis: allow-host-sync(the one sync of the relax call: rounding reads host arrays)
         w, t_star, has_fit = w.cpu().numpy(), t_star.cpu().numpy()[:S], has_fit.cpu().numpy()[:S]
     devicetime.transfer("d2h", w, t_star, has_fit, phase="lp")
     clock.lap("download")
@@ -329,6 +329,7 @@ class _Split:
         if self.out is None:
             return
         if self.device.type == "cuda":
+            # analysis: allow-host-sync(a timed split waits for the card by design; off unless asked)
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
         self.out[name] = (now - self.t) * 1000.0

@@ -384,8 +384,26 @@ COMPAT_ALLOWED = _CompatAllowedKernel()
 SRC = COMPAT_ALLOWED.src
 
 
+def _planes_example(dims, rng, device):
+    """The shape-contract pass's inputs for ``allowed_via_kernel``: the
+    seeded compat and offering inputs packed, the catalog on ``device``."""
+    from .kernels import compat_arrays, offering_arrays
+
+    sig, tm, th, tn, keys = compat_arrays(dims, rng)
+    zone_ok, ct_ok, avail = offering_arrays(dims, rng)
+    catalog = catalog_to_device(tm, th, tn, keys, avail, device)
+    return (signature_side(sig, zone_ok, ct_ok, catalog), catalog), {}
+
+
+def _compat_via_example(dims, rng, device):
+    from .kernels import compat_arrays
+
+    sig, tm, th, tn, keys = compat_arrays(dims, rng)
+    return (sig, tm, th, tn, keys, device), {}
+
+
 @deviceplane.observe("kernels.allowed_kernel", static_names=("budget_bytes",))
-@contract("W S", None, out="S T")
+@contract("W S", None, out="S T", example=_planes_example, static={"budget_bytes": COMPAT_TILE_BYTES})
 def allowed_via_kernel(
     sig_planes: torch.Tensor,
     catalog: DeviceCatalog,
@@ -413,7 +431,8 @@ def allowed_via_kernel(
 
 
 @deviceplane.observe("kernels.compat_kernel", static_names=("keys", "budget_bytes"))
-@contract(None, None, None, None, None, None, out="S T")
+@contract(None, None, None, None, None, None, out="S T", example=_compat_via_example,
+          static={"budget_bytes": COMPAT_TILE_BYTES})
 def compat_via_kernel(
     sig_arrays: Dict[str, np.ndarray],
     type_masks: Dict[str, np.ndarray],

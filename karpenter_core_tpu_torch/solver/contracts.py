@@ -20,10 +20,18 @@ Runtime checking is off by default, as in the reference, and costs one
 truthiness check per call while off. The reference turns it on with its
 ``KARPENTER_TPU_SHAPE_CONTRACTS`` knob; the port has the module flag
 ``_ENABLED``, set by :func:`enable` (the port's tests turn it on in their
-fixtures, ``chip_smoke.py`` for its whole card run). The reference's
-static ``eval_shape`` verifier (and the registry and dtype and example
-declarations that feed it) lives in its ``analysis/`` package, which the
-port does not take; each wrapper keeps its specs as ``__shape_contract__``.
+fixtures, ``chip_smoke.py`` for its whole card run).
+
+Every contract also lands in ``REGISTRY`` for the shape-contract pass
+(``python -m karpenter_core_tpu_torch.analysis --contracts``), which
+binds each letter to a distinct prime, runs the function on seeded
+inputs of those sizes and checks its outputs against the specs. The
+decorator takes the reference's keywords for it: ``dtypes`` (aligned
+with the specs, default int32), ``example`` (a builder for inputs a spec
+cannot describe: ``example(dims, rng, device)`` → ``(args, kwargs)``),
+``static`` (keyword arguments the pass passes as they are) and
+``eval_shape=False`` (a host function the pass skips; the reference's
+name for it).
 
 Keep this module dependency-free: every solver module imports it.
 """
@@ -31,9 +39,13 @@ Keep this module dependency-free: every solver module imports it.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 _ENABLED = False
+
+#: every contracted function, for the shape-contract pass: dicts with fn
+#: (undecorated), name, in_specs, out, dtypes, example, static, eval_shape
+REGISTRY: List[dict] = []
 
 
 class ContractError(TypeError):
@@ -126,9 +138,18 @@ def _check_out(name: str, out_specs, result: Any, env: Dict[str, int]) -> None:
         _check_one(name, f"output[{i}]", dims, value, env)
 
 
-def contract(*in_specs: Optional[str], out=None):
+def contract(
+    *in_specs: Optional[str],
+    out=None,
+    dtypes: Optional[Sequence[str]] = None,
+    example=None,
+    static: Optional[dict] = None,
+    eval_shape: bool = True,
+):
     """Declare a shape contract. ``in_specs`` align with positional
-    parameters; ``out`` is a spec or tuple of specs."""
+    parameters; ``out`` is a spec or tuple of specs; ``dtypes``,
+    ``example``, ``static`` and ``eval_shape`` feed the shape-contract
+    pass (module docstring)."""
     parsed_in = [_parse(s) for s in in_specs]
 
     def deco(fn):
@@ -147,7 +168,18 @@ def contract(*in_specs: Optional[str], out=None):
             _check_out(name, out, result, env)
             return result
 
-        wrapper.__shape_contract__ = {"name": name, "fn": fn, "in_specs": tuple(in_specs), "out": out}
+        wrapper.__shape_contract__ = {
+            "name": name,
+            "fn": fn,
+            "module": getattr(fn, "__module__", ""),
+            "in_specs": tuple(in_specs),
+            "out": out,
+            "dtypes": tuple(dtypes) if dtypes is not None else None,
+            "example": example,
+            "static": dict(static or {}),
+            "eval_shape": eval_shape,
+        }
+        REGISTRY.append(wrapper.__shape_contract__)
         return wrapper
 
     return deco

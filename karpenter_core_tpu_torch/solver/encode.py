@@ -130,7 +130,7 @@ def build_resource_axis(
     return extend_axis(build_catalog_axis(instance_types), pods_requests)
 
 
-@contract(None, None, out="P R")
+@contract(None, None, out="P R", eval_shape=False)
 def build_requests_matrix(all_requests: Sequence[Dict[str, int]], axis: ResourceAxis) -> np.ndarray:
     """(P, R) int32 ceil-quantized request matrix — one python pass to a
     milli-unit float64 matrix (exact: values < 2^53), then vectorized
@@ -152,7 +152,7 @@ def build_requests_matrix(all_requests: Sequence[Dict[str, int]], axis: Resource
     return np.minimum(np.ceil(milli / div[None, :]), 2.0**30).astype(np.int32)
 
 
-@contract("P", None, None, out="P R")
+@contract("P", None, None, out="P R", eval_shape=False)
 def build_requests_matrix_ids(
     req_ids: np.ndarray, axis: ResourceAxis, id_to_req: Dict[int, Dict[str, int]]
 ) -> np.ndarray:
@@ -175,7 +175,7 @@ def unique_requests(
     return [id_to_req[int(u)] for u in np.unique(req_ids)]
 
 
-@contract(None, None, out="R")
+@contract(None, None, out="R", eval_shape=False)
 def quantize_requests(requests: Dict[str, int], axis: ResourceAxis) -> np.ndarray:
     """ceil-quantize a request ResourceList → int32 vector (conservative:
     never lets a pod look smaller)."""
@@ -189,7 +189,7 @@ def quantize_requests(requests: Dict[str, int], axis: ResourceAxis) -> np.ndarra
     return out.astype(np.int32)
 
 
-@contract(None, None, out="R")
+@contract(None, None, out="R", eval_shape=False)
 def quantize_capacity(capacity: Dict[str, int], axis: ResourceAxis) -> np.ndarray:
     """floor-quantize an allocatable ResourceList (conservative: never lets
     a node look bigger). Saturates at 2^30 - 1: an axis built from a

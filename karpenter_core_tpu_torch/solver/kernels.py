@@ -75,7 +75,48 @@ def zone_ct_masks(compats, enc: EncodedInstanceTypes) -> Tuple[np.ndarray, np.nd
     return zone_ok, ct_ok
 
 
-@contract(None, None, None, None, out="S T")
+def compat_arrays(dims, rng) -> tuple:
+    """Seeded host inputs of the compat functions for the shape-contract
+    pass: two keys of V values over S signatures and T types, masks, has
+    and neg bits drawn at random → (sig_arrays, type_masks, type_has,
+    type_neg, keys)."""
+    S, T, V = dims("S"), dims("T"), dims("V")
+    keys = ("key-a", "key-b")
+    sig = {"valid": rng.rand(S) < 0.8}
+    tm, th, tn = {}, {}, {}
+    for k in keys:
+        sig[f"mask:{k}"] = rng.rand(S, V) < 0.3
+        sig[f"has:{k}"] = rng.rand(S) < 0.7
+        sig[f"neg:{k}"] = rng.rand(S) < 0.2
+        tm[k] = rng.rand(T, V) < 0.3
+        th[k] = rng.rand(T) < 0.7
+        tn[k] = rng.rand(T) < 0.2
+    return sig, tm, th, tn, keys
+
+
+def offering_arrays(dims, rng) -> tuple:
+    """Seeded (zone_ok (S, Z), ct_ok (S, C), avail (T, Z, C)) bool."""
+    S, T, Z, C = dims("S"), dims("T"), dims("Z"), dims("C")
+    return rng.rand(S, Z) < 0.6, rng.rand(S, C) < 0.6, rng.rand(T, Z, C) < 0.3
+
+
+def _compat_example(dims, rng, device):
+    sig, tm, th, tn, keys = compat_arrays(dims, rng)
+    return tuple(to_tensors(d, device) for d in (sig, tm, th, tn)), {"keys": keys}
+
+
+def _allowed_example(dims, rng, device):
+    (sig, tm, th, tn), kw = _compat_example(dims, rng, device)
+    masks = tuple(torch.from_numpy(a).to(device) for a in offering_arrays(dims, rng))
+    return (sig, tm, th, tn) + masks, kw
+
+
+def _allowed_host_example(dims, rng, device):
+    sig, tm, th, tn, keys = compat_arrays(dims, rng)
+    return (sig, tm, th, tn) + offering_arrays(dims, rng) + (keys,), {"device": device}
+
+
+@contract(None, None, None, None, out="S T", example=_compat_example)
 def compat_reference(
     sig_arrays: Dict[str, torch.Tensor],
     type_masks: Dict[str, torch.Tensor],
@@ -98,7 +139,7 @@ def compat_reference(
     return ok
 
 
-@contract("S Z", "S C", "T Z C", out="S T")
+@contract("S Z", "S C", "T Z C", dtypes=("b1", "b1", "b1"), out="S T")
 def offering_reference(
     zone_ok: torch.Tensor,  # (S, Z) bool
     ct_ok: torch.Tensor,  # (S, C) bool
@@ -111,7 +152,7 @@ def offering_reference(
     return (pair_ok.float() @ avail.reshape(avail.shape[0], -1).float().T) > 0
 
 
-@contract(None, None, None, None, "S Z", "S C", "T Z C", out="S T")
+@contract(None, None, None, None, "S Z", "S C", "T Z C", out="S T", example=_allowed_example)
 def allowed_reference(
     sig_arrays: Dict[str, torch.Tensor],
     type_masks: Dict[str, torch.Tensor],
@@ -131,7 +172,7 @@ def to_tensors(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()}
 
 
-@contract(None, None, None, None, "S Z", "S C", "T Z C", out="S T")
+@contract(None, None, None, None, "S Z", "S C", "T Z C", out="S T", example=_allowed_host_example)
 def allowed(
     sig_arrays: Dict[str, np.ndarray],
     type_masks: Dict[str, np.ndarray],

@@ -348,6 +348,7 @@ class _Bucket:
 @contract(
     "K", "K", "K Z", "K C", "K B", "K R", "K R", "()", "Z", "C", "B", "R", "R",
     out="K",
+    eval_shape=False,
 )
 def screen_candidates(
     cl_zid: np.ndarray,

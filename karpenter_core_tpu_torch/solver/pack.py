@@ -45,7 +45,7 @@ K_OPEN = 16
 NATIVE_K_OPEN = 1024
 
 
-@contract("T R", out="F R")
+@contract("T R", out="F R", eval_shape=False)
 def pareto_frontier(allocatable: np.ndarray) -> np.ndarray:
     """Maximal points of the viable types' allocatable vectors (F, R).
     A usage vector fits some type iff it fits some frontier point."""
@@ -88,7 +88,7 @@ def pad_for_pack(requests: np.ndarray, frontier: np.ndarray) -> Tuple[np.ndarray
     return requests, frontier, P
 
 
-@contract("P R", "P", "()", out="N R")
+@contract("P R", "P", "()", out="N R", eval_shape=False)
 def node_usage_from_assignment(
     requests: np.ndarray, node_ids: np.ndarray, node_count: int
 ) -> np.ndarray:
@@ -99,7 +99,7 @@ def node_usage_from_assignment(
     return usage.astype(np.int32)
 
 
-@contract("N R", "T R", "T", out="N")
+@contract("N R", "T R", "T", out="N", eval_shape=False)
 def assign_cheapest_types(
     node_usage: np.ndarray,  # (N, R) int32 summed requests per node
     allocatable: np.ndarray,  # (T, R) int32 (viable types only)
@@ -193,8 +193,37 @@ def ffd_pack_reference(
     return out, next_id
 
 
+def _sorted_requests(rng, shape) -> np.ndarray:
+    """Seeded pod requests in [1, 16), each job sorted descending by its
+    primary then secondary resource, as the scans take them."""
+    reqs = rng.randint(1, 16, size=shape).astype(np.int32)
+    flat = reqs.reshape(-1, shape[-2], shape[-1])
+    for job in flat:
+        job[:] = job[np.lexsort((-job[:, 1], -job[:, 0]))]
+    return reqs
+
+
+def _ffd_batched_example(dims, rng, device):
+    """The shape-contract pass's inputs for ``ffd_pack_batched``: G jobs
+    of P sorted pods over F frontier rows of width R, caps in [1, 16)."""
+    G, P, R, F = dims("G"), dims("P"), dims("R"), dims("F")
+    reqs = _sorted_requests(rng, (G, P, R))
+    fronts = rng.randint(4, 40, size=(G, F, R)).astype(np.int32)
+    caps = rng.randint(1, 16, size=G).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (reqs, fronts, caps)), {}
+
+
+def _ffd_example(dims, rng, device):
+    """``ffd_pack``'s: one job of P sorted pods, its cap a Python int."""
+    P, R, F = dims("P"), dims("R"), dims("F")
+    reqs = _sorted_requests(rng, (P, R))
+    front = rng.randint(4, 40, size=(F, R)).astype(np.int32)
+    cap = int(rng.randint(1, 16))
+    return (torch.from_numpy(reqs).to(device), torch.from_numpy(front).to(device), cap), {}
+
+
 @deviceplane.observe("pack.ffd_pack_batched", static_names=("k_open",))
-@contract("G P R", "G F R", "G", out=("G P", "G"))
+@contract("G P R", "G F R", "G", out=("G P", "G"), example=_ffd_batched_example, static={"k_open": K_OPEN})
 def ffd_pack_batched(
     requests: torch.Tensor,  # (G, P, R) int32
     frontiers: torch.Tensor,  # (G, F, R) int32
@@ -237,7 +266,7 @@ def ffd_pack_batched(
     return node_ids, counts
 
 
-@contract("P R", "F R", "()", out=("P", "()"))
+@contract("P R", "F R", "()", out=("P", "()"), example=_ffd_example, static={"k_open": K_OPEN})
 def ffd_pack(
     requests: torch.Tensor,  # (P, R) int32, sorted descending by primary
     frontier: torch.Tensor,  # (F, R) int32
@@ -347,7 +376,8 @@ def _scan_classes(jobs: List[tuple], dev: torch.device, phase: str, mesh=None) -
                 from . import sharding
 
                 node_ids, counts, _fleet = sharding.sharded_batch_pack(mesh, *args)
-            node_ids, counts = node_ids.cpu().numpy(), counts.cpu().numpy()  # one sync per class
+            # analysis: allow-host-sync(the one download of a class launch: its plans are host arrays)
+            node_ids, counts = node_ids.cpu().numpy(), counts.cpu().numpy()
         devicetime.transfer("d2h", node_ids, counts, phase=phase)
         for slot, g in enumerate(members):
             results[g] = (node_ids[slot, : jobs[g][0].shape[0]], int(counts[slot]))
@@ -391,8 +421,19 @@ def pack_existing_reference(
     return assign, free
 
 
+def _pack_existing_example(dims, rng, device):
+    """``pack_existing``'s: P sorted pods of S signatures onto M nodes,
+    each signature admitting a seeded half of the nodes."""
+    P, R, S, M = dims("P"), dims("R"), dims("S"), dims("M")
+    reqs = _sorted_requests(rng, (P, R))
+    sig_ids = rng.randint(0, S, size=P).astype(np.int32)
+    compat = (rng.rand(S, M) < 0.5).astype(np.uint8)
+    free = rng.randint(0, 40, size=(M, R)).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (reqs, sig_ids, compat, free)), {}
+
+
 @deviceplane.observe("pack.pack_existing")
-@contract("P R", "P", "S M", "M R", out=("P", "M R"))
+@contract("P R", "P", "S M", "M R", out=("P", "M R"), example=_pack_existing_example)
 def pack_existing(
     requests: torch.Tensor,  # (P, R) int32, sorted descending by primary
     sig_ids: torch.Tensor,  # (P,) int32
@@ -463,6 +504,7 @@ def run_pack_existing(
     with devicetime.track(phase="existing"):
         devicetime.transfer("h2d", *inputs, phase="existing")
         assign, free_out = pack_existing(*(torch.from_numpy(a).to(dev) for a in inputs))
+        # analysis: allow-host-sync(the one download of the first-fit: the solver reads host arrays)
         assign, free_out = assign.cpu().numpy(), free_out.cpu().numpy()
     devicetime.transfer("d2h", assign, free_out, phase="existing")
     return assign, free_out

@@ -325,8 +325,8 @@ def sharded_pod_pack(
             args = [torch.from_numpy(a).to(dev) for a in (reqs, fronts, caps, n_pods)]
             ids, counts = pack.ffd_pack_batched(args[0], args[1], args[2], pack.K_OPEN, args[3])
             # the one sync of the mega dispatch, after all chunks
-            ids = ids.cpu().numpy()
-            counts = counts.cpu().numpy().astype(np.int64)
+            ids = ids.cpu().numpy()  # analysis: allow-host-sync(the chunks renumber on the host)
+            counts = counts.cpu().numpy().astype(np.int64)  # analysis: allow-host-sync(same download)
         devicetime.transfer("d2h", ids, counts, phase="shard")
     offsets = np.zeros(D, dtype=np.int64)
     np.cumsum(counts[:-1], out=offsets[1:])
@@ -382,7 +382,8 @@ def sharded_mega_solve(
                             tm = np.concatenate([tm, np.zeros((Tp - T,) + tm.shape[1:], tm.dtype)])
                         record_shard_padding("types", T, Tp, accumulate=False, n_devices=D)
                         overlap = sharded_compat(mesh, sig_masks, tm)
-                        compat = overlap.cpu().numpy()[:, :T] > 0.0  # one sync
+                        # analysis: allow-host-sync(the one sync of the screen: the viable set is host data)
+                        compat = overlap.cpu().numpy()[:, :T] > 0.0
                     else:
                         compat = (sig_masks @ type_masks.T) > 0.0
                     viable = compat.all(axis=0)

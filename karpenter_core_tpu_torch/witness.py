@@ -1,7 +1,7 @@
 """The witnessed run: the port's lock and knob witnesses over a fixed
 threaded workload, in an interpreter of its own.
 
-    python -m karpenter_core_tpu_torch.witness --device cpu|cuda [--json]
+    python -m karpenter_core_tpu_torch.witness [--device cuda|cpu] [--json]
 
 (or ``python -m karpenter_core_tpu_torch.analysis --witness``, which
 starts this in a fresh interpreter). Both witnesses
@@ -10,8 +10,8 @@ process-wide constructors, so they install here before any other module
 of the package is imported, each behind its switch
 (``KARPENTER_TORCH_LOCK_WITNESS``, ``KARPENTER_TORCH_KNOB_WITNESS``, on
 unless set to another value than ``1``; a witness switched off fails the
-gate). The workload then drives, on
-``--device``:
+gate). The workload then drives, on ``--device`` (default ``cuda``,
+which fails without a card; the CPU only when asked for):
 
 1. the serving pipeline on bench config 8's rollout at its 400 pods,
    its prewarm thread and a disruption stage every second tick, joined
@@ -307,9 +307,12 @@ def gate(device: str, installed: dict) -> dict:
 def main(argv=None) -> int:
     installed = install()
     ap = argparse.ArgumentParser(prog=f"python -m {PACKAGE}.witness", description=__doc__.split("\n\n")[0])
-    ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     ap.add_argument("--json", action="store_true", help="print one JSON object")
     args = ap.parse_args(argv)
+    from .solver.backend import resolve_device
+
+    resolve_device(args.device)  # no card: fail now, not part way into the workload
     t0 = time.perf_counter()
     # with a witness switched off the gate fails: the workload is not run
     workload = run(args.device) if all(installed.values()) else {"launches": {}}

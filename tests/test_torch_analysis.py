@@ -19,8 +19,13 @@ reference's ends "would replay foreign XLA executables". A run over a
 tree holding the port's package (a meta-test, a mutation tree) is the
 port's analyzer alone on its own config.
 
-Cases of the JAX-construct rules (host-sync, tracer-safety, jit-registry,
-shape contracts) are the next slice's and are not mirrored.
+``host-sync`` is mirrored like the host rules: given the reference's
+sync vocabulary it reads jax snippets as the reference does. The two
+rules that read jax constructs themselves (``tracer-safety``,
+``jit-registry``) have counterparts in the port's own terms
+(``tensor-branch``, ``kernel-registry``); their cases, and those of the
+shape-contract pass, are twinned in torch terms in
+``test_torch_analysis_device.py``.
 """
 
 from __future__ import annotations
@@ -36,11 +41,22 @@ from test_torch_kube_client import PORT, case_id, mirror, mirror_cases, run_mirr
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# the one rule whose name differs, port → reference
-RULE_NAMES = {"torch-host-only": "jnp-host-only"}
+# the rules whose names differ, port → reference
+RULE_NAMES = {"torch-host-only": "jnp-host-only", "kernel-registry": "jit-registry", "tensor-branch": "tracer-safety"}
 MESSAGE_DIFFS = (("would load foreign compiled kernels", "would replay foreign XLA executables"),)
-# the rules of the next slice: not in the port's registry
-JAX_RULES = ("host-sync", "tracer-safety", "jit-registry")
+# the reference's rules that read jax constructs (jit decorators and
+# calls, static_argnames): their port counterparts read the port's own
+# constructs (kernel launches, deviceplane.observe, tensor branches), so
+# no report of theirs is compared with the reference's
+JAX_RULES = ("tracer-safety", "jit-registry")
+# the reference's sync vocabulary (its hostsync.py): jax's syncs, and jit
+# and vmap bodies as device code whose functions return device values
+REF_SYNC = dict(
+    sync_methods=("item", "tolist", "block_until_ready"),
+    sync_calls=("jax.device_get",),
+    device_code_decorators=("jax.jit", "jit", "jax.vmap", "vmap"),
+    producer_decorators=(),
+)
 
 
 def reference_config(**overrides):
@@ -64,6 +80,8 @@ def reference_config(**overrides):
         sink_lock_ids=ref_conc._SINK_LOCK_IDS,
         knobs_begin=ref_prov.KNOBS_BEGIN,
         semantic_knobs=tuple(sorted(k[len("KARPENTER_TPU_"):] for k in ref_prov.SEMANTIC_KNOBS)),
+        kernel_registry_modules=REF.jit_registry_modules,
+        **REF_SYNC,
     )
     return dataclasses.replace(cfg, **overrides)
 
@@ -113,9 +131,10 @@ def dual(paths, root=None, config=None, baseline=None, rules=None):
         [dict(e, rule=RULE_NAMES.get(e["rule"], e["rule"])) for e in baseline.entries])
     ref_rules = None if rules is None else [RULE_NAMES.get(r, r) for r in rules]
     ref = ref_analyze(paths, root=root, config=ref_cfg, baseline=ref_baseline, rules=ref_rules)
-    if rules is None:  # the reference also runs the rules this slice does not port
-        keep = lambda fs: [f for f in fs if f.rule not in JAX_RULES]  # noqa: E731
-        ref.findings, ref.suppressed, ref.baselined = keep(ref.findings), keep(ref.suppressed), keep(ref.baselined)
+    if rules is None:  # the jax-construct rules and their counterparts read different code
+        keep = lambda fs: [f for f in fs if RULE_NAMES.get(f.rule, f.rule) not in JAX_RULES]  # noqa: E731
+        for rep in (port, ref):
+            rep.findings, rep.suppressed, rep.baselined = keep(rep.findings), keep(rep.suppressed), keep(rep.baselined)
     for part in ("findings", "suppressed", "baselined"):
         assert sorted(map(_row, getattr(port, part))) == sorted(map(_row, getattr(ref, part))), part
     assert [_row(f) for f in port.findings] == [_row(f) for f in ref.findings]
@@ -201,19 +220,22 @@ def run_case(mod, case, tmp_path):
 # -- tests/test_static_analysis.py's host-rule cases --------------------------
 
 FILE = "test_static_analysis.py"
-NOT_PORTED = ("test_host_sync", "test_tracer_safety", "test_jit_registry", "test_contract_",
-              "test_runtime_contract")
+# the jax-construct rules' cases, and the contract cases (jax.eval_shape,
+# the reference's runtime asserts), are twinned in torch terms in
+# test_torch_analysis_device.py and test_torch_contracts.py
+NOT_PORTED = ("test_tracer_safety", "test_jit_registry", "test_contract_", "test_runtime_contract")
 CASES = [c for c in mirror_cases(FILE) if not c[1].startswith(NOT_PORTED)]
 
 
 def test_static_mirror_covers_the_host_rules():
-    assert len(CASES) == 22
-    assert len(mirror_cases(FILE)) - len(CASES) == 21
+    assert len(CASES) == 27
+    assert len([c for c in CASES if c[1].startswith("test_host_sync")]) == 5
+    assert len(mirror_cases(FILE)) - len(CASES) == 16
 
 
-# the JAX-construct rules' configs: their fields are the next slice's
+# jit-registry's config field is the reference's alone (the port's
+# counterpart reads kernel_registry_modules)
 STATIC_REPLACE = (
-    ('HOT_CONFIG = AnalysisConfig(device_hot_modules=("snippet.py",))', "HOT_CONFIG = None"),
     ('JITREG_CONFIG = AnalysisConfig(jit_registry_modules=("snippet.py",))', "JITREG_CONFIG = None"),
 )
 
@@ -227,9 +249,8 @@ def test_registered_rules_are_the_host_python_families():
     from karpenter_core_tpu.analysis import registered_rules as ref_rules
     from karpenter_core_tpu_torch.analysis import registered_rules
 
-    port = set(registered_rules())
-    assert port == {RULE_NAMES.get(r, r) for r in ref_rules()} - set(JAX_RULES) - {"jnp-host-only"} | {
-        "torch-host-only"}
+    to_port = {ref: port for port, ref in RULE_NAMES.items()}
+    assert set(registered_rules()) == {to_port.get(r, r) for r in ref_rules()}
 
 
 def test_port_import_rule_forbids_torch_in_host_only_packages(tmp_path):
@@ -311,11 +332,17 @@ def test_analysis_imports_the_standard_library_only():
     assert proc.stdout.strip().splitlines()[-1] == "BAD [] CODE 0", proc.stdout[-2000:] + proc.stderr[-2000:]
 
 
-def test_contracts_flag_raises_out_of_slice():
+def test_contracts_flag_passes_on_the_cpu(capsys):
+    """``--contracts --device cpu``: every contract at prime sizes through
+    the plain versions, the reference's six checked among them; exit 0."""
+    import json
+
     from karpenter_core_tpu_torch.analysis.__main__ import main
 
-    with pytest.raises(NotImplementedError, match="--contracts"):
-        main(["--contracts"])
+    assert main(["--contracts", "--device", "cpu", "--format", "json"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert got["ok"] and got["device"] == "cpu" and all(got["reference_covered"].values())
+    assert sum(c["checked"] for c in got["contracts"]) >= 6
 
 
 # -- the mutation harnesses on the port's sources -----------------------------

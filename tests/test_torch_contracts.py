@@ -14,7 +14,12 @@ never through its environment knob). Held:
 - a seeded solve on the CPU passes with contracts on, through the
   device scans' plain versions, the existing-node first-fit and the LP
   backend, with plans equal to the solve with them off; a wrong shape
-  at a kernel wrapper raises ``ContractError``.
+  at a kernel wrapper raises ``ContractError``;
+- the shape-contract pass (``analysis/shape_contracts.py``, the
+  counterpart of the reference's ``eval_shape`` pass): every contract at
+  prime sizes on the CPU, the reference's six checked ones covered under
+  ``REFERENCE_NAMES``, each site declaring what the reference's does, and
+  a contract whose output letters are swapped failing.
 """
 
 from __future__ import annotations
@@ -31,10 +36,11 @@ from karpenter_core_tpu_torch.solver import contracts
 def contracts_on(monkeypatch):
     monkeypatch.setattr(contracts, "_ENABLED", True)
     monkeypatch.setattr(ref_contracts, "_ENABLED", True)
-    # the reference's decorator registers every function it wraps for its
-    # static verifier: the test's throwaway functions go to a copy that is
-    # dropped after the test, or that verifier would check them
+    # both decorators register every function they wrap for their shape
+    # passes: the test's throwaway functions go to copies that are
+    # dropped after the test, or those passes would check them
     monkeypatch.setattr(ref_contracts, "REGISTRY", list(ref_contracts.REGISTRY))
+    monkeypatch.setattr(contracts, "REGISTRY", list(contracts.REGISTRY))
 
 
 def test_off_by_default(monkeypatch):
@@ -214,3 +220,68 @@ def test_seeded_solve_passes_with_contracts_on(monkeypatch, backend):
         assert solver.last_pack_stats.get("backend", "ffd") == backend
         plans[on] = sorted((p.instance_type.name, tuple(p.pod_indices)) for p in res.node_plans)
     assert plans[True] == plans[False] and plans[True]
+
+
+# -- the shape-contract pass ----------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def cpu_pass():
+    from karpenter_core_tpu_torch.analysis import shape_contracts
+
+    return shape_contracts.verify_contracts(device="cpu")
+
+
+def test_the_pass_is_green_on_the_cpu_and_covers_the_reference(cpu_pass):
+    from karpenter_core_tpu.analysis.shape_contracts import verify_contracts as ref_verify
+    from karpenter_core_tpu_torch.analysis.shape_contracts import REFERENCE_NAMES, covered
+
+    assert [f"{r.name}: {r.detail}" for r in cpu_pass if not r.ok] == []
+    assert all(covered(cpu_pass).values())
+    ref_checked = sorted(r.name for r in ref_verify() if r.checked)
+    assert ref_checked == sorted(REFERENCE_NAMES)
+    port = {r.name: r for r in cpu_pass}
+    assert all(port[REFERENCE_NAMES[name]].checked for name in ref_checked)
+
+
+def test_every_letter_binds_a_distinct_prime(cpu_pass):
+    primes = {3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41}
+    for r in (r for r in cpu_pass if r.checked):
+        bound = {k: v for k, v in r.sizes.items() if k != "W"}  # W: the packed layout's own width
+        assert bound and set(bound.values()) <= primes and len(set(bound.values())) == len(bound), (r.name, r.sizes)
+
+
+@pytest.mark.parametrize("ref_site,port_site", SITES, ids=[f"{r[0]}.{r[1]}" for r, _ in SITES])
+def test_sites_skip_the_pass_as_the_reference(ref_site, port_site):
+    """A contract the reference's pass skips (``eval_shape=False``, a host
+    function) is skipped by the port's; the others are checked, but
+    ``allowed``, whose reference counterpart is the numpy ``allowed_host``:
+    the port's is the card's dispatcher, run like the other wrappers."""
+    ref = _contract_of("karpenter_core_tpu", *ref_site)
+    port = _contract_of("karpenter_core_tpu_torch", *port_site)
+    want = True if port_site == ("kernels", "allowed") else ref["eval_shape"]
+    assert port["eval_shape"] is want
+
+
+@pytest.mark.parametrize("out", ["T S", "S S", "S"])
+def test_a_wrong_output_spec_fails_at_prime_sizes(out):
+    """``offering_reference`` declared with its output letters swapped (or
+    one repeated, or a rank short) fails the pass: at distinct primes no
+    (S, T) output reads as (T, S)."""
+    from karpenter_core_tpu_torch.analysis.shape_contracts import verify_contracts
+    from karpenter_core_tpu_torch.solver import kernels
+
+    entry = dict(_contract_of("karpenter_core_tpu_torch", "kernels", "offering_reference"), out=out)
+    (res,) = verify_contracts(device="cpu", entries=[entry])
+    assert res.checked and not res.ok and "ContractError" in res.detail, res.detail
+    (good,) = verify_contracts(device="cpu", entries=[_contract_of("karpenter_core_tpu_torch", "kernels",
+                                                                    "offering_reference")])
+    assert good.ok and kernels.offering_reference.__shape_contract__["out"] == "S T"
+
+
+def test_the_pass_raises_for_a_card_that_is_not_there(monkeypatch):
+    from karpenter_core_tpu_torch.analysis.shape_contracts import verify_contracts
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        verify_contracts(device="cuda")
