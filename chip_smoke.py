@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``karpenter_core_tpu_torch``) on one
 NVIDIA card and check it.
 
-Phases 1-3 in order, then 4-22 in four lanes side by side (``LANES``);
+Phases 1-3 in order, then 4-23 in four lanes side by side (``LANES``);
 any failure exits non-zero:
 
 1. Device: require CUDA; print the card's name and power limit.
@@ -393,9 +393,36 @@ any failure exits non-zero:
    plain version on the CPU, the reference's six checked contracts
    covered; each contract's sizes, verdict and launches.
 
+23. The mesh across cards (``run_cards_phase``; ``solver/sharding.py``'s
+   mesh as D shards over placements, one launch a placement, the
+   collectives copies to the first). 23a, on the one card: bench config
+   12's 125,000 × 10,000 cell with its D = 4 shards as four placements of
+   the card, warm once then three measured runs, then ``allowed_sharded``
+   over 21c's 10,003-type catalog and the folded
+   ``sharded_prefix_screen``, the launches counted from 0 just before
+   (B5 four a mega-solve, B1 four, B8 four); ids, node count, allowed
+   matrix and screen bit-equal to phase 21's one placement holding the four
+   shards; each placement's B5 (at 4,096 pods), B1 and B8 launch against
+   its plain version on the card, and B1's library yardstick at the
+   padded shape. 23b, only under ``--phases 23 --cards N``
+   (``run_cards_across``, N cards of one host): bench config 12 at full
+   width across the cards (``CARDS_CELLS``: 500,000 × 10,000 at D = 2 on
+   2 cards, D = 4 and 8 on 4, 1,000,000 at D = 4 and 8 on 4), each warm
+   once then three measured runs, nodes and frontier rows against the
+   reference's record where it has one and node ids against the one-card
+   mesh of the same D, each card's B5 ms and the boundary's; the
+   dryrun's sequence over N cards held to the JAX package's numbers on N
+   devices (``DRYRUN_REFERENCE``) and to one card's; an 8-shard
+   ``TorchScheduler`` solve across the cards equal to the CPU's; solves
+   on ``cuda:1`` alone while ``cuda:0`` is current (the cluster with the
+   scans, config 5 under lp, config 4's consolidation) equal to
+   ``cuda:0``'s, with every kernel's captured call held to its plain
+   version there; each card's B1, B5 and B8 launch held to its plain
+   version, and the gather's ms and bytes.
+
 The lanes start once phase 3 is done, so that its timings have the card
 and the host to themselves: phases 4-11 in this process, and 12, 13, 20,
-22, 17; 15, 16; 18, 14, 19, 21 each in a process of its own
+22, 17; 15, 16, 23; 18, 14, 19, 21 each in a process of its own
 (``--lane``), whose output this process relays once it ends; a lane that
 fails fails the run. Each lane's torch takes its share of the host's
 cores. The host's pace comes before phase 3: a fixed host-only probe
@@ -410,15 +437,16 @@ and each lane's seconds.
 
 Then a ``{"kernels": [...]}`` line (the compat kernel's cases at the
 shapes of phases 8–11 too, the three pack kernels and the disruption
-screens; launches by path, phase 13's to 19's and 22's legs included),
+screens; launches by path, phase 13's to 19's, 22's and 23's legs included),
 and the last line ``{"ok": true, "device": {...}}``.
 The profiled warm solves of phases 4–11 report device times only from
 traces that hold every kernel launch of the solve (``profile_solve``).
 
 Run from the repository root: ``python3 chip_smoke.py`` (``--log PATH``
 appends every JSON line to PATH as well). ``--phases 16,17`` builds the
-kernels as step 2 does, then runs only the named phases (of 14–22) in
-this process, at full depth, and prints no result line.
+kernels as step 2 does, then runs only the named phases (of 14–23) in
+this process, at full depth, and prints no result line; ``--phases 23
+--cards N`` runs phase 23's 23b across N cards instead of 23a.
 """
 
 from __future__ import annotations
@@ -511,7 +539,7 @@ def emit(obj: dict) -> None:
 
 # -- the host's pace and the lanes ------------------------------------------------
 #
-# Phases 4-22 run in ``LANES`` once phase 3 is done: the first lane in this
+# Phases 4-23 run in ``LANES`` once phase 3 is done: the first lane in this
 # process, each other in a process of its own (``--lane``), all on the one
 # card, so that phase 3's timings have the card and the host to themselves
 # and the script's length is its longest lane's. A probe times a fixed
@@ -527,8 +555,9 @@ PACE_PROBE_RUNS = 5
 # H100 80GB HBM3, 700.00 W (chip_smoke.py's "pace" line, PERF.md §5): pace 1.0
 PACE_PROBE_FAST_S = 0.6118
 # phase 20 reads its own process's device plane after 12 and 13 moved
-# bytes at every boundary; 16, the longest phase, has a lane with 15 alone
-LANES = ((4, 5, 6, 7, 8, 9, 10, 11), (12, 13, 20, 22, 17), (15, 16), (18, 14, 19, 21))
+# bytes at every boundary; 16, the longest phase, has a lane with 15; 23
+# follows 21, in the lane that ended first (PERF.md §5)
+LANES = ((4, 5, 6, 7, 8, 9, 10, 11), (12, 13, 20, 22, 17), (15, 16), (18, 14, 19, 21, 23))
 DEPTH_FULL = {"warm": 3, "profile_attempts": 3, "reps": 1.0, "config7_ticks": 20, "config7_native_off_ticks": 10,
               "config14_seeds": 3}
 # config 7 keeps a mutating tick (every CONFIG7_MUTATE_EVERY = 10th) and its
@@ -541,10 +570,12 @@ DEPTH_PLAN: dict = {}  # the plan this run chose: its depth, pace and predicted 
 # each phase's seconds at full depth, the lanes running, over the pace (so
 # at pace 1.0), and a lane process's start before its first phase: the
 # "pace_summary" line of a whole run on an NVIDIA H100 80GB HBM3, 700.00 W
-# machine at pace 0.765, phase 22 (with 22c) of one at pace 1.300 (PERF.md §5)
+# machine at pace 0.765, phase 22 (with 22c) of one at pace 1.300, phase 23
+# (23a) of one at pace 0.985 (PERF.md §5)
 PHASE_FULL_S = {
     1: 0.7, 2: 13.1, 3: 77.1, 4: 1.8, 5: 30.2, 6: 15.0, 7: 30.8, 8: 11.5, 9: 115.6, 10: 42.4, 11: 99.6, 12: 176.7,
     13: 52.3, 14: 70.4, 15: 103.5, 16: 272.8, 17: 33.2, 18: 88.2, 19: 82.7, 20: 27.3, 21: 75.9, 22: 36.7,
+    23: 36.5,
 }
 LANE_START_S = 12.3
 
@@ -673,6 +704,25 @@ def slice_planes(pools, provider, pods, kube=None):
     )
 
 
+def library_half(keys, sig, tm, th, tn, avail, zone_ok, ct_ok, dev) -> dict:
+    """``library_allowed``'s inputs on ``dev``: the masks as fp16, the
+    flags as bool, the zone x capacity-type pairs against the offerings."""
+    import torch
+
+    S, T = sig["valid"].shape[0], avail.shape[0]
+    half = {"valid": torch.from_numpy(sig["valid"]).to(dev)}
+    for key in keys:
+        half[f"mask:{key}"] = torch.from_numpy(sig[f"mask:{key}"]).to(dev).half()
+        half[f"type:{key}"] = torch.from_numpy(tm[key]).to(dev).half()
+        half[f"has:{key}"] = torch.from_numpy(sig[f"has:{key}"]).to(dev)
+        half[f"neg:{key}"] = torch.from_numpy(sig[f"neg:{key}"]).to(dev)
+        half[f"thas:{key}"] = torch.from_numpy(th[key]).to(dev)
+        half[f"tneg:{key}"] = torch.from_numpy(tn[key]).to(dev)
+    half["pair"] = torch.from_numpy((zone_ok[:, :, None] & ct_ok[:, None, :]).reshape(S, -1)).to(dev).half()
+    half["avail"] = torch.from_numpy(avail.reshape(T, -1)).to(dev).half()
+    return half
+
+
 def library_allowed(half, keys, offering: bool = True):
     """The same function as per-key fp16 torch.matmul calls (exact: 0/1
     products summed in fp32, tested > 0); without the offering leg it is
@@ -795,16 +845,7 @@ def kernel_case(
         out = torch.full((S, T), 7, dtype=torch.uint8, device=dev)
         ck.COMPAT_ALLOWED.launch(side, catalog, out, tile=tile)
         forced[tile] = out
-    half = {"valid": torch.from_numpy(sig["valid"]).to(dev), "avail": None}
-    for key in keys:
-        half[f"mask:{key}"] = torch.from_numpy(sig[f"mask:{key}"]).to(dev).half()
-        half[f"type:{key}"] = torch.from_numpy(tm[key]).to(dev).half()
-        half[f"has:{key}"] = torch.from_numpy(sig[f"has:{key}"]).to(dev)
-        half[f"neg:{key}"] = torch.from_numpy(sig[f"neg:{key}"]).to(dev)
-        half[f"thas:{key}"] = torch.from_numpy(th[key]).to(dev)
-        half[f"tneg:{key}"] = torch.from_numpy(tn[key]).to(dev)
-    half["pair"] = torch.from_numpy((zone_ok[:, :, None] & ct_ok[:, None, :]).reshape(S, -1)).to(dev).half()
-    half["avail"] = torch.from_numpy(avail.reshape(T, -1)).to(dev).half()
+    half = library_half(keys, sig, tm, th, tn, avail, zone_ok, ct_ok, dev)
     library = library_allowed(half, keys)
 
     err = 0
@@ -5868,8 +5909,8 @@ class launch_roles:
         for name, kernel in self.kernels.items():
             real = kernel.launch
 
-            def spy(*args, _real=real, _name=name):
-                _real(*args)
+            def spy(*args, _real=real, _name=name, **kw):
+                _real(*args, **kw)
                 role = "prewarm" if threading.current_thread().name == "serve-prewarm" else "tick"
                 with lock:
                     self.counts[_name][role] += 1
@@ -8161,6 +8202,16 @@ CONFIG12_REFERENCE = {
 }
 
 
+# __graft_entry__.dryrun_multichip's sequence on the JAX package's D host
+# devices (its RandomState(0) draws at D = 4 and 8): the group pack's fleet
+# total, the overlap product's sum, the prefix screen's feasible rows and the
+# sha256 of the pack's node ids as int32 (first 16 hex digits)
+DRYRUN_REFERENCE = {
+    4: {"fleet_total": 80, "overlap_sum": 33304, "feasible": 16, "ids_sha256": "061185256de59d3e"},
+    8: {"fleet_total": 158, "overlap_sum": 33638, "feasible": 40, "ids_sha256": "b1fbd1bff9c16f5f"},
+}
+
+
 def shard_catalog(n_types: int, n_res: int, seed: int):
     """shardbench.build_catalog: ``n_types`` types from 40 proportionally
     scaled families, size-correlated prices with ±20 % jitter."""
@@ -8193,10 +8244,45 @@ def shard_world(pods: int, types: int, seed: int = SHARD_SEED) -> tuple:
     return shard_pods(pods, 4, seed + 1), alloc, prices, sig, typ
 
 
+SHARD_CATALOG_TYPES = 10_003  # 21c's and 23's B1 catalog: a type count no shard count divides
+
+
+def shard_catalog_inputs(T: int, S: int, seed: int = 22) -> tuple:
+    """B1's inputs for the sharded catalog: three requirement keys of 30,
+    12 and 5 values, 3 zones x 2 capacity types → (type masks, has, neg,
+    offerings, signature arrays, zone_ok, ct_ok, keys)."""
+    rng = np.random.RandomState(seed)
+    keys = ("a", "b", "c")
+    widths = {"a": 30, "b": 12, "c": 5}
+    tm = {k: rng.rand(T, w) < 0.3 for k, w in widths.items()}
+    th = {k: rng.rand(T) < 0.8 for k in keys}
+    tn = {k: rng.rand(T) < 0.1 for k in keys}
+    avail = rng.rand(T, 3, 2) < 0.6
+    sig_arrays = {"valid": rng.rand(S) < 0.9}
+    for k, w in widths.items():
+        sig_arrays[f"mask:{k}"] = rng.rand(S, w) < 0.4
+        sig_arrays[f"has:{k}"] = rng.rand(S) < 0.7
+        sig_arrays[f"neg:{k}"] = rng.rand(S) < 0.1
+    zone_ok, ct_ok = rng.rand(S, 3) < 0.7, rng.rand(S, 2) < 0.8
+    return tm, th, tn, avail, sig_arrays, zone_ok, ct_ok, keys
+
+
+def pad_types(Tp: int, tm: dict, th: dict, tn: dict, avail) -> tuple:
+    """The catalog's type axis padded with zero rows to ``Tp``, as
+    ``prepare_sharded_catalog`` pads it."""
+    def pad(a):
+        return np.concatenate([a, np.zeros((Tp - a.shape[0],) + a.shape[1:], dtype=a.dtype)])
+
+    return ({k: pad(v) for k, v in tm.items()}, {k: pad(v) for k, v in th.items()},
+            {k: pad(v) for k, v in tn.items()}, pad(avail))
+
+
 class b5_events:
     """CUDA events around every launch of B5's wrapper
-    (``pack.ffd_pack_batched``, as ``sharding`` calls it) inside the block
-    → ``ms()``, one time a launch (none off the card)."""
+    (``pack.ffd_pack_batched``, as ``sharding`` calls it) inside the block,
+    on the current stream of the card its tensors lie on (the current
+    device left as it is) → ``ms()``, one time a launch, and
+    ``by_card()`` (none off the card)."""
 
     def __enter__(self):
         import torch
@@ -8206,13 +8292,14 @@ class b5_events:
         self.pack, self.real, self.pairs = pack, pack.ffd_pack_batched, []
 
         def spy(*args, **kw):
-            if args[0].device.type != "cuda":
+            dev = args[0].device
+            if dev.type != "cuda":
                 return self.real(*args, **kw)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
+            start.record(torch.cuda.current_stream(dev))
             out = self.real(*args, **kw)
-            end.record()
-            self.pairs.append((start, end))
+            end.record(torch.cuda.current_stream(dev))
+            self.pairs.append((str(dev), start, end))
             return out
 
         pack.ffd_pack_batched = spy
@@ -8223,9 +8310,15 @@ class b5_events:
 
     def ms(self) -> list:
         out = []
-        for start, end in self.pairs:
+        for _, start, end in self.pairs:
             end.synchronize()
             out.append(start.elapsed_time(end))
+        return out
+
+    def by_card(self) -> dict:
+        out: dict = {}
+        for (card, _, _), ms in zip(self.pairs, self.ms()):
+            out.setdefault(card, []).append(ms)
         return out
 
 
@@ -8243,32 +8336,37 @@ def launch_delta(before: dict) -> dict:
     return {k: v - before[k] for k, v in shard_launches().items()}
 
 
-def check_mega(label: str, out: dict, reqs: np.ndarray, alloc: np.ndarray) -> None:
+def check_mega(label: str, out: dict, reqs: np.ndarray, alloc: np.ndarray, phase: str = "21") -> None:
     """Every pod scheduled, every node's usage within its chosen type."""
     from karpenter_core_tpu_torch.solver import pack
 
     if out.get("error") or out["scheduled"] != len(reqs):
-        fail(f"phase 21 {label}: {out.get('error')}, {out['scheduled']} of {len(reqs)} pods scheduled")
+        fail(f"phase {phase} {label}: {out.get('error')}, {out['scheduled']} of {len(reqs)} pods scheduled")
     usage = pack.node_usage_from_assignment(np.ascontiguousarray(reqs[out["node_order"]]), out["node_ids"],
                                             out["nodes"])
     if len(out["chosen_types"]) != out["nodes"] or not np.all(usage <= alloc[out["chosen_types"]]):
-        fail(f"phase 21 {label}: a node's usage exceeds its chosen type")
+        fail(f"phase {phase} {label}: a node's usage exceeds its chosen type")
 
 
 def shard_cell(device: str, pods: int, types: int, D: int, reps: int, warm: bool = True,
-               hold: bool = False) -> tuple:
+               hold: bool = False, devices=None, phase: str = "21", hold_at: int = 0) -> tuple:
     """One config-12 cell: a warm run (unless ``warm`` is False), then ``reps`` measured ones, each
     in a device-time scope and a device-plane accumulator of its own (a
-    mega-solve runs outside any solve), B5 timed by events around its
-    launch. With ``hold``, the first run's B5 arguments and node ids are
-    kept for 21c. → (the row: the median run's wall and stages, nodes,
-    pods/s, the shard stats, B5 ms, the shard boundary's device ms and
-    bytes; the last result and its inputs; the held launch or None)."""
+    mega-solve runs outside any solve), B5 timed by events around each
+    launch. The mesh is D shards on ``device``, or over ``devices`` (its
+    placements: one B5 launch each). With ``hold``, the first run's B5
+    arguments (placement ``hold_at``'s launch) and node ids are kept for
+    21c and 23. → (the row: the median run's
+    wall and stages, nodes, pods/s, the shard stats, B5 ms (the longest
+    launch's) and each card's, the shard boundary's device ms (its
+    longest card's), each card's and its bytes; the last result and its
+    inputs; the held launch or None)."""
     from karpenter_core_tpu_torch.solver import devicetime, pack, sharding
     from karpenter_core_tpu_torch.tracing import deviceplane
 
     reqs, alloc, prices, sig, typ = shard_world(pods, types)
-    mesh = sharding.make_mesh(D, device=device)
+    mesh = sharding.make_mesh(D, device=device) if devices is None else sharding.make_mesh(D, devices=devices)
+    launches = len(mesh.placements)
     held = None
 
     def solve():
@@ -8277,40 +8375,44 @@ def shard_cell(device: str, pods: int, types: int, D: int, reps: int, warm: bool
             return sharding.sharded_mega_solve(mesh, reqs, alloc, prices, sig, typ)
         with capture(pack, "ffd_pack_batched") as seen:
             out = sharding.sharded_mega_solve(mesh, reqs, alloc, prices, sig, typ)
-        held = (seen.calls[0], out["node_ids"], out["nodes"])
+        held = (seen.calls[hold_at], out["node_ids"], out["nodes"])
         return out
 
     if warm:
         solve()
     runs = []
-    label = f"{pods}x{types} D={D}"
+    label = f"{pods}x{types} D={D}" + (f" over {len(mesh.cards)} cards" if len(mesh.cards) > 1 else "")
     for _ in range(reps):
         deviceplane.reset_solve()
         with b5_events() as ev, devicetime.scope(device) as clock:
             out = solve()
         plane = deviceplane.consume_solve()
         moved = plane["transfer_by_phase"].get("shard", {}) if plane else {}
-        runs.append((out, ev.ms(), clock.phase_ms().get("shard", 0.0), moved))
-        check_mega(label, out, reqs, alloc)
+        runs.append((out, ev.ms(), clock.phase_ms().get("shard", 0.0), moved, ev.by_card(), clock.card_ms()))
+        check_mega(label, out, reqs, alloc, phase)
         if not moved.get("h2d") or not moved.get("d2h"):
-            fail(f"phase 21 {label}: the shard boundary moved no bytes ({moved})")
-        if device == "cuda" and (len(runs[-1][1]) != 1 or runs[-1][2] <= 0.0):
-            fail(f"phase 21 {label}: B5 launched {len(runs[-1][1])} times, shard device ms {runs[-1][2]}")
-    out, b5_ms, shard_ms, moved = sorted(runs, key=lambda r: r[0]["wall_ms"])[len(runs) // 2]
+            fail(f"phase {phase} {label}: the shard boundary moved no bytes ({moved})")
+        if device == "cuda" and (len(runs[-1][1]) != launches or runs[-1][2] <= 0.0):
+            fail(f"phase {phase} {label}: B5 launched {len(runs[-1][1])} times for {launches} placements, "
+                 f"shard device ms {runs[-1][2]}")
+    out, b5_ms, shard_ms, moved, b5_cards, shard_cards = sorted(runs, key=lambda r: r[0]["wall_ms"])[len(runs) // 2]
     want = CONFIG12_REFERENCE.get((pods, types, D))
     if want is not None and (out["nodes"], out["frontier_rows"]) != want:
-        fail(f"phase 21 {label}: {out['nodes']} nodes, {out['frontier_rows']} frontier rows; the reference's plan "
-             f"has {want}")
+        fail(f"phase {phase} {label}: {out['nodes']} nodes, {out['frontier_rows']} frontier rows; the reference's "
+             f"plan has {want}")
     row = {
         "pods": pods, "types": types, "n_devices": D, "reps": reps, "warm": warm, "wall_ms": out["wall_ms"],
         **{k: out[k] for k in ("compat_ms", "prep_ms", "pack_ms", "assign_ms", "nodes", "scheduled",
                                "frontier_rows", "viable_types", "total_price", "shard")},
         "pods_per_s": round(pods / (out["wall_ms"] / 1000.0), 1) if out["wall_ms"] else 0.0,
-        "b5_ms": b5_ms[0] if b5_ms else None, "b5_ms_runs": [r[1][0] if r[1] else None for r in runs],
+        "b5_ms": max(b5_ms) if b5_ms else None, "b5_ms_runs": [max(r[1]) if r[1] else None for r in runs],
         "shard_device_ms": shard_ms if device == "cuda" else None, "shard_bytes": moved,
         "wall_ms_runs": [r[0]["wall_ms"] for r in runs],
     }
-    return row, (reqs, alloc, sig, typ, runs[-1][0]), held
+    if len(mesh.placements) > 1:
+        row.update(placements=[str(d) for d in mesh.placements], b5_ms_by_card=b5_cards,
+                   shard_device_ms_by_card=shard_cards or None, reference_record=want is not None)
+    return row, (reqs, alloc, prices, sig, typ, runs[-1][0]), held
 
 
 def shard_unchunked_ratio(device: str, pods: int, types: int, seeds: int, D: int) -> dict:
@@ -8393,13 +8495,15 @@ def shard_solve_world(n_pods: int, n_types: int, seed: int = SHARD_SEED):
 
 
 @contextlib.contextmanager
-def shard_mesh(D: int, device: str, engine: str, min_pods: int):
-    """The sharding seam for a block: a D-shard mesh on ``device``
-    installed, the chunk engine and threshold set, all restored after."""
+def shard_mesh(D: int, device: str, engine: str, min_pods: int, devices=None):
+    """The sharding seam for a block: a D-shard mesh on ``device`` (or over
+    the placements ``devices``) installed, the chunk engine and threshold
+    set, all restored after."""
     from karpenter_core_tpu_torch.solver import sharding
 
     saved = (sharding.SHARD_ENGINE, sharding.SHARD_MIN_PODS)
-    prev = sharding.install_mesh(sharding.make_mesh(D, device=device))
+    mesh = sharding.make_mesh(D, device=device) if devices is None else sharding.make_mesh(D, devices=devices)
+    prev = sharding.install_mesh(mesh)
     sharding.SHARD_ENGINE, sharding.SHARD_MIN_PODS = engine, min_pods
     try:
         yield
@@ -8408,11 +8512,13 @@ def shard_mesh(D: int, device: str, engine: str, min_pods: int):
         sharding.SHARD_ENGINE, sharding.SHARD_MIN_PODS = saved
 
 
-def shard_solve(device: str, n_pods: int, n_types: int, min_pods: int) -> dict:
+def shard_solve(device: str, n_pods: int, n_types: int, min_pods: int, devices=None) -> dict:
     """21b: ``TorchScheduler.solve`` on an 8-shard mesh with the chunk
     threshold at ``min_pods`` (C++ packer off, cold pipeline) reaches the
     mega branch; its plan equals the CPU's on an 8-shard CPU mesh, and
-    ``last_shard_stats`` and the padding gauge are set."""
+    ``last_shard_stats`` and the padding gauge are set. ``devices``: the
+    card leg's mesh spans these placements (23b), the solver on the
+    first."""
     from karpenter_core_tpu_torch.metrics import Metrics
     from karpenter_core_tpu_torch.solver import TorchScheduler, sharding
 
@@ -8422,8 +8528,9 @@ def shard_solve(device: str, n_pods: int, n_types: int, min_pods: int) -> dict:
         for dev, engine in legs:
             pools, provider, pods = shard_solve_world(n_pods, n_types)
             metrics = Metrics()
-            with shard_mesh(8, dev, engine, min_pods), timed(sharding, "sharded_pod_pack") as mega:
-                solver = TorchScheduler(pools, provider, device=dev, metrics=metrics)
+            over = devices if dev == device else None
+            with shard_mesh(8, dev, engine, min_pods, over), timed(sharding, "sharded_pod_pack") as mega:
+                solver = TorchScheduler(pools, provider, device=over[0] if over else dev, metrics=metrics)
                 t0 = time.perf_counter()
                 res = solver.solve(pods)
                 ms = (time.perf_counter() - t0) * 1000.0
@@ -8444,15 +8551,17 @@ def shard_solve(device: str, n_pods: int, n_types: int, min_pods: int) -> dict:
     return {"pods": n_pods, "types": n_types, "min_pods": min_pods, "legs": rows, "plans_equal": sorted(streams)}
 
 
-def shard_dryrun(device: str, D: int = 8) -> dict:
+def shard_dryrun(device: str, D: int = 8, devices=None) -> dict:
     """21d: ``__graft_entry__.dryrun_multichip``'s sequence on a D-shard
-    mesh of one card: the group-sharded pack and its fleet total, the
-    type-sharded overlap product, the sharded prefix screen."""
+    mesh of one card, or over ``devices`` (23b): the group-sharded pack
+    and its fleet total, the type-sharded overlap product, the sharded
+    prefix screen; where ``DRYRUN_REFERENCE`` has D, each held to the
+    JAX package's numbers on D host devices."""
     import torch
 
     from karpenter_core_tpu_torch.solver import sharding
 
-    mesh = sharding.make_mesh(D, device=device)
+    mesh = sharding.make_mesh(D, device=device) if devices is None else sharding.make_mesh(D, devices=devices)
     rng = np.random.RandomState(0)
     G, P, R, F = 2 * D, 64, 4, 4
     requests = rng.randint(1, 1000, size=(G, P, R)).astype(np.int32)
@@ -8476,8 +8585,13 @@ def shard_dryrun(device: str, D: int = 8) -> dict:
     feasible = sharding.sharded_prefix_screen(mesh, loads, free, fleet_local, cap)
     if tuple(feasible.shape) != (N,):
         fail(f"phase 21d: the prefix screen gave {tuple(feasible.shape)}")
-    return {"groups": G, "fleet_total": int(fleet_total), "overlap": [S, T], "screen_candidates": N,
-            "feasible": int(feasible.sum())}
+    got = {"fleet_total": int(fleet_total), "overlap_sum": int(overlap.sum()), "feasible": int(feasible.sum()),
+           "ids_sha256": hashlib.sha256(ids.cpu().numpy().astype(np.int32).tobytes()).hexdigest()[:16]}
+    want = DRYRUN_REFERENCE.get(D)
+    if want is not None and got != want:
+        fail(f"phase 21d on {[str(d) for d in mesh.placements]}: {got}, the JAX package on {D} devices gives {want}")
+    return {"groups": G, "overlap": [S, T], "screen_candidates": N, "n_devices": D,
+            "placements": [str(d) for d in mesh.placements], "reference_held": want is not None, **got}
 
 
 def shard_screen_inputs(D: int, per: int, R: int, seed: int = 21):
@@ -8542,25 +8656,15 @@ def shard_plain_cases(device: str, sm_mhz: float, held=None) -> dict:
     cases["sharded_batch_pack"].append({"n_devices": 8, **ffd_kernel_case((req, front, caps, k_open, n))})
 
     # B1 over the padded catalog
-    rng = np.random.RandomState(22)
-    T, S, keys = 10_003, 8, ("a", "b", "c")
-    widths = {"a": 30, "b": 12, "c": 5}
-    tm = {k: rng.rand(T, w) < 0.3 for k, w in widths.items()}
-    th = {k: rng.rand(T) < 0.8 for k in keys}
-    tn = {k: rng.rand(T) < 0.1 for k in keys}
-    avail = rng.rand(T, 3, 2) < 0.6
-    sig_arrays = {"valid": rng.rand(S) < 0.9}
-    for k, w in widths.items():
-        sig_arrays[f"mask:{k}"] = rng.rand(S, w) < 0.4
-        sig_arrays[f"has:{k}"] = rng.rand(S) < 0.7
-        sig_arrays[f"neg:{k}"] = rng.rand(S) < 0.1
-    zone_ok, ct_ok = rng.rand(S, 3) < 0.7, rng.rand(S, 2) < 0.8
+    T, S = SHARD_CATALOG_TYPES, 8
+    tm, th, tn, avail, sig_arrays, zone_ok, ct_ok, keys = shard_catalog_inputs(T, S)
     out = {}
     for dev in (device, "cpu"):
         prepared = sharding.prepare_sharded_catalog(sharding.make_mesh(8, device=dev), tm, th, tn, avail)
         out[dev] = (prepared, sharding.allowed_sharded(prepared, sig_arrays, zone_ok, ct_ok, keys))
     sharding.reset_shard_stats()
-    (catalog, _), got = out[device]
+    (sharded, _), got = out[device]
+    catalog = sharded.catalogs[0]  # one placement: the whole padded catalog
     planes = ck.signature_side(sig_arrays, zone_ok, ct_ok, catalog, keys=keys)
     t0 = time.perf_counter()
     want = ck.allowed_packed_reference(planes, catalog.planes, catalog.layout)[:, :T]
@@ -8569,12 +8673,20 @@ def shard_plain_cases(device: str, sm_mhz: float, held=None) -> dict:
     if not (torch.equal(got, want) and np.array_equal(got.cpu().numpy(), out["cpu"][1].numpy())):
         fail("phase 21c: allowed_sharded differs from its plain version or the CPU's")
     Wd, Tp = catalog.planes.shape
+    library_ms = None
+    if device == "cuda":
+        # the same function at the padded shape (S x Tp) as B1's library
+        # yardstick: per-key fp16 torch.matmul calls
+        half = library_half(keys, sig_arrays, *pad_types(Tp, tm, th, tn, avail), zone_ok, ct_ok, catalog.device)
+        if not torch.equal(library_allowed(half, keys)[:, :T], want):
+            fail("phase 21c: the library yardstick differs from allowed_sharded")
+        library_ms = median_ms(lambda: library_allowed(half, keys), 20)
     cases["allowed_sharded"].append({
         "S": S, "T": T, "T_padded": Tp, "W": Wd, "max_abs_err": 0, "cpu_equal": True, "plain_ms": plain_ms,
         "kernel_ms": events_ms(lambda: ck.allowed_via_kernel(planes, catalog), 20) if device == "cuda" else None,
         "wrapper_ms": events_ms(lambda: sharding.allowed_sharded(out[device][0], sig_arrays, zone_ok, ct_ok, keys), 20)
         if device == "cuda" else None,
-        "library_ms": None, **bound_row(Wd * (S + Tp) * 4 + S * T, 2 * S * Tp * Wd),
+        "library_ms": library_ms, **bound_row(Wd * (S + Tp) * 4 + S * T, 2 * S * Tp * Wd),
     })
 
     # B8's prefix screen over 8 candidate shards
@@ -8679,7 +8791,7 @@ def run_shard_phase(device: str = "cuda", cells=SHARD_CELLS, keep=SHARD_KEEP, re
     elif any(n for counts in launches.values() for n in counts.values()):
         fail(f"phase 21 on the CPU launched a kernel: {launches}")
     t1 = time.perf_counter()
-    pods, D, (reqs, alloc, sig, typ, out) = big
+    pods, D, (reqs, alloc, _, sig, typ, out) = big
     identity = chunk_identity(device, reqs, alloc, sig, typ, out, D)
     sections["21b-identity"] = time.perf_counter() - t1
     cases = {}
@@ -8708,6 +8820,523 @@ def report_shard_phase(sh: dict, card: str) -> None:
     emit({"phase21": "config12", "cuts": sh["cuts"], "launches": sh["launches"], "sections_s": sh["sections_s"],
           "wall_s": sh["wall_s"], "anchor_wall_ms": anchor and anchor["wall_ms"],
           "unchunked_node_ratio_min": sh["unchunked"]["unchunked_node_ratio_min"], "card": card})
+
+
+# -- phase 23: the mesh across cards ------------------------------------------------
+
+# 23a, in the default run on its one card: a config-12 cell whose D shards are
+# D placements of that card (D launches), against phase 21's one placement
+# holding the D shards (one launch)
+CARDS_CELL = (125_000, 10_000, 4)
+CARDS_REPS = 3  # measured runs a cell, after one warm run
+CARDS_PLAIN_PODS = 4_096  # each placement's B5 launch against its plain version: P / D pods a launch
+CARDS_SCREEN = (1_000, 4)  # the prefix screen: candidates a shard, columns
+# 23b, ``--phases 23 --cards N``: bench config 12 at full width across the
+# cards, (pods, types, shards, cards); two shards a card at D = 8. The cells
+# at D = 4 and 2 on 500,000 pods and at D = 8 on 1,000,000 have the
+# reference's record; each is held to the one-card mesh of its D
+CARDS_CELLS = (
+    (500_000, 10_000, 2, 2), (500_000, 10_000, 4, 4), (500_000, 10_000, 8, 4),
+    (1_000_000, 10_000, 4, 4), (1_000_000, 10_000, 8, 4),
+)
+CARDS_SOLVE = (10_000, 400, 64)  # 23b's 8-shard TorchScheduler solve across the cards, as 21b's
+# 23b's solves on the second card alone: the cluster (pods, types, nodes), bench
+# config 5 under lp (pods, types), bench config 4's consolidation (nodes)
+CARDS_OTHER = {"cluster": (10_000, 2_000, 300), "config5": (2_000, 512), "config4": 1_000}
+# 23b's solves under the default mesh (``auto``, none installed) against the
+# one-card path: a serving-sized world (21b's pods over 96 types) and the
+# cluster; each mode with the solve pipeline's memo on (the default) and off
+# (every solve's compat launched), a cold solve then ``CARDS_AUTO_REPS``
+CARDS_AUTO = {"serving": (400, 96), "cluster": CARDS_OTHER["cluster"]}
+CARDS_AUTO_REPS = 3
+# 23a's seconds at full depth, its plain B5 at 31,250 pods among them:
+# kept out of phase 21's budget
+CARDS_RESERVE_S = 60.0
+
+
+def card_names(n: int) -> list:
+    return [f"cuda:{i}" for i in range(n)]
+
+
+def cards_delta(before: dict) -> dict:
+    """Every kernel's launches since ``disrupt_launches()`` gave ``before``."""
+    return {k: v - before[k] for k, v in disrupt_launches().items()}
+
+
+def hold_call(kind: str, call, dev) -> dict:
+    """One captured call of a kernel's wrapper replayed on ``dev`` with
+    the current device left as it is, against its plain version on
+    ``dev``, bit for bit → its shape and plain ms."""
+    import torch
+
+    from karpenter_core_tpu_torch.disruption import screen_kernels as sk
+    from karpenter_core_tpu_torch.solver import pack
+    from karpenter_core_tpu_torch.solver.backends import lp
+
+    args = tuple(a.to(dev) if hasattr(a, "to") else a for a in call)
+    t0 = time.perf_counter()
+    if kind == "ffd_pack":
+        req, front, caps, k_open, n = args
+        if n is None:
+            n = torch.full((req.shape[0],), req.shape[1], dtype=torch.int32, device=dev)
+        got = pack.ffd_pack_batched(req, front, caps, k_open, n)
+        t0 = time.perf_counter()
+        m = int(n.max())
+        ids, counts = pack.ffd_pack_reference(req[:, :m], front, caps, k_open)
+        want = (torch.nn.functional.pad(ids, (0, req.shape[1] - m), value=-1), counts)
+        G, P, R = req.shape
+        F, pods = front.shape[1], int(n.sum())
+        # as ffd_kernel_case counts it
+        shape = {"G": G, "P": P, "F": F, "R": R, "longest_job": m,
+                 **bound_row(pods * R * 4 + G * F * R * 4 + pods * 4 + G * 8, pods * (k_open + 1) * F * R)}
+    elif kind == "pack_existing":
+        got = pack.pack_existing(*args)
+        t0 = time.perf_counter()
+        want = pack.pack_existing_reference(*args)
+        shape = {"P": args[0].shape[0], "M": args[3].shape[0]}
+    elif kind == "dual_ascent":
+        got = lp.dual_ascent(*args)
+        t0 = time.perf_counter()
+        want = lp.dual_ascent_reference(*args)
+        shape = {"S": args[0].shape[0], "T": args[2].shape[0], "iters": args[6]}
+    else:
+        got = getattr(sk, f"screen_{kind}")(*args)
+        t0 = time.perf_counter()
+        want = getattr(sk, {"prefix": "prefix", "subsets": "subset", "singles": "single"}[kind]
+                       + "_screen_reference")(*args)
+        shape = {"N": args[-4].shape[0], "R": args[-4].shape[1]}
+        got, want = (got,), (want,)
+    plain_ms = (time.perf_counter() - t0) * 1000.0
+    if any(g.device != torch.device(dev) for g in got):
+        fail(f"phase 23: {kind} on {dev} left its result on {[str(g.device) for g in got]}")
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"phase 23: {kind} on {dev} differs from its plain version at {shape}")
+    return {"kernel": kind, "card": str(dev), **shape, "max_abs_err": 0, "plain_ms": plain_ms}
+
+
+def held_path_b5(held: tuple, dev) -> dict:
+    """The main path's own B5 launch (``shard_cell``'s held call: one
+    placement's of the cell's first run) against its plain version on
+    ``dev``, its card, bit for bit; on the card with the kernel's ms
+    (events on its stream)."""
+    import torch
+
+    from karpenter_core_tpu_torch.solver import pack
+
+    row = {**hold_call("ffd_pack", held[0], dev), "launch": "path"}
+    if torch.device(dev).type == "cuda":
+        args = [a.to(dev) for a in held[0][:3]] + [held[0][3], held[0][4].to(dev)]
+        with torch.cuda.device(dev):
+            row["kernel_ms"] = events_ms(lambda: pack.ffd_pack_batched(*args), 3)
+    return row
+
+
+def cards_held(mesh) -> dict:
+    """Each placement's B1, B5 and B8 launch against its plain version on
+    its card, bit for bit (these launches are not the path's): B5 through
+    ``sharded_mega_solve`` at ``CARDS_PLAIN_PODS`` pods of config 12's
+    world, B1 through ``allowed_sharded`` over 21c's catalog, B8 through
+    ``sharded_prefix_screen``; each card's kernel ms (events on its
+    stream), the one-placement mesh's gathered results equal to these,
+    the gather's ms and bytes where the mesh spans cards, and B1's
+    library yardstick at the padded shape."""
+    import torch
+
+    from karpenter_core_tpu_torch.disruption import screen_kernels as sk
+    from karpenter_core_tpu_torch.solver import compat_kernels as ck
+    from karpenter_core_tpu_torch.solver import pack, sharding
+
+    D = mesh.size
+    one = sharding.make_mesh(D, device=str(mesh.device))
+    rows = {"b5": [], "b1": [], "b8": []}
+    reqs, alloc, prices, sig, typ = shard_world(CARDS_PLAIN_PODS, 10_000)
+    with capture(pack, "ffd_pack_batched") as calls:
+        got = sharding.sharded_mega_solve(mesh, reqs, alloc, prices, sig, typ)
+    want = sharding.sharded_mega_solve(one, reqs, alloc, prices, sig, typ)
+    if not np.array_equal(got["node_ids"], want["node_ids"]) or len(calls.calls) != len(mesh.placements):
+        fail(f"phase 23 held: {len(calls.calls)} B5 launches over {len(mesh.placements)} placements, ids equal "
+             f"{np.array_equal(got['node_ids'], want['node_ids'])}")
+    for dev, call in zip(mesh.placements, calls.calls):
+        row = {**hold_call("ffd_pack", call, dev), "launch": "replay"}
+        args = [a.to(dev) for a in call[:3]] + [call[3], call[4].to(dev)]
+        with torch.cuda.device(dev):
+            row["kernel_ms"] = events_ms(lambda: pack.ffd_pack_batched(*args), 3)
+        rows["b5"].append(row)
+
+    T, S = SHARD_CATALOG_TYPES, 8
+    tm, th, tn, avail, sig_arrays, zone_ok, ct_ok, keys = shard_catalog_inputs(T, S)
+    prepared = sharding.prepare_sharded_catalog(mesh, tm, th, tn, avail)
+    allowed = sharding.allowed_sharded(prepared, sig_arrays, zone_ok, ct_ok, keys)
+    single = sharding.allowed_sharded(sharding.prepare_sharded_catalog(one, tm, th, tn, avail), sig_arrays,
+                                      zone_ok, ct_ok, keys)
+    sharding.reset_shard_stats()
+    if not torch.equal(allowed, single):
+        fail("phase 23 held: allowed_sharded over the placements differs from the one-placement mesh's")
+    for catalog in prepared[0].catalogs:
+        planes = ck.signature_side(sig_arrays, zone_ok, ct_ok, catalog, keys=keys)
+        block = ck.allowed_via_kernel(planes, catalog)
+        t0 = time.perf_counter()
+        plain = ck.allowed_packed_reference(planes, catalog.planes, catalog.layout)
+        torch.cuda.synchronize(catalog.device)
+        plain_ms = (time.perf_counter() - t0) * 1000.0
+        if not torch.equal(block, plain):
+            fail(f"phase 23 held: B1 on {catalog.device} differs from its plain version")
+        with torch.cuda.device(catalog.device):
+            kernel_ms = events_ms(lambda: ck.allowed_via_kernel(planes, catalog), 20)
+        Wd, Tb = catalog.planes.shape
+        rows["b1"].append({"kernel": "compat_allowed", "card": str(catalog.device), "S": S, "T": Tb, "W": Wd,
+                           "max_abs_err": 0, "plain_ms": plain_ms, "kernel_ms": kernel_ms,
+                           **bound_row(Wd * (S + Tb) * 4 + S * Tb, 2 * S * Tb * Wd)})
+    Tp = prepared[0].n_types
+    half = library_half(keys, sig_arrays, *pad_types(Tp, tm, th, tn, avail), zone_ok, ct_ok, mesh.device)
+    if not torch.equal(library_allowed(half, keys)[:, :T], allowed):
+        fail("phase 23 held: the library yardstick differs from allowed_sharded")
+    library = {"S": S, "T_padded": Tp, "library_ms": median_ms(lambda: library_allowed(half, keys), 20)}
+
+    per, R = CARDS_SCREEN
+    loads, free, fleet_local, capv = shard_screen_inputs(D, per, R)
+    with capture(sk, "screen_prefix") as screens:
+        feasible = sharding.sharded_prefix_screen(mesh, loads, free, fleet_local, capv)
+    whole = sk.prefix_screen_reference(*(torch.from_numpy(a).to(mesh.device) for a in (
+        loads, free, fleet_local.sum(axis=0).astype(np.int32), capv)))
+    if not (torch.equal(feasible, whole) and torch.equal(
+            feasible, sharding.sharded_prefix_screen(one, loads, free, fleet_local, capv))):
+        fail("phase 23 held: the folded prefix screen differs from the plain screen over all candidates")
+    for dev, call in zip(mesh.placements, screens.calls):
+        row = hold_call("prefix", call, dev)
+        args = [a.to(dev) for a in call]
+        with torch.cuda.device(dev):
+            row["kernel_ms"] = events_ms(lambda: sk.screen_prefix(*args), 20)
+        row["fleet_folded"] = call[2].tolist()
+        rows["b8"].append(row)
+
+    gather = None
+    if len(mesh.cards) > 1:
+        # the all-gather alone: every card's compat block ready, then
+        # events on the first card around the copies and the join
+        sig8, typ8 = shard_masks(8, 10_000, SHARD_SEED + 2)
+        parts = [torch.from_numpy(sig8).to(dev) @ torch.from_numpy(typ8[a:b]).to(dev).T
+                 for dev, a, b in sharding._blocks(mesh, 10_000)]
+        for dev in mesh.cards:
+            torch.cuda.synchronize(dev)
+        with torch.cuda.device(mesh.device):
+            gather_ms = events_ms(lambda: sharding._gather(mesh.device, parts, dim=1), 20)
+        crossed = sum(p.numel() * p.element_size() for p in parts if p.device != mesh.device)
+        gather = {"S": 8, "T": 10_000, "gather_ms": gather_ms, "peer_bytes": crossed}
+    return {"rows": rows, "library": library, "gather": gather, "screen_true_rows": int(feasible.sum())}
+
+
+def run_cards_phase(device: str = "cuda", cell=CARDS_CELL, reps: int = CARDS_REPS) -> dict:
+    """23a on ``device``'s one card: ``cell``'s D shards as D placements of
+    that card, the main path (one config-12 mega-solve warm, then ``reps``,
+    B1 through ``allowed_sharded``, B8 through ``sharded_prefix_screen``)
+    with the launches counted from 0 just before it; then phase 21's
+    one-placement mesh at the same D on the same inputs (ids, counts,
+    allowed matrix and prefix screen bit-equal), the path's own B5
+    launch (the first placement's, 31,250 pods) against its plain
+    version, and on the card each placement's launches against their
+    plain versions (``cards_held``)."""
+    import torch
+
+    from karpenter_core_tpu_torch.solver import sharding
+
+    t0 = time.perf_counter()
+    pods, types, D = cell
+    placements = [device] * D
+    mesh = sharding.make_mesh(D, devices=placements)
+    one = sharding.make_mesh(D, device=device)
+    T, S = SHARD_CATALOG_TYPES, 8
+    tm, th, tn, avail, sig_arrays, zone_ok, ct_ok, keys = shard_catalog_inputs(T, S)
+    per, R = CARDS_SCREEN
+    screen_in = shard_screen_inputs(D, per, R)
+
+    before = disrupt_launches()
+    row, (reqs, alloc, prices, sig, typ, out), path_b5 = shard_cell(device, pods, types, D, reps, hold=True,
+                                                                    devices=placements, phase="23a")
+    allowed = sharding.allowed_sharded(sharding.prepare_sharded_catalog(mesh, tm, th, tn, avail), sig_arrays,
+                                       zone_ok, ct_ok, keys)
+    feasible = sharding.sharded_prefix_screen(mesh, *screen_in)
+    launches = cards_delta(before)
+    sharding.reset_shard_stats()
+    if device != "cpu":
+        want = {"ffd_pack": D * (1 + reps), "compat_allowed": D, "disrupt_screen.prefix": D}
+        if any(launches[k] != n for k, n in want.items()):
+            fail(f"phase 23a: launches {launches}, the {D} placements give {want}")
+    elif any(launches.values()):
+        fail(f"phase 23a on the CPU launched a kernel: {launches}")
+
+    single = sharding.sharded_mega_solve(one, reqs, alloc, prices, sig, typ)
+    if not (np.array_equal(single["node_ids"], out["node_ids"]) and single["nodes"] == out["nodes"]
+            and single["frontier_rows"] == out["frontier_rows"]):
+        fail(f"phase 23a: {D} placements give {out['nodes']} nodes, the one-placement mesh {single['nodes']}, or "
+             "other node ids")
+    one_allowed = sharding.allowed_sharded(sharding.prepare_sharded_catalog(one, tm, th, tn, avail), sig_arrays,
+                                           zone_ok, ct_ok, keys)
+    one_feasible = sharding.sharded_prefix_screen(one, *screen_in)
+    sharding.reset_shard_stats()
+    if not (torch.equal(allowed, one_allowed) and torch.equal(feasible, one_feasible)):
+        fail("phase 23a: the allowed matrix or the prefix screen over the placements differs from the one-placement "
+             "mesh's")
+    held = cards_held(mesh) if device != "cpu" else {"rows": {"b5": []}}
+    held["rows"]["b5"].insert(0, held_path_b5(path_b5, mesh.placements[0]))
+    return {"cell": row, "launches": launches, "one_placement_equal": True, "allowed_true": int(allowed.sum()),
+            "screen_true_rows": int(feasible.sum()), "held": held, "wall_s": time.perf_counter() - t0}
+
+
+def other_card_solves(card: str, base: str = "cuda:0") -> dict:
+    """23b's step-0 check: solves on ``card`` alone while ``base`` is the
+    current device, no mesh, against the same solves on ``base``: the
+    cluster world with the native packer off (B1, B5, B6), bench config 5
+    under lp (B7) and bench config 4's consolidation (B8's prefix and
+    subset screens); plans and commands equal, every kernel launched on
+    ``card``, and each kernel's first captured call on ``card`` (B8's
+    single screen on seeded inputs) held to its plain version there."""
+    import torch
+
+    from karpenter_core_tpu_torch.disruption import screen_kernels as sk
+    from karpenter_core_tpu_torch.solver import TorchScheduler, backends, pack, sharding
+    from karpenter_core_tpu_torch.solver.backends import lp
+
+    if torch.cuda.current_device() != torch.device(base).index:
+        fail(f"phase 23b: {base} is not the current device")
+    out, calls = {}, {}
+    saved = sharding.SHARDED
+    sharding.SHARDED = "off"  # a plain solve on each card: no mesh
+    try:
+        with knobs(KARPENTER_TORCH_NATIVE=0, KARPENTER_TORCH_INCREMENTAL=0):
+            pools, provider, pods, nodes, daemons, _ = cluster_world(*CARDS_OTHER["cluster"])
+            kw = dict(state_nodes=nodes, daemonset_pods=daemons)
+            res = {}
+            for dev in (base, card):
+                before = disrupt_launches()
+                with capture(pack, "ffd_pack_batched", 64) as ffd, capture(pack, "pack_existing", 64) as ex:
+                    t0 = time.perf_counter()
+                    res[dev] = TorchScheduler(pools, provider, device=dev).solve(pods, **kw)
+                    ms = (time.perf_counter() - t0) * 1000.0
+                out[f"cluster@{dev}"] = {"solve_ms": ms, "launches": cards_delta(before),
+                                         "nodes": res[dev].node_count}
+                calls[dev] = {"ffd_pack": min(ffd.calls, key=lambda c: c[0].shape[1], default=None),
+                              "pack_existing": min(ex.calls, key=lambda c: c[0].shape[0], default=None)}
+            same_as_cpu(res[card], res[base], f"phase 23b: the cluster solve on {card} against {base}")
+            nodepool, provider5, pods5 = config5_world(*CARDS_OTHER["config5"])
+            sha = {}
+            with knobs(KARPENTER_TORCH_PACK_BACKEND="lp", KARPENTER_TORCH_LP_MIN_WORK=1):
+                for dev in (base, card):
+                    backends.reset_for_tests()
+                    before = disrupt_launches()
+                    with capture(lp, "dual_ascent", 1) as duals:
+                        r = TorchScheduler([nodepool], provider5, device=dev).solve(pods5)
+                    sha[dev] = (plan_sha256(r), round(r.total_price, 4))
+                    out[f"config5-lp@{dev}"] = {"launches": cards_delta(before), "nodes": r.node_count,
+                                                "total_price": round(r.total_price, 4)}
+                    calls[dev]["dual_ascent"] = duals.calls[0] if duals.calls else None
+            backends.reset_for_tests()
+            if sha[card] != sha[base]:
+                fail(f"phase 23b: config 5 under lp on {card} gives {sha[card]}, on {base} {sha[base]}")
+        keys = {}
+        for dev in (base, card):
+            with capture_screens() as scr:
+                c4 = run_config4(dev, CARDS_OTHER["config4"])
+            keys[dev] = c4["key"]
+            out[f"config4@{dev}"] = {"launches": c4["kernel_launches"], "disrupted": c4["disrupted"]}
+            calls[dev].update({kind: c[0] if c else None for kind, c in scr.calls().items()})
+        if keys[card] != keys[base]:
+            fail(f"phase 23b: config 4's consolidation on {card} differs from {base}'s")
+    finally:
+        sharding.SHARDED = saved
+    on_card = {k: sum(out[f"{p}@{card}"]["launches"].get(k, 0) for p in ("cluster", "config5-lp", "config4"))
+               for k in ("compat_allowed", "ffd_pack", "pack_existing", "dual_ascent", "disrupt_screen.prefix",
+                         "disrupt_screen.subsets")}
+    if not all(on_card.values()):
+        fail(f"phase 23b: the solves on {card} launched {on_card}")
+    rng = np.random.RandomState(23)
+    N, R = 37, 5
+    calls[card]["singles"] = (torch.from_numpy(rng.randint(1, 50, (N, R)).astype(np.int32)),
+                              torch.from_numpy(rng.randint(0, 40, (N, R)).astype(np.int32)),
+                              torch.from_numpy(rng.randint(0, 400, R).astype(np.int32)),
+                              torch.from_numpy(rng.randint(50, 200, R).astype(np.int32)))
+    held = [hold_call(kind, call, torch.device(card)) for kind, call in calls[card].items() if call is not None]
+    if {h["kernel"] for h in held} != {"ffd_pack", "pack_existing", "dual_ascent", "prefix", "subsets", "singles"}:
+        fail(f"phase 23b: held on {card} only {sorted(h['kernel'] for h in held)}")
+    return {"card": card, "base": base, "paths": out, "launches_on_card": on_card, "held": held,
+            "plans_equal": True}
+
+
+def auto_mesh_solves(n_cards: int, reps: int = CARDS_AUTO_REPS, sizes=CARDS_AUTO, device: str = "cuda:0") -> dict:
+    """23b: the default on a host of ``n_cards`` cards. With ``SHARDED``
+    at ``auto`` and no mesh installed, a ``TorchScheduler`` on ``device``
+    shards over every card (``active_mesh``); each world of ``sizes`` is
+    solved that way and on the one-card path (``SHARDED`` off), a fresh
+    solver a mode, memo on and off: a cold solve, then ``reps`` of the
+    same pods. Every plan equals the one-card path's, and with the memo
+    off the cold ``auto`` solve launches B1 on every card (its
+    ``card_ms``) → each leg's cold and median warm solve ms and launches."""
+    from karpenter_core_tpu_torch.solver import TorchScheduler, sharding
+
+    saved, prev = sharding.SHARDED, sharding.install_mesh(None)
+    out = {}
+    try:
+        for name, size in sizes.items():
+            for memo in ("on", "off"):
+                streams = {}
+                for mode in ("off", "auto"):
+                    sharding.SHARDED = mode
+                    with knobs(KARPENTER_TORCH_INCREMENTAL=None if memo == "on" else 0):
+                        if name == "serving":
+                            pools, provider, pods = shard_solve_world(*size)
+                            kw = {}
+                        else:
+                            pools, provider, pods, nodes, daemons, _ = cluster_world(*size)
+                            kw = dict(state_nodes=nodes, daemonset_pods=daemons)
+                        solver = TorchScheduler(pools, provider, device=device)
+                        mesh = solver._mesh()
+                        if (mesh is None) != (mode == "off") or (mesh is not None
+                                                                 and len(mesh.placements) != n_cards):
+                            fail(f"phase 23b auto {name}: SHARDED={mode} gives the mesh {mesh}")
+                        runs, res = [], []
+                        for i in range(1 + reps):
+                            before = disrupt_launches()
+                            t0 = time.perf_counter()
+                            res.append(solver.solve(pods, **kw))
+                            runs.append(((time.perf_counter() - t0) * 1000.0, cards_delta(before),
+                                         (solver.last_shard_stats or {}).get("card_ms")))
+                    streams[mode] = [(plan_stream(r), existing_stream(r), r.pod_errors) for r in res]
+                    warm = sorted(ms for ms, _, _ in runs[1:])
+                    cold_launches, card_ms = runs[0][1], runs[0][2]
+                    out[f"{name}-memo-{memo}@{mode}"] = {
+                        "pods": len(pods), "cold_ms": runs[0][0], "warm_ms": warm[len(warm) // 2],
+                        "warm_ms_runs": [ms for ms, _, _ in runs[1:]], "cold_launches": cold_launches,
+                        "warm_launches": [l for _, l, _ in runs[1:]], "cold_card_ms": card_ms,
+                        "nodes": res[0].node_count}
+                    if mode == "auto" and memo == "off" and device != "cpu" and (
+                            cold_launches["compat_allowed"] < n_cards or len(card_ms or {}) != n_cards):
+                        fail(f"phase 23b auto {name}: the cold solve launched {cold_launches} with card ms {card_ms}")
+                if streams["auto"] != streams["off"]:
+                    fail(f"phase 23b auto {name} (memo {memo}): the plans over {n_cards} cards differ from one card's")
+    finally:
+        sharding.SHARDED = saved
+        sharding.install_mesh(prev)
+    return {"cards": n_cards, "legs": out, "plans_equal": True}
+
+
+def run_cards_across(n_cards: int, cells=CARDS_CELLS, reps: int = CARDS_REPS, solve=CARDS_SOLVE,
+                     devices=None) -> dict:
+    """23b over ``n_cards`` cards of one host (``--phases 23 --cards N``):
+    bench config 12 at full width across them (each cell of ``cells``
+    whose cards are there: warm once, then ``reps``; nodes and frontier
+    rows against the reference's record where it has one; node ids equal
+    to the one-card mesh of the same D on ``cuda:0``), the dryrun's
+    sequence over the cards (against the JAX package's numbers on as
+    many devices), an 8-shard ``TorchScheduler`` solve across them
+    against the CPU's, the step-0 solves on ``cuda:1`` against ``cuda:0``,
+    the default ``auto`` mesh's solves against the one-card path
+    (``auto_mesh_solves``), and each card's B1, B5 and B8 launches
+    against their plain versions, the second card's own launch in the
+    first cell over every card among them.
+    Fails with fewer cards than ``n_cards``. ``devices``: ``n_cards``
+    placements to use instead of the cards (``["cpu"] * n``: a rehearsal
+    of the mesh's paths, without the step-0 and ``auto`` solves and the
+    held cases but the path's own B5 launch)."""
+    import torch
+
+    from karpenter_core_tpu_torch.solver import sharding
+
+    if devices is None:
+        visible = torch.cuda.device_count()
+        if n_cards < 2 or visible < n_cards:
+            fail(f"phase 23b: --cards {n_cards} needs that many cards, and {visible} are visible")
+    t0 = time.perf_counter()
+    cards = card_names(n_cards) if devices is None else list(devices)
+    device = "cpu" if cards[0] == "cpu" else "cuda"
+    sections, launches, curve, path_b5 = {}, {}, [], None
+    for pods, types, D, c in cells:
+        if c > n_cards:
+            continue
+        label = f"{pods}x{types} D={D} over {c} cards"
+        before = disrupt_launches()
+        # the first cell over every card holds the second card's own B5 launch
+        hold = path_b5 is None and c == n_cards
+        row, (reqs, alloc, prices, sig, typ, out), kept = shard_cell(device, pods, types, D, reps, hold=hold,
+                                                                     devices=cards[:c], phase="23b", hold_at=1)
+        path_b5 = kept or path_b5
+        launches[label] = cards_delta(before)
+        t1 = time.perf_counter()
+        single = sharding.sharded_mega_solve(sharding.make_mesh(D, device=cards[0]), reqs, alloc, prices, sig, typ)
+        if not (np.array_equal(single["node_ids"], out["node_ids"]) and single["nodes"] == out["nodes"]):
+            fail(f"phase 23b {label}: {out['nodes']} nodes, the one-card mesh {single['nodes']}, or other ids")
+        row.update(cards=c, one_card_equal=True, one_card_wall_ms=single["wall_ms"],
+                   one_card_pack_ms=single["pack_ms"], one_card_s=time.perf_counter() - t1)
+        curve.append(row)
+    sections["cells"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    before = disrupt_launches()
+    dry = shard_dryrun(device, n_cards, devices=cards)
+    one_dry = shard_dryrun(cards[0], n_cards)
+    if {k: dry[k] for k in ("fleet_total", "overlap_sum", "feasible", "ids_sha256")} != \
+            {k: one_dry[k] for k in ("fleet_total", "overlap_sum", "feasible", "ids_sha256")}:
+        fail(f"phase 23b: the dryrun over {n_cards} cards gives {dry}, on one card {one_dry}")
+    launches["dryrun"] = cards_delta(before)
+    sections["dryrun"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    before = disrupt_launches()
+    solved = shard_solve(device, *solve, devices=cards)
+    launches["solve"] = cards_delta(before)
+    sections["solve"] = time.perf_counter() - t1
+    other, auto, held = None, None, {"rows": {"b5": [], "b1": [], "b8": []}, "gather": None, "library": None}
+    if device == "cuda":
+        t1 = time.perf_counter()
+        other = other_card_solves(cards[1], cards[0])
+        sections["other_card"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        auto = auto_mesh_solves(n_cards)
+        sections["auto"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        held = cards_held(sharding.make_mesh(n_cards, devices=cards))
+        sections["held"] = time.perf_counter() - t1
+        for path, kernels in (("solve", ("ffd_pack", "compat_allowed")),
+                              ("dryrun", ("ffd_pack", "disrupt_screen.prefix"))):
+            if not all(launches[path][k] for k in kernels):
+                fail(f"phase 23b {path}: launches {launches[path]}")
+    elif any(n for counts in launches.values() for n in counts.values()):
+        fail(f"phase 23b on the CPU launched a kernel: {launches}")
+    if path_b5 is None:
+        fail(f"phase 23b: no cell over the {n_cards} cards ran to hold its own B5 launch")
+    t1 = time.perf_counter()
+    held["rows"]["b5"].insert(0, held_path_b5(path_b5, torch.device(cards[1])))
+    sections["held-path"] = time.perf_counter() - t1
+    return {"cards": n_cards, "curve": curve, "dryrun": dry, "solve": solved, "other_card": other, "auto": auto,
+            "held": held, "launches": launches, "sections_s": sections, "wall_s": time.perf_counter() - t0}
+
+
+def report_cards_phase(c: dict, card: str) -> None:
+    """Print phase 23's lines, each with the card and the card count."""
+    import torch
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if "cell" in c:
+        emit({"phase23a_cell": "{pods}x{types} D={n_devices}".format(**c["cell"]), **c["cell"], "card": card,
+              "cards_visible": n})
+        for name, rows in c["held"].get("rows", {}).items():
+            for r in rows:
+                emit({"phase23a_held": name, **r, "card": card})
+        emit({"phase23a": "placements", "launches": c["launches"], "one_placement_equal": c["one_placement_equal"],
+              "library": c["held"].get("library"), "wall_s": c["wall_s"], "card": card, "cards_visible": n})
+        return
+    for row in c["curve"]:
+        emit({"phase23b_cell": f"{row['pods']}x{row['types']} D={row['n_devices']} cards={row['cards']}", **row,
+              "card": card, "cards": c["cards"]})
+    emit({"phase23b": "dryrun", **c["dryrun"], "card": card, "cards": c["cards"]})
+    emit({"phase23b": "solve", **c["solve"], "card": card, "cards": c["cards"]})
+    if c["other_card"]:
+        emit({"phase23b": "other-card", **c["other_card"], "card": card, "cards": c["cards"]})
+    if c.get("auto"):
+        emit({"phase23b": "auto-mesh", **c["auto"], "card": card})
+    for name, rows in c["held"]["rows"].items():
+        for r in rows:
+            emit({"phase23b_held": name, **r, "card": card, "cards": c["cards"]})
+    emit({"phase23b": "config12-across-cards", "gather": c["held"]["gather"], "library": c["held"]["library"],
+          "launches": c["launches"], "sections_s": c["sections_s"], "wall_s": c["wall_s"], "card": card,
+          "cards": c["cards"]})
 
 
 # -- phase 22: the static-analysis plane --------------------------------------------
@@ -8985,7 +9614,7 @@ PACK_NAMES = ("ffd_pack", "pack_existing", "dual_ascent")
 # the seconds a phase keeps for itself: a phase before it in its lane keeps
 # them out of its own budget
 PHASE_RESERVE_S = {17: CHAOS_RESERVE_S, 18: OPERATOR_RESERVE_S, 19: FLEET_RESERVE_S, 20: DEVICEPLANE_RESERVE_S,
-                   21: SHARD_RESERVE_S, 22: ANALYSIS_RESERVE_S}
+                   21: SHARD_RESERVE_S, 22: ANALYSIS_RESERVE_S, 23: CARDS_RESERVE_S}
 
 
 def lane_elapsed_s(ctx: dict) -> float:
@@ -9214,9 +9843,29 @@ def phase_22(ctx: dict) -> dict:
                 "disrupt_screen.prefix", "disrupt_screen.subsets", "disrupt_screen.singles")}}}
 
 
+def phase_23(ctx: dict) -> dict:
+    """23. The mesh across cards: in the default run 23a on the one card
+    (a config-12 cell's four shards as four placements of it, against one
+    placement holding them); with ``--cards N`` 23b across N cards
+    instead."""
+    n_cards = ctx.get("cards", 0)
+    if n_cards:
+        c23 = run_cards_across(n_cards)
+        paths = {f"phase23b-{path}": n for path, n in c23["launches"].items()}
+    else:
+        c23 = run_cards_phase("cuda")
+        paths = {"phase23a": c23["launches"]}
+    report_cards_phase(c23, ctx["card"])
+    return {"pack_launches": {path: {name: n.get(name, 0) for name in PACK_NAMES} for path, n in paths.items()},
+            "compat_paths": {path: n["compat_allowed"] for path, n in paths.items()},
+            "pack_cases": {"ffd_pack": [{"captured": "phase23-held", **r} for r in c23["held"]["rows"]["b5"]]},
+            "screen_launches": {path: {f"disrupt_screen.{k}": n.get(f"disrupt_screen.{k}", 0)
+                                       for k in ("prefix", "subsets", "singles")} for path, n in paths.items()}}
+
+
 PHASE_RUNNERS = {12: phase_12, 13: phase_13, 14: phase_14, 15: phase_15, 16: phase_16, 17: phase_17, 18: phase_18,
-                 19: phase_19, 20: phase_20, 21: phase_21, 22: phase_22}
-SELECTABLE_PHASES = tuple(range(14, 23))
+                 19: phase_19, 20: phase_20, 21: phase_21, 22: phase_22, 23: phase_23}
+SELECTABLE_PHASES = tuple(range(14, 24))
 
 
 PHASE_T: dict = {}
@@ -9258,17 +9907,19 @@ def share_host() -> None:
     torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // len(LANES)))
 
 
-def run_phases(phases: list) -> None:
+def run_phases(phases: list, cards: int = 0) -> None:
     """``--phases``: the card and the build as ``main`` has them, then only
-    ``phases`` of ``SELECTABLE_PHASES``, in order, at full depth. Prints
-    no result line: the contract's last line is ``main``'s."""
+    ``phases`` of ``SELECTABLE_PHASES``, in order, at full depth; with
+    ``cards`` (``--cards N``, phase 23 alone) phase 23 runs across that
+    many cards. Prints no result line: the contract's last line is
+    ``main``'s."""
     from karpenter_core_tpu_torch.solver import contracts
 
     t0 = time.time()
     _, card, sm_mhz = probe_card()
     contracts.enable()  # a shape contract's breach fails the phase it fires in
     build_kernels()
-    run_runners({"card": card, "sm_mhz": sm_mhz, "t0": t0, "lane": tuple(phases)}, phases)
+    run_runners({"card": card, "sm_mhz": sm_mhz, "t0": t0, "lane": tuple(phases), "cards": cards}, phases)
 
 
 def run_lane(phases: list, pace: float, t0: float, out_path: str) -> None:
@@ -9494,7 +10145,7 @@ def main() -> None:
     )
 
     emit({"elapsed_s": time.perf_counter() - t_start, "after": "phase 3"})
-    # phases 4-22 in LANES: the first here, each other one in a process of
+    # phases 4-23 in LANES: the first here, each other one in a process of
     # its own, started now (the warm state on); phases 4-13 measure the
     # cold pipeline: the warm state off, so their repeated solves of one
     # batch stay pipeline solves (phase 14 runs it)
@@ -9653,6 +10304,8 @@ if __name__ == "__main__":
     ap.add_argument("--phases", default=None, metavar="N[,N...]",
                     help=f"build the kernels, then run only these phases (of {list(SELECTABLE_PHASES)}); "
                          "no result line")
+    ap.add_argument("--cards", type=int, default=0, metavar="N",
+                    help="with --phases 23: run phase 23 across N cards of this host (N >= 2)")
     # one of main's lanes, in the process main starts for it
     ap.add_argument("--lane", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--pace", type=float, default=1.0, help=argparse.SUPPRESS)
@@ -9665,6 +10318,8 @@ if __name__ == "__main__":
     if cli.lane is not None:
         run_lane([int(n) for n in cli.lane.split(",")], cli.pace, cli.t0, cli.out)
     elif cli.phases is None:
+        if cli.cards:
+            fail("--cards runs phase 23 alone: give it with --phases 23")
         main()
     else:
         try:
@@ -9673,4 +10328,6 @@ if __name__ == "__main__":
             selected = []
         if not selected or any(n not in SELECTABLE_PHASES for n in selected):
             fail(f"--phases takes a comma-separated list of {list(SELECTABLE_PHASES)}, not {cli.phases!r}")
-        run_phases(selected)
+        if cli.cards and (selected != [23] or cli.cards < 2):
+            fail(f"--cards takes N >= 2 with --phases 23 alone, not --cards {cli.cards} with --phases {cli.phases}")
+        run_phases(selected, cli.cards)

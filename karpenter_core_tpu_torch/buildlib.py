@@ -187,11 +187,22 @@ class CudaKernel:
                     self._lib = lib
         return self._lib  # analysis: allow-lock-discipline — read after the double-checked load above
 
-    def launch(self, *args) -> None:
-        """Call the launch function; raise on a nonzero cudaError. The
-        count is taken under the kernel's lock: several threads launch at
-        once (the fleet's tenant workers), and ``+=`` alone loses updates."""
-        err = getattr(self.lib(), self.symbol)(*args)
+    def launch(self, *args, device=None) -> None:
+        """Call the launch function; raise on a nonzero cudaError.
+        ``device``: the card the arguments live on, made the CUDA runtime's
+        current device around the call (a launch function launches, sets
+        its attributes and sizes its grid on the current device, and
+        ``cudaSetDevice`` is per host thread). The count is taken under
+        the kernel's lock: several threads launch at once (the fleet's
+        tenant workers), and ``+=`` alone loses updates."""
+        fn = getattr(self.lib(), self.symbol)
+        if device is None:
+            err = fn(*args)
+        else:
+            import torch
+
+            with torch.cuda.device(device):
+                err = fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol} failed: cudaError {err}")
         with self._lock:
@@ -199,10 +210,26 @@ class CudaKernel:
             self.total_launches += 1
 
 
+def same_device(a, b) -> bool:
+    """``a`` and ``b`` name one device: ``cuda`` without an index is the
+    current card, so ``cuda`` and ``cuda:0`` agree while card 0 is
+    current, and ``cuda:1`` never agrees with ``cuda:0``."""
+    import torch
+
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or (a.index is not None and b.index is not None):
+        return a.index == b.index
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None else b.index)
+
+
 def check_tensor(name: str, t, dtype, shape: tuple, device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``: what a kernel's launch function takes."""
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+    if (not same_device(t.device, device) or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous()):
         raise ValueError(
             f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device}"

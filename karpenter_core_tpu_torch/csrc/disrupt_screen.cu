@@ -92,6 +92,8 @@
 #include <cstdint>
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+
+#include <atomic>
 #define HD __host__ __device__ __forceinline__
 #else
 #include <vector>
@@ -174,6 +176,23 @@ HD bool single_column(const int32_t* loads, const int32_t* free, const int32_t* 
 bool bad_args(int64_t rows, int64_t N, int64_t R) { return rows < 0 || N < 0 || R < 0; }
 
 #ifdef __CUDACC__
+
+// A kernel's dynamic shared-memory limit is an attribute of the current
+// device: raise it to MAX_SMEM once on each device the process launches
+// on. `done` is the calling kernel's own table, indexed by device.
+constexpr int MAX_DEVICES = 64;
+
+template <class Kernel>
+cudaError_t allow_max_smem(Kernel kernel, std::atomic<bool>* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
+  return err;
+}
 
 // -- single: one warp per row ----------------------------------------------------
 
@@ -504,8 +523,8 @@ template <int C>
 int launch_subsets_c(const uint8_t* masks, const int32_t* loads, const int32_t* free,
                      const int32_t* fleet, const int32_t* cap, int64_t S, int64_t N, int64_t R,
                      bool* out, cudaStream_t stream) {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(subset_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  static std::atomic<bool> attr_set[MAX_DEVICES];
+  const cudaError_t attr = allow_max_smem(subset_kernel<C>, attr_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int tile = subset_tile<C>(N, R);
   if (tile == 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -698,8 +717,8 @@ prefix_kernel(const int32_t* __restrict__ loads, const int32_t* __restrict__ fre
 
 int launch_prefix(const int32_t* loads, const int32_t* free, const int32_t* fleet,
                   const int32_t* cap, int64_t N, int64_t R, bool* out, cudaStream_t stream) {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(prefix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  static std::atomic<bool> attr_set[MAX_DEVICES];
+  const cudaError_t attr = allow_max_smem(prefix_kernel, attr_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   // the longest tile (all of N, or a multiple of 16) whose buffers fit
   int64_t tile = N;

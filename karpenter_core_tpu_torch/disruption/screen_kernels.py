@@ -133,7 +133,7 @@ def screen_prefix(loads, free, fleet, cap) -> torch.Tensor:
     if N:
         SCREEN_PREFIX.launch(
             loads.data_ptr(), free.data_ptr(), fleet.data_ptr(), cap.data_ptr(), N, R,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, device=dev,
         )
     return out
 
@@ -153,7 +153,7 @@ def screen_subsets(masks, loads, free, fleet, cap) -> torch.Tensor:
     if S:
         SCREEN_SUBSETS.launch(
             masks.data_ptr(), loads.data_ptr(), free.data_ptr(), fleet.data_ptr(), cap.data_ptr(),
-            S, N, R, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            S, N, R, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, device=dev,
         )
     return out
 
@@ -170,6 +170,6 @@ def screen_singles(loads, free, fleet, cap) -> torch.Tensor:
     if N:
         SCREEN_SINGLES.launch(
             loads.data_ptr(), free.data_ptr(), fleet.data_ptr(), cap.data_ptr(), N, R,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, device=dev,
         )
     return out

@@ -217,7 +217,7 @@ def dual_ascent(
         valid.data_ptr(), w0.data_ptr(), S, T, R, int(iters),
         None if scratch is None else scratch.data_ptr(),
         w.data_ptr(), t_star.data_ptr(), has_fit.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, device=dev,
     )
     return w, t_star, has_fit.view(torch.bool)
 

@@ -376,7 +376,7 @@ class _CompatAllowedKernel(buildlib.CudaKernel):
         super().launch(
             sig_planes.data_ptr(), catalog.planes.data_ptr(), catalog.key_off.data_ptr(),
             S, T, W, K, sig_planes.stride(0), catalog.planes.stride(0), out.data_ptr(), tile,
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream, device=dev,
         )
 
 

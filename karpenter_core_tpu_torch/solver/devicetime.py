@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -37,22 +37,39 @@ _TOTAL: Dict[int, int] = {}
 
 
 class Clock:
-    """The event pairs of one scope, by boundary."""
+    """The event pairs of one scope, by boundary: ``(phase, [(card,
+    start, end), ...])``, a pair on each card the boundary ran on."""
 
     def __init__(self, device=None):
-        self.cuda = device is not None and torch.device(device).type == "cuda"
-        self.pairs: List[tuple] = []  # (phase, start event, end event)
+        self.device = torch.device(device) if device is not None else None
+        self.cuda = self.device is not None and self.device.type == "cuda"
+        self.pairs: List[tuple] = []
 
     def ms(self) -> float:
         return sum(self.phase_ms().values())
 
     def phase_ms(self) -> Dict[str, float]:
-        """Milliseconds of the scope's event pairs per boundary."""
+        """Milliseconds of the scope's event pairs per boundary; a
+        boundary across cards counts its longest card's."""
         out: Dict[str, float] = {}
-        for phase, start, end in self.pairs:
-            end.synchronize()
-            out[phase] = out.get(phase, 0.0) + start.elapsed_time(end)
+        for phase, cards in self.pairs:
+            out[phase] = out.get(phase, 0.0) + max(_elapsed(s, e) for _, s, e in cards)
         return out
+
+    def card_ms(self) -> Dict[str, float]:
+        """Milliseconds of each card in the scope's boundaries across
+        cards, by card (empty without such a boundary)."""
+        out: Dict[str, float] = {}
+        for _, cards in self.pairs:
+            if len(cards) > 1:
+                for card, s, e in cards:
+                    out[str(card)] = out.get(str(card), 0.0) + _elapsed(s, e)
+        return out
+
+
+def _elapsed(start, end) -> float:
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def _clock() -> Optional[Clock]:
@@ -87,42 +104,57 @@ def scope(device=None):
 
 
 @contextmanager
-def track(phase: str = "solve"):
+def track(phase: str = "solve", devices: Optional[Sequence] = None):
     """One device boundary: a ``device_wait`` span labelled ``phase`` and,
-    on a CUDA clock, a pair of CUDA events around the block."""
+    on a CUDA clock, a pair of CUDA events around the block on the
+    current stream of the clock's card, or of each of ``devices`` (the
+    cards a mesh's block launches on) where they are more than one."""
     clock = _clock()
     with _span("device_wait", phase=phase):
         if clock is None or not clock.cuda:
             yield
             return
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        cards = [torch.device(d) for d in devices or ()]
+        cards = cards if len(cards) > 1 else [clock.device]
+        pairs = [(card, torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for card in cards]
+        for card, start, _ in pairs:
+            start.record(torch.cuda.current_stream(card))
         try:
             yield
         finally:
-            end.record()
-            clock.pairs.append((phase, start, end))
+            for card, _, end in pairs:
+                end.record(torch.cuda.current_stream(card))
+            clock.pairs.append((phase, pairs))
 
 
 def transfer(direction: str, *arrays, phase: str = "solve", nbytes: Optional[int] = None) -> None:
-    """Account one host/device transfer at a boundary: ``direction`` is
-    ``h2d`` or ``d2h``; pass the tensors or arrays moved, or ``nbytes``."""
+    """Account one transfer at a boundary: ``direction`` is ``h2d``,
+    ``d2h`` or ``peer`` (card to card); pass the tensors or arrays moved,
+    or ``nbytes``."""
     n = nbytes if nbytes is not None else deviceplane.nbytes_of(*arrays)
     deviceplane.record_transfer(direction, n, phase=phase)
 
 
-def device_memory_stats(device=None) -> Optional[dict]:
+def device_memory_stats(device=None, cards: Optional[Sequence] = None) -> Optional[dict]:
     """The card's allocator of ``device``: bytes in use and their peak
     since the process started (or the last ``reset_peak_memory_stats``),
     one ``torch.cuda.memory_stats`` read, and the card's memory
-    (``mem_get_info``'s total, read once a device). None with the plane
-    off and off the card, where ``torch.cuda`` is never touched."""
+    (``mem_get_info``'s total, read once a device). ``cards``: the cards
+    of the solve's mesh; where they are more than one, ``cards`` maps
+    each to its own read. None with the plane off and off the card,
+    where ``torch.cuda`` is never touched."""
     if not deviceplane.enabled() or device is None:
         return None
     dev = torch.device(device)
     if dev.type != "cuda":
         return None
+    out = _card_memory(dev)
+    if cards is not None and len(cards) > 1:
+        out["cards"] = {str(card): _card_memory(torch.device(card)) for card in cards}
+    return out
+
+
+def _card_memory(dev: torch.device) -> dict:
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     total = _TOTAL.get(index)
     if total is None:

@@ -261,7 +261,7 @@ def ffd_pack_batched(
         FFD_PACK.launch(
             requests.data_ptr(), frontiers.data_ptr(), caps.data_ptr(), n_pods.data_ptr(),
             G, P, F, R, k_open, None if scratch is None else scratch.data_ptr(),
-            node_ids.data_ptr(), counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            node_ids.data_ptr(), counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, device=dev,
         )
     return node_ids, counts
 
@@ -299,13 +299,14 @@ def batch_pack(jobs: List[tuple], engine: str = "auto", device=None, mesh=None) 
     jobs of several widths. Each job's padding pods exceed its own
     frontier max, so they emit -1 without touching state.
 
-    With a ``mesh`` (``sharding.active_mesh``: D shards of one card), a
-    job at or past ``sharding.shard_min_pods()`` pods chunks its pod axis
-    over the shards (``sharding.sharded_pod_pack``), whatever the engine,
-    so the partition depends only on the mesh, the threshold and the
-    shard engine (job-memo key material); the device scan of the other
-    jobs runs group-sharded on the mesh's card (``_scan_classes``)
-    where ``device`` is asked for or the C++ packer is off."""
+    With a ``mesh`` (``sharding.active_mesh``: D shards over its
+    placements), a job at or past ``sharding.shard_min_pods()`` pods
+    chunks its pod axis over the shards (``sharding.sharded_pod_pack``),
+    whatever the engine, so the partition depends only on the shard
+    count, the threshold and the shard engine (job-memo key material);
+    the device scan of the other jobs runs group-sharded over the mesh's
+    placements (``_scan_classes``) where ``device`` is asked for or the
+    C++ packer is off."""
     if not jobs:
         return []
     if mesh is not None:
@@ -324,7 +325,7 @@ def batch_pack(jobs: List[tuple], engine: str = "auto", device=None, mesh=None) 
                     results[g] = r
             return results
         if engine == "device":
-            return _scan_classes(jobs, mesh.device, "shard", mesh)
+            return _scan_classes(jobs, None, "shard", mesh)
     if engine in ("auto", "native"):
         if native.available():
             return [
@@ -338,16 +339,17 @@ def batch_pack(jobs: List[tuple], engine: str = "auto", device=None, mesh=None) 
     elif engine != "device":
         raise ValueError(f"unknown pack engine {engine!r} (auto | native | device)")
     if mesh is not None:
-        return _scan_classes(jobs, mesh.device, "shard", mesh)
+        return _scan_classes(jobs, None, "shard", mesh)
     return _scan_classes(jobs, resolve_device(device), "pack")
 
 
-def _scan_classes(jobs: List[tuple], dev: torch.device, phase: str, mesh=None) -> List[Tuple[np.ndarray, int]]:
+def _scan_classes(jobs: List[tuple], dev: Optional[torch.device], phase: str, mesh=None) -> List[Tuple[np.ndarray, int]]:
     """The device scan at K = 16 on ``dev``, one launch per (size class,
     width) class, its transfers at the ``phase`` boundary. With ``mesh``
-    a class's group count is padded to a multiple of the shards (a
-    padding group has no pods and a zero frontier: count 0) and goes
-    through ``sharding.sharded_batch_pack``."""
+    (``dev`` unused) a class's group count is padded to a multiple of
+    the shards (a padding group has no pods and a zero frontier: count
+    0) and goes through ``sharding.sharded_batch_pack``, which uploads
+    each placement's block of groups to its own card."""
     F_pad = 1 << max((max(len(j[1]) for j in jobs) - 1).bit_length(), 0)
     classes: dict = {}
     for g, job in enumerate(jobs):
@@ -367,14 +369,15 @@ def _scan_classes(jobs: List[tuple], dev: torch.device, phase: str, mesh=None) -
             caps[slot] = min(int(cap), int(INT_INF))
             n_pods[slot] = reqs.shape[0]
         deviceplane.record_footprint(deviceplane.nbytes_of(requests, frontiers, caps, n_pods))
-        with devicetime.track(phase=phase):
+        with devicetime.track(phase=phase, devices=None if mesh is None else mesh.cards):
             devicetime.transfer("h2d", requests, frontiers, caps, n_pods, phase=phase)
-            args = [torch.from_numpy(a).to(dev) for a in (requests, frontiers, caps, n_pods)]
             if mesh is None:
+                args = [torch.from_numpy(a).to(dev) for a in (requests, frontiers, caps, n_pods)]
                 node_ids, counts = ffd_pack_batched(args[0], args[1], args[2], K_OPEN, args[3])
             else:
                 from . import sharding
 
+                args = [torch.from_numpy(a) for a in (requests, frontiers, caps, n_pods)]
                 node_ids, counts, _fleet = sharding.sharded_batch_pack(mesh, *args)
             # analysis: allow-host-sync(the one download of a class launch: its plans are host arrays)
             node_ids, counts = node_ids.cpu().numpy(), counts.cpu().numpy()
@@ -463,7 +466,7 @@ def pack_existing(
     PACK_EXISTING.launch(
         requests.data_ptr(), sig_ids.data_ptr(), compat.data_ptr(), free.data_ptr(),
         P, R, S, M, free_out.data_ptr(), assign.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, device=dev,
     )
     return assign, free_out
 

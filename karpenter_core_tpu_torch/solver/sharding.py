@@ -1,4 +1,4 @@
-"""The sharded solve: D shards of one card.
+"""The sharded solve: D shards over the cards of one host.
 
 Counterpart of ``karpenter_core_tpu/solver/sharding.py``. The reference
 shards three axes over a ``jax.sharding.Mesh`` under ``shard_map``:
@@ -14,27 +14,36 @@ shards three axes over a ``jax.sharding.Mesh`` under ``shard_map``:
   solve to 500,000–1,000,000 pods × 10,000 types (bench config 12,
   ``sharded_mega_solve``).
 
-Here a mesh (``Mesh``) is **D shards that all live on one card**: each
-shard's work is one job, or one row block, of a single launch of the
-kernel the reference runs per device (B5's ``csrc/ffd_pack.cu`` for the
-packs, B1's ``csrc/compat_allowed.cu`` for the catalog, B8's
-``csrc/disrupt_screen.cu`` for the prefix screen), and each collective
-is a sum over the shard axis on the card. That is the computation the
-reference runs on its forced host devices, so the ``sharded`` and
-``unsharded`` engines are plan-identical by construction, as there: on
-one card they are one launch, and the engine is the label the stats and
-the job-memo keys carry. A mesh spread over more than one card raises
-``NotImplementedError``.
+Here a mesh (``Mesh``) is **D shards over an ordered tuple of
+placements**, D a multiple of their number. A placement is a device: a
+card (``cuda:N``) or, in the CPU tests, the CPU. Each placement holds a
+contiguous block of D / placements shards, as ``P(axis)`` splits axis 0
+over the reference's devices, and runs it as one launch on its own card
+of the kernel the reference runs per device (B5's ``csrc/ffd_pack.cu``
+for the packs, B1's ``csrc/compat_allowed.cu`` for the catalog, B8's
+``csrc/disrupt_screen.cu`` for the prefix screen). Every placement's
+launch is enqueued before the first host sync, so the cards run side by
+side. The collectives are peer copies to the first placement
+(``Mesh.device``): a sum of the counts for ``psum``, a concatenation for
+``all_gather``. One process drives every card, as the reference's
+single-controller ``shard_map`` does. The placements are kept as given:
+``["cuda:0"] * 4`` is four launches on one card, ``["cuda:0", ...,
+"cuda:3"]`` four cards, and ``make_mesh(D, device=...)`` one placement
+holding all D shards (one launch). Every shard computes the same thing
+wherever it runs, so the plans depend on D alone, never on the
+placements, and the ``sharded`` and ``unsharded`` engines stay
+plan-identical by construction.
 
 The reference's knobs ``KARPENTER_TPU_SHARD_ENGINE``,
 ``KARPENTER_TPU_SHARD_MIN_PODS`` and ``KARPENTER_TPU_SHARDED`` are the
 module constants ``SHARD_ENGINE``, ``SHARD_MIN_PODS`` and ``SHARDED``,
-with the same defaults (tests monkeypatch them). The solve path never
-shards unless a mesh is installed (``install_mesh``: the seam tests use
-where the reference's tests set ``KARPENTER_TPU_SHARDED=on`` over eight
-host devices): one card is the reference's one device, and a host with
-more cards runs the one-card path under ``auto``, as it did before this
-module, while ``on`` there asks for a mesh across cards and raises.
+with the same defaults (tests monkeypatch them). ``active_mesh`` follows
+the reference's rule with cards for devices: ``off`` never shards, an
+installed mesh (``install_mesh``, the seam tests use) wins, ``on``
+shards over every visible card when there are two or more, and ``auto``
+does the same when the backend is ``cuda``. A solve shards only when
+the mesh's first placement is its own device (``TorchScheduler._mesh``);
+a solver on another card runs the one-card path.
 
 Padding is never silent: the type-axis padding of the catalog and the
 pod-axis padding of the chunks go into per-solve, per-thread shard
@@ -48,7 +57,7 @@ import threading
 import time
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,42 +75,56 @@ SHARDED = "auto"
 
 @dataclass(frozen=True)
 class Mesh:
-    """D shards on one card. ``size`` is the reference's
-    ``mesh.devices.size``, ``axis_names`` its axis names."""
+    """D shards over ``placements``, D a multiple of their number.
+    ``size`` is the reference's ``mesh.devices.size``, ``axis_names`` its
+    axis names."""
 
     size: int
     axis: str
-    device: torch.device
+    placements: Tuple[torch.device, ...]
 
     @property
     def axis_names(self) -> Tuple[str]:
         return (self.axis,)
 
+    @property
+    def device(self) -> torch.device:
+        """The first placement: where the collectives gather."""
+        return self.placements[0]
+
+    @property
+    def cards(self) -> Tuple[torch.device, ...]:
+        """The distinct devices of the placements, in order."""
+        return tuple(dict.fromkeys(self.placements))
+
+
+def _placement(d) -> torch.device:
+    """``d`` as a placement: a card always carries its index."""
+    dev = resolve_device(d)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
 
 def make_mesh(
     n_devices: Optional[int] = None, axis: str = "groups", device=None, devices: Optional[Sequence] = None
 ) -> Mesh:
-    """A mesh of ``n_devices`` shards (default 1) on ``device`` (None:
-    the card). ``devices`` names the cards the mesh spans; more than one
-    distinct card raises ``NotImplementedError``."""
-    if devices is not None:
-        cards = {str(torch.device(d)) for d in devices}
-        if len(cards) > 1:
-            raise NotImplementedError(
-                f"sharding: a mesh over more than one card ({sorted(cards)}) is not ported; "
-                "a mesh is D shards of one card"
-            )
-        if cards:
-            device = next(iter(cards))
-    n = 1 if n_devices is None else int(n_devices)
-    if n < 1:
-        raise ValueError(f"a mesh needs at least one shard, got {n}")
-    return Mesh(n, axis, resolve_device(device))
+    """A mesh of ``n_devices`` shards. ``devices``: its placements, kept
+    as given, duplicates included (default: one placement on ``device``,
+    None meaning the card); ``n_devices`` defaults to one shard a
+    placement and must be a multiple of the placements."""
+    placements = (_placement(device),) if devices is None else tuple(_placement(d) for d in devices)
+    if not placements:
+        raise ValueError("a mesh needs at least one placement")
+    n = (1 if devices is None else len(placements)) if n_devices is None else int(n_devices)
+    if n < 1 or n % len(placements):
+        raise ValueError(f"a mesh of {len(placements)} placements needs a positive multiple of them as shards, got {n}")
+    return Mesh(n, axis, placements)
 
 
 def shard_map_available() -> bool:
     """The reference asks whether its jax has ``shard_map``; the port's
-    shard map is one launch over the shards, always there."""
+    shard map is a launch a placement, always there."""
     return True
 
 
@@ -111,7 +134,7 @@ def shard_map_available() -> bool:
 
 def shard_engine() -> str:
     """``sharded`` or ``unsharded``: the reference's ``shard_map`` and
-    its ``vmap`` parity oracle, one launch on one card (the label the
+    its ``vmap`` parity oracle, the same launches here (the label the
     stats and the job-memo keys carry). Unknown values degrade to
     ``sharded``."""
     eng = str(SHARD_ENGINE).strip().lower()
@@ -205,36 +228,80 @@ def install_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
     return prev
 
 
+_CARDS: Dict[int, Mesh] = {}  # the mesh over every visible card, by their count
+
+
 def active_mesh(backend: str) -> Optional[Mesh]:
-    """The mesh the solve shards over, or None for the one-device path.
-    ``SHARDED``: ``off`` never shards; an installed mesh is used
-    otherwise. Without one, ``auto`` is the one-device path on any host
-    (the reference shards only a multi-chip TPU, and a mesh across cards
-    is not ported); ``on`` counts the cards as the reference counts its
-    devices: fewer than two is the one-device path, more ask for a mesh
-    across cards, which raises."""
+    """The mesh the solve shards over, or None for the one-device path,
+    by the reference's rule with the cards for its devices. ``SHARDED``:
+    ``off`` never shards; an installed mesh is used otherwise; ``on``
+    gives a mesh over every visible card (one shard a card) when there
+    are two or more, and ``auto`` the same when ``backend`` is ``cuda``
+    (the reference's multi-chip accelerator)."""
     mode = SHARDED
     if mode == "off":
         return None
     if _INSTALLED is not None:
         return _INSTALLED
-    if mode != "on" or backend != "cuda":
+    if mode == "auto" and backend != "cuda":
         return None
     n = torch.cuda.device_count()
     if n < 2:
         return None
-    return make_mesh(n, devices=[f"cuda:{i}" for i in range(n)])
+    mesh = _CARDS.get(n)
+    if mesh is None:
+        # the cards were just counted: no availability check to repeat
+        mesh = _CARDS[n] = Mesh(n, "groups", tuple(torch.device("cuda", i) for i in range(n)))
+    return mesh
 
 
-def _on(mesh: Mesh, a) -> torch.Tensor:
-    """``a`` (a tensor or an array) on the mesh's card."""
-    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
-    return t.to(mesh.device)
+def _tensor(a) -> torch.Tensor:
+    """``a`` (a tensor or an array) as a tensor, where it lies."""
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _on(dev: torch.device, a) -> torch.Tensor:
+    """``a`` (a tensor or an array) on ``dev``."""
+    return _tensor(a).to(dev)
 
 
 def _divides(mesh: Mesh, n: int, what: str) -> None:
     if n % mesh.size:
         raise ValueError(f"{what} ({n}) must divide over the mesh's {mesh.size} shards")
+
+
+def _blocks(mesh: Mesh, n: int) -> List[Tuple[torch.device, int, int]]:
+    """Each placement's contiguous block [start, end) of an axis of ``n``
+    (a multiple of the shards): D / placements shards each."""
+    per = n // len(mesh.placements)
+    return [(dev, i * per, (i + 1) * per) for i, dev in enumerate(mesh.placements)]
+
+
+def _download(parts: List[torch.Tensor]) -> np.ndarray:
+    """The placements' parts on the host, joined along axis 0 in
+    placement order: one download for each run of parts on one card."""
+    runs: List[List[torch.Tensor]] = []
+    for p in parts:
+        if runs and runs[-1][0].device == p.device:
+            runs[-1].append(p)
+        else:
+            runs.append([p])
+    # analysis: allow-host-sync(the shards' results are host arrays; every launch was enqueued first)
+    host = [(run[0] if len(run) == 1 else torch.cat(run)).cpu().numpy() for run in runs]
+    return host[0] if len(host) == 1 else np.concatenate(host)
+
+
+def _gather(dst: torch.device, parts: List[torch.Tensor], dim: int = 0) -> torch.Tensor:
+    """The all-gather: every placement's part copied to ``dst``, the
+    first placement (peer copies, stream-ordered, no host sync), and
+    joined along ``dim`` in placement order. The bytes that crossed cards
+    are a ``peer`` transfer at the ``shard`` boundary."""
+    if len(parts) == 1:
+        return parts[0]
+    crossed = [p for p in parts if p.device != dst]
+    if crossed:
+        devicetime.transfer("peer", *crossed, phase="shard")
+    return torch.cat([p.to(dst) for p in parts], dim=dim)
 
 
 # ---------------------------------------------------------------------------
@@ -243,14 +310,20 @@ def _divides(mesh: Mesh, n: int, what: str) -> None:
 
 @lru_cache(maxsize=16)
 def _sharded_pack_fn(mesh: Mesh):
-    """The group pack over ``mesh``'s shards, cached per mesh as the
-    reference caches its jitted ``shard_map``: each shard's groups are
-    jobs of one B5 launch, and the fleet total is the sum of the counts
-    on the card (the reference's ``psum``)."""
+    """The group pack over ``mesh``'s placements, cached per mesh as the
+    reference caches its jitted ``shard_map``: each placement's block of
+    groups is the jobs of one B5 launch on its card, all enqueued first;
+    the ids and counts gather on the first placement, and the fleet total
+    is their sum there (the reference's ``psum``)."""
 
     def per_mesh(reqs, fronts, caps, n_pods=None):
         _divides(mesh, reqs.shape[0], "the group count")
-        node_ids, counts = pack.ffd_pack_batched(reqs, fronts, caps, pack.K_OPEN, n_pods)
+        parts = []
+        for dev, g0, g1 in _blocks(mesh, reqs.shape[0]):
+            args = [a[g0:g1].to(dev) for a in (reqs, fronts, caps)]
+            parts.append(pack.ffd_pack_batched(*args, pack.K_OPEN, None if n_pods is None else n_pods[g0:g1].to(dev)))
+        node_ids = _gather(mesh.device, [ids for ids, _ in parts])
+        counts = _gather(mesh.device, [c for _, c in parts])
         return node_ids, counts, counts.sum()
 
     return deviceplane.wrap("sharding.sharded_batch_pack", per_mesh)
@@ -264,11 +337,12 @@ def sharded_batch_pack(
     n_pods: Optional[torch.Tensor] = None,  # (G,) int32 real pods per group
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pack G groups over the mesh's shards → (node_ids (G, Pmax),
-    node_counts (G,), fleet_total ()), on the mesh's card. G divides
-    over the shards, as ``shard_map`` requires."""
+    node_counts (G,), fleet_total ()), on the mesh's first placement.
+    The inputs may lie on the host or on a card: each placement's block
+    is copied to its own card. G divides over the shards, as
+    ``shard_map`` requires."""
     return _sharded_pack_fn(mesh)(
-        _on(mesh, requests), _on(mesh, frontiers), _on(mesh, max_per_node),
-        None if n_pods is None else _on(mesh, n_pods),
+        _tensor(requests), _tensor(frontiers), _tensor(max_per_node), None if n_pods is None else _tensor(n_pods),
     )
 
 
@@ -287,18 +361,20 @@ def sharded_pod_pack(
     """Pod-axis chunked FFD pack of ONE mega job.
 
     The sorted pods cut into D contiguous chunks of Pc = ⌈P/D⌉ (each
-    sorted, so each chunk's scan is a well-formed FFD); all D chunks go
-    through one B5 launch at K = ``pack.K_OPEN`` as D jobs, and the
-    chunks' node ids renumber into one id space by the exclusive cumsum
-    of the chunk counts. The padding pods take ``fmax + 1``: they emit
-    -1 without touching a scan, and the launch skips them (each chunk's
-    real pod count rides ``n_pods``). ``engine`` (default
-    ``shard_engine()``) is a label: on one card the reference's
-    ``shard_map`` over the shards and its one-device ``vmap`` twin are
-    the same launch, so both engines run it, and the engine reaches the
-    stats (no mesh degrades ``sharded`` to ``unsharded`` there, as in
-    the reference) and the job-memo keys (``pod_shard_token``). Runs on
-    the mesh's card, or on ``device`` (None: the card) without a mesh.
+    sorted, so each chunk's scan is a well-formed FFD); each placement's
+    block of chunks goes through one B5 launch on its card at K =
+    ``pack.K_OPEN`` as jobs, every placement's launch enqueued before the
+    first download, then one download a card; the chunks' node ids
+    renumber into one id space by the exclusive cumsum of the chunk
+    counts. The padding pods take ``fmax + 1``: they emit -1 without
+    touching a scan, and the launch skips them (each chunk's real pod
+    count rides ``n_pods``). ``engine`` (default ``shard_engine()``) is a
+    label: the reference's ``shard_map`` over the shards and its
+    one-device ``vmap`` twin compute the same chunks, so both engines run
+    them here, and the engine reaches the stats (no mesh degrades
+    ``sharded`` to ``unsharded`` there, as in the reference) and the
+    job-memo keys (``pod_shard_token``). Runs on the mesh's placements,
+    or on ``device`` (None: the card) without a mesh.
 
     → (node_ids (P,) int32 global ids, -1 ⇒ unschedulable; node count).
     """
@@ -307,7 +383,6 @@ def sharded_pod_pack(
     D = int(mesh.size) if mesh is not None else 1
     if engine == "sharded" and mesh is None:
         engine = "unsharded"  # explicit degrade, recorded in the stats
-    dev = mesh.device if mesh is not None else resolve_device(device)
     P, R = requests.shape
     Pc = -(-P // D)
     fmax = frontier.max(axis=0)
@@ -318,15 +393,20 @@ def sharded_pod_pack(
     fronts = np.repeat(np.asarray(frontier, dtype=np.int32)[None], D, axis=0)
     caps = np.full(D, min(int(max_per_node), int(pack.INT_INF)), dtype=np.int32)
     n_pods = np.clip(P - np.arange(D, dtype=np.int64) * Pc, 0, Pc).astype(np.int32)
+    blocks = _blocks(mesh, D) if mesh is not None else [(resolve_device(device), 0, D)]
+    cards = mesh.cards if mesh is not None else None
     with tracer.span("pack.shard.dispatch", pods=P, chunks=D, chunk_len=Pc, engine=engine):
         deviceplane.record_footprint(deviceplane.nbytes_of(reqs, fronts, caps, n_pods))
-        with devicetime.track(phase="shard"):
+        with devicetime.track(phase="shard", devices=cards):
             devicetime.transfer("h2d", reqs, fronts, caps, n_pods, phase="shard")
-            args = [torch.from_numpy(a).to(dev) for a in (reqs, fronts, caps, n_pods)]
-            ids, counts = pack.ffd_pack_batched(args[0], args[1], args[2], pack.K_OPEN, args[3])
-            # the one sync of the mega dispatch, after all chunks
-            ids = ids.cpu().numpy()  # analysis: allow-host-sync(the chunks renumber on the host)
-            counts = counts.cpu().numpy().astype(np.int64)  # analysis: allow-host-sync(same download)
+            launched = []
+            for dev, d0, d1 in blocks:
+                args = [torch.from_numpy(a[d0:d1]).to(dev) for a in (reqs, fronts, caps, n_pods)]
+                launched.append(pack.ffd_pack_batched(args[0], args[1], args[2], pack.K_OPEN, args[3]))
+            # the one sync of the mega dispatch: a download a card, after
+            # every card's launch
+            ids = _download([i for i, _ in launched])
+            counts = _download([c for _, c in launched]).astype(np.int64)
         devicetime.transfer("d2h", ids, counts, phase="shard")
     offsets = np.zeros(D, dtype=np.int64)
     np.cumsum(counts[:-1], out=offsets[1:])
@@ -448,27 +528,58 @@ def sharded_prefix_screen(
     fleet_free_local,  # (D, R) int32: each shard's part of the fleet's free capacity
     new_node_cap,  # (R,) int32
 ) -> torch.Tensor:
-    """B8's prefix screen over D candidate shards → (N,) bool, as
-    ``prefix_screen_kernel`` on the whole candidate axis. The fleet's
-    free capacity is the sum of the shards' parts (the reference's
-    ``psum``); the running sums over the candidates are one pass of
-    ``screen_kernels.screen_prefix`` on the card (the reference adds
-    per-shard cumsums to all-gathered offsets, which agrees wherever
-    every partial sum stays below 2^24)."""
+    """B8's prefix screen over D candidate shards → (N,) bool on the
+    first placement, as ``prefix_screen_kernel`` on the whole candidate
+    axis. The fleet's free capacity is the sum of the shards' parts (the
+    reference's ``psum``, int32). Each placement screens its own block of
+    candidates with one ``screen_kernels.screen_prefix`` launch on its
+    card, the reference's all-gathered offsets folded into that launch's
+    fleet: a block's rows need
+
+        earlier loads + running load <= fleet + later free + block free left + cap,
+
+    so its fleet is the fleet total + the later blocks' free − the
+    earlier blocks' loads, computed in int64 from the blocks' gathered
+    totals (negative where the earlier loads pass the fleet). Each row
+    then agrees with the one pass over all N wherever every partial sum
+    stays below 2^24, as the reference's float32 sums do."""
     from ..disruption import screen_kernels
 
-    loads, free = _on(mesh, candidate_loads), _on(mesh, candidate_free)
-    fleet_local, cap = _on(mesh, fleet_free_local), _on(mesh, new_node_cap)
+    loads, free = _tensor(candidate_loads), _tensor(candidate_free)
+    fleet_local, cap = _tensor(fleet_free_local), _tensor(new_node_cap)
     _divides(mesh, loads.shape[0], "the candidate count")
     if fleet_local.shape[0] != mesh.size:
         raise ValueError(f"fleet_free_local has {fleet_local.shape[0]} rows for {mesh.size} shards")
     # int32 wraps as the reference's int32 psum does
-    fleet = fleet_local.to(torch.int64).sum(dim=0).to(torch.int32)
-    return screen_kernels.screen_prefix(loads, free, fleet, cap)
+    fleet = _on(mesh.device, fleet_local).to(torch.int64).sum(dim=0).to(torch.int32)
+    parts = [(dev, loads[a:b].to(dev), free[a:b].to(dev)) for dev, a, b in _blocks(mesh, loads.shape[0])]
+    load_tot = _gather(mesh.device, [l.to(torch.int64).sum(dim=0, keepdim=True) for _, l, _ in parts])  # (placements, R)
+    free_tot = _gather(mesh.device, [f.to(torch.int64).sum(dim=0, keepdim=True) for _, _, f in parts])
+    earlier_loads = torch.cumsum(load_tot, dim=0) - load_tot
+    later_free = free_tot.sum(dim=0, keepdim=True) - torch.cumsum(free_tot, dim=0)
+    folded = (fleet.to(torch.int64)[None, :] + later_free - earlier_loads).to(torch.int32)
+    out = [
+        screen_kernels.screen_prefix(l, f, folded[i].to(dev), _on(dev, cap))
+        for i, (dev, l, f) in enumerate(parts)
+    ]
+    return _gather(mesh.device, out)
 
 
 # ---------------------------------------------------------------------------
 # types: the catalog over the shards
+
+
+@dataclass(frozen=True)
+class ShardedCatalog:
+    """The catalog's padded type side over a mesh: each placement's
+    contiguous block of types as a ``DeviceCatalog`` on its card."""
+
+    catalogs: Tuple  # (DeviceCatalog, ...): one a placement, in order
+
+    @property
+    def n_types(self) -> int:
+        """The padded type count, a multiple of the shards."""
+        return sum(c.n_types for c in self.catalogs)
 
 
 def prepare_sharded_catalog(
@@ -479,12 +590,14 @@ def prepare_sharded_catalog(
     avail: np.ndarray,
     keys: Optional[Sequence[str]] = None,
 ) -> tuple:
-    """The catalog side of the compat kernel on the mesh's card, its type
-    axis padded to a multiple of the shards → (``DeviceCatalog``, T).
-    Callers cache it per catalog generation (``solver._entry_sharded``).
-    Padded types have no offering, so they read as disallowed; the
-    padding is recorded (the solver records the active catalog's again
-    each solve). ``keys``: the requirement keys, sorted by default."""
+    """The catalog side of the compat kernel over the mesh, its type axis
+    padded to a multiple of the shards, each placement's contiguous block
+    packed and uploaded to its card → (``ShardedCatalog``, T). Callers
+    cache it per catalog
+    generation (``solver._entry_sharded``). Padded types have no
+    offering, so they read as disallowed; the padding is recorded (the
+    solver records the active catalog's again each solve). ``keys``: the
+    requirement keys, sorted by default."""
     from .compat_kernels import catalog_to_device
 
     D = int(mesh.size)
@@ -499,14 +612,16 @@ def prepare_sharded_catalog(
         return np.concatenate([a, np.zeros((Tp - a.shape[0],) + a.shape[1:], dtype=a.dtype)], axis=0)
 
     keys = tuple(sorted(type_masks)) if keys is None else tuple(keys)
-    catalog = catalog_to_device(
-        {k: pad_t(v) for k, v in type_masks.items()},
-        {k: pad_t(v) for k, v in type_has.items()},
-        {k: pad_t(v) for k, v in type_neg.items()},
-        keys, pad_t(avail), mesh.device,
-    )
-    devicetime.transfer("h2d", catalog.planes, catalog.key_off, phase="shard")
-    return catalog, T
+    tm, th, tn = ({k: pad_t(v) for k, v in side.items()} for side in (type_masks, type_has, type_neg))
+    av = pad_t(avail)
+    catalogs = []
+    for dev, a, b in _blocks(mesh, Tp):
+        catalogs.append(catalog_to_device(
+            {k: v[a:b] for k, v in tm.items()}, {k: v[a:b] for k, v in th.items()},
+            {k: v[a:b] for k, v in tn.items()}, keys, av[a:b], dev,
+        ))
+        devicetime.transfer("h2d", catalogs[-1].planes, catalogs[-1].key_off, phase="shard")
+    return ShardedCatalog(tuple(catalogs)), T
 
 
 def allowed_sharded(
@@ -516,14 +631,18 @@ def allowed_sharded(
     ct_ok: np.ndarray,
     keys: Tuple[str, ...],
 ) -> torch.Tensor:
-    """Compat ∧ offering against a prepared catalog: one B1 launch over
-    the padded type axis (the shards' row blocks), sliced back to T →
-    (S, T) bool on the mesh's card."""
+    """Compat ∧ offering against a prepared catalog: one B1 launch a
+    placement on its block of the padded type axis, every launch enqueued
+    first, the blocks all-gathered along the type axis on the first
+    placement and sliced back to T → (S, T) bool there."""
     from .compat_kernels import allowed_via_kernel, signature_side
 
-    catalog, T = prepared
-    planes = signature_side(sig_arrays, zone_ok, ct_ok, catalog, keys=keys)
-    return allowed_via_kernel(planes, catalog)[:, :T]
+    sharded, T = prepared
+    out = [
+        allowed_via_kernel(signature_side(sig_arrays, zone_ok, ct_ok, catalog, keys=keys), catalog)
+        for catalog in sharded.catalogs
+    ]
+    return _gather(sharded.catalogs[0].device, out, dim=1)[:, :T]
 
 
 @deviceplane.observe("sharding.sharded_compat")
@@ -533,9 +652,10 @@ def sharded_compat(
     type_masks,  # (T, W) f32 0/1, T divisible by the mesh size
 ) -> torch.Tensor:
     """The type-sharded overlap product ``q @ m.T`` → (S, T) float32 on
-    the mesh's card. The reference computes it with XLA, outside any
-    Pallas kernel; its sums are integers of at most W, exact in
-    float32."""
-    q, m = _on(mesh, sig_masks).to(torch.float32), _on(mesh, type_masks).to(torch.float32)
+    the first placement: each placement multiplies the signatures by its
+    block of types on its card, and the blocks all-gather along the type
+    axis. The reference computes it with XLA, outside any Pallas kernel;
+    its sums are integers of at most W, exact in float32 in any order."""
+    q, m = _tensor(sig_masks).to(torch.float32), _tensor(type_masks).to(torch.float32)
     _divides(mesh, m.shape[0], "the type count")
-    return q @ m.T
+    return _gather(mesh.device, [_on(dev, q) @ m[a:b].to(dev).T for dev, a, b in _blocks(mesh, m.shape[0])], dim=1)

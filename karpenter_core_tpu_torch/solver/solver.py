@@ -110,6 +110,7 @@ import numpy as np
 import torch
 
 from ..apis import labels as wk
+from ..buildlib import same_device
 from ..apis.nodepool import NodePool, order_by_weight
 from ..cloudprovider.types import CloudProvider, InstanceType
 from ..kube.objects import EFFECT_PREFER_NO_SCHEDULE, OP_IN, SCHEDULE_ANYWAY, Pod
@@ -504,7 +505,7 @@ def _entry_sharded(entry: _CatalogEntry, mesh) -> tuple:
     key = (
         tuple((k, entry.vocab.key_vocab(k).size) for k in keys),
         int(mesh.size),
-        str(mesh.device),
+        tuple(str(d) for d in mesh.placements),
     )
     if entry.sharded_catalog is not None and entry.sharded_catalog[0] == key:
         return entry.sharded_catalog[1]
@@ -937,6 +938,11 @@ class TorchScheduler:
                 # this solve's mesh padding: the stats, the trace and the
                 # gauge (never silent)
                 shard_stats = sharding.consume_shard_stats()
+                card_ms = clock.card_ms()
+                if card_ms:
+                    # a mesh across cards: each card's device ms (the
+                    # boundaries count their longest card's)
+                    shard_stats["card_ms"] = card_ms
                 self.last_shard_stats = shard_stats or None
                 if shard_stats:
                     if tr is not None:
@@ -946,13 +952,24 @@ class TorchScheduler:
                             waste = shard_stats.get(f"{axis}_waste")
                             if waste is not None:
                                 self.metrics.shard_padding_waste.set(float(waste), axis=axis)
+                mesh = self._mesh()
                 self.last_device_stats = deviceplane.consume_solve(
-                    memory=devicetime.device_memory_stats(self.device)
+                    memory=devicetime.device_memory_stats(self.device, mesh.cards if mesh is not None else None)
                 )
                 if tr is not None and self.last_device_stats:
                     tr.args["device"] = {k: v for k, v in self.last_device_stats.items() if k != "compile_events"}
                 if self.metrics is not None:
                     self._observe_solve(total_ms / 1000.0, device_ms / 1000.0)
+
+    def _mesh(self) -> Optional["sharding.Mesh"]:
+        """The mesh this solver shards over: the active one
+        (``sharding.active_mesh``) when its first placement is this
+        solver's device, else None, so a solver on another card of a
+        multi-card host, or on the CPU, runs the one-device path."""
+        mesh = sharding.active_mesh(self.device.type)
+        if mesh is None or not same_device(mesh.device, self.device):
+            return None
+        return mesh
 
     def _observe_solve(self, total_s: float, device_s: float) -> None:
         """One solve's samples: its duration and device time, and the
@@ -1164,7 +1181,7 @@ class TorchScheduler:
             pools_fp: List[tuple] = [
                 (
                     "pack",
-                    incremental.pack_engine_token(sharding.active_mesh(self.device.type)),
+                    incremental.pack_engine_token(self._mesh()),
                     backends.active_backend().job_token(self.device),
                 )
             ]
@@ -1891,12 +1908,11 @@ class TorchScheduler:
         and daemonset overhead while the card works, then one sync."""
         ws = self._warm
         device = str(self.device)
-        # a mesh (solver/sharding.py: D shards of this solver's card) takes
-        # the compat launches onto its padded catalog and the packs onto
-        # its shards; None on one card, where nothing here changes
-        mesh = sharding.active_mesh(self.device.type)
-        if mesh is not None and mesh.device != self.device:
-            raise ValueError(f"the active mesh lives on {mesh.device}, this solver on {self.device}")
+        # a mesh (solver/sharding.py: D shards over placements, this
+        # solver's device the first) takes the compat launches onto its
+        # padded catalog and the packs onto its shards; None on one card,
+        # where nothing here changes
+        mesh = self._mesh()
         cg = getattr(self.cloud_provider, "catalog_generation", None)
         # provider generation probes take the provider's own lock: taken
         # before _CATALOG_LOCK, so the catalog lock never nests it
@@ -1980,7 +1996,7 @@ class TorchScheduler:
                         "types", int(prepared[1]), prepared[0].n_types, accumulate=False,
                         n_devices=int(mesh.size),
                     )
-                    with devicetime.track(phase="compat"):
+                    with devicetime.track(phase="compat", devices=mesh.cards):
                         # analysis: allow-wait-under-lock(device — the launch reads the entry's device-resident type planes, which _CATALOG_LOCK guards, and only enqueues; the library was loaded before the lock)
                         allowed = sharding.allowed_sharded(
                             prepared, sig_arrays, zone_ok, ct_ok, tuple(sorted(e.enc.key_masks.keys()))

@@ -108,7 +108,7 @@ def test_phase_selector(chip_smoke):
     script it fails without a card, before it prints anything."""
     import torch
 
-    assert sorted(chip_smoke.SELECTABLE_PHASES) == [14, 15, 16, 17, 18, 19, 20, 21, 22]
+    assert sorted(chip_smoke.SELECTABLE_PHASES) == [14, 15, 16, 17, 18, 19, 20, 21, 22, 23]
     script = os.path.join(REPO, "chip_smoke.py")
     bad = subprocess.run([sys.executable, script, "--phases", "3,17"], cwd=REPO, capture_output=True, text=True,
                          timeout=120)

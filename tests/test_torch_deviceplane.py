@@ -484,9 +484,9 @@ class TestDeviceTime:
 
     def test_nested_scope_adds_its_pairs_to_the_outer(self):
         with devicetime.scope("cpu") as outer:
-            outer.pairs.append(("screen", _FakeEvent(0.0), _FakeEvent(2.0)))
+            outer.pairs.append(("screen", [("cuda:0", _FakeEvent(0.0), _FakeEvent(2.0))]))
             with devicetime.scope("cpu") as inner:
-                inner.pairs.append(("pack", _FakeEvent(1.0), _FakeEvent(1.5)))
+                inner.pairs.append(("pack", [("cuda:0", _FakeEvent(1.0), _FakeEvent(1.5))]))
             assert inner.phase_ms() == {"pack": 0.5}
         assert outer.phase_ms() == {"screen": 2.0, "pack": 0.5} and outer.ms() == 2.5
 

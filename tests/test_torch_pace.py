@@ -1,12 +1,12 @@
 """``chip_smoke.py``'s lanes and depth plan on the CPU.
 
-Phases 4-22 run in four lanes side by side, the first in the script's
+Phases 4-23 run in four lanes side by side, the first in the script's
 process; the predicted script is phases 1-3 and the longest lane, each
 phase as the calibration host took it (``PHASE_FULL_S``), times the
 host's pace. The plan keeps full depth while that fits
 ``SCRIPT_BUDGET_S``, and else cuts phases 4-16's repetitions (warm
 solves, profiles, kernel-case reps, config 7's ticks, 16b's seeds),
-never a check. Phases 1-22 fit the budget, and so the driver's 1,200 s
+never a check. Phases 1-23 fit the budget, and so the script's 1,200 s
 limit, on the calibration host and on one 1.5 times slower."""
 
 from __future__ import annotations
@@ -29,11 +29,11 @@ def cs():
 
 def test_lanes_run_phases_4_to_22_once_each(cs):
     phases = [n for lane in cs.LANES for n in lane]
-    assert sorted(phases) == list(range(4, 23))
+    assert sorted(phases) == list(range(4, 24))
     assert cs.LANES[0] == tuple(range(4, 12))  # the phases main runs with phase 3's worlds in hand
     assert set(cs.PHASE_RUNNERS) == set(phases) - set(cs.LANES[0])
     assert set(cs.SELECTABLE_PHASES) <= set(cs.PHASE_RUNNERS)
-    assert set(cs.PHASE_FULL_S) == set(range(1, 23))
+    assert set(cs.PHASE_FULL_S) == set(range(1, 24))
     # phase 20 reads its process's device plane after 12 and 13 moved bytes
     lane20 = next(lane for lane in cs.LANES if 20 in lane)
     assert lane20.index(12) < lane20.index(20) and lane20.index(13) < lane20.index(20)

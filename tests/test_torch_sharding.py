@@ -1,8 +1,9 @@
 """The port's sharded solve ≡ the JAX package's, on the CPU.
 
 ``karpenter_core_tpu_torch/solver/sharding.py`` is the port's copy of
-``karpenter_core_tpu/solver/sharding.py``: a mesh is D shards of one card
-(here the CPU, through the kernels' plain versions). The reference runs
+``karpenter_core_tpu/solver/sharding.py``; the meshes here are D shards
+of one placement, the CPU, through the kernels' plain versions
+(``test_torch_sharding_cards.py`` holds meshes of several placements). The reference runs
 in process on conftest's eight host devices with ``make_mesh(D)``. The
 same inputs, made from numpy seeds, go through both:
 
@@ -307,36 +308,53 @@ def test_stats_are_per_thread():
     assert sharding.consume_shard_stats() == {"types_used": 5, "types_padded": 8, "types_waste": 0.375}
 
 
-def test_mesh_rules(monkeypatch):
-    """One card (or none) is the one-device path; ``on`` over two cards
-    asks for a mesh across them, which raises; ``off`` ignores an
-    installed mesh."""
+@pytest.mark.parametrize("mode", ["auto", "on", "off"])
+def test_mesh_rules(monkeypatch, mode):
+    """The reference's rule with cards for its devices: ``off`` never
+    shards, an installed mesh wins otherwise, ``on`` gives a mesh over
+    every visible card (one shard a card) when there are two or more,
+    ``auto`` the same on the ``cuda`` backend; ``make_mesh`` keeps its
+    placements as given."""
+    cpu, cards = torch.device("cpu"), (torch.device("cuda", 0), torch.device("cuda", 1))
+    monkeypatch.setattr(sharding, "SHARDED", mode)
+    monkeypatch.setattr(sharding, "_CARDS", {})
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert sharding.active_mesh("cpu") is None and sharding.active_mesh("cuda") is None
-    monkeypatch.setattr(sharding, "SHARDED", "on")
-    assert sharding.active_mesh("cpu") is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        sharding.active_mesh("cuda")
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        sharding.make_mesh(8, devices=["cuda:0", "cuda:1"])
+    two = sharding.active_mesh("cuda")
+    if mode == "off":
+        assert two is None
+    else:
+        assert (two.size, two.placements, two.device, two.cards) == (2, cards, cards[0], cards)
+        assert sharding.active_mesh("cuda") is two
+    assert (sharding.active_mesh("cpu") is not None) == (mode == "on")
     mesh = port_mesh(4)
     monkeypatch.setattr(sharding, "_INSTALLED", mesh)
-    assert sharding.active_mesh("cuda") is mesh
-    monkeypatch.setattr(sharding, "SHARDED", "off")
-    assert sharding.active_mesh("cuda") is None
-    assert (mesh.size, mesh.axis_names, mesh.device) == (4, ("groups",), torch.device("cpu"))
+    assert (sharding.active_mesh("cuda") is mesh) == (mode != "off")
+    assert (mesh.size, mesh.axis_names, mesh.device, mesh.placements) == (4, ("groups",), cpu, (cpu,))
+    placed = sharding.make_mesh(devices=["cpu"] * 4)
+    assert (placed.size, placed.placements, placed.cards) == (4, (cpu,) * 4, (cpu,))
+    assert sharding.make_mesh(8, devices=["cpu"] * 4).size == 8
     with pytest.raises(ValueError):
         sharding.make_mesh(0, device="cpu")
+    with pytest.raises(ValueError, match="multiple"):
+        sharding.make_mesh(6, devices=["cpu"] * 4)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            sharding.make_mesh(devices=["cuda:0", "cuda:1"])
 
 
-def test_two_cards_default_is_the_one_card_path(monkeypatch):
-    """Under the default ``auto`` a host with two or more cards runs the
-    one-card path: no mesh, and a solve whose every ``active_mesh`` call
-    asks for the card's backend plans as on one card, with no stats."""
+@pytest.mark.parametrize("mode", ["auto", "on"])
+def test_two_cards_default_is_the_one_card_path(monkeypatch, mode):
+    """On a host with two cards the mesh spans both, and a solver off its
+    first placement (here the CPU's) runs the one-device path: a solve
+    whose every ``active_mesh`` call asks for the card's backend plans as
+    without a mesh, with no stats."""
     monkeypatch.setenv("KARPENTER_TORCH_NATIVE", "0")
     _, want = _solve(PORT, 5, 120)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    assert sharding.SHARDED == "auto" and sharding.active_mesh("cuda") is None
+    monkeypatch.setattr(sharding, "SHARDED", mode)
+    assert sharding.active_mesh("cuda").placements == (torch.device("cuda", 0), torch.device("cuda", 1))
     real = sharding.active_mesh
     asked = []
 
